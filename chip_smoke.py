@@ -1,0 +1,518 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py [--layers 28]
+
+Phases, one line each (any failure raises and exits non-zero before the
+result line):
+
+1. environment: the card's name and power limit, torch / CUDA versions,
+   and the build of every kernel from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once);
+2. kernels against their plain PyTorch versions on the card, at the main
+   path's shapes, in fp32 (TF32 off) and bf16, then timed with CUDA events
+   beside the plain version, the roofline bound and (K1) one library call:
+   K1 and K2 with their K/V warm in L2 (on the path they read what the
+   projections just wrote), K5 cold (it rotates over pool copies larger
+   than L2, as decode reads a different layer's pools at each launch);
+3. model parity: full-width Qwen2-7B cut to 2 layers, fp32, prefill logits
+   and 4 paged decode steps, kernel route against the plain route (every
+   kernel swapped for its plain version), both on the card;
+4. serving: full-width Qwen2-7B (``--layers`` cuts depth, never width),
+   bf16 random weights from a seeded ``torch.Generator``, ``ServeEngine``
+   with ``prefill_impl="ss_fused"``, ``decode_impl="paged"``, 4 lanes,
+   max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens each; the
+   launch count of every kernel in that run must be > 0;
+5. a ``{"kernels": [...]}`` line, the card line, and last the result line
+   ``{"ok": true, "device": {...}}``.
+
+Imports nothing of JAX or of the JAX package. Without a GPU, or without
+``src/repro_torch`` beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from functools import partial
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
+# Logits of the 2-layer fp32 model, kernel route vs plain route, both on
+# the card. (On the CPU the plain route differs from either by up to 1.4e-2
+# at two layers: cuBLAS vs CPU BLAS rounding, amplified about tenfold per
+# layer by the random-weight spectral-shift core; see PERF.md.)
+MODEL_TOL = 2e-4
+# By the dtype of the output held: fp32 outputs (K1's m and l, all of K5's)
+# accumulate in fp32 on both sides from the same inputs whatever the input
+# dtype, so they are held at the fp32 tolerance; a bf16 output at its ulp.
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+L2_BYTES = 50 * 2**20   # H100 SXM L2
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, by CUDA
+    events after ``warmup`` calls. ``fn`` may be a list of calls, taken in
+    turn (to rotate over copies of the operands)."""
+    import torch
+
+    if isinstance(fn, list):
+        calls = fn
+        state = {"i": 0}
+
+        def fn():
+            state["i"] = (state["i"] + 1) % len(calls)
+            return calls[state["i"]]()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_err(out, ref, where=None) -> tuple[float, float]:
+    """(max-abs error, max-abs of the reference) over ``where``."""
+    out, ref = out.float(), ref.float()
+    if where is not None:
+        out, ref = out[where], ref[where]
+    return float((out - ref).abs().max()), float(ref.abs().max())
+
+
+def check(label: str, pairs) -> float:
+    """Hold kernel outputs to their plain versions: max-abs error <=
+    tol * max-abs of the reference, for each (name, out, ref, where), with
+    tol from the output's dtype (KERNEL_TOL)."""
+    worst = 0.0
+    parts = []
+    for name, out, ref, where in pairs:
+        tol = KERNEL_TOL[str(out.dtype).split(".")[-1]]
+        err, scale = max_err(out, ref, where)
+        rel = err / max(scale, 1e-30)
+        worst = max(worst, err)
+        parts.append(f"{name} err={err:.3e} rel={rel:.2e} (tol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{label}: {name} rel err {rel:.3e} > {tol}")
+    log(f"check {label}: " + ", ".join(parts) + " of max-abs ok")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+def kernel_phase(torch, dev) -> list[dict]:
+    from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                  paged_row_stats_plain)
+    from repro_torch.kernels.ss_attention import (landmark_summary,
+                                                  landmark_summary_plain,
+                                                  query_side, query_side_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, c, d = 28, 64, 128
+    scale = d**-0.5
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    entries = {}
+    # ---- K1 landmark_summary ------------------------------------------------
+    # The path launches K1 twice per layer per prompt > c: inside
+    # ss_attention_fused (bf16 q/k/v, no stats) and in _seed_stream_stats
+    # (fp32 landmark means against bf16 k/v, with stats). Both are timed.
+    for n, kv_valid in ((352, 333), (512, None)):
+        for q_dt, kv_dt in ((torch.float32, torch.float32),
+                            (torch.bfloat16, torch.bfloat16),
+                            (torch.float32, torch.bfloat16)):
+            q_l = randn(b, c, d, s=0.5, dtype=q_dt)
+            k, v = randn(b, n, d, s=0.5, dtype=kv_dt), randn(b, n, d, dtype=kv_dt)
+            out, m, l = landmark_summary(q_l, k, v, scale=scale,
+                                         kv_valid=kv_valid, return_stats=True)
+            end = n if kv_valid is None else kv_valid
+            ref, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale,
+                                                 kv_end=end, return_stats=True)
+            err = check(f"K1 landmark_summary b={b} c={c} n={n} kv_valid={end} "
+                        f"q={q_dt} kv={kv_dt}",
+                        [("out", out, ref, None), ("m", m, rm, None),
+                         ("l", l, rl, None)])
+            if n != 352 or kv_dt != torch.bfloat16:
+                continue
+            stats = q_dt == torch.float32
+            qs = q_l.element_size()
+            nbytes = (qs * b * c * d + 2 * (b * end * 2 * d + b * c * d)
+                      + (8 * b * c if stats else 0))
+            flops = 2 * b * c * end * 2 * d
+            tag = "landmark_summary_stats" if stats else "landmark_summary"
+            mask = torch.arange(n, device=dev)[None, :] < end
+            entries[tag] = dict(
+                fn=partial(landmark_summary, q_l, k, v, scale=scale,
+                           kv_valid=kv_valid, return_stats=stats),
+                plain=partial(landmark_summary_plain, q_l, k, v, scale=scale,
+                              kv_end=end, return_stats=stats),
+                library=None if stats else partial(
+                    torch.nn.functional.scaled_dot_product_attention,
+                    q_l[None], k[None], v[None], attn_mask=mask.expand(c, n),
+                    scale=scale),
+                err=err, bound=bound(nbytes, flops, "bfloat16"),
+                shape=(f"b={b} c={c} n={n} kv_valid={end} d=dv={d} "
+                       + ("fp32 q, bf16 k/v, with stats (seed)" if stats
+                          else "bf16, no stats (ss_attention_fused)")))
+    # segment-causal variant (not on the serving path, held all the same)
+    q_l, k, v = randn(b, c, d, s=0.5), randn(b, 512, d, s=0.5), randn(b, 512, d)
+    check("K1 landmark_summary causal n=512 fp32",
+          [("out", landmark_summary(q_l, k, v, scale=scale, causal=True),
+            landmark_summary_plain(q_l, k, v, scale=scale, seg=8), None)])
+
+    # ---- K2 query_side --------------------------------------------------------
+    for n in (352, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+            m_mat, v = randn(b, c, d, dtype=dt), randn(b, n, d, dtype=dt)
+            delta = randn(b, 1, 1, s=0.1).abs()
+            dname = str(dt).split(".")[-1]
+            out = query_side(q, k_l, m_mat, v, delta, scale=scale)
+            ref = query_side_plain(q, k_l, m_mat, v, delta, scale=scale)
+            err = check(f"K2 query_side b={b} n={n} c={c} {dname}",
+                        [("out", out, ref, None)])
+            if (dt, n) == (torch.bfloat16, 352):
+                nbytes = 2 * (2 * b * n * d + 2 * b * c * d + b * n * d) + 4 * b
+                flops = 2 * b * n * c * 2 * d
+                entries["query_side"] = dict(
+                    fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
+                    plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
+                    library=None, err=err, bound=bound(nbytes, flops, "bfloat16"),
+                    shape=f"b={b} n={n} c={c} d=dv={d} bf16")
+    q, k_l = randn(b, 160, d, s=0.5), randn(b, c, d, s=0.5)
+    m_mat, v, delta = randn(b, c, d), randn(b, 160, d), randn(b, 1, 1, s=0.1).abs()
+    check("K2 query_side causal q_offset=37 fp32",
+          [("out", query_side(q, k_l, m_mat, v, delta, scale=scale, causal=True,
+                              seq_len_k=512, q_offset=37),
+            query_side_plain(q, k_l, m_mat, v, delta, scale=scale, seg=8,
+                             pos_offset=37), None)])
+
+    # ---- K5 paged_row_stats ------------------------------------------------------
+    lanes, hkv, r, bs, n_slots = 4, 4, 7, 16, 32
+    nb = lanes * n_slots + 1
+    kv_valid = torch.tensor([0, 17, 300, 512], dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2)) + 1
+    table = torch.zeros((lanes, n_slots), dtype=torch.int32)
+    for ln, kvv in enumerate(kv_valid.tolist()):
+        used = max(-(-kvv // bs), 1)   # kv_valid 0: one block allocated, none valid
+        table[ln, :used] = perm[ln * n_slots: ln * n_slots + used]
+    table = table.to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(lanes, hkv, r, d, s=0.5, dtype=dt)
+        k_pool, v_pool = randn(hkv, nb, bs, d, s=0.5, dtype=dt), randn(hkv, nb, bs, d, dtype=dt)
+        m, l, acc = paged_row_stats_lanes(q, k_pool, v_pool, table, kv_valid,
+                                          scale=scale, block_size=bs)
+        rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kv_valid,
+                                             scale=scale)
+        dname = str(dt).split(".")[-1]
+        live = rl[..., 0] > 0
+        if not (torch.all(m[0] == -1e30) and torch.all(l[0] == 0)
+                and torch.all(acc[0] == 0)):
+            raise AssertionError("K5: a lane with kv_valid = 0 must return "
+                                 "(m=-1e30, l=0, acc=0)")
+        err = check(f"K5 paged_row_stats lanes={lanes} hkv={hkv} r={r} bs={bs} "
+                    f"kv_valid={kv_valid.tolist()} {dname}",
+                    [("m", m[..., 0], rm[..., 0], live), ("l", l, rl, None),
+                     ("acc", acc, racc, None)])
+        if dt == torch.float32:
+            es, keys = 4, int(kv_valid.sum())
+            blocks = sum(-(-x // bs) for x in kv_valid.tolist())
+            nbytes = (es * (lanes * hkv * r * d + keys * hkv * 2 * d)
+                      + 4 * (blocks + lanes) + 4 * lanes * hkv * r * (d + 2))
+            flops = keys * hkv * r * 2 * 2 * d
+            # Decode reads another layer's pools at each launch: rotate over
+            # copies that together exceed L2 twice, so every launch is cold.
+            pair = 2 * k_pool.numel() * k_pool.element_size()
+            pools = [(k_pool.clone(), v_pool.clone())
+                     for _ in range(-(-2 * L2_BYTES // pair))]
+            entries["paged_row_stats"] = dict(
+                fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kv_valid,
+                            scale=scale, block_size=bs) for kp, vp in pools],
+                warm=partial(paged_row_stats_lanes, q, k_pool, v_pool, table,
+                             kv_valid, scale=scale, block_size=bs),
+                plain=[partial(paged_row_stats_plain, q, (kp,), vp, table,
+                               kv_valid, scale=scale) for kp, vp in pools],
+                library=None, err=err, bound=bound(nbytes, flops, "float32"),
+                shape=f"lanes={lanes} hkv={hkv} r={r} bs={bs} slots={n_slots} "
+                      f"kv_valid={kv_valid.tolist()} fp32, L2 cold "
+                      f"({len(pools)} pool copies)")
+
+    # ---- timing ------------------------------------------------------------
+    def timed(tag):
+        e = entries[tag]
+        ms, plain_ms = cuda_ms(e["fn"]), cuda_ms(e["plain"])
+        lib_ms = cuda_ms(e["library"]) if e["library"] is not None else None
+        bound_ms, bound_by = e["bound"]
+        warm = f", warm L2 {cuda_ms(e['warm']):.4f} ms" if "warm" in e else ""
+        log(f"time {tag} [{e['shape']}]: kernel {ms:.4f} ms{warm}, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        return dict(max_abs_err=e["err"], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+    results = []
+    for name, src, replaces in (
+        ("landmark_summary", "src/repro_torch/csrc/landmark_summary.cu",
+         "src/repro/kernels/ss_attention.py:195"),
+        ("query_side", "src/repro_torch/csrc/query_side.cu",
+         "src/repro/kernels/ss_attention.py:365"),
+        ("paged_row_stats", "src/repro_torch/csrc/paged_row_stats.cu",
+         "src/repro/kernels/paged_decode.py:162"),
+    ):
+        row = dict(name=name, route="cuda", source=src, replaces=replaces,
+                   launches=0, **timed(name))
+        if name == "landmark_summary":
+            # the path's second K1 launch (same kernel and counter)
+            row["seed_stats_launch"] = dict(shape=entries[
+                "landmark_summary_stats"]["shape"], **timed("landmark_summary_stats"))
+        results.append(row)
+    return results
+
+
+# --------------------------------------------------------------------------
+# phase 3: model parity, kernel route (card) vs plain route (CPU)
+# --------------------------------------------------------------------------
+def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4):
+    """Prefill each prompt into its own lane, then ``steps`` paged decode
+    steps for all lanes. Returns (list of logits on the CPU, fed tokens)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.paged import BlockAllocator, PagedKVCache
+    from repro_torch.serve.prefill import batched_prefill
+
+    serve = ServeConfig(max_lanes=len(prompt_lens), max_seq=512, block_size=16,
+                        prefill_impl="ss_fused", decode_impl="paged")
+    bs, seq_max = serve.block_size, serve.max_seq
+    kv = PagedKVCache(cfg, serve, device)
+    alloc = BlockAllocator(serve.resolved_num_blocks, bs)
+    rng = torch.Generator().manual_seed(3)
+    lanes = len(prompt_lens)
+    positions = torch.zeros(lanes, dtype=torch.int32)
+    tokens = torch.zeros((lanes, 1), dtype=torch.long)
+    outs, fed = [], []
+    for lane, n in enumerate(prompt_lens):
+        n_pad = n if n <= cfg.num_landmarks else -(-n // 32) * 32
+        toks = torch.zeros((1, n_pad), dtype=torch.long)
+        toks[0, :n] = torch.randint(3, cfg.vocab_size, (n,), generator=rng)
+        lg, pc = batched_prefill(params, cfg, toks.to(device), n, seq_max=seq_max)
+        outs.append(lg[0, :n].float().cpu())
+        alloc.alloc(lane, -(-n // bs))
+        row = torch.zeros(seq_max // bs, dtype=torch.int32)
+        row[:len(alloc.tables[lane])] = torch.tensor(alloc.tables[lane])
+        kv.write_prefill(lane, pc, row.numpy(), n_tokens=n)
+        positions[lane] = n
+        tokens[lane, 0] = int(lg[0, n - 1].argmax()) if feed is None else feed[0][lane]
+    fed.append(tokens[:, 0].tolist())
+    step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
+        params, cfg, c_, t_, seq_max=seq_max, paged_table=tb, block_size=bs))
+    for t in range(steps):
+        tables = torch.zeros((lanes, seq_max // bs), dtype=torch.int32)
+        for lane in range(lanes):
+            if int(positions[lane]) // bs >= len(alloc.tables[lane]):
+                alloc.alloc(lane, 1)
+            tables[lane, :len(alloc.tables[lane])] = torch.tensor(alloc.tables[lane])
+        lg = step(tables.to(device), tokens.to(device), positions.to(device),
+                  torch.ones(lanes, dtype=torch.bool, device=device))
+        outs.append(lg[:, 0].float().cpu())
+        positions += 1
+        nxt = lg[:, 0].argmax(-1).cpu() if feed is None else torch.tensor(feed[t + 1])
+        tokens[:, 0] = nxt
+        fed.append(nxt.tolist())
+    return outs, fed
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Run the port with every kernel replaced by its plain version, on the
+    same card: each wrapper's CUDA launch function is swapped for the plain
+    version (same arguments; K5's takes its one key pool as a tuple) while
+    the block runs."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ss_attention as sa
+
+    saved = (sa._landmark_summary_cuda, sa._query_side_cuda,
+             pd._paged_row_stats_cuda)
+    sa._landmark_summary_cuda = sa.landmark_summary_plain
+    sa._query_side_cuda = sa.query_side_plain
+    pd._paged_row_stats_cuda = (lambda q, k_pool, *a, **kw:
+                                pd.paged_row_stats_plain(q, (k_pool,), *a, **kw))
+    try:
+        yield
+    finally:
+        (sa._landmark_summary_cuda, sa._query_side_cuda,
+         pd._paged_row_stats_cuda) = saved
+
+
+def model_phase(torch, dev) -> None:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+    from repro_torch.serve.engine import tree_to
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
+                              compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = random_params(cfg, seed=0, device=dev)
+    prompt_lens = (48, 333)
+    before = launch_counts()
+    card, fed = drive_model(torch, params, cfg, dev, prompt_lens)
+    after = launch_counts()
+    if any(after[k] <= before[k] for k in after):
+        raise AssertionError(f"model parity: kernel route skipped a kernel: {after}")
+    with plain_route():
+        plain, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed)
+    if launch_counts() != after:
+        raise AssertionError("model parity: the plain route launched a kernel")
+    # For the record, not held: the plain route on the CPU differs from the
+    # card by BLAS rounding alone, amplified by the random-weight core.
+    params_cpu = tree_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    on_cpu, _ = drive_model(torch, params_cpu, cfg, torch.device("cpu"),
+                            prompt_lens, feed=fed)
+    cpu_err = max(e / s for e, s in (max_err(a, b) for a, b in zip(plain, on_cpu)))
+    labels = [f"prefill n={n}" for n in prompt_lens] + [f"decode step {i}" for i in range(4)]
+    errs = []
+    for label, a, b in zip(labels, card, plain):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"model parity: non-finite logits at {label}")
+        err, scale = max_err(a, b)
+        errs.append(err / scale)
+    log(f"model parity: qwen2-7b full width (d_model={cfg.d_model}, heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}) "
+        f"2 layers fp32, prompts {prompt_lens}, 4 decode steps, kernel route vs "
+        f"plain route on the card: logit err of max-abs per output "
+        f"{['%.2e' % e for e in errs]} (tol {MODEL_TOL}); plain route card vs "
+        f"CPU {cpu_err:.2e} (not held); {time.perf_counter() - t0:.1f}s")
+    if not max(errs) <= MODEL_TOL:
+        raise AssertionError(f"model parity: logit err {max(errs):.3e} > {MODEL_TOL}")
+
+
+# --------------------------------------------------------------------------
+# phase 4: serving
+# --------------------------------------------------------------------------
+def serve_phase(torch, dev, layers: int) -> dict:
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import random_params, serve_requests
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("qwen2-7b")
+    if layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    params = random_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve: qwen2-7b d_model={cfg.d_model} layers={cfg.num_layers} "
+        f"bf16 random weights drawn in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    serve = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                        decode_impl="paged", seed=0)
+    # warm-up (library handles, allocator) on an engine of its own
+    serve_requests(ServeEngine(cfg, params, serve=serve, device=dev), [200], 2, seed=1)
+    engine = ServeEngine(cfg, params, serve=serve, device=dev)
+    lens = [48, 200, 333, 480]
+    out = serve_requests(engine, lens, 16, seed=0)
+    ttft = out["ttft_s"]
+    log(f"serve: {out['finished']}/{out['requests']} requests finished, "
+        f"{out['tokens']} tokens in {out['seconds']:.3f}s ({out['tok_per_s']:.1f} tok/s), "
+        f"TTFT mean {1e3 * sum(ttft) / len(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms, "
+        f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
+        f"{out['decode_s']:.3f}s, preemptions {out['preemptions']}, "
+        f"launches {out['launches']}")
+    if out["finished"] != len(lens):
+        raise AssertionError("serve: not every request finished")
+    for uid, toks in out["outputs"].items():
+        if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"serve: request {uid} produced {toks}")
+    for name, t in engine.kv.storage.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"serve: non-finite values in cache leaf {name}")
+    missing = [k for k, v in out["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
+    return out["launches"]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=28,
+                    help="depth of the served model (width is never cut)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("[chip_smoke] no CUDA device: this script runs on the card")
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        raise SystemExit(f"[chip_smoke] {src / 'repro_torch'} not found: run "
+                         f"from a checkout of the repository")
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build, launch_counts
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    report = build.build()
+    regs = {n: [ln.strip() for ln in r["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln] for n, r in report.items()}
+    log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f}s "
+        f"(parallel nvcc, sm_90a); ptxas: {json.dumps(regs)}")
+
+    kernels = kernel_phase(torch, dev)
+    model_phase(torch, dev)
+    launches = serve_phase(torch, dev, args.layers)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    if launch_counts() != launches:
+        raise AssertionError("launch counters moved after the serving run")
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,9 @@
+"""Qwen2-7B [arXiv:2407.10671]: dense GQA decoder with QKV bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b", family="dense",
+    num_layers=28, d_model=3584, num_heads=28, num_kv_heads=4,
+    d_ff=18944, vocab_size=152064, qkv_bias=True,
+    rope_theta=1e6, attention_impl="chunked",
+)

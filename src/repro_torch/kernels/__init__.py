@@ -1,0 +1,31 @@
+"""The port's kernels: CUDA C++ for Hopper (``csrc/``) behind wrappers that
+launch them for CUDA tensors and run their plain PyTorch versions for CPU
+tensors.
+
+    K1  ss_attention.landmark_summary      (csrc/landmark_summary.cu)
+    K2  ss_attention.query_side            (csrc/query_side.cu)
+    K5  paged_decode.paged_row_stats_lanes (csrc/paged_row_stats.cu)
+
+Each wrapper counts its kernel launches in a plain integer attribute
+(``wrapper.launches``); ``launch_counts`` reads them and
+``reset_launch_counts`` zeroes them, so a run can show that its path went
+through the kernels.
+"""
+from __future__ import annotations
+
+
+def _wrappers():
+    from repro_torch.kernels.paged_decode import paged_row_stats_lanes
+    from repro_torch.kernels.ss_attention import landmark_summary, query_side
+
+    return {"landmark_summary": landmark_summary, "query_side": query_side,
+            "paged_row_stats": paged_row_stats_lanes}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

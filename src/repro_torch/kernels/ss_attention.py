@@ -1,0 +1,194 @@
+"""Spectral-shifting attention kernels K1 (B-side) and K2 (F-side).
+
+* ``landmark_summary`` (K1): ``BV = softmax(scale * Q~ K^T) V`` for the c
+  landmark rows, optionally with the fp32 online-softmax stats (m, l).
+* ``query_side`` (K2): ``out = softmax(scale * Q K~^T) M + delta * V``.
+
+Both take the segment-causal masks and the dynamic bounds of the
+reference (``repro/kernels/ss_attention.py``). For a CUDA tensor the
+wrapper launches the hand-written kernel (``csrc/landmark_summary.cu``,
+``csrc/query_side.cu``) or raises; for a CPU tensor it runs the plain
+version beside it. The TPU kernels' tiling knobs (``block_n``, ``block_c``,
+``interpret``) have no counterpart: the CUDA kernels tile for themselves.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.attention import NEG_INF
+from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
+
+_MAX_D = 128   # head dims the CUDA kernels take (d and dv)
+_MAX_C = 64    # landmark columns query_side's kernel keeps resident
+
+
+def _stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# K1: landmark summary.
+# --------------------------------------------------------------------------
+def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
+                           kv_offset: int = 0, kv_end: Optional[int] = None,
+                           return_stats: bool = False):
+    """Plain version of K1, mirroring ``repro/kernels/ss_attention.py:195``
+    ``landmark_summary`` (masks of ``_b_side_mask`` :62): key j has global
+    position ``kv_offset + j`` and is valid iff it is < ``kv_end`` (default
+    ``kv_offset + n``) and, with ``seg``, < (row + 1) * seg. One softmax
+    over all keys instead of the kernel's stream; same masks, same -1e30
+    anchor and 1e-30 floor. Returns ``out`` in v's dtype, plus fp32 (m, l)
+    of shape (b, c, 1) with ``return_stats``."""
+    b, c, _ = q_l.shape
+    n = k.shape[1]
+    end = kv_offset + n if kv_end is None else kv_end
+    s = torch.einsum("bcd,bnd->bcn", q_l.float(), k.float()) * scale
+    kv_pos = kv_offset + torch.arange(n, device=k.device)
+    mask = (kv_pos < end)[None, :]
+    if seg:
+        row = torch.arange(c, device=k.device)[:, None]
+        mask = mask & (kv_pos[None, :] < (row + 1) * seg)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bcn,bnd->bcd", p, v.float())
+    out = (acc / torch.clamp(l, min=1e-30)).to(v.dtype)
+    return (out, m, l) if return_stats else out
+
+
+def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: float, causal: bool = False,
+                     return_stats: bool = False, kv_valid=None,
+                     seq_len_k: int = 0):
+    """BV = softmax(Q~ K^T * scale) @ V. q_l (b, c, d), k (b, n, d),
+    v (b, n, dv) -> (b, c, dv) in v's dtype [+ fp32 m, l (b, c, 1)].
+
+    ``causal`` applies the segment-causal B-mask with seg =
+    ceil(seq_len_k / c) (seq_len_k defaults to n). ``kv_valid`` (host int)
+    masks key j unless j < kv_valid (bucketed prefill passes the prompt
+    length). The reference's ``kv_offset`` serves only its sharded driver,
+    which is not ported; the plain version keeps it."""
+    b, c, d = q_l.shape
+    n, dv = k.shape[1], v.shape[2]
+    if k.shape != (b, n, d) or v.shape[:2] != (b, n):
+        raise ValueError(f"landmark_summary: shapes q_l {tuple(q_l.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    seg = -(-(seq_len_k or n) // c) if causal else 0
+    end = n if kv_valid is None else min(int(kv_valid), n)
+    if not q_l.is_cuda:
+        return landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
+                                      kv_end=end, return_stats=return_stats)
+    return _landmark_summary_cuda(q_l, k, v, scale=scale, seg=seg,
+                                  kv_end=end, return_stats=return_stats)
+
+
+def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
+    """Check the operands and launch csrc/landmark_summary.cu (same
+    arguments as ``landmark_summary_plain``)."""
+    b, c, d = q_l.shape
+    n, dv = k.shape[1], v.shape[2]
+    check_operands("landmark_summary", {"q_l": q_l, "k": k, "v": v}, DTYPE_CODES)
+    if k.dtype != v.dtype:
+        raise ValueError("landmark_summary: k and v must share a dtype")
+    if q_l.dtype == torch.bfloat16 and k.dtype == torch.float32:
+        raise ValueError("landmark_summary: bf16 queries against fp32 keys "
+                         "are not built")
+    if d > _MAX_D or dv > _MAX_D:
+        raise ValueError(f"landmark_summary: head dims ({d}, {dv}) > {_MAX_D}")
+    out = torch.empty((b, c, dv), dtype=v.dtype, device=v.device)
+    m = l = None
+    if return_stats:
+        m = torch.empty((b, c, 1), dtype=torch.float32, device=v.device)
+        l = torch.empty((b, c, 1), dtype=torch.float32, device=v.device)
+    if b and c:
+        launch("landmark_summary", q_l.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), m.data_ptr() if m is not None else None,
+               l.data_ptr() if l is not None else None, b, c, n, d, dv,
+               float(scale), kv_end, seg, DTYPE_CODES[str(q_l.dtype)],
+               DTYPE_CODES[str(k.dtype)], _stream_handle(v))
+        landmark_summary.launches += 1
+    return (out, m, l) if return_stats else out
+
+
+landmark_summary.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2: query side.
+# --------------------------------------------------------------------------
+def query_side_plain(q, k_l, m_mat, v, delta, *, scale: float, seg: int = 0,
+                     pos_offset: int = 0):
+    """Plain version of K2, mirroring ``repro/kernels/ss_attention.py:365``
+    ``query_side`` (probabilities ``_query_side_probs`` :311): the row
+    softmax over the c landmark columns, with the segment-causal F-mask
+    ``col <= (pos_offset + i) // seg`` when ``seg`` is set, then
+    ``P @ M + delta * V`` in fp32, output in q's dtype."""
+    n, c = q.shape[1], k_l.shape[1]
+    s = torch.einsum("bnd,bcd->bnc", q.float(), k_l.float()) * scale
+    mask = None
+    if seg:
+        qpos = pos_offset + torch.arange(n, device=q.device)
+        mask = torch.arange(c, device=q.device)[None, :] <= (qpos // seg)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bnc,bcd->bnd", p, m_mat.float())
+    out = out + delta.float() * v.float()
+    return out.to(q.dtype)
+
+
+def query_side(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
+               v: torch.Tensor, delta: torch.Tensor, *, scale: float,
+               causal: bool = False, seq_len_k: int = 0, q_offset=None):
+    """out = softmax(Q K~^T * scale) @ M + delta * V. q (b, n, d),
+    k_l (b, c, d), m_mat (b, c, dv), v (b, n, dv), delta (b, 1, 1) fp32 ->
+    (b, n, dv) in q's dtype. ``causal`` applies the segment-causal F-mask
+    with seg = ceil(seq_len_k / c) and the queries at the tail of the
+    seq_len_k context, or at ``q_offset`` when given."""
+    b, n, d = q.shape
+    c, dv = k_l.shape[1], v.shape[2]
+    if (k_l.shape != (b, c, d) or m_mat.shape != (b, c, dv)
+            or v.shape != (b, n, dv) or delta.numel() != b):
+        raise ValueError("query_side: operand shapes disagree")
+    n_k = seq_len_k or n
+    seg = -(-n_k // c) if causal else 0
+    pos_offset = (n_k - n if q_offset is None else int(q_offset)) if causal else 0
+    if not q.is_cuda:
+        return query_side_plain(q, k_l, m_mat, v, delta, scale=scale, seg=seg,
+                                pos_offset=pos_offset)
+    return _query_side_cuda(q, k_l, m_mat, v, delta, scale=scale, seg=seg,
+                            pos_offset=pos_offset)
+
+
+def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
+    """Check the operands and launch csrc/query_side.cu (same arguments as
+    ``query_side_plain``)."""
+    b, n, d = q.shape
+    c, dv = k_l.shape[1], v.shape[2]
+    check_operands("query_side", {"q": q, "k_l": k_l, "m_mat": m_mat, "v": v,
+                               "delta": delta})
+    if str(q.dtype) not in DTYPE_CODES or any(
+            t.dtype != q.dtype for t in (k_l, m_mat, v)):
+        raise ValueError("query_side: q, k_l, m_mat and v must share an "
+                         "fp32 or bf16 dtype")
+    if delta.dtype != torch.float32:
+        raise ValueError("query_side: delta must be fp32")
+    if d > _MAX_D or dv > _MAX_D or c > _MAX_C:
+        raise ValueError(f"query_side: dims (d={d}, dv={dv}, c={c}) exceed "
+                         f"the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_C})")
+    out = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
+    if b and n:
+        launch("query_side", q.data_ptr(), k_l.data_ptr(), m_mat.data_ptr(),
+               v.data_ptr(), delta.data_ptr(), out.data_ptr(), b, n, c, d, dv,
+               float(scale), seg, pos_offset, DTYPE_CODES[str(q.dtype)],
+               _stream_handle(q))
+        query_side.launches += 1
+    return out
+
+
+query_side.launches = 0

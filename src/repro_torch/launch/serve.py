@@ -1,0 +1,125 @@
+"""Serving launcher: the port's engine on random weights, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --prompt-lens 48,200,333,480 --max-new 16
+
+serves full-width Qwen2-7B (28 layers, bf16 working weights drawn from a
+seeded ``torch.Generator``) through ``ServeConfig(prefill_impl="ss_fused",
+decode_impl="paged")`` and prints requests finished, tokens, tok/s, TTFT
+and the launch count of each kernel. ``--reduced`` serves the reduced
+test config, ``--device cpu`` runs the kernels' plain versions instead.
+Weights and prompts come from seed 0.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ServeConfig, reduced
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models.model import model_specs, torch_dtype
+from repro_torch.models.params import init_params
+from repro_torch.serve.engine import Request, ServeEngine, resolve_device
+
+
+def random_params(cfg: ModelConfig, seed: int, device):
+    """Weights of ``cfg`` drawn from a seeded generator on ``device``,
+    directly in the working dtype (no fp32 master copy is kept)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_params(model_specs(cfg), gen,
+                       dtype=torch_dtype(cfg.compute_dtype), device=device)
+
+
+def serve_requests(engine: ServeEngine, prompt_lens, max_new: int,
+                   seed: int) -> dict:
+    """Submit one random prompt per length, drive the engine to completion
+    and return a summary (counts reset just before the run, read after)."""
+    rng = np.random.default_rng(seed)
+    vocab = engine.cfg.vocab_size
+    for uid, n in enumerate(prompt_lens):
+        engine.submit(Request(uid, rng.integers(3, vocab, size=n).tolist(),
+                              max_new_tokens=max_new))
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outputs = engine.run()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = engine.stats()
+    tokens = sum(len(v) for v in outputs.values())
+    return {"requests": len(prompt_lens), "finished": len(outputs),
+            "tokens": tokens, "seconds": dt, "tok_per_s": tokens / dt,
+            "ttft_s": stats["ttft_s"], "preemptions": stats["preemptions"],
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "decode_ticks": stats["decode_ticks"], "launches": counts,
+            "outputs": outputs}
+
+
+def profile_top(prof, wall_s: float, limit: int = 12) -> str:
+    """One line: the device's busy share of ``wall_s`` and its ``limit``
+    costliest device activities (kernels, copies; ms) in a torch.profiler
+    run."""
+    from torch.autograd import DeviceType
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (us if us is not None else e.self_cuda_time_total) / 1e3
+
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=dev_ms, reverse=True)
+    busy = sum(dev_ms(e) for e in rows) / 1e3
+    top = {e.key[:60]: round(dev_ms(e), 3) for e in rows[:limit]}
+    return (f"device busy {busy:.3f}s of {wall_s:.3f}s wall "
+            f"({100 * busy / wall_s:.1f}%); top self device ms: {top}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--prompt-lens", default="48,200,333,480")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=512)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="run under torch.profiler and print the device's "
+                         "busy share of that same run and its costliest "
+                         "operations")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config("qwen2-7b")
+    if args.reduced:
+        cfg = reduced(cfg)
+    serve = ServeConfig(max_lanes=args.lanes, max_seq=args.max_seq,
+                        prefill_impl="ss_fused", decode_impl="paged")
+    engine = ServeEngine(cfg, random_params(cfg, 0, device),
+                         serve=serve, device=device)
+    lens = [int(x) for x in args.prompt_lens.split(",")]
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = serve_requests(engine, lens, args.max_new, seed=0)
+        print(f"[serve] profile: {profile_top(prof, out['seconds'])}")
+    else:
+        out = serve_requests(engine, lens, args.max_new, seed=0)
+    ttft = out["ttft_s"]
+    print(f"[serve] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"on {device}: {out['finished']}/{out['requests']} requests, "
+          f"{out['tokens']} tokens in {out['seconds']:.3f}s "
+          f"({out['tok_per_s']:.1f} tok/s), TTFT mean "
+          f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms, "
+          f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
+          f"{out['decode_s']:.3f}s, preemptions={out['preemptions']}, "
+          f"launches={out['launches']}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

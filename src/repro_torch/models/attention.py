@@ -1,0 +1,61 @@
+"""Model-level GQA attention pieces (dense decoder half of
+``repro/models/attention.py``): parameter specs, the spectral-shift config
+and the kv-head group broadcast. Per-head tensors are (B, H, S, Dh)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import SSConfig
+from repro_torch.models.params import ParamSpec
+
+
+def ss_config_from(cfg: ModelConfig, causal: bool = False) -> SSConfig:
+    return SSConfig(
+        num_landmarks=cfg.num_landmarks,
+        pinv_iters=cfg.pinv_iters,
+        method=cfg.ss_method,
+        include_shift_identity=cfg.include_shift_identity,
+        causal=causal,
+        landmark_via_matmul=cfg.landmark_via_matmul,
+    )
+
+
+def _broadcast_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, Hkv, S, Dh) -> (B, H, S, Dh) by group broadcast (materialized, as
+    the reference's reshape of the broadcast is)."""
+    b, hkv, s, d = x.shape
+    if hkv == num_heads:
+        return x
+    g = num_heads // hkv
+    return x[:, :, None].expand(b, hkv, g, s, d).reshape(b, num_heads, s, d)
+
+
+def gqa_specs(cfg: ModelConfig) -> dict:
+    d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    specs = {
+        "w_q": ParamSpec((d, h, dh), ("embed", "heads", "head_dim")),
+        "w_k": ParamSpec((d, hkv, dh), ("embed", "kv_heads", "head_dim")),
+        "w_v": ParamSpec((d, hkv, dh), ("embed", "kv_heads", "head_dim")),
+        "w_o": ParamSpec((h, dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        specs.update(
+            b_q=ParamSpec((h, dh), ("heads", "head_dim"), init="zeros"),
+            b_k=ParamSpec((hkv, dh), ("kv_heads", "head_dim"), init="zeros"),
+            b_v=ParamSpec((hkv, dh), ("kv_heads", "head_dim"), init="zeros"),
+        )
+    return specs
+
+
+def gqa_project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """x (B,S,D) -> q (B,H,S,Dh), k/v (B,Hkv,S,Dh), bias added, no rotary."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhe->bhse", x, p["w_q"].to(dt))
+    k = torch.einsum("bsd,dhe->bhse", x, p["w_k"].to(dt))
+    v = torch.einsum("bsd,dhe->bhse", x, p["w_v"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["b_q"].to(dt)[None, :, None, :]
+        k = k + p["b_k"].to(dt)[None, :, None, :]
+        v = v + p["b_v"].to(dt)[None, :, None, :]
+    return q, k, v

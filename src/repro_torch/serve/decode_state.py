@@ -1,0 +1,149 @@
+"""Streaming decode state: per-landmark online-softmax stats in the cache
+(``repro/serve/decode_state.py``, ``decode_streaming="exact"``).
+
+The cache carries, per landmark row r, the partial state
+``bv_m`` (m_r), ``bv_l`` (l_r = sum_j exp(s_rj - m_r)) and ``bv_acc``
+(sum_j exp(s_rj - m_r) v_j), so ``BV[r] = acc_r / l_r``. Each decode tick
+flash-appends the new key/value to every reached row and recomputes the
+active segment's row exactly (its landmark mean still moves) through the
+``active_stats_fn`` hook, which the paged route backs with kernel K5.
+
+Lanes are the batch axis B and each lane has its own position, so
+``pos`` is a (B,) tensor and every landmark count, mask and active-row
+index below is per lane.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.attention import NEG_INF
+from repro_torch.core.landmarks import segment_counts
+from repro_torch.core.spectral_shift import ss_core
+from repro_torch.kernels.ops import flash_merge
+
+STREAM_LEAVES = ("bv_m", "bv_l", "bv_acc")
+
+
+def segment_len(seq_max: int, c: int) -> int:
+    return -(-seq_max // c)
+
+
+def landmark_counts(pos: torch.Tensor, seq_max: int, c: int) -> torch.Tensor:
+    """Tokens accumulated per landmark after ``pos+1`` tokens: (B, c) fp32
+    for pos (B,); zero for segments not yet reached."""
+    return segment_counts(pos.long() + 1, c, segment_len(seq_max, c), floor=0)
+
+
+def lmk_add(sums: torch.Tensor, value: torch.Tensor, pos: torch.Tensor,
+            seq_max: int) -> torch.Tensor:
+    """sums (B, X, c, d) + value (B, X, d) routed to segment(pos) per lane,
+    accumulated in fp32 (``decode_state.py:81``)."""
+    c = sums.shape[-2]
+    seg = pos.long() // segment_len(seq_max, c)
+    onehot = F.one_hot(seg, c).float()                      # (B, c)
+    add = onehot[:, None, :, None] * value.float()[:, :, None, :]
+    return sums + add.to(sums.dtype)
+
+
+def landmark_means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """fp32 means of running sums (B, X, c, d) with per-lane counts (B, c);
+    empty segments divide by 1."""
+    return sums.float() / torch.clamp(counts, min=1.0)[:, None, :, None]
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    scores = torch.where(mask, scores.float(), NEG_INF)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def stream_append(stats, q_l, k_new, v_new, scale: float, row_mask=None):
+    """Flash-append one key/value to every landmark row's partial state.
+    stats (m, l, acc) (B, H, c, 1)/(B, H, c, 1)/(B, H, c, dv); q_l
+    (B, H, c, d) fp32; k_new (B, H, d); v_new (B, H, dv); ``row_mask``
+    (B, c) keeps rows of segments not yet reached untouched."""
+    m, l, acc = (x.float() for x in stats)
+    s = torch.einsum("bhcd,bhd->bhc", q_l, k_new.float())[..., None] * scale
+    m_n, l_n, acc_n = flash_merge(m, l, acc, s, torch.ones_like(s),
+                                  v_new[:, :, None, :].float())
+    if row_mask is not None:
+        rm = row_mask[:, None, :, None]
+        m_n = torch.where(rm, m_n, m)
+        l_n = torch.where(rm, l_n, l)
+        acc_n = torch.where(rm, acc_n, acc)
+    return m_n, l_n, acc_n
+
+
+def recompute_stats(q_l, k, v, pos: int, scale: float):
+    """Exact (m, l, acc) of ``softmax(scale * q_l . K[0..pos])`` rows:
+    q_l (B, H, c, d); k/v (B, H, S, d/dv); keys past ``pos`` masked
+    (``decode_state.py:132``). Prefill seeds <= c prompts with it."""
+    s = torch.einsum("bhcd,bhsd->bhcs", q_l.float(), k.float()) * scale
+    key_mask = (torch.arange(k.shape[2], device=k.device) <= pos)[None, None, None, :]
+    s = torch.where(key_mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(key_mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhcs,bhsd->bhcd", p, v.float())
+    return m, l, acc
+
+
+def mask_stats_rows(stats, keep: torch.Tensor):
+    """Zero the partial state of rows where ``keep`` (c,) is False."""
+    km = keep[:, None]
+    return tuple(torch.where(km, x, 0.0) for x in stats)
+
+
+def ss_decode_attention_streaming(q, k_new, v_new, q_lmk_sum, k_lmk_sum,
+                                  stats, pos, cfg, scale: float, seq_max: int,
+                                  active_stats_fn):
+    """One spectral-shift decode step with streamed B-side state, exact
+    mode (``decode_state.py:217``) on the gather-free route.
+
+    q (B, H, 1, d); k_new/v_new (B, H, d) this tick's key/value (heads
+    broadcast); q_lmk_sum/k_lmk_sum (B, H, c, d) updated running sums;
+    stats the pre-append (bv_m, bv_l, bv_acc); pos (B,) the current token's
+    index per lane. ``active_stats_fn(q_act (B, H, 1, d))`` returns the
+    exact partials of the active landmark row over keys 0..pos. Returns
+    ``(out (B, H, 1, dv), (m, l, acc))``."""
+    if cfg.decode_streaming != "exact":
+        raise NotImplementedError(
+            f"decode_streaming={cfg.decode_streaming!r} is not ported yet")
+    b, h, c, d = q_lmk_sum.shape
+    counts = landmark_counts(pos, seq_max, c)
+    valid = counts > 0                                      # (B, c)
+    q_l = landmark_means(q_lmk_sum, counts)
+    k_l = landmark_means(k_lmk_sum, counts)
+
+    f = masked_softmax(
+        torch.einsum("bhqd,bhcd->bhqc", q.float(), k_l) * scale,
+        valid[:, None, None, :],
+    )                                                       # (B, H, 1, c)
+    a_mask = valid[:, None, :, None] & valid[:, None, None, :]
+    a_raw = masked_softmax(torch.einsum("bhcd,bhed->bhce", q_l, k_l) * scale,
+                           a_mask)
+    eye = torch.eye(c, dtype=torch.float32, device=q.device)
+    a = torch.where(a_mask, a_raw, eye)   # invalid block pinned to identity
+    core = ss_core(a, method="iterative", pinv_iters=cfg.pinv_iters,
+                   use_shift=cfg.include_shift_identity)
+
+    rows = torch.arange(c, device=q.device)
+    active = pos.long() // segment_len(seq_max, c)          # (B,)
+    m, l, acc = stream_append(stats, q_l, k_new, v_new, scale,
+                              row_mask=rows[None, :] <= active[:, None])
+    # The active segment's mean moved with this token: recompute that row.
+    q_act = torch.gather(q_l, 2, active[:, None, None, None].expand(b, h, 1, d))
+    m_a, l_a, acc_a = active_stats_fn(q_act)
+    hit = (rows[None, :] == active[:, None])[:, None, :, None]  # (B, 1, c, 1)
+    m = torch.where(hit, m_a, m)
+    l = torch.where(hit, l_a, l)
+    acc = torch.where(hit, acc_a, acc)
+
+    bv = acc / torch.clamp(l, min=1e-30)
+    out = torch.einsum("bhqc,bhcd->bhqd", f,
+                       torch.einsum("bhce,bhed->bhcd", core.u, bv))
+    if cfg.include_shift_identity:
+        out = out + core.delta * v_new[:, :, None, :].float()
+    return out.to(q.dtype), (m, l, acc)

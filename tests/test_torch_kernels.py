@@ -1,0 +1,272 @@
+"""Port kernel modules against the JAX reference, on the CPU.
+
+The plain PyTorch versions of K1 (landmark_summary), K2 (query_side) and
+K5 (paged_row_stats_lanes) -- what each CUDA wrapper runs for a CPU tensor
+-- are held against the Pallas kernels in interpret mode on the same numpy
+inputs, in fp32. Tolerance: atol 1e-5, rtol 1e-4; the kernels stream keys
+in blocks with an online softmax while the plain versions take one softmax,
+so sums are taken in another order. The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.attention import SSConfig as JSSConfig  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.paged_decode import paged_row_stats_lanes as j_paged  # noqa: E402
+from repro.kernels.ss_attention import landmark_summary as j_ls  # noqa: E402
+from repro.kernels.ss_attention import query_side as j_qs  # noqa: E402
+from repro_torch.core.attention import SSConfig  # noqa: E402
+from repro_torch.kernels import build, launch_counts  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,  # noqa: E402
+                                              paged_row_stats_plain)
+from repro_torch.kernels.ref import ref_landmark_summary, ref_query_side  # noqa: E402
+from repro_torch.kernels.ss_attention import (landmark_summary,  # noqa: E402
+                                              landmark_summary_plain, query_side)
+
+TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(port, ref, **tol):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref, np.float32),
+                               **(tol or TOL))
+
+
+# --------------------------------------------------------------------------
+# K1: landmark_summary
+# --------------------------------------------------------------------------
+K1_CASES = {
+    # name: (n, c, block_n, kwargs)
+    "ragged_n": (500, 16, 128, {}),
+    "kv_valid_in_last_block": (384, 16, 128, {"kv_valid": 333}),
+    "segment_causal": (256, 16, 64, {"causal": True}),
+    # rows 0 and 1 see global keys < 16 and < 32 but the local keys start at
+    # 40: fully masked in their first (and every) block; row 2 is partial.
+    # The port's wrapper takes no kv_offset (only the reference's sharded
+    # driver passes one), so this case holds the plain version directly.
+    "rows_fully_masked": (128, 16, 32, {"causal": True, "kv_offset": 40,
+                                        "seq_len_k": 256}),
+}
+
+
+def _port_landmark_summary(q_l, k, v, scale, stats, kw):
+    if "kv_offset" not in kw:
+        return landmark_summary(q_l, k, v, scale=scale, return_stats=stats, **kw)
+    seg = -(-kw["seq_len_k"] // q_l.shape[1]) if kw.get("causal") else 0
+    return landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
+                                  kv_offset=kw["kv_offset"], return_stats=stats)
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+@pytest.mark.parametrize("stats", [False, True])
+def test_landmark_summary_plain_matches_pallas(case, stats):
+    n, c, block_n, kw = K1_CASES[case]
+    rng = np.random.default_rng(1)
+    q_l, k, v = _rand(rng, 3, c, 32, scale=0.5), _rand(rng, 3, n, 32, scale=0.5), _rand(rng, 3, n, 48)
+    scale = 32**-0.5
+    ref = j_ls(jnp.asarray(q_l), jnp.asarray(k), jnp.asarray(v), scale=scale,
+               block_n=block_n, interpret=True, return_stats=stats, **kw)
+    out = _port_landmark_summary(torch.from_numpy(q_l), torch.from_numpy(k),
+                                 torch.from_numpy(v), scale, stats, kw)
+    if not stats:
+        _close(out, ref)
+        return
+    for o, r in zip(out, ref):
+        _close(o, r)
+    if case == "rows_fully_masked":
+        m, l = out[1], out[2]
+        assert torch.all(m[:, :2] == -1e30) and torch.all(l[:, :2] == 0)
+        assert torch.all(out[0][:, :2] == 0) and torch.all(l[:, 2] > 0)
+
+
+def test_landmark_summary_plain_matches_unmasked_oracle():
+    rng = np.random.default_rng(2)
+    q_l, k, v = (torch.from_numpy(_rand(rng, 2, 16, 32)),
+                 torch.from_numpy(_rand(rng, 2, 200, 32)),
+                 torch.from_numpy(_rand(rng, 2, 200, 32)))
+    out = landmark_summary(q_l, k, v, scale=0.2)
+    torch.testing.assert_close(out, ref_landmark_summary(q_l, k, v, 0.2), **TOL)
+
+
+# --------------------------------------------------------------------------
+# K2: query_side
+# --------------------------------------------------------------------------
+K2_CASES = {
+    # name: (n, c, block_n, kwargs)
+    "ragged_n": (500, 16, 128, {}),
+    "causal_static_offset": (200, 16, 64, {"causal": True, "seq_len_k": 300}),
+    "causal_q_offset": (160, 16, 64, {"causal": True, "seq_len_k": 512,
+                                      "q_offset": 37}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_query_side_plain_matches_pallas(case):
+    n, c, block_n, kw = K2_CASES[case]
+    rng = np.random.default_rng(3)
+    q, k_l = _rand(rng, 2, n, 32, scale=0.5), _rand(rng, 2, c, 32, scale=0.5)
+    m_mat, v = _rand(rng, 2, c, 24), _rand(rng, 2, n, 24)
+    delta = np.abs(_rand(rng, 2, 1, 1)) * 0.1
+    scale = 32**-0.5
+    ref = j_qs(*(jnp.asarray(a) for a in (q, k_l, m_mat, v, delta)),
+               scale=scale, block_n=block_n, interpret=True, **kw)
+    out = query_side(*(torch.from_numpy(a) for a in (q, k_l, m_mat, v, delta)),
+                     scale=scale, **kw)
+    _close(out, ref)
+
+
+def test_query_side_plain_matches_unmasked_oracle():
+    rng = np.random.default_rng(4)
+    args = [torch.from_numpy(_rand(rng, *s)) for s in
+            ((2, 70, 32), (2, 16, 32), (2, 16, 32), (2, 70, 32), (2, 1, 1))]
+    torch.testing.assert_close(query_side(*args, scale=0.3),
+                               ref_query_side(*args, 0.3), **TOL)
+
+
+# --------------------------------------------------------------------------
+# K5: paged_row_stats_lanes
+# --------------------------------------------------------------------------
+def _paged_inputs(rng, splits):
+    lanes, hkv, r, bs, n_slots, nb, dv = 3, 2, 7, 8, 6, 20, 16
+    q = _rand(rng, lanes, hkv, r, sum(splits), scale=0.5)
+    k_pools = [_rand(rng, hkv, nb, bs, dp, scale=0.5) for dp in splits]
+    v_pool = _rand(rng, hkv, nb, bs, dv)
+    # distinct blocks per lane; slots past the allocation hold ZERO_BLOCK
+    perm = rng.permutation(np.arange(1, nb))
+    table = np.zeros((lanes, n_slots), np.int32)
+    table[0, :2] = perm[:2]        # kv_valid 0: allocated but nothing valid
+    table[1, :2] = perm[2:4]       # kv_valid 13: ragged second block
+    table[2, :5] = perm[4:9]       # kv_valid 37: ragged fifth block
+    kv_valid = np.array([0, 13, 37], np.int32)
+    return q, k_pools, v_pool, table, kv_valid, bs
+
+
+@pytest.mark.parametrize("splits", [(32,), (24, 8)], ids=["one_pool", "two_pools"])
+def test_paged_row_stats_plain_matches_pallas(splits):
+    rng = np.random.default_rng(5)
+    q, k_pools, v_pool, table, kv_valid, bs = _paged_inputs(rng, splits)
+    scale = 0.2
+    ref = j_paged(jnp.asarray(q), tuple(jnp.asarray(p) for p in k_pools),
+                  jnp.asarray(v_pool), jnp.asarray(table), jnp.asarray(kv_valid),
+                  scale=scale, block_size=bs, interpret=True)
+    args = (torch.from_numpy(q), tuple(torch.from_numpy(p) for p in k_pools),
+            torch.from_numpy(v_pool), torch.from_numpy(table),
+            torch.from_numpy(kv_valid))
+    out = paged_row_stats_plain(*args, scale=scale)
+    for o, r in zip(out, ref):
+        _close(o, r)
+    if len(k_pools) == 1:  # the wrapper (one key pool) runs the same plain version
+        wrapped = paged_row_stats_lanes(args[0], args[1][0], *args[2:],
+                                        scale=scale, block_size=bs)
+        for o, w in zip(out, wrapped):
+            torch.testing.assert_close(w, o, rtol=0, atol=0)
+    m, l, acc = out
+    # zero valid keys: exactly the absorbing anchor
+    assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(acc[0] == 0)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    before = launch_counts()
+    rng = np.random.default_rng(6)
+    landmark_summary(torch.from_numpy(_rand(rng, 1, 4, 8)),
+                     torch.from_numpy(_rand(rng, 1, 9, 8)),
+                     torch.from_numpy(_rand(rng, 1, 9, 8)), scale=1.0)
+    assert launch_counts() == before
+
+
+# --------------------------------------------------------------------------
+# ss_attention_fused (K1 + K2 + the c x c core)
+# --------------------------------------------------------------------------
+FUSED_CASES = {
+    # name: (n, kv_valid, causal)
+    "bidir": (100, None, False),
+    "kv_valid": (128, 111, False),
+    "segment_causal": (100, None, True),
+    "n_le_c": (12, None, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_ss_attention_fused_matches_jax(case):
+    n, kv_valid, causal = FUSED_CASES[case]
+    rng = np.random.default_rng(7)
+    q, k, v = (_rand(rng, 2, 3, n, 32, scale=0.5) for _ in range(3))
+    jcfg = JSSConfig(num_landmarks=16, causal=causal)
+    ref = jops.ss_attention_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jcfg, interpret=True, block_n=64,
+                                  kv_valid=kv_valid)
+    out = ops.ss_attention_fused(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 SSConfig(num_landmarks=16, causal=causal),
+                                 kv_valid=kv_valid)
+    rows = slice(None) if kv_valid is None else slice(0, kv_valid)
+    # the Newton-Schulz core amplifies fp32 summation-order differences
+    _close(out[..., rows, :], np.asarray(ref)[..., rows, :], atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# Landmark helpers (core/landmarks.py) feeding the kernels
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n,n_valid", [(100, None), (128, None), (12, None),
+                                       (128, 111)])
+@pytest.mark.parametrize("via_matmul", [False, True])
+def test_landmark_helpers_match_jax(n, n_valid, via_matmul):
+    from repro.core import landmarks as jl
+    from repro_torch.core import landmarks as tl
+
+    rng = np.random.default_rng(8)
+    x = _rand(rng, 2, 3, n, 32)
+    if n_valid is None:
+        ref = jl.segment_means(jnp.asarray(x), 16, via_matmul=via_matmul)
+        out = tl.segment_means(torch.from_numpy(x), 16, via_matmul=via_matmul)
+    else:
+        ref = jl.masked_segment_means(jnp.asarray(x), 16, n_valid)
+        out = tl.masked_segment_means(torch.from_numpy(x), 16, n_valid)
+    _close(out, ref, atol=1e-6, rtol=1e-5)
+    pos = np.arange(n)
+    np.testing.assert_array_equal(
+        tl.segment_of(torch.from_numpy(pos), n, 16).numpy(),
+        np.asarray(jl.segment_of(jnp.asarray(pos), n, 16)))
+    nv = n_valid or n
+    np.testing.assert_array_equal(
+        tl.segment_counts(nv, 16, -(-nv // 16), floor=0).numpy(),
+        np.asarray(jl.segment_counts(nv, 16, -(-nv // 16), floor=0)))
+
+
+# --------------------------------------------------------------------------
+# The ctypes bindings agree with the C entry points (no nvcc needed)
+# --------------------------------------------------------------------------
+_C_TYPES = {"const void*": "P", "void*": "P", "int": "I", "float": "F"}
+_CT = {build.ctypes.c_void_p: "P", build.ctypes.c_int: "I",
+       build.ctypes.c_float: "F"}
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_ctypes_argtypes_match_c_signature(name):
+    src = (build.CSRC / f"{name}.cu").read_text()
+    sig = re.search(rf'extern "C" int {name}_launch\((.*?)\)', src, re.S)
+    assert sig, f"{name}.cu has no extern \"C\" {name}_launch"
+    params = [re.sub(r"\s+\w+$", "", p.strip()) for p in sig.group(1).split(",")]
+    assert [_C_TYPES[p] for p in params] == [_CT[t] for t in build.ARGTYPES[name]]
+
+
+def test_library_path_tracks_sources():
+    path = build.library_path("query_side")
+    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+    assert path == build.library_path("query_side")
+    assert path != build.library_path("landmark_summary")
+    assert Path(build.CSRC / "common.cuh").exists()
