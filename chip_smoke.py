@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU (an H100).
+"""Drive the PyTorch port's main paths on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py [--layers 28]
+    python3 chip_smoke.py [--layers 28] [--train-layers 4]
 
 Phases, one line each (any failure raises and exits non-zero before the
 result line):
@@ -10,20 +10,30 @@ result line):
    and the build of every kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once);
 2. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes, in fp32 (TF32 off) and bf16, then timed with CUDA events
-   beside the plain version, the roofline bound and (K1) one library call:
-   K1 and K2 with their K/V warm in L2 (on the path they read what the
-   projections just wrote), K5 cold (it rotates over pool copies larger
-   than L2, as decode reads a different layer's pools at each launch);
+   paths' shapes, in fp32 (TF32 off) and bf16, then timed with CUDA events
+   beside the plain version, the roofline bound and one library call where
+   there is one: K1 and K2 at the serving shape with their K/V warm in L2
+   (on the path they read what the projections just wrote), K5 cold (it
+   rotates over pool copies larger than L2, as decode reads a different
+   layer's pools at each launch); K1 (with stats) and K2 causal and the
+   backward kernels K3 and K4 at the training shape (batch 2 x 28 heads,
+   seq 4096), with a kv_valid case for K3 and a q_offset case for K4;
 3. model parity: full-width Qwen2-7B cut to 2 layers, fp32, prefill logits
-   and 4 paged decode steps, kernel route against the plain route (every
-   kernel swapped for its plain version), both on the card;
+   and 4 paged decode steps, then the loss and every gradient leaf of one
+   grad step, kernel route against the plain route (every kernel swapped
+   for its plain version), both on the card;
 4. serving: full-width Qwen2-7B (``--layers`` cuts depth, never width),
    bf16 random weights from a seeded ``torch.Generator``, ``ServeEngine``
    with ``prefill_impl="ss_fused"``, ``decode_impl="paged"``, 4 lanes,
    max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens each; the
-   launch count of every kernel in that run must be > 0;
-5. a ``{"kernels": [...]}`` line, the card line, and last the result line
+   launch count of every serving kernel in that run must be > 0;
+5. training: the ``Trainer`` on full-width Qwen2-7B cut to
+   ``--train-layers`` layers, bf16 compute over fp32 master weights,
+   ``remat="full"``, seq 4096, batch 2, 5 steps; every loss
+   finite, launches per step K1 8 / K2 8 / K3 4 / K4 4 at 4 layers, and a
+   bit-identical checkpoint round trip of the parameters;
+6. a ``{"kernels": [...]}`` line (launches summed over the serving and
+   training runs), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Without a GPU, or without
@@ -34,9 +44,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -53,6 +67,13 @@ MODEL_TOL = 2e-4
 # accumulate in fp32 on both sides from the same inputs whatever the input
 # dtype, so they are held at the fp32 tolerance; a bf16 output at its ulp.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Loss and every gradient leaf of one 2-layer fp32 grad step, kernel route
+# vs plain route on the card, relative to the plain route's max-abs.
+# Measured on an H100: worst leaf 9.2e-5 (w_down), loss identical (PERF.md).
+GRAD_TOL = 5e-4
+SERVE_KERNELS = ("landmark_summary", "query_side", "paged_row_stats")
+TRAIN_BATCH = 2   # train_4k's global batch of 256 cut to what one card holds
+TRAIN_STEPS = 5
 L2_BYTES = 50 * 2**20   # H100 SXM L2
 
 
@@ -210,7 +231,9 @@ def kernel_phase(torch, dev) -> list[dict]:
                 entries["query_side"] = dict(
                     fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
                     plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
-                    library=None, err=err, bound=bound(nbytes, flops, "bfloat16"),
+                    library=partial(sdpa_query_side, q, k_l, m_mat, v, delta,
+                                    scale=scale),
+                    err=err, bound=bound(nbytes, flops, "bfloat16"),
                     shape=f"b={b} n={n} c={c} d=dv={d} bf16")
     q, k_l = randn(b, 160, d, s=0.5), randn(b, c, d, s=0.5)
     m_mat, v, delta = randn(b, c, d), randn(b, 160, d), randn(b, 1, 1, s=0.1).abs()
@@ -270,6 +293,8 @@ def kernel_phase(torch, dev) -> list[dict]:
                       f"kv_valid={kv_valid.tolist()} fp32, L2 cold "
                       f"({len(pools)} pool copies)")
 
+    entries.update(train_kernel_entries(torch, dev))
+
     # ---- timing ------------------------------------------------------------
     def timed(tag):
         e = entries[tag]
@@ -292,15 +317,180 @@ def kernel_phase(torch, dev) -> list[dict]:
          "src/repro/kernels/ss_attention.py:365"),
         ("paged_row_stats", "src/repro_torch/csrc/paged_row_stats.cu",
          "src/repro/kernels/paged_decode.py:162"),
+        ("landmark_summary_bwd", "src/repro_torch/csrc/landmark_summary_bwd.cu",
+         "src/repro/kernels/ss_attention_bwd.py:117"),
+        ("query_side_bwd", "src/repro_torch/csrc/query_side_bwd.cu",
+         "src/repro/kernels/ss_attention_bwd.py:267"),
     ):
         row = dict(name=name, route="cuda", source=src, replaces=replaces,
                    launches=0, **timed(name))
         if name == "landmark_summary":
-            # the path's second K1 launch (same kernel and counter)
+            # the serving path's second K1 launch (same kernel and counter)
             row["seed_stats_launch"] = dict(shape=entries[
                 "landmark_summary_stats"]["shape"], **timed("landmark_summary_stats"))
+        if name in ("landmark_summary", "query_side"):
+            # the training path's forward launch (same kernel and counter)
+            row["train_launch"] = dict(shape=entries[f"{name}_train"]["shape"],
+                                       **timed(f"{name}_train"))
         results.append(row)
     return results
+
+
+def sdpa_query_side(q, k_l, m_mat, v, delta, *, scale, attn_mask=None):
+    """K2's function as one library call: softmax(Q K~^T) M by
+    scaled_dot_product_attention, plus delta * V (timed beside K2, never
+    used by the port)."""
+    import torch
+
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q[None], k_l[None], m_mat[None], attn_mask=attn_mask, scale=scale)[0]
+    return out + delta.to(out.dtype) * v
+
+
+def sdpa_4d(q, k, v, **kw):
+    """scaled_dot_product_attention on (b, n, d) operands as one (1, b, n, d)
+    batch: its fused backends take 4-D inputs only."""
+    import torch
+
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[None], k[None], v[None], **kw)[0]
+
+
+def sdpa_backward(fn, inputs, g):
+    """A callable that runs only the backward of ``fn(*inputs)`` for the
+    cotangent ``g`` (the forward is taken once, here), by
+    ``torch.autograd.grad``: the library yardstick of K3 and K4."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def train_kernel_entries(torch, dev) -> dict:
+    """Held and timed entries of the training path's kernel launches at its
+    shapes (batch 2 x 28 heads, seq 4096, c 64, d 128, causal: seg 64): K1
+    with stats and K2 forward, K3 and K4 backward, each against its plain
+    version in fp32 (TF32 off) and bf16, plus K3 with kv_valid and K4 with
+    a q_offset. Timing entries are the bf16 causal launches."""
+    from repro_torch.kernels.ss_attention import (b_side_mask, landmark_summary,
+                                                  landmark_summary_plain,
+                                                  query_side, query_side_plain)
+    from repro_torch.kernels.ss_attention_bwd import (landmark_summary_bwd,
+                                                      landmark_summary_bwd_plain,
+                                                      query_side_bwd,
+                                                      query_side_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, n, c, d = 56, 4096, 64, 128
+    seg = n // c
+    scale = d**-0.5
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    rows = torch.arange(c, device=dev)
+    # attended (row, key) pairs under the causal masks, the work the data needs
+    pairs = b * int(torch.clamp((rows + 1) * seg, max=n).sum())
+    fmask = torch.arange(c, device=dev)[None, :] <= (torch.arange(n, device=dev) // seg)[:, None]
+    entries = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        es = 2 if dt == torch.bfloat16 else 4
+        # ---- K1 with stats, causal ---------------------------------------
+        q_l, k, v = randn(b, c, d, s=0.5, dtype=dt), randn(b, n, d, s=0.5, dtype=dt), randn(b, n, d, dtype=dt)
+        bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=True, return_stats=True)
+        rbv, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
+                                             return_stats=True)
+        err1 = check(f"K1 landmark_summary train b={b} c={c} n={n} causal stats {dname}",
+                     [("out", bv, rbv, None), ("m", m, rm, None), ("l", l, rl, None)])
+        # ---- K3 -------------------------------------------------------------
+        g = randn(b, c, d, dtype=dt)
+        dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
+        out = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale, causal=True)
+        ref = landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale, seg=seg)
+        err3 = check(f"K3 landmark_summary_bwd b={b} c={c} n={n} causal {dname}",
+                     [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"), out, ref)])
+        kvv = 3000
+        bv2, m2, l2 = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv, return_stats=True)
+        out = landmark_summary_bwd(q_l, k, v, bv2, m2, l2, g, scale=scale, kv_valid=kvv)
+        dcoef2 = torch.sum(g.float() * bv2.float(), dim=-1, keepdim=True)
+        ref = landmark_summary_bwd_plain(q_l, k, v, g, m2, l2, dcoef2, scale=scale, kv_end=kvv)
+        check(f"K3 landmark_summary_bwd b={b} c={c} n={n} kv_valid={kvv} {dname}",
+              [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"), out, ref)])
+        if not (torch.all(out[1][:, kvv:] == 0) and torch.all(out[2][:, kvv:] == 0)):
+            raise AssertionError("K3: keys at or past kv_valid must get zero dK/dV")
+        if dt == torch.bfloat16:
+            entries["landmark_summary_train"] = dict(
+                fn=partial(landmark_summary, q_l, k, v, scale=scale, causal=True,
+                           return_stats=True),
+                plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, seg=seg,
+                              return_stats=True),
+                library=None, err=err1,
+                bound=bound(es * (2 * b * c * d + 2 * b * n * d) + 8 * b * c,
+                            2 * pairs * 2 * d, "bfloat16"),
+                shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal, with "
+                      f"stats (training forward; SDPA has no stats output)")
+            bmask = b_side_mask(c, n, seg=seg, device=dev)
+            entries["landmark_summary_bwd"] = dict(
+                fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, scale=scale,
+                           causal=True),
+                plain=partial(landmark_summary_bwd_plain, q_l, k, v, g, m, l, dcoef,
+                              scale=scale, seg=seg),
+                library=sdpa_backward(partial(sdpa_4d, attn_mask=bmask, scale=scale),
+                                      (q_l, k, v), g),
+                err=err3,
+                bound=bound(es * (3 * b * c * d + 2 * b * n * d) + 8 * b * c
+                            + es * (b * c * d + 2 * b * n * d),
+                            2 * pairs * 5 * d, "bfloat16"),
+                shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal")
+        # ---- K2 causal and K4 -------------------------------------------
+        q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+        m_mat, v = randn(b, c, d, dtype=dt), randn(b, n, d, dtype=dt)
+        delta = randn(b, 1, 1, s=0.1).abs()
+        err2 = check(f"K2 query_side train b={b} n={n} c={c} causal {dname}",
+                     [("out", query_side(q, k_l, m_mat, v, delta, scale=scale, causal=True),
+                       query_side_plain(q, k_l, m_mat, v, delta, scale=scale, seg=seg), None)])
+        g = randn(b, n, d, dtype=dt)
+        names = ("dq", "dk_l", "dm", "dv", "ddelta")
+        out = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale, causal=True)
+        ref = query_side_bwd_plain(q, k_l, m_mat, v, delta, g, scale=scale, seg=seg)
+        err4 = check(f"K4 query_side_bwd b={b} n={n} c={c} causal {dname}",
+                     [(nm, o, r, None) for nm, o, r in zip(names, out, ref)])
+        out = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale, causal=True,
+                             seq_len_k=2 * n, q_offset=1000)
+        ref = query_side_bwd_plain(q, k_l, m_mat, v, delta, g, scale=scale,
+                                   seg=2 * seg, pos_offset=1000)
+        check(f"K4 query_side_bwd b={b} n={n} c={c} causal q_offset=1000 "
+              f"seq_len_k={2 * n} {dname}",
+              [(nm, o, r, None) for nm, o, r in zip(names, out, ref)])
+        if dt == torch.bfloat16:
+            entries["query_side_train"] = dict(
+                fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale, causal=True),
+                plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale,
+                              seg=seg),
+                library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale,
+                                attn_mask=fmask),
+                err=err2,
+                bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b,
+                            2 * pairs * 2 * d, "bfloat16"),
+                shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal "
+                      f"(training forward)")
+            entries["query_side_bwd"] = dict(
+                fn=partial(query_side_bwd, q, k_l, m_mat, v, delta, g, scale=scale,
+                           causal=True),
+                plain=partial(query_side_bwd_plain, q, k_l, m_mat, v, delta, g,
+                              scale=scale, seg=seg),
+                library=sdpa_backward(partial(sdpa_query_side, scale=scale,
+                                              attn_mask=fmask),
+                                      (q, k_l, m_mat, v, delta), g),
+                err=err4,
+                bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b
+                            + es * (2 * b * n * d + 2 * b * c * d) + 4 * b,
+                            2 * pairs * 5 * d + 4 * b * n * d, "bfloat16"),
+                shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal")
+    return entries
 
 
 # --------------------------------------------------------------------------
@@ -363,18 +553,23 @@ def plain_route():
     the block runs."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ss_attention as sa
+    from repro_torch.kernels import ss_attention_bwd as sb
 
     saved = (sa._landmark_summary_cuda, sa._query_side_cuda,
-             pd._paged_row_stats_cuda)
+             pd._paged_row_stats_cuda, sb._landmark_summary_bwd_cuda,
+             sb._query_side_bwd_cuda)
     sa._landmark_summary_cuda = sa.landmark_summary_plain
     sa._query_side_cuda = sa.query_side_plain
     pd._paged_row_stats_cuda = (lambda q, k_pool, *a, **kw:
                                 pd.paged_row_stats_plain(q, (k_pool,), *a, **kw))
+    sb._landmark_summary_bwd_cuda = sb.landmark_summary_bwd_plain
+    sb._query_side_bwd_cuda = sb.query_side_bwd_plain
     try:
         yield
     finally:
         (sa._landmark_summary_cuda, sa._query_side_cuda,
-         pd._paged_row_stats_cuda) = saved
+         pd._paged_row_stats_cuda, sb._landmark_summary_bwd_cuda,
+         sb._query_side_bwd_cuda) = saved
 
 
 def model_phase(torch, dev) -> None:
@@ -391,7 +586,7 @@ def model_phase(torch, dev) -> None:
     before = launch_counts()
     card, fed = drive_model(torch, params, cfg, dev, prompt_lens)
     after = launch_counts()
-    if any(after[k] <= before[k] for k in after):
+    if any(after[k] <= before[k] for k in SERVE_KERNELS):
         raise AssertionError(f"model parity: kernel route skipped a kernel: {after}")
     with plain_route():
         plain, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed)
@@ -420,6 +615,53 @@ def model_phase(torch, dev) -> None:
         f"CPU {cpu_err:.2e} (not held); {time.perf_counter() - t0:.1f}s")
     if not max(errs) <= MODEL_TOL:
         raise AssertionError(f"model parity: logit err {max(errs):.3e} > {MODEL_TOL}")
+
+
+def grad_phase(torch, dev) -> None:
+    """One grad step (``make_grad_step``) of the full-width 2-layer fp32
+    model with ``attention_impl="spectral_shift_fused"``, seq 512, batch 1:
+    kernel route (K1/K2 forward, K3/K4 backward) against the plain route,
+    both on the card. Holds the loss and every gradient leaf."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+    from repro_torch.models.params import flatten_with_paths, tree_leaves
+    from repro_torch.train.train_step import make_grad_step
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
+                              compute_dtype="float32", remat="none",
+                              attention_impl="spectral_shift_fused")
+    t0 = time.perf_counter()
+    params = random_params(cfg, seed=0, device=dev)
+    batch = to_device(SyntheticLM(cfg.vocab_size, 512, 1, seed=0).batch(0), dev)
+    step = make_grad_step(cfg)
+    before = launch_counts()
+    loss, grads = step(params, batch)
+    after = launch_counts()
+    used = ("landmark_summary", "query_side", "landmark_summary_bwd", "query_side_bwd")
+    if any(after[k] <= before[k] for k in used):
+        raise AssertionError(f"grad parity: kernel route skipped a kernel: {after}")
+    with plain_route():
+        ploss, pgrads = step(params, batch)
+    if launch_counts() != after:
+        raise AssertionError("grad parity: the plain route launched a kernel")
+    loss_err = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    errs = {}
+    for (path, g), pg in zip(flatten_with_paths(grads).items(), tree_leaves(pgrads)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"grad parity: non-finite gradient in {path}")
+        err, scale = max_err(g, pg)
+        errs[path] = err / max(scale, 1e-30)
+    worst = max(errs, key=errs.get)
+    log(f"grad parity: qwen2-7b full width 2 layers fp32 seq 512, kernel route vs "
+        f"plain route on the card: loss {float(loss):.6f} vs {float(ploss):.6f} "
+        f"(rel {loss_err:.2e}, tol {GRAD_TOL}), grad err of max-abs per leaf "
+        f"{json.dumps({k: float('%.2e' % v) for k, v in errs.items()})} (worst "
+        f"{worst}, tol {GRAD_TOL}); {time.perf_counter() - t0:.1f}s")
+    if not (loss_err <= GRAD_TOL and errs[worst] <= GRAD_TOL):
+        raise AssertionError(f"grad parity: loss err {loss_err:.3e} or grad err "
+                             f"{errs[worst]:.3e} ({worst}) > {GRAD_TOL}")
 
 
 # --------------------------------------------------------------------------
@@ -462,17 +704,99 @@ def serve_phase(torch, dev, layers: int) -> dict:
     for name, t in engine.kv.storage.items():
         if not torch.isfinite(t).all():
             raise AssertionError(f"serve: non-finite values in cache leaf {name}")
-    missing = [k for k, v in out["launches"].items() if v <= 0]
+    missing = [k for k in SERVE_KERNELS if out["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
+    if any(v for k, v in out["launches"].items() if k not in SERVE_KERNELS):
+        raise AssertionError(f"serve: a training kernel launched: {out['launches']}")
     return out["launches"]
+
+
+# --------------------------------------------------------------------------
+# phase 5: training
+# --------------------------------------------------------------------------
+def train_phase(torch, dev, layers: int, steps: int) -> dict:
+    """The single-device ``Trainer`` on full-width Qwen2-7B cut to ``layers``
+    layers: bf16 compute, fp32 master weights and AdamW state, ``remat=
+    "full"``, ``attention_impl="spectral_shift_fused"``, seq 4096, batch
+    TRAIN_BATCH, SyntheticLM seed 0. Each step's kernel launches are counted
+    on their own and must be K1 2 / K2 2 / K3 1 / K4 1 per layer (forward
+    plus the remat recompute; backward once). Then a checkpoint round trip
+    of the parameters on the card must be bit-identical. Returns the summed
+    launch counts."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=layers,
+                              attention_impl="spectral_shift_fused", remat="full")
+    shape = ShapeConfig("train_4k", 4096, TRAIN_BATCH, "train")
+    tokens = shape.seq_len * shape.global_batch
+    expected = dict(landmark_summary=2 * layers, query_side=2 * layers,
+                    paged_row_stats=0, landmark_summary_bwd=layers,
+                    query_side_bwd=layers)
+    totals = dict.fromkeys(expected, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                           checkpoint_dir=os.path.join(ckpt_dir, "trainer"))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, tcfg, shape, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+        log(f"train: qwen2-7b d_model={cfg.d_model} layers={layers} seq "
+            f"{shape.seq_len} batch {shape.global_batch}, {n_params / 1e9:.3f} B "
+            f"fp32 master params + AdamW state initialized in "
+            f"{time.perf_counter() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(steps):
+            reset_launch_counts()
+            h = trainer.run(1)[-1]
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            log(f"train step {i}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.3f} "
+                f"lr {h['lr']:.3e}, {1e3 * h['step_time_s']:.1f} ms, "
+                f"{tokens / h['step_time_s']:.0f} tokens/s, peak "
+                f"{peak:.2f} GiB, launches {counts}")
+            if not math.isfinite(h["loss"]):
+                raise AssertionError(f"train: non-finite loss at step {i}")
+            if counts != expected:
+                raise AssertionError(f"train: launches per step {counts} != {expected}")
+            for k in totals:
+                totals[k] += counts[k]
+        later = [h["step_time_s"] for h in trainer.metrics_history[1:]]
+        mean_s = sum(later) / len(later)
+        log(f"train: {steps} steps, loss {trainer.metrics_history[0]['loss']:.4f} -> "
+            f"{trainer.metrics_history[-1]['loss']:.4f}, mean step after the first "
+            f"{1e3 * mean_s:.1f} ms ({tokens / mean_s:.0f} tokens/s), peak device "
+            f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        ckpt = Checkpointer(os.path.join(ckpt_dir, "round_trip"), keep=1)
+        ckpt.save(trainer.step, {"params": trainer.params}, blocking=True)
+        restored = ckpt.restore(trainer.step, {"params": trainer.params}, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored), tree_leaves({"params": trainer.params})))
+        log(f"train: checkpoint round trip of {n_params / 1e9:.3f} B parameters "
+            f"through {ckpt.directory}: bit-identical {same}, "
+            f"{time.perf_counter() - t0:.1f}s")
+        if not same:
+            raise AssertionError("train: restored parameters differ from the saved ones")
+        del trainer, restored
+    torch.cuda.empty_cache()
+    return totals
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="depth of the served model (width is never cut)")
+    ap.add_argument("--train-layers", type=int, default=4,
+                    help="depth of the trained model (width is never cut)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -483,7 +807,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"[chip_smoke] {src / 'repro_torch'} not found: run "
                          f"from a checkout of the repository")
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import build, launch_counts
+    from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -500,11 +824,15 @@ def main(argv=None) -> int:
 
     kernels = kernel_phase(torch, dev)
     model_phase(torch, dev)
-    launches = serve_phase(torch, dev, args.layers)
+    grad_phase(torch, dev)
+    served = serve_phase(torch, dev, args.layers)
+    gc.collect()  # the engine's reference cycles hold the serving weights
+    torch.cuda.empty_cache()
+    trained = train_phase(torch, dev, args.train_layers, TRAIN_STEPS)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    if launch_counts() != launches:
-        raise AssertionError("launch counters moved after the serving run")
+        k["launches"] = served[k["name"]] + trained[k["name"]]
+        k["launches_by_path"] = {"serve": served[k["name"]], "train": trained[k["name"]]}
+    log(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
-"""Model and serving configuration dataclasses.
+"""Model, shape, serving and training configuration dataclasses.
 
 A standalone copy of ``repro/configs/base.py``'s ``ModelConfig``,
-``ServeConfig`` and ``reduced()``: same fields, same defaults, same
+``ShapeConfig`` / ``SHAPE_PRESETS``, ``ServeConfig``, ``TrainConfig``,
+``resolve_remat`` and ``reduced()``: same fields, same defaults, same
 validation (a test holds the field lists and defaults equal). Fields the
 port does not read yet (MoE, MLA, SSM, chunked prefill, prefix cache,
 telemetry, chaos) are kept so a config round-trips between the packages
@@ -10,6 +11,7 @@ unchanged; the port's engine rejects settings it does not implement.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +100,46 @@ class ModelConfig:
     @property
     def is_decoder_only(self) -> bool:
         return self.encoder_layers == 0
+
+
+# Per-backend remat defaults for ``remat="auto"`` (``repro/configs/base.py``
+# REMAT_DEFAULTS, pinned there from its remat study). The port's backends
+# are "gpu" and "cpu"; its trunk runs "none" and "full" only so far.
+REMAT_DEFAULTS: dict[str, str] = {
+    "tpu": "ss_stats",
+    "gpu": "ss_stats",
+    "cpu": "full",
+}
+
+
+def resolve_remat(remat: str, backend: Optional[str] = None) -> str:
+    """Map ``remat="auto"`` to the per-backend default (identity for every
+    explicit policy). ``backend`` defaults to "gpu" when torch sees a GPU."""
+    if remat != "auto":
+        return remat
+    if backend is None:
+        import torch
+
+        backend = "gpu" if torch.cuda.is_available() else "cpu"
+    return REMAT_DEFAULTS.get(backend, "full")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+
+SHAPE_PRESETS: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +237,26 @@ class ServeConfig:
                 f"numerics_demote_after must be >= 1, "
                 f"got {self.numerics_demote_after}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / trainer knobs."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1        # grad-accumulation steps
+    opt_state_dtype: str = "float32"
+    grad_compression: Optional[str] = None  # None | "int8"
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    seed: int = 0
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

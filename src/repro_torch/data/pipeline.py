@@ -1,0 +1,69 @@
+"""Deterministic token data (``repro/data/pipeline.py``), numpy only.
+
+* ``SyntheticLM``: a seeded synthetic token stream (Zipf-like marginal plus
+  a copy task). Batch ``i`` is a pure function of (seed, i), the same
+  numpy batch the reference builds, so a restart resumes by step counter.
+* ``TextFileLM``: byte-level windows of a local text file.
+
+``to_device`` takes the place of the reference's ``make_global_batch``:
+one device, no shardings.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        # Zipf-ish marginal so CE has learnable structure + a copy task so
+        # a few hundred steps show a clearly decreasing loss.
+        ranks = rng.zipf(1.3, size=(self.global_batch, self.seq_len))
+        tokens = np.clip(ranks, 1, self.vocab_size - 1).astype(np.int32)
+        # Inject periodic structure: token[t] == token[t-8] for half the seq.
+        tokens[:, 8::2] = tokens[:, : tokens.shape[1] - 8 : 2][:, : tokens[:, 8::2].shape[1]]
+        return {"tokens": tokens}
+
+
+@dataclasses.dataclass
+class TextFileLM:
+    path: str
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    vocab_size: int = 256  # byte-level
+
+    def __post_init__(self):
+        with open(self.path, "rb") as f:
+            self._data = np.frombuffer(f.read(), dtype=np.uint8)
+        if len(self._data) < self.seq_len + 1:
+            raise ValueError("text file smaller than one sequence")
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        starts = rng.integers(
+            0, len(self._data) - self.seq_len - 1, size=self.global_batch
+        )
+        toks = np.stack(
+            [self._data[s : s + self.seq_len].astype(np.int32) for s in starts]
+        )
+        return {"tokens": toks}
+
+
+def to_device(host_batch: dict, device) -> dict:
+    """A host numpy batch as tensors on ``device`` (integer arrays as int64,
+    the index type torch's gathers take)."""
+    out = {}
+    for k, arr in host_batch.items():
+        t = torch.from_numpy(np.asarray(arr))
+        out[k] = (t.long() if not t.is_floating_point() else t).to(device)
+    return out

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("landmark_summary", "query_side", "paged_row_stats")
+SOURCES = ("landmark_summary", "query_side", "paged_row_stats",
+           "landmark_summary_bwd", "query_side_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,8 @@ ARGTYPES = {
     "landmark_summary": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "query_side": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "paged_row_stats": [_P] * 8 + [_I] * 8 + [_F] + [_I] + [_P],
+    "landmark_summary_bwd": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "query_side_bwd": [_P] * 14 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Spectral-shifting attention backed by the kernels (forward only).
+"""Spectral-shifting attention backed by the kernels.
 
 ``ss_attention_fused(q, k, v, cfg)`` mirrors ``repro/kernels/ops.py:230``:
 
@@ -10,8 +10,16 @@
 
 plus the online-softmax partial-state algebra (``flash_rescale`` /
 ``flash_merge``) that decode uses to merge the current token into the
-kernels' partials. The backward kernels (K3, K4) are not ported yet, so
-nothing here is differentiable through the kernels.
+kernels' partials.
+
+Steps 3 and 5 are differentiable: ``LandmarkSummaryOp`` and
+``QuerySideOp`` (the reference's custom-VJP ``landmark_summary_op`` /
+``query_side_op``, ``ops.py:91-160``) run K1 / K2 forward and K3 / K4
+backward. K1's forward then also returns the fp32 (m, l) stats K3 rebuilds
+P from. The landmark means and the c x c core stay on plain autograd, as
+they stay on jnp autodiff in the reference. When nothing needs a gradient
+(serving, ``torch.no_grad``), the kernels are called directly: no residuals
+are saved and K1 computes no stats.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from repro_torch.core.attention import SSConfig, _softmax, full_attention
 from repro_torch.core.landmarks import masked_segment_means, segment_means
 from repro_torch.core.spectral_shift import ss_core
 from repro_torch.kernels.ss_attention import landmark_summary, query_side
+from repro_torch.kernels.ss_attention_bwd import landmark_summary_bwd, query_side_bwd
 
 
 # --------------------------------------------------------------------------
@@ -43,6 +52,76 @@ def flash_merge(m_a, l_a, acc_a, m_b, l_b, acc_b):
     l_ar, acc_ar = flash_rescale(m_a, l_a, acc_a, m)
     l_br, acc_br = flash_rescale(m_b, l_b, acc_b, m)
     return m, l_ar + l_br, acc_ar + acc_br
+
+
+# --------------------------------------------------------------------------
+# Differentiable kernel ops.
+# --------------------------------------------------------------------------
+class LandmarkSummaryOp(torch.autograd.Function):
+    """BV = softmax(Q~ K^T * scale) @ V through K1, with K3 as its backward
+    (``landmark_summary_op`` :91). Saves (q_l, k, v, bv, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q_l, k, v, scale, causal, kv_valid):
+        bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=causal,
+                                    return_stats=True, kv_valid=kv_valid)
+        ctx.save_for_backward(q_l, k, v, bv, m, l)
+        ctx.meta = (scale, causal, kv_valid)
+        return bv
+
+    @staticmethod
+    def backward(ctx, g):
+        q_l, k, v, bv, m, l = ctx.saved_tensors
+        scale, causal, kv_valid = ctx.meta
+        dq, dk, dv = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
+                                          causal=causal, kv_valid=kv_valid)
+        return dq, dk, dv, None, None, None
+
+
+class QuerySideOp(torch.autograd.Function):
+    """out = softmax(Q K~^T * scale) @ M + delta * V through K2, with K4 as
+    its backward (``query_side_op`` :135). Saves (q, k_l, m_mat, v, delta);
+    K4 recomputes P."""
+
+    @staticmethod
+    def forward(ctx, q, k_l, m_mat, v, delta, scale, causal, seq_len_k):
+        ctx.save_for_backward(q, k_l, m_mat, v, delta)
+        ctx.meta = (scale, causal, seq_len_k)
+        return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
+                          seq_len_k=seq_len_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k_l, m_mat, v, delta = ctx.saved_tensors
+        scale, causal, seq_len_k = ctx.meta
+        dq, dkl, dm, dv, dd = query_side_bwd(q, k_l, m_mat, v, delta, g,
+                                             scale=scale, causal=causal,
+                                             seq_len_k=seq_len_k)
+        return dq, dkl, dm, dv, dd, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def landmark_summary_op(q_l, k, v, *, scale: float, causal: bool = False,
+                        kv_valid: Optional[int] = None) -> torch.Tensor:
+    """K1 as a differentiable op: through ``LandmarkSummaryOp`` when a
+    gradient is needed, else the kernel alone (no stats, nothing saved)."""
+    if _needs_grad(q_l, k, v):
+        return LandmarkSummaryOp.apply(q_l, k, v, scale, causal, kv_valid)
+    return landmark_summary(q_l, k, v, scale=scale, causal=causal,
+                            kv_valid=kv_valid)
+
+
+def query_side_op(q, k_l, m_mat, v, delta, *, scale: float,
+                  causal: bool = False, seq_len_k: int = 0) -> torch.Tensor:
+    """K2 as a differentiable op (``QuerySideOp`` when a gradient is
+    needed, else the kernel alone)."""
+    if _needs_grad(q, k_l, m_mat, v, delta):
+        return QuerySideOp.apply(q, k_l, m_mat, v, delta, scale, causal, seq_len_k)
+    return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
+                      seq_len_k=seq_len_k)
 
 
 # --------------------------------------------------------------------------
@@ -81,7 +160,8 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        cfg: SSConfig = SSConfig(), *,
                        scale: Optional[float] = None,
                        kv_valid: Optional[int] = None) -> torch.Tensor:
-    """Kernel-backed spectral-shifting attention, shapes (..., n, d).
+    """Kernel-backed spectral-shifting attention, shapes (..., n, d);
+    differentiable in q, k and v.
 
     ``kv_valid`` (host int): only the first ``kv_valid`` positions are
     real; landmark means and the B-side softmax mask the padded tail, so a
@@ -128,8 +208,8 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     u, delta_core = ss_core_factors(
         q_l, k_l, cfg, scale, n_k if kv_valid is None else kv_valid)
-    bv = landmark_summary(q_l.contiguous(), kf, vf, scale=scale,
-                          causal=cfg.causal, kv_valid=kv_valid)   # (b, c, dv)
+    bv = landmark_summary_op(q_l.contiguous(), kf, vf, scale=scale,
+                             causal=cfg.causal, kv_valid=kv_valid)  # (b, c, dv)
     m_mat = (u.float() @ bv.float()).to(v.dtype)
     if cfg.include_shift_identity and n <= n_k:
         # + delta_ss I_n -> + delta_ss * V on the query-aligned rows of V.
@@ -139,7 +219,7 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         delta = torch.zeros((b, 1, 1), dtype=torch.float32, device=q.device)
         v_q = vf if n == n_k else torch.zeros((b, n, dv), dtype=vf.dtype,
                                               device=q.device)
-    out = query_side(qf, k_l.contiguous(), m_mat.contiguous(), v_q,
-                     delta.contiguous(), scale=scale, causal=cfg.causal,
-                     seq_len_k=n_k)
+    out = query_side_op(qf, k_l.contiguous(), m_mat.contiguous(), v_q,
+                        delta.contiguous(), scale=scale, causal=cfg.causal,
+                        seq_len_k=n_k)
     return out.reshape(*lead, n, dv)

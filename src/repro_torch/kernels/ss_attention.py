@@ -31,6 +31,21 @@ def _stream_handle(t: torch.Tensor) -> int:
 # --------------------------------------------------------------------------
 # K1: landmark summary.
 # --------------------------------------------------------------------------
+def b_side_mask(c: int, n: int, *, seg: int = 0, kv_offset: int = 0,
+                kv_end: Optional[int] = None, device=None) -> torch.Tensor:
+    """(c, n) validity of key j for landmark row r (``_b_side_mask`` :62):
+    global position ``kv_offset + j`` below ``kv_end`` (default
+    ``kv_offset + n``) and, with ``seg``, below (r + 1) * seg. Shared by K1
+    and K3's plain versions so the two cannot drift apart."""
+    end = kv_offset + n if kv_end is None else kv_end
+    kv_pos = kv_offset + torch.arange(n, device=device)
+    mask = (kv_pos < end)[None, :].expand(c, n)
+    if seg:
+        row = torch.arange(c, device=device)[:, None]
+        mask = mask & (kv_pos[None, :] < (row + 1) * seg)
+    return mask
+
+
 def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
                            kv_offset: int = 0, kv_end: Optional[int] = None,
                            return_stats: bool = False):
@@ -41,15 +56,9 @@ def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
     over all keys instead of the kernel's stream; same masks, same -1e30
     anchor and 1e-30 floor. Returns ``out`` in v's dtype, plus fp32 (m, l)
     of shape (b, c, 1) with ``return_stats``."""
-    b, c, _ = q_l.shape
-    n = k.shape[1]
-    end = kv_offset + n if kv_end is None else kv_end
+    mask = b_side_mask(q_l.shape[1], k.shape[1], seg=seg, kv_offset=kv_offset,
+                       kv_end=kv_end, device=k.device)
     s = torch.einsum("bcd,bnd->bcn", q_l.float(), k.float()) * scale
-    kv_pos = kv_offset + torch.arange(n, device=k.device)
-    mask = (kv_pos < end)[None, :]
-    if seg:
-        row = torch.arange(c, device=k.device)[:, None]
-        mask = mask & (kv_pos[None, :] < (row + 1) * seg)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -119,13 +128,12 @@ landmark_summary.launches = 0
 # --------------------------------------------------------------------------
 # K2: query side.
 # --------------------------------------------------------------------------
-def query_side_plain(q, k_l, m_mat, v, delta, *, scale: float, seg: int = 0,
-                     pos_offset: int = 0):
-    """Plain version of K2, mirroring ``repro/kernels/ss_attention.py:365``
-    ``query_side`` (probabilities ``_query_side_probs`` :311): the row
-    softmax over the c landmark columns, with the segment-causal F-mask
-    ``col <= (pos_offset + i) // seg`` when ``seg`` is set, then
-    ``P @ M + delta * V`` in fp32, output in q's dtype."""
+def query_side_probs(q, k_l, *, scale: float, seg: int = 0,
+                     pos_offset: int = 0) -> torch.Tensor:
+    """fp32 P (b, n, c) of K2 (``_query_side_probs`` :311): the row softmax
+    over the c landmark columns, with the segment-causal F-mask
+    ``col <= (pos_offset + i) // seg`` when ``seg`` is set. Shared by K2
+    and K4's plain versions."""
     n, c = q.shape[1], k_l.shape[1]
     s = torch.einsum("bnd,bcd->bnc", q.float(), k_l.float()) * scale
     mask = None
@@ -136,7 +144,15 @@ def query_side_plain(q, k_l, m_mat, v, delta, *, scale: float, seg: int = 0,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     if mask is not None:
         p = torch.where(mask, p, 0.0)
-    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def query_side_plain(q, k_l, m_mat, v, delta, *, scale: float, seg: int = 0,
+                     pos_offset: int = 0):
+    """Plain version of K2, mirroring ``repro/kernels/ss_attention.py:365``
+    ``query_side``: ``query_side_probs`` then ``P @ M + delta * V`` in fp32,
+    output in q's dtype."""
+    p = query_side_probs(q, k_l, scale=scale, seg=seg, pos_offset=pos_offset)
     out = torch.einsum("bnc,bcd->bnd", p, m_mat.float())
     out = out + delta.float() * v.float()
     return out.to(q.dtype)

@@ -1,0 +1,202 @@
+"""Backward kernels K3 (B-side) and K4 (F-side) of spectral-shift attention.
+
+* ``landmark_summary_bwd`` (K3): given K1's saved fp32 stats (m, l) and its
+  output BV, rebuilds P = exp(scale * Q~ K^T - m) / l exactly and returns
+  dQ~ = (P o (g V^T - D)) K scale, dK = (P o (g V^T - D))^T Q~ scale and
+  dV = P^T g, with D = rowsum(g o BV) computed here in torch.
+* ``query_side_bwd`` (K4): recomputes K2's P per query row and returns
+  dQ = dS K~, dK~ = dS^T Q, dM = P^T g, dV = delta g, ddelta = sum g o V.
+
+Both mirror ``repro/kernels/ss_attention_bwd.py`` with the masks and
+dynamic bounds of their forwards. For a CUDA tensor the wrapper launches
+the hand-written kernel (``csrc/landmark_summary_bwd.cu``,
+``csrc/query_side_bwd.cu``) or raises; for a CPU tensor it runs the plain
+version beside it. The autograd Functions in ``kernels/ops.py`` call them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.attention import NEG_INF
+from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
+from repro_torch.kernels.ss_attention import (_MAX_C, _MAX_D, _stream_handle,
+                                              b_side_mask, query_side_probs)
+
+# Query rows per CTA of csrc/query_side_bwd.cu's main kernel (kBlockRows):
+# K4 writes one fp32 partial of dK~, dM and ddelta per block of this many
+# rows, and its second kernel sums them in a fixed order.
+K4_BLOCK_ROWS = 256
+
+
+# --------------------------------------------------------------------------
+# K3: landmark summary backward.
+# --------------------------------------------------------------------------
+def landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, *, scale: float,
+                               seg: int = 0, kv_offset: int = 0,
+                               kv_end: Optional[int] = None):
+    """Plain version of K3, mirroring ``ss_attention_bwd.py:49``
+    ``_landmark_summary_bwd_kernel`` over all keys at once: the masks of
+    ``b_side_mask``, p = exp(s - m) / max(l, 1e-30) zeroed where masked (a
+    row with no valid key has l = 0 and keeps p = 0). ``dcoef`` is
+    D = rowsum(g o BV), fp32 (b, c, 1). Returns (dq_l, dk, dv) in q_l's,
+    k's and v's dtypes."""
+    mask = b_side_mask(q_l.shape[1], k.shape[1], seg=seg, kv_offset=kv_offset,
+                       kv_end=kv_end, device=k.device)
+    qf, kf, vf, gf = q_l.float(), k.float(), v.float(), g.float()
+    s = torch.where(mask, torch.einsum("bcd,bnd->bcn", qf, kf) * scale, NEG_INF)
+    p = torch.exp(s - m) / torch.clamp(l, min=1e-30)
+    p = torch.where(mask, p, 0.0)
+    dp = torch.einsum("bce,bne->bcn", gf, vf)
+    ds = p * (dp - dcoef) * scale
+    dv = torch.einsum("bcn,bce->bne", p, gf)
+    dk = torch.einsum("bcn,bcd->bnd", ds, qf)
+    dq = torch.einsum("bcn,bnd->bcd", ds, kf)
+    return dq.to(q_l.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bv: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                         g: torch.Tensor, *, scale: float, causal: bool = False,
+                         kv_valid=None, seq_len_k: int = 0):
+    """Backward of ``landmark_summary``: (dq_l, dk, dv) from K1's inputs, its
+    output ``bv`` and fp32 stats ``m``, ``l`` (b, c, 1), and the cotangent
+    ``g`` of bv (made contiguous here: autograd may hand it expanded). Same
+    ``causal`` / ``kv_valid`` / ``seq_len_k`` as the forward call."""
+    b, c, d = q_l.shape
+    n, dv = k.shape[1], v.shape[2]
+    if (k.shape != (b, n, d) or v.shape[:2] != (b, n)
+            or bv.shape != (b, c, dv) or g.shape != (b, c, dv)
+            or m.shape != (b, c, 1) or l.shape != (b, c, 1)):
+        raise ValueError("landmark_summary_bwd: operand shapes disagree")
+    seg = -(-(seq_len_k or n) // c) if causal else 0
+    end = n if kv_valid is None else min(int(kv_valid), n)
+    g = g.contiguous()
+    # D_r = sum_j P_rj (g_r . v_j) = g_r . BV_r: O(c dv), stays in torch.
+    dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
+    if not q_l.is_cuda:
+        return landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale,
+                                          seg=seg, kv_end=end)
+    return _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, scale=scale,
+                                      seg=seg, kv_end=end)
+
+
+def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end):
+    """Check the operands and launch csrc/landmark_summary_bwd.cu (same
+    arguments as ``landmark_summary_bwd_plain``)."""
+    b, c, d = q_l.shape
+    n, dv = k.shape[1], v.shape[2]
+    check_operands("landmark_summary_bwd", {"q_l": q_l, "k": k, "v": v, "g": g,
+                                            "m": m, "l": l, "dcoef": dcoef})
+    if str(q_l.dtype) not in DTYPE_CODES or str(k.dtype) not in DTYPE_CODES:
+        raise ValueError("landmark_summary_bwd: q_l and k must be fp32 or bf16")
+    if not (k.dtype == v.dtype == g.dtype):
+        raise ValueError("landmark_summary_bwd: k, v and g must share a dtype")
+    if not (m.dtype == l.dtype == dcoef.dtype == torch.float32):
+        raise ValueError("landmark_summary_bwd: m, l and dcoef must be fp32")
+    if q_l.dtype == torch.bfloat16 and k.dtype == torch.float32:
+        raise ValueError("landmark_summary_bwd: bf16 queries against fp32 keys "
+                         "are not built")
+    if d > _MAX_D or dv > _MAX_D:
+        raise ValueError(f"landmark_summary_bwd: head dims ({d}, {dv}) > {_MAX_D}")
+    dq = torch.empty_like(q_l)
+    dk = torch.empty_like(k)
+    dv_out = torch.empty_like(v)
+    if b and c and n:
+        launch("landmark_summary_bwd", q_l.data_ptr(), k.data_ptr(), v.data_ptr(),
+               g.data_ptr(), m.data_ptr(), l.data_ptr(), dcoef.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, c, n, d, dv,
+               float(scale), kv_end, seg, DTYPE_CODES[str(q_l.dtype)],
+               DTYPE_CODES[str(k.dtype)], _stream_handle(k))
+        landmark_summary_bwd.launches += 1
+    return dq, dk, dv_out
+
+
+landmark_summary_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: query side backward.
+# --------------------------------------------------------------------------
+def query_side_bwd_plain(q, k_l, m_mat, v, delta, g, *, scale: float,
+                         seg: int = 0, pos_offset: int = 0):
+    """Plain version of K4, mirroring ``ss_attention_bwd.py:206``
+    ``_query_side_bwd_kernel`` over all rows at once, with K2's
+    ``query_side_probs``. Returns (dq, dk_l, dm, dv, ddelta): dq, dv in
+    q's / v's dtype, dk_l, dm in k_l's / m_mat's, ddelta fp32 (b, 1, 1)."""
+    p = query_side_probs(q, k_l, scale=scale, seg=seg, pos_offset=pos_offset)
+    qf, gf = q.float(), g.float()
+    dp = torch.einsum("bne,bce->bnc", gf, m_mat.float())
+    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True)) * scale
+    dq = torch.einsum("bnc,bcd->bnd", ds, k_l.float())
+    dv = delta.float() * gf
+    dkl = torch.einsum("bnc,bnd->bcd", ds, qf)
+    dm = torch.einsum("bnc,bne->bce", p, gf)
+    dd = torch.sum(gf * v.float(), dim=(1, 2), keepdim=True)
+    return (dq.to(q.dtype), dkl.to(k_l.dtype), dm.to(m_mat.dtype),
+            dv.to(v.dtype), dd)
+
+
+def query_side_bwd(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
+                   v: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, *,
+                   scale: float, causal: bool = False, seq_len_k: int = 0,
+                   q_offset=None):
+    """Backward of ``query_side``: (dq, dk_l, dm, dv, ddelta) from K2's
+    inputs and the cotangent ``g`` of its output (made contiguous here).
+    Same ``causal`` / ``seq_len_k`` / ``q_offset`` as the forward call."""
+    b, n, d = q.shape
+    c, dv = k_l.shape[1], v.shape[2]
+    if (k_l.shape != (b, c, d) or m_mat.shape != (b, c, dv)
+            or v.shape != (b, n, dv) or g.shape != (b, n, dv)
+            or delta.numel() != b):
+        raise ValueError("query_side_bwd: operand shapes disagree")
+    n_k = seq_len_k or n
+    seg = -(-n_k // c) if causal else 0
+    pos_offset = (n_k - n if q_offset is None else int(q_offset)) if causal else 0
+    g = g.contiguous()
+    if not q.is_cuda:
+        return query_side_bwd_plain(q, k_l, m_mat, v, delta, g, scale=scale,
+                                    seg=seg, pos_offset=pos_offset)
+    return _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, scale=scale,
+                                seg=seg, pos_offset=pos_offset)
+
+
+def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset):
+    """Check the operands and launch csrc/query_side_bwd.cu (same arguments
+    as ``query_side_bwd_plain``); the fp32 workspace of per-block partials
+    is allocated here."""
+    b, n, d = q.shape
+    c, dv = k_l.shape[1], v.shape[2]
+    check_operands("query_side_bwd", {"q": q, "k_l": k_l, "m_mat": m_mat,
+                                      "v": v, "delta": delta, "g": g})
+    if str(q.dtype) not in DTYPE_CODES or any(
+            t.dtype != q.dtype for t in (k_l, m_mat, v, g)):
+        raise ValueError("query_side_bwd: q, k_l, m_mat, v and g must share an "
+                         "fp32 or bf16 dtype")
+    if delta.dtype != torch.float32:
+        raise ValueError("query_side_bwd: delta must be fp32")
+    if d > _MAX_D or dv > _MAX_D or c > _MAX_C:
+        raise ValueError(f"query_side_bwd: dims (d={d}, dv={dv}, c={c}) exceed "
+                         f"the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_C})")
+    dq = torch.empty_like(q)
+    dv_out = torch.empty_like(v)
+    dkl = torch.empty_like(k_l)
+    dm = torch.empty_like(m_mat)
+    dd = torch.empty((b, 1, 1), dtype=torch.float32, device=q.device)
+    blocks = -(-n // K4_BLOCK_ROWS)
+    ws_k = torch.empty((b, blocks, c, d), dtype=torch.float32, device=q.device)
+    ws_m = torch.empty((b, blocks, c, dv), dtype=torch.float32, device=q.device)
+    ws_d = torch.empty((b, blocks), dtype=torch.float32, device=q.device)
+    if b and n:
+        launch("query_side_bwd", q.data_ptr(), k_l.data_ptr(), m_mat.data_ptr(),
+               v.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
+               dkl.data_ptr(), dm.data_ptr(), dv_out.data_ptr(), dd.data_ptr(),
+               ws_k.data_ptr(), ws_m.data_ptr(), ws_d.data_ptr(), b, n, c, d, dv,
+               float(scale), seg, pos_offset, DTYPE_CODES[str(q.dtype)],
+               _stream_handle(q))
+        query_side_bwd.launches += 1
+    return dq, dkl, dm, dv_out, dd
+
+
+query_side_bwd.launches = 0

@@ -60,8 +60,20 @@ def serve_requests(engine: ServeEngine, prompt_lens, max_new: int,
             "outputs": outputs}
 
 
+# Device-activity categories of ``profile_top``, by kernel-name fragment
+# (the port's kernels by their ``csrc`` names), first match wins.
+PROFILE_GROUPS = (
+    ("port kernels", ("landmark_summary", "query_side", "paged_row_stats",
+                      "ls_bwd_", "qs_bwd_")),
+    ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("copies", ("memcpy", "memset")),
+    ("elementwise/reduce", ("elementwise", "reduce", "softmax", "index", "scatter")),
+)
+
+
 def profile_top(prof, wall_s: float, limit: int = 12) -> str:
-    """One line: the device's busy share of ``wall_s`` and its ``limit``
+    """One line: the device's busy share of ``wall_s``, its busy ms by
+    category (PROFILE_GROUPS, the rest as "other"), and its ``limit``
     costliest device activities (kernels, copies; ms) in a torch.profiler
     run."""
     from torch.autograd import DeviceType
@@ -70,12 +82,22 @@ def profile_top(prof, wall_s: float, limit: int = 12) -> str:
         us = getattr(e, "self_device_time_total", None)
         return (us if us is not None else e.self_cuda_time_total) / 1e3
 
+    def group(name):
+        name = name.lower()
+        return next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
+                    "other")
+
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), key=dev_ms, reverse=True)
     busy = sum(dev_ms(e) for e in rows) / 1e3
+    groups: dict[str, float] = {}
+    for e in rows:
+        groups[group(e.key)] = groups.get(group(e.key), 0.0) + dev_ms(e)
     top = {e.key[:60]: round(dev_ms(e), 3) for e in rows[:limit]}
     return (f"device busy {busy:.3f}s of {wall_s:.3f}s wall "
-            f"({100 * busy / wall_s:.1f}%); top self device ms: {top}")
+            f"({100 * busy / wall_s:.1f}%); busy ms by category "
+            f"{ {g: round(ms, 3) for g, ms in groups.items()} }; "
+            f"top self device ms: {top}")
 
 
 def main(argv=None):

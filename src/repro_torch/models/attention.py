@@ -1,12 +1,15 @@
-"""Model-level GQA attention pieces (dense decoder half of
-``repro/models/attention.py``): parameter specs, the spectral-shift config
-and the kv-head group broadcast. Per-head tensors are (B, H, S, Dh)."""
+"""Model-level GQA attention (dense decoder half of
+``repro/models/attention.py``): parameter specs, the spectral-shift config,
+the kv-head group broadcast, the projections and the full-sequence forward
+the trainer runs. Per-head tensors are (B, H, S, Dh)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.attention import SSConfig
+from repro_torch.core.attention import SSConfig, full_attention
+from repro_torch.kernels.ops import ss_attention_fused
+from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.params import ParamSpec
 
 
@@ -19,6 +22,18 @@ def ss_config_from(cfg: ModelConfig, causal: bool = False) -> SSConfig:
         causal=causal,
         landmark_via_matmul=cfg.landmark_via_matmul,
     )
+
+
+def _core_attention(cfg: ModelConfig, impl: str, q, k, v, *, causal: bool):
+    """q (B,H,S,Dh) vs k/v (B,H,S,Dh) -> (B,H,S,Dh) (``attention.py:46``).
+    ``spectral_shift_fused`` runs ``ss_attention_fused``: the kernels for
+    CUDA tensors, their plain versions for CPU tensors. The reference's
+    dispatch registry and its other impls are not ported."""
+    if impl == "full":
+        return full_attention(q, k, v, causal=causal)
+    if impl == "spectral_shift_fused":
+        return ss_attention_fused(q, k, v, ss_config_from(cfg, causal=causal))
+    raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
 
 
 def _broadcast_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -59,3 +74,20 @@ def gqa_project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
         k = k + p["b_k"].to(dt)[None, :, None, :]
         v = v + p["b_v"].to(dt)[None, :, None, :]
     return q, k, v
+
+
+def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, impl: str, mode: str = "causal"):
+    """Full-sequence GQA attention (``attention.py:129``): projections with
+    bias, rotary inside (as ``gqa_project_qkv`` :112 applies it), kv-head
+    broadcast, core attention, output projection. Returns (out, None)."""
+    q, k, v = gqa_project_qkv(p, cfg, x)
+    if cfg.rope_theta > 0:
+        sin, cos = rotary_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        sin, cos = sin[:, None], cos[:, None]  # (B,1,S,Dh/2)
+        q, k = apply_rotary(q, sin, cos), apply_rotary(k, sin, cos)
+    k = _broadcast_kv(k, cfg.num_heads)
+    v = _broadcast_kv(v, cfg.num_heads)
+    out = _core_attention(cfg, impl, q, k, v, causal=(mode == "causal"))
+    out = torch.einsum("bhse,hed->bsd", out, p["w_o"].to(x.dtype))
+    return out, None

@@ -1,16 +1,22 @@
-"""Dense decoder assembly: parameter specs, embedding, unembedding and the
-working-precision copy (the dense family of ``repro/models/model.py``).
+"""Dense decoder assembly (the dense family of ``repro/models/model.py``):
+parameter specs, embedding, unembedding, the working-precision copy, and
+the full-sequence forward and loss the trainer differentiates.
+
+    model_forward(params, cfg, batch)  -> (logits (B,S,V), aux)
+    loss_fn(params, cfg, batch)        -> (loss, metrics)
 
 The forward passes the serving path runs live in ``serve/prefill.py``
 (whole prompt) and ``serve/decode.py`` (one token per lane)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import gqa_specs
-from repro_torch.models.layers import mlp_specs
-from repro_torch.models.params import ParamSpec, stack_layer_specs
+from repro_torch.models.attention import gqa_forward, gqa_specs
+from repro_torch.models.layers import mlp_forward, mlp_specs, rms_norm
+from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
+from repro_torch.train.losses import next_token_loss
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -49,6 +55,82 @@ def model_specs(cfg: ModelConfig) -> dict:
     else:
         specs["layers"] = [layer for _ in range(cfg.num_layers)]
     return specs
+
+
+def dense_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
+    """Pre-norm attention + SwiGLU block (``model.py:79``). Returns
+    (x, aux); aux is 0 for the dense family."""
+    h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    attn_out, _ = gqa_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
+    x = x + attn_out
+    h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+    x = x + mlp_forward(p["mlp"], h, cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _unstacked_layers(params) -> list:
+    """The per-layer parameter dicts: the unrolled list as it is, or the
+    stacked ``layers`` axis unbound once (one backward node per leaf
+    instead of one full-size gradient per layer and leaf)."""
+    layers = params["layers"]
+    if isinstance(layers, list):
+        return layers
+
+    def unbind(t):
+        return ({k: unbind(v) for k, v in t.items()} if isinstance(t, dict)
+                else torch.unbind(t))
+
+    def pick(t, i):
+        return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+
+    slices = unbind(layers)
+    return [pick(slices, i) for i in range(tree_leaves(layers)[0].shape[0])]
+
+
+def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
+    """The decoder trunk, layer by layer (``model.py:325``). Returns
+    (x, aux). ``remat="full"`` recomputes each layer's forward in backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps every
+    activation. The reference's ``"dots"``, ``"ss_stats"`` and ``"auto"``
+    policies are not ported yet and raise."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported yet "
+                                  "(the port runs 'none' and 'full')")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _unstacked_layers(params):
+        if cfg.remat == "full":
+            x, a = checkpoint(dense_layer_forward, lp, cfg, x, positions, impl,
+                              mode, use_reentrant=False)
+        else:
+            x, a = dense_layer_forward(lp, cfg, x, positions, impl, mode)
+        aux = aux + a
+    return x, aux
+
+
+def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
+    """Full-sequence causal forward (``model.py:399``) of the dense family.
+    ``batch["tokens"]`` (B, S) int. The fp32 master ``params`` are cast to
+    the working copy here, inside the autograd graph, so gradients reach
+    the masters. Returns (logits (B,S,V) in the compute dtype, aux)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    params = working_params(params, cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, tokens)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, aux = _run_trunk(params, cfg, x, positions, cfg.attention_impl, "causal")
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """Next-token cross entropy (``model.py:456``). Returns (loss, metrics)."""
+    logits, aux = model_forward(params, cfg, batch)
+    ce_loss, metrics = next_token_loss(logits, batch["tokens"])
+    loss = ce_loss + cfg.router_aux_coef * aux
+    metrics["aux"] = aux
+    return loss, metrics
 
 
 def layer_params(params: dict, i: int) -> dict:

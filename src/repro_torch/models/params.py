@@ -93,6 +93,79 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     return t.to(device) if device is not None else t
 
 
+def params_to_numpy(tree):
+    """The reverse of ``params_from_numpy``: the same tree with each tensor
+    copied to a host numpy array (a copy, so later in-place updates of the
+    tensors never reach it). bf16 leaves have no numpy type and raise."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_numpy(v) for v in tree]
+    if tree.dtype == torch.bfloat16:
+        raise TypeError("params_to_numpy: bf16 has no numpy dtype; cast first")
+    return tree.detach().to("cpu", copy=True).numpy()
+
+
+PATH_SEP = "::"
+
+
+def flatten_with_paths(tree, prefix: str = "") -> dict[str, Any]:
+    """{path: leaf} of a nested dict / list / NamedTuple tree, in the order
+    the reference's pytrees flatten in: dict keys sorted, list items and
+    NamedTuple fields in order. A path joins the keys, indices and field
+    names with ``::``, as ``jax.tree_util.tree_flatten_with_path`` names
+    them (``params::layers::attn::w_q``, ``opt::step``)."""
+    def key(k):
+        return f"{prefix}{PATH_SEP}{k}" if prefix else str(k)
+
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(flatten_with_paths(tree[k], key(k)))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name in tree._fields:
+            out.update(flatten_with_paths(getattr(tree, name), key(name)))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            out.update(flatten_with_paths(t, key(i)))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def unflatten_with_paths(target, leaves: dict, prefix: str = ""):
+    """Rebuild ``target``'s structure with the leaves of ``leaves``, keyed as
+    ``flatten_with_paths`` keys them."""
+    def key(k):
+        return f"{prefix}{PATH_SEP}{k}" if prefix else str(k)
+
+    if isinstance(target, dict):
+        return {k: unflatten_with_paths(v, leaves, key(k)) for k, v in target.items()}
+    if isinstance(target, tuple) and hasattr(target, "_fields"):
+        return type(target)(*(unflatten_with_paths(getattr(target, f), leaves, key(f))
+                              for f in target._fields))
+    if isinstance(target, (list, tuple)):
+        return type(target)(unflatten_with_paths(t, leaves, key(i))
+                            for i, t in enumerate(target))
+    return leaves[prefix]
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict / list / NamedTuple tree, in
+    ``flatten_with_paths`` order."""
+    return list(flatten_with_paths(tree).values())
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure), visited in ``tree_leaves`` order; dicts,
+    lists and NamedTuples are rebuilt."""
+    rests = [flatten_with_paths(r) for r in rest]
+    out = {path: fn(leaf, *(r[path] for r in rests))
+           for path, leaf in flatten_with_paths(tree).items()}
+    return unflatten_with_paths(tree, out)
+
+
 def count_params(specs) -> int:
     total = [0]
 

@@ -1,0 +1,81 @@
+"""Train / grad / eval step factories (``repro/train/train_step.py``).
+
+``make_train_step`` returns ``(params, opt_state, batch) -> (params,
+opt_state, metrics)`` with optional microbatch gradient accumulation in
+fp32. Gradients come from ``torch.autograd.grad`` of ``loss_fn`` with
+respect to every parameter leaf, the counterpart of ``jax.value_and_grad``.
+The optimizer writes the parameters and its moments in place (see
+``optim/adamw.py``); the returned trees are the ones passed in.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models.model import loss_fn
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.optim.adamw import adamw_update
+
+
+def value_and_grad(params, cfg: ModelConfig, batch: dict):
+    """(loss, metrics, grads) of ``loss_fn`` at ``params``; grads mirror the
+    parameter tree. The parameters themselves are not modified."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, cfg, batch)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                         materialize_grads=True))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_map(lambda _: next(grads), live)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, lr_fn: Callable):
+    def train_step(params, opt_state, batch):
+        if tcfg.microbatches > 1:
+            # Grad accumulation: split the batch dim into microbatches and
+            # sum their fp32 grads.
+            mb = tcfg.microbatches
+            micro = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
+                     for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            losses = []
+            for i in range(mb):
+                loss_i, _, g_i = value_and_grad(params, cfg,
+                                                {k: v[i] for k, v in micro.items()})
+                tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
+                losses.append(loss_i)
+            grads = tree_map(lambda g: g / mb, grads)
+            loss = torch.stack(losses).mean()
+            metrics = {}
+        else:
+            loss, metrics, grads = value_and_grad(params, cfg, batch)
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
+                                                      tcfg, lr_fn)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_grad_step(cfg: ModelConfig):
+    """Forward + backward only, no optimizer update: the cell the
+    gradient-parity checks compare across routes."""
+
+    def grad_step(params, batch):
+        loss, _, grads = value_and_grad(params, cfg, batch)
+        return loss, grads
+
+    return grad_step
+
+
+def make_eval_step(cfg: ModelConfig):
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return loss_fn(params, cfg, batch)
+
+    return eval_step

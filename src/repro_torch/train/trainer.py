@@ -1,0 +1,110 @@
+"""Single-device training loop (``repro/train/trainer.py``).
+
+    trainer = Trainer(cfg, tcfg, shape)   # init, or restore the latest step
+    trainer.run(num_steps)                # step loop
+
+Per step: build the batch for the step counter, place it on the device,
+run the train step (K1/K2 forward, K3/K4 backward on the card), record
+the metrics and ``step_time_s``; every ``checkpoint_every`` steps a
+threaded checkpoint is published atomically. The reference's mesh,
+shardings, elastic re-planning, heartbeats, failure injection, telemetry
+and autotune warm-up are not ported; settings that need them raise.
+
+Runs on CUDA unless the caller passes ``device="cpu"`` (the kernels' plain
+versions then run instead); asking for CUDA without a GPU raises.
+"""
+from __future__ import annotations
+
+import logging
+import time
+import torch
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.data.pipeline import SyntheticLM, to_device
+from repro_torch.models.model import model_specs, torch_dtype
+from repro_torch.models.params import init_params, map_specs
+from repro_torch.optim.adamw import AdamWState, adamw_init
+from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.serve.engine import resolve_device
+from repro_torch.train.train_step import make_train_step
+
+log = logging.getLogger("repro_torch.trainer")
+
+
+def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
+    unsupported = {
+        "family != 'dense'": cfg.family != "dense",
+        "mla": cfg.mla,
+        "moe": cfg.moe,
+        "attention_impl not in ('full', 'spectral_shift_fused')":
+            cfg.attention_impl not in ("full", "spectral_shift_fused"),
+        "remat not in ('none', 'full')": cfg.remat not in ("none", "full"),
+        "grad_compression": tcfg.grad_compression is not None,
+        "opt_state_dtype != 'float32'": tcfg.opt_state_dtype != "float32",
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, shape: ShapeConfig,
+                 *, device="cuda"):
+        _check_supported(cfg, tcfg)
+        self.device = resolve_device(device)
+        self.cfg, self.tcfg, self.shape = cfg, tcfg, shape
+        self.data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                                global_batch=shape.global_batch, seed=tcfg.seed)
+        self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
+        self.step_fn = make_train_step(cfg, tcfg, warmup_cosine(
+            tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps))
+        self.step = 0
+        self.metrics_history: list[dict] = []
+        self._init_or_restore()
+
+    def _init_or_restore(self) -> None:
+        specs = model_specs(self.cfg)
+        latest = self.ckpt.latest_step()
+        if latest is not None:
+            log.info("restoring step %d", latest)
+            skel = map_specs(lambda _path, _spec: None, specs)
+            state = self.ckpt.restore(latest, {"params": skel, "opt": AdamWState(
+                step=None, m=skel, v=skel)}, device=self.device)
+            self.params, self.opt_state = state["params"], state["opt"]
+            self.step = latest
+            return
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        self.params = init_params(specs, gen, dtype=torch_dtype(self.cfg.param_dtype),
+                                  device=self.device)
+        self.opt_state = adamw_init(self.params)
+
+    def state(self) -> dict:
+        """What a checkpoint holds: ``{"params": ..., "opt": AdamWState}``."""
+        return {"params": self.params, "opt": self.opt_state}
+
+    def save(self, blocking: bool = False) -> None:
+        self.ckpt.save(self.step, self.state(), blocking=blocking)
+
+    def run(self, num_steps: int, log_every: int = 10) -> list[dict]:
+        end = self.step + num_steps
+        while self.step < end:
+            t0 = time.perf_counter()
+            batch = to_device(self.data.batch(self.step), self.device)
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch)
+            # float() waits for the step's device work to finish
+            metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+            dt = time.perf_counter() - t0
+            metrics["step"] = self.step
+            metrics["step_time_s"] = dt
+            self.metrics_history.append(metrics)
+            self.step += 1
+            if self.tcfg.checkpoint_every and self.step % self.tcfg.checkpoint_every == 0:
+                self.save(blocking=False)
+            if self.step % log_every == 0 or self.step == end:
+                log.info("step %d loss=%.4f ce=%.4f %.2fs", self.step,
+                         metrics.get("loss", float("nan")),
+                         metrics.get("ce", float("nan")), dt)
+        self.ckpt.wait()
+        return self.metrics_history

@@ -1,0 +1,186 @@
+"""Port backward kernels against the JAX reference, on the CPU.
+
+The plain PyTorch versions of K3 (landmark_summary_bwd) and K4
+(query_side_bwd) -- what each CUDA wrapper runs for a CPU tensor -- are
+held against the Pallas kernels in interpret mode on the same numpy
+inputs, in fp32, at 1e-5 of each output's max-abs (the kernels sum over
+key or query blocks, the plain versions in one product). The autograd
+Functions that route ``ss_attention_fused`` through K1-K4 are held against
+``jax.grad`` of the reference's ``ss_attention_fused(..., interpret=True)``.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.attention import SSConfig as JSSConfig  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.ss_attention import landmark_summary as j_ls  # noqa: E402
+from repro.kernels.ss_attention_bwd import landmark_summary_bwd as j_ls_bwd  # noqa: E402
+from repro.kernels.ss_attention_bwd import query_side_bwd as j_qs_bwd  # noqa: E402
+from repro_torch.core.attention import SSConfig  # noqa: E402
+from repro_torch.kernels import build, launch_counts, ops  # noqa: E402
+from repro_torch.kernels.ss_attention_bwd import (K4_BLOCK_ROWS,  # noqa: E402
+                                                  landmark_summary_bwd,
+                                                  landmark_summary_bwd_plain,
+                                                  query_side_bwd)
+
+REL = 1e-5
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(port, ref, rel=REL):
+    port, ref = np.asarray(port, np.float32), np.asarray(ref, np.float32)
+    assert port.shape == ref.shape
+    err, top = np.abs(port - ref).max(), np.abs(ref).max()
+    assert err <= rel * top, f"max-abs err {err:.3e} > {rel} x {top:.3e}"
+
+
+# --------------------------------------------------------------------------
+# K3: landmark_summary_bwd
+# --------------------------------------------------------------------------
+K3_CASES = {
+    # name: (n, c, block_n, kwargs) -- the forward cases of
+    # test_torch_kernels.py
+    "ragged_n": (500, 16, 128, {}),
+    "kv_valid_in_last_block": (384, 16, 128, {"kv_valid": 333}),
+    "segment_causal": (256, 16, 64, {"causal": True}),
+    # rows 0 and 1 see no local key (l = 0): p stays 0, their dq_l is 0.
+    # Only the reference's context-parallel path passes kv_offset, so this case
+    # holds the plain version directly.
+    "rows_fully_masked": (128, 16, 32, {"causal": True, "kv_offset": 40,
+                                        "seq_len_k": 256}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_landmark_summary_bwd_plain_matches_pallas(case):
+    n, c, block_n, kw = K3_CASES[case]
+    rng = np.random.default_rng(11)
+    q_l, k = _rand(rng, 3, c, 32, scale=0.5), _rand(rng, 3, n, 32, scale=0.5)
+    v, g = _rand(rng, 3, n, 48), _rand(rng, 3, c, 48)
+    scale = 32**-0.5
+    jargs = [jnp.asarray(a) for a in (q_l, k, v)]
+    bv, m, l = j_ls(*jargs, scale=scale, block_n=block_n, interpret=True,
+                    return_stats=True, **kw)
+    ref = j_ls_bwd(*jargs, bv, m, l, jnp.asarray(g), scale=scale,
+                   block_n=block_n, interpret=True, **kw)
+    t = [torch.from_numpy(np.array(a)) for a in (q_l, k, v, bv, m, l, g)]
+    if "kv_offset" in kw:
+        seg = -(-kw["seq_len_k"] // c)
+        dcoef = torch.sum(t[6] * t[3], dim=-1, keepdim=True)
+        out = landmark_summary_bwd_plain(t[0], t[1], t[2], t[6], t[4], t[5], dcoef,
+                                         scale=scale, seg=seg, kv_offset=kw["kv_offset"])
+    else:
+        out = landmark_summary_bwd(*t, scale=scale, **kw)
+    for o, r in zip(out, ref):
+        _close(o, r)
+    if case == "rows_fully_masked":
+        assert torch.all(t[5][:, :2] == 0) and torch.all(out[0][:, :2] == 0)
+    if "kv_valid" in kw:
+        assert torch.all(out[1][:, kw["kv_valid"]:] == 0)
+        assert torch.all(out[2][:, kw["kv_valid"]:] == 0)
+
+
+# --------------------------------------------------------------------------
+# K4: query_side_bwd
+# --------------------------------------------------------------------------
+K4_CASES = {
+    # name: (n, c, block_n, kwargs)
+    "ragged_n": (500, 16, 128, {}),
+    "causal_static_offset": (200, 16, 64, {"causal": True, "seq_len_k": 300}),
+    "causal_q_offset": (160, 16, 64, {"causal": True, "seq_len_k": 512,
+                                      "q_offset": 37}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_query_side_bwd_plain_matches_pallas(case):
+    n, c, block_n, kw = K4_CASES[case]
+    rng = np.random.default_rng(12)
+    q, k_l = _rand(rng, 2, n, 32, scale=0.5), _rand(rng, 2, c, 32, scale=0.5)
+    m_mat, v, g = _rand(rng, 2, c, 24), _rand(rng, 2, n, 24), _rand(rng, 2, n, 24)
+    delta = np.abs(_rand(rng, 2, 1, 1)) * 0.1
+    scale = 32**-0.5
+    arrays = (q, k_l, m_mat, v, delta, g)
+    ref = j_qs_bwd(*(jnp.asarray(a) for a in arrays), scale=scale,
+                   block_n=block_n, interpret=True, **kw)
+    out = query_side_bwd(*(torch.from_numpy(a) for a in arrays), scale=scale, **kw)
+    assert out[4].dtype == torch.float32 and out[4].shape == (2, 1, 1)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+def test_backward_cpu_tensors_never_launch_a_kernel():
+    before = launch_counts()
+    rng = np.random.default_rng(13)
+    t = [torch.from_numpy(_rand(rng, *s)) for s in
+         ((1, 4, 8), (1, 9, 8), (1, 9, 8), (1, 4, 8), (1, 4, 1), (1, 4, 1), (1, 4, 8))]
+    t[5] = t[5].abs() + 1
+    landmark_summary_bwd(*t, scale=1.0)
+    query_side_bwd(*(torch.from_numpy(_rand(rng, *s)) for s in
+                     ((1, 9, 8), (1, 4, 8), (1, 4, 8), (1, 9, 8), (1, 1, 1), (1, 9, 8))),
+                   scale=1.0)
+    assert launch_counts() == before
+
+
+def test_k4_block_rows_match_the_cuda_source():
+    src = (build.CSRC / "query_side_bwd.cu").read_text()
+    assert int(re.search(r"kBlockRows = (\d+);", src).group(1)) == K4_BLOCK_ROWS
+
+
+# --------------------------------------------------------------------------
+# The autograd Functions (K1/K2 forward, K3/K4 backward) against jax.grad
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
+@pytest.mark.parametrize("n,c", [(256, 32), (300, 16)], ids=["n_div_c", "padded_tail"])
+def test_fused_attention_grads_match_jax(causal, n, c):
+    rng = np.random.default_rng(14)
+    q, k = _rand(rng, 2, n, 32, scale=0.5), _rand(rng, 2, n, 32, scale=0.5)
+    v, w = _rand(rng, 2, n, 32), _rand(rng, 2, n, 32)
+    jcfg = JSSConfig(num_landmarks=c, causal=causal)
+
+    def jloss(q, k, v):
+        return jnp.sum(jops.ss_attention_fused(q, k, v, jcfg, interpret=True) * w)
+
+    jval = jloss(*(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = ops.ss_attention_fused(tq, tk, tv, SSConfig(num_landmarks=c, causal=causal))
+    val = torch.sum(out * torch.from_numpy(w))
+    grads = torch.autograd.grad(val, (tq, tk, tv))
+    np.testing.assert_allclose(val.item(), float(jval), rtol=1e-5)
+    # the Newton-Schulz core amplifies fp32 summation-order differences
+    for name, gp, gr in zip("qkv", grads, jgrads):
+        _close(gp, gr, rel=1e-4)
+
+
+def test_functions_save_nothing_when_no_gradient_is_needed(monkeypatch):
+    """Serving calls the kernels directly: no residuals, no K1 stats."""
+    calls = []
+    monkeypatch.setattr(ops.LandmarkSummaryOp, "apply",
+                        lambda *a: calls.append("k1") or ops.landmark_summary(
+                            a[0], a[1], a[2], scale=a[3], causal=a[4], kv_valid=a[5]))
+    monkeypatch.setattr(ops.QuerySideOp, "apply",
+                        lambda *a: calls.append("k2") or ops.query_side(
+                            *a[:5], scale=a[5], causal=a[6], seq_len_k=a[7]))
+    rng = np.random.default_rng(15)
+    q = torch.from_numpy(_rand(rng, 2, 80, 16))
+    cfg = SSConfig(num_landmarks=16, causal=True)
+    with torch.no_grad():
+        ops.ss_attention_fused(q, q, q, cfg)
+    assert calls == []
+    ops.ss_attention_fused(q.requires_grad_(True), q, q, cfg)
+    assert calls == ["k1", "k2"]

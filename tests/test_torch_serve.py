@@ -93,11 +93,22 @@ def test_engine_rejects_unported_settings(weights, field, value):
         ServeEngine(reduced_cfg(), weights[2], serve=serve, device="cpu")
 
 
-@pytest.mark.parametrize("cls", ["ModelConfig", "ServeConfig"])
+@pytest.mark.parametrize("cls", ["ModelConfig", "ServeConfig", "TrainConfig",
+                                 "ShapeConfig"])
 def test_config_fields_and_defaults_mirror_jax(cls):
     ours = {f.name: f.default for f in dataclasses.fields(getattr(base, cls))}
     ref = {f.name: f.default for f in dataclasses.fields(getattr(jbase, cls))}
     assert ours == ref
+
+
+def test_shape_presets_and_remat_defaults_mirror_jax():
+    assert ({k: dataclasses.asdict(v) for k, v in base.SHAPE_PRESETS.items()}
+            == {k: dataclasses.asdict(v) for k, v in jbase.SHAPE_PRESETS.items()})
+    assert base.REMAT_DEFAULTS == jbase.REMAT_DEFAULTS
+    for remat in ("none", "full", "dots", "ss_stats", "auto"):
+        for backend in ("cpu", "gpu", "tpu"):
+            assert (base.resolve_remat(remat, backend)
+                    == jbase.resolve_remat(remat, backend))
 
 
 def test_reduced_and_registry_mirror_jax():
@@ -134,6 +145,8 @@ print(json.dumps({"modules": names, "leaks": sorted(
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in result["modules"]
     assert "repro_torch.launch.serve" in result["modules"]
+    assert "repro_torch.train.trainer" in result["modules"]
+    assert "repro_torch.launch.train" in result["modules"]
     assert result["leaks"] == []
 
 
