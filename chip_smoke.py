@@ -10,9 +10,15 @@ result line):
    and the build of every kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once);
 2. kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes, in fp32 (TF32 off) and bf16, then timed with CUDA events
-   beside the plain version, the roofline bound and one library call where
-   there is one: K1 and K2 at the serving shape with their K/V warm in L2
+   paths' shapes, in fp32 (TF32 off) and bf16, plus the edges of the bf16
+   K1 / K3 split-key grid (c = 16 and 32, kv_valid inside the first key
+   chunk, ragged, and 0; K1 at c = 128; K3's dK / dV past kv_valid exact
+   zeros and its gradients bitwise identical over two launches), then
+   timed with CUDA events (``ms``: back-to-back calls, host included) and
+   the profiler (``device_ms``) beside the plain version, the roofline
+   bound and one library call where there is one, with the kernel's share
+   of its bound and its ratio to the library call: K1 and K2 at the serving
+   shape with their K/V warm in L2
    (on the path they read what the projections just wrote), K5 cold (it
    rotates over pool copies larger than L2, as decode reads a different
    layer's pools at each launch); K1 (with stats) and K2 causal and the
@@ -115,6 +121,27 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: the summed device activities
+    (kernels, copies, memsets) that ``iters`` calls launch, by torch.profiler,
+    over ``iters``. Unlike ``cuda_ms`` it leaves out the host's time between
+    launches, which a small kernel issued back to back can be bound by."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = fn if isinstance(fn, list) else [fn]
+    calls[0]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -293,20 +320,27 @@ def kernel_phase(torch, dev) -> list[dict]:
                       f"kv_valid={kv_valid.tolist()} fp32, L2 cold "
                       f"({len(pools)} pool copies)")
 
+    split_key_checks(torch, dev)
     entries.update(train_kernel_entries(torch, dev))
 
     # ---- timing ------------------------------------------------------------
     def timed(tag):
         e = entries[tag]
         ms, plain_ms = cuda_ms(e["fn"]), cuda_ms(e["plain"])
+        dev_ms = device_ms(e["fn"])
         lib_ms = cuda_ms(e["library"]) if e["library"] is not None else None
         bound_ms, bound_by = e["bound"]
         warm = f", warm L2 {cuda_ms(e['warm']):.4f} ms" if "warm" in e else ""
-        log(f"time {tag} [{e['shape']}]: kernel {ms:.4f} ms{warm}, plain "
+        label = getattr(e["library"], "label", "")
+        log(f"time {tag} [{e['shape']}]: kernel {ms:.4f} ms (device {dev_ms:.4f})"
+            f"{warm}, plain "
             f"{plain_ms:.4f} ms, library "
-            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-        return dict(max_abs_err=e["err"], ms=ms, plain_ms=plain_ms,
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f"{f' ({label})' if label else ''}, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{100 * bound_ms / ms:.1f}% of bound ({100 * bound_ms / dev_ms:.1f}% by device "
+            f"time), "
+            f"{'no library' if lib_ms is None else f'{ms / lib_ms:.2f}x the library'}")
+        return dict(max_abs_err=e["err"], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
     results = []
@@ -368,6 +402,88 @@ def sdpa_backward(fn, inputs, g):
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
+def library_with_stats(q_l, k, v, mask, *, scale):
+    """K1's function with its stats as one library call, the yardstick of
+    K1's training launch (timed beside it, never used by the port):
+    memory-efficient attention with ``compute_log_sumexp`` returns BV and
+    the log-sum-exp m + log l, under the additive form of ``mask``."""
+    import torch
+
+    bias = torch.zeros(mask.shape, dtype=q_l.dtype, device=q_l.device)
+    bias = bias.masked_fill(~mask, float("-inf"))[None, None].expand(
+        1, q_l.shape[0], *mask.shape)
+    fn = partial(torch.ops.aten._scaled_dot_product_efficient_attention,
+                 q_l[None], k[None], v[None], bias, True, scale=scale)
+    fn.label = "efficient attention, additive mask, with log-sum-exp"
+    return fn
+
+
+def split_key_checks(torch, dev) -> None:
+    """K1 and K3 where the split-key grid of their bf16 kernels has its
+    edges, each in bf16 and in fp32 (the fp32 kernels take the same
+    arguments), at the training shape (56 batch-heads, n 4096): c = 16 and
+    32 under the causal mask (with d = 128, and the smaller head dims of
+    whisper and the reduced configs); kv_valid inside the first key chunk
+    (one chunk: the direct write), at a length that is not a multiple of
+    the chunk, causal and not, and 0 (no chunk: out 0, m -1e30, l 0, all
+    gradients 0); K1 at c = 128 (two row tiles). K3's dK and dV past
+    kv_valid must be exact zeros and its three gradients bitwise identical
+    over two launches."""
+    from repro_torch.kernels.ss_attention import (chunk_plan, landmark_summary,
+                                                  landmark_summary_plain)
+    from repro_torch.kernels.ss_attention_bwd import (landmark_summary_bwd,
+                                                      landmark_summary_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, n = 56, 4096
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    # (c, d, causal, kv_valid): Qwen2-7B's d = 128, whisper's c = 32 and
+    # d = 64, the reduced configs' c = 16 and d = 32
+    cases = ((16, 128, True, None), (32, 128, True, None), (64, 128, False, 40),
+             (64, 128, False, 1000), (64, 128, True, 1000), (64, 128, False, 0),
+             (128, 128, True, None), (32, 64, True, None), (16, 32, False, 333))
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for c, d, causal, kvv in cases:
+            scale = d**-0.5
+            seg = -(-n // c) if causal else 0
+            end = n if kvv is None else kvv
+            plan = chunk_plan(b, c, n, seg=seg, kv_end=end)
+            label = (f"b={b} c={c} n={n} d={d} {'causal' if causal else 'bidir'} "
+                     f"kv_valid={end} {dname} ({plan.chunks} chunks of "
+                     f"{plan.chunk_keys} keys in bf16)")
+            q_l, k, v = randn(b, c, d, s=0.5, dtype=dt), randn(b, n, d, s=0.5, dtype=dt), randn(b, n, d, dtype=dt)
+            bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=causal,
+                                        kv_valid=kvv, return_stats=True)
+            rbv, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
+                                                 kv_end=end, return_stats=True)
+            check(f"K1 split-key {label}",
+                  [("out", bv, rbv, None), ("m", m, rm, None), ("l", l, rl, None)])
+            if c > 64:
+                continue  # K3's bf16 kernel holds c <= 64 rows
+            g = randn(b, c, d, dtype=dt)
+            out = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
+                                       causal=causal, kv_valid=kvv)
+            dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
+            ref = landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale,
+                                             seg=seg, kv_end=end)
+            check(f"K3 split-key {label}",
+                  [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"), out, ref)])
+            if not (torch.all(out[1][:, end:] == 0) and torch.all(out[2][:, end:] == 0)):
+                raise AssertionError(f"K3 {label}: dK/dV past kv_valid must be zeros")
+            if end == 0 and not torch.all(out[0] == 0):
+                raise AssertionError(f"K3 {label}: dQ~ with no valid key must be zeros")
+            again = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
+                                         causal=causal, kv_valid=kvv)
+            if not all(torch.equal(a, b_) for a, b_ in zip(out, again)):
+                raise AssertionError(f"K3 {label}: two launches differ")
+    log("split-key K1/K3: dK/dV past kv_valid exact zeros, K3 bitwise identical "
+        "over two launches in every case")
+
+
 def train_kernel_entries(torch, dev) -> dict:
     """Held and timed entries of the training path's kernel launches at its
     shapes (batch 2 x 28 heads, seq 4096, c 64, d 128, causal: seg 64): K1
@@ -422,17 +538,17 @@ def train_kernel_entries(torch, dev) -> dict:
         if not (torch.all(out[1][:, kvv:] == 0) and torch.all(out[2][:, kvv:] == 0)):
             raise AssertionError("K3: keys at or past kv_valid must get zero dK/dV")
         if dt == torch.bfloat16:
+            bmask = b_side_mask(c, n, seg=seg, device=dev)
             entries["landmark_summary_train"] = dict(
                 fn=partial(landmark_summary, q_l, k, v, scale=scale, causal=True,
                            return_stats=True),
                 plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, seg=seg,
                               return_stats=True),
-                library=None, err=err1,
+                library=library_with_stats(q_l, k, v, bmask, scale=scale), err=err1,
                 bound=bound(es * (2 * b * c * d + 2 * b * n * d) + 8 * b * c,
                             2 * pairs * 2 * d, "bfloat16"),
                 shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal, with "
-                      f"stats (training forward; SDPA has no stats output)")
-            bmask = b_side_mask(c, n, seg=seg, device=dev)
+                      f"stats (training forward)")
             entries["landmark_summary_bwd"] = dict(
                 fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, scale=scale,
                            causal=True),

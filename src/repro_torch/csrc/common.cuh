@@ -12,6 +12,14 @@ namespace repro {
 // valid key keeps an anchor that flash_merge absorbs (exp(-1e30 - m) == 0).
 constexpr float kNegInf = -1e30f;
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// B-side mask: landmark row r may attend keys [0, b_side_reach(r)) of the
+// n_end keys any row may attend (segment-causal when seg > 0).
+__device__ __forceinline__ int b_side_reach(int r, int n_end, int seg) {
+  return seg > 0 ? min(n_end, (r + 1) * seg) : n_end;
+}
+
 // Storage-type codes shared with kernels/build.py.
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;

@@ -14,7 +14,8 @@
 // from the forward's fp32 stats (m, l) and D_r = g[r] . BV[r] (computed by
 // the wrapper), so P is rebuilt exactly, without a second reduction pass.
 // A row with no valid key has l = 0 and keeps p = 0. Sums are fp32; dQ~
-// is written in q_l's type, dK and dV in k's / v's.
+// is written in q_l's type, dK and dV in k's / v's. Keys that no row may
+// attend, or at or past kv_valid, get exact zeros.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): at the training
 // shape (b = 56 batch-heads, c = 64, n = 4096, d = dv = 128, seg = 64, bf16)
@@ -23,24 +24,42 @@
 // are 2 * 7.5e6 * 5 * 128 = 9.5 GFLOP (10 us at the bf16 rate), so it is
 // bytes-bound.
 //
-// Design. The Pallas kernel walks key blocks in order and carries dQ~ in
-// VMEM scratch across them. A CUDA grid has no order, so the work is split
-// over two kernels launched back to back on one stream, neither with
-// atomics, so the grads are bitwise deterministic:
-//  * keys pass (ls_bwd_keys_pass), grid (b, ceil(n / 32)): a CTA owns 32
-//    keys and keeps their K/V rows in shared memory (padded to d + 1
-//    floats, conflict-free). It
-//    walks the landmark rows 8 at a time, from the first row that may
-//    attend its first key (segment-causal: row t0 / seg) to c; each warp
-//    rebuilds p and ds of 2 rows with a lane per key, then thread t adds
-//    the 8 rows into column t of dK and dV for all 32 keys, kept in
-//    registers. Every key in [0, n) is written, so keys that no row may
-//    attend, or at or past kv_valid, get exact zeros.
-//  * rows pass (ls_bwd_rows_pass), grid (b, ceil(c / 8)): K1's shape. A
-//    CTA owns 8 landmark rows, streams the keys they may attend in 32-key
-//    tiles, rebuilds ds and accumulates dQ~ in registers.
-// Products are fp32 FMA loops; tensor cores and TMA are later work.
+// Two kernels, chosen by the storage types (a dispatch, not a fallback):
+//
+// * bf16 q_l, k, v, g: one pass on tensor cores over a split-key grid. The
+//   Pallas kernel walks key blocks in order and carries dQ~ in VMEM across
+//   them; a CUDA grid has no order. Here a CTA (one warpgroup) owns one
+//   chunk of keys of one head (grid: key chunks over n, b; the wrapper's
+//   chunk plan sizes them) and keeps Q~ and g (c <= 64 rows, zero-padded),
+//   with each row's m, l and D in registers, resident. Per 64-key tile, K
+//   and V arrive by cp.async into a two-stage ring (128-byte swizzle);
+//   S = Q~ K^T and dP = g V^T by wgmma m64n64k16 from shared memory; P and
+//   dS = P o (dP - D) scale are rebuilt in registers; dQ~ += dS K by
+//   mma.sync m16n8k16 (dS from registers, K read transposed by ldmatrix),
+//   carried in registers across the chunk. P and dS are staged as bf16 in
+//   the V slot of the tile's stage (V is dead once dP is formed) and read
+//   transposed for dV = P^T g and dK = dS^T Q~ (mma.sync, a warp per 16
+//   keys, row groups that cannot reach the warp's keys skipped). Each key
+//   belongs to one CTA, so dK and dV are written once, every key in [0, n)
+//   by some CTA. dQ~ goes as one fp32 partial per chunk to the wrapper's
+//   workspace (or straight to dq_l when the plan has one chunk), and
+//   ls_bwd_dq_reduce sums the partials in chunk order. No atomics: the
+//   gradients are bitwise deterministic. P and dS are rounded to bf16 for
+//   the three products that take them.
+// * fp32 q_l with fp32 or bf16 k, v, g: exact fp32 FMA loops in two passes
+//   launched back to back, neither with atomics:
+//    - keys pass (ls_bwd_keys_pass), grid (b, ceil(n / 32)): a CTA owns 32
+//      keys and keeps their K/V rows in shared memory (padded to d + 1
+//      floats, conflict-free). It walks the landmark rows 8 at a time, from
+//      the first row that may attend its first key (segment-causal: row
+//      t0 / seg) to c; each warp rebuilds p and ds of 2 rows with a lane
+//      per key, then thread t adds the 8 rows into column t of dK and dV
+//      for all 32 keys, kept in registers. Every key in [0, n) is written.
+//    - rows pass (ls_bwd_rows_pass), grid (b, ceil(c / 8)): K1's fp32
+//      shape. A CTA owns 8 landmark rows, streams the keys they may attend
+//      in 32-key tiles, rebuilds ds and accumulates dQ~ in registers.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -289,17 +308,289 @@ int launch_typed(const void* q, const void* k, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- bf16: one pass on tensor cores over a split-key grid -------------------
+namespace tc {
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kRows = repro::kTileRows;   // landmark rows held (c <= 64)
+constexpr int kKeys = repro::kTileRows;   // keys per tile
+constexpr int kStages = 2;
+// 1024 B of alignment slack, Q~ and g, then the K/V ring.
+constexpr int kSmemBytes = 1024 + repro::kTileBytes * (2 + 2 * kStages);
+
+using bf16 = __nv_bfloat16;
+
+// Zero rows [from, to) of a row-major (rows, cols) bf16 array, 16 B a store
+// (cols a multiple of 8).
+__device__ __forceinline__ void zero_rows(bf16* a, int cols, int from, int to, int tid) {
+  if (to <= from) return;
+  uint4* p = reinterpret_cast<uint4*>(a + static_cast<size_t>(from) * cols);
+  const int count = (to - from) * cols / 8;
+  for (int i = tid; i < count; i += kThreads) p[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// acc (a warp's 16 keys x 128 columns) as bf16 rows key0w + g (+ 8) of a
+// (rows, cols) array, keys below key_stop and columns below cols only.
+__device__ __forceinline__ void store_keys(bf16* a, const float (&acc)[16][4], int cols,
+                                           int key_lo, int key_stop, int qd) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key_lo + 8 * i;
+    if (key >= key_stop) continue;
+    bf16* o = a + static_cast<size_t>(key) * cols;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * qd;
+      if (col < cols) {
+        *reinterpret_cast<__nv_bfloat162*>(o + col) =
+            __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ g,
+          const float* __restrict__ m, const float* __restrict__ l,
+          const float* __restrict__ dcoef, bf16* __restrict__ dq,
+          bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ ws_dq,
+          int c, int n, int d, int dv, float scale, int n_end, int seg,
+          int chunk_keys, int chunks) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t g_s = q_s + repro::kTileBytes;
+  const int chunk = blockIdx.x, bi = blockIdx.y;
+  const int key0 = chunk * chunk_keys;
+  const int key_stop = min(key0 + chunk_keys, n);  // dK, dV rows this CTA writes
+  const int key_end = min(key_stop, n_end);        // keys some row may attend
+  const int tiles = key_end > key0 ? (key_end - key0 + kKeys - 1) / kKeys : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, qd = lane & 3;
+
+  const bf16* kb = k + static_cast<size_t>(bi) * n * d;
+  const bf16* vb = v + static_cast<size_t>(bi) * n * dv;
+  bf16* dkb = dk + static_cast<size_t>(bi) * n * d;
+  bf16* dvb = dvo + static_cast<size_t>(bi) * n * dv;
+  // keys past the computed tiles: exact zeros
+  zero_rows(dkb, d, key0 + tiles * kKeys, key_stop, tid);
+  zero_rows(dvb, dv, key0 + tiles * kKeys, key_stop, tid);
+  if (tiles == 0) return;
+
+  auto k_s = [&](int st) { return q_s + repro::kTileBytes * (2 + 2 * st); };
+  auto v_s = [&](int st) { return k_s(st) + repro::kTileBytes; };
+  auto load_kv = [&](int it) {
+    const int t0 = key0 + it * kKeys;
+    repro::load_tile(k_s(it % kStages), kb + static_cast<size_t>(t0) * d, d,
+                     key_end - t0, d, k, tid, kThreads);
+    repro::load_tile(v_s(it % kStages), vb + static_cast<size_t>(t0) * dv, dv,
+                     key_end - t0, dv, v, tid, kThreads);
+  };
+  const size_t bc = static_cast<size_t>(bi) * c;
+  repro::load_tile(q_s, q + bc * d, d, c, d, q, tid, kThreads);
+  repro::load_tile(g_s, g + bc * dv, dv, c, dv, g, tid, kThreads);
+  load_kv(0);
+  repro::cp_async_commit();
+
+  // This thread's rows r_lo and r_lo + 8: base-2 anchor, 1 / l, D.
+  const int r_lo = 16 * warp + gr;
+  float m2[2], inv_l[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    m2[i] = row < c ? m[bc + row] * repro::kLog2e : 0.f;
+    inv_l[i] = row < c ? 1.f / fmaxf(l[bc + row], 1e-30f) : 0.f;
+    dr[i] = row < c ? dcoef[bc + row] : 0.f;
+  }
+  const int warp_reach =
+      16 * warp < c ? repro::b_side_reach(min(c, 16 * warp + 16) - 1, n_end, seg) : 0;
+  const float sl2 = scale * repro::kLog2e;
+  float dqa[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int t0 = key0 + it * kKeys;
+    const int st = it % kStages;
+    if (it + 1 < tiles) load_kv(it + 1);  // its stage was released at it - 1
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();  // tile it (and Q~, g) landed
+    repro::fence_proxy_async();
+    __syncthreads();
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = 0.f;
+      dp[e] = 0.f;
+      repro::fence_operand(s[e]);
+      repro::fence_operand(dp[e]);
+    }
+    repro::wgmma_fence();
+    repro::issue_abt(s, q_s, k_s(st));
+    repro::issue_abt(dp, g_s, v_s(st));
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      repro::fence_operand(s[e]);
+      repro::fence_operand(dp[e]);
+    }
+    // p and ds in place of s and dp
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t0 + 8 * j + 2 * qd + (e & 1);
+        const int i = e >> 1, row = r_lo + 8 * i;
+        const bool ok =
+            key < key_end && row < c && key < repro::b_side_reach(row, n_end, seg);
+        const float p = ok ? exp2f(s[4 * j + e] * sl2 - m2[i]) * inv_l[i] : 0.f;
+        s[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - dr[i]) * scale;
+      }
+    }
+    __syncthreads();  // every warp's wgmma has read V: its slot takes P and dS
+    const uint32_t p_s = v_s(st), ds_s = p_s + repro::kBlockBytes;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r_lo + 8 * i, col = 8 * j + 2 * qd;
+        const uint32_t off = repro::tile_off(row, col) + (col & 7) * 2;
+        repro::st_shared_b32(p_s + off, repro::pack_bf16(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+        repro::st_shared_b32(ds_s + off, repro::pack_bf16(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1]));
+      }
+    }
+    // dQ~ += dS K (a warp whose rows cannot reach the tile adds zeros: skipped)
+    if (t0 < warp_reach) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        repro::a_frag(a, dp, kk);
+        repro::mma_a_btile(dqa, a, k_s(st), 16 * kk, lane);
+      }
+    }
+    __syncthreads();  // P and dS staged
+    // dV = P^T g and dK = dS^T Q~ for keys t0 + 16 warp ..; row groups that
+    // cannot reach the warp's first key hold zeros of P and dS: skipped.
+    const int key_w = t0 + 16 * warp;
+    const int kk0 = seg > 0 ? min(key_w / seg, kRows) / 16 : 0;
+    float acc[16][4];
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int kk = kk0; kk < 4; ++kk) {
+        uint32_t a[4];
+        repro::a_frag_trans(a, pass == 0 ? p_s : ds_s, 16 * kk, 16 * warp, lane);
+        repro::mma_a_btile(acc, a, pass == 0 ? g_s : q_s, 16 * kk, lane);
+      }
+      if (pass == 0) store_keys(dvb, acc, dv, key_w + gr, key_stop, qd);
+      else store_keys(dkb, acc, d, key_w + gr, key_stop, qd);
+    }
+    __syncthreads();  // the stage is released for tile it + kStages
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= c) continue;
+    if (chunks == 1) {
+      bf16* o = dq + (bc + row) * d;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * qd;
+        if (col < d) {
+          *reinterpret_cast<__nv_bfloat162*>(o + col) =
+              __floats2bfloat162_rn(dqa[j][2 * i], dqa[j][2 * i + 1]);
+        }
+      }
+    } else if (key0 < repro::b_side_reach(row, n_end, seg)) {
+      float* o = ws_dq + ((static_cast<size_t>(bi) * chunks + chunk) * c + row) * d;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * qd;
+        if (col < d) *reinterpret_cast<float2*>(o + col) = make_float2(dqa[j][2 * i], dqa[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// One CTA per (batch-head, row), a thread per column: dQ~ as the sum of the
+// partials of the chunks the row reaches, in chunk order (zeros if none).
+__global__ void __launch_bounds__(128)
+ls_bwd_dq_reduce(const float* __restrict__ ws_dq, bf16* __restrict__ dq, int c, int d,
+                 int n_end, int seg, int chunk_keys, int chunks) {
+  const int bi = blockIdx.x / c, row = blockIdx.x - bi * c;
+  const int col = threadIdx.x;
+  if (col >= d) return;
+  const int nch =
+      min(chunks, (repro::b_side_reach(row, n_end, seg) + chunk_keys - 1) / chunk_keys);
+  float a = 0.f;
+  for (int ch = 0; ch < nch; ++ch) {
+    a += ws_dq[((static_cast<size_t>(bi) * chunks + ch) * c + row) * d + col];
+  }
+  dq[(static_cast<size_t>(bi) * c + row) * d + col] = __float2bfloat16(a);
+}
+
+int launch(const void* q, const void* k, const void* v, const void* g, const float* m,
+           const float* l, const float* dcoef, void* dq, void* dk, void* dv_out,
+           float* ws_dq, int b, int c, int n, int d, int dv, float scale, int kv_valid,
+           int seg, int chunk_keys, cudaStream_t st) {
+  if (c > kRows || d > repro::kTileCols || dv > repro::kTileCols || d % 8 || dv % 8
+      || chunk_keys <= 0 || chunk_keys % kKeys) {
+    return cudaErrorInvalidValue;
+  }
+  int n_end = min(n, kv_valid);
+  if (seg > 0) n_end = min(n_end, c * seg);
+  const int chunks = n_end > 0 ? (n_end + chunk_keys - 1) / chunk_keys : 0;
+  if (chunks > 1 && ws_dq == nullptr) return cudaErrorInvalidValue;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ls_bwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  // every key of [0, n) belongs to one CTA: chunks past n_end only write zeros
+  const dim3 grid((n + chunk_keys - 1) / chunk_keys, b);
+  ls_bwd_tc<<<grid, kThreads, kSmemBytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), m, l, dcoef, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv_out), ws_dq, c, n, d, dv, scale, n_end,
+      seg, chunk_keys, chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (chunks != 1) {
+    ls_bwd_dq_reduce<<<b * c, 128, 0, st>>>(ws_dq, static_cast<bf16*>(dq), c, d, n_end,
+                                            seg, chunk_keys, chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Plain C entry point for ctypes. q_dtype is q_l's (and dq's) storage type,
-// kv_dtype that of k, v, g, dk and dv: fp32/fp32, bf16/bf16 and fp32
-// queries against bf16 keys, as K1 builds. m, l and dcoef are fp32 (b, c).
-// Returns cudaGetLastError() after the launches (0 = launched).
+// kv_dtype that of k, v, g, dk and dv: bf16/bf16 runs the tensor-core pass
+// (c <= 64) on chunks of chunk_keys keys (a multiple of 64, from the
+// wrapper's chunk plan) with ws_dq the fp32 workspace of the chunks' dQ~
+// partials (null when the plan has one chunk); fp32/fp32 and fp32 queries
+// against bf16 keys, as K1 builds, run the fp32 passes (no workspace). m, l
+// and dcoef are fp32 (b, c). Returns cudaGetLastError() after the launches
+// (0 = launched).
 extern "C" int landmark_summary_bwd_launch(
     const void* q, const void* k, const void* v, const void* g,
     const void* m, const void* l, const void* dcoef, void* dq, void* dk,
-    void* dv_out, int b, int c, int n, int d, int dv, float scale,
-    int kv_valid, int seg, int q_dtype, int kv_dtype, void* stream) {
+    void* dv_out, void* ws_dq, int b, int c, int n, int d, int dv, float scale,
+    int kv_valid, int seg, int chunk_keys, int q_dtype, int kv_dtype, void* stream) {
   if (d > kMaxD || dv > kMaxD || b <= 0 || c <= 0 || n <= 0) {
     return cudaErrorInvalidValue;
   }
@@ -310,8 +601,8 @@ extern "C" int landmark_summary_bwd_launch(
   using bf16 = __nv_bfloat16;
   const bool qf = q_dtype == repro::kF32, qb = q_dtype == repro::kBF16;
   const bool kf = kv_dtype == repro::kF32, kb = kv_dtype == repro::kBF16;
+  if (qb && kb) return tc::launch(q, k, v, g, mf, lf, df, dq, dk, dv_out, static_cast<float*>(ws_dq), b, c, n, d, dv, scale, kv_valid, seg, chunk_keys, st);
   if (qf && kf) return launch_typed<float, float>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, st);
   if (qf && kb) return launch_typed<float, bf16>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, st);
-  if (qb && kb) return launch_typed<bf16, bf16>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, st);
   return cudaErrorInvalidValue;
 }

@@ -7,7 +7,7 @@ compiled on its own with
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
 into ``src/repro_torch/_build/`` (git-ignored), then loaded with ``ctypes``.
-The file name carries a hash of the source, the shared header and the
+The file name carries a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and a stale library is never loaded.
 Nothing is compiled at import: ``library(name)`` builds on first use, and
 ``build()`` compiles several sources in parallel (one ``nvcc`` each).
@@ -37,10 +37,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Argument types of each <name>_launch (pointers and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits).
 ARGTYPES = {
-    "landmark_summary": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "landmark_summary": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     "query_side": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "paged_row_stats": [_P] * 8 + [_I] * 8 + [_F] + [_I] + [_P],
-    "landmark_summary_bwd": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "landmark_summary_bwd": [_P] * 11 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     "query_side_bwd": [_P] * 14 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
 }
 
@@ -59,7 +59,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update((CSRC / f"{name}.cu").read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

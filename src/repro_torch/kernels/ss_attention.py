@@ -13,6 +13,7 @@ version beside it. The TPU kernels' tiling knobs (``block_n``, ``block_c``,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -22,10 +23,95 @@ from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 
 _MAX_D = 128   # head dims the CUDA kernels take (d and dv)
 _MAX_C = 64    # landmark columns query_side's kernel keeps resident
+# The bf16 tensor-core kernels of K1 and K3 (csrc/mma.cuh): 64 landmark rows
+# per CTA (wgmma's M; K3 takes c <= 64), keys in tiles of 64, head dims
+# multiples of 8 up to _MAX_D.
+ROW_TILE = 64
+KEY_TILE = 64
+# CTAs the chunk plan aims at: two resident per SM of the H100's 132, two
+# waves.
+TARGET_CTAS = 528
 
 
 def _stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# The split-key grid of the bf16 kernels K1 and K3.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ChunkPlan:
+    """How the tensor-core K1 and K3 cut the keys [0, n_end) that some row
+    may attend into ``chunks`` chunks of ``chunk_keys`` keys (whole 64-key
+    tiles), one CTA per (chunk, row tile, batch-head). Each chunk leaves
+    fp32 partials for the rows that reach it, merged in chunk order."""
+    b: int
+    c: int
+    n_end: int
+    seg: int
+    chunk_keys: int
+    chunks: int
+
+    def bounds(self, i: int) -> tuple[int, int]:
+        """Keys [start, end) of chunk i."""
+        return i * self.chunk_keys, min((i + 1) * self.chunk_keys, self.n_end)
+
+    def reach(self, r: int) -> int:
+        """Row r may attend keys [0, reach(r))."""
+        return min(self.n_end, (r + 1) * self.seg) if self.seg else self.n_end
+
+    def first_row(self, i: int) -> int:
+        """The first row that can attend a key of chunk i (c if none)."""
+        if not self.seg:
+            return 0
+        return min(self.c, self.bounds(i)[0] // self.seg)
+
+    def row_chunks(self, r: int) -> int:
+        """Chunks row r reaches: 0 .. row_chunks(r) - 1."""
+        return -(-self.reach(r) // self.chunk_keys)
+
+    def workspace_floats(self, per_row: int) -> int:
+        """fp32 workspace of the partials, ``per_row`` floats per row and
+        chunk (K1: m, l and acc, dv + 2; K3: dQ~, d); none when one chunk
+        writes the output directly."""
+        return self.b * self.chunks * self.c * per_row if self.chunks > 1 else 0
+
+
+def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
+               kv_end: Optional[int] = None) -> ChunkPlan:
+    """The chunk plan of K1 / K3 for b batch-heads, c rows and n keys under
+    ``seg`` (segment-causal, 0 = none) and ``kv_end``: n_end = the keys any
+    row may attend; enough chunks per (head, row tile) to give about
+    TARGET_CTAS CTAs, at most one per 64-key tile."""
+    n_end = n if kv_end is None else min(int(kv_end), n)
+    if seg:
+        n_end = min(n_end, c * seg)
+    n_end = max(n_end, 0)
+    tiles = -(-n_end // KEY_TILE)
+    want = -(-TARGET_CTAS // max(1, b * -(-c // ROW_TILE)))
+    per = max(1, -(-tiles // max(1, min(tiles, want))))
+    chunk_keys = per * KEY_TILE
+    return ChunkPlan(b=b, c=c, n_end=n_end, seg=seg, chunk_keys=chunk_keys,
+                     chunks=-(-n_end // chunk_keys))
+
+
+def tensor_core_pair(q_l: torch.Tensor, k: torch.Tensor) -> bool:
+    """K1 and K3 run their tensor-core kernels for bf16 queries and keys
+    and their fp32 kernels for fp32 queries (a dispatch by dtype)."""
+    return q_l.dtype == k.dtype == torch.bfloat16
+
+
+def check_tensor_core_shapes(name: str, tensors: dict, dims: dict) -> None:
+    """Raise unless the tensor-core kernels take these operands: head dims
+    multiples of 8 up to _MAX_D and 16-byte-aligned data (cp.async)."""
+    for dim, val in dims.items():
+        if val % 8 or not 0 < val <= _MAX_D:
+            raise ValueError(f"{name}: bf16 {dim}={val} must be a multiple of 8 "
+                             f"in (0, {_MAX_D}]")
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 # --------------------------------------------------------------------------
@@ -96,7 +182,9 @@ def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
     """Check the operands and launch csrc/landmark_summary.cu (same
-    arguments as ``landmark_summary_plain``)."""
+    arguments as ``landmark_summary_plain``): the tensor-core kernel for
+    bf16 q_l, k, v, with the workspace of its chunk plan allocated here,
+    else the fp32 kernel."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     check_operands("landmark_summary", {"q_l": q_l, "k": k, "v": v}, DTYPE_CODES)
@@ -110,13 +198,22 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
     out = torch.empty((b, c, dv), dtype=v.dtype, device=v.device)
     m = l = None
     if return_stats:
-        m = torch.empty((b, c, 1), dtype=torch.float32, device=v.device)
-        l = torch.empty((b, c, 1), dtype=torch.float32, device=v.device)
+        m, l = torch.empty((2, b, c, 1), dtype=torch.float32, device=v.device)
+    ws, chunk_keys = None, 0
+    if tensor_core_pair(q_l, k):
+        check_tensor_core_shapes("landmark_summary", {"q_l": q_l, "k": k, "v": v},
+                                 {"d": d, "dv": dv})
+        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end)
+        chunk_keys = plan.chunk_keys
+        if plan.chunks > 1:
+            ws = torch.empty(plan.workspace_floats(dv + 2), dtype=torch.float32,
+                             device=v.device)
     if b and c:
         launch("landmark_summary", q_l.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), m.data_ptr() if m is not None else None,
-               l.data_ptr() if l is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, DTYPE_CODES[str(q_l.dtype)],
+               l.data_ptr() if l is not None else None,
+               ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
+               float(scale), kv_end, seg, chunk_keys, DTYPE_CODES[str(q_l.dtype)],
                DTYPE_CODES[str(k.dtype)], _stream_handle(v))
         landmark_summary.launches += 1
     return (out, m, l) if return_stats else out

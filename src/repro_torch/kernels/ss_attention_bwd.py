@@ -21,8 +21,10 @@ import torch
 
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
-from repro_torch.kernels.ss_attention import (_MAX_C, _MAX_D, _stream_handle,
-                                              b_side_mask, query_side_probs)
+from repro_torch.kernels.ss_attention import (_MAX_C, _MAX_D, ROW_TILE,
+                                              _stream_handle, b_side_mask,
+                                              check_tensor_core_shapes, chunk_plan,
+                                              query_side_probs, tensor_core_pair)
 
 # Query rows per CTA of csrc/query_side_bwd.cu's main kernel (kBlockRows):
 # K4 writes one fp32 partial of dK~, dM and ddelta per block of this many
@@ -84,7 +86,9 @@ def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end):
     """Check the operands and launch csrc/landmark_summary_bwd.cu (same
-    arguments as ``landmark_summary_bwd_plain``)."""
+    arguments as ``landmark_summary_bwd_plain``): the tensor-core pass for
+    bf16 q_l, k, v, g (c <= 64), with the dQ~ workspace of its chunk plan
+    allocated here, else the fp32 passes."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     check_operands("landmark_summary_bwd", {"q_l": q_l, "k": k, "v": v, "g": g,
@@ -103,11 +107,24 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end)
     dq = torch.empty_like(q_l)
     dk = torch.empty_like(k)
     dv_out = torch.empty_like(v)
+    ws, chunk_keys = None, 0
+    if tensor_core_pair(q_l, k):
+        if c > ROW_TILE:
+            raise ValueError(f"landmark_summary_bwd: bf16 c={c} > {ROW_TILE}")
+        check_tensor_core_shapes("landmark_summary_bwd",
+                                 {"q_l": q_l, "k": k, "v": v, "g": g},
+                                 {"d": d, "dv": dv})
+        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end)
+        chunk_keys = plan.chunk_keys
+        if plan.chunks > 1:
+            ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
+                             device=k.device)
     if b and c and n:
         launch("landmark_summary_bwd", q_l.data_ptr(), k.data_ptr(), v.data_ptr(),
                g.data_ptr(), m.data_ptr(), l.data_ptr(), dcoef.data_ptr(),
-               dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, c, n, d, dv,
-               float(scale), kv_end, seg, DTYPE_CODES[str(q_l.dtype)],
+               dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(),
+               ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
+               float(scale), kv_end, seg, chunk_keys, DTYPE_CODES[str(q_l.dtype)],
                DTYPE_CODES[str(k.dtype)], _stream_handle(k))
         landmark_summary_bwd.launches += 1
     return dq, dk, dv_out

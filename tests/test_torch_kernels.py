@@ -31,7 +31,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,  # noqa: E402
                                               paged_row_stats_plain)
 from repro_torch.kernels.ref import ref_landmark_summary, ref_query_side  # noqa: E402
-from repro_torch.kernels.ss_attention import (landmark_summary,  # noqa: E402
+from repro_torch.kernels.ss_attention import (KEY_TILE, ROW_TILE,  # noqa: E402
+                                              TARGET_CTAS, b_side_mask,
+                                              chunk_plan, landmark_summary,
                                               landmark_summary_plain, query_side)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
@@ -100,6 +102,119 @@ def test_landmark_summary_plain_matches_unmasked_oracle():
                  torch.from_numpy(_rand(rng, 2, 200, 32)))
     out = landmark_summary(q_l, k, v, scale=0.2)
     torch.testing.assert_close(out, ref_landmark_summary(q_l, k, v, 0.2), **TOL)
+
+
+# --------------------------------------------------------------------------
+# The split-key grid of the bf16 K1 / K3 kernels (csrc/mma.cuh)
+# --------------------------------------------------------------------------
+PLAN_CASES = {
+    # name: (b, c, n, seg, kv_end)
+    "train_qwen2_7b": (56, 64, 4096, 64, None),
+    "serve_bucket_333": (28, 64, 352, 0, 333),
+    "serve_512": (28, 64, 512, 0, None),
+    "kv_valid_first_chunk": (56, 64, 4096, 0, 40),
+    "kv_valid_ragged": (56, 64, 4096, 0, 1000),
+    "c16_causal": (2, 16, 4096, 256, None),
+    "c32_causal_kv_valid": (3, 32, 384, 12, 333),
+    "c128_two_row_tiles": (4, 128, 1024, 8, None),
+    "kv_valid_zero": (3, 16, 384, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_chunk_plan_covers_the_keys_once(case):
+    b, c, n, seg, kv_end = PLAN_CASES[case]
+    plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end)
+    n_end = min(n if kv_end is None else kv_end, c * seg if seg else n)
+    assert plan.n_end == n_end and plan.chunk_keys % KEY_TILE == 0
+    bounds = [plan.bounds(i) for i in range(plan.chunks)]
+    # chunks tile [0, n_end) in order, none empty
+    assert [lo for lo, _ in bounds] == [i * plan.chunk_keys for i in range(plan.chunks)]
+    assert all(lo < hi for lo, hi in bounds)
+    assert (bounds[-1][1] if bounds else 0) == n_end
+    assert all(hi - lo == plan.chunk_keys for lo, hi in bounds[:-1])
+    # enough CTAs to fill the card, but never a chunk below one tile
+    ctas = plan.chunks * -(-c // ROW_TILE) * b
+    assert plan.chunk_keys == KEY_TILE or ctas >= TARGET_CTAS // 2
+    # row r reaches chunk i (its partial is written and merged) iff r >= first_row(i)
+    for i in range(plan.chunks):
+        reaching = [r for r in range(c) if i < plan.row_chunks(r)]
+        assert reaching == list(range(plan.first_row(i), c))
+        assert plan.first_row(i) < c
+    floats = plan.workspace_floats(130)
+    assert floats == (b * plan.chunks * c * 130 if plan.chunks > 1 else 0)
+
+
+def test_chunk_plan_at_the_main_paths():
+    train = chunk_plan(56, 64, 4096, seg=64)
+    assert (train.chunk_keys, train.chunks) == (448, 10)
+    # K1's (m, l, acc) partials at the training shape: 18.6 MB
+    assert train.workspace_floats(128 + 2) * 4 == 18_636_800
+    serve = chunk_plan(28, 64, 352, kv_end=333)
+    assert (serve.chunk_keys, serve.chunks) == (64, 6)
+    assert chunk_plan(56, 64, 4096, kv_end=40).chunks == 1   # direct write
+    assert chunk_plan(3, 16, 384, kv_end=0).chunks == 0      # merge writes the empty rows
+
+
+def test_tile_sizes_match_the_cuda_header():
+    src = (build.CSRC / "mma.cuh").read_text()
+    assert int(re.search(r"kTileRows = (\d+);", src).group(1)) == ROW_TILE == KEY_TILE
+
+
+def split_key_landmark_summary(q_l, k, v, plan, scale, *, all_chunks=False):
+    """Plain mirror of the bf16 K1 kernel's decomposition: fp32 partials
+    (m, l, acc) of each chunk's keys (m = -1e30, l = 0, acc = 0 for a row
+    with no valid key in it), merged in chunk order by flash_merge's rule
+    over the chunks each row reaches (``all_chunks``: over every chunk)."""
+    b, c, _ = q_l.shape
+    mask = b_side_mask(c, k.shape[1], seg=plan.seg, kv_end=plan.n_end)
+    s = torch.einsum("bcd,bnd->bcn", q_l, k) * scale
+    ms, ls, accs = [], [], []
+    for i in range(plan.chunks):
+        lo, hi = plan.bounds(i)
+        si = torch.where(mask[:, lo:hi], s[..., lo:hi], -1e30)
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.where(mask[:, lo:hi], torch.exp(si - m), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bcn,bnd->bcd", p, v[:, lo:hi]))
+    reached = torch.tensor([plan.row_chunks(r) for r in range(c)])[:, None]
+    m_tot = torch.full((b, c, 1), -1e30)
+    for i, m in enumerate(ms):
+        m_tot = torch.where((i < reached) | all_chunks, torch.maximum(m_tot, m), m_tot)
+    l_tot, acc = torch.zeros((b, c, 1)), torch.zeros((b, c, v.shape[2]))
+    for i, (m, l, a) in enumerate(zip(ms, ls, accs)):
+        corr = torch.where((i < reached) | all_chunks, torch.exp(m - m_tot), 0.0)
+        l_tot, acc = l_tot + l * corr, acc + a * corr
+    return acc / torch.clamp(l_tot, min=1e-30), m_tot, l_tot
+
+
+@pytest.mark.parametrize("case", ["c16_causal_n256", "kv_valid_333", "c32_causal_kv_valid",
+                                  "kv_valid_zero"])
+@pytest.mark.parametrize("all_chunks", [False, True], ids=["reached", "every_chunk"])
+def test_split_key_merge_matches_plain(case, all_chunks):
+    b, c, n, causal, kv_valid = {"c16_causal_n256": (3, 16, 256, True, None),
+                                 "kv_valid_333": (3, 16, 384, False, 333),
+                                 "c32_causal_kv_valid": (3, 32, 384, True, 333),
+                                 "kv_valid_zero": (3, 16, 384, False, 0)}[case]
+    rng = np.random.default_rng(9)
+    q_l, k, v = (torch.from_numpy(_rand(rng, b, c, 32, scale=0.5)),
+                 torch.from_numpy(_rand(rng, b, n, 32, scale=0.5)),
+                 torch.from_numpy(_rand(rng, b, n, 48)))
+    seg = -(-n // c) if causal else 0
+    end = n if kv_valid is None else kv_valid
+    plan = chunk_plan(b, c, n, seg=seg, kv_end=end)
+    assert plan.chunks > 1 or end == 0
+    if causal:   # row 0 reaches only the first chunk: later ones hold no valid key for it
+        assert plan.row_chunks(0) == 1 < plan.chunks
+    out, m, l = split_key_landmark_summary(q_l, k, v, plan, 32**-0.5,
+                                           all_chunks=all_chunks)
+    ref = landmark_summary_plain(q_l, k, v, scale=32**-0.5, seg=seg, kv_end=end,
+                                 return_stats=True)
+    for o, r in zip((out, m, l), ref):
+        _close(o, r)
+    if end == 0:
+        assert torch.all(m == -1e30) and torch.all(l == 0) and torch.all(out == 0)
 
 
 # --------------------------------------------------------------------------

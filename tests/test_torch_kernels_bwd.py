@@ -29,12 +29,25 @@ from repro.kernels.ss_attention_bwd import landmark_summary_bwd as j_ls_bwd  # n
 from repro.kernels.ss_attention_bwd import query_side_bwd as j_qs_bwd  # noqa: E402
 from repro_torch.core.attention import SSConfig  # noqa: E402
 from repro_torch.kernels import build, launch_counts, ops  # noqa: E402
+from repro_torch.kernels.ss_attention import b_side_mask, chunk_plan  # noqa: E402
 from repro_torch.kernels.ss_attention_bwd import (K4_BLOCK_ROWS,  # noqa: E402
                                                   landmark_summary_bwd,
                                                   landmark_summary_bwd_plain,
                                                   query_side_bwd)
 
 REL = 1e-5
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """Run the port's side of a comparison on one intra-op thread, so that
+    neither the worker's thread count nor a load-dependent choice of
+    OpenMP team size or MKL kernel enters its sums (the suite runs under
+    pytest-xdist). Restores the thread count after the test."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -66,7 +79,7 @@ K3_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(K3_CASES))
-def test_landmark_summary_bwd_plain_matches_pallas(case):
+def test_landmark_summary_bwd_plain_matches_pallas(case, one_cpu_thread):
     n, c, block_n, kw = K3_CASES[case]
     rng = np.random.default_rng(11)
     q_l, k = _rand(rng, 3, c, 32, scale=0.5), _rand(rng, 3, n, 32, scale=0.5)
@@ -92,6 +105,58 @@ def test_landmark_summary_bwd_plain_matches_pallas(case):
     if "kv_valid" in kw:
         assert torch.all(out[1][:, kw["kv_valid"]:] == 0)
         assert torch.all(out[2][:, kw["kv_valid"]:] == 0)
+
+
+def split_key_landmark_summary_bwd(q_l, k, v, g, m, l, dcoef, plan, scale):
+    """Plain mirror of the bf16 K3 kernel's decomposition: each chunk
+    rebuilds p and ds over its own keys and writes their dK, dV rows (keys
+    past the chunks get zeros) and one dQ~ partial, summed in chunk order
+    over the chunks each row reaches."""
+    b, c, _ = q_l.shape
+    n = k.shape[1]
+    mask = b_side_mask(c, n, seg=plan.seg, kv_end=plan.n_end)
+    dq, dk, dv = torch.zeros_like(q_l), torch.zeros_like(k), torch.zeros_like(v)
+    reached = torch.tensor([plan.row_chunks(r) for r in range(c)])[:, None]
+    for i in range(plan.chunks):
+        lo, hi = plan.bounds(i)
+        mk = mask[:, lo:hi]
+        s = torch.einsum("bcd,bnd->bcn", q_l, k[:, lo:hi]) * scale
+        p = torch.where(mk, torch.exp(s - m) / torch.clamp(l, min=1e-30), 0.0)
+        ds = p * (torch.einsum("bce,bne->bcn", g, v[:, lo:hi]) - dcoef) * scale
+        dv[:, lo:hi] = torch.einsum("bcn,bce->bne", p, g)
+        dk[:, lo:hi] = torch.einsum("bcn,bcd->bnd", ds, q_l)
+        part = torch.einsum("bcn,bnd->bcd", ds, k[:, lo:hi])
+        dq = dq + torch.where(i < reached, part, 0.0)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("case", ["c16_causal_n256", "kv_valid_333", "c32_causal_kv_valid",
+                                  "kv_valid_zero"])
+def test_split_key_backward_matches_plain(case):
+    b, c, n, causal, kv_valid = {"c16_causal_n256": (3, 16, 256, True, None),
+                                 "kv_valid_333": (3, 16, 384, False, 333),
+                                 "c32_causal_kv_valid": (3, 32, 384, True, 333),
+                                 "kv_valid_zero": (3, 16, 384, False, 0)}[case]
+    rng = np.random.default_rng(16)
+    q_l, k = _rand(rng, b, c, 32, scale=0.5), _rand(rng, b, n, 32, scale=0.5)
+    v, g = _rand(rng, b, n, 48), _rand(rng, b, c, 48)
+    t = [torch.from_numpy(a) for a in (q_l, k, v)]
+    scale = 32**-0.5
+    seg = -(-n // c) if causal else 0
+    end = n if kv_valid is None else kv_valid
+    bv, m, l = ops.landmark_summary(*t, scale=scale, causal=causal, kv_valid=kv_valid,
+                                    return_stats=True)
+    tg = torch.from_numpy(g)
+    dcoef = torch.sum(tg * bv, dim=-1, keepdim=True)
+    plan = chunk_plan(b, c, n, seg=seg, kv_end=end)
+    assert plan.chunks > 1 or end == 0
+    out = split_key_landmark_summary_bwd(*t, tg, m, l, dcoef, plan, scale)
+    ref = landmark_summary_bwd_plain(*t, tg, m, l, dcoef, scale=scale, seg=seg, kv_end=end)
+    for o, r in zip(out, ref):
+        _close(o, r)
+    assert torch.all(out[1][:, end:] == 0) and torch.all(out[2][:, end:] == 0)
+    if end == 0:
+        assert torch.all(out[0] == 0)
 
 
 # --------------------------------------------------------------------------
