@@ -13,7 +13,10 @@ result line):
    paths' shapes, in fp32 (TF32 off) and bf16, plus the edges of the bf16
    K1 / K3 split-key grid (c = 16 and 32, kv_valid inside the first key
    chunk, ragged, and 0; K1 at c = 128; K3's dK / dV past kv_valid exact
-   zeros and its gradients bitwise identical over two launches), then
+   zeros and its gradients bitwise identical over two launches) and of the
+   bf16 K2 / K4 query-tile runs (n = 1, 63, 65, 352, 4000; c = 16, 32, 64;
+   dv = 64; the F-mask with q_offset 37 / 1000; bitwise identical over two
+   launches), then
    timed with CUDA events (``ms``: back-to-back calls, host included) and
    the profiler (``device_ms``) beside the plain version, the roofline
    bound and one library call where there is one, with the kernel's share
@@ -135,13 +138,19 @@ def device_ms(fn, iters: int = 20) -> float:
     calls = fn if isinstance(fn, list) else [fn]
     calls[0]()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            calls[i % len(calls)]()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    # The profiler now and then hands back a window with no device activity
+    # at all (seen once on an H100): profile again, and fail after three.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                calls[i % len(calls)]()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("device_ms: the profiler recorded no device activity "
+                       "in three windows")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -321,6 +330,7 @@ def kernel_phase(torch, dev) -> list[dict]:
                       f"({len(pools)} pool copies)")
 
     split_key_checks(torch, dev)
+    query_tile_checks(torch, dev)
     entries.update(train_kernel_entries(torch, dev))
 
     # ---- timing ------------------------------------------------------------
@@ -482,6 +492,68 @@ def split_key_checks(torch, dev) -> None:
                 raise AssertionError(f"K3 {label}: two launches differ")
     log("split-key K1/K3: dK/dV past kv_valid exact zeros, K3 bitwise identical "
         "over two launches in every case")
+
+
+def query_tile_checks(torch, dev) -> None:
+    """K2 and K4 where the query-tile runs of their bf16 kernels have their
+    edges, each in bf16 and in fp32 (the fp32 kernels take the same
+    arguments), over 56 batch-heads: n = 1, 63, 65 (inside, at and past one
+    64-row tile), 352 (the serving bucket) and 4000 (ragged runs); no mask
+    and the segment-causal F-mask with q_offset 37 (K2) and 1000 (K4); c =
+    16, 32 and 64 (the landmark axis padded in shared memory) with d = dv =
+    128, and c = 64 with d = 128, dv = 64. Both kernels' outputs must be
+    bitwise identical over two launches."""
+    from repro_torch.kernels.ss_attention import (query_side, query_side_plain,
+                                                  query_tile_plan)
+    from repro_torch.kernels.ss_attention_bwd import (query_side_bwd,
+                                                      query_side_bwd_plain,
+                                                      query_side_bwd_plan)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, d = 56, 128
+    scale = d**-0.5
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    names = ("dq", "dk_l", "dm", "dv", "ddelta")
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for n in (1, 63, 65, 352, 4000):
+            for c, dv in ((16, 128), (32, 128), (64, 128), (64, 64)):
+                q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+                m_mat, v = randn(b, c, dv, dtype=dt), randn(b, n, dv, dtype=dt)
+                g, delta = randn(b, n, dv, dtype=dt), randn(b, 1, 1, s=0.1).abs()
+                for causal, off in ((False, 0), (True, 37), (True, 1000)):
+                    seq_len_k = 2 * n + off
+                    seg = -(-seq_len_k // c) if causal else 0
+                    kw = dict(scale=scale, causal=causal, seq_len_k=seq_len_k,
+                              q_offset=off)
+                    ref_kw = dict(scale=scale, seg=seg, pos_offset=off if causal else 0)
+                    label = (f"b={b} n={n} c={c} d={d} dv={dv} "
+                             f"{f'causal seg={seg} q_offset={off}' if causal else 'bidir'} "
+                             f"{dname}")
+                    if off != 1000:   # K2: no mask, and q_offset 37
+                        plan = query_tile_plan(b, n)
+                        out = query_side(q, k_l, m_mat, v, delta, **kw)
+                        check(f"K2 query-tile {label} ({plan.runs} runs of "
+                              f"{plan.run_rows} rows in bf16)",
+                              [("out", out, query_side_plain(q, k_l, m_mat, v, delta,
+                                                             **ref_kw), None)])
+                        if not torch.equal(out, query_side(q, k_l, m_mat, v, delta, **kw)):
+                            raise AssertionError(f"K2 {label}: two launches differ")
+                    if off != 37:     # K4: no mask, and q_offset 1000
+                        plan = query_side_bwd_plan(b, n)
+                        out = query_side_bwd(q, k_l, m_mat, v, delta, g, **kw)
+                        ref = query_side_bwd_plain(q, k_l, m_mat, v, delta, g, **ref_kw)
+                        check(f"K4 query-tile {label} ({plan.runs} runs of "
+                              f"{plan.run_rows} rows)",
+                              [(nm, o, r, None) for nm, o, r in zip(names, out, ref)])
+                        again = query_side_bwd(q, k_l, m_mat, v, delta, g, **kw)
+                        if not all(torch.equal(a, b_) for a, b_ in zip(out, again)):
+                            raise AssertionError(f"K4 {label}: two launches differ")
+    log("query-tile K2/K4: every case within tolerance, both bitwise identical "
+        "over two launches")
 
 
 def train_kernel_entries(torch, dev) -> dict:

@@ -67,6 +67,22 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t x) {
   asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(x) : "memory");
 }
+__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr) : "memory");
+  return x;
+}
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 x;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w) : "r"(addr) : "memory");
+  return x;
+}
+
+// The two bf16 of a packed pair as floats (lo first).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
 
 // Makes this thread's completed generic-proxy writes to shared memory (plain
 // stores, cp.async) visible to wgmma's reads (the async proxy); a barrier
@@ -159,6 +175,48 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&s)[32], i
   a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
   a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
   a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// In place over a 64-column accumulator in the wgmma layout: each of this
+// thread's two rows (i = 0, 1) becomes its softmax over the columns below
+// lim[i], taken in base 2 of s * sl2, with 0 at the other columns and the
+// sum floored at 1e-30 (a row with no valid column is all zeros). The 64
+// columns of a row lie in one quad, so two shuffles reduce them.
+__device__ __forceinline__ void row_softmax64(float (&s)[32], const int (&lim)[2],
+                                              float sl2, int qd) {
+  float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * qd + (e & 1);
+      s[4 * j + e] = col < lim[e >> 1] ? s[4 * j + e] * sl2 : -1e30f;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * qd + (e & 1);
+      const float p = col < lim[e >> 1] ? exp2f(s[4 * j + e] - mx[e >> 1]) : 0.f;
+      s[4 * j + e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    sum[i] = 1.f / fmaxf(sum[i], 1e-30f);
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] *= sum[(e >> 1) & 1];
 }
 
 // acc (16 x 128 per warp, 16 n-blocks of 8) += A (16 x 16) . B, B = rows

@@ -12,22 +12,44 @@
 //   out[b,i] = p . M[b] + delta[b] * v[b,i], accumulated in fp32 and
 //   written in q's type.
 //
-// Bound on the H100 (3.35 TB/s): at the serving shapes (b = 28, n <= 512,
-// c = 64, d = dv = 128, bf16) it must read Q and V and write the output once
-// (3 * 28 * 512 * 128 * 2 B = 11 MB, ~3.3 us); its 2 * 2 * b * n * c * d =
-// 0.47 GFLOP are far below the tensor-core rate, so it is bytes-bound.
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): it must read Q and
+// V and write the output once. At the training shape (b = 56 batch-heads,
+// n = 4096, c = 64, seg = 64, d = dv = 128, bf16) that is 176 MB, 178 MB
+// with K~ and M (53.1 us), against 3.8 GFLOP of unmasked pairs (4 us); at
+// the serving shape (b = 28, n = 352) 8.4 MB (2.5 us): bytes-bound
+// everywhere.
 //
-// Design. The softmax axis is the small resident c axis, so each query row
-// is one independent row softmax: no online recurrence is needed and Q/V
-// are read exactly once. A CTA owns kRows = 16 query rows of one batch-head
-// (gridDim.y tiles n, b * n / 16 = 896 CTAs at the serving shape). It loads
-// K~ (c x d) into shared memory, each of its 4 warps computes the
-// probabilities of 4 rows with lanes over landmark columns (K~ rows padded
-// to d + 1 floats: conflict-free), then the same buffer is refilled with M
-// (c x dv) and lanes sweep value columns for P.M + delta * v. The K~ and M
-// re-reads per CTA come from L2. fp32 FMA loops; tensor cores are later
-// work.
+// Two kernels, chosen by the storage type (a dispatch, not a fallback):
+//
+// * bf16: tensor cores over query tiles. The softmax axis is the small
+//   resident c axis, so each query row is one independent row softmax and Q
+//   and V are read once. A CTA (one warpgroup, 128 threads) owns one
+//   batch-head and a run of 64-row query tiles (the wrapper's query-tile
+//   plan sizes the runs for about TARGET_CTAS CTAs: 10 runs of 7 tiles per
+//   head at the training shape, 6 runs of one tile at the serving shape).
+//   K~ and M (c x d, c x dv, c <= 64: the landmark axis is padded to 64
+//   rows with zeros and the padded columns masked) are loaded once per CTA
+//   into 128-byte-swizzled tiles (csrc/mma.cuh); the Q and V tiles stream
+//   through a two-stage cp.async ring, zero-filled past n. Per tile:
+//   S = Q K~^T by wgmma m64n64k16 from shared memory; the F-mask and the
+//   row softmax in registers in base 2 (a row's 64 columns lie in one quad
+//   of the accumulator layout: two shuffles); P rounded to bf16 and P M by
+//   mma.sync m16n8k16 with M read transposed by ldmatrix; + delta * v from
+//   the V tile in fp32; the bf16 result is staged in the Q slot (dead once
+//   S is formed) and written in 16-byte stores, rows below n only.
+//   Budget: 99,328 B of shared memory a CTA (1 KB alignment slack, K~, M,
+//   two stages of Q and V at 16 KB each), so two CTAs fit an SM; S (32) and
+//   the P M accumulator (64) take most of its 128 registers a thread
+//   (ptxas, no spills). A sweep of 3-64 runs per head at the training shape
+//   found 10 to 32 equal within 3% (PERF.md).
+// * fp32: exact fp32 FMA loops. A CTA owns kRows = 16 query rows of one
+//   batch-head (grid b x n / 16). It loads K~ (c x d) into shared memory,
+//   each of its 4 warps computes the probabilities of 4 rows with lanes over
+//   landmark columns (K~ rows padded to d + 1 floats: conflict-free), then
+//   the same buffer is refilled with M (c x dv) and lanes sweep value
+//   columns for P.M + delta * v.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -122,32 +144,179 @@ query_side_kernel(const T* __restrict__ q, const T* __restrict__ kl,
   }
 }
 
+// ---- bf16: tensor cores over query tiles ------------------------------------
+namespace tc {
+
+constexpr int kThreads = 128;              // one warpgroup
+constexpr int kStepRows = 64;              // query rows per tile (= QUERY_TILE)
+static_assert(kStepRows == repro::kTileRows, "a query tile is one wgmma M");
+constexpr int kStages = 2;
+// 1024 B of alignment slack, K~ and M, then the Q/V ring.
+constexpr int kSmemBytes = 1024 + repro::kTileBytes * (2 + 2 * kStages);
+
+using bf16 = __nv_bfloat16;
+
+__global__ void __launch_bounds__(kThreads)
+query_side_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
+              const bf16* __restrict__ mm, const bf16* __restrict__ v,
+              const float* __restrict__ delta, bf16* __restrict__ out, int n,
+              int c, int d, int dv, float scale, int seg, int pos_offset,
+              int run_rows) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t kl_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t m_s = kl_s + repro::kTileBytes;
+  const int run = blockIdx.x, bi = blockIdx.y;
+  const int row_begin = run * run_rows;
+  const int row_end = min(n, row_begin + run_rows);
+  const int steps = (row_end - row_begin + kStepRows - 1) / kStepRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, qd = lane & 3;
+
+  const bf16* qb = q + static_cast<size_t>(bi) * n * d;
+  const bf16* vb = v + static_cast<size_t>(bi) * n * dv;
+  bf16* ob = out + static_cast<size_t>(bi) * n * dv;
+  auto q_s = [&](int st) { return kl_s + repro::kTileBytes * (2 + 2 * st); };
+  auto v_s = [&](int st) { return q_s(st) + repro::kTileBytes; };
+  auto load_qv = [&](int it) {
+    const int i0 = row_begin + it * kStepRows;
+    repro::load_tile(q_s(it % kStages), qb + static_cast<size_t>(i0) * d, d,
+                     row_end - i0, d, q, tid, kThreads);
+    repro::load_tile(v_s(it % kStages), vb + static_cast<size_t>(i0) * dv, dv,
+                     row_end - i0, dv, v, tid, kThreads);
+  };
+  repro::load_tile(kl_s, kl + static_cast<size_t>(bi) * c * d, d, c, d, kl, tid, kThreads);
+  repro::load_tile(m_s, mm + static_cast<size_t>(bi) * c * dv, dv, c, dv, mm, tid, kThreads);
+  load_qv(0);
+  repro::cp_async_commit();
+
+  const float sl2 = scale * repro::kLog2e;
+  const float dlt = delta[bi];
+  const int ksteps = (c + 15) / 16;  // k-steps of P M that hold a landmark column
+
+  for (int it = 0; it < steps; ++it) {
+    const int st = it % kStages;
+    const int i0 = row_begin + it * kStepRows;
+    if (it + 1 < steps) load_qv(it + 1);  // its stage was released at it - 1
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();  // tile it (and K~, M) landed
+    repro::fence_proxy_async();
+    __syncthreads();
+
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = 0.f;
+      repro::fence_operand(s[e]);
+    }
+    repro::wgmma_fence();
+    repro::issue_abt(s, q_s(st), kl_s);
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) repro::fence_operand(s[e]);
+
+    // F-mask: row i sees columns below min(c, (pos_offset + i) / seg + 1);
+    // rows at or past n none.
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i0 + 16 * warp + gr + 8 * i;
+      lim[i] = row >= row_end ? 0 : seg > 0 ? min(c, (pos_offset + row) / seg + 1) : c;
+    }
+    repro::row_softmax64(s, lim, sl2, qd);
+
+    // acc = P M: P in bf16 from registers, M transposed from shared memory
+    float acc[16][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < ksteps) {
+        uint32_t a[4];
+        repro::a_frag(a, s, kk);
+        repro::mma_a_btile(acc, a, m_s, 16 * kk, lane);
+      }
+    }
+
+    // out = acc + delta * v, staged as bf16 in the Q slot (every warp's
+    // wgmma has read it), then written in 16-byte stores.
+    __syncthreads();
+    const uint32_t o_s = q_s(st), vt = v_s(st);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 16 * warp + gr + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * qd;
+        const uint32_t off = repro::tile_off(row, col) + (col & 7) * 2;
+        const float2 vv = repro::unpack_bf16(repro::ld_shared_b32(vt + off));
+        repro::st_shared_b32(o_s + off, repro::pack_bf16(acc[j][2 * i] + dlt * vv.x,
+                                                         acc[j][2 * i + 1] + dlt * vv.y));
+      }
+    }
+    __syncthreads();
+    for (int x = tid; x < kStepRows * (repro::kTileCols / 8); x += kThreads) {
+      const int r = x >> 4, col = (x & 15) * 8;
+      if (i0 + r < row_end && col < dv) {
+        *reinterpret_cast<uint4*>(ob + static_cast<size_t>(i0 + r) * dv + col) =
+            repro::ld_shared_v4(o_s + repro::tile_off(r, col));
+      }
+    }
+    __syncthreads();  // the stage is released for tile it + kStages
+  }
+}
+
+int launch(const void* q, const void* kl, const void* mm, const void* v,
+           const float* delta, void* out, int b, int n, int c, int d, int dv,
+           float scale, int seg, int pos_offset, int run_rows, cudaStream_t st) {
+  if (c > repro::kTileRows || d > repro::kTileCols || dv > repro::kTileCols || d % 8
+      || dv % 8 || run_rows <= 0 || run_rows % kStepRows) {
+    return cudaErrorInvalidValue;
+  }
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        query_side_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid((n + run_rows - 1) / run_rows, b);
+  query_side_tc<<<grid, kThreads, kSmemBytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kl),
+      static_cast<const bf16*>(mm), static_cast<const bf16*>(v), delta,
+      static_cast<bf16*>(out), n, c, d, dv, scale, seg, pos_offset, run_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Plain C entry point for ctypes. delta is fp32 (b,); q, k_l, M, v and out
-// share the storage type. Returns cudaGetLastError() after the launch.
+// share the storage type: bf16 runs the tensor-core kernel (c <= 64, head
+// dims multiples of 8) on runs of run_rows query rows (a multiple of 64,
+// from the wrapper's query-tile plan), fp32 the FMA kernel (run_rows
+// unused). Returns cudaGetLastError() after the launch.
 extern "C" int query_side_launch(
     const void* q, const void* kl, const void* mm, const void* v,
     const void* delta, void* out, int b, int n, int c, int d, int dv,
-    float scale, int seg, int pos_offset, int dtype, void* stream) {
+    float scale, int seg, int pos_offset, int run_rows, int dtype, void* stream) {
   if (d > kMaxD || dv > kMaxD || c > kMaxC || b <= 0 || n <= 0 || c <= 0) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(b, (n + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == repro::kF32) {
-    query_side_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kl),
-        static_cast<const float*>(mm), static_cast<const float*>(v), dl,
-        static_cast<float*>(out), n, c, d, dv, scale, seg, pos_offset);
-  } else if (dtype == repro::kBF16) {
-    query_side_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kl),
-        static_cast<const __nv_bfloat16*>(mm), static_cast<const __nv_bfloat16*>(v),
-        dl, static_cast<__nv_bfloat16*>(out), n, c, d, dv, scale, seg, pos_offset);
-  } else {
-    return cudaErrorInvalidValue;
+  if (dtype == repro::kBF16) {
+    return tc::launch(q, kl, mm, v, dl, out, b, n, c, d, dv, scale, seg, pos_offset,
+                      run_rows, st);
   }
+  if (dtype != repro::kF32) return cudaErrorInvalidValue;
+  const dim3 grid(b, (n + kRows - 1) / kRows);
+  query_side_kernel<float><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kl),
+      static_cast<const float*>(mm), static_cast<const float*>(v), dl,
+      static_cast<float*>(out), n, c, d, dv, scale, seg, pos_offset);
   return static_cast<int>(cudaGetLastError());
 }

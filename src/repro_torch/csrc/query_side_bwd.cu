@@ -20,21 +20,47 @@
 // 88 us); the products over the 7.5 M unmasked (row, column) pairs are
 // 2 * 7.5e6 * 5 * 128 = 9.5 GFLOP (10 us at the bf16 rate): bytes-bound.
 //
-// Design. The softmax axis c is resident, so each query row is independent
-// and dQ / dV stream out. The Pallas kernel sums dK~, dM and ddelta in VMEM
-// scratch across its sequential grid; a CUDA grid has no order, so:
-//  * qs_bwd_main, grid (b, ceil(n / 256)), 256 threads: a CTA owns 256 query
-//    rows and holds K~ and M (c x d, c x dv, fp32, rows padded to d + 1
-//    floats) in dynamic shared memory. It walks its rows 16 at a time: each
-//    of the 8 warps computes P and ds of 2 rows with lanes over the c
-//    columns, then thread t writes dQ / dV of column t for 8 rows and adds
-//    the 16 rows into column t of dK~ and dM for 32 of the c landmark rows,
-//    kept in registers. Each CTA writes its fp32 partials of dK~, dM and
-//    ddelta to a workspace (b, blocks, ...) that the wrapper allocates.
-//  * qs_bwd_reduce, grid (b): sums the partials over the blocks in a fixed
-//    order and casts. No atomics, so the grads are bitwise deterministic.
-// Products are fp32 FMA loops; tensor cores and TMA are later work.
+// The Pallas kernel sums dK~, dM and ddelta in VMEM scratch across its
+// sequential grid; a CUDA grid has no order. So every kernel here owns one
+// batch-head and a run of query rows (the wrapper's query-tile plan: one
+// wave, 2 runs of 2048 rows per head at the training shape), writes fp32
+// partials of dK~, dM and ddelta per run to a workspace (b, runs, ...) that
+// the wrapper allocates (7.3 MB at the training shape), and
+// qs_bwd_reduce, grid b x c,
+// sums them over the runs in a fixed order and casts. No atomics: the
+// gradients are bitwise deterministic. Two main kernels, chosen by the
+// storage type (a dispatch, not a fallback):
+//
+// * bf16 (qs_bwd_tc): tensor cores. A CTA is two warpgroups (256 threads);
+//   a step is 128 query rows, 64 per warpgroup (wgmma's M). K~ and M (c <= 64
+//   rows, zero-padded to 64 and the padded columns masked) are loaded once
+//   into 128-byte-swizzled tiles; Q, g and V stream through a two-stage
+//   cp.async ring, zero-filled past n. Per step, each warpgroup issues
+//   S = Q K~^T and dP = g M^T for its 64 rows by wgmma m64n64k16 and, while
+//   they run, the CTA writes dV = delta g (16-byte stores) and adds g . v to
+//   ddelta, both from the stage. P (row softmax in registers, base 2),
+//   rowsum(P o dP) and dS = P o (dP - rowsum) scale are formed in registers,
+//   rounded to bf16 and staged in the V slot (dead once ddelta is formed);
+//   dQ = dS K~ by mma.sync m16n8k16 from registers, K~ read transposed by
+//   ldmatrix, written from registers. Then warpgroup 0 adds dK~ += dS^T Q
+//   and warpgroup 1 dM += P^T g over the step's 128 rows (mma.sync, A read
+//   transposed from the staged tiles; a warp whose 16 landmark rows no row
+//   of the step may attend skips), each accumulator 64 x 128 fp32 carried
+//   in registers across the run: 64 a thread, beside S and dP (32 each) and
+//   dQ (64): 219 registers a thread (ptxas, no spills), 56 K of the SM's 64
+//   K. Shared memory: 230,400 B a CTA (1 KB alignment slack, K~ and M at 16
+//   KB, two stages of Q, g and V at 32 KB each), one CTA an SM.
+// * fp32 (qs_bwd_main): exact fp32 FMA loops, 256 threads. The CTA holds K~
+//   and M (c x d, c x dv, fp32, rows padded to d + 1 floats) in dynamic
+//   shared memory and walks its rows 16 at a time: each of the 8 warps
+//   computes P and ds of 2 rows with lanes over the c columns, then thread
+//   t writes dQ / dV of column t for 8 rows and adds the 16 rows into
+//   column t of dK~ and dM for 32 of the c landmark rows, kept in
+//   registers.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -44,7 +70,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 2;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per step
-constexpr int kBlockRows = 256;               // query rows per CTA (= K4_BLOCK_ROWS)
 constexpr int kMaxC = 64;                     // landmark columns (2 per lane)
 constexpr int kMaxD = 128;                    // max head dim (d and dv)
 constexpr int kHalfC = kMaxC * kMaxD / kThreads;  // landmark rows per thread
@@ -68,13 +93,13 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
             T* __restrict__ dq, T* __restrict__ dvo,
             float* __restrict__ ws_k, float* __restrict__ ws_m,
             float* __restrict__ ws_d, int n, int c, int d, int dv,
-            float scale, int seg, int pos_offset) {
+            float scale, int seg, int pos_offset, int run_rows) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const int bi = blockIdx.x;
-  const int blk = blockIdx.y;
-  const int blocks = gridDim.y;
+  const int run = blockIdx.y;
+  const int runs = gridDim.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -93,8 +118,8 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
     sm.mm[x / dv][x % dv] = repro::to_float(mm[static_cast<size_t>(bi) * c * dv + x]);
   }
   const float dlt = delta[bi];
-  const int i_begin = blk * kBlockRows;
-  const int i_end = min(n, i_begin + kBlockRows);
+  const int i_begin = run * run_rows;
+  const int i_end = min(n, i_begin + run_rows);
 
   float acc_k[kHalfC], acc_m[kHalfC];
 #pragma unroll
@@ -183,7 +208,7 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
     }
   }
 
-  const size_t part = static_cast<size_t>(bi) * blocks + blk;
+  const size_t part = static_cast<size_t>(bi) * runs + run;
 #pragma unroll
   for (int t = 0; t < kHalfC; ++t) {
     const int cc = half * kHalfC + t;
@@ -201,71 +226,355 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
   }
 }
 
+// One CTA per (batch-head, landmark row): thread t < 128 sums column t of
+// dK~, thread 128 + t column t of dM, over the runs in order; the CTA of
+// landmark row 0 also sums ddelta.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(2 * kMaxD)
 qs_bwd_reduce(const float* __restrict__ ws_k, const float* __restrict__ ws_m,
               const float* __restrict__ ws_d, T* __restrict__ dkl,
-              T* __restrict__ dm, float* __restrict__ dd, int blocks, int c,
+              T* __restrict__ dm, float* __restrict__ dd, int runs, int c,
               int d, int dv) {
-  const int bi = blockIdx.x;
-  const size_t base = static_cast<size_t>(bi) * blocks;
-  for (int x = threadIdx.x; x < c * d; x += kThreads) {
+  const int bi = blockIdx.x / c, row = blockIdx.x - bi * c;
+  const int t = threadIdx.x;
+  const size_t base = static_cast<size_t>(bi) * runs;
+  const size_t rc = static_cast<size_t>(bi) * c + row;
+  if (t < kMaxD) {
+    if (t < d) {
+      float s = 0.f;
+      for (int r = 0; r < runs; ++r) s += ws_k[((base + r) * c + row) * d + t];
+      dkl[rc * d + t] = repro::from_float<T>(s);
+    }
+  } else if (t - kMaxD < dv) {
     float s = 0.f;
-    for (int blk = 0; blk < blocks; ++blk) s += ws_k[(base + blk) * c * d + x];
-    dkl[static_cast<size_t>(bi) * c * d + x] = repro::from_float<T>(s);
+    for (int r = 0; r < runs; ++r) s += ws_m[((base + r) * c + row) * dv + t - kMaxD];
+    dm[rc * dv + t - kMaxD] = repro::from_float<T>(s);
   }
-  for (int x = threadIdx.x; x < c * dv; x += kThreads) {
+  if (row == 0 && t == 0) {
     float s = 0.f;
-    for (int blk = 0; blk < blocks; ++blk) s += ws_m[(base + blk) * c * dv + x];
-    dm[static_cast<size_t>(bi) * c * dv + x] = repro::from_float<T>(s);
-  }
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int blk = 0; blk < blocks; ++blk) s += ws_d[base + blk];
+    for (int r = 0; r < runs; ++r) s += ws_d[base + r];
     dd[bi] = s;
   }
 }
+
+// ---- bf16: tensor cores over 128-row steps ----------------------------------
+namespace tc {
+
+constexpr int kThreads = 256;                     // two warpgroups
+constexpr int kStepRows = 2 * repro::kTileRows;   // query rows per step (= QS_BWD_STEP_ROWS)
+constexpr int kStages = 2;
+constexpr int kStageBytes = 6 * repro::kTileBytes;  // Q, g, V: two 64-row tiles each
+// 1024 B of alignment slack, K~ and M, then the Q/g/V ring.
+constexpr int kSmemBytes = 1024 + 2 * repro::kTileBytes + kStages * kStageBytes;
+
+using bf16 = __nv_bfloat16;
+
+// 8 bf16 (16 bytes) times x as 8 bf16.
+__device__ __forceinline__ uint4 scale8(uint4 a, float x) {
+  uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = repro::unpack_bf16(w[k]);
+    w[k] = repro::pack_bf16(f.x * x, f.y * x);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The dot product of two runs of 8 bf16, in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 fa = repro::unpack_bf16(wa[k]), fb = repro::unpack_bf16(wb[k]);
+    s = fmaf(fa.x, fb.x, fmaf(fa.y, fb.y, s));
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
+          const bf16* __restrict__ mm, const bf16* __restrict__ v,
+          const float* __restrict__ delta, const bf16* __restrict__ g,
+          bf16* __restrict__ dq, bf16* __restrict__ dvo, float* __restrict__ ws_k,
+          float* __restrict__ ws_m, float* __restrict__ ws_d, int n, int c, int d,
+          int dv, float scale, int seg, int pos_offset, int run_rows) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float red[kThreads / 32];
+  const uint32_t kl_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t m_s = kl_s + repro::kTileBytes;
+  const int run = blockIdx.x, runs = gridDim.x, bi = blockIdx.y;
+  const int row_begin = run * run_rows;
+  const int row_end = min(n, row_begin + run_rows);
+  const int steps = (row_end - row_begin + kStepRows - 1) / kStepRows;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gr = lane >> 2, qd = lane & 3;
+
+  const size_t qoff = static_cast<size_t>(bi) * n * d, voff = static_cast<size_t>(bi) * n * dv;
+  // stage st: Q tiles 0, 1, then g tiles 0, 1, then V tiles 0, 1 (h = rows 64 h ..)
+  auto q_s = [&](int st, int h) {
+    return kl_s + 2 * repro::kTileBytes + st * kStageBytes + h * repro::kTileBytes;
+  };
+  auto g_s = [&](int st, int h) { return q_s(st, h) + 2 * repro::kTileBytes; };
+  auto v_s = [&](int st, int h) { return q_s(st, h) + 4 * repro::kTileBytes; };
+  auto load_step = [&](int it) {
+    const int st = it % kStages;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i0 = row_begin + it * kStepRows + h * repro::kTileRows;
+      repro::load_tile(q_s(st, h), q + qoff + static_cast<size_t>(i0) * d, d,
+                       row_end - i0, d, q, tid, kThreads);
+      repro::load_tile(g_s(st, h), g + voff + static_cast<size_t>(i0) * dv, dv,
+                       row_end - i0, dv, g, tid, kThreads);
+      repro::load_tile(v_s(st, h), v + voff + static_cast<size_t>(i0) * dv, dv,
+                       row_end - i0, dv, v, tid, kThreads);
+    }
+  };
+  repro::load_tile(kl_s, kl + static_cast<size_t>(bi) * c * d, d, c, d, kl, tid, kThreads);
+  repro::load_tile(m_s, mm + static_cast<size_t>(bi) * c * dv, dv, c, dv, mm, tid, kThreads);
+  load_step(0);
+  repro::cp_async_commit();
+
+  const float sl2 = scale * repro::kLog2e;
+  const float dlt = delta[bi];
+  const int ksteps = (c + 15) / 16;  // k-steps of dS K~ that hold a landmark column
+  // this warpgroup's persistent product: dK~ (warpgroup 0) or dM (1), landmark
+  // rows 16 warp + gr (+ 8), columns 8 j + 2 qd (+ 1)
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float ddl = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    const int st = it % kStages;
+    const int i0 = row_begin + it * kStepRows;
+    if (it + 1 < steps) load_step(it + 1);  // its stage was released at it - 1
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();  // step it (and K~, M) landed
+    repro::fence_proxy_async();
+    __syncthreads();
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = 0.f;
+      dp[e] = 0.f;
+      repro::fence_operand(s[e]);
+      repro::fence_operand(dp[e]);
+    }
+    repro::wgmma_fence();
+    repro::issue_abt(s, q_s(st, wg), kl_s);
+    repro::issue_abt(dp, g_s(st, wg), m_s);
+    repro::wgmma_commit();
+
+    // While the products run: dV = delta g and ddelta += g . v, 16 bytes a
+    // thread, rows below n only.
+    for (int x = tid; x < kStepRows * (repro::kTileCols / 8); x += kThreads) {
+      const int r = x >> 4, col = (x & 15) * 8;
+      if (i0 + r < row_end && col < dv) {
+        const uint32_t off = repro::tile_off(r & 63, col);
+        const uint4 gv = repro::ld_shared_v4(g_s(st, r >> 6) + off);
+        ddl += dot8(gv, repro::ld_shared_v4(v_s(st, r >> 6) + off));
+        *reinterpret_cast<uint4*>(dvo + voff + static_cast<size_t>(i0 + r) * dv + col) =
+            scale8(gv, dlt);
+      }
+    }
+
+    repro::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      repro::fence_operand(s[e]);
+      repro::fence_operand(dp[e]);
+    }
+    // P (F-mask: row i sees columns below min(c, (pos_offset + i) / seg + 1),
+    // rows at or past n none), then dS = P o (dP - rowsum(P o dP)) scale.
+    const int r_lo = 64 * wg + 16 * warp + gr;  // the thread's rows in the step
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i0 + r_lo + 8 * i;
+      lim[i] = row >= row_end ? 0 : seg > 0 ? min(c, (pos_offset + row) / seg + 1) : c;
+    }
+    repro::row_softmax64(s, lim, sl2, qd);
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) rs[(e >> 1) & 1] += s[e] * dp[e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dp[e] = s[e] * (dp[e] - rs[(e >> 1) & 1]) * scale;
+
+    __syncthreads();  // every thread has read V: its slot takes P and dS
+    const uint32_t p_s = v_s(st, 0), ds_s = v_s(st, 1);  // (128 rows, 64 columns) each
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int col = 8 * j + 2 * qd;
+        const uint32_t off = repro::tile_off(r_lo + 8 * i, col) + (col & 7) * 2;
+        repro::st_shared_b32(p_s + off, repro::pack_bf16(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+        repro::st_shared_b32(ds_s + off, repro::pack_bf16(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1]));
+      }
+    }
+
+    // dQ = dS K~ for this warpgroup's rows: dS from registers, K~ transposed
+    {
+      float dqa[16][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < ksteps) {
+          uint32_t a[4];
+          repro::a_frag(a, dp, kk);
+          repro::mma_a_btile(dqa, a, kl_s, 16 * kk, lane);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = i0 + r_lo + 8 * i;
+        if (row >= row_end) continue;
+        bf16* o = dq + qoff + static_cast<size_t>(row) * d;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 8 * j + 2 * qd;
+          if (col < d) {
+            *reinterpret_cast<__nv_bfloat162*>(o + col) =
+                __floats2bfloat162_rn(dqa[j][2 * i], dqa[j][2 * i + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // P and dS staged
+
+    // Warpgroup 0: dK~ += dS^T Q; warpgroup 1: dM += P^T g, over the step's
+    // rows. A warp whose landmark rows no row of the step may attend (their P
+    // and dS are zeros) skips; so does a 64-row half past n.
+    const int last = min(row_end, i0 + kStepRows) - 1;
+    const int reach = seg > 0 ? min(c, (pos_offset + last) / seg + 1) : c;
+    if (16 * warp < reach) {
+      const uint32_t at = wg == 0 ? ds_s : p_s;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (i0 + h * repro::kTileRows >= row_end) break;
+        const uint32_t bt = wg == 0 ? q_s(st, h) : g_s(st, h);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t a[4];
+          repro::a_frag_trans(a, at, h * repro::kTileRows + 16 * kk, 16 * warp, lane);
+          repro::mma_a_btile(acc, a, bt, 16 * kk, lane);
+        }
+      }
+    }
+    __syncthreads();  // the stage is released for step it + kStages
+  }
+
+  // fp32 partials of this run: dK~ (warpgroup 0) or dM (1), then ddelta
+  const size_t part = static_cast<size_t>(bi) * runs + run;
+  const int cols = wg == 0 ? d : dv;
+  float* w = (wg == 0 ? ws_k : ws_m) + part * c * cols;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + gr + 8 * i;
+    if (row >= c) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * qd;
+      if (col < cols) {
+        *reinterpret_cast<float2*>(w + static_cast<size_t>(row) * cols + col) =
+            make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+      }
+    }
+  }
+  ddl = repro::warp_sum(ddl);
+  if (lane == 0) red[tid >> 5] = ddl;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int k = 0; k < kThreads / 32; ++k) s += red[k];
+    ws_d[part] = s;
+  }
+}
+
+int launch(const void* q, const void* kl, const void* mm, const void* v,
+           const float* delta, const void* g, void* dq, void* dv_out, float* ws_k,
+           float* ws_m, float* ws_d, int runs, int n, int b, int c, int d, int dv,
+           float scale, int seg, int pos_offset, int run_rows, cudaStream_t st) {
+  if (c > repro::kTileRows || d % 8 || dv % 8 || run_rows % kStepRows) {
+    return cudaErrorInvalidValue;
+  }
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qs_bwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  qs_bwd_tc<<<dim3(runs, b), kThreads, kSmemBytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kl),
+      static_cast<const bf16*>(mm), static_cast<const bf16*>(v), delta,
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dv_out),
+      ws_k, ws_m, ws_d, n, c, d, dv, scale, seg, pos_offset, run_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 template <typename T>
 int launch_typed(const void* q, const void* kl, const void* mm, const void* v,
                  const float* delta, const void* g, void* dq, void* dkl,
                  void* dm, void* dv_out, float* dd, float* ws_k, float* ws_m,
                  float* ws_d, int b, int n, int c, int d, int dv, float scale,
-                 int seg, int pos_offset, cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(
-      qs_bwd_main<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kBlockRows - 1) / kBlockRows;
-  qs_bwd_main<T><<<dim3(b, blocks), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kl),
-      static_cast<const T*>(mm), static_cast<const T*>(v), delta,
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dv_out),
-      ws_k, ws_m, ws_d, n, c, d, dv, scale, seg, pos_offset);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  qs_bwd_reduce<T><<<b, kThreads, 0, st>>>(ws_k, ws_m, ws_d,
-                                           static_cast<T*>(dkl),
-                                           static_cast<T*>(dm), dd, blocks, c,
-                                           d, dv);
+                 int seg, int pos_offset, int run_rows, cudaStream_t st) {
+  const int runs = (n + run_rows - 1) / run_rows;
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const int rc = tc::launch(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m, ws_d, runs,
+                              n, b, c, d, dv, scale, seg, pos_offset, run_rows, st);
+    if (rc != 0) return rc;
+  } else {
+    const int smem = static_cast<int>(sizeof(Smem));
+    err = cudaFuncSetAttribute(qs_bwd_main<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    qs_bwd_main<T><<<dim3(b, runs), kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kl),
+        static_cast<const T*>(mm), static_cast<const T*>(v), delta,
+        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dv_out),
+        ws_k, ws_m, ws_d, n, c, d, dv, scale, seg, pos_offset, run_rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  qs_bwd_reduce<T><<<b * c, 2 * kMaxD, 0, st>>>(ws_k, ws_m, ws_d, static_cast<T*>(dkl),
+                                                static_cast<T*>(dm), dd, runs, c, d, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. q, k_l, M, v, g and the dQ, dK~, dM, dV
-// outputs share the storage type; delta and ddelta are fp32 (b,). ws_k
-// (b, blocks, c, d), ws_m (b, blocks, c, dv) and ws_d (b, blocks) are fp32
-// scratch with blocks = ceil(n / kBlockRows) (the wrapper's
-// K4_BLOCK_ROWS, held equal by a test). Returns
+// outputs share the storage type; delta and ddelta are fp32 (b,). Each CTA
+// owns a run of run_rows query rows of one batch-head (from the wrapper's
+// query-tile plan; a multiple of 128 for bf16): runs = ceil(n / run_rows).
+// ws_k (b, runs, c, d), ws_m (b, runs, c, dv) and ws_d (b, runs) are the
+// fp32 workspace of the runs' partials. bf16 runs the tensor-core kernel
+// (c <= 64, head dims multiples of 8), fp32 the FMA kernel. Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int query_side_bwd_launch(
     const void* q, const void* kl, const void* mm, const void* v,
     const void* delta, const void* g, void* dq, void* dkl, void* dm,
     void* dv_out, void* dd, void* ws_k, void* ws_m, void* ws_d, int b, int n,
-    int c, int d, int dv, float scale, int seg, int pos_offset, int dtype,
-    void* stream) {
-  if (d > kMaxD || dv > kMaxD || c > kMaxC || b <= 0 || n <= 0 || c <= 0) {
+    int c, int d, int dv, float scale, int seg, int pos_offset, int run_rows,
+    int dtype, void* stream) {
+  if (d > kMaxD || dv > kMaxD || c > kMaxC || b <= 0 || n <= 0 || c <= 0
+      || run_rows <= 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -275,10 +584,10 @@ extern "C" int query_side_bwd_launch(
   float* wm = static_cast<float*>(ws_m);
   float* wd = static_cast<float*>(ws_d);
   if (dtype == repro::kF32) {
-    return launch_typed<float>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, b, n, c, d, dv, scale, seg, pos_offset, st);
+    return launch_typed<float>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, b, n, c, d, dv, scale, seg, pos_offset, run_rows, st);
   }
   if (dtype == repro::kBF16) {
-    return launch_typed<__nv_bfloat16>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, b, n, c, d, dv, scale, seg, pos_offset, st);
+    return launch_typed<__nv_bfloat16>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, b, n, c, d, dv, scale, seg, pos_offset, run_rows, st);
   }
   return cudaErrorInvalidValue;
 }

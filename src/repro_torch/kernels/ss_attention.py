@@ -28,9 +28,12 @@ _MAX_C = 64    # landmark columns query_side's kernel keeps resident
 # multiples of 8 up to _MAX_D.
 ROW_TILE = 64
 KEY_TILE = 64
-# CTAs the chunk plan aims at: two resident per SM of the H100's 132, two
-# waves.
+# CTAs the chunk plan and K2's query-tile plan aim at: two resident per SM
+# of the H100's 132, two waves.
 TARGET_CTAS = 528
+# Query rows per step of the bf16 K2 kernel (csrc/query_side.cu kStepRows):
+# one wgmma M.
+QUERY_TILE = 64
 
 
 def _stream_handle(t: torch.Tensor) -> int:
@@ -94,6 +97,44 @@ def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
     chunk_keys = per * KEY_TILE
     return ChunkPlan(b=b, c=c, n_end=n_end, seg=seg, chunk_keys=chunk_keys,
                      chunks=-(-n_end // chunk_keys))
+
+
+# --------------------------------------------------------------------------
+# The query-tile runs of the bf16 kernels K2 and K4.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class QueryTilePlan:
+    """How K2 and K4 cut the n query rows of each of b batch-heads into
+    ``runs`` runs of ``run_rows`` rows (whole steps of ``step_rows``), one
+    CTA per (run, batch-head). K4 leaves one fp32 partial of dK~, dM and
+    ddelta per run, summed over the runs in order."""
+    b: int
+    n: int
+    step_rows: int
+    run_rows: int
+    runs: int
+
+    def rows(self, i: int) -> tuple[int, int]:
+        """Query rows [start, end) of run i."""
+        return i * self.run_rows, min((i + 1) * self.run_rows, self.n)
+
+    def workspace_floats(self, c: int, d: int, dv: int) -> int:
+        """K4's fp32 workspace: dK~ (c x d), dM (c x dv) and ddelta per run."""
+        return self.b * self.runs * (c * (d + dv) + 1)
+
+
+def query_tile_plan(b: int, n: int, *, step_rows: int = QUERY_TILE,
+                    target_ctas: Optional[int] = None) -> QueryTilePlan:
+    """The query-tile plan for b batch-heads of n query rows: enough runs per
+    head for about ``target_ctas`` CTAs (default TARGET_CTAS), at most one
+    per step of ``step_rows`` rows."""
+    target = TARGET_CTAS if target_ctas is None else target_ctas
+    steps = -(-n // step_rows)
+    want = -(-target // max(1, b))
+    per = max(1, -(-steps // max(1, min(steps, want))))
+    run_rows = per * step_rows
+    return QueryTilePlan(b=b, n=n, step_rows=step_rows, run_rows=run_rows,
+                         runs=-(-n // run_rows))
 
 
 def tensor_core_pair(q_l: torch.Tensor, k: torch.Tensor) -> bool:
@@ -280,7 +321,8 @@ def query_side(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
 
 def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
     """Check the operands and launch csrc/query_side.cu (same arguments as
-    ``query_side_plain``)."""
+    ``query_side_plain``): the tensor-core kernel for bf16 operands, on the
+    runs of its query-tile plan, else the fp32 kernel."""
     b, n, d = q.shape
     c, dv = k_l.shape[1], v.shape[2]
     check_operands("query_side", {"q": q, "k_l": k_l, "m_mat": m_mat, "v": v,
@@ -294,11 +336,16 @@ def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
     if d > _MAX_D or dv > _MAX_D or c > _MAX_C:
         raise ValueError(f"query_side: dims (d={d}, dv={dv}, c={c}) exceed "
                          f"the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_C})")
+    run_rows = 0
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_shapes("query_side", {"q": q, "k_l": k_l, "m_mat": m_mat,
+                                                "v": v}, {"d": d, "dv": dv})
+        run_rows = query_tile_plan(b, n).run_rows
     out = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
     if b and n:
         launch("query_side", q.data_ptr(), k_l.data_ptr(), m_mat.data_ptr(),
                v.data_ptr(), delta.data_ptr(), out.data_ptr(), b, n, c, d, dv,
-               float(scale), seg, pos_offset, DTYPE_CODES[str(q.dtype)],
+               float(scale), seg, pos_offset, run_rows, DTYPE_CODES[str(q.dtype)],
                _stream_handle(q))
         query_side.launches += 1
     return out

@@ -24,12 +24,26 @@ from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 from repro_torch.kernels.ss_attention import (_MAX_C, _MAX_D, ROW_TILE,
                                               _stream_handle, b_side_mask,
                                               check_tensor_core_shapes, chunk_plan,
-                                              query_side_probs, tensor_core_pair)
+                                              query_side_probs, query_tile_plan,
+                                              tensor_core_pair)
 
-# Query rows per CTA of csrc/query_side_bwd.cu's main kernel (kBlockRows):
-# K4 writes one fp32 partial of dK~, dM and ddelta per block of this many
-# rows, and its second kernel sums them in a fixed order.
-K4_BLOCK_ROWS = 256
+# Query rows per step of csrc/query_side_bwd.cu's bf16 kernel (kStepRows):
+# 64 for each of its two warpgroups. K4 writes one fp32 partial of dK~, dM
+# and ddelta per run of steps, and its second kernel sums them in order.
+QS_BWD_STEP_ROWS = 128
+# CTAs K4's query-tile plan aims at: one wave of one CTA per SM (230 KB of
+# shared memory each) on the H100's 132. A sweep of 1-32 runs per head at
+# the training shape found one wave fastest (PERF.md): 2 runs of 2048
+# rows per head, 112 CTAs, 7.3 MB of partials.
+QS_BWD_TARGET_CTAS = 132
+
+
+def query_side_bwd_plan(b: int, n: int):
+    """K4's query-tile plan, for both dtypes (the fp32 kernel walks the same
+    runs): the most runs per head that keep b x runs within
+    QS_BWD_TARGET_CTAS, at least one."""
+    return query_tile_plan(b, n, step_rows=QS_BWD_STEP_ROWS,
+                           target_ctas=max(1, QS_BWD_TARGET_CTAS // max(1, b)) * b)
 
 
 # --------------------------------------------------------------------------
@@ -181,8 +195,9 @@ def query_side_bwd(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
 
 def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset):
     """Check the operands and launch csrc/query_side_bwd.cu (same arguments
-    as ``query_side_bwd_plain``); the fp32 workspace of per-block partials
-    is allocated here."""
+    as ``query_side_bwd_plain``): the tensor-core kernel for bf16 operands,
+    else the fp32 kernel, on the runs of ``query_side_bwd_plan`` with the
+    fp32 workspace of their partials allocated here."""
     b, n, d = q.shape
     c, dv = k_l.shape[1], v.shape[2]
     check_operands("query_side_bwd", {"q": q, "k_l": k_l, "m_mat": m_mat,
@@ -196,22 +211,27 @@ def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset):
     if d > _MAX_D or dv > _MAX_D or c > _MAX_C:
         raise ValueError(f"query_side_bwd: dims (d={d}, dv={dv}, c={c}) exceed "
                          f"the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_C})")
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_shapes("query_side_bwd",
+                                 {"q": q, "k_l": k_l, "m_mat": m_mat, "v": v, "g": g},
+                                 {"d": d, "dv": dv})
     dq = torch.empty_like(q)
     dv_out = torch.empty_like(v)
     dkl = torch.empty_like(k_l)
     dm = torch.empty_like(m_mat)
     dd = torch.empty((b, 1, 1), dtype=torch.float32, device=q.device)
-    blocks = -(-n // K4_BLOCK_ROWS)
-    ws_k = torch.empty((b, blocks, c, d), dtype=torch.float32, device=q.device)
-    ws_m = torch.empty((b, blocks, c, dv), dtype=torch.float32, device=q.device)
-    ws_d = torch.empty((b, blocks), dtype=torch.float32, device=q.device)
+    plan = query_side_bwd_plan(b, n)
+    parts = b * plan.runs
+    ws = torch.empty(plan.workspace_floats(c, d, dv), dtype=torch.float32,
+                     device=q.device)
+    ws_k, ws_m, ws_d = ws.split([parts * c * d, parts * c * dv, parts])
     if b and n:
         launch("query_side_bwd", q.data_ptr(), k_l.data_ptr(), m_mat.data_ptr(),
                v.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
                dkl.data_ptr(), dm.data_ptr(), dv_out.data_ptr(), dd.data_ptr(),
                ws_k.data_ptr(), ws_m.data_ptr(), ws_d.data_ptr(), b, n, c, d, dv,
-               float(scale), seg, pos_offset, DTYPE_CODES[str(q.dtype)],
-               _stream_handle(q))
+               float(scale), seg, pos_offset, plan.run_rows,
+               DTYPE_CODES[str(q.dtype)], _stream_handle(q))
         query_side_bwd.launches += 1
     return dq, dkl, dm, dv_out, dd
 

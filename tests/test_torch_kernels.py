@@ -31,10 +31,15 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,  # noqa: E402
                                               paged_row_stats_plain)
 from repro_torch.kernels.ref import ref_landmark_summary, ref_query_side  # noqa: E402
-from repro_torch.kernels.ss_attention import (KEY_TILE, ROW_TILE,  # noqa: E402
-                                              TARGET_CTAS, b_side_mask,
-                                              chunk_plan, landmark_summary,
-                                              landmark_summary_plain, query_side)
+from repro_torch.kernels.ss_attention import (KEY_TILE, QUERY_TILE,  # noqa: E402
+                                              ROW_TILE, TARGET_CTAS,
+                                              b_side_mask, chunk_plan,
+                                              landmark_summary,
+                                              landmark_summary_plain, query_side,
+                                              query_tile_plan)
+from repro_torch.kernels.ss_attention_bwd import (QS_BWD_STEP_ROWS,  # noqa: E402
+                                                  QS_BWD_TARGET_CTAS,
+                                                  query_side_bwd_plan)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -250,6 +255,85 @@ def test_query_side_plain_matches_unmasked_oracle():
             ((2, 70, 32), (2, 16, 32), (2, 16, 32), (2, 70, 32), (2, 1, 1))]
     torch.testing.assert_close(query_side(*args, scale=0.3),
                                ref_query_side(*args, 0.3), **TOL)
+
+
+# --------------------------------------------------------------------------
+# The query-tile runs of the bf16 K2 / K4 kernels
+# --------------------------------------------------------------------------
+QUERY_PLAN_CASES = {
+    # name: (b, n)
+    "train_qwen2_7b": (56, 4096),
+    "serve_bucket_352": (28, 352),
+    "serve_512": (28, 512),
+    "one_row": (56, 1),
+    "under_a_tile": (56, 63),
+    "one_past_a_tile": (56, 65),
+    "ragged_4000": (56, 4000),
+    "reduced_cpu": (6, 96),
+}
+
+
+@pytest.mark.parametrize("kernel", ["query_side", "query_side_bwd"])
+@pytest.mark.parametrize("case", sorted(QUERY_PLAN_CASES))
+def test_query_tile_plan_covers_each_row_once(case, kernel):
+    b, n = QUERY_PLAN_CASES[case]
+    if kernel == "query_side":
+        plan, step, target = query_tile_plan(b, n), QUERY_TILE, TARGET_CTAS
+    else:
+        plan, step, target = query_side_bwd_plan(b, n), QS_BWD_STEP_ROWS, QS_BWD_TARGET_CTAS
+    assert plan.step_rows == step and plan.run_rows % step == 0
+    # every query row in exactly one run, runs in order, none empty
+    owner = [i for r in range(plan.runs) for i in [r] * (plan.rows(r)[1] - plan.rows(r)[0])]
+    assert owner == sorted(owner) and len(owner) == n
+    assert all(lo < hi for lo, hi in map(plan.rows, range(plan.runs)))
+    assert plan.rows(plan.runs - 1)[1] == n
+    # enough CTAs to fill the card, but never a run below one step; K4 (one
+    # CTA an SM) within one wave
+    assert plan.run_rows == step or b * plan.runs >= target // 2
+    if kernel == "query_side_bwd":
+        assert plan.runs == 1 or b * plan.runs <= target
+    assert plan.workspace_floats(64, 128, 96) == b * plan.runs * (64 * (128 + 96) + 1)
+
+
+def test_query_tile_plan_at_the_main_paths():
+    train = query_tile_plan(56, 4096)
+    assert (train.run_rows, train.runs) == (448, 10)     # 7 tiles, 560 CTAs
+    assert (query_tile_plan(28, 352).run_rows, query_tile_plan(28, 352).runs) == (64, 6)
+    bwd = query_side_bwd_plan(56, 4096)
+    assert (bwd.run_rows, bwd.runs) == (2048, 2)         # 16 steps, 112 CTAs: one wave
+    # K4's partials of dK~, dM and ddelta at the training shape: 7.3 MB
+    assert bwd.workspace_floats(64, 128, 128) * 4 == 7_340_480
+    assert query_side_bwd_plan(28, 512).runs == 4          # the fp32 grad check's shape
+
+
+@pytest.mark.parametrize("kernel", ["query_side", "query_side_bwd"])
+@pytest.mark.parametrize("bad", ["d_not_multiple_of_8", "misaligned", "c_above_64"])
+def test_bf16_shapes_the_tensor_core_kernels_do_not_take_raise(kernel, bad):
+    """The bf16 K2 / K4 wrappers raise before any launch on a shape their
+    tensor-core kernels do not take: there is no FMA fallback for bf16."""
+    from repro_torch.kernels import ss_attention, ss_attention_bwd
+
+    b, n, c, d = 2, 70, 80 if bad == "c_above_64" else 16, 12 if bad == "d_not_multiple_of_8" else 16
+
+    def t(*shape):
+        if bad == "misaligned":   # one bf16 past a 16-byte boundary
+            return torch.zeros(int(np.prod(shape)) + 1, dtype=torch.bfloat16)[1:].view(shape)
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    args = [t(b, n, d), t(b, c, d), t(b, c, d), t(b, n, d), torch.ones(b, 1, 1)]
+    before = launch_counts()
+    with pytest.raises(ValueError):
+        if kernel == "query_side":
+            ss_attention._query_side_cuda(*args, scale=0.25, seg=0, pos_offset=0)
+        else:
+            ss_attention_bwd._query_side_bwd_cuda(*args, t(b, n, d), scale=0.25, seg=0,
+                                                  pos_offset=0)
+    assert launch_counts() == before
+
+
+def test_query_tile_sizes_match_the_cuda_source():
+    src = (build.CSRC / "query_side.cu").read_text()
+    assert int(re.search(r"kStepRows = (\d+);", src).group(1)) == QUERY_TILE == ROW_TILE
 
 
 # --------------------------------------------------------------------------

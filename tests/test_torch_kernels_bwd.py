@@ -30,10 +30,12 @@ from repro.kernels.ss_attention_bwd import query_side_bwd as j_qs_bwd  # noqa: E
 from repro_torch.core.attention import SSConfig  # noqa: E402
 from repro_torch.kernels import build, launch_counts, ops  # noqa: E402
 from repro_torch.kernels.ss_attention import b_side_mask, chunk_plan  # noqa: E402
-from repro_torch.kernels.ss_attention_bwd import (K4_BLOCK_ROWS,  # noqa: E402
+from repro_torch.kernels.ss_attention_bwd import (QS_BWD_STEP_ROWS,  # noqa: E402
                                                   landmark_summary_bwd,
                                                   landmark_summary_bwd_plain,
-                                                  query_side_bwd)
+                                                  query_side_bwd,
+                                                  query_side_bwd_plain,
+                                                  query_side_bwd_plan)
 
 REL = 1e-5
 
@@ -188,6 +190,46 @@ def test_query_side_bwd_plain_matches_pallas(case):
         _close(o, r)
 
 
+def runs_query_side_bwd(q, k_l, m_mat, v, delta, g, plan, *, scale, seg, pos_offset):
+    """Plain mirror of the K4 kernels' decomposition: each run of the plan
+    writes its rows' dQ and dV and one partial of dK~, dM and ddelta (its
+    rows at their global positions under the F-mask), summed over the runs
+    in order."""
+    dq, dv = torch.zeros_like(q), torch.zeros_like(v)
+    dkl, dm = torch.zeros_like(k_l), torch.zeros_like(m_mat)
+    dd = torch.zeros_like(delta)
+    for r in range(plan.runs):
+        lo, hi = plan.rows(r)
+        part = query_side_bwd_plain(q[:, lo:hi], k_l, m_mat, v[:, lo:hi], delta,
+                                    g[:, lo:hi], scale=scale, seg=seg,
+                                    pos_offset=pos_offset + lo)
+        dq[:, lo:hi], dv[:, lo:hi] = part[0], part[3]
+        dkl, dm, dd = dkl + part[1], dm + part[2], dd + part[4]
+    return dq, dkl, dm, dv, dd
+
+
+@pytest.mark.parametrize("case", ["bidir_ragged", "causal_q_offset", "causal_c16_one_run"])
+def test_query_tile_runs_backward_match_plain(case):
+    b, n, c, causal, q_offset = {"bidir_ragged": (2, 300, 32, False, None),
+                                 "causal_q_offset": (2, 400, 16, True, 1000),
+                                 "causal_c16_one_run": (3, 100, 16, True, None)}[case]
+    rng = np.random.default_rng(17)
+    q, k_l = _rand(rng, b, n, 32, scale=0.5), _rand(rng, b, c, 32, scale=0.5)
+    m_mat, v, g = _rand(rng, b, c, 24), _rand(rng, b, n, 24), _rand(rng, b, n, 24)
+    delta = np.abs(_rand(rng, b, 1, 1)) * 0.1
+    t = [torch.from_numpy(a) for a in (q, k_l, m_mat, v, delta, g)]
+    n_k = 2 * n if q_offset else n
+    seg = -(-n_k // c) if causal else 0
+    pos = (q_offset if q_offset is not None else n_k - n) if causal else 0
+    plan = query_side_bwd_plan(b, n)
+    assert plan.runs == -(-n // QS_BWD_STEP_ROWS)   # one step a run at these sizes
+    out = runs_query_side_bwd(*t, plan, scale=32**-0.5, seg=seg, pos_offset=pos)
+    ref = query_side_bwd(*t, scale=32**-0.5, causal=causal, seq_len_k=n_k,
+                         q_offset=q_offset)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
 def test_backward_cpu_tensors_never_launch_a_kernel():
     before = launch_counts()
     rng = np.random.default_rng(13)
@@ -201,9 +243,13 @@ def test_backward_cpu_tensors_never_launch_a_kernel():
     assert launch_counts() == before
 
 
-def test_k4_block_rows_match_the_cuda_source():
+def test_k4_step_rows_match_the_cuda_source():
+    """The bf16 K4 kernel's 128-row step (two warpgroups of wgmma's 64 rows)
+    is the step of the wrapper's query-tile plan."""
     src = (build.CSRC / "query_side_bwd.cu").read_text()
-    assert int(re.search(r"kBlockRows = (\d+);", src).group(1)) == K4_BLOCK_ROWS
+    assert re.search(r"kStepRows = 2 \* repro::kTileRows;", src)
+    tile = int(re.search(r"kTileRows = (\d+);", (build.CSRC / "mma.cuh").read_text()).group(1))
+    assert 2 * tile == QS_BWD_STEP_ROWS == 128
 
 
 # --------------------------------------------------------------------------
