@@ -16,7 +16,10 @@ result line):
    zeros and its gradients bitwise identical over two launches) and of the
    bf16 K2 / K4 query-tile runs (n = 1, 63, 65, 352, 4000; c = 16, 32, 64;
    dv = 64; the F-mask with q_offset 37 / 1000; bitwise identical over two
-   launches), then
+   launches) and of the K5 split-slot grid (fp32 and bf16; kv_valid 0, 1,
+   15, 16, 17, a chunk's edge +-1, every slot valid; tables of 1, 32 and
+   1024 slots; r = 1, 7, 8; dv = 64; NaN in every pool row the kernel must
+   not read; the kv_valid-0 anchor exact; bitwise over two launches), then
    timed with CUDA events (``ms``: back-to-back calls, host included) and
    the profiler (``device_ms``) beside the plain version, the roofline
    bound and one library call where there is one, with the kernel's share
@@ -24,7 +27,8 @@ result line):
    shape with their K/V warm in L2
    (on the path they read what the projections just wrote), K5 cold (it
    rotates over pool copies larger than L2, as decode reads a different
-   layer's pools at each launch); K1 (with stats) and K2 causal and the
+   layer's pools at each launch) at the serving shape and at a 16k
+   horizon; K1 (with stats) and K2 causal and the
    backward kernels K3 and K4 at the training shape (batch 2 x 28 heads,
    seq 4096), with a kv_valid case for K3 and a q_offset case for K4;
 3. model parity: full-width Qwen2-7B cut to 2 layers, fp32, prefill logits
@@ -57,6 +61,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -153,10 +158,48 @@ def device_ms(fn, iters: int = 20) -> float:
                        "in three windows")
 
 
+def device_us_by_kernel(calls, iters: int = 20) -> dict:
+    """Device microseconds per call of each kernel that ``calls`` (taken in
+    turn) launch, by torch.profiler: K5's main kernel and its merge apart."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls[0]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    return {re.sub(r"^.*::|[<(].*$", "", e.key): round(e.self_device_time_total / iters, 2)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = flops / H100_PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k5_bound(kv_valid, hkv: int, r: int, d: int, dv: int, bs: int,
+             es: int = 4) -> tuple[float, str]:
+    """K5's bound for one launch: q and the valid keys' K and V rows read
+    once, the table entries and kv_valid, fp32 (m, l, acc) written once;
+    4 r d flops per key and kv head."""
+    lanes, keys = len(kv_valid), sum(kv_valid)
+    blocks = sum(-(-x // bs) for x in kv_valid)
+    nbytes = (es * (lanes * hkv * r * d + keys * hkv * (d + dv)) + 4 * (blocks + lanes)
+              + 4 * lanes * hkv * r * (dv + 2))
+    return bound(nbytes, keys * hkv * r * 2 * (d + dv), "float32")
+
+
+def cold_pools(k_pool, v_pool) -> list:
+    """(k_pool, v_pool) and copies that together exceed L2 twice: decode
+    reads another layer's pools at each launch, so a timing that rotates
+    over these finds every launch's pools cold."""
+    pair = 2 * k_pool.numel() * k_pool.element_size()
+    return [(k_pool, v_pool)] + [(k_pool.clone(), v_pool.clone())
+                                 for _ in range(-(-2 * L2_BYTES // pair) - 1)]
 
 
 def max_err(out, ref, where=None) -> tuple[float, float]:
@@ -307,16 +350,7 @@ def kernel_phase(torch, dev) -> list[dict]:
                     [("m", m[..., 0], rm[..., 0], live), ("l", l, rl, None),
                      ("acc", acc, racc, None)])
         if dt == torch.float32:
-            es, keys = 4, int(kv_valid.sum())
-            blocks = sum(-(-x // bs) for x in kv_valid.tolist())
-            nbytes = (es * (lanes * hkv * r * d + keys * hkv * 2 * d)
-                      + 4 * (blocks + lanes) + 4 * lanes * hkv * r * (d + 2))
-            flops = keys * hkv * r * 2 * 2 * d
-            # Decode reads another layer's pools at each launch: rotate over
-            # copies that together exceed L2 twice, so every launch is cold.
-            pair = 2 * k_pool.numel() * k_pool.element_size()
-            pools = [(k_pool.clone(), v_pool.clone())
-                     for _ in range(-(-2 * L2_BYTES // pair))]
+            pools = cold_pools(k_pool, v_pool)
             entries["paged_row_stats"] = dict(
                 fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kv_valid,
                             scale=scale, block_size=bs) for kp, vp in pools],
@@ -324,13 +358,16 @@ def kernel_phase(torch, dev) -> list[dict]:
                              kv_valid, scale=scale, block_size=bs),
                 plain=[partial(paged_row_stats_plain, q, (kp,), vp, table,
                                kv_valid, scale=scale) for kp, vp in pools],
-                library=None, err=err, bound=bound(nbytes, flops, "float32"),
+                library=None, err=err,
+                bound=k5_bound(kv_valid.tolist(), hkv, r, d, d, bs),
                 shape=f"lanes={lanes} hkv={hkv} r={r} bs={bs} slots={n_slots} "
                       f"kv_valid={kv_valid.tolist()} fp32, L2 cold "
                       f"({len(pools)} pool copies)")
+    entries["paged_row_stats_long"] = long_horizon_entry(torch, dev)
 
     split_key_checks(torch, dev)
     query_tile_checks(torch, dev)
+    slot_chunk_checks(torch, dev)
     entries.update(train_kernel_entries(torch, dev))
 
     # ---- timing ------------------------------------------------------------
@@ -342,6 +379,8 @@ def kernel_phase(torch, dev) -> list[dict]:
         bound_ms, bound_by = e["bound"]
         warm = f", warm L2 {cuda_ms(e['warm']):.4f} ms" if "warm" in e else ""
         label = getattr(e["library"], "label", "")
+        if tag.startswith("paged_row_stats"):
+            log(f"time {tag}: device us per kernel {device_us_by_kernel(e['fn'])}")
         log(f"time {tag} [{e['shape']}]: kernel {ms:.4f} ms (device {dev_ms:.4f})"
             f"{warm}, plain "
             f"{plain_ms:.4f} ms, library "
@@ -376,6 +415,11 @@ def kernel_phase(torch, dev) -> list[dict]:
             # the training path's forward launch (same kernel and counter)
             row["train_launch"] = dict(shape=entries[f"{name}_train"]["shape"],
                                        **timed(f"{name}_train"))
+        if name == "paged_row_stats":
+            # the same decode launch at a 16k horizon
+            row["long_horizon_launch"] = dict(
+                shape=entries["paged_row_stats_long"]["shape"],
+                **timed("paged_row_stats_long"))
         results.append(row)
     return results
 
@@ -554,6 +598,126 @@ def query_tile_checks(torch, dev) -> None:
                             raise AssertionError(f"K4 {label}: two launches differ")
     log("query-tile K2/K4: every case within tolerance, both bitwise identical "
         "over two launches")
+
+
+def paged_inputs(torch, dev, gen, kv_valid, *, hkv=4, r=7, d=128, dv=128, bs=16,
+                 n_slots=32, dtype=None, poison=False):
+    """K5's operands: q, K and V pools and a block table with distinct
+    random blocks per lane (block 0, ZERO_BLOCK, fills the slots past each
+    lane's allocation; a lane with kv_valid 0 holds one allocated block).
+    With ``poison`` the pools come twice, the second copy with NaN in
+    every row no valid key reads (ZERO_BLOCK, blocks no lane's valid keys
+    reach, and the rows past kv_valid in a lane's last block), so a
+    kernel that reads or weighs one of them shows it."""
+    dtype = dtype or torch.float32
+    lanes = len(kv_valid)
+    used = [max(-(-k // bs), 1) for k in kv_valid]
+    nb = sum(used) + 2    # ZERO_BLOCK and one block no table holds
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2)) + 1
+    table = torch.zeros((lanes, n_slots), dtype=torch.int32)
+    at = 0
+    for ln, u in enumerate(used):
+        table[ln, :u] = perm[at:at + u]
+        at += u
+    q = (torch.randn((lanes, hkv, r, d), generator=gen, device=dev) * 0.5).to(dtype)
+    k_pool = (torch.randn((hkv, nb, bs, d), generator=gen, device=dev) * 0.5).to(dtype)
+    v_pool = torch.randn((hkv, nb, bs, dv), generator=gen, device=dev).to(dtype)
+    kvv = torch.tensor(kv_valid, dtype=torch.int32)
+    out = (q, k_pool, v_pool, table.to(dev), kvv.to(dev))
+    if not poison:
+        return out
+    keep = torch.zeros((nb, bs), dtype=torch.bool)
+    for ln, k in enumerate(kv_valid):
+        for slot in range(-(-k // bs)):
+            keep[int(table[ln, slot]), :min(bs, k - slot * bs)] = True
+    keep = keep.to(dev)[None, :, :, None]
+    nan = torch.tensor(float("nan"), dtype=dtype, device=dev)
+    return out + (torch.where(keep, k_pool, nan), torch.where(keep, v_pool, nan))
+
+
+def long_horizon_entry(torch, dev, kv_valid=(2048, 4096, 8192, 16384)) -> dict:
+    """K5's decode launch at a 16k horizon (4 lanes, 4 kv heads, r 7, bs 16,
+    a table of 1024 slots, fp32 pools), held against its plain version and
+    set up for timing: the pools (126 MB of valid K and V) exceed L2, so
+    every launch reads them from device memory."""
+    from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                  paged_row_stats_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lanes, hkv, r, d, bs, n_slots = len(kv_valid), 4, 7, 128, 16, 1024
+    q, k_pool, v_pool, table, kvv = paged_inputs(torch, dev, gen, list(kv_valid),
+                                                 hkv=hkv, r=r, bs=bs, n_slots=n_slots)
+    scale = d**-0.5
+    m, l, acc = paged_row_stats_lanes(q, k_pool, v_pool, table, kvv, scale=scale,
+                                      block_size=bs)
+    rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvv, scale=scale)
+    err = check(f"K5 paged_row_stats long horizon lanes={lanes} hkv={hkv} r={r} "
+                f"bs={bs} slots={n_slots} kv_valid={list(kv_valid)} fp32",
+                [("m", m, rm, None), ("l", l, rl, None), ("acc", acc, racc, None)])
+    pools = cold_pools(k_pool, v_pool)
+    return dict(
+        fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kvv, scale=scale,
+                    block_size=bs) for kp, vp in pools],
+        plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvv, scale=scale)
+               for kp, vp in pools],
+        library=None, err=err, bound=k5_bound(kv_valid, hkv, r, d, d, bs),
+        shape=f"lanes={lanes} hkv={hkv} r={r} bs={bs} slots={n_slots} "
+              f"kv_valid={list(kv_valid)} fp32, L2 cold ({len(pools)} pool copies)")
+
+
+def slot_chunk_checks(torch, dev) -> None:
+    """K5 where its split-slot grid has its edges, each in fp32 and bf16,
+    against the plain version at KERNEL_TOL (all outputs fp32): kv_valid 0,
+    1, 15, 16 and 17 (inside, at and past one block), one short of, at and
+    one past a chunk's edge, every slot valid; a table of 1 slot (one chunk,
+    the direct write), of 32 (the serving table) and of 1024 (a 16k
+    horizon); r = 1 and 8 query rows per kv head; dv = 64. The kernel runs
+    on pools with NaN in every row it must not read or weigh (plain: clean
+    pools); a lane with kv_valid 0 must return exactly the anchor (m -1e30,
+    l 0, acc 0), and two launches the same bits."""
+    from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                  paged_row_stats_plain,
+                                                  slot_chunk_plan)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bs = 16
+    cases = []   # (n_slots, kv_valid per lane, r, dv)
+    for n_slots in (32, 1024):
+        edge = slot_chunk_plan(10, 4, n_slots, bs).chunk_slots * bs   # 10 lanes below
+        kv = [0, 1, 15, 16, 17, edge - 1, edge, edge + 1, 3 * edge + 5, n_slots * bs]
+        cases += [(n_slots, kv, 7, 128), (n_slots, kv, 1, 128), (n_slots, kv, 8, 128),
+                  (n_slots, kv, 7, 64)]
+    cases.append((1, [0, 1, 15, 16], 7, 128))
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        for n_slots, kv, r, dv in cases:
+            q, kp, vp, table, kvv, kp_nan, vp_nan = paged_inputs(
+                torch, dev, gen, kv, r=r, dv=dv, bs=bs, n_slots=n_slots, dtype=dt,
+                poison=True)
+            plan = slot_chunk_plan(len(kv), 4, n_slots, bs)
+            label = (f"lanes={len(kv)} hkv=4 r={r} d=128 dv={dv} bs={bs} slots={n_slots} "
+                     f"kv_valid={kv} {dname} ({plan.chunks} chunks of "
+                     f"{plan.chunk_slots} slots)")
+            out = paged_row_stats_lanes(q, kp_nan, vp_nan, table, kvv, scale=128**-0.5,
+                                        block_size=bs)
+            rm, rl, racc = paged_row_stats_plain(q, (kp,), vp, table, kvv,
+                                                 scale=128**-0.5)
+            m, l, acc = out
+            live = rl[..., 0] > 0
+            check(f"K5 split-slot {label}",
+                  [("m", m[..., 0], rm[..., 0], live), ("l", l, rl, None),
+                   ("acc", acc, racc, None)])
+            empty = [i for i, k in enumerate(kv) if k == 0]
+            if not (torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0)
+                    and torch.all(acc[empty] == 0)):
+                raise AssertionError(f"K5 {label}: a lane with kv_valid 0 must "
+                                     f"return exactly (m=-1e30, l=0, acc=0)")
+            again = paged_row_stats_lanes(q, kp_nan, vp_nan, table, kvv,
+                                          scale=128**-0.5, block_size=bs)
+            if not all(torch.equal(a, b) for a, b in zip(out, again)):
+                raise AssertionError(f"K5 {label}: two launches differ")
+    log("split-slot K5: every case within tolerance on NaN-poisoned unread rows, "
+        "kv_valid-0 lanes exactly the anchor, bitwise identical over two launches")
 
 
 def train_kernel_entries(torch, dev) -> dict:

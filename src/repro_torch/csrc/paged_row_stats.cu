@@ -5,7 +5,7 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_decode.py:162
 // paged_row_stats_lanes (body _paged_row_stats_kernel :83; the single-lane
 // paged_row_stats :267 and its custom_vmap rule _lane_fn :229 have no
-// counterpart: lanes are the grid's first axis).
+// counterpart: lanes are a grid axis).
 //
 // What it computes, per lane, kv head h and row:
 //   key t (t < kv_valid[lane]) lives in pool block table[lane, t / bs] at
@@ -13,175 +13,430 @@
 //   m = max s_t, l = sum exp(s_t - m), acc = sum exp(s_t - m) V[h, blk, .].
 //   A row with no valid key (kv_valid = 0, padded lanes) returns exactly
 //   (m = -1e30, l = 0, acc = 0), the anchor flash_merge absorbs; slots past
-//   the last valid key (ragged last block, ZERO_BLOCK tail) are never read.
+//   the last valid key (ZERO_BLOCK tail) are never read.
 //
-// Bound on the H100 (3.35 TB/s): the work is the valid keys' K and V rows:
-// at the serving shape (4 lanes, 4 kv heads, r = 7, d = dv = 128, fp32
-// pools, <= 512 keys) at most 4 * 4 * 512 * 128 * 4 B * 2 = 8.4 MB (~2.5 us)
-// and 2 * 2 * r * keys * d flops per lane-head, so it is bytes-bound.
+// Bound on the H100 (3.35 TB/s, 67 TFLOP/s fp32 FMA): the valid keys' K
+// and V rows. Per block of bs keys it reads bs (d + dv) elements and does
+// 4 r bs d flops: 3.5 flop/B at r = 7 in fp32 pools, 7 in bf16, far under
+// the FMA ridge (about 20 flop/B), so it is bytes-bound and tensor cores
+// would buy nothing. At the serving shape (4 lanes, 4 kv heads, r = 7,
+// d = dv = 128, bs 16, fp32, <= 512 keys) the bytes take ~1 us; at a 16k
+// horizon 126 MB take ~38 us.
 //
-// Design. The TPU kernel walks (lane, head, slot) with the slot axis
-// sequential and scalar-prefetched table entries. Here one CTA owns one
-// (lane, kv head) and loads its own table entries; its 8 warps split the
-// lane's valid slots round-robin, each keeping a private fp32 partial
-// (m, l, acc) for the r <= 8 rows in registers (lanes hold d / 32 feature
-// columns; a score is a warp reduction), and the CTA merges the 8 partials
-// through shared memory at the end with the same max-rescale algebra as
-// flash_merge. The loop stops at the lane's last valid key, so its cost
-// follows the data, not the table width. The grid is only lanes * hkv CTAs
-// (16 at the serving shape): a split over slots across CTAs plus a merge
-// pass (flash-decoding) is the next step for long horizons.
+// Design: a split-slot (flash-decoding) grid with bulk-copied pool blocks.
+// - Grid (chunk, kv head, lane). The wrapper's slot-chunk plan
+//   (kernels/paged_decode.py:slot_chunk_plan) cuts the table's n_slots
+//   into chunks of whole steps, sized from n_slots alone (kv_valid lives on
+//   the device, so the host never waits for it) for about 528 CTAs. A CTA
+//   whose chunk holds no valid key writes the anchor and exits.
+// - A step is 32 // bs consecutive blocks (up to 32 keys, one per lane).
+//   One pool block (h, blk) is bs x d contiguous elements: thread 0 reads
+//   its table entry and copies the step's K blocks, then its V blocks, into
+//   one stage of a ring in shared memory with Hopper's bulk copy
+//   (cp.async.bulk ... mbarrier::complete_tx::bytes), completion on one
+//   mbarrier per stage. The first kStages = 2 steps are in flight before
+//   the first is consumed: the memory-level parallelism that the first
+//   design, one key at a time per warp, lacked. Step i-1's stage is
+//   refilled after the CTA-wide barrier that follows step i's scores, so
+//   one __syncthreads per step suffices; this needs at least 2 stages (with
+//   one, a step would be issued after the wait that needs it). (cp.async
+//   would need every thread to compute addresses; a bulk copy is one
+//   instruction per block.)
+// - Scores of a whole step at once, in fp32 FMA: 16 keys per pass, 16
+//   threads per key, each thread holding its two 4-column chunks of all
+//   r <= 8 query rows (pre-scaled) in registers; the 8 partial sums of a
+//   thread are reduced over its 16 threads by a transposing butterfly (8
+//   shuffles, not 32), after which threads 2 row and 2 row + 1 hold row
+//   `row`'s score. The 16 threads of a key read one contiguous row of the
+//   stage: no bank conflicts without padding, which a bulk copy cannot add.
+// - Warp w owns query row w, lane j key j of the step: one max, one
+//   rescale of the accumulator and one exp per lane per step (not per
+//   key), then P V with each lane holding 4 value columns (the warp reads
+//   one contiguous V row per key), the weights broadcast by shuffle, 16
+//   keys unrolled so their reads issue together.
+// - Partials: with one chunk the CTA writes (m, l, acc) directly; else
+//   each chunk's fp32 partial goes to the wrapper's workspace and
+//   paged_row_stats_merge combines them in chunk order with flash_merge's
+//   rule (no atomics: two launches give the same bits).
+// A sweep on the H100 chose 528 CTAs and 2 stages (PERF.md): at a 16k
+// horizon 256 CTAs left most SMs one CTA (latency-bound), 3 stages gained
+// nothing, and 4 stages of 32 KB left room for only one CTA an SM.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 using repro::kNegInf;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxR = 8;                 // query rows per kv head
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxR = 8;                 // query rows per kv head (one warp each)
 constexpr int kMaxD = 128;               // max head dim (d and dv)
-constexpr int kCols = kMaxD / 32;        // feature columns per lane
+constexpr int kMaxBs = 32;               // max keys per pool block (one per lane)
+constexpr int kStages = 2;               // ring stages (mbarriers)
+constexpr int kKeyThreads = 16;          // threads per key in the score pass
+constexpr int kKeysPerPass = kThreads / kKeyThreads;
+constexpr int kChunks = kMaxD / 4 / kKeyThreads;   // 4-column chunks per thread
+// dynamic shared memory of the ring: kStages steps of up to kMaxBs K rows
+// and kMaxBs V rows of fp32
+constexpr uint32_t kMaxRing = kStages * kMaxBs * 2 * kMaxD * 4;
+static_assert(kWarps == kMaxR, "warp w owns query row w");
+static_assert(kStages >= 2, "step i-1's stage is refilled after step i's wait");
+
+// ---- mbarrier and bulk copy -------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16) from 16-byte aligned global `src` to shared
+// `dst`; completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Four consecutive elements as floats (16 B of fp32, 8 B of bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Sum x[0..7] over the 16 threads of a key group (lanes differing in bits
+// 0-3). Each step hands half of the remaining rows to the partner, so after
+// 8 shuffles the thread with key-thread index kt holds the full sum of row
+// kt >> 1.
+__device__ __forceinline__ float butterfly_rows(const float (&x)[kMaxR], int kt) {
+  const bool b3 = kt & 8, b2 = kt & 4, b1 = kt & 2;
+  float y[4], z[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = b3 ? x[4 + i] : x[i], send = b3 ? x[i] : x[4 + i];
+    y[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float keep = b2 ? y[2 + i] : y[i], send = b2 ? y[i] : y[2 + i];
+    z[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+  float s = (b1 ? z[1] : z[0]) + __shfl_xor_sync(0xffffffffu, b1 ? z[0] : z[1], 2);
+  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 paged_row_stats_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                        const T* __restrict__ vpool, const int* __restrict__ table,
                        const int* __restrict__ kv_valid, float* __restrict__ m_out,
                        float* __restrict__ l_out, float* __restrict__ acc_out,
-                       int hkv, int r, int d, int dv, int nb, int bs,
-                       int n_slots, float scale) {
-  __shared__ float m_s[kWarps][kMaxR];
-  __shared__ float l_s[kWarps][kMaxR];
-  __shared__ float acc_s[kWarps][kMaxR][kMaxD];
+                       float* __restrict__ ws, int hkv, int r, int d, int dv, int nb,
+                       int bs, int n_slots, int chunk_slots, int chunks,
+                       uint32_t stage_bytes, float scale) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ float s_sh[2][kMaxR][kMaxBs + 1];   // +1: the score writes spread over banks
 
-  const int ln = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int chunk = blockIdx.x, h = blockIdx.y, ln = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = chunk * chunk_slots;
+  const int* tb = table + static_cast<size_t>(ln) * n_slots + s0;
+  const int blk0 = tid == 0 && s0 < n_slots ? tb[0] : 0;   // fetched beside kv_valid
   const int valid = min(max(kv_valid[ln], 0), n_slots * bs);
-  const T* qb = q + (static_cast<size_t>(ln) * hkv + h) * r * d;
+  const int n_blk = (valid + bs - 1) / bs;
+  const int nblk = min(s0 + chunk_slots, n_blk) - s0;   // blocks of this chunk
 
-  float qr[kMaxR][kCols], m[kMaxR], l[kMaxR], acc[kMaxR][kCols];
-#pragma unroll
-  for (int row = 0; row < kMaxR; ++row) {
-    m[row] = kNegInf;
-    l[row] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int col = lane + 32 * i;
-      qr[row][i] = row < r && col < d
-          ? repro::to_float(qb[static_cast<size_t>(row) * d + col]) : 0.f;
-      acc[row][i] = 0.f;
+  // Where this CTA's (m, l, acc) go: the output with one chunk, else its
+  // partial in the workspace (layout: see paged_row_stats_merge).
+  const size_t o = (static_cast<size_t>(ln) * hkv + h) * r;   // first output row
+  float* mo = m_out + o;
+  float* lo = l_out + o;
+  float* ao = acc_out + o * dv;
+  if (chunks > 1) {
+    const size_t rows = static_cast<size_t>(gridDim.z) * hkv * chunks * r;
+    const size_t w = ((static_cast<size_t>(ln) * hkv + h) * chunks + chunk) * r;
+    ao = ws + w * dv;
+    mo = ws + rows * dv + w;
+    lo = ws + rows * (dv + 1) + w;
+  }
+  if (nblk <= 0) {   // no valid key in this chunk: the anchor, which merges as 0
+    for (int x = tid; x < r * dv; x += kThreads) ao[x] = 0.f;
+    if (tid < r) {
+      mo[tid] = kNegInf;
+      lo[tid] = 0.f;
     }
+    return;
   }
 
-  const int n_blk = (valid + bs - 1) / bs;
-  const int* tb = table + static_cast<size_t>(ln) * n_slots;
-  for (int slot = warp; slot < n_blk; slot += kWarps) {
-    const size_t base = (static_cast<size_t>(h) * nb + tb[slot]) * bs;
-    const int kend = min(bs, valid - slot * bs);
-    for (int j = 0; j < kend; ++j) {
-      const T* kr = kpool + (base + j) * d;
-      const T* vr = vpool + (base + j) * dv;
-      float kx[kCols], vx[kCols];
+  // A step takes bps consecutive blocks of the chunk (up to 32 keys, one
+  // per lane): a stage holds their K rows, then their V rows, so key j of
+  // the step is row j of either.
+  const int bps = kMaxBs / bs, step_keys = bps * bs;
+  const int n_steps = (nblk + bps - 1) / bps;
+  const uint32_t k_bytes = static_cast<uint32_t>(bs) * d * sizeof(T);
+  const uint32_t v_bytes = static_cast<uint32_t>(bs) * dv * sizeof(T);
+  const uint32_t ring0 = smem_addr(ring), bar0 = smem_addr(full);
+  auto issue = [&](int i) {   // step i of the chunk into stage i % kStages
+    const int st = i % kStages, b0 = i * bps, nb_step = min(bps, nblk - b0);
+    const uint32_t dst = ring0 + st * stage_bytes, bar = bar0 + 8 * st;
+    mbar_expect_tx(bar, nb_step * (k_bytes + v_bytes));
+    for (int b = 0; b < nb_step; ++b) {
+      const size_t blk = static_cast<size_t>(h) * nb + (b0 + b == 0 ? blk0 : tb[b0 + b]);
+      bulk_copy(dst + b * k_bytes, kpool + blk * bs * d, k_bytes, bar);
+      bulk_copy(dst + bps * k_bytes + b * v_bytes, vpool + blk * bs * dv, v_bytes, bar);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bar0 + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < min(kStages, n_steps); ++i) issue(i);
+  }
+
+  // Score-pass roles: key `kp` of each pass of 16, key-thread kt owning the
+  // 4-column chunks kt and kt + 16 (columns 4 kt.. and 64 + 4 kt..).
+  const int kt = tid & (kKeyThreads - 1), kp = tid / kKeyThreads;
+  float qr[kMaxR][kChunks][4];
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int col = lane + 32 * i;
-        kx[i] = col < d ? repro::to_float(kr[col]) : 0.f;
-        vx[i] = col < dv ? repro::to_float(vr[col]) : 0.f;
+  for (int row = 0; row < kMaxR; ++row)
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int col = 4 * (kt + kKeyThreads * j);
+      const float4 x = row < r && col < d
+          ? load4(q + (o + row) * d + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+      qr[row][j][0] = x.x * scale;
+      qr[row][j][1] = x.y * scale;
+      qr[row][j][2] = x.z * scale;
+      qr[row][j][3] = x.w * scale;
+    }
+
+  // Row `warp`'s running state (identical in every lane) and lane's 4 value
+  // columns of its accumulator.
+  float m = kNegInf, l = 0.f;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int passes = (step_keys + kKeysPerPass - 1) / kKeysPerPass;
+  const int vcol = 4 * lane;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % kStages;
+    mbar_wait(bar0 + 8 * st, (i / kStages) & 1);
+    const T* ks = reinterpret_cast<const T*>(ring + st * stage_bytes);
+    const T* vs = reinterpret_cast<const T*>(ring + st * stage_bytes + bps * k_bytes);
+    // valid keys of the step: its blocks (the chunk's last step may hold
+    // fewer than bps) up to kv_valid
+    const int kend = min(min(bps, nblk - i * bps) * bs, valid - (s0 + i * bps) * bs);
+    float (*sb)[kMaxBs + 1] = s_sh[i & 1];
+
+    // scores of the whole step: sb[row][key] = scale q[row] . K[key]
+    for (int p = 0; p < passes; ++p) {
+      const int key = kp + kKeysPerPass * p;
+      const T* kr = ks + static_cast<size_t>(min(key, step_keys - 1)) * d;
+      float part[kMaxR];
+#pragma unroll
+      for (int row = 0; row < kMaxR; ++row) part[row] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        const int col = 4 * (kt + kKeyThreads * j);
+        if (col < d) {
+          const float4 kx = load4(kr + col);
+#pragma unroll
+          for (int row = 0; row < kMaxR; ++row) {
+            part[row] = fmaf(qr[row][j][0], kx.x, part[row]);
+            part[row] = fmaf(qr[row][j][1], kx.y, part[row]);
+            part[row] = fmaf(qr[row][j][2], kx.z, part[row]);
+            part[row] = fmaf(qr[row][j][3], kx.w, part[row]);
+          }
+        }
       }
+      const float s = butterfly_rows(part, kt);
+      if (!(kt & 1) && key < step_keys) sb[kt >> 1][key] = s;
+    }
+    __syncthreads();
+    // Every thread is past step i-1: refill its stage with step i-1+kStages.
+    if (tid == 0 && i >= 1 && i - 1 + kStages < n_steps) issue(i - 1 + kStages);
+
+    if (warp < r) {
+      const float s = lane < kend ? sb[warp][lane] : kNegInf;
+      const float m_new = fmaxf(m, repro::warp_max(s));
+      const float corr = expf(m - m_new);
+      const float pw = lane < kend ? expf(s - m_new) : 0.f;
+      l = l * corr + repro::warp_sum(pw);
+      m = m_new;
 #pragma unroll
-      for (int row = 0; row < kMaxR; ++row) {
-        if (row < r) {  // uniform across the warp
-          float part = 0.f;
+      for (int e = 0; e < 4; ++e) acc[e] *= corr;
+      // 16 keys at a time, unrolled: their V reads are independent and
+      // issue together rather than one per key.
+      for (int k0 = 0; k0 < kend; k0 += 16) {
 #pragma unroll
-          for (int i = 0; i < kCols; ++i) part = fmaf(qr[row][i], kx[i], part);
-          const float s = repro::warp_sum(part) * scale;
-          const float m_new = fmaxf(m[row], s);
-          const float corr = expf(m[row] - m_new);
-          const float p = expf(s - m_new);
-          l[row] = l[row] * corr + p;
-#pragma unroll
-          for (int i = 0; i < kCols; ++i) acc[row][i] = fmaf(p, vx[i], acc[row][i] * corr);
-          m[row] = m_new;
+        for (int j = 0; j < 16; ++j) {
+          const int key = k0 + j;
+          const float pk = __shfl_sync(0xffffffffu, pw, key);
+          if (key < kend && vcol < dv) {
+            const float4 vx = load4(vs + static_cast<size_t>(key) * dv + vcol);
+            acc[0] = fmaf(pk, vx.x, acc[0]);
+            acc[1] = fmaf(pk, vx.y, acc[1]);
+            acc[2] = fmaf(pk, vx.z, acc[2]);
+            acc[3] = fmaf(pk, vx.w, acc[3]);
+          }
         }
       }
     }
   }
 
-#pragma unroll
-  for (int row = 0; row < kMaxR; ++row) {
-    if (row < r) {
-      if (lane == 0) {
-        m_s[warp][row] = m[row];
-        l_s[warp][row] = l[row];
-      }
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int col = lane + 32 * i;
-        if (col < dv) acc_s[warp][row][col] = acc[row][i];
-      }
-    }
+  if (warp >= r) return;
+  if (vcol < dv)
+    *reinterpret_cast<float4*>(ao + static_cast<size_t>(warp) * dv + vcol) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  if (lane == 0) {
+    mo[warp] = m;
+    lo[warp] = l;
   }
-  __syncthreads();
+}
 
-  // Merge the warps' partials (flash_merge algebra). All-empty rows keep
-  // the -1e30 anchor: exp(0) * 0 sums to l = 0, acc = 0.
-  for (int x = tid; x < r * dv; x += kThreads) {
-    const int row = x / dv, col = x - row * dv;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][row]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(m_s[w][row] - mx);
-      lsum += l_s[w][row] * e;
-      a += acc_s[w][row][col] * e;
-    }
-    const size_t o = (static_cast<size_t>(ln) * hkv + h) * r + row;
-    acc_out[o * dv + col] = a;
-    if (col == 0) {
-      m_out[o] = mx;
-      l_out[o] = lsum;
-    }
+// One CTA per (lane, kv head, row): merges the partials of every chunk in
+// chunk order with flash_merge's rule (a chunk with no valid key left the
+// anchor, whose weight exp(-1e30 - m) is 0; a lane with no valid key keeps
+// it: m = -1e30, l = 0, acc = 0). The chunks' weights exp(m_c - m) and
+// their l are staged in shared memory; each thread then sums one value
+// column over the chunks in order, and thread 0 sums l. Workspace layout
+// over the rows w = ((lane * hkv + h) * chunks + chunk) * r + row of all
+// `rows`: acc (rows x dv, so every row starts 16-byte aligned), then m
+// (rows), then l (rows).
+__global__ void __launch_bounds__(128)
+paged_row_stats_merge(const float* __restrict__ ws, float* __restrict__ m_out,
+                      float* __restrict__ l_out, float* __restrict__ acc_out, int r,
+                      int dv, int chunks) {
+  extern __shared__ float e_s[];   // per chunk: its weight, then (+chunks) its l
+  float* l_s = e_s + chunks;
+  __shared__ float mx_s[4];
+  const int lh = blockIdx.x / r, row = blockIdx.x - lh * r, tid = threadIdx.x;
+  const size_t rows = static_cast<size_t>(gridDim.x) * chunks;
+  const float* ws_m = ws + rows * dv;
+  const float* ws_l = ws_m + rows;
+  const size_t w0 = static_cast<size_t>(lh) * chunks * r + row;   // chunk c: w0 + c r
+  float mx = kNegInf;
+  for (int c = tid; c < chunks; c += 128) {
+    const size_t w = w0 + static_cast<size_t>(c) * r;
+    e_s[c] = ws_m[w];
+    l_s[c] = ws_l[w];
+    mx = fmaxf(mx, e_s[c]);
   }
+  mx = repro::warp_max(mx);
+  if ((tid & 31) == 0) mx_s[tid >> 5] = mx;
+  __syncthreads();
+  mx = fmaxf(fmaxf(mx_s[0], mx_s[1]), fmaxf(mx_s[2], mx_s[3]));
+  for (int c = tid; c < chunks; c += 128) e_s[c] = expf(e_s[c] - mx);
+  __syncthreads();
+  const size_t o = static_cast<size_t>(lh) * r + row;
+  for (int col = tid; col < dv; col += 128) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < chunks; ++c) a += ws[(w0 + static_cast<size_t>(c) * r) * dv + col] * e_s[c];
+    acc_out[o * dv + col] = a;
+  }
+  if (tid == 0) {
+    float l = 0.f;
+    for (int c = 0; c < chunks; ++c) l += l_s[c] * e_s[c];
+    m_out[o] = mx;
+    l_out[o] = l;
+  }
+}
+
+template <typename T>
+int launch_typed(const void* q, const void* kpool, const void* vpool, const int* table,
+                 const int* kv_valid, float* m_out, float* l_out, float* acc_out,
+                 float* ws, int lanes, int hkv, int r, int d, int dv, int nb, int bs,
+                 int n_slots, int chunk_slots, float scale, cudaStream_t st) {
+  const int chunks = n_slots > 0 ? (n_slots + chunk_slots - 1) / chunk_slots : 1;
+  if (chunks > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  const int bps = kMaxBs / bs;   // blocks per step, as in the kernel
+  const uint32_t stage_bytes =
+      (static_cast<uint32_t>(bps * bs) * (d + dv) * sizeof(T) + 127u) & ~127u;
+  // a chunk of one step uses one stage of the ring
+  const int chunk_steps = (chunk_slots + bps - 1) / bps;
+  const size_t smem = static_cast<size_t>(min(kStages, chunk_steps)) * stage_bytes;
+  static bool sized = false;   // allow the whole ring once (beside 2.2 KB static)
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_row_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxRing));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid(chunks, hkv, lanes);
+  paged_row_stats_kernel<T><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kpool), static_cast<const T*>(vpool),
+      table, kv_valid, m_out, l_out, acc_out, ws, hkv, r, d, dv, nb, bs, n_slots,
+      chunk_slots, chunks, stage_bytes, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  paged_row_stats_merge<<<lanes * hkv * r, 128, 2 * chunks * sizeof(float), st>>>(
+      ws, m_out, l_out, acc_out, r, dv, chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes: one launch for all lanes. q and the pools
-// share the storage type; table and kv_valid are int32; outputs fp32.
-// Returns cudaGetLastError() after the launch.
+// Plain C entry point for ctypes: one launch (two with more than one chunk)
+// for all lanes. q and the pools share the storage type (fp32 or bf16);
+// table and kv_valid are int32; outputs fp32. chunk_slots comes from the
+// wrapper's slot-chunk plan; ws is its fp32 workspace of
+// lanes * hkv * chunks * r * (dv + 2) floats (null with one chunk).
+// q and the pools must be 16-byte aligned, a pool
+// block (bs * d or bs * dv elements) whole 16-byte units, d and dv
+// multiples of 4. Returns cudaGetLastError() after the launches.
 extern "C" int paged_row_stats_launch(
     const void* q, const void* kpool, const void* vpool, const void* table,
-    const void* kv_valid, void* m_out, void* l_out, void* acc_out, int lanes,
-    int hkv, int r, int d, int dv, int nb, int bs, int n_slots, float scale,
-    int dtype, void* stream) {
-  if (d > kMaxD || dv > kMaxD || r > kMaxR || r <= 0 || lanes <= 0 || hkv <= 0) {
+    const void* kv_valid, void* m_out, void* l_out, void* acc_out, void* ws, int lanes,
+    int hkv, int r, int d, int dv, int nb, int bs, int n_slots, int chunk_slots,
+    float scale, int dtype, void* stream) {
+  const int es = dtype == repro::kF32 ? 4 : 2;
+  if (d > kMaxD || dv > kMaxD || d % 4 || dv % 4 || r > kMaxR || r <= 0 || lanes <= 0
+      || hkv <= 0 || bs <= 0 || bs > kMaxBs || n_slots < 0 || chunk_slots <= 0
+      || (bs * d * es) % 16 || (bs * dv * es) % 16
+      || (reinterpret_cast<uintptr_t>(kpool) | reinterpret_cast<uintptr_t>(vpool)) % 16) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(lanes, hkv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(table);
   const int* kvv = static_cast<const int*>(kv_valid);
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   float* ao = static_cast<float*>(acc_out);
+  float* w = static_cast<float*>(ws);
   if (dtype == repro::kF32) {
-    paged_row_stats_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kpool),
-        static_cast<const float*>(vpool), tb, kvv, mo, lo, ao, hkv, r, d, dv,
-        nb, bs, n_slots, scale);
-  } else if (dtype == repro::kBF16) {
-    paged_row_stats_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kpool),
-        static_cast<const __nv_bfloat16*>(vpool), tb, kvv, mo, lo, ao, hkv, r,
-        d, dv, nb, bs, n_slots, scale);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_typed<float>(q, kpool, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv, r, d,
+                               dv, nb, bs, n_slots, chunk_slots, scale, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == repro::kBF16) {
+    return launch_typed<__nv_bfloat16>(q, kpool, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv,
+                                       r, d, dv, nb, bs, n_slots, chunk_slots, scale,
+                                       st);
+  }
+  return cudaErrorInvalidValue;
 }

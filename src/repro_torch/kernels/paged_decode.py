@@ -9,18 +9,67 @@ axis, so one launch serves every lane of a decode tick; the reference's
 single-lane entry point and its ``custom_vmap`` rule have no counterpart.
 Rows with no valid key return the absorbing anchor (m=-1e30, l=0, acc=0)
 that ``kernels.ops.flash_merge`` re-anchors at the first merged score.
-For CUDA tensors the wrapper launches ``csrc/paged_row_stats.cu`` or
-raises; for CPU tensors it runs the plain version.
+For CUDA tensors the wrapper launches ``csrc/paged_row_stats.cu`` on the
+split-slot grid of ``slot_chunk_plan`` or raises; for CPU tensors it runs
+the plain version.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 
-_MAX_D = 128   # head dims the CUDA kernel takes (d and dv)
-_MAX_R = 8     # query rows per kv head the CUDA kernel keeps in registers
+_MAX_D = 128   # head dims the CUDA kernel takes (d and dv; csrc kMaxD)
+_MAX_R = 8     # query rows per kv head, one warp each (csrc kMaxR)
+_MAX_BS = 32   # keys per pool block, one lane each (csrc kMaxBs)
+# CTAs the slot-chunk plan aims at: two resident per SM of the H100's 132,
+# two waves (a sweep of 264-1056 at a 16k horizon found 528 fastest).
+SLOT_TARGET_CTAS = 528
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotChunkPlan:
+    """How K5 cuts each lane's n_slots table slots into ``chunks`` chunks of
+    ``chunk_slots`` slots (whole steps of ``step_slots`` = 32 // bs blocks,
+    up to 32 keys), one CTA per (chunk, kv head, lane). Each chunk leaves
+    fp32 partials (m, l, acc), the anchor if it holds no valid key, merged
+    in chunk order; with one chunk the CTA writes the output directly."""
+    lanes: int
+    hkv: int
+    n_slots: int
+    step_slots: int
+    chunk_slots: int
+    chunks: int
+
+    def slots(self, i: int) -> tuple[int, int]:
+        """Table slots [start, end) of chunk i."""
+        return i * self.chunk_slots, min((i + 1) * self.chunk_slots, self.n_slots)
+
+    def workspace_floats(self, r: int, dv: int) -> int:
+        """fp32 workspace of the partials: m, l and acc (r * (dv + 2) floats)
+        per (lane, kv head, chunk); none with one chunk."""
+        if self.chunks == 1:
+            return 0
+        return self.lanes * self.hkv * self.chunks * r * (dv + 2)
+
+
+def slot_chunk_plan(lanes: int, hkv: int, n_slots: int,
+                    block_size: int) -> SlotChunkPlan:
+    """The slot-chunk plan of K5 for ``lanes`` lanes of ``hkv`` kv heads and
+    a table of ``n_slots`` slots of ``block_size`` keys: enough chunks per
+    (lane, kv head) for about SLOT_TARGET_CTAS CTAs, each at least one step
+    of the kernel (32 keys). Sized from the table's width alone: kv_valid
+    lives on the device, so the host never waits for it."""
+    step = max(1, _MAX_BS // block_size)
+    steps = -(-n_slots // step)
+    want = -(-SLOT_TARGET_CTAS // max(1, lanes * hkv))
+    chunk_slots = step * max(1, -(-steps // max(1, min(steps, want))))
+    return SlotChunkPlan(lanes=lanes, hkv=hkv, n_slots=n_slots, step_slots=step,
+                         chunk_slots=chunk_slots,
+                         chunks=max(1, -(-n_slots // chunk_slots)))
 
 
 def paged_row_stats_plain(q, k_pools, v_pool, table, kv_valid, *,
@@ -62,12 +111,14 @@ def paged_row_stats_lanes(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, table: torch.Tensor,
                           kv_valid: torch.Tensor, *, scale: float,
                           block_size: int):
-    """One launch for all lanes. q (lanes, hkv, r, d); k_pool
+    """One call for all lanes. q (lanes, hkv, r, d); k_pool
     (hkv, num_blocks, bs, d); v_pool (hkv, num_blocks, bs, dv); table
     (lanes, n_slots) int32; kv_valid (lanes,) int32. Returns fp32
-    (m, l, acc): (lanes, hkv, r, 1) x2 and (lanes, hkv, r, dv). The
-    reference's several key pools (MLA) are one pool here: the dense
-    family has one."""
+    (m, l, acc): (lanes, hkv, r, 1) x2 and (lanes, hkv, r, dv). On the
+    card the kernel runs one CTA per (chunk of ``slot_chunk_plan``, kv
+    head, lane) and, with more than one chunk, a second launch merges the
+    chunks' partials in order. The reference's several key pools (MLA) are
+    one pool here: the dense family has one."""
     lanes, hkv, r, d = q.shape
     hp, nb, bs, dv = v_pool.shape
     if (bs != block_size or hp != hkv or k_pool.shape[:3] != v_pool.shape[:3]
@@ -85,7 +136,9 @@ def paged_row_stats_lanes(q: torch.Tensor, k_pool: torch.Tensor,
 
 def _paged_row_stats_cuda(q, k_pool, v_pool, table, kv_valid, *, scale):
     """Check the operands and launch csrc/paged_row_stats.cu (the
-    arguments of ``paged_row_stats_plain`` with one key pool)."""
+    arguments of ``paged_row_stats_plain`` with one key pool) on the grid
+    of ``slot_chunk_plan``, with the workspace of its partials allocated
+    here (two launches when the plan has more than one chunk)."""
     lanes, hkv, r, d = q.shape
     _, nb, bs, dv = v_pool.shape
     check_operands("paged_row_stats_lanes", {
@@ -98,19 +151,31 @@ def _paged_row_stats_cuda(q, k_pool, v_pool, table, kv_valid, *, scale):
     if table.dtype != torch.int32 or kv_valid.dtype != torch.int32:
         raise ValueError("paged_row_stats_lanes: table and kv_valid must be "
                          "int32")
-    if d > _MAX_D or dv > _MAX_D or r > _MAX_R:
-        raise ValueError(f"paged_row_stats_lanes: (d={d}, dv={dv}, r={r}) "
-                         f"exceed the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_R})")
+    if d > _MAX_D or dv > _MAX_D or r > _MAX_R or bs > _MAX_BS:
+        raise ValueError(f"paged_row_stats_lanes: (d={d}, dv={dv}, r={r}, bs={bs}) "
+                         f"exceed the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_R}, "
+                         f"{_MAX_BS})")
+    es = q.element_size()
+    # The kernel bulk-copies whole pool blocks (16-byte aligned, whole
+    # 16-byte units) and reads rows in 4-element chunks.
+    if (d % 4 or dv % 4 or (bs * d * es) % 16 or (bs * dv * es) % 16
+            or q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16):
+        raise ValueError(f"paged_row_stats_lanes: q and pool blocks of {bs} x ({d}, "
+                         f"{dv}) {q.dtype} must be 16-byte aligned, the blocks whole "
+                         f"16-byte units, d and dv multiples of 4")
     m = torch.empty((lanes, hkv, r, 1), dtype=torch.float32, device=dev)
     l = torch.empty((lanes, hkv, r, 1), dtype=torch.float32, device=dev)
     acc = torch.empty((lanes, hkv, r, dv), dtype=torch.float32, device=dev)
     if lanes and hkv and r:
+        plan = slot_chunk_plan(lanes, hkv, table.shape[1], bs)
+        floats = plan.workspace_floats(r, dv)
+        ws = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
         launch("paged_row_stats", q.data_ptr(), k_pool.data_ptr(),
                v_pool.data_ptr(), table.data_ptr(), kv_valid.data_ptr(),
-               m.data_ptr(), l.data_ptr(), acc.data_ptr(), lanes, hkv, r,
-               d, dv, nb, bs, table.shape[1], float(scale),
-               DTYPE_CODES[str(q.dtype)],
-               torch.cuda.current_stream(dev).cuda_stream)
+               m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+               ws.data_ptr() if ws is not None else None, lanes, hkv, r,
+               d, dv, nb, bs, table.shape[1], plan.chunk_slots, float(scale),
+               DTYPE_CODES[str(q.dtype)], torch.cuda.current_stream(dev).cuda_stream)
         paged_row_stats_lanes.launches += 1
     return m, l, acc
 

@@ -73,7 +73,8 @@ PROFILE_GROUPS = (
 
 def profile_top(prof, wall_s: float, limit: int = 12) -> str:
     """One line: the device's busy share of ``wall_s``, its busy ms by
-    category (PROFILE_GROUPS, the rest as "other"), and its ``limit``
+    category (PROFILE_GROUPS, the rest as "other"), the port kernels' busy
+    ms by name (a kernel and its merge launch together), and its ``limit``
     costliest device activities (kernels, copies; ms) in a torch.profiler
     run."""
     from torch.autograd import DeviceType
@@ -94,10 +95,15 @@ def profile_top(prof, wall_s: float, limit: int = 12) -> str:
     for e in rows:
         groups[group(e.key)] = groups.get(group(e.key), 0.0) + dev_ms(e)
     top = {e.key[:60]: round(dev_ms(e), 3) for e in rows[:limit]}
+    port = {}
+    for e in rows:
+        name = next((k for k in PROFILE_GROUPS[0][1] if k in e.key.lower()), None)
+        if name is not None:
+            port[name] = round(port.get(name, 0.0) + dev_ms(e), 3)
     return (f"device busy {busy:.3f}s of {wall_s:.3f}s wall "
             f"({100 * busy / wall_s:.1f}%); busy ms by category "
-            f"{ {g: round(ms, 3) for g, ms in groups.items()} }; "
-            f"top self device ms: {top}")
+            f"{ {g: round(ms, 3) for g, ms in groups.items()} }; port kernels' "
+            f"ms by name {port}; top self device ms: {top}")
 
 
 def main(argv=None):

@@ -27,9 +27,11 @@ from repro.kernels.ss_attention import landmark_summary as j_ls  # noqa: E402
 from repro.kernels.ss_attention import query_side as j_qs  # noqa: E402
 from repro_torch.core.attention import SSConfig  # noqa: E402
 from repro_torch.kernels import build, launch_counts  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,  # noqa: E402
-                                              paged_row_stats_plain)
+from repro_torch.kernels import ops, paged_decode  # noqa: E402
+from repro_torch.kernels.paged_decode import (SLOT_TARGET_CTAS,  # noqa: E402
+                                              paged_row_stats_lanes,
+                                              paged_row_stats_plain,
+                                              slot_chunk_plan)
 from repro_torch.kernels.ref import ref_landmark_summary, ref_query_side  # noqa: E402
 from repro_torch.kernels.ss_attention import (KEY_TILE, QUERY_TILE,  # noqa: E402
                                               ROW_TILE, TARGET_CTAS,
@@ -376,6 +378,199 @@ def test_paged_row_stats_plain_matches_pallas(splits):
     m, l, acc = out
     # zero valid keys: exactly the absorbing anchor
     assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(acc[0] == 0)
+
+
+# --------------------------------------------------------------------------
+# The split-slot grid of the K5 kernel
+# --------------------------------------------------------------------------
+SLOT_PLAN_CASES = {
+    # name: (lanes, hkv, n_slots, block_size)
+    "one_slot": (4, 4, 1, 16),
+    "serve_512": (4, 4, 32, 16),
+    "horizon_16k": (4, 4, 1024, 16),
+    "horizon_8k": (4, 4, 512, 16),
+    "kv_heads_8": (4, 8, 1024, 16),
+    "block_8": (3, 2, 6, 8),
+    "block_32": (4, 4, 512, 32),
+    "block_12": (2, 4, 100, 12),
+    "no_slots": (2, 2, 0, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLOT_PLAN_CASES))
+def test_slot_chunk_plan_covers_every_slot_once(case):
+    lanes, hkv, n_slots, bs = SLOT_PLAN_CASES[case]
+    plan = slot_chunk_plan(lanes, hkv, n_slots, bs)
+    # chunks are whole steps of the kernel: 32 // bs blocks, up to 32 keys
+    assert plan.step_slots == 32 // bs and plan.chunk_slots % plan.step_slots == 0
+    assert plan.chunks >= 1
+    # every slot of a lane in exactly one chunk, chunks in order, none empty
+    owner = [i for i in range(plan.chunks) for _ in range(*plan.slots(i))]
+    assert owner == sorted(owner) and len(owner) == n_slots
+    assert n_slots == 0 or all(lo < hi for lo, hi in map(plan.slots, range(plan.chunks)))
+    assert all(hi - lo == plan.chunk_slots
+               for lo, hi in map(plan.slots, range(plan.chunks - 1)))
+    # CTAs near the target: at least half of it unless every chunk is one
+    # step, and never a chunk's worth past it
+    ctas = lanes * hkv * plan.chunks
+    assert plan.chunk_slots == plan.step_slots or ctas >= SLOT_TARGET_CTAS // 2
+    assert ctas <= SLOT_TARGET_CTAS + lanes * hkv
+    floats = plan.workspace_floats(7, 128)
+    assert floats == (lanes * hkv * plan.chunks * 7 * 130 if plan.chunks > 1 else 0)
+
+
+def test_slot_chunk_plan_at_the_main_paths():
+    serve = slot_chunk_plan(4, 4, 32, 16)      # max_seq 512, block 16
+    assert (serve.chunk_slots, serve.chunks) == (2, 16)        # one step each, 256 CTAs
+    # the partials of (m, l, acc) at r = 7, dv = 128: 0.93 MB
+    assert serve.workspace_floats(7, 128) * 4 == 931_840
+    long = slot_chunk_plan(4, 4, 1024, 16)     # a 16k horizon
+    assert (long.chunk_slots, long.chunks) == (32, 32)         # 512 CTAs
+    assert slot_chunk_plan(4, 4, 1, 16).chunks == 1             # direct write
+    assert slot_chunk_plan(4, 4, 1, 16).workspace_floats(7, 128) == 0
+
+
+def split_slot_row_stats(q, k_pool, v_pool, table, kv_valid, plan, bs, scale):
+    """Plain mirror of the K5 kernel's decomposition: per (lane, kv head),
+    each chunk walks its valid slots in steps of 32 // bs blocks (up to 32
+    keys) with an online softmax over steps (one max and one rescale per
+    step) into fp32 partials, the anchor (m -1e30, l 0, acc 0) for a chunk
+    with no valid key; the partials merge in chunk order by flash_merge's
+    rule. Only the rows of valid keys are read."""
+    lanes, hkv, r, _ = q.shape
+    dv = v_pool.shape[-1]
+    bps = 32 // bs
+    m_out, l_out = torch.empty((lanes, hkv, r, 1)), torch.empty((lanes, hkv, r, 1))
+    acc_out = torch.empty((lanes, hkv, r, dv))
+    for ln in range(lanes):
+        valid = min(max(int(kv_valid[ln]), 0), plan.n_slots * bs)
+        n_blk = -(-valid // bs)
+        for h in range(hkv):
+            parts = []
+            for c in range(plan.chunks):
+                lo, hi = plan.slots(c)
+                m, l, acc = torch.full((r, 1), -1e30), torch.zeros((r, 1)), torch.zeros((r, dv))
+                for s0 in range(lo, min(hi, n_blk), bps):
+                    blks = [int(b) for b in table[ln, s0:min(s0 + bps, hi, n_blk)]]
+                    kend = min(len(blks) * bs, valid - s0 * bs)     # keys past kend unread
+                    k = torch.cat([k_pool[h, b] for b in blks])[:kend]
+                    v = torch.cat([v_pool[h, b] for b in blks])[:kend]
+                    s = (q[ln, h] * scale) @ k.T                     # (r, kend)
+                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                    p, corr = torch.exp(s - m_new), torch.exp(m - m_new)
+                    l, acc, m = l * corr + p.sum(-1, keepdim=True), acc * corr + p @ v, m_new
+                parts.append((m, l, acc))
+            mx = torch.stack([p[0] for p in parts]).amax(0)
+            m_out[ln, h] = mx
+            l_out[ln, h] = sum(p[1] * torch.exp(p[0] - mx) for p in parts)
+            acc_out[ln, h] = sum(p[2] * torch.exp(p[0] - mx) for p in parts)
+    return m_out, l_out, acc_out
+
+
+# (chunk steps, block size) -> kv heads for which slot_chunk_plan cuts a
+# table of 12 slots over 4 lanes into chunks of that many steps (more
+# (lane, kv head) pairs leave fewer chunks to each)
+SPLIT_SLOT_HKV = {(1, 8): 2, (2, 8): 66, (3, 8): 132, (1, 16): 2, (2, 16): 44,
+                  (3, 16): 66}
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("chunk_steps", [1, 2, 3])
+def test_split_slot_merge_matches_plain_and_pallas(chunk_steps, bs):
+    """The kernel's decomposition at chunks of 1, 2 and 3 steps over a
+    table of 12 slots: lanes of kv_valid 0 (one block allocated, none
+    valid), 13 (a ragged first or second block, later chunks wholly past
+    it), a ragged last block, and every slot valid; the ZERO_BLOCK tail."""
+    rng = np.random.default_rng(10)
+    lanes, r, d, dv, n_slots = 4, 7, 32, 16, 12
+    hkv = SPLIT_SLOT_HKV[chunk_steps, bs]
+    kv_valid = np.array([0, 13, 9 * bs + 5, n_slots * bs], np.int32)
+    used = [1, -(-13 // bs), 10, n_slots]
+    nb = sum(used) + 2
+    perm = rng.permutation(np.arange(1, nb))
+    table = np.zeros((lanes, n_slots), np.int32)
+    at = 0
+    for ln, u in enumerate(used):
+        table[ln, :u] = perm[at:at + u]
+        at += u
+    q = _rand(rng, lanes, hkv, r, d, scale=0.5)
+    k_pool, v_pool = _rand(rng, hkv, nb, bs, d, scale=0.5), _rand(rng, hkv, nb, bs, dv)
+    plan = slot_chunk_plan(lanes, hkv, n_slots, bs)
+    assert plan.chunk_slots == (32 // bs) * chunk_steps
+    # lane 1 (kv_valid 13) leaves chunks wholly past its keys
+    assert plan.chunks == 1 or plan.slots(plan.chunks - 1)[0] * bs > 13
+    scale = 0.2
+    t = [torch.from_numpy(a) for a in (q, k_pool, v_pool, table, kv_valid)]
+    out = split_slot_row_stats(*t, plan, bs, scale)
+    ref = paged_row_stats_plain(t[0], (t[1],), *t[2:], scale=scale)
+    pallas = j_paged(jnp.asarray(q), (jnp.asarray(k_pool),), jnp.asarray(v_pool),
+                     jnp.asarray(table), jnp.asarray(kv_valid), scale=scale,
+                     block_size=bs, interpret=True)
+    for o, r_, p in zip(out, ref, pallas):
+        _close(o, r_)
+        _close(o, p)
+    m, l, acc = out
+    assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(acc[0] == 0)
+    # no row past a lane's last valid key is read: poisoning them (the
+    # ZERO_BLOCK tail, the kv_valid-0 lane's block, an unused pool block,
+    # the ragged blocks' tails) leaves every bit unchanged
+    keep = torch.zeros((nb, bs), dtype=torch.bool)
+    for ln in range(lanes):
+        for slot in range(-(-int(kv_valid[ln]) // bs)):
+            keep[int(table[ln, slot]), :min(bs, int(kv_valid[ln]) - slot * bs)] = True
+    assert not keep[0].any() and not keep.all()
+    kp = torch.where(keep[None, :, :, None], t[1], float("nan"))
+    vp = torch.where(keep[None, :, :, None], t[2], float("nan"))
+    again = split_slot_row_stats(t[0], kp, vp, t[3], t[4], plan, bs, scale)
+    for o, a in zip(out, again):
+        assert torch.equal(o, a)
+
+
+def test_slot_chunk_limits_match_the_cuda_source():
+    src = (build.CSRC / "paged_row_stats.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("kMaxR"), const("kMaxD"), const("kMaxBs")) == (
+        paged_decode._MAX_R, paged_decode._MAX_D, paged_decode._MAX_BS)
+    # warp w owns query row w, lane j key j of a block
+    assert const("kThreads") // 32 == const("kMaxR") and const("kMaxBs") == 32
+    # step i-1's stage of the ring is refilled only after step i's wait:
+    # one stage would wait for a copy not yet issued
+    assert const("kStages") >= 2
+
+
+K5_BAD_OPERANDS = {
+    # name: (r, d, dv, bs, misaligned)
+    "rows_above_8": (9, 32, 32, 8, False),
+    "head_dim_above_128": (2, 132, 32, 8, False),
+    "block_above_32": (2, 32, 32, 33, False),
+    "head_dim_not_multiple_of_4": (2, 30, 32, 8, False),
+    "misaligned_pool": (2, 32, 32, 8, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_BAD_OPERANDS))
+def test_k5_operands_the_kernel_does_not_take_raise(case):
+    """The K5 launch path raises before any launch on operands its kernel
+    does not take: there is no fallback to the plain version."""
+    r, d, dv, bs, misaligned = K5_BAD_OPERANDS[case]
+    lanes, hkv, nb, n_slots = 2, 2, 5, 2
+
+    def pool(e):
+        shape = (hkv, nb, bs, e)
+        if misaligned:   # one fp32 past a 16-byte boundary
+            return torch.zeros(int(np.prod(shape)) + 1)[1:].view(shape)
+        return torch.zeros(shape)
+
+    before = launch_counts()
+    with pytest.raises(ValueError):
+        paged_decode._paged_row_stats_cuda(
+            torch.zeros(lanes, hkv, r, d), pool(d), pool(dv),
+            torch.zeros(lanes, n_slots, dtype=torch.int32),
+            torch.zeros(lanes, dtype=torch.int32), scale=0.5)
+    assert launch_counts() == before
 
 
 def test_cpu_tensors_never_launch_a_kernel():
