@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths on one NVIDIA GPU (an H100).
+"""Drive the PyTorch port's paths on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py [--layers 28] [--train-layers 4]
 
@@ -8,7 +8,7 @@ result line):
 
 1. environment: the card's name and power limit, torch / CUDA versions,
    and the build of every kernel from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once), with ptxas's registers and spills;
 2. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes, in fp32 (TF32 off) and bf16, plus the edges of the bf16
    K1 / K3 split-key grid (c = 16 and 32, kv_valid inside the first key
@@ -17,36 +17,50 @@ result line):
    bf16 K2 / K4 query-tile runs (n = 1, 63, 65, 352, 4000; c = 16, 32, 64;
    dv = 64; the F-mask with q_offset 37 / 1000; bitwise identical over two
    launches) and of the K5 split-slot grid (fp32 and bf16; kv_valid 0, 1,
-   15, 16, 17, a chunk's edge +-1, every slot valid; tables of 1, 32 and
-   1024 slots; r = 1, 7, 8; dv = 64; NaN in every pool row the kernel must
-   not read; the kv_valid-0 anchor exact; bitwise over two launches), then
-   timed with CUDA events (``ms``: back-to-back calls, host included) and
-   the profiler (``device_ms``) beside the plain version, the roofline
-   bound and one library call where there is one, with the kernel's share
-   of its bound and its ratio to the library call: K1 and K2 at the serving
-   shape with their K/V warm in L2
-   (on the path they read what the projections just wrote), K5 cold (it
-   rotates over pool copies larger than L2, as decode reads a different
-   layer's pools at each launch) at the serving shape and at a 16k
-   horizon; K1 (with stats) and K2 causal and the
-   backward kernels K3 and K4 at the training shape (batch 2 x 28 heads,
-   seq 4096), with a kv_valid case for K3 and a q_offset case for K4;
-3. model parity: full-width Qwen2-7B cut to 2 layers, fp32, prefill logits
-   and 4 paged decode steps, then the loss and every gradient leaf of one
-   grad step, kernel route against the plain route (every kernel swapped
-   for its plain version), both on the card;
-4. serving: full-width Qwen2-7B (``--layers`` cuts depth, never width),
-   bf16 random weights from a seeded ``torch.Generator``, ``ServeEngine``
-   with ``prefill_impl="ss_fused"``, ``decode_impl="paged"``, 4 lanes,
-   max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens each; the
-   launch count of every serving kernel in that run must be > 0;
+   15, 16, 17, 31, 32, 33, a block's and a chunk's edge +-1, every slot
+   valid; tables of 1 to 1024 slots; r = 1, 7, 8, 9, 16, 48, 64, 96;
+   block sizes 8, 16, 32, 48, 64, 128 (past 32 keys a block runs as 32-key
+   slices); dv = 64; NaN in every pool row the kernel must not read; the
+   kv_valid-0 anchor exact; bitwise over two launches), then timed with
+   CUDA events (``ms``: back-to-back calls, host included) and the
+   profiler (``device_ms``) beside the plain version, the roofline bound
+   (and which term binds) and one library call where there is one, with
+   the kernel's share of its bound and its ratio to the library call: K1
+   and K2 at the serving shape with their K/V warm in L2 (on the path they
+   read what the projections just wrote), K5 cold (it rotates over pool
+   copies larger than L2, as decode reads a different layer's pools at
+   each launch) at the serving shape and at a 16k horizon, and at
+   granite-20b's decode shape (r = 48, block 64) at 512 and 16k keys; K1
+   (with stats) and K2 causal and the backward kernels K3 and K4 at the
+   training shape (batch 2 x 28 heads, seq 4096), with a kv_valid case for
+   K3 and a q_offset case for K4; K1 and K2 at granite-20b's prefill
+   shapes (48 batch-heads, n = 256/384/512);
+3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
+   decode steps, kernel route against the plain route (every kernel
+   swapped for its plain version), both on the card: Qwen2-7B (block 16)
+   and granite-20b (48 query heads on 1 kv head, block 64); then Qwen2-7B
+   with ``decode_attention_impl="full"``, the paged route (K5) against the
+   gather route; then the loss and every gradient leaf of one grad step,
+   kernel route against plain route, and under ``remat`` "ss_stats" and
+   "dots" against "none";
+4. serving, bf16 random weights from a seeded ``torch.Generator``, 4
+   lanes, max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens
+   each, the launch counts of each run read on their own: the main path
+   (full-width Qwen2-7B, ``--layers`` cuts depth, never width;
+   ``prefill_impl="ss_fused"``, ``decode_impl="paged"``: every serving
+   kernel must launch); the reference's default route on the same model
+   (``ServeConfig(seed=0)``: replay prefill, gather decode, block 16: no
+   port kernel may launch); full-width granite-20b cut to 8 layers
+   (``ss_fused``, ``paged``, block 64: K1, K2 and K5 must launch);
 5. training: the ``Trainer`` on full-width Qwen2-7B cut to
-   ``--train-layers`` layers, bf16 compute over fp32 master weights,
-   ``remat="full"``, seq 4096, batch 2, 5 steps; every loss
-   finite, launches per step K1 8 / K2 8 / K3 4 / K4 4 at 4 layers, and a
-   bit-identical checkpoint round trip of the parameters;
+   ``--train-layers`` layers, bf16 compute over fp32 master weights, seq
+   4096, batch 2, 5 steps each under ``remat="full"`` (launches per step
+   K1 8 / K2 8 / K3 4 / K4 4 at 4 layers, then a bit-identical checkpoint
+   round trip of the parameters) and ``remat="auto"`` (ss_stats on the
+   card: K1 4 / K2 8 / K3 4 / K4 4) and ``remat="dots"`` (K1 8 / K2 8 /
+   K3 4 / K4 4), every loss finite, ms per step and peak memory of each;
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
-   training runs), the card line, and last the result line
+   training runs, and by path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Without a GPU, or without
@@ -85,6 +99,9 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # vs plain route on the card, relative to the plain route's max-abs.
 # Measured on an H100: worst leaf 9.2e-5 (w_down), loss identical (PERF.md).
 GRAD_TOL = 5e-4
+# Loss and every gradient leaf of one grad step under remat "ss_stats" and
+# "dots" against remat "none", the same kernel route, relative to max-abs.
+REMAT_TOL = 1e-6
 SERVE_KERNELS = ("landmark_summary", "query_side", "paged_row_stats")
 TRAIN_BATCH = 2   # train_4k's global batch of 256 cut to what one card holds
 TRAIN_STEPS = 5
@@ -364,10 +381,12 @@ def kernel_phase(torch, dev) -> list[dict]:
                       f"kv_valid={kv_valid.tolist()} fp32, L2 cold "
                       f"({len(pools)} pool copies)")
     entries["paged_row_stats_long"] = long_horizon_entry(torch, dev)
+    entries.update(granite_k5_entries(torch, dev))
 
     split_key_checks(torch, dev)
     query_tile_checks(torch, dev)
     slot_chunk_checks(torch, dev)
+    granite_ss_checks(torch, dev)
     entries.update(train_kernel_entries(torch, dev))
 
     # ---- timing ------------------------------------------------------------
@@ -420,6 +439,10 @@ def kernel_phase(torch, dev) -> list[dict]:
             row["long_horizon_launch"] = dict(
                 shape=entries["paged_row_stats_long"]["shape"],
                 **timed("paged_row_stats_long"))
+            # granite-20b's decode launch (r = 48, bs 64) at 512 and 16k keys
+            for tag, key in (("paged_row_stats_granite", "granite_launch"),
+                             ("paged_row_stats_granite_long", "granite_long_horizon_launch")):
+                row[key] = dict(shape=entries[tag]["shape"], **timed(tag))
         results.append(row)
     return results
 
@@ -667,36 +690,53 @@ def long_horizon_entry(torch, dev, kv_valid=(2048, 4096, 8192, 16384)) -> dict:
 
 def slot_chunk_checks(torch, dev) -> None:
     """K5 where its split-slot grid has its edges, each in fp32 and bf16,
-    against the plain version at KERNEL_TOL (all outputs fp32): kv_valid 0,
-    1, 15, 16 and 17 (inside, at and past one block), one short of, at and
-    one past a chunk's edge, every slot valid; a table of 1 slot (one chunk,
-    the direct write), of 32 (the serving table) and of 1024 (a 16k
-    horizon); r = 1 and 8 query rows per kv head; dv = 64. The kernel runs
-    on pools with NaN in every row it must not read or weigh (plain: clean
-    pools); a lane with kv_valid 0 must return exactly the anchor (m -1e30,
-    l 0, acc 0), and two launches the same bits."""
+    against the plain version at KERNEL_TOL (all outputs fp32). At bs 16
+    (hkv 4): kv_valid 0, 1, 15, 16 and 17 (inside, at and past one block),
+    one short of, at and one past a chunk's edge, every slot valid; a table
+    of 1 slot (one chunk, the direct write), of 32 (the serving table) and
+    of 1024 (a 16k horizon); r = 1, 7 and 8 query rows per kv head; dv = 64.
+    Then the block sizes 8, 32, 48, 64 and 128 at r = 7 (a 2048-key table;
+    blocks past 32 keys run as 32-key slices: kv_valid 31, 32, 33 at a
+    slice's edge inside a block, and at a block's and a chunk's edge +-1),
+    and r = 9, 16, 48, 64 and 96 at bs 64 with one kv head (granite-20b's 48
+    on 1; 96 takes two row groups) over 512- and 16k-key tables. The kernel
+    runs on pools with NaN in every row it must not read or weigh (plain:
+    clean pools); a lane with kv_valid 0 must return exactly the anchor (m
+    -1e30, l 0, acc 0), and two launches the same bits."""
     from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
                                                   paged_row_stats_plain,
                                                   slot_chunk_plan)
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    bs = 16
-    cases = []   # (n_slots, kv_valid per lane, r, dv)
+
+    def edges(n_slots, bs, lanes, hkv):
+        edge = slot_chunk_plan(lanes, hkv, n_slots, bs).chunk_slots * bs
+        kv = {0, 1, 15, 16, 17, 31, 32, 33, bs - 1, bs, bs + 1, edge - 1, edge,
+              edge + 1, 3 * edge + 5, n_slots * bs}
+        return sorted(k for k in kv if 0 <= k <= n_slots * bs)
+
+    cases = []   # (n_slots, kv_valid per lane, hkv, r, dv, bs)
     for n_slots in (32, 1024):
-        edge = slot_chunk_plan(10, 4, n_slots, bs).chunk_slots * bs   # 10 lanes below
-        kv = [0, 1, 15, 16, 17, edge - 1, edge, edge + 1, 3 * edge + 5, n_slots * bs]
-        cases += [(n_slots, kv, 7, 128), (n_slots, kv, 1, 128), (n_slots, kv, 8, 128),
-                  (n_slots, kv, 7, 64)]
-    cases.append((1, [0, 1, 15, 16], 7, 128))
+        edge = slot_chunk_plan(10, 4, n_slots, 16).chunk_slots * 16   # 10 lanes below
+        kv = [0, 1, 15, 16, 17, edge - 1, edge, edge + 1, 3 * edge + 5, n_slots * 16]
+        cases += [(n_slots, kv, 4, 7, 128, 16), (n_slots, kv, 4, 1, 128, 16),
+                  (n_slots, kv, 4, 8, 128, 16), (n_slots, kv, 4, 7, 64, 16)]
+    cases.append((1, [0, 1, 15, 16], 4, 7, 128, 16))
+    for bs in (8, 32, 48, 64, 128):
+        n_slots = -(-2048 // bs)
+        cases.append((n_slots, edges(n_slots, bs, 16, 4), 4, 7, 128, bs))
+    for r in (9, 16, 48, 64, 96):
+        for n_slots in (8, 256):
+            cases.append((n_slots, edges(n_slots, 64, 16, 1), 1, r, 128, 64))
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
-        for n_slots, kv, r, dv in cases:
+        for n_slots, kv, hkv, r, dv, bs in cases:
             q, kp, vp, table, kvv, kp_nan, vp_nan = paged_inputs(
-                torch, dev, gen, kv, r=r, dv=dv, bs=bs, n_slots=n_slots, dtype=dt,
-                poison=True)
-            plan = slot_chunk_plan(len(kv), 4, n_slots, bs)
-            label = (f"lanes={len(kv)} hkv=4 r={r} d=128 dv={dv} bs={bs} slots={n_slots} "
-                     f"kv_valid={kv} {dname} ({plan.chunks} chunks of "
+                torch, dev, gen, kv, hkv=hkv, r=r, dv=dv, bs=bs, n_slots=n_slots,
+                dtype=dt, poison=True)
+            plan = slot_chunk_plan(len(kv), hkv, n_slots, bs)
+            label = (f"lanes={len(kv)} hkv={hkv} r={r} d=128 dv={dv} bs={bs} "
+                     f"slots={n_slots} kv_valid={kv} {dname} ({plan.chunks} chunks of "
                      f"{plan.chunk_slots} slots)")
             out = paged_row_stats_lanes(q, kp_nan, vp_nan, table, kvv, scale=128**-0.5,
                                         block_size=bs)
@@ -716,8 +756,87 @@ def slot_chunk_checks(torch, dev) -> None:
                                           scale=128**-0.5, block_size=bs)
             if not all(torch.equal(a, b) for a, b in zip(out, again)):
                 raise AssertionError(f"K5 {label}: two launches differ")
-    log("split-slot K5: every case within tolerance on NaN-poisoned unread rows, "
-        "kv_valid-0 lanes exactly the anchor, bitwise identical over two launches")
+    log(f"split-slot K5: all {2 * len(cases)} cases within tolerance on NaN-poisoned "
+        f"unread rows, kv_valid-0 lanes exactly the anchor, bitwise identical over "
+        f"two launches")
+
+
+def granite_k5_entries(torch, dev) -> dict:
+    """K5 at granite-20b's decode shape (4 lanes, 1 kv head, r = 48 query
+    rows, d = dv = 128, bs 64, fp32 pools as the engine stores them) at a
+    512-key horizon (kv_valid 48/200/333/480, phase 4's prompts) and a 16k
+    horizon (2k-16k keys), each held against its plain version and set up
+    for timing with L2 cold. At r = 48 it is bound by operations: 24 flops
+    per byte of fp32 K and V against the FMA ridge of about 20."""
+    from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                  paged_row_stats_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    hkv, r, d, bs = 1, 48, 128, 64
+    out = {}
+    for tag, kv, n_slots in (("paged_row_stats_granite", [48, 200, 333, 480], 8),
+                             ("paged_row_stats_granite_long",
+                              [2048, 4096, 8192, 16384], 256)):
+        q, k_pool, v_pool, table, kvv = paged_inputs(torch, dev, gen, kv, hkv=hkv, r=r,
+                                                     bs=bs, n_slots=n_slots)
+        scale = d**-0.5
+        m, l, acc = paged_row_stats_lanes(q, k_pool, v_pool, table, kvv, scale=scale,
+                                          block_size=bs)
+        rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvv,
+                                             scale=scale)
+        shape = (f"granite-20b decode: lanes=4 hkv={hkv} r={r} d=dv={d} bs={bs} "
+                 f"slots={n_slots} kv_valid={kv} fp32")
+        err = check(f"K5 {shape}", [("m", m, rm, None), ("l", l, rl, None),
+                                    ("acc", acc, racc, None)])
+        pools = cold_pools(k_pool, v_pool)
+        out[tag] = dict(
+            fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kvv, scale=scale,
+                        block_size=bs) for kp, vp in pools],
+            plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvv, scale=scale)
+                   for kp, vp in pools],
+            library=None, err=err, bound=k5_bound(kv, hkv, r, d, d, bs),
+            shape=f"{shape}, L2 cold ({len(pools)} pool copies)")
+    return out
+
+
+def granite_ss_checks(torch, dev) -> None:
+    """K1 and K2 at granite-20b's prefill shapes on phase 4's path: one
+    lane of 48 heads (b = 48 batch-heads: 1 kv head broadcast to 48), c =
+    64, d = dv = 128; block 64 rounds the 32-token prefill bucket to 64, so
+    phase 4's prompts of 200/333/480 tokens pad to n = 256/384/512 (the
+    48-token prompt takes the exact-attention window, no kernel). K1 in
+    bf16 without stats (ss_attention_fused) and with fp32 landmark means
+    over bf16 k/v with stats (the stream-state seed), K2 in bf16, each held
+    against its plain version at KERNEL_TOL."""
+    from repro_torch.kernels.ss_attention import (landmark_summary,
+                                                  landmark_summary_plain,
+                                                  query_side, query_side_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, c, d = 48, 64, 128
+    scale = d**-0.5
+    bf16 = torch.bfloat16
+
+    def randn(*shape, s=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    for n, kvv in ((256, 200), (384, 333), (512, 480)):
+        k, v = randn(b, n, d, s=0.5), randn(b, n, d)
+        for q_dt, stats in ((bf16, False), (torch.float32, True)):
+            q_l = randn(b, c, d, s=0.5, dtype=q_dt)
+            out = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv, return_stats=stats)
+            ref = landmark_summary_plain(q_l, k, v, scale=scale, kv_end=kvv,
+                                         return_stats=stats)
+            names = ("out", "m", "l") if stats else ("out",)
+            outs, refs = (out, ref) if stats else ((out,), (ref,))
+            check(f"K1 granite-20b prefill b={b} c={c} n={n} kv_valid={kvv} q={q_dt} "
+                  f"kv=bf16{' with stats' if stats else ''}",
+                  [(nm, o, r_, None) for nm, o, r_ in zip(names, outs, refs)])
+        q, k_l, m_mat = randn(b, n, d, s=0.5), randn(b, c, d, s=0.5), randn(b, c, d)
+        delta = randn(b, 1, 1, s=0.1, dtype=torch.float32).abs()
+        check(f"K2 granite-20b prefill b={b} n={n} c={c} bf16",
+              [("out", query_side(q, k_l, m_mat, v, delta, scale=scale),
+                query_side_plain(q, k_l, m_mat, v, delta, scale=scale), None)])
 
 
 def train_kernel_entries(torch, dev) -> dict:
@@ -848,16 +967,19 @@ def train_kernel_entries(torch, dev) -> dict:
 # --------------------------------------------------------------------------
 # phase 3: model parity, kernel route (card) vs plain route (CPU)
 # --------------------------------------------------------------------------
-def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4):
-    """Prefill each prompt into its own lane, then ``steps`` paged decode
-    steps for all lanes. Returns (list of logits on the CPU, fed tokens)."""
+def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
+                block_size=16, decode_impl="paged"):
+    """Prefill each prompt into its own lane (ss_fused), then ``steps``
+    decode steps for all lanes on ``decode_impl``'s route (``paged``: K5
+    over the pools; ``gather``: dense views). Returns (list of logits on
+    the CPU, fed tokens)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.paged import BlockAllocator, PagedKVCache
     from repro_torch.serve.prefill import batched_prefill
 
-    serve = ServeConfig(max_lanes=len(prompt_lens), max_seq=512, block_size=16,
-                        prefill_impl="ss_fused", decode_impl="paged")
+    serve = ServeConfig(max_lanes=len(prompt_lens), max_seq=512, block_size=block_size,
+                        prefill_impl="ss_fused", decode_impl=decode_impl)
     bs, seq_max = serve.block_size, serve.max_seq
     kv = PagedKVCache(cfg, serve, device)
     alloc = BlockAllocator(serve.resolved_num_blocks, bs)
@@ -870,7 +992,8 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4):
         n_pad = n if n <= cfg.num_landmarks else -(-n // 32) * 32
         toks = torch.zeros((1, n_pad), dtype=torch.long)
         toks[0, :n] = torch.randint(3, cfg.vocab_size, (n,), generator=rng)
-        lg, pc = batched_prefill(params, cfg, toks.to(device), n, seq_max=seq_max)
+        lg, pc = batched_prefill(params, cfg, toks.to(device), n, seq_max=seq_max,
+                                 prefill_impl="ss_fused")
         outs.append(lg[0, :n].float().cpu())
         alloc.alloc(lane, -(-n // bs))
         row = torch.zeros(seq_max // bs, dtype=torch.int32)
@@ -879,8 +1002,14 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4):
         positions[lane] = n
         tokens[lane, 0] = int(lg[0, n - 1].argmax()) if feed is None else feed[0][lane]
     fed.append(tokens[:, 0].tolist())
-    step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
-        params, cfg, c_, t_, seq_max=seq_max, paged_table=tb, block_size=bs))
+    if decode_impl == "paged":
+        step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
+            params, cfg, c_, t_, seq_max=seq_max, paged_table=tb, block_size=bs))
+    else:
+        fused = kv.make_fused_step(lambda c_, t_: decode_step(params, cfg, c_, t_,
+                                                              seq_max=seq_max))
+        step = lambda *a: fused(*a, kv.view_blocks_needed(  # noqa: E731
+            positions.numpy(), list(range(lanes))))
     for t in range(steps):
         tables = torch.zeros((lanes, seq_max // bs), dtype=torch.int32)
         for lane in range(lanes):
@@ -895,6 +1024,21 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4):
         tokens[:, 0] = nxt
         fed.append(nxt.tolist())
     return outs, fed
+
+
+def logit_errs(torch, label, a_runs, b_runs, prompt_lens) -> list:
+    """Per-output logit error of ``a_runs`` against ``b_runs`` (prefill of
+    each prompt, then each decode step), relative to b's max-abs; every
+    logit of ``a_runs`` must be finite."""
+    names = [f"prefill n={n}" for n in prompt_lens] + [
+        f"decode step {i}" for i in range(len(a_runs) - len(prompt_lens))]
+    errs = []
+    for name, a, b in zip(names, a_runs, b_runs):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite logits at {name}")
+        err, scale = max_err(a, b)
+        errs.append(err / scale)
+    return errs
 
 
 @contextlib.contextmanager
@@ -925,48 +1069,76 @@ def plain_route():
 
 
 def model_phase(torch, dev) -> None:
+    """Kernel route against the plain route on the card, 2 full-width fp32
+    layers, prefill logits and 4 decode steps: qwen2-7b (block 16; the
+    plain route on the CPU too, for the record) and granite-20b (48 query
+    heads on 1 kv head: K5 at r = 48, block 64). Then, on qwen2-7b with
+    ``decode_attention_impl="full"``, the paged route (K5 at r = 7) against
+    the gather route (dense views, plain torch)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.serve import random_params
     from repro_torch.serve.engine import tree_to
 
+    prompt_lens = (48, 333)
+    for arch, bs in (("qwen2-7b", 16), ("granite-20b", 64)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, compute_dtype="float32")
+        t0 = time.perf_counter()
+        params = random_params(cfg, seed=0, device=dev)
+        before = launch_counts()
+        card, fed = drive_model(torch, params, cfg, dev, prompt_lens, block_size=bs)
+        after = launch_counts()
+        if any(after[k] <= before[k] for k in SERVE_KERNELS):
+            raise AssertionError(f"model parity {arch}: kernel route skipped a kernel: "
+                                 f"{after}")
+        with plain_route():
+            plain, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
+                                   block_size=bs)
+        if launch_counts() != after:
+            raise AssertionError(f"model parity {arch}: the plain route launched a kernel")
+        cpu_note = ""
+        if arch == "qwen2-7b":
+            # For the record, not held: the plain route on the CPU differs
+            # from the card by BLAS rounding alone, amplified by the
+            # random-weight core.
+            params_cpu = tree_to(params, "cpu")
+            on_cpu, _ = drive_model(torch, params_cpu, cfg, torch.device("cpu"),
+                                    prompt_lens, feed=fed, block_size=bs)
+            cpu_err = max(e / s for e, s in (max_err(a, b) for a, b in zip(plain, on_cpu)))
+            cpu_note = f"; plain route card vs CPU {cpu_err:.2e} (not held)"
+        del params
+        torch.cuda.empty_cache()
+        errs = logit_errs(torch, f"model parity {arch}", card, plain, prompt_lens)
+        log(f"model parity: {arch} full width (d_model={cfg.d_model}, heads="
+            f"{cfg.num_heads}/{cfg.num_kv_heads}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}) "
+            f"2 layers fp32, block {bs}, prompts {prompt_lens}, 4 paged decode steps, "
+            f"kernel route vs plain route on the card: logit err of max-abs per output "
+            f"{['%.2e' % e for e in errs]} (tol {MODEL_TOL}){cpu_note}; "
+            f"{time.perf_counter() - t0:.1f}s")
+        if not max(errs) <= MODEL_TOL:
+            raise AssertionError(f"model parity {arch}: logit err {max(errs):.3e} > "
+                                 f"{MODEL_TOL}")
+
     cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
-                              compute_dtype="float32")
+                              compute_dtype="float32", decode_attention_impl="full")
     t0 = time.perf_counter()
     params = random_params(cfg, seed=0, device=dev)
-    prompt_lens = (48, 333)
     before = launch_counts()
-    card, fed = drive_model(torch, params, cfg, dev, prompt_lens)
-    after = launch_counts()
-    if any(after[k] <= before[k] for k in SERVE_KERNELS):
-        raise AssertionError(f"model parity: kernel route skipped a kernel: {after}")
-    with plain_route():
-        plain, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed)
-    if launch_counts() != after:
-        raise AssertionError("model parity: the plain route launched a kernel")
-    # For the record, not held: the plain route on the CPU differs from the
-    # card by BLAS rounding alone, amplified by the random-weight core.
-    params_cpu = tree_to(params, "cpu")
+    paged, fed = drive_model(torch, params, cfg, dev, prompt_lens)
+    if launch_counts()["paged_row_stats"] <= before["paged_row_stats"]:
+        raise AssertionError("full decode attention: the paged route skipped K5")
+    gather, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
+                            decode_impl="gather")
     del params
     torch.cuda.empty_cache()
-    on_cpu, _ = drive_model(torch, params_cpu, cfg, torch.device("cpu"),
-                            prompt_lens, feed=fed)
-    cpu_err = max(e / s for e, s in (max_err(a, b) for a, b in zip(plain, on_cpu)))
-    labels = [f"prefill n={n}" for n in prompt_lens] + [f"decode step {i}" for i in range(4)]
-    errs = []
-    for label, a, b in zip(labels, card, plain):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"model parity: non-finite logits at {label}")
-        err, scale = max_err(a, b)
-        errs.append(err / scale)
-    log(f"model parity: qwen2-7b full width (d_model={cfg.d_model}, heads="
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}) "
-        f"2 layers fp32, prompts {prompt_lens}, 4 decode steps, kernel route vs "
-        f"plain route on the card: logit err of max-abs per output "
-        f"{['%.2e' % e for e in errs]} (tol {MODEL_TOL}); plain route card vs "
-        f"CPU {cpu_err:.2e} (not held); {time.perf_counter() - t0:.1f}s")
+    errs = logit_errs(torch, "full decode attention", paged, gather, prompt_lens)
+    log(f"model parity: qwen2-7b 2 layers fp32, decode_attention_impl='full', paged "
+        f"route (K5, r = {cfg.num_heads // cfg.num_kv_heads}) vs gather route on the "
+        f"card: logit err of max-abs per output {['%.2e' % e for e in errs]} (tol "
+        f"{MODEL_TOL}); {time.perf_counter() - t0:.1f}s")
     if not max(errs) <= MODEL_TOL:
-        raise AssertionError(f"model parity: logit err {max(errs):.3e} > {MODEL_TOL}")
+        raise AssertionError(f"full decode attention: logit err {max(errs):.3e} > "
+                             f"{MODEL_TOL}")
 
 
 def grad_phase(torch, dev) -> None:
@@ -1015,79 +1187,152 @@ def grad_phase(torch, dev) -> None:
         raise AssertionError(f"grad parity: loss err {loss_err:.3e} or grad err "
                              f"{errs[worst]:.3e} ({worst}) > {GRAD_TOL}")
 
+    # The selective-checkpoint policies against remat="none": the same
+    # kernels on the same inputs, recomputed, so bitwise is expected.
+    for remat in ("ss_stats", "dots"):
+        t0 = time.perf_counter()
+        before = launch_counts()
+        rloss, rgrads = make_grad_step(dataclasses.replace(cfg, remat=remat))(params, batch)
+        counts = {k: launch_counts()[k] - before[k] for k in used}
+        bitwise = float(rloss) == float(loss) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)))
+        rerr = max(max_err(a, b)[0] / max(max_err(a, b)[1], 1e-30)
+                   for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)))
+        lerr = abs(float(rloss) - float(loss)) / abs(float(loss))
+        log(f"grad parity: remat={remat} vs none, same kernel route: loss {float(rloss):.6f} "
+            f"(rel {lerr:.2e}), worst grad err of max-abs {rerr:.2e} (tol {REMAT_TOL}), "
+            f"bitwise {bitwise}, launches {counts}; {time.perf_counter() - t0:.1f}s")
+        if not (lerr <= REMAT_TOL and rerr <= REMAT_TOL):
+            raise AssertionError(f"grad parity: remat={remat} differs from none by "
+                                 f"{max(lerr, rerr):.3e} > {REMAT_TOL}")
+        want_k1 = cfg.num_layers * (1 if remat == "ss_stats" else 2)
+        if counts["landmark_summary"] != want_k1:
+            raise AssertionError(f"grad parity: remat={remat} launched K1 "
+                                 f"{counts['landmark_summary']} times, want {want_k1}")
+
 
 # --------------------------------------------------------------------------
 # phase 4: serving
 # --------------------------------------------------------------------------
-def serve_phase(torch, dev, layers: int) -> dict:
-    from repro_torch.configs.base import ServeConfig
+SERVE_LENS = [48, 200, 333, 480]
+GRANITE_LAYERS = 8   # of 52: about 9.7 GB of bf16 weights (embedding included)
+
+
+def serve_run(torch, dev, arch: str, layers: int, serve, label: str) -> dict:
+    """One serving run of full-width ``arch`` cut to ``layers`` layers (bf16
+    random weights, seed 0) under ``serve``: a warm-up engine, then
+    prompts of SERVE_LENS tokens, 16 new tokens each, launch counts reset
+    just before and read just after. Checks every request finished with
+    tokens in the vocabulary and every cache leaf finite; returns the
+    launcher's summary."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params, serve_requests
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(arch)
     if layers != cfg.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     params = random_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"serve: qwen2-7b d_model={cfg.d_model} layers={cfg.num_layers} "
-        f"bf16 random weights drawn in {time.perf_counter() - t0:.1f}s, "
+    log(f"serve {label}: {arch} d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers="
+        f"{cfg.num_layers} bf16 random weights drawn in {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
-    serve = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
-                        decode_impl="paged", seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)   # the peak below is this run's
     # warm-up (library handles, allocator) on an engine of its own
     serve_requests(ServeEngine(cfg, params, serve=serve, device=dev), [200], 2, seed=1)
     engine = ServeEngine(cfg, params, serve=serve, device=dev)
-    lens = [48, 200, 333, 480]
-    out = serve_requests(engine, lens, 16, seed=0)
+    out = serve_requests(engine, SERVE_LENS, 16, seed=0)
     ttft = out["ttft_s"]
-    log(f"serve: {out['finished']}/{out['requests']} requests finished, "
+    log(f"serve {label}: route {out['mode']} / {out['decode_impl']} decode "
+        f"(prefill_impl={serve.prefill_impl}, block {serve.block_size}), "
+        f"{out['finished']}/{out['requests']} requests finished, "
         f"{out['tokens']} tokens in {out['seconds']:.3f}s ({out['tok_per_s']:.1f} tok/s), "
         f"TTFT mean {1e3 * sum(ttft) / len(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms, "
         f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
-        f"{out['decode_s']:.3f}s, preemptions {out['preemptions']}, "
-        f"launches {out['launches']}")
-    if out["finished"] != len(lens):
-        raise AssertionError("serve: not every request finished")
+        f"{out['decode_s']:.3f}s ({1e3 * out['decode_s'] / max(out['decode_ticks'], 1):.1f} "
+        f"ms per tick), preemptions {out['preemptions']}, launches {out['launches']}, "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    if out["finished"] != len(SERVE_LENS):
+        raise AssertionError(f"serve {label}: not every request finished")
     for uid, toks in out["outputs"].items():
         if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"serve: request {uid} produced {toks}")
+            raise AssertionError(f"serve {label}: request {uid} produced {toks}")
     for name, t in engine.kv.storage.items():
         if not torch.isfinite(t).all():
-            raise AssertionError(f"serve: non-finite values in cache leaf {name}")
-    missing = [k for k in SERVE_KERNELS if out["launches"][k] <= 0]
+            raise AssertionError(f"serve {label}: non-finite values in cache leaf {name}")
+    if any(v for k, v in out["launches"].items() if k not in SERVE_KERNELS):
+        raise AssertionError(f"serve {label}: a training kernel launched: "
+                             f"{out['launches']}")
+    del engine, params
+    gc.collect()  # the engine's reference cycles hold the serving weights
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(torch, dev, layers: int) -> dict:
+    """Phase 4: the main path (qwen2-7b, ss_fused prefill, paged decode),
+    then the reference's default route (``ServeConfig(seed=0)``: replay
+    prefill, gather decode; no kernel may launch), then granite-20b (48
+    query heads on 1 kv head, block 64) on the kernel route. Returns each
+    path's launch counts."""
+    from repro_torch.configs.base import ServeConfig
+
+    main = serve_run(torch, dev, "qwen2-7b", layers,
+                     ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                                 decode_impl="paged", seed=0), "main path")
+    missing = [k for k in SERVE_KERNELS if main["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
-    if any(v for k, v in out["launches"].items() if k not in SERVE_KERNELS):
-        raise AssertionError(f"serve: a training kernel launched: {out['launches']}")
-    return out["launches"]
+    default = serve_run(torch, dev, "qwen2-7b", layers, ServeConfig(seed=0),
+                        "default route")
+    if any(default["launches"].values()) or default["decode_impl"] != "gather":
+        raise AssertionError(f"serve default route: a port kernel launched or the "
+                             f"route is not gather: {default['launches']}, "
+                             f"{default['decode_impl']}")
+    granite = serve_run(torch, dev, "granite-20b", GRANITE_LAYERS,
+                        ServeConfig(max_lanes=4, max_seq=512, block_size=64,
+                                    prefill_impl="ss_fused", decode_impl="paged", seed=0),
+                        "granite-20b")
+    missing = [k for k in SERVE_KERNELS if granite["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve granite-20b: kernels never launched: {missing}")
+    return {"serve": main["launches"], "serve_default_route": default["launches"],
+            "serve_granite_20b": granite["launches"]}
 
 
 # --------------------------------------------------------------------------
 # phase 5: training
 # --------------------------------------------------------------------------
-def train_phase(torch, dev, layers: int, steps: int) -> dict:
+def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
+                round_trip: bool = True) -> dict:
     """The single-device ``Trainer`` on full-width Qwen2-7B cut to ``layers``
-    layers: bf16 compute, fp32 master weights and AdamW state, ``remat=
-    "full"``, ``attention_impl="spectral_shift_fused"``, seq 4096, batch
-    TRAIN_BATCH, SyntheticLM seed 0. Each step's kernel launches are counted
-    on their own and must be K1 2 / K2 2 / K3 1 / K4 1 per layer (forward
-    plus the remat recompute; backward once). Then a checkpoint round trip
-    of the parameters on the card must be bit-identical. Returns the summed
-    launch counts."""
+    layers: bf16 compute, fp32 master weights and AdamW state, ``remat``,
+    ``attention_impl="spectral_shift_fused"``, seq 4096, batch TRAIN_BATCH,
+    SyntheticLM seed 0. Each step's kernel launches are counted on their
+    own and must be K1 2 / K2 2 / K3 1 / K4 1 per layer under "full" and
+    "dots" (forward plus the remat recompute; backward once), and K1 1
+    under "auto" (on the card: "ss_stats", which keeps K1's outputs). With
+    ``round_trip`` a checkpoint round trip of the parameters on the card
+    must then be bit-identical. Returns (summed launch counts, mean ms per
+    step after the first, peak GiB)."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
-    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.base import ShapeConfig, TrainConfig, resolve_remat
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.trainer import Trainer
 
     cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=layers,
-                              attention_impl="spectral_shift_fused", remat="full")
+                              attention_impl="spectral_shift_fused", remat=remat)
+    resolved = resolve_remat(remat, "gpu")
+    if resolved not in ("full", "ss_stats", "dots"):
+        raise AssertionError(f"train: remat={remat} resolves to {resolved} on the card")
     shape = ShapeConfig("train_4k", 4096, TRAIN_BATCH, "train")
     tokens = shape.seq_len * shape.global_batch
-    expected = dict(landmark_summary=2 * layers, query_side=2 * layers,
+    expected = dict(landmark_summary=(1 if resolved == "ss_stats" else 2) * layers,
+                    query_side=2 * layers,
                     paged_row_stats=0, landmark_summary_bwd=layers,
                     query_side_bwd=layers)
     totals = dict.fromkeys(expected, 0)
@@ -1098,8 +1343,8 @@ def train_phase(torch, dev, layers: int, steps: int) -> dict:
         trainer = Trainer(cfg, tcfg, shape, device=dev)
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in tree_leaves(trainer.params))
-        log(f"train: qwen2-7b d_model={cfg.d_model} layers={layers} seq "
-            f"{shape.seq_len} batch {shape.global_batch}, {n_params / 1e9:.3f} B "
+        log(f"train remat={remat} ({resolved}): qwen2-7b d_model={cfg.d_model} layers="
+            f"{layers} seq {shape.seq_len} batch {shape.global_batch}, {n_params / 1e9:.3f} B "
             f"fp32 master params + AdamW state initialized in "
             f"{time.perf_counter() - t0:.1f}s, "
             f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
@@ -1109,8 +1354,8 @@ def train_phase(torch, dev, layers: int, steps: int) -> dict:
             h = trainer.run(1)[-1]
             counts = launch_counts()
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
-            log(f"train step {i}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.3f} "
-                f"lr {h['lr']:.3e}, {1e3 * h['step_time_s']:.1f} ms, "
+            log(f"train remat={remat} step {i}: loss {h['loss']:.4f} grad_norm "
+                f"{h['grad_norm']:.3f} lr {h['lr']:.3e}, {1e3 * h['step_time_s']:.1f} ms, "
                 f"{tokens / h['step_time_s']:.0f} tokens/s, peak "
                 f"{peak:.2f} GiB, launches {counts}")
             if not math.isfinite(h["loss"]):
@@ -1121,10 +1366,17 @@ def train_phase(torch, dev, layers: int, steps: int) -> dict:
                 totals[k] += counts[k]
         later = [h["step_time_s"] for h in trainer.metrics_history[1:]]
         mean_s = sum(later) / len(later)
-        log(f"train: {steps} steps, loss {trainer.metrics_history[0]['loss']:.4f} -> "
+        log(f"train remat={remat}: {steps} steps, loss "
+            f"{trainer.metrics_history[0]['loss']:.4f} -> "
             f"{trainer.metrics_history[-1]['loss']:.4f}, mean step after the first "
             f"{1e3 * mean_s:.1f} ms ({tokens / mean_s:.0f} tokens/s), peak device "
             f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        if not round_trip:
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            return totals, 1e3 * mean_s, peak_gib
         t0 = time.perf_counter()
         ckpt = Checkpointer(os.path.join(ckpt_dir, "round_trip"), keep=1)
         ckpt.save(trainer.step, {"params": trainer.params}, blocking=True)
@@ -1137,8 +1389,9 @@ def train_phase(torch, dev, layers: int, steps: int) -> dict:
         if not same:
             raise AssertionError("train: restored parameters differ from the saved ones")
         del trainer, restored
+    gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, 1e3 * mean_s, peak_gib
 
 
 def main(argv=None) -> int:
@@ -1178,12 +1431,18 @@ def main(argv=None) -> int:
     model_phase(torch, dev)
     grad_phase(torch, dev)
     served = serve_phase(torch, dev, args.layers)
-    gc.collect()  # the engine's reference cycles hold the serving weights
-    torch.cuda.empty_cache()
-    trained = train_phase(torch, dev, args.train_layers, TRAIN_STEPS)
+    trained, full_ms, full_peak = train_phase(torch, dev, args.train_layers, TRAIN_STEPS)
+    auto, auto_ms, auto_peak = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
+                                           remat="auto", round_trip=False)
+    dots, dots_ms, dots_peak = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
+                                           remat="dots", round_trip=False)
+    log(f"train: remat full {full_ms:.1f} ms per step, peak {full_peak:.2f} GiB; remat "
+        f"auto (ss_stats) {auto_ms:.1f} ms per step, peak {auto_peak:.2f} GiB; remat "
+        f"dots {dots_ms:.1f} ms per step, peak {dots_peak:.2f} GiB")
+    paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots)
     for k in kernels:
-        k["launches"] = served[k["name"]] + trained[k["name"]]
-        k["launches_by_path"] = {"serve": served[k["name"]], "train": trained[k["name"]]}
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(card, flush=True)

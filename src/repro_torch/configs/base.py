@@ -104,7 +104,7 @@ class ModelConfig:
 
 # Per-backend remat defaults for ``remat="auto"`` (``repro/configs/base.py``
 # REMAT_DEFAULTS, pinned there from its remat study). The port's backends
-# are "gpu" and "cpu"; its trunk runs "none" and "full" only so far.
+# are "gpu" and "cpu".
 REMAT_DEFAULTS: dict[str, str] = {
     "tpu": "ss_stats",
     "gpu": "ss_stats",

@@ -1,0 +1,9 @@
+"""Granite-20B code [arXiv:2405.04324]: llama-arch dense, MQA (kv=1)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-20b", family="dense",
+    num_layers=52, d_model=6144, num_heads=48, num_kv_heads=1,
+    d_ff=24576, vocab_size=49152, rope_theta=1e4,
+    attention_impl="chunked",
+)

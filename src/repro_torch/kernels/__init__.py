@@ -12,8 +12,14 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``); ``launch_counts`` reads them and
 ``reset_launch_counts`` zeroes them, so a run can show that its path went
 through the kernels.
+
+``MAX_HEAD_DIM`` is the largest head dim (d and dv) that every kernel
+takes (each ``.cu`` file's ``kMaxD``); the serving engine refuses larger
+heads on CUDA at construction.
 """
 from __future__ import annotations
+
+MAX_HEAD_DIM = 128
 
 
 def _wrappers():

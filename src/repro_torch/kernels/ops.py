@@ -12,14 +12,15 @@ plus the online-softmax partial-state algebra (``flash_rescale`` /
 ``flash_merge``) that decode uses to merge the current token into the
 kernels' partials.
 
-Steps 3 and 5 are differentiable: ``LandmarkSummaryOp`` and
-``QuerySideOp`` (the reference's custom-VJP ``landmark_summary_op`` /
-``query_side_op``, ``ops.py:91-160``) run K1 / K2 forward and K3 / K4
-backward. K1's forward then also returns the fp32 (m, l) stats K3 rebuilds
-P from. The landmark means and the c x c core stay on plain autograd, as
-they stay on jnp autodiff in the reference. When nothing needs a gradient
-(serving, ``torch.no_grad``), the kernels are called directly: no residuals
-are saved and K1 computes no stats.
+Steps 3 and 5 are differentiable: the custom ops
+``repro_torch::landmark_summary`` and ``repro_torch::query_side`` (the
+reference's custom-VJP ``landmark_summary_op`` / ``query_side_op``,
+``ops.py:91-160``) run K1 / K2 forward and K3 / K4 backward. K1's
+forward then also returns the fp32 (m, l) stats K3 rebuilds P from. The
+landmark means and the c x c core stay on plain autograd, as they stay
+on jnp autodiff in the reference. When nothing needs a gradient
+(serving, ``torch.no_grad``), the kernels are called directly: no
+residuals are saved and K1 computes no stats.
 """
 from __future__ import annotations
 
@@ -55,49 +56,82 @@ def flash_merge(m_a, l_a, acc_a, m_b, l_b, acc_b):
 
 
 # --------------------------------------------------------------------------
-# Differentiable kernel ops.
+# Differentiable kernel ops. K1 and K2 are registered as torch.library
+# custom ops, so a selective-checkpoint policy (models/model.py) sees them
+# as ops it can save or recompute: a ctypes launch inside a plain
+# autograd.Function is invisible to the dispatcher. Each op's
+# implementation is its wrapper (the kernel for CUDA tensors, the plain
+# version for CPU ones); its backward is K3 / K4.
 # --------------------------------------------------------------------------
-class LandmarkSummaryOp(torch.autograd.Function):
-    """BV = softmax(Q~ K^T * scale) @ V through K1, with K3 as its backward
-    (``landmark_summary_op`` :91). Saves (q_l, k, v, bv, m, l)."""
-
-    @staticmethod
-    def forward(ctx, q_l, k, v, scale, causal, kv_valid):
-        bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=causal,
-                                    return_stats=True, kv_valid=kv_valid)
-        ctx.save_for_backward(q_l, k, v, bv, m, l)
-        ctx.meta = (scale, causal, kv_valid)
-        return bv
-
-    @staticmethod
-    def backward(ctx, g):
-        q_l, k, v, bv, m, l = ctx.saved_tensors
-        scale, causal, kv_valid = ctx.meta
-        dq, dk, dv = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
-                                          causal=causal, kv_valid=kv_valid)
-        return dq, dk, dv, None, None, None
+@torch.library.custom_op("repro_torch::landmark_summary", mutates_args=())
+def landmark_summary_stats(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, causal: bool,
+                           kv_valid: Optional[int]) -> tuple[torch.Tensor, torch.Tensor,
+                                                             torch.Tensor]:
+    """K1 with its fp32 stats (``landmark_summary_op`` :91): (BV, m, l). Its
+    outputs are the residuals the reference tags ``ss_bv`` / ``ss_stats``
+    (``ops.py:112``), the ones ``remat="ss_stats"`` keeps."""
+    return landmark_summary(q_l, k, v, scale=scale, causal=causal,
+                            return_stats=True, kv_valid=kv_valid)
 
 
-class QuerySideOp(torch.autograd.Function):
-    """out = softmax(Q K~^T * scale) @ M + delta * V through K2, with K4 as
-    its backward (``query_side_op`` :135). Saves (q, k_l, m_mat, v, delta);
-    K4 recomputes P."""
+@landmark_summary_stats.register_fake
+def _(q_l, k, v, scale, causal, kv_valid):
+    b, c, _ = q_l.shape
+    stat = q_l.new_empty((b, c, 1), dtype=torch.float32)
+    return v.new_empty((b, c, v.shape[-1])), stat, torch.empty_like(stat)
 
-    @staticmethod
-    def forward(ctx, q, k_l, m_mat, v, delta, scale, causal, seq_len_k):
-        ctx.save_for_backward(q, k_l, m_mat, v, delta)
-        ctx.meta = (scale, causal, seq_len_k)
-        return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
-                          seq_len_k=seq_len_k)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k_l, m_mat, v, delta = ctx.saved_tensors
-        scale, causal, seq_len_k = ctx.meta
-        dq, dkl, dm, dv, dd = query_side_bwd(q, k_l, m_mat, v, delta, g,
-                                             scale=scale, causal=causal,
-                                             seq_len_k=seq_len_k)
-        return dq, dkl, dm, dv, dd, None, None, None
+def _landmark_summary_setup(ctx, inputs, output):
+    q_l, k, v, scale, causal, kv_valid = inputs
+    bv, m, l = output
+    ctx.save_for_backward(q_l, k, v, bv, m, l)
+    ctx.meta = (scale, causal, kv_valid)
+
+
+def _landmark_summary_backward(ctx, g, _gm, _gl):
+    q_l, k, v, bv, m, l = ctx.saved_tensors
+    scale, causal, kv_valid = ctx.meta
+    dq, dk, dv = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
+                                      causal=causal, kv_valid=kv_valid)
+    return dq, dk, dv, None, None, None
+
+
+landmark_summary_stats.register_autograd(_landmark_summary_backward,
+                                         setup_context=_landmark_summary_setup)
+
+
+@torch.library.custom_op("repro_torch::query_side", mutates_args=())
+def query_side_differentiable(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
+                              v: torch.Tensor, delta: torch.Tensor, scale: float,
+                              causal: bool, seq_len_k: int) -> torch.Tensor:
+    """K2 (``query_side_op`` :135); K4 recomputes P in its backward, so the
+    residuals are the inputs."""
+    return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
+                      seq_len_k=seq_len_k)
+
+
+@query_side_differentiable.register_fake
+def _(q, k_l, m_mat, v, delta, scale, causal, seq_len_k):
+    return q.new_empty((*q.shape[:2], v.shape[-1]))
+
+
+def _query_side_setup(ctx, inputs, output):
+    q, k_l, m_mat, v, delta, scale, causal, seq_len_k = inputs
+    ctx.save_for_backward(q, k_l, m_mat, v, delta)
+    ctx.meta = (scale, causal, seq_len_k)
+
+
+def _query_side_backward(ctx, g):
+    q, k_l, m_mat, v, delta = ctx.saved_tensors
+    scale, causal, seq_len_k = ctx.meta
+    dq, dkl, dm, dv, dd = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale,
+                                         causal=causal, seq_len_k=seq_len_k)
+    return dq, dkl, dm, dv, dd, None, None, None
+
+
+query_side_differentiable.register_autograd(_query_side_backward,
+                                            setup_context=_query_side_setup)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -106,20 +140,23 @@ def _needs_grad(*tensors) -> bool:
 
 def landmark_summary_op(q_l, k, v, *, scale: float, causal: bool = False,
                         kv_valid: Optional[int] = None) -> torch.Tensor:
-    """K1 as a differentiable op: through ``LandmarkSummaryOp`` when a
-    gradient is needed, else the kernel alone (no stats, nothing saved)."""
+    """K1 as a differentiable op: through the ``repro_torch::landmark_summary``
+    custom op when a gradient is needed, else the kernel alone (no stats,
+    nothing saved)."""
     if _needs_grad(q_l, k, v):
-        return LandmarkSummaryOp.apply(q_l, k, v, scale, causal, kv_valid)
+        return landmark_summary_stats(q_l, k, v, float(scale), bool(causal),
+                                      None if kv_valid is None else int(kv_valid))[0]
     return landmark_summary(q_l, k, v, scale=scale, causal=causal,
                             kv_valid=kv_valid)
 
 
 def query_side_op(q, k_l, m_mat, v, delta, *, scale: float,
                   causal: bool = False, seq_len_k: int = 0) -> torch.Tensor:
-    """K2 as a differentiable op (``QuerySideOp`` when a gradient is
-    needed, else the kernel alone)."""
+    """K2 as a differentiable op (the ``repro_torch::query_side`` custom op
+    when a gradient is needed, else the kernel alone)."""
     if _needs_grad(q, k_l, m_mat, v, delta):
-        return QuerySideOp.apply(q, k_l, m_mat, v, delta, scale, causal, seq_len_k)
+        return query_side_differentiable(q, k_l, m_mat, v, delta, float(scale),
+                                         bool(causal), int(seq_len_k))
     return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
                       seq_len_k=seq_len_k)
 

@@ -20,11 +20,11 @@ import dataclasses
 import torch
 
 from repro_torch.core.attention import NEG_INF
+from repro_torch.kernels import MAX_HEAD_DIM
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 
-_MAX_D = 128   # head dims the CUDA kernel takes (d and dv; csrc kMaxD)
-_MAX_R = 8     # query rows per kv head, one warp each (csrc kMaxR)
-_MAX_BS = 32   # keys per pool block, one lane each (csrc kMaxBs)
+_STEP_KEYS = 32    # keys of one kernel step, one per lane (csrc kStepKeys)
+_ROWS_PER_CTA = 64  # query rows a CTA takes; more take more CTAs (csrc kMaxRows)
 # CTAs the slot-chunk plan aims at: two resident per SM of the H100's 132,
 # two waves (a sweep of 264-1056 at a 16k horizon found 528 fastest).
 SLOT_TARGET_CTAS = 528
@@ -33,13 +33,17 @@ SLOT_TARGET_CTAS = 528
 @dataclasses.dataclass(frozen=True)
 class SlotChunkPlan:
     """How K5 cuts each lane's n_slots table slots into ``chunks`` chunks of
-    ``chunk_slots`` slots (whole steps of ``step_slots`` = 32 // bs blocks,
-    up to 32 keys), one CTA per (chunk, kv head, lane). Each chunk leaves
-    fp32 partials (m, l, acc), the anchor if it holds no valid key, merged
-    in chunk order; with one chunk the CTA writes the output directly."""
+    ``chunk_slots`` slots, one CTA per (chunk, kv head, lane). Chunk edges
+    lie at whole blocks. The kernel walks a chunk in steps of at most
+    32 keys (``steps``): ``step_slots`` = 32 // bs whole blocks when
+    bs <= 32, else ceil(bs / 32) slices of each block.
+    Each chunk leaves fp32 partials (m, l, acc), the anchor if it holds no
+    valid key, merged in chunk order; with one chunk the CTA writes the
+    output directly."""
     lanes: int
     hkv: int
     n_slots: int
+    block_size: int
     step_slots: int
     chunk_slots: int
     chunks: int
@@ -47,6 +51,28 @@ class SlotChunkPlan:
     def slots(self, i: int) -> tuple[int, int]:
         """Table slots [start, end) of chunk i."""
         return i * self.chunk_slots, min((i + 1) * self.chunk_slots, self.n_slots)
+
+    def steps(self, i: int, n_valid_slots: int = None) -> list:
+        """The kernel's steps over chunk i, whose slots below
+        ``n_valid_slots`` (default: all) hold valid keys:
+        ``[(first slot, blocks, key0, keys)]``, each step ``blocks`` whole
+        blocks from its first slot (bs <= 32: floor(32 / bs) of them, the
+        chunk's last step fewer), or one 32-key slice of one block starting
+        at key ``key0`` (bs > 32: slices of 32 keys, the block's last one
+        bs mod 32 when that is not 0). A step never crosses the chunk's
+        edge and holds at most 32 keys."""
+        lo, hi = self.slots(i)
+        hi = min(hi, self.n_slots if n_valid_slots is None else n_valid_slots)
+        bs, out = self.block_size, []
+        if bs > _STEP_KEYS:
+            for s in range(lo, hi):
+                out += [(s, 1, k0, min(_STEP_KEYS, bs - k0))
+                        for k0 in range(0, bs, _STEP_KEYS)]
+        else:
+            for s in range(lo, hi, self.step_slots):
+                nb = min(self.step_slots, hi - s)
+                out.append((s, nb, 0, nb * bs))
+        return out
 
     def workspace_floats(self, r: int, dv: int) -> int:
         """fp32 workspace of the partials: m, l and acc (r * (dv + 2) floats)
@@ -60,15 +86,16 @@ def slot_chunk_plan(lanes: int, hkv: int, n_slots: int,
                     block_size: int) -> SlotChunkPlan:
     """The slot-chunk plan of K5 for ``lanes`` lanes of ``hkv`` kv heads and
     a table of ``n_slots`` slots of ``block_size`` keys: enough chunks per
-    (lane, kv head) for about SLOT_TARGET_CTAS CTAs, each at least one step
-    of the kernel (32 keys). Sized from the table's width alone: kv_valid
-    lives on the device, so the host never waits for it."""
-    step = max(1, _MAX_BS // block_size)
-    steps = -(-n_slots // step)
+    (lane, kv head) for about SLOT_TARGET_CTAS CTAs, each a whole number of
+    steps of whole blocks (``step_slots`` = max(1, 32 // bs) slots: 2 at
+    bs 16, 1 at bs 24, 32 or 64). Sized from the table's width alone:
+    kv_valid lives on the device, so the host never waits for it."""
+    step = max(1, _STEP_KEYS // block_size)
+    units = -(-n_slots // step)
     want = -(-SLOT_TARGET_CTAS // max(1, lanes * hkv))
-    chunk_slots = step * max(1, -(-steps // max(1, min(steps, want))))
-    return SlotChunkPlan(lanes=lanes, hkv=hkv, n_slots=n_slots, step_slots=step,
-                         chunk_slots=chunk_slots,
+    chunk_slots = step * max(1, -(-units // max(1, min(units, want))))
+    return SlotChunkPlan(lanes=lanes, hkv=hkv, n_slots=n_slots, block_size=block_size,
+                         step_slots=step, chunk_slots=chunk_slots,
                          chunks=max(1, -(-n_slots // chunk_slots)))
 
 
@@ -151,10 +178,9 @@ def _paged_row_stats_cuda(q, k_pool, v_pool, table, kv_valid, *, scale):
     if table.dtype != torch.int32 or kv_valid.dtype != torch.int32:
         raise ValueError("paged_row_stats_lanes: table and kv_valid must be "
                          "int32")
-    if d > _MAX_D or dv > _MAX_D or r > _MAX_R or bs > _MAX_BS:
-        raise ValueError(f"paged_row_stats_lanes: (d={d}, dv={dv}, r={r}, bs={bs}) "
-                         f"exceed the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_R}, "
-                         f"{_MAX_BS})")
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"paged_row_stats_lanes: head dims (d={d}, dv={dv}) "
+                         f"exceed the kernel's {MAX_HEAD_DIM}")
     es = q.element_size()
     # The kernel bulk-copies whole pool blocks (16-byte aligned, whole
     # 16-byte units) and reads rows in 4-element chunks.

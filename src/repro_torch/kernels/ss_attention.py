@@ -19,13 +19,13 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import NEG_INF
+from repro_torch.kernels import MAX_HEAD_DIM
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 
-_MAX_D = 128   # head dims the CUDA kernels take (d and dv)
 _MAX_C = 64    # landmark columns query_side's kernel keeps resident
 # The bf16 tensor-core kernels of K1 and K3 (csrc/mma.cuh): 64 landmark rows
 # per CTA (wgmma's M; K3 takes c <= 64), keys in tiles of 64, head dims
-# multiples of 8 up to _MAX_D.
+# multiples of 8 up to MAX_HEAD_DIM.
 ROW_TILE = 64
 KEY_TILE = 64
 # CTAs the chunk plan and K2's query-tile plan aim at: two resident per SM
@@ -145,11 +145,11 @@ def tensor_core_pair(q_l: torch.Tensor, k: torch.Tensor) -> bool:
 
 def check_tensor_core_shapes(name: str, tensors: dict, dims: dict) -> None:
     """Raise unless the tensor-core kernels take these operands: head dims
-    multiples of 8 up to _MAX_D and 16-byte-aligned data (cp.async)."""
+    multiples of 8 up to MAX_HEAD_DIM and 16-byte-aligned data (cp.async)."""
     for dim, val in dims.items():
-        if val % 8 or not 0 < val <= _MAX_D:
+        if val % 8 or not 0 < val <= MAX_HEAD_DIM:
             raise ValueError(f"{name}: bf16 {dim}={val} must be a multiple of 8 "
-                             f"in (0, {_MAX_D}]")
+                             f"in (0, {MAX_HEAD_DIM}]")
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
@@ -234,12 +234,15 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
     if q_l.dtype == torch.bfloat16 and k.dtype == torch.float32:
         raise ValueError("landmark_summary: bf16 queries against fp32 keys "
                          "are not built")
-    if d > _MAX_D or dv > _MAX_D:
-        raise ValueError(f"landmark_summary: head dims ({d}, {dv}) > {_MAX_D}")
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"landmark_summary: head dims ({d}, {dv}) > {MAX_HEAD_DIM}")
     out = torch.empty((b, c, dv), dtype=v.dtype, device=v.device)
     m = l = None
     if return_stats:
-        m, l = torch.empty((2, b, c, 1), dtype=torch.float32, device=v.device)
+        # two tensors, not views of one: K1's custom op returns both, and an
+        # op's outputs may not alias each other
+        m = torch.empty((b, c, 1), dtype=torch.float32, device=v.device)
+        l = torch.empty_like(m)
     ws, chunk_keys = None, 0
     if tensor_core_pair(q_l, k):
         check_tensor_core_shapes("landmark_summary", {"q_l": q_l, "k": k, "v": v},
@@ -333,9 +336,9 @@ def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
                          "fp32 or bf16 dtype")
     if delta.dtype != torch.float32:
         raise ValueError("query_side: delta must be fp32")
-    if d > _MAX_D or dv > _MAX_D or c > _MAX_C:
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or c > _MAX_C:
         raise ValueError(f"query_side: dims (d={d}, dv={dv}, c={c}) exceed "
-                         f"the kernel's ({_MAX_D}, {_MAX_D}, {_MAX_C})")
+                         f"the kernel's ({MAX_HEAD_DIM}, {MAX_HEAD_DIM}, {_MAX_C})")
     run_rows = 0
     if q.dtype == torch.bfloat16:
         check_tensor_core_shapes("query_side", {"q": q, "k_l": k_l, "m_mat": m_mat,

@@ -3,12 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --prompt-lens 48,200,333,480 --max-new 16
 
-serves full-width Qwen2-7B (28 layers, bf16 working weights drawn from a
-seeded ``torch.Generator``) through ``ServeConfig(prefill_impl="ss_fused",
-decode_impl="paged")`` and prints requests finished, tokens, tok/s, TTFT
-and the launch count of each kernel. ``--reduced`` serves the reduced
-test config, ``--device cpu`` runs the kernels' plain versions instead.
-Weights and prompts come from seed 0.
+serves a full-width model (``--arch``, default qwen2-7b; every layer;
+bf16 working weights drawn from a seeded ``torch.Generator``) through ``ServeConfig(prefill_impl="ss_fused",
+decode_impl="paged")`` and prints requests finished, tokens, tok/s, TTFT,
+the route and the launch count of each kernel. ``--prefill-impl``,
+``--decode-impl``, ``--block-size`` and ``--no-paged`` pick another
+route (``--prefill-impl replay --decode-impl gather`` is the reference's
+default ``ServeConfig()``). ``--reduced`` serves the reduced test config,
+``--device cpu`` runs the kernels' plain versions instead. Weights and
+prompts come from seed 0.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig, reduced
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models.model import model_specs, torch_dtype
 from repro_torch.models.params import init_params
@@ -57,6 +60,7 @@ def serve_requests(engine: ServeEngine, prompt_lens, max_new: int,
             "ttft_s": stats["ttft_s"], "preemptions": stats["preemptions"],
             "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
             "decode_ticks": stats["decode_ticks"], "launches": counts,
+            "mode": stats["mode"], "decode_impl": stats["decode_impl"],
             "outputs": outputs}
 
 
@@ -108,12 +112,18 @@ def profile_top(prof, wall_s: float, limit: int = 12) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--prompt-lens", default="48,200,333,480")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--prefill-impl", default="ss_fused", choices=("ss_fused", "replay"))
+    ap.add_argument("--decode-impl", default="paged", choices=("paged", "gather"))
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--no-paged", action="store_true",
+                    help="lane-dense K/V storage (ServeConfig(paged=False))")
     ap.add_argument("--profile", action="store_true",
                     help="run under torch.profiler and print the device's "
                          "busy share of that same run and its costliest "
@@ -121,11 +131,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     serve = ServeConfig(max_lanes=args.lanes, max_seq=args.max_seq,
-                        prefill_impl="ss_fused", decode_impl="paged")
+                        block_size=args.block_size, paged=not args.no_paged,
+                        prefill_impl=args.prefill_impl, decode_impl=args.decode_impl)
     engine = ServeEngine(cfg, random_params(cfg, 0, device),
                          serve=serve, device=device)
     lens = [int(x) for x in args.prompt_lens.split(",")]
@@ -145,6 +156,7 @@ def main(argv=None):
           f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms, "
           f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
           f"{out['decode_s']:.3f}s, preemptions={out['preemptions']}, "
+          f"route {out['mode']} / {out['decode_impl']} decode, "
           f"launches={out['launches']}")
     return out
 

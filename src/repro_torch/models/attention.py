@@ -63,12 +63,29 @@ def gqa_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) @ w (D,H,E) -> (B,H,S,E), the reference's
+    ``einsum("bsd,dhe->bhse")``, as one 2-D product (``aten.mm``): a
+    product with no batch dims, which ``remat="dots"`` keeps (an einsum
+    would dispatch it as a ``bmm`` of batch 1)."""
+    b, s, _ = x.shape
+    h, e = w.shape[1:]
+    return (x @ w.to(x.dtype).reshape(-1, h * e)).reshape(b, s, h, e).transpose(1, 2)
+
+
+def output_projection(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
+    """out (B,H,S,E) @ w_o (H,E,D) -> (B,S,D), the reference's
+    ``einsum("bhse,hed->bsd")``, as one 2-D product (``aten.mm``)."""
+    b, h, s, e = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * e) @ w_o.to(out.dtype).reshape(h * e, -1)
+
+
 def gqa_project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """x (B,S,D) -> q (B,H,S,Dh), k/v (B,Hkv,S,Dh), bias added, no rotary."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhe->bhse", x, p["w_q"].to(dt))
-    k = torch.einsum("bsd,dhe->bhse", x, p["w_k"].to(dt))
-    v = torch.einsum("bsd,dhe->bhse", x, p["w_v"].to(dt))
+    q = project_heads(x, p["w_q"])
+    k = project_heads(x, p["w_k"])
+    v = project_heads(x, p["w_v"])
     if cfg.qkv_bias:
         q = q + p["b_q"].to(dt)[None, :, None, :]
         k = k + p["b_k"].to(dt)[None, :, None, :]
@@ -89,5 +106,4 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     k = _broadcast_kv(k, cfg.num_heads)
     v = _broadcast_kv(v, cfg.num_heads)
     out = _core_attention(cfg, impl, q, k, v, causal=(mode == "causal"))
-    out = torch.einsum("bhse,hed->bsd", out, p["w_o"].to(x.dtype))
-    return out, None
+    return output_projection(out.to(x.dtype), p["w_o"]), None

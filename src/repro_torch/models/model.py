@@ -9,10 +9,13 @@ The forward passes the serving path runs live in ``serve/prefill.py``
 (whole prompt) and ``serve/decode.py`` (one token per lane)."""
 from __future__ import annotations
 
-import torch
-from torch.utils.checkpoint import checkpoint
+from functools import partial
 
-from repro_torch.configs.base import ModelConfig
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.configs.base import ModelConfig, resolve_remat
 from repro_torch.models.attention import gqa_forward, gqa_specs
 from repro_torch.models.layers import mlp_forward, mlp_specs, rms_norm
 from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
@@ -87,22 +90,51 @@ def _unstacked_layers(params) -> list:
     return [pick(slices, i) for i in range(tree_leaves(layers)[0].shape[0])]
 
 
+def _ss_stats_policy(ctx, op, *args, **kwargs):
+    """``remat="ss_stats"`` (``save_only_these_names("ss_bv", "ss_stats")``,
+    ``model.py:355``): keep only the outputs of K1's op, BV and its fp32
+    (m, l), so the recompute skips K1; recompute everything else."""
+    if op is torch.ops.repro_torch.landmark_summary.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# The matrix products with no batch dims: the projections and the MLP
+# (``models/attention.py:project_heads``, ``layers.mlp_forward``) dispatch
+# to these. Batched products (``aten.bmm``, ``aten.baddbmm``: the landmark
+# and core einsums) and the kernels' ops are recomputed.
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"`` (``checkpoint_dots_with_no_batch_dims``)."""
+    if op in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {"ss_stats": _ss_stats_policy, "dots": _dots_policy}
+
+
 def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
     """The decoder trunk, layer by layer (``model.py:325``). Returns
-    (x, aux). ``remat="full"`` recomputes each layer's forward in backward
-    (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps every
-    activation. The reference's ``"dots"``, ``"ss_stats"`` and ``"auto"``
-    policies are not ported yet and raise."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported yet "
-                                  "(the port runs 'none' and 'full')")
+    (x, aux). ``remat`` (``"auto"`` resolved for x's device: ``ss_stats``
+    on the card, ``full`` on the CPU) picks what each layer keeps for its
+    backward: ``"none"`` every activation; ``"full"`` only the layer's
+    inputs (``torch.utils.checkpoint``, non-reentrant); ``"ss_stats"`` and
+    ``"dots"`` a selective checkpoint (``REMAT_POLICIES``)."""
+    remat = resolve_remat(cfg.remat, "gpu" if x.is_cuda else "cpu")
+    if remat not in ("none", "full", *REMAT_POLICIES):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstacked_layers(params):
-        if cfg.remat == "full":
-            x, a = checkpoint(dense_layer_forward, lp, cfg, x, positions, impl,
-                              mode, use_reentrant=False)
-        else:
+        if remat == "none":
             x, a = dense_layer_forward(lp, cfg, x, positions, impl, mode)
+        else:
+            kw = {} if remat == "full" else {"context_fn": partial(
+                create_selective_checkpoint_contexts, REMAT_POLICIES[remat])}
+            x, a = checkpoint(dense_layer_forward, lp, cfg, x, positions, impl,
+                              mode, use_reentrant=False, **kw)
         aux = aux + a
     return x, aux
 

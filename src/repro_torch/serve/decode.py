@@ -1,34 +1,134 @@
 """One decode step for every lane at once, spectral-shift decode attention
-over the paged KV pools (``repro/serve/decode.py``, the paged branch).
+(``repro/serve/decode.py``), on either of the reference's two routes.
 
 Lanes are the batch axis: ``decode_step`` takes tokens (B, 1) and
-positions (B,) and launches kernel K5 once per layer for all lanes. The
-sequence-shaped leaves are the shared block pools, read only through K5;
-each layer returns the NEW token's K/V for the caller to commit
-(``PagedKVCache.make_paged_step``) after the step, so K5 sees keys
-0..pos-1 and the current token is flash-merged on top.
+positions (B,). Each layer returns the NEW token's K/V (B, Hkv, 1, Dh) in
+place of the sequence-shaped leaves, for the caller to commit after the
+step (``PagedKVCache.make_paged_step`` / ``make_fused_step``).
+
+* The paged route (``paged_table`` given): the sequence-shaped leaves are
+  the shared block pools, read only through kernel K5 (launched once per
+  layer for all lanes), which sees keys 0..pos-1; the current token is
+  flash-merged on top.
+* The gather route: the sequence-shaped leaves are dense per-lane views
+  (B, Hkv, S, Dh), gathered from the pools or the lane-dense storage
+  itself; the current token is written into a copy of the view at
+  ``pos`` (``_update_seq``) and attention reads the view. It serves every
+  ``decode_streaming`` mode the port runs: exact (the active row
+  recomputed over the view), and recompute (``ss_decode_attention``, the
+  whole landmark-to-key softmax rebuilt each tick).
 
 Cache layout consumed here: ``cache["pos"]`` (B,) int32 and
-``cache["layers"]`` with pools ``k``/``v`` (L, Hkv, num_blocks, bs, Dh) and
-lane-dense leaves (L, B, ...) (``serve/kv_cache.py`` for the names).
+``cache["layers"]`` with ``k``/``v`` either pools (L, Hkv, num_blocks, bs,
+Dh) or views (L, B, Hkv, S, Dh), and lane-dense leaves (L, B, ...)
+(``serve/kv_cache.py`` for the names).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spectral_shift import ss_core
 from repro_torch.kernels.ops import flash_merge
 from repro_torch.kernels.paged_decode import paged_row_stats_lanes
-from repro_torch.models.attention import _broadcast_kv, gqa_project_qkv
+from repro_torch.models.attention import (_broadcast_kv, gqa_project_qkv,
+                                          output_projection)
 from repro_torch.models.layers import apply_rotary, mlp_forward, rms_norm, rotary_angles
 from repro_torch.models.model import (_embed_tokens, _unembed, layer_params,
                                       torch_dtype, working_params)
-from repro_torch.serve.decode_state import (STREAM_LEAVES, lmk_add,
+from repro_torch.serve.decode_state import (STREAM_LEAVES, key_mask,
+                                            landmark_counts, landmark_means,
+                                            lmk_add, masked_softmax,
+                                            recompute_stats,
                                             ss_decode_attention_streaming)
 
 DENSE_LEAVES = ("q_lmk", "k_lmk", *STREAM_LEAVES)
 
 
+# --------------------------------------------------------------------------
+# Attention over dense views (the gather route and the replay prefill). A
+# leading axis (...) ahead of the lanes batches query positions: the replay
+# prefill passes (n, B), one decode step none.
+# --------------------------------------------------------------------------
+def _rows_at(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Row ``pos`` of each lane's view: x (B, H, S, e), pos (..., B) ->
+    (..., B, H, 1, e)."""
+    b, h, _, e = x.shape
+    idx = pos.long()[..., None, None, None].expand(*pos.shape, h, 1, e)
+    return torch.gather(x.expand(*pos.shape[:-1], *x.shape), -2, idx)
+
+
+def ss_decode_attention(q, k_cache, v_cache, q_lmk_sum, k_lmk_sum, pos,
+                        cfg: ModelConfig, scale: float, seq_max: int):
+    """Spectral-shift decode attention with the B-side softmax rebuilt over
+    the whole view (``decode.py:84``, ``decode_streaming="recompute"``):
+
+        out = F U_ss (B V) + delta * v_pos
+
+    q (..., B, H, 1, d); k_cache/v_cache (B, H, S, d/dv) kv-broadcast views
+    holding the current token at ``pos``; q_lmk_sum/k_lmk_sum (..., B, H,
+    c, d) the running sums after it; pos (..., B) the current token's
+    index. Landmark segments come from ``seq_max``, not the view length.
+    Empty landmarks are masked out of F and B and pinned to identity in A.
+    Returns (..., B, H, 1, dv) in q's dtype."""
+    c = q_lmk_sum.shape[-2]
+    counts = landmark_counts(pos, seq_max, c)                # (..., B, c)
+    valid = counts > 0
+    q_l = landmark_means(q_lmk_sum, counts)
+    k_l = landmark_means(k_lmk_sum, counts)
+    kt = k_l.transpose(-1, -2)
+    f = masked_softmax(q.float() @ kt * scale, valid[..., None, None, :])
+    a_mask = valid[..., None, :, None] & valid[..., None, None, :]
+    a_raw = masked_softmax(q_l @ kt * scale, a_mask)
+    eye = torch.eye(c, dtype=torch.float32, device=q.device)
+    a = torch.where(a_mask, a_raw, eye)   # invalid block pinned to identity
+    b_mat = masked_softmax(q_l @ k_cache.float().transpose(-1, -2) * scale,
+                           key_mask(k_cache.shape[2], pos, q.device))
+    core = ss_core(a, method="iterative", pinv_iters=cfg.pinv_iters,
+                   use_shift=cfg.include_shift_identity)
+    bv = b_mat @ v_cache.float()                             # (..., B, H, c, dv)
+    out = f @ (core.u @ bv)
+    if cfg.include_shift_identity:
+        out = out + core.delta * _rows_at(v_cache, pos).float()
+    return out.to(q.dtype)
+
+
+def full_decode_attention(q, k_cache, v_cache, pos, scale: float):
+    """Exact decode attention over the view's keys 0..pos (``decode.py:141``).
+    q (..., B, H, 1, d); k_cache/v_cache (B, H, S, d/dv); pos (..., B)."""
+    scores = q.float() @ k_cache.float().transpose(-1, -2) * scale
+    p = masked_softmax(scores, key_mask(k_cache.shape[2], pos, q.device))
+    return (p @ v_cache.float()).to(q.dtype)
+
+
+def _update_seq(view: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """A copy of the view (B, H, S, D) with the token new (B, H, 1, D) at
+    each lane's ``pos`` (``decode.py:221``)."""
+    out = view.clone()
+    out[torch.arange(view.shape[0], device=view.device), :, pos.long()] = (
+        new[:, :, 0].to(view.dtype))
+    return out
+
+
+def _view_active_stats_fn(k_view, v_view, pos, scale: float):
+    """``active_stats_fn`` hook of the gather route: the active landmark row
+    of each query head, grouped onto its kv head, recomputed exactly over
+    the lane's view (which holds the current token)."""
+    hkv = k_view.shape[1]
+
+    def fn(q_act):  # (B, H, 1, d)
+        b, h = q_act.shape[:2]
+        q_g = q_act.reshape(b, hkv, h // hkv, q_act.shape[-1])
+        m, l, acc = recompute_stats(q_g, k_view, v_view, pos, scale)
+        return (m.reshape(b, h, 1, 1), l.reshape(b, h, 1, 1),
+                acc.reshape(b, h, 1, acc.shape[-1]))
+
+    return fn
+
+
+# --------------------------------------------------------------------------
+# Gather-free reads of the block pools through kernel K5.
+# --------------------------------------------------------------------------
 def _paged_merged_stats(q_g, k_pool, v_pool, k_new_g, v_new_g, table,
                         block_size: int, pos, scale: float):
     """Exact softmax partials of rows q_g (B, Hkv, R, d) over keys 0..pos
@@ -64,7 +164,8 @@ def _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g, table,
 def full_decode_attention_paged(q, k_pool, v_pool, k_new_g, v_new_g, table,
                                 block_size: int, pos, scale: float):
     """Exact decode attention (one query row per head) from the block pools
-    (``decode.py:202``). q (B, H, 1, d) -> (B, H, 1, dv)."""
+    (``decode.py:202``): K5 with r = H / Hkv rows per kv head.
+    q (B, H, 1, d) -> (B, H, 1, dv)."""
     b, h = q.shape[:2]
     hkv = v_pool.shape[0]
     q_g = q.float().reshape(b, hkv, h // hkv, q.shape[-1])
@@ -74,13 +175,16 @@ def full_decode_attention_paged(q, k_pool, v_pool, k_new_g, v_new_g, table,
     return out.reshape(b, h, 1, out.shape[-1]).to(q.dtype)
 
 
-def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int, table,
-               block_size: int):
-    """One layer's GQA decode on the paged route (``decode.py:228``).
-    x (B, 1, D); ``cache`` this layer's pools (Hkv, nb, bs, Dh) and lane
-    leaves (B, ...). Returns (attn_out (B, 1, D), new layer leaves) with
-    ``k``/``v`` the new token (B, Hkv, 1, Dh) for the commit."""
-    dt = x.dtype
+# --------------------------------------------------------------------------
+# per-layer decode
+# --------------------------------------------------------------------------
+def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
+               table=None, block_size: int = 0):
+    """One layer's GQA decode (``decode.py:228``). x (B, 1, D); ``cache``
+    this layer's leaves: ``k``/``v`` pools (Hkv, nb, bs, Dh) when ``table``
+    (B, n_slots) is given (the paged route), else views (B, Hkv, S, Dh)
+    (the gather route); lane leaves (B, ...). Returns (attn_out (B, 1, D),
+    new layer leaves) with ``k``/``v`` the new token (B, Hkv, 1, Dh)."""
     dh = cfg.resolved_head_dim
     q, k, v = gqa_project_qkv(p, cfg, x)
     if cfg.rope_theta > 0:
@@ -91,42 +195,62 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int, table,
     new = {"k": k, "v": v}
     new["q_lmk"] = lmk_add(cache["q_lmk"], q[:, :, 0], pos, seq_max)
     new["k_lmk"] = lmk_add(cache["k_lmk"], k[:, :, 0], pos, seq_max)
+    new.update((name, cache[name]) for name in STREAM_LEAVES)
     scale = dh**-0.5
-    k_pool, v_pool = cache["k"], cache["v"]
-    k_new_g, v_new_g = k[:, :, 0], v[:, :, 0]               # raw kv heads
+    paged = table is not None
+    if paged:
+        k_pool, v_pool = cache["k"], cache["v"]
+        k_new_g, v_new_g = k[:, :, 0], v[:, :, 0]           # raw kv heads
+    else:
+        k_view = _update_seq(cache["k"], k, pos)
+        v_view = _update_seq(cache["v"], v, pos)
     if cfg.decode_attention_impl == "spectral_shift":
         k_lmk = _broadcast_kv(new["k_lmk"], cfg.num_heads)
-        k_new = _broadcast_kv(k, cfg.num_heads)[:, :, 0]    # (B, H, d)
-        v_new = _broadcast_kv(v, cfg.num_heads)[:, :, 0]
-        stats = tuple(cache[name] for name in STREAM_LEAVES)
-        stats_fn = _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g,
+        if cfg.decode_streaming == "recompute":
+            if paged:
+                raise ValueError("decode_streaming='recompute' rebuilds the dense "
+                                 "B matrix and is only served by the gather route")
+            out = ss_decode_attention(
+                q, _broadcast_kv(k_view, cfg.num_heads),
+                _broadcast_kv(v_view, cfg.num_heads), new["q_lmk"], k_lmk, pos,
+                cfg, scale, seq_max)
+        else:
+            k_new = _broadcast_kv(k, cfg.num_heads)[:, :, 0]    # (B, H, d)
+            v_new = _broadcast_kv(v, cfg.num_heads)[:, :, 0]
+            stats = tuple(cache[name] for name in STREAM_LEAVES)
+            stats_fn = (_paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g,
+                                               table, block_size, pos, scale)
+                        if paged else _view_active_stats_fn(k_view, v_view, pos, scale))
+            out, new_stats = ss_decode_attention_streaming(
+                q, k_new, v_new, new["q_lmk"], k_lmk, stats, pos, cfg, scale,
+                seq_max, stats_fn)
+            new.update(zip(STREAM_LEAVES, new_stats))
+    elif paged:
+        out = full_decode_attention_paged(q, k_pool, v_pool, k_new_g, v_new_g,
                                           table, block_size, pos, scale)
-        out, new_stats = ss_decode_attention_streaming(
-            q, k_new, v_new, new["q_lmk"], k_lmk, stats, pos, cfg, scale,
-            seq_max, stats_fn)
-        new.update(zip(STREAM_LEAVES, new_stats))
     else:
-        out = full_decode_attention_paged(q, k_pool, v_pool, k_new_g,
-                                          v_new_g, table, block_size, pos,
-                                          scale)
-        new.update((name, cache[name]) for name in STREAM_LEAVES)
-    return torch.einsum("bhse,hed->bsd", out, p["w_o"].to(dt)), new
+        out = full_decode_attention(q, _broadcast_kv(k_view, cfg.num_heads),
+                                    _broadcast_kv(v_view, cfg.num_heads), pos, scale)
+    return output_projection(out, p["w_o"]), new
 
 
-def _dense_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **paged):
+def _dense_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-    attn, new_cache = gqa_decode(lp["attn"], cfg, h, lcache, pos, **paged)
+    attn, new_cache = gqa_decode(lp["attn"], cfg, h, lcache, pos, **route)
     x = x + attn
     h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
     return x + mlp_forward(lp["mlp"], h, cfg.act), new_cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
-                seq_max: int, paged_table: torch.Tensor, block_size: int):
-    """One decode step for all lanes (``decode.py:526``, paged route).
-    tokens (B, 1); ``paged_table`` (B, n_slots) int32. Returns
-    ``(logits (B, 1, V), {"pos": pos + 1, "layers": [per-layer leaves]})``
-    where each layer's ``k``/``v`` is the new token to commit."""
+                seq_max: int, paged_table: torch.Tensor = None,
+                block_size: int = 0):
+    """One decode step for all lanes (``decode.py:526``). tokens (B, 1);
+    ``paged_table`` (B, n_slots) int32 with ``block_size`` selects the
+    paged route, else the sequence leaves are dense views (the gather
+    route). Returns ``(logits (B, 1, V), {"pos": pos + 1, "layers":
+    [per-layer leaves]})`` where each layer's ``k``/``v`` is the new token
+    to commit."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     params = working_params(params, cfg)

@@ -6,7 +6,8 @@ The cache carries, per landmark row r, the partial state
 (sum_j exp(s_rj - m_r) v_j), so ``BV[r] = acc_r / l_r``. Each decode tick
 flash-appends the new key/value to every reached row and recomputes the
 active segment's row exactly (its landmark mean still moves) through the
-``active_stats_fn`` hook, which the paged route backs with kernel K5.
+``active_stats_fn`` hook, which the paged route backs with kernel K5
+and the gather route with a recompute over its dense views.
 
 Lanes are the batch axis B and each lane has its own position, so
 ``pos`` is a (B,) tensor and every landmark count, mask and active-row
@@ -47,9 +48,9 @@ def lmk_add(sums: torch.Tensor, value: torch.Tensor, pos: torch.Tensor,
 
 
 def landmark_means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """fp32 means of running sums (B, X, c, d) with per-lane counts (B, c);
-    empty segments divide by 1."""
-    return sums.float() / torch.clamp(counts, min=1.0)[:, None, :, None]
+    """fp32 means of running sums (..., B, X, c, d) with per-lane counts
+    (..., B, c); empty segments divide by 1."""
+    return sums.float() / torch.clamp(counts, min=1.0)[..., None, :, None]
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -76,15 +77,26 @@ def stream_append(stats, q_l, k_new, v_new, scale: float, row_mask=None):
     return m_n, l_n, acc_n
 
 
-def recompute_stats(q_l, k, v, pos: int, scale: float):
+def key_mask(n: int, pos, device) -> torch.Tensor:
+    """Keys 0..pos of a view of n keys: (1, 1, 1, n) for an int ``pos``,
+    (..., B, 1, 1, n) for a tensor of per-lane positions (..., B)."""
+    keys = torch.arange(n, device=device)
+    if isinstance(pos, torch.Tensor):
+        return (keys <= pos.long()[..., None])[..., None, None, :]
+    return (keys <= pos)[None, None, None, :]
+
+
+def recompute_stats(q_l, k, v, pos, scale: float):
     """Exact (m, l, acc) of ``softmax(scale * q_l . K[0..pos])`` rows:
-    q_l (B, H, c, d); k/v (B, H, S, d/dv); keys past ``pos`` masked
-    (``decode_state.py:132``). Prefill seeds <= c prompts with it."""
+    q_l (B, X, R, d); k/v (B, X, S, d/dv); keys past ``pos`` (an int, or
+    per lane (B,)) masked (``decode_state.py:132``). Prefill seeds its
+    streaming state with it; the gather route's exact decode recomputes
+    the active row with it, the query heads grouped onto the kv heads."""
     s = torch.einsum("bhcd,bhsd->bhcs", q_l.float(), k.float()) * scale
-    key_mask = (torch.arange(k.shape[2], device=k.device) <= pos)[None, None, None, :]
-    s = torch.where(key_mask, s, NEG_INF)
+    key_mask_ = key_mask(k.shape[2], pos, k.device)
+    s = torch.where(key_mask_, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(key_mask, torch.exp(s - m), 0.0)
+    p = torch.where(key_mask_, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhcs,bhsd->bhcd", p, v.float())
     return m, l, acc
@@ -100,13 +112,15 @@ def ss_decode_attention_streaming(q, k_new, v_new, q_lmk_sum, k_lmk_sum,
                                   stats, pos, cfg, scale: float, seq_max: int,
                                   active_stats_fn):
     """One spectral-shift decode step with streamed B-side state, exact
-    mode (``decode_state.py:217``) on the gather-free route.
+    mode (``decode_state.py:217``).
 
     q (B, H, 1, d); k_new/v_new (B, H, d) this tick's key/value (heads
     broadcast); q_lmk_sum/k_lmk_sum (B, H, c, d) updated running sums;
     stats the pre-append (bv_m, bv_l, bv_acc); pos (B,) the current token's
     index per lane. ``active_stats_fn(q_act (B, H, 1, d))`` returns the
-    exact partials of the active landmark row over keys 0..pos. Returns
+    exact partials of the active landmark row over keys 0..pos: K5 over the
+    pools on the paged route, ``recompute_stats`` over the dense views on
+    the gather route (``serve/decode.py``). Returns
     ``(out (B, H, 1, dv), (m, l, acc))``."""
     if cfg.decode_streaming != "exact":
         raise NotImplementedError(

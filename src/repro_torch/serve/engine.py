@@ -1,17 +1,26 @@
 """Serving engine: paged KV cache + two-phase scheduler over spectral-shift
 decode (``repro/serve/engine.py``, the two-phase tick ``_tick_inner``).
 
-Each tick admits waiting requests FCFS (whole-prompt prefill through
-kernels K1/K2, one pass per request), grows the block tables of the
+Each tick admits waiting requests FCFS, grows the block tables of the
 decoding lanes (preempting the youngest request when the pool runs dry),
-then advances every decoding lane with ONE batched decode step (kernel K5
-launched once per layer for all lanes) and samples a token per lane.
+then advances every decoding lane with ONE batched decode step and samples
+a token per lane. The route is the ``ServeConfig``'s, as in the reference:
 
-The port serves the main path only: ``ServeConfig(paged=True,
-batched_prefill=True, prefill_impl="ss_fused", decode_impl="paged")`` with
-``decode_streaming="exact"`` on the dense family. Chunked prefill, prefix
-caching, telemetry, chaos, deadlines and the numerics guard are not ported;
-the constructor rejects them.
+* prefill: ``batched_prefill=True`` runs the whole prompt in one pass
+  (``prefill_impl="ss_fused"``: kernels K1/K2; ``"replay"``: every
+  position's decode attention at once); ``batched_prefill=False`` feeds
+  the prompt one token per tick through the decode step (token replay);
+* decode: ``decode_impl="paged"`` reads the pools through kernel K5
+  (gather-free); ``"gather"`` gathers dense lane views first. The gather
+  route also serves ``decode_streaming="recompute"``, which a paged
+  request falls back to (``stats()["decode_impl"]`` says so);
+* storage: ``paged=False`` keeps every lane's K/V dense (the reference's
+  seed engine), with no allocator.
+
+``ServeConfig()``'s defaults (replay prefill, gather decode) run no kernel,
+in the reference as here. Chunked prefill, prefix caching, frozen
+streaming, telemetry, chaos, deadlines, ``max_queue``, the numerics guard
+and the watchdog are not ported; the constructor rejects them.
 
 Runs on CUDA unless the caller passes ``device="cpu"`` (the kernels' plain
 versions then run instead); asking for CUDA without a GPU raises.
@@ -20,12 +29,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.kernels import MAX_HEAD_DIM
 from repro_torch.models.model import working_params
 from repro_torch.serve.decode import decode_step
 from repro_torch.serve.paged import BlockAllocator, PagedKVCache
@@ -39,11 +50,15 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 32
     temperature: float = 0.0  # 0 => greedy
+    # streamed-token callback: on_token(uid, token) fires as each token is
+    # sampled, inside the tick
+    on_token: Optional[object] = None
 
 
 @dataclasses.dataclass
 class _Lane:
     req: Optional[Request] = None
+    prompt_left: deque = dataclasses.field(default_factory=deque)  # token replay
     generated: list[int] = dataclasses.field(default_factory=list)
     next_token: int = 0
     pos: int = 0              # cache position the next decode step writes to
@@ -72,22 +87,20 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def _check_supported(cfg: ModelConfig, serve: ServeConfig) -> None:
+def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device) -> None:
     unsupported = {
-        "family != 'dense'": cfg.family != "dense",
-        "decode_attention_impl != 'spectral_shift'":
-            cfg.decode_attention_impl != "spectral_shift",
-        "decode_streaming != 'exact'": cfg.decode_streaming != "exact",
-        "paged=False": not serve.paged,
-        "batched_prefill=False": not serve.batched_prefill,
-        "prefill_impl != 'ss_fused'": serve.prefill_impl != "ss_fused",
-        "decode_impl != 'paged'": serve.decode_impl != "paged",
+        "family != 'dense'": cfg.family != "dense" or cfg.mla or cfg.moe,
+        "decode_streaming='frozen'": cfg.decode_streaming not in ("exact", "recompute"),
         "chunked_prefill": serve.chunked_prefill,
         "prefix_cache": serve.prefix_cache,
         "telemetry": serve.telemetry,
         "numerics_guard": serve.numerics_guard,
         "max_queue": serve.max_queue > 0,
         "watchdog_ticks": serve.watchdog_ticks > 0,
+        # every kernel takes head dims up to MAX_HEAD_DIM (not MLA's
+        # 576/512): refused here, not on the first tick
+        f"head_dim {cfg.resolved_head_dim} > {MAX_HEAD_DIM} on CUDA":
+            device.type == "cuda" and cfg.resolved_head_dim > MAX_HEAD_DIM,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -97,9 +110,9 @@ def _check_supported(cfg: ModelConfig, serve: ServeConfig) -> None:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  serve: Optional[ServeConfig] = None, device="cuda"):
-        serve = serve or ServeConfig(prefill_impl="ss_fused", decode_impl="paged")
-        _check_supported(cfg, serve)
+        serve = serve or ServeConfig()
         self.device = resolve_device(device)
+        _check_supported(cfg, serve, self.device)
         self.cfg, self.serve = cfg, serve
         # working copy cast once (the reference casts inside each program)
         self.params = working_params(tree_to(params, self.device), cfg)
@@ -115,22 +128,33 @@ class ServeEngine:
         self.decode_ticks = 0
 
         self.kv = PagedKVCache(cfg, serve, self.device)
-        self.sched = Scheduler(
-            BlockAllocator(serve.resolved_num_blocks, serve.block_size),
-            self.max_lanes, serve.blocks_per_lane)
+        alloc = (BlockAllocator(serve.resolved_num_blocks, serve.block_size)
+                 if self.kv.paged else None)
+        self.sched = Scheduler(alloc, self.max_lanes, serve.blocks_per_lane)
         self.sched.requeue_cb = self._on_preempt
+        # Decode route (``engine.py:296-328``): recompute-mode spectral shift
+        # rebuilds the dense B matrix, so only the gather route serves it.
+        paged_ok = self.kv.paged and not (
+            cfg.decode_attention_impl == "spectral_shift"
+            and cfg.decode_streaming == "recompute")
+        self.decode_impl = ("paged" if serve.decode_impl == "paged" and paged_ok
+                            else "gather")
         bs = serve.block_size
-        self._paged_step = self.kv.make_paged_step(
-            lambda cache, tokens, table: decode_step(
-                self.params, cfg, cache, tokens, seq_max=self.max_seq,
-                paged_table=table, block_size=bs))
+        if self.decode_impl == "paged":
+            self._step = self.kv.make_paged_step(
+                lambda cache, tokens, table: decode_step(
+                    self.params, cfg, cache, tokens, seq_max=self.max_seq,
+                    paged_table=table, block_size=bs))
+        else:
+            self._step = self.kv.make_fused_step(
+                lambda cache, tokens: decode_step(self.params, cfg, cache, tokens,
+                                                  seq_max=self.max_seq))
+        self.batched = serve.batched_prefill
         # bucket rounded up to a block multiple so prefill writes whole blocks
         self._bucket = -(-serve.prefill_bucket // bs) * bs
 
     # -- public API ----------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if not req.prompt:
-            raise ValueError("empty prompt: token-replay prefill is not ported")
         if len(req.prompt) >= self.max_seq:
             raise ValueError(
                 f"prompt len {len(req.prompt)} >= max_seq {self.max_seq}")
@@ -147,11 +171,15 @@ class ServeEngine:
     def stats(self) -> dict:
         s = self.sched
         ttft = [t.ttft_s for t in s.timing.values() if t.ttft_s is not None]
+        mode = (f"{'paged' if self.kv.paged else 'dense'}"
+                f"+{'batched' if self.batched else 'replay'}-prefill")
         return {"admitted": s.admitted, "finished": s.finished,
                 "preemptions": s.preemptions, "tokens": s.tokens,
                 "ttft_s": ttft, "ticks": self._tick,
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
-                "decode_ticks": self.decode_ticks}
+                "decode_ticks": self.decode_ticks, "mode": mode,
+                "decode_impl": self.decode_impl,
+                "decode_streaming": self.cfg.decode_streaming}
 
     # -- scheduling hooks ------------------------------------------------------
     def _on_preempt(self, lane_idx: int) -> Optional[Request]:
@@ -170,7 +198,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         lane = self.lanes[i]
         n = len(req.prompt)
-        if n <= self.cfg.num_landmarks:
+        if self.serve.prefill_impl == "ss_fused" and n <= self.cfg.num_landmarks:
             # Degenerate tiny prompt: the exact-attention window has no
             # use for padding, so run unpadded.
             n_pad = n
@@ -202,6 +230,8 @@ class ServeEngine:
         tok = self._sample(lane, lg)
         lane.generated.append(tok)
         self.sched.note_token(lane.req.uid)
+        if lane.req.on_token is not None:
+            lane.req.on_token(lane.req.uid, tok)
         if (tok == self.eos_id or len(lane.generated) >= lane.req.max_new_tokens
                 or lane.pos + 1 >= self.max_seq):
             self._retire(i)
@@ -220,11 +250,13 @@ class ServeEngine:
             positions[i] = self.lanes[i].pos
             mask[i] = True
         dev = self.device
-        logits = self._paged_step(
-            torch.as_tensor(self.sched.tables(), device=dev),
-            torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(positions, device=dev),
-            torch.as_tensor(mask, device=dev))
+        args = [torch.as_tensor(self.sched.tables(), device=dev),
+                torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(positions, device=dev),
+                torch.as_tensor(mask, device=dev)]
+        if self.decode_impl == "gather":
+            args.append(self.kv.view_blocks_needed(positions, active))
+        logits = self._step(*args)
         return logits[:, 0].float().cpu().numpy()
 
     # -- one engine tick -------------------------------------------------------
@@ -232,8 +264,15 @@ class ServeEngine:
         self._tick += 1
         self.sched.tick_now = self._tick
         for i, req in self.sched.admit():
-            self.lanes[i] = _Lane(req=req)
-            self._run_prefill(i, req)
+            lane = self.lanes[i] = _Lane(req=req)
+            if self.batched and req.prompt:
+                self._run_prefill(i, req)
+            else:
+                # token replay (``engine.py:1124``): the prompt goes through
+                # the decode step one token per tick, from zeroed state
+                self.kv.zero_lane_dense(i)
+                lane.prompt_left = deque(req.prompt)
+                lane.next_token = lane.prompt_left.popleft() if lane.prompt_left else 0
 
         # decode phase: every occupied lane not prefilled this very tick
         candidates = [i for i, l in enumerate(self.lanes)
@@ -254,5 +293,9 @@ class ServeEngine:
         self.decode_s += time.perf_counter() - t0
         self.decode_ticks += 1
         for i in active:
-            self.lanes[i].pos += 1
+            lane = self.lanes[i]
+            lane.pos += 1
+            if lane.prompt_left:  # token replay: ignore the sample
+                lane.next_token = lane.prompt_left.popleft()
+                continue
             self._emit_token(i, logits[i, : self.cfg.vocab_size])

@@ -9,6 +9,9 @@ without parking, prefix caching, telemetry or chaos).
   pool is empty the YOUNGEST running request is preempted: its blocks are
   freed and it goes back to the FRONT of the queue, to be recomputed from
   scratch on re-admission.
+* Without an allocator (``ServeConfig(paged=False)``: every lane owns
+  max_seq rows of dense storage) admission needs only a free lane and
+  nothing is ever preempted.
 
 Counters are plain integers; ``RequestTiming`` keeps the per-request ticks
 and wall-clock stamps the engine's TTFT is read from.
@@ -43,9 +46,9 @@ class RequestTiming:
 
 
 class Scheduler:
-    def __init__(self, allocator: BlockAllocator, max_lanes: int,
+    def __init__(self, allocator: Optional[BlockAllocator], max_lanes: int,
                  blocks_per_lane: int):
-        self.allocator = allocator
+        self.allocator = allocator  # None: no paged state
         self.max_lanes = max_lanes
         self.blocks_per_lane = blocks_per_lane
         self.waiting: deque = deque()
@@ -62,7 +65,7 @@ class Scheduler:
         """One lane's block table, ZERO_BLOCK-padded to blocks_per_lane."""
         row = np.full(self.blocks_per_lane, ZERO_BLOCK, np.int32)
         uid = self.lane_uid[lane]
-        if uid is not None:
+        if self.allocator is not None and uid is not None:
             blocks = self.allocator.tables.get(uid, [])
             row[: len(blocks)] = blocks
         return row
@@ -86,9 +89,10 @@ class Scheduler:
             if self.lane_uid[lane] is not None or not self.waiting:
                 continue
             req = self.waiting[0]
-            need = self.allocator.blocks_for_tokens(max(len(req.prompt), 1))
-            if self.allocator.alloc(req.uid, need) is None:
-                break  # FCFS: don't let short requests starve the head
+            if self.allocator is not None:
+                need = self.allocator.blocks_for_tokens(max(len(req.prompt), 1))
+                if self.allocator.alloc(req.uid, need) is None:
+                    break  # FCFS: don't let short requests starve the head
             self.waiting.popleft()
             self.lane_uid[lane] = req.uid
             self.admit_order[req.uid] = self.tick_now
@@ -103,7 +107,7 @@ class Scheduler:
         preempt the youngest request. False if ``lane`` itself was
         preempted (its step must be skipped this tick)."""
         uid = self.lane_uid[lane]
-        if uid is None:
+        if self.allocator is None or uid is None:
             return True
         have = len(self.allocator.tables.get(uid, []))
         need_idx = pos // self.allocator.block_size
@@ -130,7 +134,8 @@ class Scheduler:
         uid = self.lane_uid[lane]
         if uid is None:
             return
-        self.allocator.free(uid)
+        if self.allocator is not None:
+            self.allocator.free(uid)
         self.lane_uid[lane] = None
         self.admit_order.pop(uid, None)
         self.timing[uid].preemptions += 1
@@ -144,7 +149,8 @@ class Scheduler:
         uid = self.lane_uid[lane]
         if uid is None:
             return
-        self.allocator.free(uid)
+        if self.allocator is not None:
+            self.allocator.free(uid)
         self.lane_uid[lane] = None
         self.admit_order.pop(uid, None)
         self.timing[uid].finished = self.tick_now

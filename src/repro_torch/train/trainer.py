@@ -39,7 +39,6 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
         "moe": cfg.moe,
         "attention_impl not in ('full', 'spectral_shift_fused')":
             cfg.attention_impl not in ("full", "spectral_shift_fused"),
-        "remat not in ('none', 'full')": cfg.remat not in ("none", "full"),
         "grad_compression": tcfg.grad_compression is not None,
         "opt_state_dtype != 'float32'": tcfg.opt_state_dtype != "float32",
     }

@@ -26,7 +26,7 @@ from repro.kernels.paged_decode import paged_row_stats_lanes as j_paged  # noqa:
 from repro.kernels.ss_attention import landmark_summary as j_ls  # noqa: E402
 from repro.kernels.ss_attention import query_side as j_qs  # noqa: E402
 from repro_torch.core.attention import SSConfig  # noqa: E402
-from repro_torch.kernels import build, launch_counts  # noqa: E402
+from repro_torch.kernels import MAX_HEAD_DIM, build, launch_counts  # noqa: E402
 from repro_torch.kernels import ops, paged_decode  # noqa: E402
 from repro_torch.kernels.paged_decode import (SLOT_TARGET_CTAS,  # noqa: E402
                                               paged_row_stats_lanes,
@@ -380,6 +380,29 @@ def test_paged_row_stats_plain_matches_pallas(splits):
     assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(acc[0] == 0)
 
 
+@pytest.mark.parametrize("bs", [48, 64])
+def test_paged_row_stats_plain_matches_pallas_at_48_rows(bs):
+    """granite-20b's decode rows: 48 query rows on one kv head, blocks of 48
+    and 64 keys; kv_valid 0, 31, 33 (either side of a 32-key slice's
+    edge), a ragged third block and every slot."""
+    rng = np.random.default_rng(17)
+    lanes, hkv, r, d, n_slots, nb = 5, 1, 48, 16, 4, 22
+    q = _rand(rng, lanes, hkv, r, d, scale=0.5)
+    k_pool, v_pool = _rand(rng, hkv, nb, bs, d, scale=0.5), _rand(rng, hkv, nb, bs, d)
+    table = rng.permutation(np.arange(1, nb))[:lanes * n_slots].reshape(
+        lanes, n_slots).astype(np.int32)
+    kv_valid = np.array([0, 31, 33, 2 * bs + 7, n_slots * bs], np.int32)
+    ref = j_paged(jnp.asarray(q), (jnp.asarray(k_pool),), jnp.asarray(v_pool),
+                  jnp.asarray(table), jnp.asarray(kv_valid), scale=0.25,
+                  block_size=bs, interpret=True)
+    out = paged_row_stats_lanes(*(torch.from_numpy(a) for a in (q, k_pool, v_pool, table,
+                                                                 kv_valid)),
+                                scale=0.25, block_size=bs)
+    for o, r_ in zip(out, ref):
+        _close(o, r_)
+    assert torch.all(out[0][0] == -1e30) and torch.all(out[1][0] == 0)
+
+
 # --------------------------------------------------------------------------
 # The split-slot grid of the K5 kernel
 # --------------------------------------------------------------------------
@@ -394,6 +417,10 @@ SLOT_PLAN_CASES = {
     "block_32": (4, 4, 512, 32),
     "block_12": (2, 4, 100, 12),
     "no_slots": (2, 2, 0, 16),
+    "block_24": (4, 4, 100, 24),
+    "block_48": (4, 4, 43, 48),
+    "block_64_granite": (4, 1, 256, 64),
+    "block_128": (3, 2, 16, 128),
 }
 
 
@@ -401,9 +428,20 @@ SLOT_PLAN_CASES = {
 def test_slot_chunk_plan_covers_every_slot_once(case):
     lanes, hkv, n_slots, bs = SLOT_PLAN_CASES[case]
     plan = slot_chunk_plan(lanes, hkv, n_slots, bs)
-    # chunks are whole steps of the kernel: 32 // bs blocks, up to 32 keys
-    assert plan.step_slots == 32 // bs and plan.chunk_slots % plan.step_slots == 0
+    # chunks are whole steps of the kernel: 32 // bs blocks (bs <= 32) or
+    # one block (bs > 32), so their edges lie at whole blocks
+    assert plan.step_slots == max(1, 32 // bs) and plan.chunk_slots % plan.step_slots == 0
     assert plan.chunks >= 1
+    # the kernel's steps cover each chunk's keys once, in order, each of
+    # at most 32 keys: whole blocks, or 32-key slices of one block
+    for i in range(plan.chunks):
+        lo, hi = plan.slots(i)
+        steps = plan.steps(i)
+        keys = [(s * bs + k0 + j) for s, nbk, k0, nk in steps for j in range(nk)]
+        assert keys == list(range(lo * bs, hi * bs))
+        assert all(0 < nk <= 32 for *_, nk in steps)
+        assert all(nbk == 1 and nk == min(32, bs - k0) for _, nbk, k0, nk in steps) \
+            if bs > 32 else all(k0 == 0 and nk == nbk * bs for _, nbk, k0, nk in steps)
     # every slot of a lane in exactly one chunk, chunks in order, none empty
     owner = [i for i in range(plan.chunks) for _ in range(*plan.slots(i))]
     assert owner == sorted(owner) and len(owner) == n_slots
@@ -428,18 +466,25 @@ def test_slot_chunk_plan_at_the_main_paths():
     assert (long.chunk_slots, long.chunks) == (32, 32)         # 512 CTAs
     assert slot_chunk_plan(4, 4, 1, 16).chunks == 1             # direct write
     assert slot_chunk_plan(4, 4, 1, 16).workspace_floats(7, 128) == 0
+    # granite-20b's decode (4 lanes, 1 kv head, 64-key blocks, r = 48): one
+    # block a chunk at 512 keys (32 CTAs), two at a 16k horizon (512 CTAs)
+    granite = slot_chunk_plan(4, 1, 8, 64)
+    assert (granite.step_slots, granite.chunk_slots, granite.chunks) == (1, 1, 8)
+    assert granite.steps(0) == [(0, 1, 0, 32), (0, 1, 32, 32)]
+    assert (slot_chunk_plan(4, 1, 256, 64).chunk_slots,
+            slot_chunk_plan(4, 1, 256, 64).chunks) == (2, 128)
 
 
 def split_slot_row_stats(q, k_pool, v_pool, table, kv_valid, plan, bs, scale):
     """Plain mirror of the K5 kernel's decomposition: per (lane, kv head),
-    each chunk walks its valid slots in steps of 32 // bs blocks (up to 32
-    keys) with an online softmax over steps (one max and one rescale per
-    step) into fp32 partials, the anchor (m -1e30, l 0, acc 0) for a chunk
-    with no valid key; the partials merge in chunk order by flash_merge's
-    rule. Only the rows of valid keys are read."""
+    each chunk walks its valid slots in the plan's steps (``plan.steps``:
+    32 // bs whole blocks, or 32-key slices of a block past 32 keys) up to
+    kv_valid, with an online softmax over steps (one max and one rescale
+    per step) into fp32 partials, the anchor (m -1e30, l 0, acc 0) for a
+    chunk with no valid key; the partials merge in chunk order by
+    flash_merge's rule. Only the rows of valid keys are read."""
     lanes, hkv, r, _ = q.shape
     dv = v_pool.shape[-1]
-    bps = 32 // bs
     m_out, l_out = torch.empty((lanes, hkv, r, 1)), torch.empty((lanes, hkv, r, 1))
     acc_out = torch.empty((lanes, hkv, r, dv))
     for ln in range(lanes):
@@ -448,13 +493,14 @@ def split_slot_row_stats(q, k_pool, v_pool, table, kv_valid, plan, bs, scale):
         for h in range(hkv):
             parts = []
             for c in range(plan.chunks):
-                lo, hi = plan.slots(c)
                 m, l, acc = torch.full((r, 1), -1e30), torch.zeros((r, 1)), torch.zeros((r, dv))
-                for s0 in range(lo, min(hi, n_blk), bps):
-                    blks = [int(b) for b in table[ln, s0:min(s0 + bps, hi, n_blk)]]
-                    kend = min(len(blks) * bs, valid - s0 * bs)     # keys past kend unread
-                    k = torch.cat([k_pool[h, b] for b in blks])[:kend]
-                    v = torch.cat([v_pool[h, b] for b in blks])[:kend]
+                for s0, nbk, k0, nk in plan.steps(c, n_blk):
+                    kend = min(nk, valid - (s0 * bs + k0))        # keys past kend unread
+                    if kend <= 0:
+                        continue
+                    blks = [int(b) for b in table[ln, s0:s0 + nbk]]
+                    k = torch.cat([k_pool[h, b] for b in blks])[k0:k0 + kend]
+                    v = torch.cat([v_pool[h, b] for b in blks])[k0:k0 + kend]
                     s = (q[ln, h] * scale) @ k.T                     # (r, kend)
                     m_new = torch.maximum(m, s.amax(-1, keepdim=True))
                     p, corr = torch.exp(s - m_new), torch.exp(m - m_new)
@@ -471,20 +517,22 @@ def split_slot_row_stats(q, k_pool, v_pool, table, kv_valid, plan, bs, scale):
 # table of 12 slots over 4 lanes into chunks of that many steps (more
 # (lane, kv head) pairs leave fewer chunks to each)
 SPLIT_SLOT_HKV = {(1, 8): 2, (2, 8): 66, (3, 8): 132, (1, 16): 2, (2, 16): 44,
-                  (3, 16): 66}
+                  (3, 16): 66, (1, 48): 2, (2, 48): 22, (3, 48): 33, (1, 64): 2,
+                  (2, 64): 22, (3, 64): 33}
 
 
-@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("bs", [8, 16, 48, 64])
 @pytest.mark.parametrize("chunk_steps", [1, 2, 3])
 def test_split_slot_merge_matches_plain_and_pallas(chunk_steps, bs):
     """The kernel's decomposition at chunks of 1, 2 and 3 steps over a
     table of 12 slots: lanes of kv_valid 0 (one block allocated, none
     valid), 13 (a ragged first or second block, later chunks wholly past
-    it), a ragged last block, and every slot valid; the ZERO_BLOCK tail."""
+    it), a ragged last block (past 32 keys: in its block's second 32-key
+    slice), and every slot valid; the ZERO_BLOCK tail."""
     rng = np.random.default_rng(10)
     lanes, r, d, dv, n_slots = 4, 7, 32, 16, 12
     hkv = SPLIT_SLOT_HKV[chunk_steps, bs]
-    kv_valid = np.array([0, 13, 9 * bs + 5, n_slots * bs], np.int32)
+    kv_valid = np.array([0, 13, 9 * bs + (5 if bs <= 32 else 37), n_slots * bs], np.int32)
     used = [1, -(-13 // bs), 10, n_slots]
     nb = sum(used) + 2
     perm = rng.permutation(np.arange(1, nb))
@@ -496,7 +544,7 @@ def test_split_slot_merge_matches_plain_and_pallas(chunk_steps, bs):
     q = _rand(rng, lanes, hkv, r, d, scale=0.5)
     k_pool, v_pool = _rand(rng, hkv, nb, bs, d, scale=0.5), _rand(rng, hkv, nb, bs, dv)
     plan = slot_chunk_plan(lanes, hkv, n_slots, bs)
-    assert plan.chunk_slots == (32 // bs) * chunk_steps
+    assert plan.chunk_slots == max(1, 32 // bs) * chunk_steps
     # lane 1 (kv_valid 13) leaves chunks wholly past its keys
     assert plan.chunks == 1 or plan.slots(plan.chunks - 1)[0] * bs > 13
     scale = 0.2
@@ -532,22 +580,33 @@ def test_slot_chunk_limits_match_the_cuda_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert (const("kMaxR"), const("kMaxD"), const("kMaxBs")) == (
-        paged_decode._MAX_R, paged_decode._MAX_D, paged_decode._MAX_BS)
-    # warp w owns query row w, lane j key j of a block
-    assert const("kThreads") // 32 == const("kMaxR") and const("kMaxBs") == 32
+    # a step holds up to 32 keys, one per lane
+    assert const("kStepKeys") == paged_decode._STEP_KEYS == 32
+    # a CTA takes 64 query rows: warp w rows w, w + 8, ... (the largest
+    # rows-per-warp instance); more rows take more CTAs
+    assert (const("kMaxRows") == paged_decode._ROWS_PER_CTA
+            == const("kThreads") // 32 * const("kMaxRowsPerWarp"))
     # step i-1's stage of the ring is refilled only after step i's wait:
     # one stage would wait for a copy not yet issued
     assert const("kStages") >= 2
 
 
+@pytest.mark.parametrize("source", sorted(build.SOURCES))
+def test_every_kernel_takes_max_head_dim(source):
+    """The one head-dim limit the serving engine refuses past on CUDA is
+    each kernel's own: every .cu file's kMaxD equals MAX_HEAD_DIM."""
+    src = (build.CSRC / f"{source}.cu").read_text()
+    found = re.findall(r"constexpr int kMaxD = (\d+);", src)
+    assert found and all(int(v) == MAX_HEAD_DIM for v in found)
+
+
 K5_BAD_OPERANDS = {
-    # name: (r, d, dv, bs, misaligned)
-    "rows_above_8": (9, 32, 32, 8, False),
-    "head_dim_above_128": (2, 132, 32, 8, False),
-    "block_above_32": (2, 32, 32, 33, False),
-    "head_dim_not_multiple_of_4": (2, 30, 32, 8, False),
-    "misaligned_pool": (2, 32, 32, 8, True),
+    # name: (r, d, dv, bs, misaligned, dtype)
+    "value_dim_above_128": (9, 32, 132, 8, False, torch.float32),
+    "head_dim_above_128": (2, 132, 32, 8, False, torch.float32),
+    "bf16_block_not_16_byte_units": (48, 4, 4, 33, False, torch.bfloat16),
+    "head_dim_not_multiple_of_4": (2, 30, 32, 8, False, torch.float32),
+    "misaligned_pool": (2, 32, 32, 8, True, torch.float32),
 }
 
 
@@ -555,19 +614,19 @@ K5_BAD_OPERANDS = {
 def test_k5_operands_the_kernel_does_not_take_raise(case):
     """The K5 launch path raises before any launch on operands its kernel
     does not take: there is no fallback to the plain version."""
-    r, d, dv, bs, misaligned = K5_BAD_OPERANDS[case]
+    r, d, dv, bs, misaligned, dtype = K5_BAD_OPERANDS[case]
     lanes, hkv, nb, n_slots = 2, 2, 5, 2
 
     def pool(e):
         shape = (hkv, nb, bs, e)
         if misaligned:   # one fp32 past a 16-byte boundary
-            return torch.zeros(int(np.prod(shape)) + 1)[1:].view(shape)
-        return torch.zeros(shape)
+            return torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)[1:].view(shape)
+        return torch.zeros(shape, dtype=dtype)
 
     before = launch_counts()
     with pytest.raises(ValueError):
         paged_decode._paged_row_stats_cuda(
-            torch.zeros(lanes, hkv, r, d), pool(d), pool(dv),
+            torch.zeros(lanes, hkv, r, d, dtype=dtype), pool(d), pool(dv),
             torch.zeros(lanes, n_slots, dtype=torch.int32),
             torch.zeros(lanes, dtype=torch.int32), scale=0.5)
     assert launch_counts() == before

@@ -4,8 +4,8 @@ The plain PyTorch versions of K3 (landmark_summary_bwd) and K4
 (query_side_bwd) -- what each CUDA wrapper runs for a CPU tensor -- are
 held against the Pallas kernels in interpret mode on the same numpy
 inputs, in fp32, at 1e-5 of each output's max-abs (the kernels sum over
-key or query blocks, the plain versions in one product). The autograd
-Functions that route ``ss_attention_fused`` through K1-K4 are held against
+key or query blocks, the plain versions in one product). The custom
+ops that route ``ss_attention_fused`` through K1-K4 are held against
 ``jax.grad`` of the reference's ``ss_attention_fused(..., interpret=True)``.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
@@ -281,10 +281,11 @@ def test_fused_attention_grads_match_jax(causal, n, c):
 def test_functions_save_nothing_when_no_gradient_is_needed(monkeypatch):
     """Serving calls the kernels directly: no residuals, no K1 stats."""
     calls = []
-    monkeypatch.setattr(ops.LandmarkSummaryOp, "apply",
+    monkeypatch.setattr(ops, "landmark_summary_stats",
                         lambda *a: calls.append("k1") or ops.landmark_summary(
-                            a[0], a[1], a[2], scale=a[3], causal=a[4], kv_valid=a[5]))
-    monkeypatch.setattr(ops.QuerySideOp, "apply",
+                            a[0], a[1], a[2], scale=a[3], causal=a[4], kv_valid=a[5],
+                            return_stats=True))
+    monkeypatch.setattr(ops, "query_side_differentiable",
                         lambda *a: calls.append("k2") or ops.query_side(
                             *a[:5], scale=a[5], causal=a[6], seq_len_k=a[7]))
     rng = np.random.default_rng(15)

@@ -82,15 +82,27 @@ def test_engine_refuses_cuda_without_a_gpu(weights, monkeypatch):
                                            decode_impl="paged"))
 
 
-@pytest.mark.parametrize("field,value", [("prefill_impl", "replay"),
-                                         ("decode_impl", "gather"),
-                                         ("chunked_prefill", True)])
-def test_engine_rejects_unported_settings(weights, field, value):
-    serve = dataclasses.replace(
-        base.ServeConfig(prefill_impl="ss_fused", decode_impl="paged"),
-        **{field: value})
+@pytest.mark.parametrize("which,field,value", [("model", "decode_streaming", "frozen"),
+                                               ("serve", "prefix_cache", True),
+                                               ("serve", "chunked_prefill", True)])
+def test_engine_rejects_unported_settings(weights, which, field, value):
+    cfg, serve = reduced_cfg(), base.ServeConfig()
+    if which == "model":
+        cfg = dataclasses.replace(cfg, **{field: value})
+    else:
+        serve = dataclasses.replace(serve, **{field: value})
     with pytest.raises(NotImplementedError):
-        ServeEngine(reduced_cfg(), weights[2], serve=serve, device="cpu")
+        ServeEngine(cfg, weights[2], serve=serve, device="cpu")
+
+
+def test_engine_refuses_head_dims_past_the_kernels_on_cuda(weights, monkeypatch):
+    """K1, K2 and K5 take head dims up to 128: on CUDA a config past that is
+    refused at construction, before any weight reaches the device (the
+    device check is patched, so no card is needed)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = dataclasses.replace(reduced_cfg(), head_dim=132)
+    with pytest.raises(NotImplementedError, match="head_dim 132 > 128"):
+        ServeEngine(cfg, weights[2], device="cuda")
 
 
 @pytest.mark.parametrize("cls", ["ModelConfig", "ServeConfig", "TrainConfig",

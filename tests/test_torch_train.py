@@ -58,6 +58,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention, model  # noqa: E402
 from repro_torch.models.params import (params_from_numpy, params_to_numpy,  # noqa: E402
@@ -202,11 +203,101 @@ def test_remat_full_matches_none():
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
 
 
+def _grads_by_remat(cfg, params, batch, policies):
+    return {remat: make_grad_step(dataclasses.replace(cfg, remat=remat))(params, batch)
+            for remat in policies}
+
+
 @pytest.mark.parametrize("remat", ["dots", "ss_stats", "auto"])
-def test_unported_remat_raises(remat):
+def test_remat_policies_match_none(remat):
+    """The selective-checkpoint policies (and "auto", which resolves to
+    "full" on the CPU) give the loss and every gradient of remat="none" to
+    1e-6 of each leaf's max-abs, at 2 layers so a layer's recompute feeds
+    the next one's backward."""
+    jcfg, cfg = _cfgs(2)
+    params = _port_params(_jax_params(jcfg))
+    batch = pipeline.to_device(pipeline.SyntheticLM(cfg.vocab_size, SEQ, 4, seed=0).batch(0),
+                               "cpu")
+    out = _grads_by_remat(cfg, params, batch, ("none", remat))
+    (loss0, g0), (loss1, g1) = out["none"], out[remat]
+    assert float(loss1) == pytest.approx(float(loss0), rel=1e-6)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+
+
+def _policy_decisions(monkeypatch, remat):
+    """Run one grad step under ``remat`` and record the policy's decision
+    for each op of the first (not the recomputed) forward."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    seen = []
+    policy = model.REMAT_POLICIES[remat]
+
+    def spy(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            seen.append((str(op), decision == CheckpointPolicy.MUST_SAVE))
+        return decision
+
+    monkeypatch.setitem(model.REMAT_POLICIES, remat, spy)
     cfg, params, batch = _one_layer_port(remat=remat)
-    with pytest.raises(NotImplementedError):
-        make_grad_step(cfg)(params, batch)
+    make_grad_step(cfg)(params, batch)
+    return seen
+
+
+def test_ss_stats_saves_only_the_landmark_summary_op(monkeypatch):
+    seen = _policy_decisions(monkeypatch, "ss_stats")
+    saved = {op for op, keep in seen if keep}
+    assert saved == {"repro_torch.landmark_summary.default"}
+    assert any(op == "repro_torch.query_side.default" and not keep for op, keep in seen)
+
+
+def test_dots_saves_the_products_with_no_batch_dims(monkeypatch):
+    seen = _policy_decisions(monkeypatch, "dots")
+    saved = [op for op, keep in seen if keep]
+    # q, k, v, o and the MLP's gate, up, down: 7 products, all aten.mm
+    assert saved == ["aten.mm.default"] * 7
+    assert any(op == "aten.bmm.default" for op, _ in seen)
+    assert not any("bmm" in op or "repro_torch" in op for op in saved)
+
+
+def test_model_level_ss_stats_remat_matches_jax():
+    """``tests/test_kernel_grads.py``'s ``test_model_level_ss_stats_remat``
+    replayed: reduced qwen2-7b with 8 landmarks, tokens from
+    PRNGKey(1). The port's ss_stats grads equal its remat="none" grads to
+    1e-6 of max-abs, and match the reference's ss_stats grads within
+    ``TOL[2]``'s grad bound, 3e-3 of each leaf's max-abs: the cross-package
+    bound at two layers, where the random-weight model amplifies rounding."""
+    from repro.train.train_step import make_grad_step as jmake_grad_step
+
+    jcfg, cfg = _cfgs(2, num_landmarks=8)
+    jparams = _jax_params(jcfg)
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (2, 64), 0, jcfg.vocab_size)
+    _, jgrads = jax.jit(jmake_grad_step(dataclasses.replace(jcfg, remat="ss_stats")))(
+        jparams, {"tokens": tokens})
+    batch = {"tokens": torch.tensor(np.asarray(tokens), dtype=torch.long)}
+    out = _grads_by_remat(cfg, _port_params(jparams), batch, ("none", "ss_stats"))
+    for a, b, r in zip(tree_leaves(out["ss_stats"][1]), tree_leaves(out["none"][1]),
+                       jax.tree.leaves(jgrads)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+        assert _rel_err(a, r) <= TOL[2][2]
+
+
+def test_custom_ops_pass_opcheck():
+    rng = np.random.default_rng(21)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.5)  # noqa: E731
+    q_l, k, v = t(2, 8, 16), t(2, 40, 16), t(2, 40, 16)
+    for args in ((q_l, k, v, 0.25, False, None), (q_l, k, v, 0.25, True, 33)):
+        torch.library.opcheck(ops.landmark_summary_stats,
+                              tuple(a.requires_grad_(True) if isinstance(a, torch.Tensor)
+                                    else a for a in args))
+    q, k_l, m_mat, vq = t(2, 40, 16), t(2, 8, 16), t(2, 8, 16), t(2, 40, 16)
+    delta = torch.full((2, 1, 1), 0.1)
+    for causal in (False, True):
+        torch.library.opcheck(ops.query_side_differentiable,
+                              (q.requires_grad_(True), k_l.requires_grad_(True),
+                               m_mat.requires_grad_(True), vq.requires_grad_(True),
+                               delta.requires_grad_(True), 0.25, causal, 40))
 
 
 def test_core_attention_full_matches_jax_and_rejects_unported():
@@ -352,7 +443,8 @@ def test_trainer_threaded_checkpoints_and_gc(tmp_path):
     assert all(np.isfinite(h["step_time_s"]) for h in trainer.metrics_history)
 
 
-@pytest.mark.parametrize("setting", [{"remat": "dots"}, {"attention_impl": "chunked"},
+@pytest.mark.parametrize("setting", [{"attention_impl": "nystrom"},
+                                     {"attention_impl": "chunked"},
                                      {"grad_compression": "int8"}])
 def test_trainer_rejects_unported_settings(tmp_path, setting):
     _, cfg = _cfgs(1)
