@@ -34,7 +34,9 @@ result line):
    (with stats) and K2 causal and the backward kernels K3 and K4 at the
    training shape (batch 2 x 28 heads, seq 4096), with a kv_valid case for
    K3 and a q_offset case for K4; K1 and K2 at granite-20b's prefill
-   shapes (48 batch-heads, n = 256/384/512);
+   shapes (48 batch-heads, n = 256/384/512); K1 at the chunked tick's stats
+   handoff (fp32 landmark means, bf16 window of 128 keys, kv_valid 48 / 77
+   / 128, with stats);
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -42,7 +44,12 @@ result line):
    with ``decode_attention_impl="full"``, the paged route (K5) against the
    gather route; then the loss and every gradient leaf of one grad step,
    kernel route against plain route, and under ``remat`` "ss_stats" and
-   "dots" against "none";
+   "dots" against "none"; then chunked prefill (chunks of 128, the ss_fused
+   stats handoff: K1 at the chunk site) and 4 paged decode steps, kernel
+   route against plain route (logits, and the streaming stats after the
+   prefill and after the decode steps), and against whole-prompt
+   ``replay`` prefill at 1 fp32 layer, at 2 fp32 layers (printed) and at
+   2 layers computed wholly in float64;
 4. serving, bf16 random weights from a seeded ``torch.Generator``, 4
    lanes, max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens
    each, the launch counts of each run read on their own: the main path
@@ -51,7 +58,18 @@ result line):
    kernel must launch); the reference's default route on the same model
    (``ServeConfig(seed=0)``: replay prefill, gather decode, block 16: no
    port kernel may launch); full-width granite-20b cut to 8 layers
-   (``ss_fused``, ``paged``, block 64: K1, K2 and K5 must launch);
+   (``ss_fused``, ``paged``, block 64: K1, K2 and K5 must launch); the
+   continuous-batching tick on the main path's model and settings with
+   ``chunked_prefill=True`` and chunks of 128 (``serve_chunked``: K1 and
+   K5 must launch, K2 never), the same on a pool of 32 blocks with 64 new
+   tokens at 8 layers (``serve_chunked_tight``: preemptions, parked
+   victims, resumed requests), each prompt alone at 8 layers, cold and
+   preempted after its first chunk while the pool has room
+   (``serve_park_resume``: the parked snapshot is restored, tokens and
+   launches identical to the cold run), and with ``prefix_cache=True`` over the
+   sequence A, A, B (A's first 256 tokens + 77), C, C one request at a
+   time (``serve_prefix_cache``: hits 3, misses 2, a copy-on-write, tokens
+   identical to a cold chunked engine on the same sequence);
 5. training: the ``Trainer`` on full-width Qwen2-7B cut to
    ``--train-layers`` layers, bf16 compute over fp32 master weights, seq
    4096, batch 2, 5 steps each under ``remat="full"`` (launches per step
@@ -91,6 +109,17 @@ H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
 # at two layers: cuBLAS vs CPU BLAS rounding, amplified about tenfold per
 # layer by the random-weight spectral-shift core; see PERF.md.)
 MODEL_TOL = 2e-4
+# Chunked against whole-prompt replay prefill, one fp32 layer, at every
+# prompt position (the sampled ones are held to MODEL_TOL): rounding that
+# the random-weight core amplifies where a position's context fills 2-4
+# landmark rows (ROADMAP P2). Measured on an H100: 4.3e-4 at such
+# positions, 2.0e-4 at the others; the limit leaves 2.3x (PERF.md).
+P2_TOL = 1e-3
+# Streaming stats (m, l, acc) of layer 1 after chunked prefill and 4 paged
+# decode steps, kernel route vs plain route, relative to max-abs: layer 1's
+# keys carry layer 0's rounding. Measured on an H100: at most 4.6e-4 over
+# both layers; the limit leaves 2.2x (PERF.md).
+STATS_TOL = 1e-3
 # By the dtype of the output held: fp32 outputs (K1's m and l, all of K5's)
 # accumulate in fp32 on both sides from the same inputs whatever the input
 # dtype, so they are held at the fp32 tolerance; a bf16 output at its ulp.
@@ -220,8 +249,12 @@ def cold_pools(k_pool, v_pool) -> list:
 
 
 def max_err(out, ref, where=None) -> tuple[float, float]:
-    """(max-abs error, max-abs of the reference) over ``where``."""
-    out, ref = out.float(), ref.float()
+    """(max-abs error, max-abs of the reference) over ``where``, in fp32 or
+    wider."""
+    import torch
+
+    wide = torch.promote_types(torch.promote_types(out.dtype, ref.dtype), torch.float32)
+    out, ref = out.to(wide), ref.to(wide)
     if where is not None:
         out, ref = out[where], ref[where]
     return float((out - ref).abs().max()), float(ref.abs().max())
@@ -304,6 +337,31 @@ def kernel_phase(torch, dev) -> list[dict]:
                 shape=(f"b={b} c={c} n={n} kv_valid={end} d=dv={d} "
                        + ("fp32 q, bf16 k/v, with stats (seed)" if stats
                           else "bf16, no stats (ss_attention_fused)")))
+    # the chunked tick's stats handoff (serve/prefill.py:_merge_chunk_stats):
+    # fp32 landmark means against a bf16 chunk window of 128 keys, kv_valid =
+    # the chunk's valid tokens (48 and 77: a prompt's only or ragged last
+    # chunk), with stats
+    n = 128
+    q_l = randn(b, c, d, s=0.5)
+    k, v = randn(b, n, d, s=0.5, dtype=torch.bfloat16), randn(b, n, d, dtype=torch.bfloat16)
+    for kv_valid in (48, 77, 128):
+        out, m, l = landmark_summary(q_l, k, v, scale=scale, kv_valid=kv_valid,
+                                     return_stats=True)
+        ref, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, kv_end=kv_valid,
+                                             return_stats=True)
+        err = check(f"K1 landmark_summary chunk site b={b} c={c} n={n} "
+                    f"kv_valid={kv_valid} fp32 q, bf16 k/v",
+                    [("out", out, ref, None), ("m", m, rm, None), ("l", l, rl, None)])
+    # timed at kv_valid = n, the case of every chunk but a prompt's last
+    nbytes = 4 * b * c * d + 2 * (b * n * 2 * d + b * c * d) + 8 * b * c
+    entries["landmark_summary_chunk"] = dict(
+        fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=n,
+                   return_stats=True),
+        plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, kv_end=n,
+                      return_stats=True),
+        library=None, err=err, bound=bound(nbytes, 2 * b * c * n * 2 * d, "bfloat16"),
+        shape=f"b={b} c={c} n={n} kv_valid={n} d=dv={d} fp32 q, bf16 k/v, with "
+              f"stats (chunk site; no library call takes mixed dtypes)")
     # segment-causal variant (not on the serving path, held all the same)
     q_l, k, v = randn(b, c, d, s=0.5), randn(b, 512, d, s=0.5), randn(b, 512, d)
     check("K1 landmark_summary causal n=512 fp32",
@@ -430,6 +488,9 @@ def kernel_phase(torch, dev) -> list[dict]:
             # the serving path's second K1 launch (same kernel and counter)
             row["seed_stats_launch"] = dict(shape=entries[
                 "landmark_summary_stats"]["shape"], **timed("landmark_summary_stats"))
+            # the chunked tick's stats handoff (same kernel and counter)
+            row["chunk_site_launch"] = dict(shape=entries[
+                "landmark_summary_chunk"]["shape"], **timed("landmark_summary_chunk"))
         if name in ("landmark_summary", "query_side"):
             # the training path's forward launch (same kernel and counter)
             row["train_launch"] = dict(shape=entries[f"{name}_train"]["shape"],
@@ -968,40 +1029,66 @@ def train_kernel_entries(torch, dev) -> dict:
 # phase 3: model parity, kernel route (card) vs plain route (CPU)
 # --------------------------------------------------------------------------
 def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
-                block_size=16, decode_impl="paged"):
-    """Prefill each prompt into its own lane (ss_fused), then ``steps``
-    decode steps for all lanes on ``decode_impl``'s route (``paged``: K5
-    over the pools; ``gather``: dense views). Returns (list of logits on
-    the CPU, fed tokens)."""
+                block_size=16, decode_impl="paged", prefill="ss_fused",
+                store_dtype=None):
+    """Prefill each prompt into its own lane, then ``steps`` decode steps
+    for all lanes on ``decode_impl``'s route (``paged``: K5 over the pools;
+    ``gather``: dense views). ``prefill``: "ss_fused" or "replay" (the
+    whole prompt at once), or an int, the chunk of chunked prefill
+    (``make_chunk_step`` with the ss_fused stats handoff: K1 at the chunk
+    site). ``store_dtype``: every cache leaf is stored in this dtype
+    instead of its own (the float64 witness of ``chunked_model_checks``).
+    Returns (list of logits on the CPU, fed tokens, the cache's streaming
+    stats (m, l, acc), each (layers, lanes, ...), after the prefills and
+    after the decode steps)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.paged import BlockAllocator, PagedKVCache
-    from repro_torch.serve.prefill import batched_prefill
+    from repro_torch.serve.prefill import batched_prefill, make_chunk_prefill_fn
 
     serve = ServeConfig(max_lanes=len(prompt_lens), max_seq=512, block_size=block_size,
                         prefill_impl="ss_fused", decode_impl=decode_impl)
     bs, seq_max = serve.block_size, serve.max_seq
     kv = PagedKVCache(cfg, serve, device)
+    if store_dtype is not None:
+        kv.storage = {k: t.to(store_dtype) for k, t in kv.storage.items()}
     alloc = BlockAllocator(serve.resolved_num_blocks, bs)
     rng = torch.Generator().manual_seed(3)
     lanes = len(prompt_lens)
     positions = torch.zeros(lanes, dtype=torch.int32)
     tokens = torch.zeros((lanes, 1), dtype=torch.long)
     outs, fed = [], []
+    wide = torch.float64 if cfg.compute_dtype == "float64" else torch.float32
+    if isinstance(prefill, int):
+        chunk_step = kv.make_chunk_step(make_chunk_prefill_fn(
+            params, cfg, seq_max=seq_max, stats_impl="ss_fused"), prefill)
     for lane, n in enumerate(prompt_lens):
-        n_pad = n if n <= cfg.num_landmarks else -(-n // 32) * 32
-        toks = torch.zeros((1, n_pad), dtype=torch.long)
-        toks[0, :n] = torch.randint(3, cfg.vocab_size, (n,), generator=rng)
-        lg, pc = batched_prefill(params, cfg, toks.to(device), n, seq_max=seq_max,
-                                 prefill_impl="ss_fused")
-        outs.append(lg[0, :n].float().cpu())
+        toks = torch.randint(3, cfg.vocab_size, (n,), generator=rng)
         alloc.alloc(lane, -(-n // bs))
         row = torch.zeros(seq_max // bs, dtype=torch.int32)
         row[:len(alloc.tables[lane])] = torch.tensor(alloc.tables[lane])
-        kv.write_prefill(lane, pc, row.numpy(), n_tokens=n)
+        if isinstance(prefill, int):
+            lgs = []
+            for start in range(0, n, prefill):
+                cv = min(prefill, n - start)
+                ctoks = torch.zeros((1, prefill), dtype=torch.long)
+                ctoks[0, :cv] = toks[start:start + cv]
+                lg = chunk_step(row.numpy(), ctoks.to(device), lane, start, cv)
+                lgs.append(lg[0, :cv].to(wide).cpu())
+            lg = torch.cat(lgs)[None]
+        else:
+            n_pad = n if n <= cfg.num_landmarks else -(-n // 32) * 32
+            padded = torch.zeros((1, n_pad), dtype=torch.long)
+            padded[0, :n] = toks
+            lg, pc = batched_prefill(params, cfg, padded.to(device), n, seq_max=seq_max,
+                                     prefill_impl=prefill)
+            kv.write_prefill(lane, pc, row.numpy(), n_tokens=n)
+        outs.append(lg[0, :n].to(wide).cpu())
         positions[lane] = n
         tokens[lane, 0] = int(lg[0, n - 1].argmax()) if feed is None else feed[0][lane]
     fed.append(tokens[:, 0].tolist())
+    stat_names = ("bv_m", "bv_l", "bv_acc")
+    stats = {"prefill": [kv.storage[name].cpu() for name in stat_names]}
     if decode_impl == "paged":
         step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
             params, cfg, c_, t_, seq_max=seq_max, paged_table=tb, block_size=bs))
@@ -1018,12 +1105,13 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
             tables[lane, :len(alloc.tables[lane])] = torch.tensor(alloc.tables[lane])
         lg = step(tables.to(device), tokens.to(device), positions.to(device),
                   torch.ones(lanes, dtype=torch.bool, device=device))
-        outs.append(lg[:, 0].float().cpu())
+        outs.append(lg[:, 0].to(wide).cpu())
         positions += 1
         nxt = lg[:, 0].argmax(-1).cpu() if feed is None else torch.tensor(feed[t + 1])
         tokens[:, 0] = nxt
         fed.append(nxt.tolist())
-    return outs, fed
+    stats["decode"] = [kv.storage[name].cpu() for name in stat_names]
+    return outs, fed, stats
 
 
 def logit_errs(torch, label, a_runs, b_runs, prompt_lens) -> list:
@@ -1068,6 +1156,37 @@ def plain_route():
          sb._query_side_bwd_cuda) = saved
 
 
+@contextlib.contextmanager
+def float64_everywhere(torch):
+    """While the block runs, ``Tensor.float()`` and ``Tensor.to(torch.float32)``
+    leave a float64 tensor float64, so a float64 model computes every
+    operation in float64, the attention core and the streaming stats too
+    (whose math is fp32 by design, as in the reference). For the float64
+    witness of ``chunked_model_checks`` only."""
+    to_float, to = torch.Tensor.float, torch.Tensor.to
+    own = {name: name in vars(torch.Tensor) for name in ("float", "to")}
+
+    def keep_float(self, *args, **kwargs):
+        return self if self.dtype == torch.float64 else to_float(self, *args, **kwargs)
+
+    def keep_to(self, *args, **kwargs):
+        if self.dtype == torch.float64:
+            args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+            if kwargs.get("dtype") is torch.float32:
+                kwargs["dtype"] = torch.float64
+        return to(self, *args, **kwargs)
+
+    torch.Tensor.float, torch.Tensor.to = keep_float, keep_to
+    try:
+        yield
+    finally:
+        for name, method in (("float", to_float), ("to", to)):
+            if own[name]:
+                setattr(torch.Tensor, name, method)
+            else:
+                delattr(torch.Tensor, name)   # inherited again
+
+
 def model_phase(torch, dev) -> None:
     """Kernel route against the plain route on the card, 2 full-width fp32
     layers, prefill logits and 4 decode steps: qwen2-7b (block 16; the
@@ -1086,14 +1205,14 @@ def model_phase(torch, dev) -> None:
         t0 = time.perf_counter()
         params = random_params(cfg, seed=0, device=dev)
         before = launch_counts()
-        card, fed = drive_model(torch, params, cfg, dev, prompt_lens, block_size=bs)
+        card, fed, _ = drive_model(torch, params, cfg, dev, prompt_lens, block_size=bs)
         after = launch_counts()
         if any(after[k] <= before[k] for k in SERVE_KERNELS):
             raise AssertionError(f"model parity {arch}: kernel route skipped a kernel: "
                                  f"{after}")
         with plain_route():
-            plain, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
-                                   block_size=bs)
+            plain, _, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
+                                      block_size=bs)
         if launch_counts() != after:
             raise AssertionError(f"model parity {arch}: the plain route launched a kernel")
         cpu_note = ""
@@ -1102,8 +1221,8 @@ def model_phase(torch, dev) -> None:
             # from the card by BLAS rounding alone, amplified by the
             # random-weight core.
             params_cpu = tree_to(params, "cpu")
-            on_cpu, _ = drive_model(torch, params_cpu, cfg, torch.device("cpu"),
-                                    prompt_lens, feed=fed, block_size=bs)
+            on_cpu, _, _ = drive_model(torch, params_cpu, cfg, torch.device("cpu"),
+                                       prompt_lens, feed=fed, block_size=bs)
             cpu_err = max(e / s for e, s in (max_err(a, b) for a, b in zip(plain, on_cpu)))
             cpu_note = f"; plain route card vs CPU {cpu_err:.2e} (not held)"
         del params
@@ -1124,11 +1243,11 @@ def model_phase(torch, dev) -> None:
     t0 = time.perf_counter()
     params = random_params(cfg, seed=0, device=dev)
     before = launch_counts()
-    paged, fed = drive_model(torch, params, cfg, dev, prompt_lens)
+    paged, fed, _ = drive_model(torch, params, cfg, dev, prompt_lens)
     if launch_counts()["paged_row_stats"] <= before["paged_row_stats"]:
         raise AssertionError("full decode attention: the paged route skipped K5")
-    gather, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
-                            decode_impl="gather")
+    gather, _, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
+                               decode_impl="gather")
     del params
     torch.cuda.empty_cache()
     errs = logit_errs(torch, "full decode attention", paged, gather, prompt_lens)
@@ -1139,6 +1258,138 @@ def model_phase(torch, dev) -> None:
     if not max(errs) <= MODEL_TOL:
         raise AssertionError(f"full decode attention: logit err {max(errs):.3e} > "
                              f"{MODEL_TOL}")
+    chunked_model_checks(torch, dev, prompt_lens)
+
+
+def position_errs(torch, a_runs, b_runs, seg: int) -> tuple:
+    """Worst logit error of ``a_runs`` against ``b_runs`` (one prompt's
+    logits each, (n, vocab)) relative to b's max-abs, over the positions
+    whose context fills at most 4 landmark rows (ROADMAP P2) and over the
+    others, apart."""
+    few, rest = 0.0, 0.0
+    for a, b in zip(a_runs, b_runs):
+        pos_err = (a - b).abs().amax(-1) / b.abs().max()
+        p2 = torch.arange(len(pos_err)) // seg < 4
+        few = max(few, float(pos_err[p2].max()))
+        rest = max(rest, float(pos_err[~p2].max()) if (~p2).any() else 0.0)
+    return few, rest
+
+
+def chunked_model_checks(torch, dev, prompt_lens, chunk: int = 128) -> None:
+    """Chunked prefill (chunks of 128 > c = 64: K1 at the chunk site) then 4
+    paged decode steps of full-width Qwen2-7B on the card.
+
+    * 2 fp32 layers, the kernel route against the plain route: logits of
+      every prefill position and decode step, and the streaming stats left
+      by the prefill, within MODEL_TOL of max-abs; the stats after the
+      decode steps (K5's partials merged into the carry) within MODEL_TOL
+      at layer 0, whose inputs are the same on both routes, and within
+      STATS_TOL at layer 1, whose inputs carry layer 0's rounding.
+    * Against whole-prompt ``replay`` prefill (the chunk attention is the
+      replay math). The two prefills multiply the same values in products
+      of other shapes (a chunk attends over the committed keys plus its
+      own, whole replay over the padded prompt), so they round
+      differently, and the random-weight spectral-shift core amplifies
+      that rounding: at positions whose context fills 2-4 landmark rows
+      (ROADMAP P2) within a layer, at every position from one layer to
+      the next (P1). So: at 1 fp32 layer the logits the engine samples
+      (each prompt's last position, every decode step) within MODEL_TOL and
+      every prompt position within P2_TOL; at 2 fp32 layers the errors are
+      printed, not held; at 2 layers computed wholly in float64 (plain
+      route, every cache leaf stored in float64, ``float64_everywhere``),
+      where rounding is some 1e-9 of fp32's, every prompt position and
+      decode step within MODEL_TOL."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+
+    t0 = time.perf_counter()
+    n_p = len(prompt_lens)
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2, compute_dtype="float32")
+    seg = -(-512 // cfg.num_landmarks)   # drive_model's max_seq
+    params = random_params(cfg, seed=0, device=dev)
+    before = launch_counts()
+    card, fed, card_stats = drive_model(torch, params, cfg, dev, prompt_lens, prefill=chunk)
+    after = launch_counts()
+    ran = {k: after[k] - before[k] for k in SERVE_KERNELS}
+    if ran["landmark_summary"] <= 0 or ran["paged_row_stats"] <= 0 or ran["query_side"]:
+        raise AssertionError(f"chunked model: launches {ran}: K1 and K5 must run, K2 not")
+    with plain_route():
+        plain, _, plain_stats = drive_model(torch, params, cfg, dev, prompt_lens,
+                                            feed=fed, prefill=chunk)
+    if launch_counts() != after:
+        raise AssertionError("chunked model: the plain route launched a kernel")
+    errs = logit_errs(torch, "chunked model", card, plain, prompt_lens)
+
+    def stat_errs(when, layer=slice(None)):
+        return [e / max(sc, 1e-30) for e, sc in (
+            max_err(a[layer], b[layer])
+            for a, b in zip(card_stats[when], plain_stats[when]))]
+
+    prefill_stats = stat_errs("prefill")
+    decode_stats = [stat_errs("decode", 0), stat_errs("decode", 1)]
+    # the same prompts through whole-prompt replay at 2 fp32 layers: printed
+    replay2, _, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed,
+                                prefill="replay")
+    del params
+    torch.cuda.empty_cache()
+    fp32_2 = position_errs(torch, card[:n_p], replay2[:n_p], seg)
+    fp32_2_decode = logit_errs(torch, "chunked vs replay", card[n_p:], replay2[n_p:], ())
+
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    params = random_params(cfg1, seed=0, device=dev)
+    chunked, fed1, _ = drive_model(torch, params, cfg1, dev, prompt_lens, prefill=chunk)
+    replay, _, _ = drive_model(torch, params, cfg1, dev, prompt_lens, feed=fed1,
+                               prefill="replay")
+    del params
+    torch.cuda.empty_cache()
+    all_errs = logit_errs(torch, "chunked vs replay", chunked, replay, prompt_lens)
+    few, rest = position_errs(torch, chunked[:n_p], replay[:n_p], seg)
+    sampled = [e / sc for e, sc in ([max_err(a[-1], b[-1]) for a, b in
+                                     zip(chunked[:n_p], replay[:n_p])]
+                                    + [max_err(a, b) for a, b in
+                                       zip(chunked[n_p:], replay[n_p:])])]
+
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    params = random_params(cfg64, seed=0, device=dev)
+    with plain_route(), float64_everywhere(torch):
+        chunked64, fed64, _ = drive_model(torch, params, cfg64, dev, prompt_lens,
+                                          prefill=chunk, store_dtype=torch.float64)
+        replay64, _, _ = drive_model(torch, params, cfg64, dev, prompt_lens, feed=fed64,
+                                     prefill="replay", store_dtype=torch.float64)
+    del params
+    torch.cuda.empty_cache()
+    f64_errs = logit_errs(torch, "chunked vs replay float64", chunked64, replay64,
+                          prompt_lens)
+
+    def fmt(xs):
+        return ["%.2e" % e for e in xs]
+
+    log(f"model parity: qwen2-7b, chunked prefill (chunk {chunk}, ss_fused stats "
+        f"handoff: K1 {ran['landmark_summary']}, K5 {ran['paged_row_stats']} launches) + 4 "
+        f"paged decode steps; 2 fp32 layers, kernel route vs plain route on the card: "
+        f"logit err of max-abs per output {fmt(errs)}, stats (m, l, acc) after the prefill "
+        f"{fmt(prefill_stats)} (tol {MODEL_TOL}), after the decode steps layer 0 "
+        f"{fmt(decode_stats[0])} (tol {MODEL_TOL}) layer 1 {fmt(decode_stats[1])} (tol "
+        f"{STATS_TOL})")
+    log(f"model parity: qwen2-7b, chunked (chunk {chunk}) vs whole-prompt replay prefill "
+        f"+ 4 paged decode steps, logit err of max-abs: 1 fp32 layer: sampled logits (each "
+        f"prompt's last position, then each decode step) {fmt(sampled)} (tol {MODEL_TOL}), "
+        f"every position {fmt(all_errs)} (tol {P2_TOL}; positions with at most 4 live "
+        f"landmark rows {few:.2e}, the others {rest:.2e}); 2 fp32 layers (not held): "
+        f"prompt positions with at most 4 live landmark rows {fp32_2[0]:.2e}, the others "
+        f"{fp32_2[1]:.2e}, decode steps {fmt(fp32_2_decode)}; 2 layers wholly in float64 "
+        f"(plain route): every prompt position, then each decode step {fmt(f64_errs)} "
+        f"(tol {MODEL_TOL}); {time.perf_counter() - t0:.1f}s")
+    worst = max(errs + prefill_stats + decode_stats[0] + sampled + f64_errs)
+    if not worst <= MODEL_TOL:
+        raise AssertionError(f"chunked model: err {worst:.3e} > {MODEL_TOL}")
+    if not max(all_errs) <= P2_TOL:
+        raise AssertionError(f"chunked model: 1-layer replay identity {max(all_errs):.3e} "
+                             f"> {P2_TOL}")
+    if not max(decode_stats[1]) <= STATS_TOL:
+        raise AssertionError(f"chunked model: layer-1 stats after decode "
+                             f"{max(decode_stats[1]):.3e} > {STATS_TOL}")
 
 
 def grad_phase(torch, dev) -> None:
@@ -1218,16 +1469,11 @@ SERVE_LENS = [48, 200, 333, 480]
 GRANITE_LAYERS = 8   # of 52: about 9.7 GB of bf16 weights (embedding included)
 
 
-def serve_run(torch, dev, arch: str, layers: int, serve, label: str) -> dict:
-    """One serving run of full-width ``arch`` cut to ``layers`` layers (bf16
-    random weights, seed 0) under ``serve``: a warm-up engine, then
-    prompts of SERVE_LENS tokens, 16 new tokens each, launch counts reset
-    just before and read just after. Checks every request finished with
-    tokens in the vocabulary and every cache leaf finite; returns the
-    launcher's summary."""
+def serve_params(torch, dev, arch: str, layers: int, label: str):
+    """Full-width ``arch`` cut to ``layers`` layers, bf16 random weights
+    (seed 0) on the card: (cfg, params)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import random_params, serve_requests
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.launch.serve import random_params
 
     cfg = get_config(arch)
     if layers != cfg.num_layers:
@@ -1239,25 +1485,17 @@ def serve_run(torch, dev, arch: str, layers: int, serve, label: str) -> dict:
         f"{cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers="
         f"{cfg.num_layers} bf16 random weights drawn in {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
-    torch.cuda.reset_peak_memory_stats(dev)   # the peak below is this run's
-    # warm-up (library handles, allocator) on an engine of its own
-    serve_requests(ServeEngine(cfg, params, serve=serve, device=dev), [200], 2, seed=1)
-    engine = ServeEngine(cfg, params, serve=serve, device=dev)
-    out = serve_requests(engine, SERVE_LENS, 16, seed=0)
-    ttft = out["ttft_s"]
-    log(f"serve {label}: route {out['mode']} / {out['decode_impl']} decode "
-        f"(prefill_impl={serve.prefill_impl}, block {serve.block_size}), "
-        f"{out['finished']}/{out['requests']} requests finished, "
-        f"{out['tokens']} tokens in {out['seconds']:.3f}s ({out['tok_per_s']:.1f} tok/s), "
-        f"TTFT mean {1e3 * sum(ttft) / len(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms, "
-        f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
-        f"{out['decode_s']:.3f}s ({1e3 * out['decode_s'] / max(out['decode_ticks'], 1):.1f} "
-        f"ms per tick), preemptions {out['preemptions']}, launches {out['launches']}, "
-        f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
-    if out["finished"] != len(SERVE_LENS):
+    return cfg, params
+
+
+def check_served(torch, engine, out: dict, label: str, n_requests: int) -> None:
+    """Every request finished with tokens in the vocabulary, every cache
+    leaf finite, no training kernel launched."""
+    vocab = engine.cfg.vocab_size
+    if out["finished"] != n_requests:
         raise AssertionError(f"serve {label}: not every request finished")
     for uid, toks in out["outputs"].items():
-        if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
+        if not toks or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f"serve {label}: request {uid} produced {toks}")
     for name, t in engine.kv.storage.items():
         if not torch.isfinite(t).all():
@@ -1265,7 +1503,48 @@ def serve_run(torch, dev, arch: str, layers: int, serve, label: str) -> dict:
     if any(v for k, v in out["launches"].items() if k not in SERVE_KERNELS):
         raise AssertionError(f"serve {label}: a training kernel launched: "
                              f"{out['launches']}")
-    del engine, params
+
+
+def log_served(torch, dev, out: dict, serve, label: str) -> None:
+    from repro_torch.launch.serve import tick_summary
+
+    ttft = out["ttft_s"]
+    log(f"serve {label}: route {out['mode']} / {out['decode_impl']} decode "
+        f"(prefill_impl={serve.prefill_impl}, block {serve.block_size}), "
+        f"{out['finished']}/{out['requests']} requests finished, "
+        f"{out['tokens']} tokens in {out['seconds']:.3f}s ({out['tok_per_s']:.1f} tok/s), "
+        f"TTFT mean {1e3 * sum(ttft) / len(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms, "
+        f"{tick_summary(out)}"
+        + ("" if out["mode"].endswith("chunked-prefill") else
+           f" ({1e3 * out['decode_s'] / max(out['decode_ticks'], 1):.1f} ms per tick)")
+        + f", preemptions {out['preemptions']}, launches {out['launches']}, "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+
+
+def serve_run(torch, dev, arch: str, layers: int, serve, label: str, params=None,
+              max_new: int = 16) -> dict:
+    """One serving run of full-width ``arch`` cut to ``layers`` layers under
+    ``serve`` (weights drawn here unless ``params`` (cfg, params) is
+    given): a warm-up engine, then prompts of SERVE_LENS tokens,
+    ``max_new`` new tokens each, launch counts reset just before and read
+    just after, checked by ``check_served``; returns the launcher's
+    summary."""
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, weights = params if params is not None else serve_params(torch, dev, arch,
+                                                                  layers, label)
+    torch.cuda.reset_peak_memory_stats(dev)   # the peak below is this run's
+    # warm-up (library handles, allocator) on an engine of its own
+    serve_requests(ServeEngine(cfg, weights, serve=serve, device=dev), [200], 2, seed=1)
+    engine = ServeEngine(cfg, weights, serve=serve, device=dev)
+    out = serve_requests(engine, SERVE_LENS, max_new, seed=0)
+    out["stats"] = engine.stats()
+    log_served(torch, dev, out, serve, label)
+    check_served(torch, engine, out, label, len(SERVE_LENS))
+    del engine
+    if params is None:
+        del weights
     gc.collect()  # the engine's reference cycles hold the serving weights
     torch.cuda.empty_cache()
     return out
@@ -1299,7 +1578,177 @@ def serve_phase(torch, dev, layers: int) -> dict:
     if missing:
         raise AssertionError(f"serve granite-20b: kernels never launched: {missing}")
     return {"serve": main["launches"], "serve_default_route": default["launches"],
-            "serve_granite_20b": granite["launches"]}
+            "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers)}
+
+
+TIGHT_BLOCKS = 32     # the least pool a 512-token lane allows (32 blocks of 16)
+TIGHT_NEW = 64        # enough decode growth to run the pool dry
+TIGHT_LAYERS = 8      # depth cut of the tight-pool run, to keep it short
+
+
+def first_layers(tree, n: int):
+    """A parameter tree's first ``n`` layers (views of the stacked axis)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+    return dict(tree, layers=take(tree["layers"]))
+
+
+def serve_chunked_phase(torch, dev, layers: int) -> dict:
+    """Phase 4's continuous-batching paths on full-width qwen2-7b (one draw
+    of weights for all three), each with its launch counts reset just
+    before and read just after:
+
+    * ``serve_chunked``: ``chunked_prefill=True``, chunks of 128 > c = 64
+      under ``prefill_impl="ss_fused"`` (K1 in every chunk's stats
+      handoff), paged decode (K5); K2 never runs;
+    * ``serve_chunked_tight``: the same settings on a pool of TIGHT_BLOCKS
+      blocks, TIGHT_NEW new tokens, depth cut to TIGHT_LAYERS: decode growth
+      runs the pool dry, so requests are preempted (victims caught
+      mid-prefill are parked) and resume;
+    * ``serve_prefix_cache``: the same settings with ``prefix_cache=True``,
+      one request at a time to completion: A (384 tokens, cold), A (an
+      aligned full hit), B = A's first 256 tokens + 77 of its own (a
+      partial hit resuming at 256), C (333, cold), C (an unaligned full hit:
+      copy-on-write); hits 3, misses 2, cow_copies >= 1, and greedy tokens
+      identical to a cold chunked engine fed the same sequence."""
+    import numpy as np
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, params = serve_params(torch, dev, "qwen2-7b", layers, "chunked paths")
+    chunked = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                          decode_impl="paged", chunked_prefill=True,
+                          prefill_chunk_tokens=128, seed=0)
+    main = serve_run(torch, dev, "qwen2-7b", layers, chunked, "serve_chunked",
+                     params=(cfg, params))
+    ran = main["launches"]
+    if ran["landmark_summary"] <= 0 or ran["paged_row_stats"] <= 0 or ran["query_side"]:
+        raise AssertionError(f"serve_chunked: launches {ran}: K1 and K5 must run, K2 not")
+
+    tight_cfg = dataclasses.replace(cfg, num_layers=min(TIGHT_LAYERS, layers))
+    tight = serve_run(torch, dev, "qwen2-7b", tight_cfg.num_layers,
+                      dataclasses.replace(chunked, num_blocks=TIGHT_BLOCKS),
+                      "serve_chunked_tight",
+                      params=(tight_cfg, first_layers(params, tight_cfg.num_layers)),
+                      max_new=TIGHT_NEW)
+    st = tight["stats"]
+    log(f"serve serve_chunked_tight: preemptions {st['preemptions']}, parks "
+        f"{st['parks']}, parked resumes {st['parked_resumes']}, resume TTFT p50 "
+        f"{st['resume_ttft_s_p50']} s, {st['chunks']} chunks")
+    if st["preemptions"] < 1 or st["parks"] < 1 or st["resume_ttft_s_p50"] is None:
+        raise AssertionError(f"serve_chunked_tight: no preemption, park or resume: {st}")
+    park = park_resume_run(torch, dev, tight_cfg, first_layers(params, tight_cfg.num_layers),
+                           chunked)
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(3, cfg.vocab_size, 384).tolist()
+    b = a[:256] + rng.integers(3, cfg.vocab_size, 77).tolist()
+    c = rng.integers(3, cfg.vocab_size, 333).tolist()
+    runs = {}
+    for name, serve in (("prefix", dataclasses.replace(chunked, prefix_cache=True)),
+                        ("cold", chunked)):
+        engine = ServeEngine(cfg, params, serve=serve, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outputs, ttft = {}, []
+        for uid, prompt in enumerate((a, a, b, c, c)):
+            engine.submit(Request(uid, list(prompt), max_new_tokens=16))
+            outputs.update(engine.run())
+            ttft.append(engine.sched.timing[uid].ttft_s)
+        seconds = time.perf_counter() - t0
+        runs[name] = dict(outputs=outputs, ttft=ttft, launches=launch_counts(),
+                          stats=engine.stats(), seconds=seconds,
+                          finished=len(outputs), engine=engine)
+        out = runs[name]
+        out["tokens"] = sum(len(v) for v in outputs.values())
+        st = out["stats"]
+        log(f"serve serve_prefix_cache ({name}): A A B C C one at a time, "
+            f"{out['tokens']} tokens in {seconds:.3f}s, TTFT ms per request "
+            f"{['%.1f' % (1e3 * t) for t in ttft]}, {st['chunks']} chunks, "
+            f"prefix {st.get('prefix')}, cow_copies {st['cow_copies']}, "
+            f"launches {out['launches']}")
+        check_served(torch, engine, out, f"serve_prefix_cache ({name})", 5)
+    del engine
+    prefix, cold = runs.pop("prefix"), runs.pop("cold")
+    del prefix["engine"], cold["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = prefix["stats"]
+    if (st["prefix"]["hits"], st["prefix"]["misses"]) != (3, 2) or st["cow_copies"] < 1:
+        raise AssertionError(f"serve_prefix_cache: prefix {st['prefix']}, cow_copies "
+                             f"{st['cow_copies']}: want hits 3, misses 2, a copy")
+    if prefix["outputs"] != cold["outputs"]:
+        raise AssertionError(f"serve_prefix_cache: tokens differ from the cold chunked "
+                             f"run: {prefix['outputs']} vs {cold['outputs']}")
+    log("serve serve_prefix_cache: greedy tokens identical to the cold chunked run")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve_chunked": main["launches"], "serve_chunked_tight": tight["launches"],
+            "serve_park_resume": park, "serve_prefix_cache": prefix["launches"]}
+
+
+def park_resume_run(torch, dev, cfg, params, serve) -> dict:
+    """The parked-resume branch of the chunked tick. On a tight pool the
+    growth loop and the deadlock breaker reclaim a just-parked victim's
+    blocks at once (the reference's policy), so a parked snapshot is
+    restored only when a lane is preempted while the pool has room, as
+    the reference's chaos ``drop_sample`` does. Here: each SERVE_LENS
+    prompt alone, first cold, then preempted (``sched.preempt``) after its
+    first chunk whenever it has more than one; the parked runs restore the
+    host snapshot and resume at the chunk boundary. Greedy tokens and the
+    launch counts (no chunk is recomputed) must equal the cold run's.
+    Returns the parked run's launch counts."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in SERVE_LENS]
+    runs = {}
+    for name in ("cold", "parked"):
+        engine = ServeEngine(cfg, params, serve=serve, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outputs = {}
+        for uid, prompt in enumerate(prompts):
+            engine.submit(Request(uid, list(prompt), max_new_tokens=16))
+            if name == "parked" and len(prompt) > serve.prefill_chunk_tokens:
+                engine.tick()
+                engine.sched.preempt(engine.sched.lane_uid.index(uid))
+            outputs.update(engine.run())
+        out = dict(outputs=outputs, launches=launch_counts(), stats=engine.stats(),
+                   finished=len(outputs))
+        st = out["stats"]
+        log(f"serve serve_park_resume ({name}): qwen2-7b {cfg.num_layers} layers, prompts "
+            f"{SERVE_LENS} one at a time, {sum(len(v) for v in outputs.values())} tokens in "
+            f"{time.perf_counter() - t0:.3f}s, preemptions {st['preemptions']}, parks "
+            f"{st['parks']}, parked resumes {st['parked_resumes']}, {st['chunks']} chunks, "
+            f"launches {out['launches']}")
+        check_served(torch, engine, out, f"serve_park_resume ({name})", len(prompts))
+        runs[name] = out
+        del engine
+        gc.collect()
+    cold, parked = runs["cold"], runs["parked"]
+    if parked["launches"]["landmark_summary"] <= 0 or parked["launches"]["paged_row_stats"] <= 0:
+        raise AssertionError(f"serve_park_resume: K1 and K5 must run: {parked['launches']}")
+    want = sum(n > serve.prefill_chunk_tokens for n in SERVE_LENS)
+    st = parked["stats"]
+    if (st["preemptions"], st["parks"], st["parked_resumes"]) != (want, want, want):
+        raise AssertionError(f"serve_park_resume: preemptions {st['preemptions']}, parks "
+                             f"{st['parks']}, parked resumes {st['parked_resumes']}: want "
+                             f"{want} each")
+    if parked["outputs"] != cold["outputs"] or parked["launches"] != cold["launches"]:
+        raise AssertionError(f"serve_park_resume: tokens or launches differ from the cold "
+                             f"run: {parked['outputs']} vs {cold['outputs']}, "
+                             f"{parked['launches']} vs {cold['launches']}")
+    log("serve serve_park_resume: greedy tokens and launches identical to the cold run")
+    return parked["launches"]
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,13 @@ decode_impl="paged")`` and prints requests finished, tokens, tok/s, TTFT,
 the route and the launch count of each kernel. ``--prefill-impl``,
 ``--decode-impl``, ``--block-size`` and ``--no-paged`` pick another
 route (``--prefill-impl replay --decode-impl gather`` is the reference's
-default ``ServeConfig()``). ``--reduced`` serves the reduced test config,
-``--device cpu`` runs the kernels' plain versions instead. Weights and
-prompts come from seed 0.
+default ``ServeConfig()``). ``--chunk-tokens N`` switches to the
+continuous-batching tick with prompt chunks of N tokens (0, the default,
+keeps the two-phase engine) and ``--prefix-cache`` turns on the prefix
+cache (which rides the chunked tick); the summary then gives the ms per
+tick of ticks that ran chunks and of ticks that did not, apart.
+``--reduced`` serves the reduced test config, ``--device cpu`` runs the
+kernels' plain versions instead. Weights and prompts come from seed 0.
 """
 from __future__ import annotations
 
@@ -61,7 +65,28 @@ def serve_requests(engine: ServeEngine, prompt_lens, max_new: int,
             "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
             "decode_ticks": stats["decode_ticks"], "launches": counts,
             "mode": stats["mode"], "decode_impl": stats["decode_impl"],
+            "chunks": stats["chunks"], "chunk_ticks": stats["chunk_ticks"],
+            "chunk_tick_s": stats["chunk_tick_s"], "plain_ticks": stats["plain_ticks"],
+            "plain_tick_s": stats["plain_tick_s"], "parked": stats["parked"],
+            "cow_copies": stats["cow_copies"], "prefix": stats.get("prefix"),
             "outputs": outputs}
+
+
+def tick_summary(out: dict) -> str:
+    """The engine's decode route and timing, in words: for the chunked
+    tick the ms per tick of ticks that ran chunks and of the rest apart,
+    else the whole-prompt prefill seconds and the decode ticks."""
+    if out["mode"].endswith("chunked-prefill"):
+        chunk_ms = 1e3 * out["chunk_tick_s"] / max(out["chunk_ticks"], 1)
+        plain_ms = 1e3 * out["plain_tick_s"] / max(out["plain_ticks"], 1)
+        text = (f"{out['chunks']} chunks; {out['chunk_ticks']} ticks with chunks "
+                f"{chunk_ms:.1f} ms per tick, {out['plain_ticks']} ticks without "
+                f"{plain_ms:.1f} ms per tick")
+        if out["prefix"] is not None:
+            text += f"; prefix {out['prefix']}, cow_copies={out['cow_copies']}"
+        return text
+    return (f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
+            f"{out['decode_s']:.3f}s")
 
 
 # Device-activity categories of ``profile_top``, by kernel-name fragment
@@ -124,6 +149,11 @@ def main(argv=None):
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--no-paged", action="store_true",
                     help="lane-dense K/V storage (ServeConfig(paged=False))")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="chunked prefill inside the decode tick, N tokens a "
+                         "chunk (0: the two-phase engine)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="the prefix cache (ServeConfig(prefix_cache=True))")
     ap.add_argument("--profile", action="store_true",
                     help="run under torch.profiler and print the device's "
                          "busy share of that same run and its costliest "
@@ -136,7 +166,10 @@ def main(argv=None):
         cfg = reduced(cfg)
     serve = ServeConfig(max_lanes=args.lanes, max_seq=args.max_seq,
                         block_size=args.block_size, paged=not args.no_paged,
-                        prefill_impl=args.prefill_impl, decode_impl=args.decode_impl)
+                        prefill_impl=args.prefill_impl, decode_impl=args.decode_impl,
+                        chunked_prefill=args.chunk_tokens > 0,
+                        prefill_chunk_tokens=args.chunk_tokens or 64,
+                        prefix_cache=args.prefix_cache)
     engine = ServeEngine(cfg, random_params(cfg, 0, device),
                          serve=serve, device=device)
     lens = [int(x) for x in args.prompt_lens.split(",")]
@@ -154,8 +187,7 @@ def main(argv=None):
           f"{out['tokens']} tokens in {out['seconds']:.3f}s "
           f"({out['tok_per_s']:.1f} tok/s), TTFT mean "
           f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms, "
-          f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
-          f"{out['decode_s']:.3f}s, preemptions={out['preemptions']}, "
+          f"{tick_summary(out)}, preemptions={out['preemptions']}, "
           f"route {out['mode']} / {out['decode_impl']} decode, "
           f"launches={out['launches']}")
     return out

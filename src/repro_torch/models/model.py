@@ -22,7 +22,7 @@ from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
 from repro_torch.train.losses import next_token_loss
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -22,6 +22,7 @@ from repro_torch.core.attention import NEG_INF
 from repro_torch.core.landmarks import segment_counts
 from repro_torch.core.spectral_shift import ss_core
 from repro_torch.kernels.ops import flash_merge
+from repro_torch.models.attention import _broadcast_kv
 
 STREAM_LEAVES = ("bv_m", "bv_l", "bv_acc")
 
@@ -86,12 +87,14 @@ def key_mask(n: int, pos, device) -> torch.Tensor:
     return (keys <= pos)[None, None, None, :]
 
 
-def recompute_stats(q_l, k, v, pos, scale: float):
+def recompute_stats(q_l, k, v, pos, scale: float, row_valid=None):
     """Exact (m, l, acc) of ``softmax(scale * q_l . K[0..pos])`` rows:
     q_l (B, X, R, d); k/v (B, X, S, d/dv); keys past ``pos`` (an int, or
     per lane (B,)) masked (``decode_state.py:132``). Prefill seeds its
     streaming state with it; the gather route's exact decode recomputes
-    the active row with it, the query heads grouped onto the kv heads."""
+    the active row with it, the query heads grouped onto the kv heads.
+    ``row_valid`` (B, R) bool zeroes the rows of segments not yet reached
+    (the streaming invariant)."""
     s = torch.einsum("bhcd,bhsd->bhcs", q_l.float(), k.float()) * scale
     key_mask_ = key_mask(k.shape[2], pos, k.device)
     s = torch.where(key_mask_, s, NEG_INF)
@@ -99,13 +102,84 @@ def recompute_stats(q_l, k, v, pos, scale: float):
     p = torch.where(key_mask_, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhcs,bhsd->bhcd", p, v.float())
+    if row_valid is not None:
+        rv = row_valid[:, None, :, None]
+        m, l, acc = (torch.where(rv, x, 0.0) for x in (m, l, acc))
     return m, l, acc
+
+
+def rebase_span(stats, q_l, k, v, pos: int, scale: float, row_lo: int,
+                row_hi: int):
+    """Exactly recompute landmark rows ``row_lo..row_hi`` (host ints,
+    clipped to c) over keys 0..pos; other rows pass through unchanged
+    (``decode_state.py:173``; the reference scatters a static window of
+    rows through a masked one-hot, here the rows are sliced). stats (m, l,
+    acc) (B, H, c, 1|dv); q_l (B, H, c, d); k/v (B, H, S, d/dv)."""
+    c = q_l.shape[2]
+    lo, hi = row_lo, min(row_hi, c - 1) + 1
+    out = tuple(x.float().clone() for x in stats)
+    if lo < hi:
+        fresh = recompute_stats(q_l[:, :, lo:hi], k, v, pos, scale)
+        for dst, src in zip(out, fresh):
+            dst[:, :, lo:hi] = src
+    return out
 
 
 def mask_stats_rows(stats, keep: torch.Tensor):
     """Zero the partial state of rows where ``keep`` (c,) is False."""
     km = keep[:, None]
     return tuple(torch.where(km, x, 0.0) for x in stats)
+
+
+# --------------------------------------------------------------------------
+# Prefix-cache attach (``decode_state.py:417-519``): landmark-sum
+# re-segmentation and the full stats reseed of ``prefix_attach="recompute"``.
+# --------------------------------------------------------------------------
+def resegment_sums(sums: torch.Tensor, seg_from: int, seg_to: int) -> torch.Tensor:
+    """Re-segment per-landmark running sums (..., c, d) from segment length
+    ``seg_from`` to ``seg_to`` (``decode_state.py:417``): target row t sums
+    source rows t*m..(t+1)*m-1, m = seg_to / seg_from. Exact only when
+    every target window is a union of source windows; anything else
+    raises."""
+    if seg_to == seg_from:
+        return sums
+    if seg_to % seg_from:
+        raise ValueError(
+            f"cannot re-segment sums from segment length {seg_from} to "
+            f"{seg_to}: target windows must be unions of source windows "
+            f"(seg_to % seg_from == 0)")
+    c = sums.shape[-2]
+    m = seg_to // seg_from
+    idx = torch.arange(c, device=sums.device)
+    route = ((idx[:, None] // m) == idx[None, :]).float()   # (c_src, c_tgt)
+    return torch.einsum("sc,...sd->...cd", route, sums.float()).to(sums.dtype)
+
+
+def reseed_layer(cfg, lcache: dict, pos, seq_max: int) -> dict:
+    """Re-found one layer's streaming state (``_reseed_attn_layer``
+    :443): recompute every reached row's (m, l, acc) exactly over keys
+    0..pos. ``lcache`` holds lane-batched leaves: ``k``/``v`` dense views
+    (B, Hkv, S, Dh), the rest (B, ...); ``pos`` (B,) the index of each
+    lane's last attached token."""
+    c = cfg.num_landmarks
+    counts = landmark_counts(pos, seq_max, c)
+    q_l = landmark_means(lcache["q_lmk"], counts)
+    m, l, acc = recompute_stats(
+        q_l, _broadcast_kv(lcache["k"], cfg.num_heads),
+        _broadcast_kv(lcache["v"], cfg.num_heads), pos,
+        cfg.resolved_head_dim ** -0.5, row_valid=counts > 0)
+    return dict(lcache, bv_m=m, bv_l=l, bv_acc=acc)
+
+
+def make_reseed_fn(cfg, seq_max: int):
+    """Attach-reseed closure ``fn(layers, pos) -> layers`` over a list of
+    per-layer lane-batched caches (``make_reseed_fn`` :509), for
+    ``PagedKVCache.make_rebase_step``."""
+
+    def fn(layers, pos):
+        return [reseed_layer(cfg, lc, pos, seq_max) for lc in layers]
+
+    return fn
 
 
 def ss_decode_attention_streaming(q, k_new, v_new, q_lmk_sum, k_lmk_sum,

@@ -16,6 +16,15 @@ the (bucket-padded) prompt computes per layer
   pass with the cache's landmark means and ``return_stats`` (ss_fused,
   windows longer than c), else recomputed in plain torch; zeros for
   ``decode_attention_impl="full"``, which keeps no stats.
+
+Chunked prefill (``chunk_prefill``, ``prefill.py:627``) advances a lane by
+one fixed-size chunk of its prompt at global positions start..: the chunk
+attends with the exact replay math over the lane's committed keys plus
+its own (so it equals whole-prompt ``replay`` prefill; kernel K2 never
+runs here), the landmark sums continue the lane's, and the streaming
+stats carry across chunks by flash-merge (``_merge_chunk_stats``), where
+``stats_impl="ss_fused"`` streams each chunk window longer than c through
+K1 with ``kv_valid = chunk_valid``.
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import full_attention
-from repro_torch.kernels.ops import ss_attention_fused
+from repro_torch.kernels.ops import flash_merge, ss_attention_fused
 from repro_torch.kernels.ss_attention import landmark_summary
 from repro_torch.models.attention import (_broadcast_kv, gqa_project_qkv,
                                           output_projection, ss_config_from)
@@ -32,8 +41,9 @@ from repro_torch.models.layers import apply_rotary, mlp_forward, rms_norm, rotar
 from repro_torch.models.model import (_embed_tokens, _unembed, layer_params,
                                       torch_dtype, working_params)
 from repro_torch.serve.decode import full_decode_attention, ss_decode_attention
-from repro_torch.serve.decode_state import (landmark_counts, landmark_means,
-                                            mask_stats_rows, recompute_stats,
+from repro_torch.serve.decode_state import (STREAM_LEAVES, landmark_counts,
+                                            landmark_means, mask_stats_rows,
+                                            rebase_span, recompute_stats,
                                             segment_len)
 
 
@@ -68,12 +78,23 @@ def _fused(cfg: ModelConfig, prefill_impl: str) -> bool:
     return prefill_impl == "ss_fused" and cfg.decode_attention_impl == "spectral_shift"
 
 
+def _broadcast_sums(sums: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Per-position kv-head landmark sums (n, B, Hkv, c, d) broadcast to
+    the query heads: (n, B, H, c, d)."""
+    n, b, hkv = sums.shape[:3]
+    return _broadcast_kv(sums.reshape(n * b, hkv, *sums.shape[3:]),
+                         num_heads).reshape(n, b, num_heads, *sums.shape[3:])
+
+
 def _attend_prefill(cfg: ModelConfig, prefill_impl: str, q, kb, vb, scale: float,
-                    n_valid: int, seq_max: int, q_sums=None, k_sums_b=None):
+                    n_valid: int, seq_max: int, q_sums=None, k_sums_b=None,
+                    pos0: int = 0):
     """Prompt attention (``prefill.py:123``). q (B, H, n, d); kb/vb
-    kv-broadcast, pad-masked keys/values; q_sums/k_sums_b the per-position
-    landmark prefixes (n, B, H, c, d) that the replay branch of spectral
-    shift reads. Returns (B, H, n, dv)."""
+    kv-broadcast, pad-masked keys/values: the window itself, or for a
+    chunk the lane's committed keys with the chunk's after them (longer
+    than n); q_sums/k_sums_b the per-position landmark prefixes (n, B, H,
+    c, d) that the replay branch of spectral shift reads; query t sits at
+    global position ``pos0 + t``. Returns (B, H, n, dv)."""
     n = q.shape[2]
     if _fused(cfg, prefill_impl):
         if n <= cfg.num_landmarks:
@@ -84,7 +105,7 @@ def _attend_prefill(cfg: ModelConfig, prefill_impl: str, q, kb, vb, scale: float
                                   scale=scale, kv_valid=n_valid)
     # replay: every position's decode attention, positions leading
     qs = q.permute(2, 0, 1, 3)[:, :, :, None, :]            # (n, B, H, 1, d)
-    pos = torch.arange(n, device=q.device)[:, None].expand(n, q.shape[0])
+    pos = (pos0 + torch.arange(n, device=q.device))[:, None].expand(n, q.shape[0])
     if cfg.decode_attention_impl == "spectral_shift":
         outs = ss_decode_attention(qs, kb, vb, q_sums, k_sums_b, pos, cfg, scale,
                                    seq_max)
@@ -148,10 +169,7 @@ def _gqa_prefill(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
         q_sums = _prefix_sums(oh, q)
         k_sums = _prefix_sums(oh, k_m)                      # (n, B, Hkv, c, d)
         q_sum, k_sum = q_sums[-1], k_sums[-1]
-        n, b, hkv = k_sums.shape[:3]
-        k_sums_b = _broadcast_kv(k_sums.reshape(n * b, hkv, *k_sums.shape[3:]),
-                                 cfg.num_heads).reshape(n, b, cfg.num_heads,
-                                                        *k_sums.shape[3:])
+        k_sums_b = _broadcast_sums(k_sums, cfg.num_heads)
         del k_sums
     else:
         q_sum = _landmark_sums(oh, q)        # (B, H, c, d)
@@ -222,3 +240,174 @@ def batched_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = {"pos": torch.tensor(n_valid, dtype=torch.int32, device=x.device),
              "layers": layers}
     return _unembed(params, cfg, x), cache
+
+
+# --------------------------------------------------------------------------
+# chunked prefill (continuous batching): one fixed-size prompt chunk per
+# call, carrying the landmark state across chunks
+# --------------------------------------------------------------------------
+def _insert_chunk(view: torch.Tensor, chunk: torch.Tensor, start: int,
+                  axis: int = 2) -> torch.Tensor:
+    """A committed-prefix view (seq ``axis``) extended by one chunk
+    (``prefill.py:411``): the view padded by the chunk's length with exact
+    zeros, then the chunk's rows written at ``start``. The pad makes room
+    for the whole chunk whatever ``start``, so the write never lands short
+    of it (the reference's ``dynamic_update_slice`` never clamps)."""
+    pad = list(view.shape)
+    pad[axis] = chunk.shape[axis]
+    ext = torch.cat([view.to(chunk.dtype), chunk.new_zeros(pad)], dim=axis)
+    idx = [slice(None)] * view.dim()
+    idx[axis] = slice(start, start + chunk.shape[axis])
+    ext[tuple(idx)] = chunk
+    return ext
+
+
+def _merge_chunk_stats(cfg: ModelConfig, stats_impl: str, carry, q_l, kb, vb,
+                       k_full_b, v_full_b, start: int, chunk_valid: int,
+                       scale: float, seq_max: int):
+    """Streaming-stat carry across prefill chunks for one layer
+    (``prefill.py:425``). ``carry`` the lane's (bv_m, bv_l, bv_acc) after
+    the previous chunk; ``q_l`` (B, H, c, d) the landmark means at ``end =
+    start + chunk_valid``; kb/vb the chunk window's keys/values
+    (head-broadcast, pad-masked); k_full_b/v_full_b the assembled keys
+    0..end-1. Returns what whole-prompt seeding gives for a prompt of
+    ``end`` tokens (frozen rows up to softmax reassociation):
+
+    * rows frozen before the chunk (r < start // seg) merge the window's
+      partial into the carry by ``flash_merge``; with ``stats_impl=
+      "ss_fused"`` and a window longer than c the window runs through K1
+      (``kv_valid = chunk_valid``), else ``recompute_stats``;
+    * rows start // seg .. (end-1) // seg, whose means moved inside the
+      chunk, are recomputed exactly over the assembled keys
+      (``rebase_span``);
+    * rows past the active segment stay zero."""
+    c = cfg.num_landmarks
+    if cfg.decode_attention_impl != "spectral_shift":
+        return tuple(torch.zeros_like(s, dtype=torch.float32) for s in carry)
+    seg = segment_len(seq_max, c)
+    b, h, chunk_pad, d = kb.shape
+    dv = vb.shape[-1]
+    end_pos = start + chunk_valid - 1
+    if stats_impl == "ss_fused" and chunk_pad > c:
+        bv, m_w, l_w = landmark_summary(
+            q_l.reshape(b * h, c, d).contiguous(),
+            kb.reshape(b * h, chunk_pad, d).contiguous(),
+            vb.reshape(b * h, chunk_pad, dv).contiguous(), scale=scale,
+            return_stats=True, kv_valid=chunk_valid)
+        m_w = m_w.reshape(b, h, c, 1)
+        l_w = l_w.reshape(b, h, c, 1)
+        acc_w = bv.float().reshape(b, h, c, dv) * l_w
+    else:
+        m_w, l_w, acc_w = recompute_stats(q_l, kb, vb, chunk_valid - 1, scale)
+    carry32 = tuple(x.float() for x in carry)
+    merged = flash_merge(*carry32, m_w, l_w, acc_w)
+    frozen = (torch.arange(c, device=kb.device) < start // seg)[:, None]
+    stats = tuple(torch.where(frozen, f, old) for f, old in zip(merged, carry32))
+    row_hi = end_pos // seg
+    stats = rebase_span(stats, q_l, k_full_b, v_full_b, end_pos, scale,
+                        start // seg, row_hi)
+    return mask_stats_rows(stats, torch.arange(c, device=kb.device) <= row_hi)
+
+
+def _gqa_chunk(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
+               stats_impl: str, start: int, chunk_valid: int, lcache: dict):
+    """One layer of a chunk (``prefill.py:488``). ``lcache`` the lane's
+    B=1 leaves: ``k``/``v`` its committed keys (1, Hkv, >= start, Dh), the
+    rest as carried from the previous chunk."""
+    q, k, v = gqa_project_qkv(p, cfg, x)
+    if cfg.rope_theta > 0:
+        q = apply_rotary(q, sin, cos)
+        k = apply_rotary(k, sin, cos)
+    pad = t_mask[None, None, :, None]
+    k_m = torch.where(pad, k, 0).to(k.dtype)
+    v_m = torch.where(pad, v, 0).to(v.dtype)
+
+    # landmark prefixes continue the lane's running sums
+    q_sums = lcache["q_lmk"].float()[None] + _prefix_sums(oh, q)
+    k_sums = lcache["k_lmk"].float()[None] + _prefix_sums(oh, k_m)
+    kb = _broadcast_kv(k_m, cfg.num_heads)
+    vb = _broadcast_kv(v_m, cfg.num_heads)
+    k_sums_b = _broadcast_sums(k_sums, cfg.num_heads)
+    # assembled keys 0..end-1: committed view + this chunk at [start, end)
+    kfb = _broadcast_kv(_insert_chunk(lcache["k"], k_m, start), cfg.num_heads)
+    vfb = _broadcast_kv(_insert_chunk(lcache["v"], v_m, start), cfg.num_heads)
+
+    scale = cfg.resolved_head_dim ** -0.5
+    out = _attend_prefill(cfg, "replay", q, kfb, vfb, scale, chunk_valid, seq_max,
+                          q_sums, k_sums_b, pos0=start)
+    del k_sums_b
+    c = cfg.num_landmarks
+    counts = landmark_counts(torch.tensor([start + chunk_valid - 1], device=x.device),
+                             seq_max, c)
+    q_l = landmark_means(q_sums[-1], counts)
+    bv_m, bv_l, bv_acc = _merge_chunk_stats(
+        cfg, stats_impl, tuple(lcache[name] for name in STREAM_LEAVES), q_l, kb,
+        vb, kfb, vfb, start, chunk_valid, scale, seq_max)
+    new_cache = {"k": k_m, "v": v_m, "q_lmk": q_sums[-1], "k_lmk": k_sums[-1],
+                 "bv_m": bv_m, "bv_l": bv_l, "bv_acc": bv_acc}
+    attn = output_projection(out.to(x.dtype), p["w_o"])
+    return attn, new_cache
+
+
+def _dense_layer_chunk(lp, lcache, cfg: ModelConfig, x, sin, cos, t_mask, oh,
+                       seq_max: int, stats_impl: str, start: int, chunk_valid: int):
+    h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
+    attn, new_cache = _gqa_chunk(lp["attn"], cfg, h, sin, cos, t_mask, oh, seq_max,
+                                 stats_impl, start, chunk_valid, lcache)
+    x = x + attn
+    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+    return x + mlp_forward(lp["mlp"], h, cfg.act), new_cache
+
+
+def chunk_prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+                  start: int, chunk_valid: int, *, seq_max: int,
+                  stats_impl: str = "replay"):
+    """Advance a mid-prefill lane by one fixed-size prompt chunk
+    (``prefill.py:627``). ``cache["layers"]`` the lane's B=1 view, stacked
+    (L, 1, ...): committed K/V for positions < ``start`` and the dense
+    landmark / stream leaves carried from the previous chunk. ``tokens``
+    (1, chunk_pad) hold ``chunk_valid`` real tokens at global positions
+    start..start+chunk_valid-1 (host ints). Returns ``(logits (1,
+    chunk_pad, V), cache)``: K/V leaves hold the CHUNK's K/V only (the
+    caller commits them to the chunk's blocks), the other leaves the
+    carried-forward state; the next-token logits are at ``chunk_valid -
+    1``. Chunk attention is the exact replay math, so chunked prefill
+    equals whole-prompt ``replay`` prefill; ``stats_impl`` routes only
+    the stats handoff."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    params = working_params(params, cfg)
+    start, chunk_valid = int(start), int(chunk_valid)
+    n = tokens.shape[1]
+    x = _embed_tokens(params, cfg, tokens).to(torch_dtype(cfg.compute_dtype))
+    c = cfg.num_landmarks
+    t = torch.arange(n, device=x.device)
+    t_mask = t < chunk_valid
+    # pad positions may lie past the horizon's last segment: routed nowhere
+    seg_idx = torch.clamp((start + t) // segment_len(seq_max, c), max=c - 1)
+    oh = F.one_hot(seg_idx, c).float() * t_mask[:, None]
+    sin, cos = rotary_angles((start + t)[None], cfg.resolved_head_dim, cfg.rope_theta)
+    sin, cos = sin[:, None], cos[:, None]
+
+    layers = cache["layers"]
+    per_layer = []
+    for i in range(cfg.num_layers):
+        lcache = {name: leaf[i] for name, leaf in layers.items()}
+        x, nc = _dense_layer_chunk(layer_params(params, i), lcache, cfg, x, sin, cos,
+                                   t_mask, oh, seq_max, stats_impl, start, chunk_valid)
+        per_layer.append(nc)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    new_layers = {name: torch.stack([nc[name] for nc in per_layer])
+                  for name in per_layer[0]}
+    return _unembed(params, cfg, x), {"pos": start + chunk_valid, "layers": new_layers}
+
+
+def make_chunk_prefill_fn(params, cfg: ModelConfig, *, seq_max: int,
+                          stats_impl: str = "replay"):
+    """Chunk-prefill closure ``fn(cache, tokens, start, chunk_valid)`` for
+    ``PagedKVCache.make_chunk_step`` (``prefill.py:702``)."""
+    def fn(cache, tokens, start, chunk_valid):
+        return chunk_prefill(params, cfg, cache, tokens, start, chunk_valid,
+                             seq_max=seq_max, stats_impl=stats_impl)
+
+    return fn

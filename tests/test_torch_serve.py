@@ -84,13 +84,24 @@ def test_engine_refuses_cuda_without_a_gpu(weights, monkeypatch):
 
 @pytest.mark.parametrize("which,field,value", [("model", "decode_streaming", "frozen"),
                                                ("serve", "prefix_cache", True),
-                                               ("serve", "chunked_prefill", True)])
+                                               ("serve", "chunked_prefill", True),
+                                               ("serve", "telemetry", True),
+                                               ("serve", "numerics_guard", True),
+                                               ("serve", "max_queue", 4),
+                                               ("serve", "watchdog_ticks", 8)])
 def test_engine_rejects_unported_settings(weights, which, field, value):
+    """Settings the port does not serve are refused at construction. The
+    chunked tick and the prefix cache are served under exact streaming
+    (``tests/test_torch_chunked.py``, ``tests/test_torch_prefix.py``); under
+    frozen streaming, which is not ported, they are refused."""
     cfg, serve = reduced_cfg(), base.ServeConfig()
     if which == "model":
         cfg = dataclasses.replace(cfg, **{field: value})
     else:
         serve = dataclasses.replace(serve, **{field: value})
+        if field in ("prefix_cache", "chunked_prefill"):
+            ServeEngine(cfg, weights[2], serve=serve, device="cpu")
+            cfg = dataclasses.replace(cfg, decode_streaming="frozen")
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg, weights[2], serve=serve, device="cpu")
 
