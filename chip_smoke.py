@@ -49,7 +49,11 @@ result line):
    route against plain route (logits, and the streaming stats after the
    prefill and after the decode steps), and against whole-prompt
    ``replay`` prefill at 1 fp32 layer, at 2 fp32 layers (printed) and at
-   2 layers computed wholly in float64;
+   2 layers computed wholly in float64; then ``decode_streaming="frozen"``
+   (20 paged decode steps with the engine's boundary rebases), kernel
+   route against plain route (logits; K5 never launches), and every
+   frozen landmark row's BV against an exact recompute over the lane's
+   keys (held in float64, printed in fp32 beside exact streaming's);
 4. serving, bf16 random weights from a seeded ``torch.Generator``, 4
    lanes, max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens
    each, the launch counts of each run read on their own: the main path
@@ -69,7 +73,17 @@ result line):
    launches identical to the cold run), and with ``prefix_cache=True`` over the
    sequence A, A, B (A's first 256 tokens + 77), C, C one request at a
    time (``serve_prefix_cache``: hits 3, misses 2, a copy-on-write, tokens
-   identical to a cold chunked engine on the same sequence);
+   identical to a cold chunked engine on the same sequence); then the
+   main path with ``decode_streaming="frozen"`` (``serve_frozen``: K1 and
+   K2 launch, K5 never; boundary rebases and their ms), and at 8 layers
+   frozen with chunks of 128 and the prefix cache over the same sequence
+   (``serve_frozen_chunked_prefix``: tokens identical to a cold frozen
+   chunked engine), the chaos soak's four fault plans at seed 0 on a
+   Poisson trace with the watchdog armed (``serve_chaos``: each drains
+   with every request finished, no leaked block, tokens identical to the
+   fault-free run) and the numerics guard demoting a frozen lane whose
+   stats were poisoned (``serve_guard``: K5 runs for it alone, the other
+   requests' tokens identical to the fault-free run);
 5. training: the ``Trainer`` on full-width Qwen2-7B cut to
    ``--train-layers`` layers, bf16 compute over fp32 master weights, seq
    4096, batch 2, 5 steps each under ``remat="full"`` (launches per step
@@ -1038,11 +1052,16 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
     (``make_chunk_step`` with the ss_fused stats handoff: K1 at the chunk
     site). ``store_dtype``: every cache leaf is stored in this dtype
     instead of its own (the float64 witness of ``chunked_model_checks``).
-    Returns (list of logits on the CPU, fed tokens, the cache's streaming
-    stats (m, l, acc), each (layers, lanes, ...), after the prefills and
-    after the decode steps)."""
+    Under ``decode_streaming="frozen"`` each decode step is followed by the
+    engine's boundary rebase (``make_rebase_step``) of the lanes whose
+    written position starts a landmark segment. Returns (list of logits on
+    the CPU, fed tokens, a dict: the cache's streaming stats (m, l, acc),
+    each (layers, lanes, ...), after the prefills and after the decode
+    steps, and the rebases, the cache, the block tables and the positions
+    the next step would write)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.decode_state import make_rebase_fn
     from repro_torch.serve.paged import BlockAllocator, PagedKVCache
     from repro_torch.serve.prefill import batched_prefill, make_chunk_prefill_fn
 
@@ -1097,6 +1116,11 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
                                                               seq_max=seq_max))
         step = lambda *a: fused(*a, kv.view_blocks_needed(  # noqa: E731
             positions.numpy(), list(range(lanes))))
+    frozen = cfg.decode_streaming == "frozen"
+    if frozen:
+        rebase = kv.make_rebase_step(make_rebase_fn(cfg, seq_max))
+        seg = -(-seq_max // cfg.num_landmarks)
+    stats["rebases"] = 0
     for t in range(steps):
         tables = torch.zeros((lanes, seq_max // bs), dtype=torch.int32)
         for lane in range(lanes):
@@ -1106,11 +1130,18 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
         lg = step(tables.to(device), tokens.to(device), positions.to(device),
                   torch.ones(lanes, dtype=torch.bool, device=device))
         outs.append(lg[:, 0].to(wide).cpu())
+        hits = [i for i in range(lanes) if frozen and 0 < int(positions[i])
+                and int(positions[i]) % seg == 0]
+        if hits:
+            rebase(tables.numpy(), positions.numpy(), hits,
+                   kv.view_blocks_needed(positions.numpy(), hits))
+            stats["rebases"] += len(hits)
         positions += 1
         nxt = lg[:, 0].argmax(-1).cpu() if feed is None else torch.tensor(feed[t + 1])
         tokens[:, 0] = nxt
         fed.append(nxt.tolist())
     stats["decode"] = [kv.storage[name].cpu() for name in stat_names]
+    stats.update(kv=kv, tables=tables, positions=positions)
     return outs, fed, stats
 
 
@@ -1259,6 +1290,110 @@ def model_phase(torch, dev) -> None:
         raise AssertionError(f"full decode attention: logit err {max(errs):.3e} > "
                              f"{MODEL_TOL}")
     chunked_model_checks(torch, dev, prompt_lens)
+    frozen_model_checks(torch, dev, prompt_lens)
+
+
+def frozen_bv_errs(torch, st: dict, cfg) -> tuple:
+    """Each lane's frozen landmark rows (below the active one) after
+    ``drive_model``'s decode steps and rebases, against an exact recompute
+    over the lane's keys (``recompute_stats`` on the gathered view) in the
+    cache's dtype: (worst |err| - 2e-4 |ref|, the allclose excess over
+    ``tests/test_paged_serve.py:608``'s atol = rtol = 2e-4; worst |err|;
+    worst |err| of the active row, which drifts by design)."""
+    from repro_torch.models.attention import _broadcast_kv
+    from repro_torch.serve import decode_state as ds
+
+    kv, seq_max = st["kv"], 512
+    excess, worst, drift = -math.inf, 0.0, 0.0
+    for lane, pos in enumerate(int(p) - 1 for p in st["positions"]):
+        ids = st["tables"][lane:lane + 1, : pos // kv.block_size + 1].to(kv.storage["k"].device)
+        pos_t = ids.new_tensor([pos])
+        counts = ds.landmark_counts(pos_t, seq_max, cfg.num_landmarks)
+        active = pos // ds.segment_len(seq_max, cfg.num_landmarks)
+        for layer in range(cfg.num_layers):
+            k, v = (_broadcast_kv(kv._gather_leaf(kv.storage[n], ids)[layer], cfg.num_heads)
+                    for n in ("k", "v"))
+            q_l = ds.landmark_means(kv.storage["q_lmk"][layer, lane:lane + 1], counts)
+            _, l, acc = ds.recompute_stats(q_l, k, v, pos_t, cfg.resolved_head_dim ** -0.5)
+            ref = acc / torch.clamp(l, min=1e-30)
+            got = (kv.storage["bv_acc"][layer, lane:lane + 1]
+                   / torch.clamp(kv.storage["bv_l"][layer, lane:lane + 1], min=1e-30))
+            err = (got - ref).abs()
+            excess = max(excess, float((err - 2e-4 * ref.abs())[:, :, :active].max()))
+            worst = max(worst, float(err[:, :, :active].max()))
+            drift = max(drift, float(err[:, :, active].max()))
+    return excess, worst, drift
+
+
+def frozen_model_checks(torch, dev, prompt_lens, steps: int = 20) -> None:
+    """``decode_streaming="frozen"`` on full-width Qwen2-7B, 2 layers,
+    ss_fused prefill then ``steps`` paged decode steps with the engine's
+    boundary rebases (seg 8: at least two per lane):
+
+    * fp32, the kernel route (K1 and K2 in the prefill; no K5: a frozen
+      tick reads no pool) against the plain route on the card: logits
+      within MODEL_TOL of max-abs;
+    * every frozen landmark row's BV (rows below the active one) against
+      an exact recompute over the lane's keys at 2e-4 absolute and
+      relative (the reference's tolerance,
+      ``tests/test_paged_serve.py:608``), on the 2 layers computed wholly
+      in float64 (plain route, ``float64_everywhere``, whole-prompt
+      replay prefill as the float64 witness of ``chunked_model_checks``
+      runs it: the ss_fused prefill keeps fp32 one-hot sums). In fp32 at full
+      width the scores are large and their rounding alone moves a streamed
+      BV by some 5e-3 (exact streaming as much as frozen; PERF.md), so the
+      fp32 figures of both modes are printed beside it, not held."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2, compute_dtype="float32",
+                              decode_streaming="frozen")
+    params = random_params(cfg, seed=0, device=dev)
+    before = launch_counts()
+    card, fed, st = drive_model(torch, params, cfg, dev, prompt_lens, steps=steps)
+    after = launch_counts()
+    ran = {k: after[k] - before[k] for k in SERVE_KERNELS}
+    if ran["landmark_summary"] <= 0 or ran["query_side"] <= 0 or ran["paged_row_stats"]:
+        raise AssertionError(f"frozen model: launches {ran}: K1 and K2 must run, K5 not")
+    rebases = st["rebases"]
+    if rebases < 2 * len(prompt_lens):
+        raise AssertionError(f"frozen model: {rebases} rebases, want two a lane at least")
+    fp32_frozen = frozen_bv_errs(torch, st, cfg)
+    with plain_route():
+        plain, _, _ = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed, steps=steps)
+    _, _, st_exact = drive_model(torch, params, dataclasses.replace(cfg, decode_streaming="exact"),
+                                 dev, prompt_lens, feed=fed, steps=steps)
+    fp32_exact = frozen_bv_errs(torch, st_exact, cfg)
+    del params, st, st_exact
+    torch.cuda.empty_cache()
+    errs = logit_errs(torch, "frozen model", card, plain, prompt_lens)
+
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    params = random_params(cfg64, seed=0, device=dev)
+    with plain_route(), float64_everywhere(torch):
+        _, _, st64 = drive_model(torch, params, cfg64, dev, prompt_lens, steps=steps,
+                                 prefill="replay", store_dtype=torch.float64)
+        f64 = frozen_bv_errs(torch, st64, cfg64)
+    del params, st64
+    torch.cuda.empty_cache()
+    log(f"model parity: qwen2-7b frozen streaming, 2 layers, prompts {prompt_lens}, "
+        f"{steps} paged decode steps, {rebases} lane rebases; launches K1 "
+        f"{ran['landmark_summary']} K2 {ran['query_side']} K5 {ran['paged_row_stats']}; "
+        f"fp32 kernel route vs plain route on the card: logit err of max-abs worst "
+        f"{max(errs):.2e} (tol {MODEL_TOL}); frozen rows' BV vs an exact recompute over "
+        f"the lane's keys, wholly in float64: |err| - 2e-4 |ref| worst {f64[0]:.2e} (tol "
+        f"2e-4), max |err| {f64[1]:.2e}, the drifting active row {f64[2]:.2e}; in fp32 "
+        f"(not held): frozen max |err| {fp32_frozen[1]:.2e} (excess {fp32_frozen[0]:.2e}, "
+        f"active row {fp32_frozen[2]:.2e}), exact streaming's streamed rows max |err| "
+        f"{fp32_exact[1]:.2e} (excess {fp32_exact[0]:.2e}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not max(errs) <= MODEL_TOL:
+        raise AssertionError(f"frozen model: logit err {max(errs):.3e} > {MODEL_TOL}")
+    if not f64[0] <= 2e-4:
+        raise AssertionError(f"frozen model: frozen rows' BV off the exact recompute by "
+                             f"{f64[0]:.3e} > 2e-4 (float64)")
 
 
 def position_errs(torch, a_runs, b_runs, seg: int) -> tuple:
@@ -1578,7 +1713,8 @@ def serve_phase(torch, dev, layers: int) -> dict:
     if missing:
         raise AssertionError(f"serve granite-20b: kernels never launched: {missing}")
     return {"serve": main["launches"], "serve_default_route": default["launches"],
-            "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers)}
+            "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers),
+            **serve_frozen_phase(torch, dev, layers)}
 
 
 TIGHT_BLOCKS = 32     # the least pool a 512-token lane allows (32 blocks of 16)
@@ -1611,11 +1747,7 @@ def serve_chunked_phase(torch, dev, layers: int) -> dict:
       partial hit resuming at 256), C (333, cold), C (an unaligned full hit:
       copy-on-write); hits 3, misses 2, cow_copies >= 1, and greedy tokens
       identical to a cold chunked engine fed the same sequence."""
-    import numpy as np
-
     from repro_torch.configs.base import ServeConfig
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve.engine import Request, ServeEngine
 
     cfg, params = serve_params(torch, dev, "qwen2-7b", layers, "chunked paths")
     chunked = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
@@ -1642,40 +1774,7 @@ def serve_chunked_phase(torch, dev, layers: int) -> dict:
     park = park_resume_run(torch, dev, tight_cfg, first_layers(params, tight_cfg.num_layers),
                            chunked)
 
-    rng = np.random.default_rng(0)
-    a = rng.integers(3, cfg.vocab_size, 384).tolist()
-    b = a[:256] + rng.integers(3, cfg.vocab_size, 77).tolist()
-    c = rng.integers(3, cfg.vocab_size, 333).tolist()
-    runs = {}
-    for name, serve in (("prefix", dataclasses.replace(chunked, prefix_cache=True)),
-                        ("cold", chunked)):
-        engine = ServeEngine(cfg, params, serve=serve, device=dev)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        outputs, ttft = {}, []
-        for uid, prompt in enumerate((a, a, b, c, c)):
-            engine.submit(Request(uid, list(prompt), max_new_tokens=16))
-            outputs.update(engine.run())
-            ttft.append(engine.sched.timing[uid].ttft_s)
-        seconds = time.perf_counter() - t0
-        runs[name] = dict(outputs=outputs, ttft=ttft, launches=launch_counts(),
-                          stats=engine.stats(), seconds=seconds,
-                          finished=len(outputs), engine=engine)
-        out = runs[name]
-        out["tokens"] = sum(len(v) for v in outputs.values())
-        st = out["stats"]
-        log(f"serve serve_prefix_cache ({name}): A A B C C one at a time, "
-            f"{out['tokens']} tokens in {seconds:.3f}s, TTFT ms per request "
-            f"{['%.1f' % (1e3 * t) for t in ttft]}, {st['chunks']} chunks, "
-            f"prefix {st.get('prefix')}, cow_copies {st['cow_copies']}, "
-            f"launches {out['launches']}")
-        check_served(torch, engine, out, f"serve_prefix_cache ({name})", 5)
-    del engine
-    prefix, cold = runs.pop("prefix"), runs.pop("cold")
-    del prefix["engine"], cold["engine"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    prefix, cold = prefix_runs(torch, dev, cfg, params, chunked, "serve_prefix_cache")
     st = prefix["stats"]
     if (st["prefix"]["hits"], st["prefix"]["misses"]) != (3, 2) or st["cow_copies"] < 1:
         raise AssertionError(f"serve_prefix_cache: prefix {st['prefix']}, cow_copies "
@@ -1689,6 +1788,56 @@ def serve_chunked_phase(torch, dev, layers: int) -> dict:
     torch.cuda.empty_cache()
     return {"serve_chunked": main["launches"], "serve_chunked_tight": tight["launches"],
             "serve_park_resume": park, "serve_prefix_cache": prefix["launches"]}
+
+
+def prefix_runs(torch, dev, cfg, params, chunked, label: str) -> tuple:
+    """The prefix path's sequence, one request at a time to completion, on
+    an engine with ``prefix_cache=True`` over ``chunked``'s settings and on
+    a cold ``chunked`` engine: A (384 tokens), A, B (A's first 256 + 77),
+    C (333), C, 16 new tokens each, launch counts reset just before each
+    engine. Returns (prefix run, cold run), each checked by
+    ``check_served``."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(3, cfg.vocab_size, 384).tolist()
+    b = a[:256] + rng.integers(3, cfg.vocab_size, 77).tolist()
+    c = rng.integers(3, cfg.vocab_size, 333).tolist()
+    runs = {}
+    for name, serve in (("prefix", dataclasses.replace(chunked, prefix_cache=True)),
+                        ("cold", chunked)):
+        engine = ServeEngine(cfg, params, serve=serve, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outputs, ttft = {}, []
+        for uid, prompt in enumerate((a, a, b, c, c)):
+            engine.submit(Request(uid, list(prompt), max_new_tokens=16))
+            outputs.update(engine.run())
+            ttft.append(engine.sched.timing[uid].ttft_s)
+        seconds = time.perf_counter() - t0
+        out = runs[name] = dict(outputs=outputs, ttft=ttft, launches=launch_counts(),
+                                stats=engine.stats(), seconds=seconds,
+                                finished=len(outputs))
+        out["tokens"] = sum(len(v) for v in outputs.values())
+        st = out["stats"]
+        log(f"serve {label} ({name}): {cfg.num_layers} layers, "
+            f"decode_streaming={cfg.decode_streaming}, A A B C C one at a time, "
+            f"{out['tokens']} tokens in {seconds:.3f}s, TTFT ms per request "
+            f"{['%.1f' % (1e3 * t) for t in ttft]}, {st['chunks']} chunks, "
+            f"prefix {st.get('prefix')}, cow_copies {st['cow_copies']}"
+            + (f", rebases {st['rebases']}" if "rebases" in st else "")
+            + f", launches {out['launches']}, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        check_served(torch, engine, out, f"{label} ({name})", 5)
+        del engine
+        gc.collect()
+    torch.cuda.empty_cache()
+    return runs["prefix"], runs["cold"]
 
 
 def park_resume_run(torch, dev, cfg, params, serve) -> dict:
@@ -1749,6 +1898,187 @@ def park_resume_run(torch, dev, cfg, params, serve) -> dict:
                              f"{parked['launches']} vs {cold['launches']}")
     log("serve serve_park_resume: greedy tokens and launches identical to the cold run")
     return parked["launches"]
+
+
+CHAOS_LAYERS = 8      # depth cut of the chaos, guard and frozen prefix runs
+# The chaos soak's four plans (``tests/test_chaos.py:416``), at seed 0.
+CHAOS_PLANS = {
+    "alloc": (("alloc_fail", dict(rate=0.15)), ("fragment", dict(rate=0.5))),
+    "stall": (("admission_stall", dict(start_tick=3, end_tick=10)),
+              ("tick_delay", dict(rate=0.2, param=1e-4))),
+    "drop": (("drop_sample", dict(rate=0.1)),),
+    "cache": (("hash_collision", dict(rate=0.5)),
+              ("evict_storm", dict(rate=0.25, param=2))),
+}
+
+
+def assert_no_leaks(engine, label: str) -> None:
+    """After drain the free list and the referenced blocks partition the
+    pool, no table is left, and every surviving reference is a
+    prefix-cache retention (``tests/test_chaos.py:_assert_no_leaks``)."""
+    alloc = engine.sched.allocator
+    free, refed = alloc._free, set(alloc.refcounts)
+    cache_refs = engine.prefix._cache_refs if engine.prefix is not None else {}
+    if (alloc.tables or len(free) != len(set(free)) or not refed.isdisjoint(free)
+            or refed | set(free) != set(range(1, alloc.num_blocks))
+            or any(alloc.refcounts[b] != cache_refs.get(b, 0) for b in refed)):
+        raise AssertionError(f"{label}: leaked blocks: tables {alloc.tables}, "
+                             f"refcounts {alloc.refcounts}, free {len(free)}")
+
+
+def traced_run(torch, dev, cfg, params, serve, trace, label: str, plan=None) -> dict:
+    """``trace`` through ``replay_trace`` on a fresh engine (chaos ``plan``
+    if given), launch counts reset just before; the engine must drain with
+    every uid ``finished`` and no block leaked."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.workload import replay_trace
+
+    engine = ServeEngine(cfg, params, serve=serve, device=dev, chaos=plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    replay_trace(engine, trace, max_ticks=4000)
+    seconds = time.perf_counter() - t0
+    st = engine.stats()
+    out = dict(outputs=dict(engine.finished), launches=launch_counts(), stats=st,
+               seconds=seconds, finished=len(engine.finished))
+    out["tokens"] = sum(len(v) for v in out["outputs"].values())
+    ttft = st["ttft_s"]
+    log(f"serve {label}: {cfg.num_layers} layers, {len(trace)} requests, "
+        f"{out['tokens']} tokens in {seconds:.3f}s ({out['tokens'] / seconds:.1f} tok/s), "
+        f"TTFT mean {1e3 * sum(ttft) / max(len(ttft), 1):.1f} ms, {st['ticks']} ticks "
+        f"({1e3 * seconds / max(st['ticks'], 1):.1f} ms per tick), injections "
+        f"{st.get('chaos_injections')}, preemptions {st['preemptions']}, parks "
+        f"{st['parks']}, watchdog fires {st['watchdog_fires']}, launches "
+        f"{out['launches']}, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    if not engine.sched.idle:
+        raise AssertionError(f"{label}: the engine did not drain")
+    bad = {it.uid: engine.outcomes.get(it.uid) for it in trace
+           if engine.outcomes.get(it.uid) != "finished"}
+    if bad:
+        raise AssertionError(f"{label}: outcomes other than finished: {bad}")
+    assert_no_leaks(engine, label)
+    check_served(torch, engine, out, label, len(trace))
+    del engine
+    gc.collect()
+    return out
+
+
+def serve_frozen_phase(torch, dev, layers: int) -> dict:
+    """Phase 4's frozen-streaming and chaos paths on full-width qwen2-7b
+    (one draw of weights), each with its launch counts reset just before:
+
+    * ``serve_frozen``: the main path's model, depth and settings with
+      ``decode_streaming="frozen"``: K1 and K2 launch, K5 never (a frozen
+      tick reads no pool); boundary rebases and their ms;
+    * ``serve_frozen_chunked_prefix`` (CHAOS_LAYERS layers): frozen with
+      ``chunked_prefill`` (chunks of 128) and ``prefix_cache`` over the
+      prefix path's A A B C C: hits 3, misses 2, tokens identical to a
+      cold frozen chunked engine, K5 never;
+    * ``serve_chaos`` (CHAOS_LAYERS layers, exact streaming,
+      ``chunked_prefill`` + ``prefix_cache`` + ``watchdog_ticks=16``): a
+      seeded Poisson trace, fault-free and then under each of the chaos
+      soak's four plans at seed 0: every run drains, every uid finishes,
+      no block leaks, at least one injection, tokens identical to the
+      fault-free run's;
+    * ``serve_guard`` (CHAOS_LAYERS layers, frozen, ``numerics_guard``): a
+      ``nan_stats`` rule on lane 0 at ticks 3-4 walks the ladder
+      (quarantines 2, demotions 1); the demoted lane runs the exact program
+      through K5, so K5 > 0; the other requests' tokens identical to the
+      fault-free run's."""
+    import numpy as np
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import chaos
+    from repro_torch.serve.workload import TraceItem, poisson_trace
+
+    cfg, params = serve_params(torch, dev, "qwen2-7b", layers, "frozen paths")
+    frozen_cfg = dataclasses.replace(cfg, decode_streaming="frozen")
+    main_serve = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                             decode_impl="paged", seed=0)
+    frozen = serve_run(torch, dev, "qwen2-7b", layers, main_serve, "serve_frozen",
+                       params=(frozen_cfg, params))
+    st, ran = frozen["stats"], frozen["launches"]
+    log(f"serve serve_frozen: {st['rebases']} lane rebases, "
+        f"{1e3 * st['rebase_s'] / max(st['rebases'], 1):.2f} ms each (rebase wall "
+        f"{1e3 * st['rebase_s']:.1f} ms), "
+        f"{1e3 * st['decode_s'] / max(st['decode_ticks'], 1):.1f} ms per decode tick")
+    if ran["landmark_summary"] <= 0 or ran["query_side"] <= 0 or ran["paged_row_stats"]:
+        raise AssertionError(f"serve_frozen: launches {ran}: K1 and K2 must run, K5 not")
+    if st["rebases"] <= 0:
+        raise AssertionError("serve_frozen: no boundary rebase ran")
+
+    n = min(CHAOS_LAYERS, layers)
+    cfg8, frozen8, params8 = (dataclasses.replace(cfg, num_layers=n),
+                              dataclasses.replace(frozen_cfg, num_layers=n),
+                              first_layers(params, n))
+    chunked = dataclasses.replace(main_serve, chunked_prefill=True, prefill_chunk_tokens=128)
+    prefix, cold = prefix_runs(torch, dev, frozen8, params8, chunked,
+                               "serve_frozen_chunked_prefix")
+    pst = prefix["stats"]
+    if (pst["prefix"]["hits"], pst["prefix"]["misses"]) != (3, 2):
+        raise AssertionError(f"serve_frozen_chunked_prefix: prefix {pst['prefix']}: "
+                             f"want hits 3, misses 2")
+    if prefix["outputs"] != cold["outputs"]:
+        raise AssertionError(f"serve_frozen_chunked_prefix: tokens differ from the cold "
+                             f"frozen chunked run: {prefix['outputs']} vs {cold['outputs']}")
+    if prefix["launches"]["paged_row_stats"] or cold["launches"]["paged_row_stats"]:
+        raise AssertionError("serve_frozen_chunked_prefix: K5 launched on a frozen path")
+    log("serve serve_frozen_chunked_prefix: greedy tokens identical to the cold frozen "
+        "chunked run")
+
+    soak = dataclasses.replace(chunked, prefix_cache=True, watchdog_ticks=16)
+    trace = poisson_trace(seed=0, n_requests=6, mean_interarrival_ticks=2,
+                          prompt_lens=tuple(SERVE_LENS[:3]), vocab_size=cfg.vocab_size,
+                          max_new_tokens=16)
+    clean = traced_run(torch, dev, cfg8, params8, soak, trace, "serve_chaos (fault-free)")
+    chaos_launches = {}
+    for name, rules in CHAOS_PLANS.items():
+        plan = chaos.FaultPlan(seed=0, rules=tuple(chaos.FaultRule(site, **kw)
+                                                   for site, kw in rules))
+        out = traced_run(torch, dev, cfg8, params8, soak, trace,
+                         f"serve_chaos ({name})", plan=plan)
+        if out["stats"]["chaos_injections"] <= 0:
+            raise AssertionError(f"serve_chaos ({name}): no fault was injected")
+        if out["outputs"] != clean["outputs"]:
+            raise AssertionError(f"serve_chaos ({name}): tokens differ from the "
+                                 f"fault-free run: {out['outputs']} vs {clean['outputs']}")
+        for k, v in out["launches"].items():
+            chaos_launches[k] = chaos_launches.get(k, 0) + v
+    log("serve serve_chaos: every plan drained with every request finished, no leaked "
+        "block, tokens identical to the fault-free run")
+
+    guard_serve = dataclasses.replace(main_serve, numerics_guard=True)
+    rng = np.random.default_rng(0)
+    guard_trace = [TraceItem(uid, 0, tuple(rng.integers(3, cfg.vocab_size, n).tolist()), 16)
+                   for uid, n in enumerate(SERVE_LENS)]
+    fault_free = traced_run(torch, dev, frozen8, params8, guard_serve, guard_trace,
+                            "serve_guard (fault-free)")
+    plan = chaos.FaultPlan(rules=(chaos.FaultRule("nan_stats", lane=0, start_tick=3,
+                                                  end_tick=4),))
+    guard = traced_run(torch, dev, frozen8, params8, guard_serve, guard_trace,
+                       "serve_guard", plan=plan)
+    gst = guard["stats"]
+    log(f"serve serve_guard: quarantines {gst['quarantines']}, demotions "
+        f"{gst['demotions']}, K5 launches {guard['launches']['paged_row_stats']} (the "
+        f"fault-free frozen run: {fault_free['launches']['paged_row_stats']})")
+    if gst["quarantines"] < 1 or gst["demotions"] != 1:
+        raise AssertionError(f"serve_guard: quarantines {gst['quarantines']}, demotions "
+                             f"{gst['demotions']}: want >= 1 and 1")
+    if guard["launches"]["paged_row_stats"] <= 0 or fault_free["launches"]["paged_row_stats"]:
+        raise AssertionError("serve_guard: K5 must run for the demoted lane only")
+    demoted = {uid for uid in guard["outputs"]
+               if guard["outputs"][uid] != fault_free["outputs"][uid]}
+    if len(demoted) > 1:
+        raise AssertionError(f"serve_guard: requests {sorted(demoted)} differ from the "
+                             f"fault-free run; only the demoted one may")
+    del params, params8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve_frozen": ran, "serve_frozen_chunked_prefix": prefix["launches"],
+            "serve_chaos": chaos_launches, "serve_guard": guard["launches"]}
 
 
 # --------------------------------------------------------------------------

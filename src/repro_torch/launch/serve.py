@@ -14,12 +14,16 @@ continuous-batching tick with prompt chunks of N tokens (0, the default,
 keeps the two-phase engine) and ``--prefix-cache`` turns on the prefix
 cache (which rides the chunked tick); the summary then gives the ms per
 tick of ticks that ran chunks and of ticks that did not, apart.
+``--decode-streaming exact|frozen|recompute`` picks the decode state's
+policy (default exact); under frozen the summary adds the boundary
+rebases and their ms each.
 ``--reduced`` serves the reduced test config, ``--device cpu`` runs the
 kernels' plain versions instead. Weights and prompts come from seed 0.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -69,13 +73,15 @@ def serve_requests(engine: ServeEngine, prompt_lens, max_new: int,
             "chunk_tick_s": stats["chunk_tick_s"], "plain_ticks": stats["plain_ticks"],
             "plain_tick_s": stats["plain_tick_s"], "parked": stats["parked"],
             "cow_copies": stats["cow_copies"], "prefix": stats.get("prefix"),
+            "rebases": stats.get("rebases"), "rebase_s": stats.get("rebase_s"),
             "outputs": outputs}
 
 
 def tick_summary(out: dict) -> str:
     """The engine's decode route and timing, in words: for the chunked
     tick the ms per tick of ticks that ran chunks and of the rest apart,
-    else the whole-prompt prefill seconds and the decode ticks."""
+    else the whole-prompt prefill seconds and the decode ticks; under
+    frozen streaming also the boundary rebases and their ms each."""
     if out["mode"].endswith("chunked-prefill"):
         chunk_ms = 1e3 * out["chunk_tick_s"] / max(out["chunk_ticks"], 1)
         plain_ms = 1e3 * out["plain_tick_s"] / max(out["plain_ticks"], 1)
@@ -84,9 +90,13 @@ def tick_summary(out: dict) -> str:
                 f"{plain_ms:.1f} ms per tick")
         if out["prefix"] is not None:
             text += f"; prefix {out['prefix']}, cow_copies={out['cow_copies']}"
-        return text
-    return (f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
-            f"{out['decode_s']:.3f}s")
+    else:
+        text = (f"prefill {out['prefill_s']:.3f}s, {out['decode_ticks']} decode ticks "
+                f"{out['decode_s']:.3f}s")
+    if out["rebases"] is not None:
+        text += (f", {out['rebases']} rebases "
+                 f"{1e3 * out['rebase_s'] / max(out['rebases'], 1):.2f} ms each")
+    return text
 
 
 # Device-activity categories of ``profile_top``, by kernel-name fragment
@@ -154,6 +164,10 @@ def main(argv=None):
                          "chunk (0: the two-phase engine)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="the prefix cache (ServeConfig(prefix_cache=True))")
+    ap.add_argument("--decode-streaming", default="exact",
+                    choices=("exact", "frozen", "recompute"),
+                    help="ModelConfig.decode_streaming: frozen streams every "
+                         "landmark row and rebases at segment boundaries")
     ap.add_argument("--profile", action="store_true",
                     help="run under torch.profiler and print the device's "
                          "busy share of that same run and its costliest "
@@ -161,7 +175,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch),
+                              decode_streaming=args.decode_streaming)
     if args.reduced:
         cfg = reduced(cfg)
     serve = ServeConfig(max_lanes=args.lanes, max_seq=args.max_seq,

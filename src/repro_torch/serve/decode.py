@@ -14,9 +14,15 @@ step (``PagedKVCache.make_paged_step`` / ``make_fused_step``).
   (B, Hkv, S, Dh), gathered from the pools or the lane-dense storage
   itself; the current token is written into a copy of the view at
   ``pos`` (``_update_seq``) and attention reads the view. It serves every
-  ``decode_streaming`` mode the port runs: exact (the active row
-  recomputed over the view), and recompute (``ss_decode_attention``, the
-  whole landmark-to-key softmax rebuilt each tick).
+  ``decode_streaming`` mode: exact (the active row recomputed over the
+  view), frozen, and recompute (``ss_decode_attention``, the whole
+  landmark-to-key softmax rebuilt each tick), which only this route
+  serves.
+
+A ``decode_streaming="frozen"`` step reads neither the pools nor a view
+for its spectral-shift core on either route (K5 never launches): it
+touches the lane-dense state and the new token only. The engine rebases
+the frozen rows at segment boundaries (``decode_state.rebase_layer``).
 
 Cache layout consumed here: ``cache["pos"]`` (B,) int32 and
 ``cache["layers"]`` with ``k``/``v`` either pools (L, Hkv, num_blocks, bs,
@@ -198,10 +204,13 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
     new.update((name, cache[name]) for name in STREAM_LEAVES)
     scale = dh**-0.5
     paged = table is not None
+    # a frozen tick reads nothing of the horizon: no K5, no view
+    frozen = (cfg.decode_attention_impl == "spectral_shift"
+              and cfg.decode_streaming == "frozen")
     if paged:
         k_pool, v_pool = cache["k"], cache["v"]
         k_new_g, v_new_g = k[:, :, 0], v[:, :, 0]           # raw kv heads
-    else:
+    elif not frozen:
         k_view = _update_seq(cache["k"], k, pos)
         v_view = _update_seq(cache["v"], v, pos)
     if cfg.decode_attention_impl == "spectral_shift":
@@ -218,9 +227,13 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
             k_new = _broadcast_kv(k, cfg.num_heads)[:, :, 0]    # (B, H, d)
             v_new = _broadcast_kv(v, cfg.num_heads)[:, :, 0]
             stats = tuple(cache[name] for name in STREAM_LEAVES)
-            stats_fn = (_paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g,
-                                               table, block_size, pos, scale)
-                        if paged else _view_active_stats_fn(k_view, v_view, pos, scale))
+            if frozen:
+                stats_fn = None
+            elif paged:
+                stats_fn = _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g,
+                                                  table, block_size, pos, scale)
+            else:
+                stats_fn = _view_active_stats_fn(k_view, v_view, pos, scale)
             out, new_stats = ss_decode_attention_streaming(
                 q, k_new, v_new, new["q_lmk"], k_lmk, stats, pos, cfg, scale,
                 seq_max, stats_fn)

@@ -1,13 +1,21 @@
 """Streaming decode state: per-landmark online-softmax stats in the cache
-(``repro/serve/decode_state.py``, ``decode_streaming="exact"``).
+(``repro/serve/decode_state.py``).
 
 The cache carries, per landmark row r, the partial state
 ``bv_m`` (m_r), ``bv_l`` (l_r = sum_j exp(s_rj - m_r)) and ``bv_acc``
 (sum_j exp(s_rj - m_r) v_j), so ``BV[r] = acc_r / l_r``. Each decode tick
-flash-appends the new key/value to every reached row and recomputes the
-active segment's row exactly (its landmark mean still moves) through the
-``active_stats_fn`` hook, which the paged route backs with kernel K5
-and the gather route with a recompute over its dense views.
+flash-appends the new key/value to every reached row. The active segment's
+row, whose landmark mean still moves with each token, is handled by
+``ModelConfig.decode_streaming``:
+
+* ``"exact"``: recomputed exactly every tick through the
+  ``active_stats_fn`` hook, which the paged route backs with kernel K5
+  and the gather route with a recompute over its dense views;
+* ``"frozen"``: streamed like the others (each key scored with the mean
+  current when it was appended), and rebased (recomputed exactly) when a
+  lane's write position crosses a segment boundary: ``rebase_layer``,
+  which the engine runs through ``PagedKVCache.make_rebase_step``. A
+  frozen tick reads no key or value of the horizon.
 
 Lanes are the batch axis B and each lane has its own position, so
 ``pos`` is a (B,) tensor and every landmark count, mask and active-row
@@ -125,6 +133,29 @@ def rebase_span(stats, q_l, k, v, pos: int, scale: float, row_lo: int,
     return out
 
 
+def rebase_rows(stats, q_l, k, v, pos, scale: float, rows: torch.Tensor):
+    """Exactly recompute the partial state of the distinct landmark rows
+    ``rows`` ((R,), or (B, R): per lane) over keys 0..pos (an int, or per
+    lane (B,)); other rows pass through unchanged (``decode_state.py:155``).
+    stats (m, l, acc) (B, H, c, 1|dv); q_l (B, H, c, d); k/v (B, Hkv, S,
+    d/dv) with Hkv dividing H: each query head's rows are scored against
+    its kv head, as the reference's ``_broadcast_kv`` pairs them, without
+    a head-broadcast copy of the horizon."""
+    b, h, c, d = q_l.shape
+    hkv = k.shape[1]
+    rows = rows.long().expand(b, -1) if rows.dim() == 1 else rows.long()
+    r = rows.shape[1]
+    sel = rows[:, None, :, None]                            # (B, 1, R, 1)
+    q_sel = torch.gather(q_l, 2, sel.expand(b, h, r, d))    # (B, H, R, d)
+    fresh = recompute_stats(q_sel.reshape(b, hkv, (h // hkv) * r, d), k, v, pos,
+                            scale)
+    out = []
+    for old, new in zip(stats, fresh):
+        new = new.reshape(b, h, r, new.shape[-1])
+        out.append(old.float().scatter(2, sel.expand(b, h, r, new.shape[-1]), new))
+    return tuple(out)
+
+
 def mask_stats_rows(stats, keep: torch.Tensor):
     """Zero the partial state of rows where ``keep`` (c,) is False."""
     km = keep[:, None]
@@ -171,6 +202,36 @@ def reseed_layer(cfg, lcache: dict, pos, seq_max: int) -> dict:
     return dict(lcache, bv_m=m, bv_l=l, bv_acc=acc)
 
 
+def rebase_layer(cfg, lcache: dict, pos, seq_max: int) -> dict:
+    """The frozen-mode boundary rebase of one layer (``_rebase_attn_layer``
+    :327). ``pos`` (B,) is each lane's boundary position just written (pos
+    % seg == 0, pos > 0): row active - 1 just froze with its final landmark
+    mean, so it is recomputed to clear the drift its active phase gathered,
+    and row active is founded over keys 0..pos so later appends extend an
+    exact base. ``lcache`` as ``reseed_layer`` takes it."""
+    c = cfg.num_landmarks
+    counts = landmark_counts(pos, seq_max, c)
+    q_l = landmark_means(lcache["q_lmk"], counts)
+    active = pos.long() // segment_len(seq_max, c)
+    rows = torch.stack([torch.clamp(active - 1, min=0), active], dim=1)
+    m, l, acc = rebase_rows(tuple(lcache[name] for name in STREAM_LEAVES), q_l,
+                            lcache["k"], lcache["v"], pos,
+                            cfg.resolved_head_dim ** -0.5, rows)
+    return dict(lcache, bv_m=m, bv_l=l, bv_acc=acc)
+
+
+def make_rebase_fn(cfg, seq_max: int):
+    """Boundary-rebase closure ``fn(layers, pos) -> layers`` over a list of
+    per-layer lane-batched caches (``make_rebase_fn`` :385, with
+    ``rebase_streaming`` :362's walk over the layers), for
+    ``PagedKVCache.make_rebase_step``."""
+
+    def fn(layers, pos):
+        return [rebase_layer(cfg, lc, pos, seq_max) for lc in layers]
+
+    return fn
+
+
 def make_reseed_fn(cfg, seq_max: int):
     """Attach-reseed closure ``fn(layers, pos) -> layers`` over a list of
     per-layer lane-batched caches (``make_reseed_fn`` :509), for
@@ -184,21 +245,26 @@ def make_reseed_fn(cfg, seq_max: int):
 
 def ss_decode_attention_streaming(q, k_new, v_new, q_lmk_sum, k_lmk_sum,
                                   stats, pos, cfg, scale: float, seq_max: int,
-                                  active_stats_fn):
-    """One spectral-shift decode step with streamed B-side state, exact
-    mode (``decode_state.py:217``).
+                                  active_stats_fn=None):
+    """One spectral-shift decode step with streamed B-side state
+    (``decode_state.py:217``), in ``cfg.decode_streaming``'s mode.
 
     q (B, H, 1, d); k_new/v_new (B, H, d) this tick's key/value (heads
     broadcast); q_lmk_sum/k_lmk_sum (B, H, c, d) updated running sums;
     stats the pre-append (bv_m, bv_l, bv_acc); pos (B,) the current token's
-    index per lane. ``active_stats_fn(q_act (B, H, 1, d))`` returns the
-    exact partials of the active landmark row over keys 0..pos: K5 over the
-    pools on the paged route, ``recompute_stats`` over the dense views on
-    the gather route (``serve/decode.py``). Returns
-    ``(out (B, H, 1, dv), (m, l, acc))``."""
-    if cfg.decode_streaming != "exact":
-        raise NotImplementedError(
-            f"decode_streaming={cfg.decode_streaming!r} is not ported yet")
+    index per lane. In ``"exact"`` mode ``active_stats_fn(q_act (B, H, 1,
+    d))`` returns the exact partials of the active landmark row over keys
+    0..pos: K5 over the pools on the paged route, ``recompute_stats`` over
+    the dense views on the gather route (``serve/decode.py``). A
+    ``"frozen"`` step streams the active row too and takes no hook: it
+    reads nothing of the horizon. Returns ``(out (B, H, 1, dv), (m, l,
+    acc))``."""
+    mode = cfg.decode_streaming
+    if mode not in ("exact", "frozen"):
+        raise ValueError(f"unknown decode_streaming mode {mode!r}; want 'exact' or "
+                         f"'frozen' (or route 'recompute' to ss_decode_attention)")
+    if mode == "exact" and active_stats_fn is None:
+        raise ValueError("exact mode needs active_stats_fn")
     b, h, c, d = q_lmk_sum.shape
     counts = landmark_counts(pos, seq_max, c)
     valid = counts > 0                                      # (B, c)
@@ -221,13 +287,14 @@ def ss_decode_attention_streaming(q, k_new, v_new, q_lmk_sum, k_lmk_sum,
     active = pos.long() // segment_len(seq_max, c)          # (B,)
     m, l, acc = stream_append(stats, q_l, k_new, v_new, scale,
                               row_mask=rows[None, :] <= active[:, None])
-    # The active segment's mean moved with this token: recompute that row.
-    q_act = torch.gather(q_l, 2, active[:, None, None, None].expand(b, h, 1, d))
-    m_a, l_a, acc_a = active_stats_fn(q_act)
-    hit = (rows[None, :] == active[:, None])[:, None, :, None]  # (B, 1, c, 1)
-    m = torch.where(hit, m_a, m)
-    l = torch.where(hit, l_a, l)
-    acc = torch.where(hit, acc_a, acc)
+    if mode == "exact":
+        # The active segment's mean moved with this token: recompute that row.
+        q_act = torch.gather(q_l, 2, active[:, None, None, None].expand(b, h, 1, d))
+        m_a, l_a, acc_a = active_stats_fn(q_act)
+        hit = (rows[None, :] == active[:, None])[:, None, :, None]  # (B, 1, c, 1)
+        m = torch.where(hit, m_a, m)
+        l = torch.where(hit, l_a, l)
+        acc = torch.where(hit, acc_a, acc)
 
     bv = acc / torch.clamp(l, min=1e-30)
     out = torch.einsum("bhqc,bhcd->bhqd", f,

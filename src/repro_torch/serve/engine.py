@@ -32,16 +32,39 @@ sample boundary. ``prefix_cache=True`` (paged storage only; with
 blocks into a request's table: a full hit emits its first token from the
 cached logits, a partial hit resumes chunked prefill at a cached
 block-aligned boundary, and a shared partial block is copied before the
-first divergent write. Frozen streaming, telemetry, chaos, deadlines,
-``max_queue``, the numerics guard and the watchdog are not ported; the
-constructor rejects them.
+first divergent write.
+
+``decode_streaming="frozen"`` ticks stream every landmark row (no K5, no
+horizon read); after the emit, each lane whose just-written position
+starts a new landmark segment is rebased (``decode_state.rebase_layer``
+over a gathered view: plain torch, no kernel), in both ticks.
+
+The request lifecycle and recovery ladder (``engine.py:195-231``,
+``:495-558``, ``:823-1087``): ``submit`` returns False when ``max_queue``
+rejects; ``cancel`` and ``Request.deadline_ticks`` end a request wherever
+it is, releasing every block, pin and snapshot it holds; ``outcomes``
+records each uid's one terminal state (finished / cancelled / rejected /
+deadline_expired). A ``FaultPlan`` (``serve/chaos.py``) injects faults at
+the reference's sites in the reference's order, so a plan fires on the
+same opportunities in both engines. ``numerics_guard`` scans each
+decoded lane: NaN streaming stats quarantine it (every stats row
+reseeded exactly from its K/V), non-finite logits replay-preempt it, and
+after ``numerics_demote_after`` trips a frozen lane is demoted to the
+exact program (on the paged route K5 runs for it). ``watchdog_ticks``
+arms the no-progress watchdog: reclaim parked blocks, then preempt the
+youngest lane, then raise ``EngineStalled``. Telemetry (the flight
+recorder, the metrics registry, the drift and spectrum monitors, the
+numerics probe) is not ported: the constructor refuses it, and the
+counters are plain values in ``stats()``.
 
 Host syncs of the chunked tick on CUDA, besides the one at the sample
 boundary: the decode step's commit (``PagedKVCache._commit``,
 ``torch.nonzero``), every upload of a host array (tables, tokens,
 positions: pageable copies), and the stat-point snapshots taken while a
 prefill runs with the prefix cache on. The first means chunk dispatch
-does not overlap the decode step.
+does not overlap the decode step. A frozen rebase ends in a sync (its
+time is ``stats()["rebase_s"]``), and the numerics guard syncs once per
+tick for its scan of the streaming stats.
 
 Runs on CUDA unless the caller passes ``device="cpu"`` (the kernels' plain
 versions then run instead); asking for CUDA without a GPU raises.
@@ -59,8 +82,10 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.kernels import MAX_HEAD_DIM
 from repro_torch.models.model import working_params
+from repro_torch.serve.chaos import ChaosInjector, EngineStalled, FaultPlan
 from repro_torch.serve.decode import decode_step
-from repro_torch.serve.decode_state import make_reseed_fn
+from repro_torch.serve.decode_state import (STREAM_LEAVES, make_rebase_fn,
+                                            make_reseed_fn, segment_len)
 from repro_torch.serve.paged import BlockAllocator, PagedKVCache, PrefixCache
 from repro_torch.serve.prefill import batched_prefill, make_chunk_prefill_fn
 from repro_torch.serve.scheduler import Scheduler
@@ -75,6 +100,9 @@ class Request:
     # streamed-token callback: on_token(uid, token) fires as each token is
     # sampled, inside the tick
     on_token: Optional[object] = None
+    # tick budget from submission: past it the request ends with outcome
+    # "deadline_expired" wherever it is and releases all it holds. 0: none
+    deadline_ticks: int = 0
 
 
 @dataclasses.dataclass
@@ -118,11 +146,7 @@ def tree_to(tree, device):
 def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device) -> None:
     unsupported = {
         "family != 'dense'": cfg.family != "dense" or cfg.mla or cfg.moe,
-        "decode_streaming='frozen'": cfg.decode_streaming not in ("exact", "recompute"),
         "telemetry": serve.telemetry,
-        "numerics_guard": serve.numerics_guard,
-        "max_queue": serve.max_queue > 0,
-        "watchdog_ticks": serve.watchdog_ticks > 0,
         # every kernel takes head dims up to MAX_HEAD_DIM (not MLA's
         # 576/512): refused here, not on the first tick
         f"head_dim {cfg.resolved_head_dim} > {MAX_HEAD_DIM} on CUDA":
@@ -135,7 +159,8 @@ def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device)
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
-                 serve: Optional[ServeConfig] = None, device="cuda"):
+                 serve: Optional[ServeConfig] = None, device="cuda",
+                 chaos: Optional[FaultPlan] = None):
         serve = serve or ServeConfig()
         self.device = resolve_device(device)
         _check_supported(cfg, serve, self.device)
@@ -169,7 +194,8 @@ class ServeEngine:
         bs = serve.block_size
         self._chunk = min(-(-serve.prefill_chunk_tokens // bs) * bs, self.max_seq)
         self.sched = Scheduler(alloc, self.max_lanes, serve.blocks_per_lane,
-                               chunk_tokens=self._chunk if self._chunked else 0)
+                               chunk_tokens=self._chunk if self._chunked else 0,
+                               max_queue=serve.max_queue)
         self.sched.requeue_cb = self._on_preempt
         if self._chunked:
             self.sched.park_cb = self._park_lane
@@ -181,6 +207,32 @@ class ServeEngine:
             self.sched.prefix_probe = self._prefix_probe
             self.sched.cow_cb = self.kv.copy_block
             self._probe_pins: dict[int, object] = {}  # uid -> soft-pinned entry
+
+        # Terminal outcomes: every submitted uid ends in exactly one of
+        # finished / cancelled / rejected / deadline_expired. Guard and
+        # watchdog state beside them (``engine.py:195``).
+        self.outcomes: dict[int, str] = {}
+        self._deadlines: dict[int, int] = {}     # uid -> expiry tick
+        self._guard_trips: dict[int, int] = {}   # uid -> guard hits
+        self._demoted: set[int] = set()          # uids pinned to exact mode
+        self._exact_step = None                  # built at the first demotion
+        self._progress = True
+        self._stall_ticks = self._wd_interventions = 0
+        self._wd_fired_tick: Optional[int] = None
+        self.quarantines = self.demotions = self.watchdog_fires = 0
+        # ticks from a watchdog intervention to restored progress
+        self.recovery_ticks: list[int] = []
+        # one injector for every site, so the per-tick ordinals (and with
+        # them the whole schedule) replay from (plan.seed, tick)
+        self.chaos = None
+        if chaos is not None:
+            self.chaos = ChaosInjector(chaos)
+            self.sched.chaos = self.chaos
+            if alloc is not None:
+                alloc.chaos = self.chaos
+            if self.prefix is not None:
+                self.prefix.chaos = self.chaos
+
         # Decode route (``engine.py:296-328``): recompute-mode spectral shift
         # rebuilds the dense B matrix, so only the gather route serves it.
         paged_ok = self.kv.paged and not (
@@ -188,36 +240,60 @@ class ServeEngine:
             and cfg.decode_streaming == "recompute")
         self.decode_impl = ("paged" if serve.decode_impl == "paged" and paged_ok
                             else "gather")
-        if self.decode_impl == "paged":
-            self._step = self.kv.make_paged_step(
-                lambda cache, tokens, table: decode_step(
-                    self.params, cfg, cache, tokens, seq_max=self.max_seq,
-                    paged_table=table, block_size=bs))
-        else:
-            self._step = self.kv.make_fused_step(
-                lambda cache, tokens: decode_step(self.params, cfg, cache, tokens,
-                                                  seq_max=self.max_seq))
+        self._step = self._make_step(cfg)
         self.batched = serve.batched_prefill
         if self._chunked:
             self._chunk_step = self.kv.make_chunk_step(
                 make_chunk_prefill_fn(self.params, cfg, seq_max=self.max_seq,
                                       stats_impl=serve.prefill_impl), self._chunk)
+        # the streaming stats exist (exact / frozen spectral shift): they
+        # can be reseeded from K/V and the guard scans them
+        self._streams = (cfg.decode_attention_impl == "spectral_shift"
+                         and cfg.decode_streaming in ("exact", "frozen"))
+        # frozen: the boundary rebase after the emit (``engine.py:330``)
+        self._seg = segment_len(self.max_seq, cfg.num_landmarks)
+        self.rebases = 0
+        self.rebase_s = 0.0
+        self._frozen_rebase = self._streams and cfg.decode_streaming == "frozen"
+        if self._frozen_rebase:
+            self._rebase_step = self.kv.make_rebase_step(make_rebase_fn(cfg, self.max_seq))
         # "recompute" attach: every stats row re-derived from the shared K/V
         self._reseed_step = None
-        if (self._prefix_enabled and serve.prefix_attach == "recompute"
-                and cfg.decode_attention_impl == "spectral_shift"
-                and cfg.decode_streaming == "exact"):
-            self._reseed_step = self.kv.make_rebase_step(
-                make_reseed_fn(cfg, self.max_seq))
+        if self._prefix_enabled and serve.prefix_attach == "recompute" and self._streams:
+            self._ensure_reseed_step()
         # bucket rounded up to a block multiple so prefill writes whole blocks
         self._bucket = -(-serve.prefill_bucket // bs) * bs
 
+    def _make_step(self, cfg: ModelConfig):
+        """The decode tick of ``cfg`` on the engine's route."""
+        if self.decode_impl == "paged":
+            return self.kv.make_paged_step(
+                lambda cache, tokens, table: decode_step(
+                    self.params, cfg, cache, tokens, seq_max=self.max_seq,
+                    paged_table=table, block_size=self.serve.block_size))
+        return self.kv.make_fused_step(
+            lambda cache, tokens: decode_step(self.params, cfg, cache, tokens,
+                                              seq_max=self.max_seq))
+
     # -- public API ----------------------------------------------------------
-    def submit(self, req: Request) -> None:
+    def submit(self, req: Request) -> bool:
+        """Queue a request. False when the ``max_queue`` bound rejects it
+        (outcome "rejected"); ``max_queue=0`` never rejects."""
         if len(req.prompt) >= self.max_seq:
             raise ValueError(
                 f"prompt len {len(req.prompt)} >= max_seq {self.max_seq}")
-        self.sched.submit(req)
+        if not self.sched.submit(req):
+            self.outcomes[req.uid] = "rejected"
+            return False
+        self.outcomes.pop(req.uid, None)  # a resubmit sheds a stale outcome
+        if req.deadline_ticks > 0:
+            self._deadlines[req.uid] = self._tick + req.deadline_ticks
+        return True
+
+    def cancel(self, uid: int) -> bool:
+        """End ``uid`` wherever it is (queued, parked, decoding) and release
+        all it holds. False for an unknown or already-ended uid."""
+        return self._terminalize(uid, "cancelled")
 
     def run(self, max_ticks: int = 10_000) -> dict[int, list[int]]:
         """Drive until queue and lanes drain (or the tick budget)."""
@@ -226,6 +302,16 @@ class ServeEngine:
                 break
             self.tick()
         return self.finished
+
+    def defragment(self) -> int:
+        """Compact the live blocks onto the lowest pool ids and move the
+        pools to match (``engine.py:1463``); safe between ticks. Returns
+        the number of blocks moved."""
+        if self.sched.allocator is None:
+            return 0
+        mapping = self.sched.allocator.defragment()
+        self.kv.apply_mapping(mapping)
+        return len(mapping)
 
     def stats(self) -> dict:
         st = self.sched.stats()
@@ -241,10 +327,52 @@ class ServeEngine:
             plain_ticks=self.plain_ticks, plain_tick_s=self.plain_tick_s,
             mode=f"{'paged' if self.kv.paged else 'dense'}+{prefill}-prefill",
             decode_impl=self.decode_impl,
-            decode_streaming=self.cfg.decode_streaming)
+            decode_streaming=self.cfg.decode_streaming,
+            quarantines=self.quarantines, demotions=self.demotions,
+            watchdog_fires=self.watchdog_fires, recovery_ticks=self.recovery_ticks)
+        if self._frozen_rebase:
+            st.update(rebases=self.rebases, rebase_s=self.rebase_s)
+        if self.chaos is not None:
+            st["chaos_injections"] = self.chaos.injections
         if self.prefix is not None:
             st["prefix"] = self.prefix.stats()
         return st
+
+    # -- request lifecycle -----------------------------------------------------
+    def _expire_deadlines(self) -> None:
+        expired = [u for u, d in self._deadlines.items() if self._tick > d]
+        for uid in expired:
+            self._terminalize(uid, "deadline_expired")
+
+    def _terminalize(self, uid: int, outcome: str) -> bool:
+        """The cancel / deadline exit (``engine.py:527``): releases the
+        queue slot, the scheduler's parked entry and its blocks, the parked
+        snapshot, the prefix probe pin, the guard state and the lane."""
+        self._deadlines.pop(uid, None)
+        if uid in self.outcomes or uid in self.finished:
+            return False
+        req = self.sched.remove_waiting(uid)
+        if req is not None:
+            self.sched.parked.pop(uid, None)
+            self._parked.pop(uid, None)
+            if self.sched.allocator is not None:
+                self.sched.allocator.free(uid)
+            if self.prefix is not None:
+                pinned = self._probe_pins.pop(uid, None)
+                if pinned is not None:
+                    self.prefix.unpin(pinned)
+            self.sched.mark_terminal(uid, outcome)
+        else:
+            seat = next((i for i, l in enumerate(self.lanes)
+                         if l.req is not None and l.req.uid == uid), None)
+            if seat is None:
+                return False
+            self.sched.discard(seat, outcome)
+            self.lanes[seat] = _Lane()
+        self.outcomes[uid] = outcome
+        self._guard_trips.pop(uid, None)
+        self._demoted.discard(uid)
+        return True
 
     # -- scheduling hooks ------------------------------------------------------
     def _on_preempt(self, lane_idx: int) -> Optional[Request]:
@@ -272,7 +400,12 @@ class ServeEngine:
 
     def _retire(self, i: int) -> None:
         lane = self.lanes[i]
-        self.finished[lane.req.uid] = list(lane.generated)
+        uid = lane.req.uid
+        self.finished[uid] = list(lane.generated)
+        self.outcomes[uid] = "finished"
+        self._deadlines.pop(uid, None)
+        self._guard_trips.pop(uid, None)
+        self._demoted.discard(uid)
         self.sched.release(i)
         self.lanes[i] = _Lane()
 
@@ -352,8 +485,8 @@ class ServeEngine:
         return True
 
     def _run_reseed(self, i: int, last_pos: int) -> None:
-        """The reseed attach for one lane (``engine.py:721``): every reached
-        stats row recomputed over the lane's shared K/V."""
+        """The stats reseed of one lane (``engine.py:721``): every reached
+        row recomputed over the lane's K/V, keys 0..last_pos."""
         positions = np.zeros(self.max_lanes, np.int32)
         positions[i] = last_pos
         self._reseed_step(self.sched.tables(), positions, [i],
@@ -407,35 +540,87 @@ class ServeEngine:
         lane = self.lanes[i]
         tok = self._sample(lane, lg)
         lane.generated.append(tok)
+        self._progress = True
         self.sched.note_token(lane.req.uid)
         if lane.req.on_token is not None:
             lane.req.on_token(lane.req.uid, tok)
+            if self.lanes[i] is not lane:
+                return  # the callback cancelled this very request
         if (tok == self.eos_id or len(lane.generated) >= lane.req.max_new_tokens
                 or lane.pos + 1 >= self.max_seq):
             self._retire(i)
         else:
             lane.next_token = tok
 
-    # -- decode dispatch -------------------------------------------------------
-    def _dispatch_decode(self, active: list[int]) -> torch.Tensor:
-        """One batched decode step for all lanes (inactive lanes run masked
-        and commit nothing). Returns the device logits (max_lanes, 1, V)
-        without syncing on them."""
-        tokens = np.zeros((self.max_lanes, 1), np.int64)
-        positions = np.zeros(self.max_lanes, np.int32)
-        mask = np.zeros(self.max_lanes, bool)
-        for i in active:
-            tokens[i, 0] = self.lanes[i].next_token
-            positions[i] = self.lanes[i].pos
-            mask[i] = True
+    # -- decode dispatch (normal + demoted lanes) ------------------------------
+    def _dispatch_decode(self, active: list[int]) -> list[tuple]:
+        """One batched decode step for the active lanes (inactive lanes run
+        masked and commit nothing), without syncing on the logits. Lanes
+        the guard demoted run the exact program as a second step over the
+        same storage (``engine.py:823``). Returns ``[(device logits
+        (max_lanes, 1, V), lanes)]`` for ``_merge_logits``."""
+        if self._demoted:
+            normal = [i for i in active if self.lanes[i].req.uid not in self._demoted]
+            demoted = [i for i in active if self.lanes[i].req.uid in self._demoted]
+        else:
+            normal, demoted = active, []
+        groups = [(self._step, normal)]
+        if demoted:
+            self._ensure_exact_step()
+            groups.append((self._exact_step, demoted))
         dev = self.device
-        args = [torch.as_tensor(self.sched.tables(), device=dev),
-                torch.as_tensor(tokens, device=dev),
-                torch.as_tensor(positions, device=dev),
-                torch.as_tensor(mask, device=dev)]
-        if self.decode_impl == "gather":
-            args.append(self.kv.view_blocks_needed(positions, active))
-        return self._step(*args)
+        tables = torch.as_tensor(self.sched.tables(), device=dev)
+        parts = []
+        for step_fn, group in groups:
+            if not group:
+                continue
+            tokens = np.zeros((self.max_lanes, 1), np.int64)
+            positions = np.zeros(self.max_lanes, np.int32)
+            mask = np.zeros(self.max_lanes, bool)
+            for i in group:
+                tokens[i, 0] = self.lanes[i].next_token
+                positions[i] = self.lanes[i].pos
+                mask[i] = True
+            args = [tables, torch.as_tensor(tokens, device=dev),
+                    torch.as_tensor(positions, device=dev),
+                    torch.as_tensor(mask, device=dev)]
+            if self.decode_impl == "gather":
+                args.append(self.kv.view_blocks_needed(positions, group))
+            parts.append((step_fn(*args), group))
+        return parts
+
+    @staticmethod
+    def _merge_logits(parts: list[tuple]) -> Optional[np.ndarray]:
+        """Sync the dispatched parts to one (max_lanes, V) host array
+        (``engine.py:863``); None when nothing decoded."""
+        if not parts:
+            return None
+        if len(parts) == 1:
+            return parts[0][0][:, 0].float().cpu().numpy()
+        out = None
+        for dev_logits, group in parts:
+            host = dev_logits[:, 0].float().cpu().numpy()
+            if out is None:
+                out = np.zeros_like(host)
+            out[group] = host[group]
+        return out
+
+    def _ensure_exact_step(self) -> None:
+        """The exact decode program for demoted lanes (``engine.py:879``):
+        exact and frozen share the storage layout, so demoted lanes ride
+        the same pools (on the paged route, through K5)."""
+        if self._exact_step is None:
+            self._exact_step = self._make_step(
+                dataclasses.replace(self.cfg, decode_streaming="exact"))
+
+    def _ensure_reseed_step(self) -> bool:
+        """The stats-reseed program (``engine.py:906``), shared by the
+        recompute attach and the guard's quarantine; False when the decode
+        state does not stream."""
+        if self._reseed_step is None and self._streams:
+            self._reseed_step = self.kv.make_rebase_step(
+                make_reseed_fn(self.cfg, self.max_seq))
+        return self._reseed_step is not None
 
     def _grow_decoders(self, candidates: list[int]) -> list[int]:
         """Grow the candidates' block tables (may preempt, youngest first);
@@ -449,13 +634,186 @@ class ServeEngine:
                 active.append(i)
         return [i for i in active if not self.lanes[i].free]
 
+    # -- chaos sites and the numerics guard ------------------------------------
+    def _apply_tick_chaos(self) -> None:
+        """Tick-scoped sites, once per tick at the top (``engine.py:925``)."""
+        ch = self.chaos
+        rule = ch.fire("tick_delay")
+        if rule is not None:
+            time.sleep(rule.param or 1e-3)
+        rule = ch.fire("fragment")
+        if rule is not None and self.sched.allocator is not None:
+            self.sched.allocator.scramble_free(ch.plan.seed + self._tick)
+        rule = ch.fire("evict_storm")
+        if rule is not None and self.prefix is not None:
+            for _ in range(int(rule.param) or 4):
+                if not self.prefix.evict_one():
+                    break
+
+    def _apply_decode_chaos(self, active: list[int], logits: np.ndarray) -> None:
+        """Post-step corruption (``engine.py:940``): a lane's streaming
+        stats (every layer) on the device, its logits row on the host;
+        before the guard's scan, so the same tick detects it."""
+        ch = self.chaos
+        for i in active:
+            if self.lanes[i].free:
+                continue
+            if self._streams and ch.fire("nan_stats", lane=i) is not None:
+                for name in STREAM_LEAVES:
+                    self.kv.storage[name][:, i] = float("nan")
+            if ch.fire("nan_logits", lane=i) is not None:
+                logits[i, : self.cfg.vocab_size] = np.nan
+
+    def _post_decode_checks(self, active: list[int], logits: Optional[np.ndarray]):
+        """Post-sync, pre-emit (``engine.py:959``, without telemetry's
+        numerics probe): chaos corruption, then the guard's scan."""
+        if logits is None:
+            return None
+        if self.chaos is not None:
+            if not logits.flags.writeable:
+                logits = logits.copy()
+            self._apply_decode_chaos(active, logits)
+        if self.serve.numerics_guard:
+            self._guard_scan(active, logits)
+        return logits
+
+    def _nan_stat_lanes(self) -> np.ndarray:
+        """(max_lanes,) bool: a NaN anywhere in the lane's streaming stats,
+        any layer. The reference copies each lane's (m, l, acc) to the host
+        (``_lane_stream_stats``, ``engine.py:1428``); here the test runs on
+        the device and one flag per lane comes back (one sync)."""
+        flags = None
+        for name in STREAM_LEAVES:
+            t = self.kv.storage[name]                       # (L, lanes, ...)
+            bad = torch.isnan(t).flatten(2).any(2).any(0)
+            flags = bad if flags is None else flags | bad
+        return flags.cpu().numpy()
+
+    def _guard_scan(self, active: list[int], logits: np.ndarray) -> None:
+        """The numerics guard's ladder (``engine.py:984``): NaN streaming
+        stats with finite logits quarantine the lane (every stats row
+        reseeded exactly from its K/V) and the emit proceeds; non-finite
+        logits replay-preempt it (the landmark sums moved this tick, so
+        only a recompute is exact). ``numerics_demote_after`` trips demote
+        a frozen request to the exact program for the rest of its life."""
+        nan_lanes = None
+        for i in active:
+            lane = self.lanes[i]
+            if lane.free:
+                continue
+            uid = lane.req.uid
+            bad_logits = not bool(np.isfinite(logits[i, : self.cfg.vocab_size]).all())
+            bad_stats = False
+            if not bad_logits and self._streams:
+                if nan_lanes is None:  # a reseed or preempt touches only its lane
+                    nan_lanes = self._nan_stat_lanes()
+                bad_stats = bool(nan_lanes[i])
+            if not (bad_logits or bad_stats):
+                continue
+            trips = self._guard_trips.get(uid, 0) + 1
+            self._guard_trips[uid] = trips
+            if bad_stats and self._ensure_reseed_step():
+                self.quarantines += 1
+                # lane.pos is still the position this tick's step wrote
+                self._run_reseed(i, lane.pos)
+            else:
+                self.sched.preempt(i)
+            if (trips >= self.serve.numerics_demote_after
+                    and self.cfg.decode_streaming == "frozen"
+                    and uid not in self._demoted):
+                self._demoted.add(uid)
+                self.demotions += 1
+
+    # -- no-progress watchdog --------------------------------------------------
+    def _watchdog_check(self) -> None:
+        """After ``watchdog_ticks`` ticks with work pending and no progress
+        (no token, no chunk, no admission), one rung per tick: reclaim a
+        parked request's blocks, else preempt the youngest lane; past two
+        sweeps of the lanes, raise ``EngineStalled`` (``engine.py:1033``)."""
+        wd = self.serve.watchdog_ticks
+        if wd <= 0:
+            return
+        if self._progress or self.sched.idle:
+            if self._wd_fired_tick is not None:
+                self.recovery_ticks.append(self._tick - self._wd_fired_tick)
+                self._wd_fired_tick = None
+            self._stall_ticks = self._wd_interventions = 0
+            return
+        self._stall_ticks += 1
+        if self._stall_ticks < wd:
+            return
+        self.watchdog_fires += 1
+        if self._wd_fired_tick is None:
+            self._wd_fired_tick = self._tick
+        self._wd_interventions += 1
+        # each intervention frees blocks or empties a lane, so needing more
+        # than a full sweep of both rungs means the stall is structural
+        if self._wd_interventions <= 2 * (self.max_lanes + 1):
+            if self.sched.reclaim_parked():
+                return
+            victim = self.sched._youngest_lane()
+            if victim is not None:
+                self.sched.preempt(victim)
+                return
+        alloc = self.sched.allocator
+        raise EngineStalled(
+            tick=self._tick, stall_ticks=self._stall_ticks,
+            waiting=len(self.sched.waiting),
+            active_lanes=sum(u is not None for u in self.sched.lane_uid),
+            parked=len(self.sched.parked),
+            pool={} if alloc is None else alloc.stats())
+
+    # -- frozen-mode boundary rebase -------------------------------------------
+    def _rebase_hits(self, active: list[int]) -> list[int]:
+        """Active lanes whose just-written position starts a new landmark
+        segment, skipping retired lanes and demoted ones (the exact program
+        has no drifting row)."""
+        return [i for i in active
+                if not self.lanes[i].free
+                and self.lanes[i].req.uid not in self._demoted
+                and self.lanes[i].pos - 1 > 0
+                and (self.lanes[i].pos - 1) % self._seg == 0]
+
+    def _run_rebase(self, hits: list[int]) -> None:
+        """Rebase the given lanes (``engine.py:1399``): gather their views,
+        recompute rows active - 1 and active, commit the stats."""
+        t0 = time.perf_counter()
+        positions = np.zeros(self.max_lanes, np.int32)
+        for i in hits:
+            positions[i] = self.lanes[i].pos - 1
+        # fresh tables: retirements above freed blocks
+        self._rebase_step(self.sched.tables(), positions, hits,
+                          self.kv.view_blocks_needed(positions, hits))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.rebase_s += time.perf_counter() - t0
+        self.rebases += len(hits)
+
     # -- one engine tick -------------------------------------------------------
     def tick(self) -> None:
+        self._progress = False
+        if self._chunked:
+            self._tick_chunked()
+        else:
+            self._tick_two_phase()
+        self._watchdog_check()
+
+    def _begin_tick(self) -> None:
+        """Advance the clock, fire the tick-scoped chaos sites, expire
+        deadlines (``engine.py:1087``)."""
         self._tick += 1
         self.sched.tick_now = self._tick
-        if self._chunked:
-            return self._tick_chunked()
-        for i, req in self.sched.admit():
+        if self.chaos is not None:
+            self.chaos.begin_tick(self._tick)
+            self._apply_tick_chaos()
+        self._expire_deadlines()
+
+    def _tick_two_phase(self) -> None:
+        self._begin_tick()
+        admissions = self.sched.admit()
+        if admissions:
+            self._progress = True
+        for i, req in admissions:
             lane = self.lanes[i] = _Lane(req=req)
             if self.batched and req.prompt:
                 self._run_prefill(i, req)
@@ -472,16 +830,27 @@ class ServeEngine:
         if not active:
             return
         t0 = time.perf_counter()
-        logits = self._dispatch_decode(active)[:, 0].float().cpu().numpy()
+        logits = self._merge_logits(self._dispatch_decode(active))
         self.decode_s += time.perf_counter() - t0
         self.decode_ticks += 1
+        logits = self._post_decode_checks(active, logits)
         for i in active:
             lane = self.lanes[i]
+            if lane.free:  # the guard replay-preempted it after the sync
+                continue
+            if self.chaos is not None and self.chaos.fire("drop_sample", lane=i):
+                # the token is lost before commit: recover by replay
+                self.sched.preempt(i)
+                continue
             lane.pos += 1
             if lane.prompt_left:  # token replay: ignore the sample
                 lane.next_token = lane.prompt_left.popleft()
                 continue
             self._emit_token(i, logits[i, : self.cfg.vocab_size])
+        if self._frozen_rebase:
+            hits = self._rebase_hits(active)
+            if hits:
+                self._run_rebase(hits)
 
     def _tick_chunked(self) -> None:
         """One continuous-batching tick (``engine.py:1201``): decode
@@ -490,14 +859,18 @@ class ServeEngine:
         chunks in admission order, then the all-prefill deadlock breaker,
         then the host sync at the sample boundary. Decode lanes advance
         every tick however much prefill is pending."""
+        self._begin_tick()
         t0 = time.perf_counter()
         active = self._grow_decoders([i for i, l in enumerate(self.lanes)
                                       if not l.free and not l.prefilling
                                       and l.prefilled_tick != self._tick])
-        dev_logits = self._dispatch_decode(active) if active else None
+        parts = self._dispatch_decode(active) if active else []
 
         # ---- admissions: parked requests resume at their chunk boundary --
-        for i, req in self.sched.admit():
+        admissions = self.sched.admit()
+        if admissions:
+            self._progress = True
+        for i, req in admissions:
             lane = self.lanes[i] = _Lane(req=req)
             parked = self._parked.pop(req.uid, None)
             if parked is not None:
@@ -559,23 +932,34 @@ class ServeEngine:
                 if len(stalled) > 1 and not decoding and not self.sched.parked:
                     self.sched.preempt(stalled[-1])
                     dispatching = True
+        if launched:
+            self._progress = True
 
         # ---- the sample boundary: one sync for every logits row ----------
-        logits = (dev_logits[:, 0].float().cpu().numpy()
-                  if dev_logits is not None else None)
+        logits = self._merge_logits(parts)
         firsts = [(i, lg[0, cv - 1, : self.cfg.vocab_size].float().cpu().numpy())
                   for i, lg, cv in firsts]
+        logits = self._post_decode_checks(active, logits)
         for i in active:
             lane = self.lanes[i]
-            if lane.free:
+            if lane.free:  # the guard replay-preempted it after the sync
+                continue
+            if self.chaos is not None and self.chaos.fire("drop_sample", lane=i):
+                self.sched.preempt(i)
                 continue
             lane.pos += 1
             self._emit_token(i, logits[i, : self.cfg.vocab_size])
         for i, lg in firsts:
+            if self.lanes[i].free:  # cancelled mid-tick
+                continue
             if self._prefix_enabled:
                 # before the emit, which may retire the lane
                 self._maybe_cache_prefix(i, lg)
             self._emit_token(i, lg)
+        if self._frozen_rebase:
+            hits = self._rebase_hits(active)
+            if hits:
+                self._run_rebase(hits)
 
         self.decode_ticks += bool(active)
         self.chunks += launched

@@ -5,7 +5,9 @@
   maps it, one per prefix-cache entry that retains it). Block 0
   (``ZERO_BLOCK``) is reserved: it backs unallocated table slots and is
   never handed out. ``attach_shared`` maps cached blocks into a table,
-  ``cow`` breaks the sharing of one slot before a divergent write.
+  ``cow`` breaks the sharing of one slot before a divergent write,
+  ``defragment`` compacts the live blocks onto the lowest ids (shared
+  blocks stay pinned in place).
 * ``PrefixCache``: the content-hash index of cached prompt prefixes over
   the pool (chained SHA-1 digests per full block, first insert wins, LRU
   with soft pins and cascade eviction of cache-only entries).
@@ -19,13 +21,19 @@
   installs a prefill result, both decode ticks commit the new token (into
   one block row per lane, or the lane's dense row) and the lane-dense
   leaves of the active lanes, a chunk step commits a prompt chunk,
-  ``copy_block`` is copy-on-write's device half.
+  ``copy_block`` is copy-on-write's device half, ``apply_mapping``
+  permutes the pools after a defragmentation.
 * Two decode ticks, as in the reference: ``make_paged_step`` (gather-free,
   kernel K5 reads the pools) and ``make_fused_step`` (the gather route:
   dense per-lane views ``view_blocks_needed`` long, gathered from the pools
   by ``gather_views``, or the lane-dense storage itself); the chunked
-  prefill step ``make_chunk_step``; ``make_rebase_step``, which the
-  prefix cache's reseed attach runs.
+  prefill step ``make_chunk_step``; ``make_rebase_step``, which runs the
+  frozen-mode boundary rebase and the stats reseed (the prefix cache's
+  recompute attach, the numerics guard's quarantine).
+
+The chaos sites of ``serve/chaos.py`` that live here: ``alloc_fail`` in
+``BlockAllocator._take_free``, ``fragment`` (``scramble_free``, which
+the engine calls) and ``hash_collision`` in ``PrefixCache.match``.
 """
 from __future__ import annotations
 
@@ -73,6 +81,8 @@ class BlockAllocator:
         self.refcounts: dict[int, int] = {}
         # set by PrefixCache: evicts cache-only entries on a shortfall
         self.prefix_cache: Optional["PrefixCache"] = None
+        # set by the engine: a ChaosInjector ("alloc_fail")
+        self.chaos = None
 
     # -- queries ------------------------------------------------------------
     @property
@@ -119,7 +129,10 @@ class BlockAllocator:
     # -- mutation -----------------------------------------------------------
     def _take_free(self, n_blocks: int) -> Optional[list[int]]:
         """Pop ``n_blocks`` at refcount 1, evicting reclaimable prefix-cache
-        entries (LRU) to cover a shortfall; None if still short."""
+        entries (LRU) to cover a shortfall; None if still short (or when
+        the chaos ``alloc_fail`` site fires)."""
+        if self.chaos is not None and self.chaos.fire("alloc_fail"):
+            return None
         while n_blocks > self.num_free:
             if self.prefix_cache is None or not self.prefix_cache.evict_one(
                     reclaim_only=True):
@@ -184,6 +197,38 @@ class BlockAllocator:
         self.refcounts[old] -= 1  # > 1 before the call, so never frees
         return old, got[0]
 
+    def scramble_free(self, key: int) -> None:
+        """Shuffle the free list deterministically (the chaos ``fragment``
+        site, ``paged.py:243``): later allocations land on scattered ids.
+        Accounting is untouched."""
+        perm = np.random.default_rng(abs(key)).permutation(len(self._free))
+        self._free = [self._free[i] for i in perm]
+
+    def defragment(self) -> dict[int, int]:
+        """Compact the singly-referenced live blocks onto the lowest ids
+        (``paged.py:251``). A block with refcount > 1 (shared by tables
+        and/or prefix-cache entries) stays PINNED where it is and the
+        others pack around it. Tables, refcounts, the prefix cache's
+        entries and the free list follow the move. Returns the {old: new}
+        mapping (identity moves left out) for ``PagedKVCache.apply_mapping``."""
+        pinned = {b for b, rc in self.refcounts.items() if rc > 1}
+        movable = sorted(b for b, rc in self.refcounts.items() if rc == 1)
+        targets, cand = [], 1
+        while len(targets) < len(movable):
+            if cand not in pinned:
+                targets.append(cand)
+            cand += 1
+        mapping = {old: new for old, new in zip(movable, targets) if old != new}
+        if mapping:
+            for blocks in self.tables.values():
+                blocks[:] = [mapping.get(b, b) for b in blocks]
+            self.refcounts = {mapping.get(b, b): rc for b, rc in self.refcounts.items()}
+            if self.prefix_cache is not None:
+                self.prefix_cache.remap(mapping)
+            self._free = [b for b in range(self.num_blocks - 1, 0, -1)
+                          if b not in self.refcounts]
+        return mapping
+
 
 # ==========================================================================
 # Content-hash prefix index
@@ -226,6 +271,7 @@ class PrefixCache:
         self._cache_refs: dict[int, int] = {}
         self._clock = 0
         self.hits = self.misses = self.evictions = 0
+        self.chaos = None  # set by the engine: a ChaosInjector ("hash_collision")
         allocator.prefix_cache = self
 
     @staticmethod
@@ -241,8 +287,12 @@ class PrefixCache:
 
     def match(self, prompt) -> Optional[tuple[PrefixEntry, int]]:
         """Longest cached prefix: ``(entry, k)`` with ``k`` matched full
-        blocks, or None."""
+        blocks, or None. The chaos ``hash_collision`` site perturbs the
+        lookup digests, so the probe misses: lost reuse, never wrong
+        blocks."""
         hashes = self.block_hashes(prompt, self.block_size)
+        if self.chaos is not None and self.chaos.fire("hash_collision"):
+            hashes = [hashlib.sha1(b"chaos" + d).digest() for d in hashes]
         for i in range(len(hashes) - 1, -1, -1):
             got = self._index.get(hashes[i])
             if got is not None and got[1] >= i + 1:
@@ -348,6 +398,13 @@ class PrefixCache:
         self.evictions += 1
         return True
 
+    def remap(self, mapping: dict[int, int]) -> None:
+        """Follow a defragmentation (``paged.py:537``): entries' block ids
+        move with the pool; digests are content-addressed and stay."""
+        for e in self._entries:
+            e.blocks = [mapping.get(b, b) for b in e.blocks]
+        self._cache_refs = {mapping.get(b, b): rc for b, rc in self._cache_refs.items()}
+
     def block_count(self) -> int:
         return sum(len(e.blocks) for e in self._entries)
 
@@ -440,6 +497,22 @@ class PagedKVCache:
         for name in self.pool_names:
             pool = self.storage[name]
             pool[:, :, dst].copy_(pool[:, :, src])
+
+    def apply_mapping(self, mapping: dict[int, int]) -> None:
+        """Move pool blocks after ``BlockAllocator.defragment``
+        (``paged.py:1029``): block ``new`` takes block ``old``'s rows for
+        every {old: new}. The rows are gathered into a fresh tensor before
+        any is written, so moves whose sources and destinations overlap
+        (a chain a -> b -> c) read the old contents. Block 0 is never in a
+        mapping and stays the zero block."""
+        if not mapping or not self.pool_names:
+            return
+        dev = next(iter(self.storage.values())).device
+        old = torch.as_tensor(list(mapping), dtype=torch.long, device=dev)
+        new = torch.as_tensor(list(mapping.values()), dtype=torch.long, device=dev)
+        for name in self.pool_names:
+            pool = self.storage[name]
+            pool.index_copy_(2, new, pool.index_select(2, old))
 
     def zero_lane_dense(self, lane: int) -> None:
         """Fresh-request reset of a lane's lane-dense state
@@ -586,33 +659,33 @@ class PagedKVCache:
 
     def make_rebase_step(self, rebase_fn):
         """Recompute lane-dense leaves of some lanes from their K/V
-        (``paged.py:952``; here the prefix cache's reseed attach runs it):
-        gather those lanes' views ``n_view_blocks`` blocks long, run
-        ``rebase_fn(layers, positions) -> layers`` (per-layer lane-batched
-        leaves, e.g. ``decode_state.make_reseed_fn``) and commit the
-        lane-dense leaves of those lanes; K/V are read, never written.
-        Returns ``fn(tables, positions, lanes, n_view_blocks)`` with host
-        tables (max_lanes, blocks_per_lane), positions (max_lanes,) and a
-        list of lanes."""
+        (``paged.py:952``: the frozen boundary rebase, the stats reseed).
+        As the reference's program, it runs over EVERY lane at a fixed
+        batch (views ``n_view_blocks`` blocks long, gathered from the
+        pools, or the lane-dense storage as it is) and commits only the
+        given lanes: a lane's result then does not depend on which others
+        rebase with it (a batch of another size may round differently).
+        ``rebase_fn(layers, positions) -> layers`` takes per-layer
+        lane-batched leaves (``decode_state.make_rebase_fn`` /
+        ``make_reseed_fn``); K/V are read, never written. Returns
+        ``fn(tables, positions, lanes, n_view_blocks)`` with host tables
+        (max_lanes, blocks_per_lane), positions (max_lanes,) and a list of
+        lanes."""
 
         def fn(tables, positions, lanes: list, n_view_blocks: int):
             dev = next(iter(self.storage.values())).device
             sel = torch.as_tensor(np.asarray(lanes, np.int64), device=dev)
-            pos = torch.as_tensor(np.asarray(positions)[lanes], device=dev)
-            views = {}
-            for name, t in self.storage.items():
-                if name in self.pool_names:
-                    rows = torch.as_tensor(
-                        np.asarray(tables, np.int64)[lanes, :n_view_blocks], device=dev)
-                    views[name] = self._gather_leaf(t, rows)
-                else:
-                    views[name] = t[:, sel]
+            pos = torch.as_tensor(np.asarray(positions), device=dev)
+            rows = torch.as_tensor(np.asarray(tables, np.int64)[:, :n_view_blocks],
+                                   device=dev)
+            views = {name: self._gather_leaf(t, rows) if name in self.pool_names else t
+                     for name, t in self.storage.items()}
             layers = [{name: v[i] for name, v in views.items()}
                       for i in range(self.cfg.num_layers)]
             for i, lc in enumerate(rebase_fn(layers, pos)):
                 for name in self.dense_names:
                     if name not in self.seq_names:
                         self.storage[name][i].index_copy_(
-                            0, sel, lc[name].to(self.storage[name].dtype))
+                            0, sel, lc[name][sel].to(self.storage[name].dtype))
 
         return fn

@@ -1,7 +1,6 @@
 """FCFS scheduler over the block pool (``repro/serve/scheduler.py``
-without telemetry, chaos, ``max_queue``, cancellation or deadlines):
-two-phase, or chunk-aware continuous batching when the engine passes
-``chunk_tokens > 0``.
+without telemetry): two-phase, or chunk-aware continuous batching when the
+engine passes ``chunk_tokens > 0``.
 
 * FCFS waiting queue: a request is admitted when a lane is free AND the
   pool can cover its admission need: the whole prompt (ceil(prompt_len /
@@ -21,6 +20,12 @@ two-phase, or chunk-aware continuous batching when the engine passes
 * Without an allocator (``ServeConfig(paged=False)``: every lane owns
   max_seq rows of dense storage) admission needs only a free lane and
   nothing is ever preempted.
+* ``max_queue > 0`` bounds the waiting queue: ``submit`` past it returns
+  False and records nothing but the rejection. ``remove_waiting``,
+  ``discard`` and ``mark_terminal`` end a request early (cancellation,
+  deadline) without the normal-finish accounting.
+* The chaos ``admission_stall`` site (``chaos``, set by the engine) makes
+  ``admit`` admit nothing for the tick.
 
 Counters are plain integers and the latency samples plain lists;
 ``stats()``'s percentiles are exact order statistics of those samples
@@ -72,11 +77,13 @@ def percentile(xs: list, p: float) -> Optional[float]:
 
 class Scheduler:
     def __init__(self, allocator: Optional[BlockAllocator], max_lanes: int,
-                 blocks_per_lane: int, chunk_tokens: int = 0):
+                 blocks_per_lane: int, chunk_tokens: int = 0, max_queue: int = 0):
         self.allocator = allocator  # None: no paged state
         self.max_lanes = max_lanes
         self.blocks_per_lane = blocks_per_lane
         self.chunk_tokens = chunk_tokens
+        self.max_queue = max_queue  # 0: unbounded
+        self.chaos = None
         self.waiting: deque = deque()
         # uids parked mid-chunked-prefill, blocks kept (oldest first)
         self.parked: dict[int, int] = {}
@@ -92,7 +99,7 @@ class Scheduler:
         self.prefix_probe = self.cow_cb = None
         self._warm_uids: set = set()
         self.admitted = self.finished = self.preemptions = self.tokens = 0
-        self.cow_copies = 0
+        self.cow_copies = self.rejected = self.cancelled = self.deadline_expired = 0
         self.ttft_s: list[float] = []
         self.itl_s: list[float] = []
         self.resume_ttft_s: list[float] = []
@@ -113,12 +120,18 @@ class Scheduler:
         return np.stack([self.table_row(lane) for lane in range(self.max_lanes)])
 
     # -- queue ----------------------------------------------------------------
-    def submit(self, req) -> None:
+    def submit(self, req) -> bool:
+        """Queue a request; False (no timing entry made) when the
+        ``max_queue`` bound rejects it."""
+        if self.max_queue > 0 and len(self.waiting) >= self.max_queue:
+            self.rejected += 1
+            return False
         self.waiting.append(req)
         t = self.timing.setdefault(req.uid, RequestTiming())
         if t.arrived < 0:
             t.arrived = self.tick_now
             t.arrived_s = time.perf_counter()
+        return True
 
     def _blocks_for_prompt(self, req) -> int:
         if self.allocator is None or req.uid in self.parked:
@@ -140,6 +153,8 @@ class Scheduler:
 
     def admit(self) -> list[tuple[int, object]]:
         """Admit FCFS while lanes and blocks allow. Returns [(lane, req)]."""
+        if self.chaos is not None and self.chaos.fire("admission_stall"):
+            return []
         admissions = []
         for lane in range(self.max_lanes):
             if self.lane_uid[lane] is not None or not self.waiting:
@@ -150,6 +165,9 @@ class Scheduler:
                 if not self.allocator.can_alloc(need):
                     break  # FCFS: don't let short requests starve the head
                 if need and self.allocator.alloc(req.uid, need) is None:
+                    # can_alloc promised room but the allocation came up
+                    # short (an injected alloc_fail, or an eviction sweep
+                    # that freed less): stall rather than seat it blockless
                     break
             self.parked.pop(req.uid, None)
             self.waiting.popleft()
@@ -268,6 +286,38 @@ class Scheduler:
         self.timing[uid].finished = self.tick_now
         self.finished += 1
 
+    def remove_waiting(self, uid: int):
+        """Take a queued (not admitted) request out of the queue: the
+        Request, or None if ``uid`` is not queued."""
+        for req in self.waiting:
+            if req.uid == uid:
+                self.waiting.remove(req)
+                return req
+        return None
+
+    def discard(self, lane: int, outcome: str) -> None:
+        """End a seated lane without the normal-finish accounting: free its
+        blocks, clear the seat, record ``outcome``."""
+        uid = self.lane_uid[lane]
+        if uid is None:
+            return
+        if self.allocator is not None:
+            self.allocator.free(uid)
+        self.lane_uid[lane] = None
+        self.admit_order.pop(uid, None)
+        self.mark_terminal(uid, outcome)
+
+    def mark_terminal(self, uid: int, outcome: str) -> None:
+        """Count a ``cancelled`` / ``deadline_expired`` end and stamp its
+        tick as the request's finish."""
+        t = self.timing.get(uid)
+        if t is not None:
+            t.finished = self.tick_now
+        if outcome == "cancelled":
+            self.cancelled += 1
+        elif outcome == "deadline_expired":
+            self.deadline_expired += 1
+
     def mark_prefix_hit(self, uid: int) -> None:
         """Its first token also counts as a warm TTFT."""
         self._warm_uids.add(uid)
@@ -305,7 +355,9 @@ class Scheduler:
                "admitted": self.admitted, "finished": self.finished,
                "preemptions": self.preemptions, "tokens": self.tokens,
                "new_tokens": sum(t.new_tokens for t in self.timing.values()),
-               "cow_copies": self.cow_copies, "parked": len(self.parked)}
+               "cow_copies": self.cow_copies, "parked": len(self.parked),
+               "rejected": self.rejected, "cancelled": self.cancelled,
+               "deadline_expired": self.deadline_expired}
         for name in ("ttft_s", "itl_s", "resume_ttft_s", "ttft_warm_s"):
             out[f"{name}_p50"] = percentile(getattr(self, name), 50)
             out[f"{name}_p99"] = percentile(getattr(self, name), 99)

@@ -78,7 +78,11 @@ def replay_trace(
     """Drive ``engine`` through ``trace``: submit each request once the
     engine tick reaches its arrival tick, run until drain. Returns
     ``{uid: {"submit_s": t, "tokens": [t, ...]}}`` wall-clock stamps for
-    exactly this replay's requests (tokens via ``Request.on_token``)."""
+    exactly this replay's requests (tokens via ``Request.on_token``). A
+    submission the engine rejects (``max_queue``) is not retried: it keeps
+    its stamp with no tokens, which ``latency_metrics`` skips, and its
+    outcome is the engine's ``outcomes[uid] == "rejected"``, as in the
+    reference."""
     stamps: dict[int, dict] = {}
 
     def on_token(uid: int, tok: int) -> None:

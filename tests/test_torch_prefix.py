@@ -15,8 +15,8 @@ requests, one after another to completion: greedy tokens and ``on_token``
 calls identical, the same ``stats()["prefix"]`` hits, misses and entries,
 and the same ``cow_copies`` and preemptions; the warm tokens also equal a
 cold chunked run of the port. Frozen streaming (the reference's other
-half of the attach-mode test) and the telemetry case wait for their
-ports; allocator defragmentation is not ported.
+half of the attach-mode test) and allocator defragmentation are in
+``tests/test_torch_frozen.py``; the telemetry case waits for its port.
 """
 from __future__ import annotations
 

@@ -90,20 +90,34 @@ def test_engine_refuses_cuda_without_a_gpu(weights, monkeypatch):
                                                ("serve", "max_queue", 4),
                                                ("serve", "watchdog_ticks", 8)])
 def test_engine_rejects_unported_settings(weights, which, field, value):
-    """Settings the port does not serve are refused at construction. The
-    chunked tick and the prefix cache are served under exact streaming
-    (``tests/test_torch_chunked.py``, ``tests/test_torch_prefix.py``); under
-    frozen streaming, which is not ported, they are refused."""
+    """Telemetry (the flight recorder, the metrics registry, the monitors)
+    is not ported: refused at construction, alone and beside each of the
+    settings below, which the port serves (frozen streaming, also under
+    the chunked tick and the prefix cache (``tests/test_torch_frozen.py``),
+    the numerics guard, ``max_queue``, the watchdog
+    (``tests/test_torch_chaos.py``))."""
     cfg, serve = reduced_cfg(), base.ServeConfig()
     if which == "model":
         cfg = dataclasses.replace(cfg, **{field: value})
     else:
         serve = dataclasses.replace(serve, **{field: value})
         if field in ("prefix_cache", "chunked_prefill"):
-            ServeEngine(cfg, weights[2], serve=serve, device="cpu")
             cfg = dataclasses.replace(cfg, decode_streaming="frozen")
-    with pytest.raises(NotImplementedError):
+    if field != "telemetry":
         ServeEngine(cfg, weights[2], serve=serve, device="cpu")
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        ServeEngine(cfg, weights[2], serve=dataclasses.replace(serve, telemetry=True),
+                    device="cpu")
+
+
+@pytest.mark.parametrize("field", ["moe", "mla"])
+def test_engine_still_refuses_telemetry_and_other_families(weights, field):
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        ServeEngine(reduced_cfg(), weights[2], serve=base.ServeConfig(telemetry=True),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="family"):
+        ServeEngine(dataclasses.replace(reduced_cfg(), **{field: True}), weights[2],
+                    device="cpu")
 
 
 def test_engine_refuses_head_dims_past_the_kernels_on_cuda(weights, monkeypatch):
@@ -167,6 +181,7 @@ print(json.dumps({"modules": names, "leaks": sorted(
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in result["modules"]
+    assert "repro_torch.serve.chaos" in result["modules"]
     assert "repro_torch.launch.serve" in result["modules"]
     assert "repro_torch.train.trainer" in result["modules"]
     assert "repro_torch.launch.train" in result["modules"]
