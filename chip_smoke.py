@@ -36,7 +36,13 @@ result line):
    K3 and a q_offset case for K4; K1 and K2 at granite-20b's prefill
    shapes (48 batch-heads, n = 256/384/512); K1 at the chunked tick's stats
    handoff (fp32 landmark means, bf16 window of 128 keys, kv_valid 48 / 77
-   / 128, with stats);
+   / 128, with stats); and K1, K2 and K5 at DeepSeek-V2-Lite's absorbed-MLA
+   shapes (``mla_kernel_entries``: d = 576, dv = 512, 16 heads; K1 in bf16,
+   with fp32 landmark means over bf16 keys and stats, and at the chunk
+   site; K2; K5 with the latent (512) and rope (64) pools, the latent pool
+   also the value pool, at the serving shape and a 16k horizon, against
+   one concatenated pool and on NaN-poisoned split-slot edges), fp32 and
+   bf16, timed beside their plain versions and bounds;
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -53,7 +59,10 @@ result line):
    (20 paged decode steps with the engine's boundary rebases), kernel
    route against plain route (logits; K5 never launches), and every
    frozen landmark row's BV against an exact recompute over the lane's
-   keys (held in float64, printed in fp32 beside exact streaming's);
+   keys (held in float64, printed in fp32 beside exact streaming's); then
+   DeepSeek-V2-Lite at full width, 2 fp32 layers (absorbed MLA + MoE),
+   kernel route against plain route: logits, and the streaming stats after
+   the prefills and after the decode steps;
 4. serving, bf16 random weights from a seeded ``torch.Generator``, 4
    lanes, max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens
    each, the launch counts of each run read on their own: the main path
@@ -83,7 +92,13 @@ result line):
    with every request finished, no leaked block, tokens identical to the
    fault-free run) and the numerics guard demoting a frozen lane whose
    stats were poisoned (``serve_guard``: K5 runs for it alone, the other
-   requests' tokens identical to the fault-free run);
+   requests' tokens identical to the fault-free run); then DeepSeek-V2-Lite
+   (``serve_deepseek``: all 27 layers at full width on the main path's
+   settings, K1, K2 and K5 must launch; tok/s, TTFT, ms per decode tick,
+   peak GiB) and its first 4 layers under frozen streaming with chunks of
+   128 and the prefix cache over the same sequence
+   (``serve_deepseek_chunked_frozen``: tokens identical to a cold frozen
+   chunked engine);
 5. training: the ``Trainer`` on full-width Qwen2-7B cut to
    ``--train-layers`` layers, bf16 compute over fp32 master weights, seq
    4096, batch 2, 5 steps each under ``remat="full"`` (launches per step
@@ -242,15 +257,19 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 
 def k5_bound(kv_valid, hkv: int, r: int, d: int, dv: int, bs: int,
-             es: int = 4) -> tuple[float, str]:
+             es: int = 4, v_is_key: bool = False) -> tuple[float, str]:
     """K5's bound for one launch: q and the valid keys' K and V rows read
-    once, the table entries and kv_valid, fp32 (m, l, acc) written once;
-    4 r d flops per key and kv head."""
+    once (with ``v_is_key`` the values are the first dv columns of the
+    keys, absorbed MLA's latent pool, and are not read again), the table
+    entries and kv_valid, fp32 (m, l, acc) written once; 2 r (d + dv) flops
+    per key and kv head at the peak of the pools' type (``es`` bytes an
+    element: 2 is bf16, 4 fp32)."""
     lanes, keys = len(kv_valid), sum(kv_valid)
     blocks = sum(-(-x // bs) for x in kv_valid)
-    nbytes = (es * (lanes * hkv * r * d + keys * hkv * (d + dv)) + 4 * (blocks + lanes)
+    row = d if v_is_key else d + dv
+    nbytes = (es * (lanes * hkv * r * d + keys * hkv * row) + 4 * (blocks + lanes)
               + 4 * lanes * hkv * r * (dv + 2))
-    return bound(nbytes, keys * hkv * r * 2 * (d + dv), "float32")
+    return bound(nbytes, keys * hkv * r * 2 * (d + dv), "bfloat16" if es == 2 else "float32")
 
 
 def cold_pools(k_pool, v_pool) -> list:
@@ -424,7 +443,7 @@ def kernel_phase(torch, dev) -> list[dict]:
     for dt in (torch.float32, torch.bfloat16):
         q = randn(lanes, hkv, r, d, s=0.5, dtype=dt)
         k_pool, v_pool = randn(hkv, nb, bs, d, s=0.5, dtype=dt), randn(hkv, nb, bs, d, dtype=dt)
-        m, l, acc = paged_row_stats_lanes(q, k_pool, v_pool, table, kv_valid,
+        m, l, acc = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kv_valid,
                                           scale=scale, block_size=bs)
         rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kv_valid,
                                              scale=scale)
@@ -441,9 +460,9 @@ def kernel_phase(torch, dev) -> list[dict]:
         if dt == torch.float32:
             pools = cold_pools(k_pool, v_pool)
             entries["paged_row_stats"] = dict(
-                fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kv_valid,
+                fn=[partial(paged_row_stats_lanes, q, (kp,), vp, table, kv_valid,
                             scale=scale, block_size=bs) for kp, vp in pools],
-                warm=partial(paged_row_stats_lanes, q, k_pool, v_pool, table,
+                warm=partial(paged_row_stats_lanes, q, (k_pool,), v_pool, table,
                              kv_valid, scale=scale, block_size=bs),
                 plain=[partial(paged_row_stats_plain, q, (kp,), vp, table,
                                kv_valid, scale=scale) for kp, vp in pools],
@@ -460,6 +479,7 @@ def kernel_phase(torch, dev) -> list[dict]:
     slot_chunk_checks(torch, dev)
     granite_ss_checks(torch, dev)
     entries.update(train_kernel_entries(torch, dev))
+    entries.update(mla_kernel_entries(torch, dev))
 
     # ---- timing ------------------------------------------------------------
     def timed(tag):
@@ -509,6 +529,17 @@ def kernel_phase(torch, dev) -> list[dict]:
             # the training path's forward launch (same kernel and counter)
             row["train_launch"] = dict(shape=entries[f"{name}_train"]["shape"],
                                        **timed(f"{name}_train"))
+        # DeepSeek-V2-Lite's launches (absorbed MLA: d = 576, dv = 512; the
+        # same kernels, through their wide-head variants, and counters)
+        for tag, key in {
+                "landmark_summary": (("mla_landmark_summary", "mla_prefill_launch"),
+                                     ("mla_landmark_summary_stats", "mla_seed_stats_launch"),
+                                     ("mla_landmark_summary_chunk", "mla_chunk_site_launch")),
+                "query_side": (("mla_query_side", "mla_prefill_launch"),),
+                "paged_row_stats": (("mla_paged_row_stats", "mla_decode_launch"),
+                                    ("mla_paged_row_stats_long",
+                                     "mla_long_horizon_launch"))}.get(name, ()):
+            row[key] = dict(shape=entries[tag]["shape"], **timed(tag))
         if name == "paged_row_stats":
             # the same decode launch at a 16k horizon
             row["long_horizon_launch"] = dict(
@@ -746,7 +777,7 @@ def long_horizon_entry(torch, dev, kv_valid=(2048, 4096, 8192, 16384)) -> dict:
     q, k_pool, v_pool, table, kvv = paged_inputs(torch, dev, gen, list(kv_valid),
                                                  hkv=hkv, r=r, bs=bs, n_slots=n_slots)
     scale = d**-0.5
-    m, l, acc = paged_row_stats_lanes(q, k_pool, v_pool, table, kvv, scale=scale,
+    m, l, acc = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kvv, scale=scale,
                                       block_size=bs)
     rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvv, scale=scale)
     err = check(f"K5 paged_row_stats long horizon lanes={lanes} hkv={hkv} r={r} "
@@ -754,7 +785,7 @@ def long_horizon_entry(torch, dev, kv_valid=(2048, 4096, 8192, 16384)) -> dict:
                 [("m", m, rm, None), ("l", l, rl, None), ("acc", acc, racc, None)])
     pools = cold_pools(k_pool, v_pool)
     return dict(
-        fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kvv, scale=scale,
+        fn=[partial(paged_row_stats_lanes, q, (kp,), vp, table, kvv, scale=scale,
                     block_size=bs) for kp, vp in pools],
         plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvv, scale=scale)
                for kp, vp in pools],
@@ -813,7 +844,7 @@ def slot_chunk_checks(torch, dev) -> None:
             label = (f"lanes={len(kv)} hkv={hkv} r={r} d=128 dv={dv} bs={bs} "
                      f"slots={n_slots} kv_valid={kv} {dname} ({plan.chunks} chunks of "
                      f"{plan.chunk_slots} slots)")
-            out = paged_row_stats_lanes(q, kp_nan, vp_nan, table, kvv, scale=128**-0.5,
+            out = paged_row_stats_lanes(q, (kp_nan,), vp_nan, table, kvv, scale=128**-0.5,
                                         block_size=bs)
             rm, rl, racc = paged_row_stats_plain(q, (kp,), vp, table, kvv,
                                                  scale=128**-0.5)
@@ -827,7 +858,7 @@ def slot_chunk_checks(torch, dev) -> None:
                     and torch.all(acc[empty] == 0)):
                 raise AssertionError(f"K5 {label}: a lane with kv_valid 0 must "
                                      f"return exactly (m=-1e30, l=0, acc=0)")
-            again = paged_row_stats_lanes(q, kp_nan, vp_nan, table, kvv,
+            again = paged_row_stats_lanes(q, (kp_nan,), vp_nan, table, kvv,
                                           scale=128**-0.5, block_size=bs)
             if not all(torch.equal(a, b) for a, b in zip(out, again)):
                 raise AssertionError(f"K5 {label}: two launches differ")
@@ -855,7 +886,7 @@ def granite_k5_entries(torch, dev) -> dict:
         q, k_pool, v_pool, table, kvv = paged_inputs(torch, dev, gen, kv, hkv=hkv, r=r,
                                                      bs=bs, n_slots=n_slots)
         scale = d**-0.5
-        m, l, acc = paged_row_stats_lanes(q, k_pool, v_pool, table, kvv, scale=scale,
+        m, l, acc = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kvv, scale=scale,
                                           block_size=bs)
         rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvv,
                                              scale=scale)
@@ -865,7 +896,7 @@ def granite_k5_entries(torch, dev) -> dict:
                                     ("acc", acc, racc, None)])
         pools = cold_pools(k_pool, v_pool)
         out[tag] = dict(
-            fn=[partial(paged_row_stats_lanes, q, kp, vp, table, kvv, scale=scale,
+            fn=[partial(paged_row_stats_lanes, q, (kp,), vp, table, kvv, scale=scale,
                         block_size=bs) for kp, vp in pools],
             plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvv, scale=scale)
                    for kp, vp in pools],
@@ -912,6 +943,198 @@ def granite_ss_checks(torch, dev) -> None:
         check(f"K2 granite-20b prefill b={b} n={n} c={c} bf16",
               [("out", query_side(q, k_l, m_mat, v, delta, scale=scale),
                 query_side_plain(q, k_l, m_mat, v, delta, scale=scale), None)])
+
+
+# DeepSeek-V2-Lite's attention (configs/deepseek_v2_lite_16b.py): 16 heads,
+# absorbed MLA keys of kv_lora 512 + rope 64 = 576 columns, the 512-wide
+# latents as values, scale (128 + 64) ** -0.5.
+MLA_HEADS, MLA_LORA, MLA_ROPE, MLA_SCALE = 16, 512, 64, (128 + 64) ** -0.5
+
+
+def mla_pools(torch, dev, gen, kv_valid, *, bs=16, n_slots=32, r=MLA_HEADS,
+              dtype=None, poison=False):
+    """K5's MLA operands: q (lanes, 1, r, 576), the latent pool (1, nb, bs,
+    512) and the rope pool (1, nb, bs, 64) from ``paged_inputs`` (its K pool
+    is the latent pool, which is also the value pool), and with ``poison``
+    both pools again with NaN in every row no valid key reads."""
+    out = paged_inputs(torch, dev, gen, kv_valid, hkv=1, r=r, d=MLA_LORA + MLA_ROPE,
+                       dv=MLA_LORA, bs=bs, n_slots=n_slots, dtype=dtype, poison=poison)
+    q, k_pool, _, table, kvv = out[:5]
+    lat, rope = k_pool[..., :MLA_LORA].contiguous(), k_pool[..., MLA_LORA:].contiguous()
+    res = (q, lat, rope, table, kvv)
+    if poison:
+        kp = out[5]
+        res += (kp[..., :MLA_LORA].contiguous(), kp[..., MLA_LORA:].contiguous())
+    return res
+
+
+def mla_kernel_entries(torch, dev) -> dict:
+    """K1, K2 and K5 at DeepSeek-V2-Lite's serving shapes (phase 4's
+    ``serve_deepseek``), each against its plain version at KERNEL_TOL in
+    fp32 and bf16, and set up for timing. Prefill runs one request of 16
+    heads (b = 16 batch-heads, the latent+rope key stream broadcast to
+    them), c = 64, d = 576, dv = 512; the 32-token bucket pads the 200 /
+    333 / 480-token prompts to n = 224 / 352 / 480 (the 48-token prompt is
+    the exact-attention window, no kernel). K1 in bf16 without stats
+    (ss_attention_fused) and with fp32 landmark means over bf16 keys with
+    stats (the seed), at the chunk site (a 128-key window, kv_valid 48 / 77
+    / 128), and K2 in bf16; the fp32 kernels at the same shapes. K5 with
+    two key pools (latent 512 + rope 64, the latent pool the value pool):
+    4 lanes, 1 kv head, r = 16, block 16, kv_valid 0 / 17 / 300 / 512 and
+    at a 16k horizon, in fp32 and bf16, the same keys in one concatenated
+    576-wide pool with a separate value pool (the wide kernel without the
+    alias), and its split-slot edges on NaN-poisoned pools at block 16 and
+    at block 64 (16-key slices of a block)."""
+    from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                  paged_row_stats_plain)
+    from repro_torch.kernels.ss_attention import (landmark_summary,
+                                                  landmark_summary_plain,
+                                                  query_side, query_side_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, c, d, dv = MLA_HEADS, 64, MLA_LORA + MLA_ROPE, MLA_LORA
+    scale = MLA_SCALE
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, s=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    entries = {}
+    # ---- K1: prefill (bf16, no stats) and the seed (fp32 q~, bf16 k/v, stats)
+    for n, kvv in ((224, 200), (352, 333), (480, 480)):
+        for q_dt, kv_dt, stats in ((f32, f32, True), (bf16, bf16, False),
+                                   (f32, bf16, True)):
+            q_l = randn(b, c, d, s=0.5, dtype=q_dt)
+            k, v = randn(b, n, d, s=0.5, dtype=kv_dt), randn(b, n, dv, dtype=kv_dt)
+            out = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv,
+                                   return_stats=stats)
+            ref = landmark_summary_plain(q_l, k, v, scale=scale, kv_end=kvv,
+                                         return_stats=stats)
+            names = ("out", "m", "l") if stats else ("out",)
+            outs, refs = (out, ref) if stats else ((out,), (ref,))
+            err = check(f"K1 MLA prefill b={b} c={c} n={n} kv_valid={kvv} d={d} dv={dv} "
+                        f"q={q_dt} kv={kv_dt}{' with stats' if stats else ''}",
+                        [(nm, o, r_, None) for nm, o, r_ in zip(names, outs, refs)])
+            if n != 352 or kv_dt != bf16:
+                continue
+            qs = q_l.element_size()
+            nbytes = (qs * b * c * d + 2 * (b * kvv * (d + dv) + b * c * dv)
+                      + (8 * b * c if stats else 0))
+            mask = torch.arange(n, device=dev)[None, :] < kvv
+            entries["mla_landmark_summary_stats" if stats else "mla_landmark_summary"] = dict(
+                fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=kvv,
+                           return_stats=stats),
+                plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, kv_end=kvv,
+                              return_stats=stats),
+                library=None if stats else partial(
+                    torch.nn.functional.scaled_dot_product_attention, q_l[None], k[None],
+                    v[None], attn_mask=mask.expand(c, n), scale=scale),
+                err=err, bound=bound(nbytes, 2 * b * c * kvv * (d + dv), "bfloat16"),
+                shape=(f"b={b} c={c} n={n} kv_valid={kvv} d={d} dv={dv} "
+                       + ("fp32 q, bf16 k/v, with stats (MLA seed)" if stats
+                          else "bf16, no stats (MLA ss_attention_fused)")))
+    # the chunk site: fp32 landmark means against a bf16 window of 128 keys
+    n = 128
+    q_l = randn(b, c, d, s=0.5, dtype=f32)
+    k, v = randn(b, n, d, s=0.5), randn(b, n, dv)
+    for kvv in (48, 77, 128):
+        out, m, l = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv,
+                                     return_stats=True)
+        ref, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, kv_end=kvv,
+                                             return_stats=True)
+        err = check(f"K1 MLA chunk site b={b} c={c} n={n} kv_valid={kvv} fp32 q, bf16 k/v",
+                    [("out", out, ref, None), ("m", m, rm, None), ("l", l, rl, None)])
+    nbytes = 4 * b * c * d + 2 * (b * n * (d + dv) + b * c * dv) + 8 * b * c
+    entries["mla_landmark_summary_chunk"] = dict(
+        fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=n, return_stats=True),
+        plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, kv_end=n,
+                      return_stats=True),
+        library=None, err=err, bound=bound(nbytes, 2 * b * c * n * (d + dv), "bfloat16"),
+        shape=f"b={b} c={c} n={n} kv_valid={n} d={d} dv={dv} fp32 q, bf16 k/v, with "
+              f"stats (MLA chunk site; no library call takes mixed dtypes)")
+
+    # ---- K2 ------------------------------------------------------------------
+    for n in (224, 352, 480):
+        for dt in (f32, bf16):
+            q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+            m_mat, v = randn(b, c, dv, dtype=dt), randn(b, n, dv, dtype=dt)
+            delta = randn(b, 1, 1, s=0.1, dtype=f32).abs()
+            err = check(f"K2 MLA prefill b={b} n={n} c={c} d={d} dv={dv} {dt}",
+                        [("out", query_side(q, k_l, m_mat, v, delta, scale=scale),
+                          query_side_plain(q, k_l, m_mat, v, delta, scale=scale), None)])
+            if (n, dt) == (352, bf16):
+                nbytes = 2 * (b * n * d + b * c * (d + dv) + 2 * b * n * dv) + 4 * b
+                entries["mla_query_side"] = dict(
+                    fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
+                    plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
+                    library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale),
+                    err=err, bound=bound(nbytes, 2 * b * n * c * (d + dv), "bfloat16"),
+                    shape=f"b={b} n={n} c={c} d={d} dv={dv} bf16 (MLA)")
+
+    # ---- K5: two key pools, the latent pool also the value pool --------------
+    def k5_case(label, kv_valid, dtype, bs=16, n_slots=32, poison=False):
+        ops_ = mla_pools(torch, dev, gen, kv_valid, bs=bs, n_slots=n_slots, dtype=dtype,
+                         poison=poison)
+        q, lat, rope, table, kvv = ops_[:5]
+        klat, krope = ops_[5:] if poison else (lat, rope)
+        m, l, acc = paged_row_stats_lanes(q, (klat, krope), klat, table, kvv,
+                                          scale=scale, block_size=bs)
+        rm, rl, racc = paged_row_stats_plain(q, (lat, rope), lat, table, kvv, scale=scale)
+        live = rl[..., 0] > 0
+        empty = [i for i, x in enumerate(kv_valid) if x == 0]
+        if empty and not (torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0)
+                          and torch.all(acc[empty] == 0)):
+            raise AssertionError(f"{label}: a lane with kv_valid = 0 must return the anchor")
+        err = check(f"{label} lanes={len(kv_valid)} hkv=1 r={q.shape[2]} bs={bs} "
+                    f"slots={n_slots} kv_valid={kv_valid} pools 512+64 {dtype}",
+                    [("m", m[..., 0], rm[..., 0], live), ("l", l, rl, None),
+                     ("acc", acc, racc, None)])
+        return err, (q, lat, rope, table, kvv), (m, l, acc)
+
+    serve_kv = [0, 17, 300, 512]
+    for dt in (f32, bf16):
+        err, (q, lat, rope, table, kvv), two = k5_case("K5 MLA two pools", serve_kv, dt)
+        # the same keys in one 576-wide pool and the latents as a separate
+        # value pool: the wide kernel without the alias
+        one = paged_row_stats_lanes(q, (torch.cat([lat, rope], -1),), lat.clone(), table,
+                                    kvv, scale=scale, block_size=16)
+        check(f"K5 MLA one concatenated pool vs two pools {dt}",
+              [(nm, o, t, None) for nm, o, t in zip(("m", "l", "acc"), one, two)])
+        if dt == bf16:
+            pools = cold_pools(lat, rope)
+            entries["mla_paged_row_stats"] = dict(
+                fn=[partial(paged_row_stats_lanes, q, (lp, rp), lp, table, kvv,
+                            scale=scale, block_size=16) for lp, rp in pools],
+                warm=partial(paged_row_stats_lanes, q, (lat, rope), lat, table, kvv,
+                             scale=scale, block_size=16),
+                plain=[partial(paged_row_stats_plain, q, (lp, rp), lp, table, kvv,
+                               scale=scale) for lp, rp in pools],
+                library=None, err=err,
+                bound=k5_bound(serve_kv, 1, MLA_HEADS, d, dv, 16, es=2, v_is_key=True),
+                shape=f"lanes=4 hkv=1 r={MLA_HEADS} bs=16 slots=32 kv_valid={serve_kv} "
+                      f"pools 512+64 (latent = values) bf16, L2 cold ({len(pools)} copies)")
+    long_kv = [2048, 4096, 8192, 16384]
+    err, (q, lat, rope, table, kvv), _ = k5_case("K5 MLA long horizon", long_kv, bf16,
+                                                 n_slots=1024)
+    pools = cold_pools(lat, rope)
+    entries["mla_paged_row_stats_long"] = dict(
+        fn=[partial(paged_row_stats_lanes, q, (lp, rp), lp, table, kvv, scale=scale,
+                    block_size=16) for lp, rp in pools],
+        plain=[partial(paged_row_stats_plain, q, (lp, rp), lp, table, kvv, scale=scale)
+               for lp, rp in pools],
+        library=None, err=err,
+        bound=k5_bound(long_kv, 1, MLA_HEADS, d, dv, 16, es=2, v_is_key=True),
+        shape=f"lanes=4 hkv=1 r={MLA_HEADS} bs=16 slots=1024 kv_valid={long_kv} pools "
+              f"512+64 (latent = values) bf16, L2 cold ({len(pools)} copies)")
+    # split-slot edges on NaN-poisoned pools: whole blocks (bs 16) and 16-key
+    # slices of a block (bs 64), one and several chunks
+    for bs, n_slots, kvs in ((16, 32, [0, 1, 15, 16, 17, 31, 32, 33, 300, 512]),
+                             (16, 1024, [1, 33, 5000, 16384]),
+                             (64, 8, [0, 1, 15, 16, 17, 63, 64, 65, 200, 512])):
+        for dt in (f32, bf16):
+            k5_case("K5 MLA slot edges (poisoned)", kvs, dt, bs=bs, n_slots=n_slots,
+                    poison=True)
+    return entries
 
 
 def train_kernel_entries(torch, dev) -> dict:
@@ -1164,8 +1387,7 @@ def logit_errs(torch, label, a_runs, b_runs, prompt_lens) -> list:
 def plain_route():
     """Run the port with every kernel replaced by its plain version, on the
     same card: each wrapper's CUDA launch function is swapped for the plain
-    version (same arguments; K5's takes its one key pool as a tuple) while
-    the block runs."""
+    version (same arguments) while the block runs."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ss_attention as sa
     from repro_torch.kernels import ss_attention_bwd as sb
@@ -1175,8 +1397,7 @@ def plain_route():
              sb._query_side_bwd_cuda)
     sa._landmark_summary_cuda = sa.landmark_summary_plain
     sa._query_side_cuda = sa.query_side_plain
-    pd._paged_row_stats_cuda = (lambda q, k_pool, *a, **kw:
-                                pd.paged_row_stats_plain(q, (k_pool,), *a, **kw))
+    pd._paged_row_stats_cuda = pd.paged_row_stats_plain
     sb._landmark_summary_bwd_cuda = sb.landmark_summary_bwd_plain
     sb._query_side_bwd_cuda = sb.query_side_bwd_plain
     try:
@@ -1291,6 +1512,55 @@ def model_phase(torch, dev) -> None:
                              f"{MODEL_TOL}")
     chunked_model_checks(torch, dev, prompt_lens)
     frozen_model_checks(torch, dev, prompt_lens)
+    deepseek_model_checks(torch, dev)
+
+
+def deepseek_model_checks(torch, dev) -> None:
+    """DeepSeek-V2-Lite (absorbed MLA + MoE) at full width, 2 fp32 layers:
+    prefill logits (prompts of 48 and 333 tokens: the exact window and K1 /
+    K2 at d = 576, dv = 512) and 4 paged decode steps (K5 with the latent
+    and rope pools), kernel route against the plain route on the card, and
+    the streaming stats after the prefills and after the decode steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+
+    prompt_lens = (48, 333)
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=2, compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = random_params(cfg, seed=0, device=dev)
+    before = launch_counts()
+    card, fed, card_stats = drive_model(torch, params, cfg, dev, prompt_lens)
+    after = launch_counts()
+    if any(after[k] <= before[k] for k in SERVE_KERNELS):
+        raise AssertionError(f"model parity {DEEPSEEK}: kernel route skipped a kernel: "
+                             f"{after}")
+    with plain_route():
+        plain, _, plain_stats = drive_model(torch, params, cfg, dev, prompt_lens, feed=fed)
+    if launch_counts() != after:
+        raise AssertionError(f"model parity {DEEPSEEK}: the plain route launched a kernel")
+    del params
+    torch.cuda.empty_cache()
+    errs = logit_errs(torch, f"model parity {DEEPSEEK}", card, plain, prompt_lens)
+    stat_errs = {when: [e / max(sc, 1e-30) for e, sc in (
+        max_err(a, b) for a, b in zip(card_stats[when], plain_stats[when]))]
+        for when in ("prefill", "decode")}
+    log(f"model parity: {DEEPSEEK} full width (d_model={cfg.d_model}, {cfg.num_heads} "
+        f"heads, MLA kv_lora {cfg.kv_lora_rank} + rope {cfg.rope_head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k} + {cfg.num_shared_experts} shared, "
+        f"vocab={cfg.vocab_size}) 2 layers fp32, block 16, prompts {prompt_lens}, 4 paged "
+        f"decode steps, kernel route vs plain route on the card: logit err of max-abs "
+        f"per output {['%.2e' % e for e in errs]} (tol {MODEL_TOL}); stats (m, l, acc) "
+        f"after the prefills {['%.2e' % e for e in stat_errs['prefill']]}, after the "
+        f"decode steps {['%.2e' % e for e in stat_errs['decode']]} (tol {STATS_TOL}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not max(errs) <= MODEL_TOL:
+        raise AssertionError(f"model parity {DEEPSEEK}: logit err {max(errs):.3e} > "
+                             f"{MODEL_TOL}")
+    worst = max(max(v) for v in stat_errs.values())
+    if not worst <= STATS_TOL:
+        raise AssertionError(f"model parity {DEEPSEEK}: stats err {worst:.3e} > "
+                             f"{STATS_TOL}")
 
 
 def frozen_bv_errs(torch, st: dict, cfg) -> tuple:
@@ -1601,6 +1871,8 @@ def grad_phase(torch, dev) -> None:
 # phase 4: serving
 # --------------------------------------------------------------------------
 SERVE_LENS = [48, 200, 333, 480]
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_FROZEN_LAYERS = 4   # depth cut of the frozen chunked prefix-cache run
 GRANITE_LAYERS = 8   # of 52: about 9.7 GB of bf16 weights (embedding included)
 
 
@@ -1714,7 +1986,55 @@ def serve_phase(torch, dev, layers: int) -> dict:
         raise AssertionError(f"serve granite-20b: kernels never launched: {missing}")
     return {"serve": main["launches"], "serve_default_route": default["launches"],
             "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers),
-            **serve_frozen_phase(torch, dev, layers)}
+            **serve_frozen_phase(torch, dev, layers), **serve_deepseek_phase(torch, dev)}
+
+
+def serve_deepseek_phase(torch, dev) -> dict:
+    """DeepSeek-V2-Lite on the card (bf16 random weights, seed 0):
+    ``serve_deepseek``, every one of its 27 layers at full width on the
+    main path (``ss_fused`` prefill, ``paged`` decode, block 16, 4 lanes,
+    max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens each: K1,
+    K2 and K5 must launch), then ``serve_deepseek_chunked_frozen``, its
+    first DEEPSEEK_FROZEN_LAYERS layers under frozen streaming with chunks
+    of 128 and the prefix cache over the A A B C C sequence one request at
+    a time (hits 3, misses 2), tokens identical to a cold frozen chunked
+    engine (K1 at the chunk site; K5 never on a frozen path)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+
+    cfg, params = serve_params(torch, dev, DEEPSEEK, get_config(DEEPSEEK).num_layers,
+                               "serve_deepseek")
+    main_serve = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                             decode_impl="paged", seed=0)
+    main = serve_run(torch, dev, DEEPSEEK, cfg.num_layers, main_serve, "serve_deepseek",
+                     params=(cfg, params))
+    missing = [k for k in SERVE_KERNELS if main["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_deepseek: kernels never launched: {missing}")
+    n = DEEPSEEK_FROZEN_LAYERS
+    frozen = dataclasses.replace(cfg, num_layers=n, decode_streaming="frozen")
+    chunked = dataclasses.replace(main_serve, chunked_prefill=True, prefill_chunk_tokens=128)
+    prefix, cold = prefix_runs(torch, dev, frozen, first_layers(params, n), chunked,
+                               "serve_deepseek_chunked_frozen")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pst = prefix["stats"]
+    if (pst["prefix"]["hits"], pst["prefix"]["misses"]) != (3, 2):
+        raise AssertionError(f"serve_deepseek_chunked_frozen: prefix {pst['prefix']}: "
+                             f"want hits 3, misses 2")
+    if prefix["outputs"] != cold["outputs"]:
+        raise AssertionError(f"serve_deepseek_chunked_frozen: tokens differ from the cold "
+                             f"frozen chunked run: {prefix['outputs']} vs {cold['outputs']}")
+    ran = prefix["launches"]
+    if ran["landmark_summary"] <= 0 or ran["paged_row_stats"] or cold["launches"][
+            "paged_row_stats"]:
+        raise AssertionError(f"serve_deepseek_chunked_frozen: launches {ran}: K1 must run "
+                             f"at the chunk site, K5 never")
+    log("serve serve_deepseek_chunked_frozen: greedy tokens identical to the cold frozen "
+        "chunked run")
+    return {"serve_deepseek": main["launches"],
+            "serve_deepseek_chunked_frozen": prefix["launches"]}
 
 
 TIGHT_BLOCKS = 32     # the least pool a 512-token lane allows (32 blocks of 16)

@@ -5,7 +5,7 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_IDS = ["qwen2-7b", "granite-20b"]
+ARCH_IDS = ["qwen2-7b", "granite-20b", "deepseek-v2-lite-16b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -46,6 +46,25 @@
 //   registers; a lane owns one key of the 32-key shared tile for the scores
 //   (K rows padded to d + 1 floats, conflict-free) and 4 value columns for
 //   the P V update. The loop stops at the last key any row may attend.
+//
+// Wide heads (absorbed MLA's prefill: d = 576, the 512 kv_lora latents and
+// 64 rope columns; dv = 512, the latents). The tensor-core kernel splits dv
+// across a grid axis of 128-column tiles, each CTA recomputing the scores
+// for its value columns (the scores are 53% of the flops at 576 / 512, so
+// the split costs up to 4x those), and runs as a template over the column
+// tiles of d (1 for d <= 128, 5 up to 640): Q~ stays resident in 5 tiles
+// and each 64-key tile's K arrives in 128-column tiles through the cp.async
+// ring, S accumulating over them by wgmma (148 KB of shared memory, one CTA
+// an SM). The fp32 path has a second kernel, landmark_summary_wide_kernel:
+// all dv columns a CTA (each score computed once), K and V tiles copied in
+// their storage type by cp.async into alternating buffers (90 KB at bf16
+// k, v; 159 KB at fp32), 16-byte shared reads for the scores. At the
+// seed's shape it takes 0.090 ms of device time against 0.86 for a first
+// version that split dv over the grid (PERF.md).
+// At MLA's prefill shape (16 heads broadcast from one latent stream, 64
+// rows, 333 of 352 keys) the bound is the bytes of the broadcast keys and
+// values, 4 us; the bf16 kernel takes 35 us of device time (PERF.md): the 4x
+// score recompute and one CTA an SM leave it latency-bound.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -58,7 +77,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 2;
 constexpr int kRows = kWarps * kRowsPerWarp;  // landmark rows per CTA
 constexpr int kTileN = 32;                    // keys per shared tile
-constexpr int kMaxD = 128;                    // max head dim (d and dv)
+constexpr int kMaxD = 128;                    // max head dim of the narrow kernels
+constexpr int kWideMaxD = 576;                // max d (the wide-head variants)
+constexpr int kWideMaxDv = 512;               // max dv
 
 template <typename TQ, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -163,19 +184,259 @@ landmark_summary_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The fp32 kernel for wide heads (d up to kWideMaxD, dv up to kWideMaxDv).
+// A CTA owns kRows landmark rows of one batch-head and all dv value
+// columns, so each score is computed once. K and V tiles of kTileN keys
+// arrive in their storage type by cp.async (16 bytes a copy, zero-filled
+// past n_end) into one K and one V buffer that alternate: K(t + 1) lands
+// while P V(t) runs and V(t + 1) while the scores of t + 1 run. A lane owns
+// one key of the tile for the scores and reads its row 16 bytes at a time
+// (K rows padded by 16 bytes: eight lanes of a phase hit distinct banks)
+// against Q~ broadcast from fp32 shared rows, one FMA chain; for P V it
+// owns the value column pairs 2 lane + 64 i, i < kWideMaxDv / 64, their
+// fp32 acc in registers. A warp owns one row (8 warps a CTA: at MLA's 16
+// heads x 64 rows the grid is 128 CTAs, one an SM, and two rows a warp
+// left each scheduler one warp to hide latency with).
+constexpr int kWideWarps = 8;                         // a warp a landmark row
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideRowsPerWarp = kRows / kWideWarps;
+static_assert(kWideRowsPerWarp * kWideWarps == kRows, "rows split evenly over the warps");
+
+template <typename T>
+struct Wide {
+  static constexpr int kVec = 16 / sizeof(T);           // elements of a 16-byte copy
+  static constexpr int kKStride = kWideMaxD + kVec;     // K row in shared memory
+  static constexpr int kPairs = kWideMaxDv / 64;        // value column pairs a lane
+  // Q~ rows (fp32), P, a K tile, a V tile
+  static constexpr int kQBytes = kRows * kWideMaxD * 4;
+  static constexpr int kPBytes = kRows * kTileN * 4;
+  static constexpr int kKBytes = kTileN * kKStride * static_cast<int>(sizeof(T));
+  static constexpr int kSmem = kQBytes + kPBytes + kKBytes + kTileN * kWideMaxDv * static_cast<int>(sizeof(T));
+};
+
+// 16 bytes of shared memory as kVec floats.
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = repro::unpack_bf16(w[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return repro::unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows [t0, t0 + kTileN) of a (n, width) operand into a shared tile of row
+// stride ld elements, rows past n_end zero-filled. The caller commits.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int width, int t0,
+                                          int n_end, int tid) {
+  constexpr int kVec = Wide<T>::kVec;
+  const int per_row = width / kVec;
+  for (int i = tid; i < kTileN * per_row; i += kWideThreads) {
+    const int j = i / per_row, col = (i - j * per_row) * kVec;
+    const bool ok = t0 + j < n_end;
+    repro::cp_async16(repro::smem_u32(dst + j * ld + col),
+                      ok ? static_cast<const void*>(src + static_cast<size_t>(t0 + j) * width + col)
+                         : static_cast<const void*>(src),
+                      ok ? 16 : 0);
+  }
+}
+
+template <typename TQ, typename T>
+__global__ void __launch_bounds__(kWideThreads)
+landmark_summary_wide_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ out,
+                             float* __restrict__ m_out, float* __restrict__ l_out,
+                             int c, int n, int d, int dv, float scale,
+                             int kv_valid, int seg) {
+  using W = Wide<T>;
+  constexpr int kVec = W::kVec;
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  float* q_s = reinterpret_cast<float*>(wide_smem);                       // [kRows][kWideMaxD]
+  float* p_s = reinterpret_cast<float*>(wide_smem + W::kQBytes);          // [kRows][kTileN]
+  T* k_s = reinterpret_cast<T*>(wide_smem + W::kQBytes + W::kPBytes);     // [kTileN][kKStride]
+  T* v_s = reinterpret_cast<T*>(wide_smem + W::kQBytes + W::kPBytes + W::kKBytes);  // [kTileN][kWideMaxDv]
+
+  const int bi = blockIdx.x;
+  const int row0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const TQ* qb = q + static_cast<size_t>(bi) * c * d;
+  const T* kb = k + static_cast<size_t>(bi) * n * d;
+  const T* vb = v + static_cast<size_t>(bi) * n * dv;
+  // Keys [0, n_end) are the only ones any row of this CTA may attend.
+  int n_end = min(n, kv_valid);
+  if (seg > 0) n_end = min(n_end, min(row0 + kRows, c) * seg);
+
+  load_rows(k_s, W::kKStride, kb, d, 0, n_end, tid);
+  repro::cp_async_commit();
+  load_rows(v_s, kWideMaxDv, vb, dv, 0, n_end, tid);
+  repro::cp_async_commit();
+  for (int i = tid; i < kRows * d; i += kWideThreads) {
+    const int r = i / d, col = i - r * d;
+    q_s[r * kWideMaxD + col] = row0 + r < c
+        ? repro::to_float(qb[static_cast<size_t>(row0 + r) * d + col]) : 0.f;
+  }
+
+  float m_r[kWideRowsPerWarp], l_r[kWideRowsPerWarp], acc[kWideRowsPerWarp][W::kPairs][2];
+#pragma unroll
+  for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+    m_r[rr] = kNegInf;
+    l_r[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < W::kPairs; ++i) acc[rr][i][0] = acc[rr][i][1] = 0.f;
+  }
+  const int r0 = warp * kWideRowsPerWarp;
+
+  for (int t0 = 0; t0 < n_end; t0 += kTileN) {
+    const bool more = t0 + kTileN < n_end;
+    repro::cp_async_wait<1>();  // K(t) landed; V(t) may be in flight
+    __syncthreads();            // ... for every thread (first pass: q_s written)
+
+    // one FMA chain a score, in column order: the order of the plain
+    // version's fp32 product, so the fp32 model's routes agree to rounding
+    // that its random-weight core does not amplify
+    float dot[kWideRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kWideRowsPerWarp; ++rr) dot[rr] = 0.f;
+    const T* krow = k_s + lane * W::kKStride;
+#pragma unroll 2
+    for (int kk = 0; kk < d; kk += kVec) {
+      float kf[kVec];
+      load_vec(krow + kk, kf);
+#pragma unroll
+      for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+#pragma unroll
+        for (int h = 0; h < kVec; h += 4) {
+          float qf[4];
+          load_vec(q_s + (r0 + rr) * kWideMaxD + kk + h, qf);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dot[rr] = fmaf(qf[e], kf[h + e], dot[rr]);
+        }
+      }
+    }
+    const int key = t0 + lane;
+    float corr[kWideRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+      const int row = row0 + r0 + rr;
+      bool valid = key < n_end && row < c;
+      if (seg > 0) valid = valid && key < (row + 1) * seg;
+      const float s = valid ? dot[rr] * scale : kNegInf;
+      const float m_new = fmaxf(m_r[rr], repro::warp_max(s));
+      const float p = valid ? expf(s - m_new) : 0.f;
+      corr[rr] = expf(m_r[rr] - m_new);
+      l_r[rr] = l_r[rr] * corr[rr] + repro::warp_sum(p);
+      m_r[rr] = m_new;
+      p_s[(r0 + rr) * kTileN + lane] = p;
+    }
+    __syncthreads();  // every warp is done with k_s
+    if (more) load_rows(k_s, W::kKStride, kb, d, t0 + kTileN, n_end, tid);
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();  // V(t) landed; K(t + 1) may be in flight
+    __syncthreads();
+
+#pragma unroll
+    for (int rr = 0; rr < kWideRowsPerWarp; ++rr)
+#pragma unroll
+      for (int i = 0; i < W::kPairs; ++i) {
+        acc[rr][i][0] *= corr[rr];
+        acc[rr][i][1] *= corr[rr];
+      }
+    const int j_end = min(kTileN, n_end - t0);
+#pragma unroll 4
+    for (int j = 0; j < j_end; ++j) {
+      float p[kWideRowsPerWarp];
+#pragma unroll
+      for (int rr = 0; rr < kWideRowsPerWarp; ++rr) p[rr] = p_s[(r0 + rr) * kTileN + j];
+      const T* vrow = v_s + j * kWideMaxDv + 2 * lane;
+#pragma unroll
+      for (int i = 0; i < W::kPairs; ++i) {
+        if (2 * lane + 64 * i < dv) {
+          const float2 x = load_pair(vrow + 64 * i);
+#pragma unroll
+          for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+            acc[rr][i][0] = fmaf(p[rr], x.x, acc[rr][i][0]);
+            acc[rr][i][1] = fmaf(p[rr], x.y, acc[rr][i][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with v_s
+    if (more) load_rows(v_s, kWideMaxDv, vb, dv, t0 + kTileN, n_end, tid);
+    repro::cp_async_commit();
+  }
+  repro::cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+    const int row = row0 + r0 + rr;
+    if (row >= c) continue;
+    const float inv = 1.f / fmaxf(l_r[rr], 1e-30f);
+    T* o = out + (static_cast<size_t>(bi) * c + row) * dv;
+#pragma unroll
+    for (int i = 0; i < W::kPairs; ++i) {
+      const int col = 2 * lane + 64 * i;
+      if (col < dv) store_pair(o + col, acc[rr][i][0] * inv, acc[rr][i][1] * inv);
+    }
+    if (m_out != nullptr && lane == 0) {
+      m_out[static_cast<size_t>(bi) * c + row] = m_r[rr];
+      l_out[static_cast<size_t>(bi) * c + row] = l_r[rr];
+    }
+  }
+}
+
 template <typename TQ, typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  float* m_out, float* l_out, int b, int c, int n, int d,
                  int dv, float scale, int kv_valid, int seg,
                  cudaStream_t st) {
+  if (d <= kMaxD && dv <= kMaxD) {
+    const dim3 grid(b, (c + kRows - 1) / kRows);
+    landmark_summary_kernel<TQ, T><<<grid, kThreads, 0, st>>>(
+        static_cast<const TQ*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, c, n, d,
+        dv, scale, kv_valid, seg);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the wide kernel copies 16-byte chunks of k and v rows
+  if (d % 8 || dv % 8 || reinterpret_cast<uintptr_t>(k) % 16
+      || reinterpret_cast<uintptr_t>(v) % 16) {
+    return cudaErrorInvalidValue;
+  }
+  static bool sized = false;   // past 48 KB of shared memory
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        landmark_summary_wide_kernel<TQ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Wide<T>::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
   const dim3 grid(b, (c + kRows - 1) / kRows);
-  landmark_summary_kernel<TQ, T><<<grid, kThreads, 0, st>>>(
+  landmark_summary_wide_kernel<TQ, T><<<grid, kWideThreads, Wide<T>::kSmem, st>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, c, n, d,
       dv, scale, kv_valid, seg);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // ---- bf16: tensor cores on a split-key grid ----------------------------------
 namespace tc {
@@ -184,12 +445,22 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = repro::kTileRows;   // landmark rows per CTA
 constexpr int kKeys = repro::kTileRows;   // keys per tile
 constexpr int kStages = 2;
-// 1024 B of alignment slack, Q~, then the K/V ring.
-constexpr int kSmemBytes = 1024 + repro::kTileBytes * (1 + 2 * kStages);
+constexpr int kCols = repro::kTileCols;   // columns of a tile: d's column tiles, dv's tiles
+constexpr int kWideCT = 5;                // d's column tiles past 128 (up to 640)
+static_assert(kWideCT * kCols >= kWideMaxD, "Q~ fits its resident column tiles");
+// 1024 B of alignment slack, Q~ (kCT column tiles), then the ring: per stage
+// one K column tile and one V tile.
+constexpr int smem_bytes(int ct) { return 1024 + repro::kTileBytes * (ct + 2 * kStages); }
 constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
+// kCT: column tiles of d (1: d <= 128; kWideCT: wider). Steps walk the
+// (key tile, column tile) pairs in order: a step brings one K column tile
+// (and, at column tile 0, the key tile's V tile of this CTA's value
+// columns) and adds its part of S; the last column tile's step runs the
+// softmax and P V. With kCT = 1 a step is a key tile, as it always was.
+template <int kCT>
 __global__ void __launch_bounds__(kThreads)
 landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -199,29 +470,39 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float scale, int n_end, int seg, int chunk_keys, int chunks) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int chunk = blockIdx.x, row0 = blockIdx.y * kRows, bi = blockIdx.z;
+  // grid.z = b x value tiles: this CTA's value columns [dv0, dv0 + dvw)
+  const int dvt = (dv + kCols - 1) / kCols;
+  const int chunk = blockIdx.x, row0 = blockIdx.y * kRows;
+  const int bi = blockIdx.z / dvt, vt = blockIdx.z - bi * dvt;
+  const int dv0 = vt * kCols, dvw = min(kCols, dv - dv0);
   const int key0 = chunk * chunk_keys;
   const int key_end = min(key0 + chunk_keys, n_end);
   // No row of this tile reaches the chunk (segment-causal): nothing to do.
   if (key0 >= repro::b_side_reach(min(c, row0 + kRows) - 1, n_end, seg)) return;
   const int tiles = (key_end - key0 + kKeys - 1) / kKeys;
+  const int steps = tiles * kCT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
 
   const bf16* kb = k + static_cast<size_t>(bi) * n * d;
-  const bf16* vb = v + static_cast<size_t>(bi) * n * dv;
-  auto k_s = [&](int st) { return q_s + repro::kTileBytes * (1 + 2 * st); };
+  const bf16* vb = v + static_cast<size_t>(bi) * n * dv + dv0;
+  auto k_s = [&](int st) { return q_s + repro::kTileBytes * (kCT + 2 * st); };
   auto v_s = [&](int st) { return k_s(st) + repro::kTileBytes; };
-  auto load_kv = [&](int it) {
+  auto load_step = [&](int sp) {
+    const int it = sp / kCT, ct = sp - it * kCT;
     const int t0 = key0 + it * kKeys;
-    repro::load_tile(k_s(it % kStages), kb + static_cast<size_t>(t0) * d, d,
-                     key_end - t0, d, k, tid, kThreads);
-    repro::load_tile(v_s(it % kStages), vb + static_cast<size_t>(t0) * dv, dv,
-                     key_end - t0, dv, v, tid, kThreads);
+    repro::load_tile(k_s(sp % kStages), kb + static_cast<size_t>(t0) * d + ct * kCols, d,
+                     key_end - t0, d - ct * kCols, k, tid, kThreads);
+    if (ct == 0)
+      repro::load_tile(v_s(it % kStages), vb + static_cast<size_t>(t0) * dv, dv,
+                       key_end - t0, dvw, v, tid, kThreads);
   };
-  repro::load_tile(q_s, q + (static_cast<size_t>(bi) * c + row0) * d, d, c - row0,
-                   d, q, tid, kThreads);
-  load_kv(0);
+#pragma unroll
+  for (int ct = 0; ct < kCT; ++ct)
+    repro::load_tile(q_s + ct * repro::kTileBytes,
+                     q + (static_cast<size_t>(bi) * c + row0) * d + ct * kCols, d, c - row0,
+                     d - ct * kCols, q, tid, kThreads);
+  load_step(0);
   repro::cp_async_commit();
 
   // This thread's rows: row0 + 16 warp + g (acc[.][0..1]) and + 8 ([2..3]).
@@ -236,29 +517,31 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float s[32];
 
-  for (int it = 0; it < tiles; ++it) {
+  for (int sp = 0; sp < steps; ++sp) {
+    const int it = sp / kCT, ct = sp - it * kCT;
     const int t0 = key0 + it * kKeys;
-    if (it + 1 < tiles) load_kv(it + 1);  // its stage was released at it - 1
+    if (sp + 1 < steps) load_step(sp + 1);  // its stage was released at sp - 1
     repro::cp_async_commit();
-    repro::cp_async_wait<1>();  // tile it (and Q~) landed
+    repro::cp_async_wait<1>();  // step sp (and Q~) landed
     repro::fence_proxy_async();
     __syncthreads();
 
-    float s[32];
+    if (ct == 0) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      s[e] = 0.f;
-      repro::fence_operand(s[e]);
+      for (int e = 0; e < 32; ++e) s[e] = 0.f;
     }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) repro::fence_operand(s[e]);
     repro::wgmma_fence();
-    repro::issue_abt(s, q_s, k_s(it % kStages));
+    repro::issue_abt(s, q_s + ct * repro::kTileBytes, k_s(sp % kStages), ct > 0);
     repro::wgmma_commit();
     repro::wgmma_wait<0>();
 #pragma unroll
     for (int e = 0; e < 32; ++e) repro::fence_operand(s[e]);
 
-    if (t0 < warp_reach) {
+    if (ct == kCT - 1 && t0 < warp_reach) {
       // mask, scale to base 2, row max over this thread's 16 keys then the quad
       float tmax[2] = {repro::kNegInf, repro::kNegInf};
       uint32_t valid = 0;
@@ -309,7 +592,7 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         repro::mma_a_btile(acc, a, v_s(it % kStages), 16 * kk, lane);
       }
     }
-    __syncthreads();  // the stage is released for tile it + kStages
+    __syncthreads();  // the stages are released for step sp + kStages
   }
 
 #pragma unroll
@@ -322,28 +605,28 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t rc = static_cast<size_t>(bi) * c + row;
     if (chunks == 1) {
       const float inv = 1.f / fmaxf(lsum[i], 1e-30f);
-      bf16* o = out + rc * dv;
+      bf16* o = out + rc * dv + dv0;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = 8 * j + 2 * qd;
-        if (col < dv) {
+        if (col < dvw) {
           *reinterpret_cast<__nv_bfloat162*>(o + col) =
               __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
         }
       }
-      if (m_out != nullptr && qd == 0) {
+      if (m_out != nullptr && qd == 0 && vt == 0) {
         m_out[rc] = m_nat;
         l_out[rc] = lsum[i];
       }
     } else if (key0 < repro::b_side_reach(row, n_end, seg)) {
       const size_t w = (static_cast<size_t>(bi) * chunks + chunk) * c + row;
-      float* o = ws_acc + w * dv;
+      float* o = ws_acc + w * dv + dv0;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = 8 * j + 2 * qd;
-        if (col < dv) *reinterpret_cast<float2*>(o + col) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+        if (col < dvw) *reinterpret_cast<float2*>(o + col) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
       }
-      if (qd == 0) {
+      if (qd == 0 && vt == 0) {
         ws_m[w] = m_nat;
         ws_l[w] = lsum[i];
       }
@@ -351,7 +634,7 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One CTA per (batch-head, row), a thread per value column: merges the
+// One CTA per (batch-head, row), threads over the value columns: merges the
 // partials of the chunks the row reaches, in chunk order, with flash_merge's
 // rule (a chunk with m = -1e30, l = 0 is absorbed; a row that reaches none
 // gets m = -1e30, l = 0, out = 0).
@@ -361,31 +644,56 @@ landmark_summary_merge(const float* __restrict__ ws_m, const float* __restrict__
                        float* __restrict__ m_out, float* __restrict__ l_out, int c,
                        int dv, int n_end, int seg, int chunk_keys, int chunks) {
   const int bi = blockIdx.x / c, row = blockIdx.x - bi * c;
-  const int col = threadIdx.x;
   const int nch =
       min(chunks, (repro::b_side_reach(row, n_end, seg) + chunk_keys - 1) / chunk_keys);
   const size_t w0 = static_cast<size_t>(bi) * chunks * c + row;
   float m = repro::kNegInf;
   for (int ch = 0; ch < nch; ++ch) m = fmaxf(m, ws_m[w0 + static_cast<size_t>(ch) * c]);
-  float l = 0.f, a = 0.f;
+  float l = 0.f;
   for (int ch = 0; ch < nch; ++ch) {
     const size_t w = w0 + static_cast<size_t>(ch) * c;
-    const float corr = expf(ws_m[w] - m);
-    l += ws_l[w] * corr;
-    if (col < dv) a += ws_acc[w * dv + col] * corr;
+    l += ws_l[w] * expf(ws_m[w] - m);
   }
   const size_t rc = static_cast<size_t>(bi) * c + row;
-  if (col < dv) out[rc * dv + col] = __float2bfloat16(a / fmaxf(l, 1e-30f));
-  if (m_out != nullptr && col == 0) {
+  for (int col = threadIdx.x; col < dv; col += 128) {
+    float a = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const size_t w = w0 + static_cast<size_t>(ch) * c;
+      a += ws_acc[w * dv + col] * expf(ws_m[w] - m);
+    }
+    out[rc * dv + col] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+  }
+  if (m_out != nullptr && threadIdx.x == 0) {
     m_out[rc] = m;
     l_out[rc] = l;
   }
 }
 
+template <int kCT>
+int launch_tiles(const void* q, const void* k, const void* v, void* out, float* m_out,
+                 float* l_out, float* ws_m, float* ws_l, float* ws_acc, int b, int c, int n,
+                 int d, int dv, float scale, int n_end, int seg, int chunk_keys, int chunks,
+                 cudaStream_t st) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        landmark_summary_tc<kCT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(kCT));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid(chunks, (c + kRows - 1) / kRows, b * ((dv + kCols - 1) / kCols));
+  landmark_summary_tc<kCT><<<grid, kThreads, smem_bytes(kCT), st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), m_out, l_out, ws_m, ws_l, ws_acc, c, n, d, dv, scale, n_end,
+      seg, chunk_keys, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
            float* l_out, float* ws, int b, int c, int n, int d, int dv, float scale,
            int kv_valid, int seg, int chunk_keys, cudaStream_t st) {
-  if (d > repro::kTileCols || dv > repro::kTileCols || d % 8 || dv % 8 || chunk_keys <= 0
+  if (d > kWideMaxD || dv > kWideMaxDv || d % 8 || dv % 8 || chunk_keys <= 0
       || chunk_keys % kKeys) {
     return cudaErrorInvalidValue;
   }
@@ -399,20 +707,12 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
   float* ws_acc = ws == nullptr ? nullptr : ws + 2 * rows;
   if (chunks > 1 && ws == nullptr) return cudaErrorInvalidValue;
   if (chunks >= 1) {
-    static bool sized = false;
-    if (!sized) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          landmark_summary_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      sized = true;
-    }
-    const dim3 grid(chunks, (c + kRows - 1) / kRows, b);
-    landmark_summary_tc<<<grid, kThreads, kSmemBytes, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), m_out, l_out, ws_m, ws_l,
-        ws_acc, c, n, d, dv, scale, n_end, seg, chunk_keys, chunks);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int err = d <= kCols
+        ? launch_tiles<1>(q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, b, c, n, d, dv,
+                          scale, n_end, seg, chunk_keys, chunks, st)
+        : launch_tiles<kWideCT>(q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, b, c, n, d,
+                                dv, scale, n_end, seg, chunk_keys, chunks, st);
+    if (err != cudaSuccess) return err;
   }
   if (chunks != 1) {
     landmark_summary_merge<<<b * c, 128, 0, st>>>(ws_m, ws_l, ws_acc,
@@ -439,7 +739,8 @@ extern "C" int landmark_summary_launch(
     const void* q, const void* k, const void* v, void* out, void* m_out,
     void* l_out, void* ws, int b, int c, int n, int d, int dv, float scale,
     int kv_valid, int seg, int chunk_keys, int q_dtype, int kv_dtype, void* stream) {
-  if (d > kMaxD || dv > kMaxD || b <= 0 || c <= 0) return cudaErrorInvalidValue;
+  if (d > kWideMaxD || dv > kWideMaxDv || d <= 0 || dv <= 0 || b <= 0 || c <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);

@@ -137,12 +137,14 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
 }
 
 // Issue S = A . B^T over the 128 columns of two tiles (8 k-steps of 16) as
-// wgmma m64n64k16, without committing: the caller commits and waits.
-__device__ __forceinline__ void issue_abt(float (&s)[32], uint32_t a, uint32_t b) {
+// wgmma m64n64k16, without committing: the caller commits and waits. With
+// `accumulate` S += A . B^T (a head dim past 128, in column tiles).
+__device__ __forceinline__ void issue_abt(float (&s)[32], uint32_t a, uint32_t b,
+                                          bool accumulate = false) {
 #pragma unroll
   for (int kk = 0; kk < kTileCols / 16; ++kk) {
     const uint32_t off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
-    wgmma_m64n64k16(s, sw128_desc(a + off), sw128_desc(b + off), kk > 0);
+    wgmma_m64n64k16(s, sw128_desc(a + off), sw128_desc(b + off), kk > 0 || accumulate);
   }
 }
 

@@ -3,9 +3,13 @@
 // the shared K/V block pools through each lane's block table.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_decode.py:162
-// paged_row_stats_lanes (body _paged_row_stats_kernel :83; the single-lane
+// paged_row_stats_lanes (body _paged_row_stats_kernel :83, whose `splits`
+// loop :118 sums the scores over several key pools; the single-lane
 // paged_row_stats :267 and its custom_vmap rule _lane_fn :229 have no
-// counterpart: lanes are a grid axis).
+// counterpart: lanes are a grid axis). One key pool of width up to 128
+// runs the narrow kernel below; two key pools (absorbed MLA: latent + rope)
+// or wider heads run paged_row_stats_wide (further down), a dispatch by
+// shape.
 //
 // What it computes, per lane, kv head h and row:
 //   key t (t < kv_valid[lane]) lives in pool block table[lane, t / bs] at
@@ -161,29 +165,31 @@ __device__ __forceinline__ float butterfly_rows(const float (&x)[kRowGroup], int
 // The geometry of a step of a chunk whose valid blocks are nblk: its first
 // block b0 (within the chunk), nbk blocks, key offset key0 within the first
 // block and nkeys keys (the stage's K rows; all nbk blocks whole when
-// bs <= kStepKeys, else one 32-key slice).
+// bs <= the step's keys, else one slice).
 struct Step {
   int b0, nbk, key0, nkeys;
 };
 
 // How a chunk is walked, for the launcher (the ring's size) and the kernel
-// (the walk): for bs <= 32, bps whole blocks a step (up to 32 keys); for
-// bs > 32, spb slices of 32 keys a block. A stage holds the step's K rows,
-// then its V rows from kv_cap rows on, so key j of the step is row j of
-// either.
+// (the walk), in steps of up to sk keys (kStepKeys = 32 in the narrow
+// kernel, kWideStepKeys = 16 in the wide one): for bs <= sk, bps whole
+// blocks a step; for bs > sk, spb slices of sk keys a block. A stage holds
+// the step's K rows, then its V rows from kv_cap rows on, so key j of the
+// step is row j of either.
 struct StepGeom {
-  int bs;
+  int bs, sk;
   bool sliced;
   int spb, bps, kv_cap;
-  __host__ __device__ explicit StepGeom(int bs_)
+  __host__ __device__ explicit StepGeom(int bs_, int sk_ = kStepKeys)
       : bs(bs_),
-        sliced(bs_ > kStepKeys),
-        spb(sliced ? (bs_ + kStepKeys - 1) / kStepKeys : 1),
-        bps(sliced ? 1 : kStepKeys / bs_),
-        kv_cap(sliced ? kStepKeys : bps * bs_) {}
+        sk(sk_),
+        sliced(bs_ > sk_),
+        spb(sliced ? (bs_ + sk_ - 1) / sk_ : 1),
+        bps(sliced ? 1 : sk_ / bs_),
+        kv_cap(sliced ? sk_ : bps * bs_) {}
   // steps of nblk blocks whose valid keys are `keys` (> (nblk - 1) * bs)
   __host__ __device__ int steps(int nblk, int keys) const {
-    return sliced ? (nblk - 1) * spb + (keys - (nblk - 1) * bs + kStepKeys - 1) / kStepKeys
+    return sliced ? (nblk - 1) * spb + (keys - (nblk - 1) * bs + sk - 1) / sk
                   : (nblk + bps - 1) / bps;
   }
   __device__ __forceinline__ Step at(int i, int nblk) const {
@@ -191,8 +197,8 @@ struct StepGeom {
     if (sliced) {
       s.b0 = i / spb;
       s.nbk = 1;
-      s.key0 = (i - s.b0 * spb) * kStepKeys;
-      s.nkeys = min(kStepKeys, bs - s.key0);
+      s.key0 = (i - s.b0 * spb) * sk;
+      s.nkeys = min(sk, bs - s.key0);
     } else {
       s.b0 = i * bps;
       s.nbk = min(bps, nblk - s.b0);
@@ -473,6 +479,235 @@ paged_row_stats_merge(const float* __restrict__ ws, float* __restrict__ m_out,
   }
 }
 
+
+// ---- wide heads: up to two key pools, d <= 576, dv <= 512 ----------------------
+// Absorbed MLA's decode (kernels/paged_decode.py: the 512-wide latent pool
+// and the 64-wide rope pool as key pools, the latent pool as the value
+// pool, hkv = 1, r = 16 query heads). One CTA per (chunk, kv head x row
+// group of kWideRows = 16 rows, lane), the narrow kernel's split-slot grid
+// and merge. A step is up to kWideStepKeys = 16 keys; thread 0 bulk-copies
+// the step's rows of each key pool and, unless the value pool is the first
+// key pool (the same storage), its V rows, into a two-stage ring. With the
+// alias a bf16 latent+rope block of 16 keys is one 18 KiB stage, and each
+// key's 576 elements are read once for the scores and again (its first
+// 512) for P V, not 1,088. Warp w owns query rows w and w + 8: q's rows
+// live pre-scaled in its registers (each lane 4-column chunks lane + 32 j
+// of both rows), so a key's score is one pass over its row in shared
+// memory and a warp sum, with no shared scores and no barrier between
+// scores and P V; the accumulator (16 x 512 fp32) is spread over the
+// warps, each lane holding 4-column chunks lane + 32 j of its two rows'
+// value columns. Per key the work is 2 r (d + dv) = 34,816 flops on 1,152
+// bytes (bf16, aliased): about 30 flop/B, above the fp32 FMA ridge of
+// about 20, so the kernel is bound by operations.
+constexpr int kWideMaxD = 576;                  // sum of the key pools' widths
+constexpr int kWideMaxDv = 512;                 // value width
+constexpr int kWideRows = 16;                   // query rows per CTA (a row group)
+constexpr int kWideRowsPerWarp = kWideRows / kWarps;
+constexpr int kWideStepKeys = 16;               // max keys per step
+constexpr int kWideQChunks = (kWideMaxD / 4 + 31) / 32;   // q chunks per lane and row
+constexpr int kWideVChunks = kWideMaxDv / 4 / 32;         // value chunks per lane and row
+constexpr uint32_t kWideMaxDynamic =
+    kStages * kWideStepKeys * (kWideMaxD + kWideMaxDv) * 4;
+static_assert(kWideRowsPerWarp == 2, "warp w owns rows w and w + 8");
+static_assert(kWideStepKeys <= 32, "a lane holds one key's score");
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+paged_row_stats_wide(const T* __restrict__ q, const T* __restrict__ kp0,
+                     const T* __restrict__ kp1, const T* __restrict__ vpool, int v_alias,
+                     const int* __restrict__ table, const int* __restrict__ kv_valid,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* __restrict__ acc_out, float* __restrict__ ws, int hkv, int r,
+                     int w0, int w1, int dv, int nb, int bs, int n_slots, int chunk_slots,
+                     int chunks, uint32_t stage_bytes, float scale) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+
+  const int d = w0 + w1;
+  const int chunk = blockIdx.x, ln = blockIdx.z;
+  const int n_rg = (r + kWideRows - 1) / kWideRows;
+  const int h = blockIdx.y / n_rg, row0 = (blockIdx.y - h * n_rg) * kWideRows;
+  const int rows = min(kWideRows, r - row0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = chunk * chunk_slots;
+  const int* tb = table + static_cast<size_t>(ln) * n_slots + s0;
+  const int valid = min(max(kv_valid[ln], 0), n_slots * bs);
+  const int n_blk = (valid + bs - 1) / bs;
+  const int nblk = min(s0 + chunk_slots, n_blk) - s0;
+
+  const size_t o = (static_cast<size_t>(ln) * hkv + h) * r + row0;
+  float* mo = m_out + o;
+  float* lo = l_out + o;
+  float* ao = acc_out + o * dv;
+  if (chunks > 1) {
+    const size_t all = static_cast<size_t>(gridDim.z) * hkv * chunks * r;
+    const size_t w = ((static_cast<size_t>(ln) * hkv + h) * chunks + chunk) * r + row0;
+    ao = ws + w * dv;
+    mo = ws + all * dv + w;
+    lo = ws + all * (dv + 1) + w;
+  }
+  if (nblk <= 0) {   // no valid key in this chunk: the anchor
+    for (int x = tid; x < rows * dv; x += kThreads) ao[x] = 0.f;
+    for (int x = tid; x < rows; x += kThreads) {
+      mo[x] = kNegInf;
+      lo[x] = 0.f;
+    }
+    return;
+  }
+
+  const StepGeom geom(bs, kWideStepKeys);
+  const int chunk_keys = min(valid - s0 * bs, nblk * bs);
+  const int n_steps = geom.steps(nblk, chunk_keys);
+  // stage layout (elements): K rows of pool 0, of pool 1, then V rows
+  const int k1_at = geom.kv_cap * w0, v_at = geom.kv_cap * d;
+  const uint32_t k1_bytes = k1_at * sizeof(T), v_bytes = v_at * sizeof(T);
+  const uint32_t ring0 = smem_addr(ring), bar0 = smem_addr(full);
+  auto issue = [&](int i) {
+    const Step sp = geom.at(i, nblk);
+    const int st = i % kStages;
+    const uint32_t dst = ring0 + st * stage_bytes, bar = bar0 + 8 * st;
+    const int krows = geom.sliced ? sp.nkeys : bs;
+    const uint32_t b0 = static_cast<uint32_t>(krows) * w0 * sizeof(T);
+    const uint32_t b1 = static_cast<uint32_t>(krows) * w1 * sizeof(T);
+    const uint32_t bv = v_alias ? 0u : static_cast<uint32_t>(krows) * dv * sizeof(T);
+    mbar_expect_tx(bar, sp.nbk * (b0 + b1 + bv));
+    for (int b = 0; b < sp.nbk; ++b) {
+      const size_t row = (static_cast<size_t>(h) * nb + tb[sp.b0 + b]) * bs + sp.key0;
+      bulk_copy(dst + b * b0, kp0 + row * w0, b0, bar);
+      if (b1) bulk_copy(dst + k1_bytes + b * b1, kp1 + row * w1, b1, bar);
+      if (bv) bulk_copy(dst + v_bytes + b * bv, vpool + row * dv, bv, bar);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bar0 + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < min(kStages, n_steps); ++i) issue(i);
+  }
+
+  // This lane's q chunks (4 columns at 4 c, c = lane + 32 j) of rows warp and
+  // warp + 8, pre-scaled, and where each chunk's key columns sit in a stage:
+  // element offset of key 0 and the row stride (pool 0 or pool 1).
+  const int d4 = d / 4;
+  float qr[kWideRowsPerWarp][kWideQChunks][4];
+  int k_off[kWideQChunks], k_ld[kWideQChunks];
+#pragma unroll
+  for (int j = 0; j < kWideQChunks; ++j) {
+    const int col = 4 * (lane + 32 * j);
+    k_off[j] = col < w0 ? col : k1_at + col - w0;
+    k_ld[j] = col < w0 ? w0 : w1;
+#pragma unroll
+    for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+      const int row = warp + kWarps * rr;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < rows && lane + 32 * j < d4) x = load4(q + (o + row) * d + col);
+      qr[rr][j][0] = x.x * scale;
+      qr[rr][j][1] = x.y * scale;
+      qr[rr][j][2] = x.z * scale;
+      qr[rr][j][3] = x.w * scale;
+    }
+  }
+  float m[kWideRowsPerWarp], l[kWideRowsPerWarp], acc[kWideRowsPerWarp][kWideVChunks][4];
+#pragma unroll
+  for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideVChunks; ++j) acc[rr][j][0] = acc[rr][j][1] = acc[rr][j][2] =
+        acc[rr][j][3] = 0.f;
+  }
+  const int v_base = v_alias ? 0 : v_at, v_ld = v_alias ? w0 : dv;
+  const bool live_rows = warp < rows;   // warp-uniform: row warp exists
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % kStages;
+    const Step sp = geom.at(i, nblk);
+    const int kend = min(sp.nkeys, chunk_keys - (sp.b0 * bs + sp.key0));
+    if (live_rows) {
+      mbar_wait(bar0 + 8 * st, (i / kStages) & 1);
+      const T* stg = reinterpret_cast<const T*>(ring + st * stage_bytes);
+      // scores: lane `key` keeps key's score of each row
+      float sc[kWideRowsPerWarp] = {kNegInf, kNegInf};
+      for (int key = 0; key < kend; ++key) {
+        float part[kWideRowsPerWarp] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kWideQChunks; ++j) {
+          if (lane + 32 * j < d4) {
+            const float4 kx = load4(stg + k_off[j] + key * k_ld[j]);
+#pragma unroll
+            for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+              part[rr] = fmaf(qr[rr][j][0], kx.x, part[rr]);
+              part[rr] = fmaf(qr[rr][j][1], kx.y, part[rr]);
+              part[rr] = fmaf(qr[rr][j][2], kx.z, part[rr]);
+              part[rr] = fmaf(qr[rr][j][3], kx.w, part[rr]);
+            }
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+          const float s = repro::warp_sum(part[rr]);
+          if (lane == key) sc[rr] = s;
+        }
+      }
+      float pw[kWideRowsPerWarp];
+#pragma unroll
+      for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+        const float m_new = fmaxf(m[rr], repro::warp_max(sc[rr]));
+        const float corr = expf(m[rr] - m_new);
+        pw[rr] = lane < kend ? expf(sc[rr] - m_new) : 0.f;
+        l[rr] = l[rr] * corr + repro::warp_sum(pw[rr]);
+        m[rr] = m_new;
+#pragma unroll
+        for (int j = 0; j < kWideVChunks; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[rr][j][e] *= corr;
+      }
+      // P V: each lane its 4-column chunks of every value row
+      for (int key = 0; key < kend; ++key) {
+        const float p0 = __shfl_sync(0xffffffffu, pw[0], key);
+        const float p1 = __shfl_sync(0xffffffffu, pw[1], key);
+#pragma unroll
+        for (int j = 0; j < kWideVChunks; ++j) {
+          const int col = 4 * (lane + 32 * j);
+          if (col < dv) {
+            const float4 vx = load4(stg + v_base + key * v_ld + col);
+            acc[0][j][0] = fmaf(p0, vx.x, acc[0][j][0]);
+            acc[0][j][1] = fmaf(p0, vx.y, acc[0][j][1]);
+            acc[0][j][2] = fmaf(p0, vx.z, acc[0][j][2]);
+            acc[0][j][3] = fmaf(p0, vx.w, acc[0][j][3]);
+            acc[1][j][0] = fmaf(p1, vx.x, acc[1][j][0]);
+            acc[1][j][1] = fmaf(p1, vx.y, acc[1][j][1]);
+            acc[1][j][2] = fmaf(p1, vx.z, acc[1][j][2]);
+            acc[1][j][3] = fmaf(p1, vx.w, acc[1][j][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // every warp is past stage st: refill it
+    if (tid == 0 && i + kStages < n_steps) issue(i + kStages);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
+    const int row = warp + kWarps * rr;
+    if (row >= rows) break;
+#pragma unroll
+    for (int j = 0; j < kWideVChunks; ++j) {
+      const int col = 4 * (lane + 32 * j);
+      if (col < dv)
+        *reinterpret_cast<float4*>(ao + static_cast<size_t>(row) * dv + col) =
+            make_float4(acc[rr][j][0], acc[rr][j][1], acc[rr][j][2], acc[rr][j][3]);
+    }
+    if (lane == 0) {
+      mo[row] = m[rr];
+      lo[row] = l[rr];
+    }
+  }
+}
+
 template <typename T, int kRowsPerWarp>
 int launch_rows(const dim3 grid, size_t smem, cudaStream_t st, const void* q,
                 const void* kpool, const void* vpool, const int* table, const int* kv_valid,
@@ -491,6 +726,13 @@ int launch_rows(const dim3 grid, size_t smem, cudaStream_t st, const void* q,
       static_cast<const T*>(q), static_cast<const T*>(kpool), static_cast<const T*>(vpool),
       table, kv_valid, m_out, l_out, acc_out, ws, hkv, r, d, dv, nb, bs, n_slots,
       chunk_slots, chunks, stage_bytes, ring_bytes, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int merge_chunks(float* ws, float* m_out, float* l_out, float* acc_out, int lanes, int hkv,
+                 int r, int dv, int chunks, cudaStream_t st) {
+  paged_row_stats_merge<<<lanes * hkv * r, 128, 2 * chunks * sizeof(float), st>>>(
+      ws, m_out, l_out, acc_out, r, dv, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,31 +765,73 @@ int launch_typed(const void* q, const void* kpool, const void* vpool, const int*
                   : groups <= 4 ? go(launch_rows<T, 4>)
                                 : go(launch_rows<T, kMaxRowsPerWarp>);
   if (err != cudaSuccess || chunks == 1) return err;
-  paged_row_stats_merge<<<lanes * hkv * r, 128, 2 * chunks * sizeof(float), st>>>(
-      ws, m_out, l_out, acc_out, r, dv, chunks);
-  return static_cast<int>(cudaGetLastError());
+  return merge_chunks(ws, m_out, l_out, acc_out, lanes, hkv, r, dv, chunks, st);
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* kp0, const void* kp1, const void* vpool,
+                const int* table, const int* kv_valid, float* m_out, float* l_out,
+                float* acc_out, float* ws, int lanes, int hkv, int r, int w0, int w1, int dv,
+                int nb, int bs, int n_slots, int chunk_slots, float scale, cudaStream_t st) {
+  const int chunks = n_slots > 0 ? (n_slots + chunk_slots - 1) / chunk_slots : 1;
+  if (chunks > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  // the value pool is the first key pool: its rows are copied once
+  const int v_alias = vpool == kp0 && dv == w0;
+  const StepGeom geom(bs, kWideStepKeys);
+  const uint32_t stage_bytes =
+      (static_cast<uint32_t>(geom.kv_cap) * (w0 + w1 + (v_alias ? 0 : dv)) * sizeof(T)
+       + 127u) & ~127u;
+  const int chunk_steps = geom.steps(chunk_slots, chunk_slots * bs);
+  const size_t smem = static_cast<size_t>(min(kStages, chunk_steps)) * stage_bytes;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_row_stats_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kWideMaxDynamic));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const int n_rg = (r + kWideRows - 1) / kWideRows;
+  const dim3 grid(chunks, hkv * n_rg, lanes);
+  paged_row_stats_wide<T><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp0), static_cast<const T*>(kp1),
+      static_cast<const T*>(vpool), v_alias, table, kv_valid, m_out, l_out, acc_out, ws, hkv,
+      r, w0, w1, dv, nb, bs, n_slots, chunk_slots, chunks, stage_bytes, scale);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || chunks == 1) return err;
+  return merge_chunks(ws, m_out, l_out, acc_out, lanes, hkv, r, dv, chunks, st);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes: one launch (two with more than one chunk)
-// for all lanes, any r and any bs. q and the pools share the storage type (fp32 or bf16);
-// table and kv_valid are int32; outputs fp32. chunk_slots comes from the
-// wrapper's slot-chunk plan; ws is its fp32 workspace of
-// lanes * hkv * chunks * r * (dv + 2) floats (null with one chunk).
-// q and the pools must be 16-byte aligned, a pool
-// block (bs * d or bs * dv elements) whole 16-byte units, d and dv
-// multiples of 4. Returns cudaGetLastError() after the launches.
+// for all lanes, any r and any bs. Key pool 0 (width w0) and, when kpool1 is
+// not null, key pool 1 (width w1) hold the keys, q's d = w0 + w1 features
+// split across them in order; vpool (width dv) holds the values and may be
+// kpool0 itself. One pool with w0 and dv up to 128 runs the narrow kernel;
+// two pools, or wider heads (w0 + w1 up to 576, dv up to 512), the wide one
+// (a dispatch by shape). q and the pools share the storage type (fp32 or
+// bf16); table and kv_valid are int32; outputs fp32. chunk_slots comes from
+// the wrapper's slot-chunk plan; ws is its fp32 workspace of
+// lanes * hkv * chunks * r * (dv + 2) floats (null with one chunk). q and
+// the pools must be 16-byte aligned, a pool block (bs rows of each width)
+// whole 16-byte units, every width a multiple of 4. Returns
+// cudaGetLastError() after the launches.
 extern "C" int paged_row_stats_launch(
-    const void* q, const void* kpool, const void* vpool, const void* table,
-    const void* kv_valid, void* m_out, void* l_out, void* acc_out, void* ws, int lanes,
-    int hkv, int r, int d, int dv, int nb, int bs, int n_slots, int chunk_slots,
-    float scale, int dtype, void* stream) {
+    const void* q, const void* kpool0, const void* kpool1, const void* vpool,
+    const void* table, const void* kv_valid, void* m_out, void* l_out, void* acc_out,
+    void* ws, int lanes, int hkv, int r, int w0, int w1, int dv, int nb, int bs,
+    int n_slots, int chunk_slots, float scale, int dtype, void* stream) {
   const int es = dtype == repro::kF32 ? 4 : 2;
-  if (d > kMaxD || dv > kMaxD || d % 4 || dv % 4 || r <= 0 || lanes <= 0
+  const bool wide = kpool1 != nullptr || w0 > kMaxD || dv > kMaxD;
+  const int ws1 = kpool1 != nullptr ? w1 : 0;
+  if ((wide ? (w0 + ws1 > kWideMaxD || dv > kWideMaxDv) : (w0 > kMaxD || dv > kMaxD))
+      || w0 <= 0 || dv <= 0 || w0 % 4 || ws1 % 4 || dv % 4 || r <= 0 || lanes <= 0
       || hkv <= 0 || bs <= 0 || n_slots < 0 || chunk_slots <= 0
-      || (bs * d * es) % 16 || (bs * dv * es) % 16
-      || (reinterpret_cast<uintptr_t>(kpool) | reinterpret_cast<uintptr_t>(vpool)) % 16) {
+      || (bs * w0 * es) % 16 || (bs * ws1 * es) % 16 || (bs * dv * es) % 16
+      || (kpool1 != nullptr && ws1 <= 0)
+      || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kpool0)
+          | reinterpret_cast<uintptr_t>(kpool1) | reinterpret_cast<uintptr_t>(vpool)) % 16) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -557,14 +841,18 @@ extern "C" int paged_row_stats_launch(
   float* lo = static_cast<float*>(l_out);
   float* ao = static_cast<float*>(acc_out);
   float* w = static_cast<float*>(ws);
-  if (dtype == repro::kF32) {
-    return launch_typed<float>(q, kpool, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv, r, d,
-                               dv, nb, bs, n_slots, chunk_slots, scale, st);
+  using bf16 = __nv_bfloat16;
+  if (dtype != repro::kF32 && dtype != repro::kBF16) return cudaErrorInvalidValue;
+  if (wide) {
+    return dtype == repro::kF32
+        ? launch_wide<float>(q, kpool0, kpool1, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv, r,
+                             w0, ws1, dv, nb, bs, n_slots, chunk_slots, scale, st)
+        : launch_wide<bf16>(q, kpool0, kpool1, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv, r,
+                            w0, ws1, dv, nb, bs, n_slots, chunk_slots, scale, st);
   }
-  if (dtype == repro::kBF16) {
-    return launch_typed<__nv_bfloat16>(q, kpool, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv,
-                                       r, d, dv, nb, bs, n_slots, chunk_slots, scale,
-                                       st);
-  }
-  return cudaErrorInvalidValue;
+  return dtype == repro::kF32
+      ? launch_typed<float>(q, kpool0, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv, r, w0, dv,
+                            nb, bs, n_slots, chunk_slots, scale, st)
+      : launch_typed<bf16>(q, kpool0, vpool, tb, kvv, mo, lo, ao, w, lanes, hkv, r, w0, dv,
+                           nb, bs, n_slots, chunk_slots, scale, st);
 }

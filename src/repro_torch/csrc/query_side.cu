@@ -48,6 +48,16 @@
 //   landmark columns (K~ rows padded to d + 1 floats: conflict-free), then
 //   the same buffer is refilled with M (c x dv) and lanes sweep value
 //   columns for P.M + delta * v.
+//
+// Wide heads (absorbed MLA's prefill: d = 576, dv = 512): a second fp32
+// kernel, query_side_wide_kernel, runs the narrow one's passes with its
+// tiles in dynamic shared memory at a row stride of 576 (189 KB, one CTA
+// an SM). The tensor-core kernel is a template over the
+// column tiles of d (1 for d <= 128, 5 up to 640): K~ stays resident in 5
+// tiles, each query tile's Q arrives in 128-column tiles through the
+// cp.async ring with S accumulating over them by wgmma, and dv splits
+// across a grid axis of 128-column tiles (M's and V's columns of this CTA;
+// each recomputes S). 165 KB of shared memory, one CTA an SM.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -60,7 +70,15 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per CTA
 constexpr int kMaxC = 64;                     // landmark columns (2 per lane)
-constexpr int kMaxD = 128;                    // max head dim (d and dv)
+constexpr int kMaxD = 128;                    // max head dim of the narrow kernels
+constexpr int kWideMaxD = 576;                // max d (the wide-head variants)
+constexpr int kWideMaxDv = 512;               // max dv
+// The wide fp32 kernel's dynamic shared memory for head dims up to kD (its
+// compile-time row stride; dv <= kD): Q rows, K~ (rows padded to kD + 1
+// floats) then M in the same buffer, P.
+constexpr int fma_smem_bytes(int kD) {
+  return (kRows * kD + kMaxC * (kD + 1) + kRows * kMaxC) * 4;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -144,6 +162,89 @@ query_side_kernel(const T* __restrict__ q, const T* __restrict__ kl,
   }
 }
 
+// The fp32 kernel for wide heads (d up to kWideMaxD, dv up to kWideMaxDv):
+// the narrow kernel's passes with its tiles in dynamic shared memory at a
+// row stride of kD = kWideMaxD.
+__global__ void __launch_bounds__(kThreads)
+query_side_wide_kernel(const float* __restrict__ q, const float* __restrict__ kl,
+                       const float* __restrict__ mm, const float* __restrict__ v,
+                       const float* __restrict__ delta, float* __restrict__ out,
+                       int n, int c, int d, int dv, float scale, int seg,
+                       int pos_offset) {
+  constexpr int kD = kWideMaxD;
+  extern __shared__ float fma_smem[];
+  auto q_s = reinterpret_cast<float (*)[kD]>(fma_smem);                   // [kRows][kD]
+  auto buf = reinterpret_cast<float (*)[kD + 1]>(fma_smem + kRows * kD);  // K~, then M
+  auto p_s = reinterpret_cast<float (*)[kMaxC]>(fma_smem + kRows * kD + kMaxC * (kD + 1));
+
+  const int bi = blockIdx.x;
+  const int i0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* qb = q + static_cast<size_t>(bi) * n * d;
+  const float* klb = kl + static_cast<size_t>(bi) * c * d;
+  const float* mb = mm + static_cast<size_t>(bi) * c * dv;
+  const float* vb = v + static_cast<size_t>(bi) * n * dv;
+  float* ob = out + static_cast<size_t>(bi) * n * dv;
+
+  for (int x = tid; x < kRows * d; x += kThreads) {
+    const int r = x / d, col = x - r * d;
+    q_s[r][col] = i0 + r < n
+        ? repro::to_float(qb[static_cast<size_t>(i0 + r) * d + col]) : 0.f;
+  }
+  for (int x = tid; x < c * d; x += kThreads) {
+    const int cc = x / d, col = x - cc * d;
+    buf[cc][col] = repro::to_float(klb[x]);
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr;
+    const int i = i0 + r;
+    float s[2];
+    bool ok[2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int cc = lane + 32 * t;
+      ok[t] = cc < c && (seg == 0 || cc <= (pos_offset + i) / seg);
+      s[t] = kNegInf;
+      if (ok[t]) {
+        float dot = 0.f;
+        for (int kk = 0; kk < d; ++kk) dot = fmaf(q_s[r][kk], buf[cc][kk], dot);
+        s[t] = dot * scale;
+      }
+    }
+    const float mx = repro::warp_max(fmaxf(s[0], s[1]));
+    const float p0 = ok[0] ? expf(s[0] - mx) : 0.f;
+    const float p1 = ok[1] ? expf(s[1] - mx) : 0.f;
+    const float den = fmaxf(repro::warp_sum(p0 + p1), 1e-30f);
+    if (lane < c) p_s[r][lane] = p0 / den;
+    if (lane + 32 < c) p_s[r][lane + 32] = p1 / den;
+  }
+  __syncthreads();  // every row's P is in p_s; K~ no longer needed
+  for (int x = tid; x < c * dv; x += kThreads) {
+    const int cc = x / dv, col = x - cc * dv;
+    buf[cc][col] = repro::to_float(mb[x]);
+  }
+  __syncthreads();
+
+  const float dlt = delta[bi];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr;
+    const int i = i0 + r;
+    if (i >= n) continue;
+    for (int col = lane; col < dv; col += 32) {
+      float o = 0.f;
+      for (int cc = 0; cc < c; ++cc) o = fmaf(p_s[r][cc], buf[cc][col], o);
+      o = o + dlt * repro::to_float(vb[static_cast<size_t>(i) * dv + col]);
+      ob[static_cast<size_t>(i) * dv + col] = o;
+    }
+  }
+}
+
 // ---- bf16: tensor cores over query tiles ------------------------------------
 namespace tc {
 
@@ -151,11 +252,21 @@ constexpr int kThreads = 128;              // one warpgroup
 constexpr int kStepRows = 64;              // query rows per tile (= QUERY_TILE)
 static_assert(kStepRows == repro::kTileRows, "a query tile is one wgmma M");
 constexpr int kStages = 2;
-// 1024 B of alignment slack, K~ and M, then the Q/V ring.
-constexpr int kSmemBytes = 1024 + repro::kTileBytes * (2 + 2 * kStages);
+constexpr int kCols = repro::kTileCols;    // columns of a tile: d's column tiles, dv's tiles
+constexpr int kWideCT = 5;                 // d's column tiles past 128 (up to 640)
+static_assert(kWideCT * kCols >= kWideMaxD, "K~ fits its resident column tiles");
+// 1024 B of alignment slack, K~ (kCT column tiles) and M (this CTA's value
+// columns), then the ring: per stage one Q column tile and one V tile.
+constexpr int smem_bytes(int ct) { return 1024 + repro::kTileBytes * (ct + 1 + 2 * kStages); }
 
 using bf16 = __nv_bfloat16;
 
+// kCT: column tiles of d (1: d <= 128; kWideCT: wider). Steps walk the
+// (query tile, column tile) pairs in order: a step brings one Q column tile
+// (and, at column tile 0, the query tile's V tile of this CTA's value
+// columns) and adds its part of S; the last column tile's step runs the
+// softmax, P M and the write. With kCT = 1 a step is a query tile.
+template <int kCT>
 __global__ void __launch_bounds__(kThreads)
 query_side_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
               const bf16* __restrict__ mm, const bf16* __restrict__ v,
@@ -164,56 +275,73 @@ query_side_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
               int run_rows) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t kl_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t m_s = kl_s + repro::kTileBytes;
-  const int run = blockIdx.x, bi = blockIdx.y;
+  const uint32_t m_s = kl_s + kCT * repro::kTileBytes;
+  // grid.y = b x value tiles: this CTA's value columns [dv0, dv0 + dvw)
+  const int dvt = (dv + kCols - 1) / kCols;
+  const int run = blockIdx.x, bi = blockIdx.y / dvt, vt = blockIdx.y - bi * dvt;
+  const int dv0 = vt * kCols, dvw = min(kCols, dv - dv0);
   const int row_begin = run * run_rows;
   const int row_end = min(n, row_begin + run_rows);
-  const int steps = (row_end - row_begin + kStepRows - 1) / kStepRows;
+  const int tiles = (row_end - row_begin + kStepRows - 1) / kStepRows;
+  const int steps = tiles * kCT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, qd = lane & 3;
 
   const bf16* qb = q + static_cast<size_t>(bi) * n * d;
-  const bf16* vb = v + static_cast<size_t>(bi) * n * dv;
-  bf16* ob = out + static_cast<size_t>(bi) * n * dv;
-  auto q_s = [&](int st) { return kl_s + repro::kTileBytes * (2 + 2 * st); };
+  const bf16* vb = v + static_cast<size_t>(bi) * n * dv + dv0;
+  bf16* ob = out + static_cast<size_t>(bi) * n * dv + dv0;
+  auto q_s = [&](int st) { return kl_s + repro::kTileBytes * (kCT + 1 + 2 * st); };
   auto v_s = [&](int st) { return q_s(st) + repro::kTileBytes; };
-  auto load_qv = [&](int it) {
+  auto load_step = [&](int sp) {
+    const int it = sp / kCT, ct = sp - it * kCT;
     const int i0 = row_begin + it * kStepRows;
-    repro::load_tile(q_s(it % kStages), qb + static_cast<size_t>(i0) * d, d,
-                     row_end - i0, d, q, tid, kThreads);
-    repro::load_tile(v_s(it % kStages), vb + static_cast<size_t>(i0) * dv, dv,
-                     row_end - i0, dv, v, tid, kThreads);
+    repro::load_tile(q_s(sp % kStages), qb + static_cast<size_t>(i0) * d + ct * kCols, d,
+                     row_end - i0, d - ct * kCols, q, tid, kThreads);
+    if (ct == 0)
+      repro::load_tile(v_s(it % kStages), vb + static_cast<size_t>(i0) * dv, dv,
+                       row_end - i0, dvw, v, tid, kThreads);
   };
-  repro::load_tile(kl_s, kl + static_cast<size_t>(bi) * c * d, d, c, d, kl, tid, kThreads);
-  repro::load_tile(m_s, mm + static_cast<size_t>(bi) * c * dv, dv, c, dv, mm, tid, kThreads);
-  load_qv(0);
+#pragma unroll
+  for (int ct = 0; ct < kCT; ++ct)
+    repro::load_tile(kl_s + ct * repro::kTileBytes,
+                     kl + static_cast<size_t>(bi) * c * d + ct * kCols, d, c, d - ct * kCols,
+                     kl, tid, kThreads);
+  repro::load_tile(m_s, mm + static_cast<size_t>(bi) * c * dv + dv0, dv, c, dvw, mm, tid,
+                   kThreads);
+  load_step(0);
   repro::cp_async_commit();
 
   const float sl2 = scale * repro::kLog2e;
   const float dlt = delta[bi];
   const int ksteps = (c + 15) / 16;  // k-steps of P M that hold a landmark column
+  float s[32];
 
-  for (int it = 0; it < steps; ++it) {
-    const int st = it % kStages;
+  for (int sp = 0; sp < steps; ++sp) {
+    const int it = sp / kCT, ct = sp - it * kCT;
+    const int st = sp % kStages;
     const int i0 = row_begin + it * kStepRows;
-    if (it + 1 < steps) load_qv(it + 1);  // its stage was released at it - 1
+    if (sp + 1 < steps) load_step(sp + 1);  // its stage was released at sp - 1
     repro::cp_async_commit();
-    repro::cp_async_wait<1>();  // tile it (and K~, M) landed
+    repro::cp_async_wait<1>();  // step sp (and K~, M) landed
     repro::fence_proxy_async();
     __syncthreads();
 
-    float s[32];
+    if (ct == 0) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      s[e] = 0.f;
-      repro::fence_operand(s[e]);
+      for (int e = 0; e < 32; ++e) s[e] = 0.f;
     }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) repro::fence_operand(s[e]);
     repro::wgmma_fence();
-    repro::issue_abt(s, q_s(st), kl_s);
+    repro::issue_abt(s, q_s(st), kl_s + ct * repro::kTileBytes, ct > 0);
     repro::wgmma_commit();
     repro::wgmma_wait<0>();
 #pragma unroll
     for (int e = 0; e < 32; ++e) repro::fence_operand(s[e]);
+    if (ct < kCT - 1) {
+      __syncthreads();  // the stage is released for step sp + kStages
+      continue;
+    }
 
     // F-mask: row i sees columns below min(c, (pos_offset + i) / seg + 1);
     // rows at or past n none.
@@ -243,7 +371,7 @@ query_side_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
     // out = acc + delta * v, staged as bf16 in the Q slot (every warp's
     // wgmma has read it), then written in 16-byte stores.
     __syncthreads();
-    const uint32_t o_s = q_s(st), vt = v_s(st);
+    const uint32_t o_s = q_s(st), vt_s = v_s(it % kStages);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = 16 * warp + gr + 8 * i;
@@ -251,7 +379,7 @@ query_side_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
       for (int j = 0; j < 16; ++j) {
         const int col = 8 * j + 2 * qd;
         const uint32_t off = repro::tile_off(row, col) + (col & 7) * 2;
-        const float2 vv = repro::unpack_bf16(repro::ld_shared_b32(vt + off));
+        const float2 vv = repro::unpack_bf16(repro::ld_shared_b32(vt_s + off));
         repro::st_shared_b32(o_s + off, repro::pack_bf16(acc[j][2 * i] + dlt * vv.x,
                                                          acc[j][2 * i + 1] + dlt * vv.y));
       }
@@ -259,35 +387,46 @@ query_side_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
     __syncthreads();
     for (int x = tid; x < kStepRows * (repro::kTileCols / 8); x += kThreads) {
       const int r = x >> 4, col = (x & 15) * 8;
-      if (i0 + r < row_end && col < dv) {
+      if (i0 + r < row_end && col < dvw) {
         *reinterpret_cast<uint4*>(ob + static_cast<size_t>(i0 + r) * dv + col) =
             repro::ld_shared_v4(o_s + repro::tile_off(r, col));
       }
     }
-    __syncthreads();  // the stage is released for tile it + kStages
+    __syncthreads();  // the stage is released for step sp + kStages
   }
+}
+
+template <int kCT>
+int launch_tiles(const void* q, const void* kl, const void* mm, const void* v,
+                 const float* delta, void* out, int b, int n, int c, int d, int dv,
+                 float scale, int seg, int pos_offset, int run_rows, cudaStream_t st) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        query_side_tc<kCT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kCT));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid((n + run_rows - 1) / run_rows, b * ((dv + kCols - 1) / kCols));
+  query_side_tc<kCT><<<grid, kThreads, smem_bytes(kCT), st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kl),
+      static_cast<const bf16*>(mm), static_cast<const bf16*>(v), delta,
+      static_cast<bf16*>(out), n, c, d, dv, scale, seg, pos_offset, run_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* kl, const void* mm, const void* v,
            const float* delta, void* out, int b, int n, int c, int d, int dv,
            float scale, int seg, int pos_offset, int run_rows, cudaStream_t st) {
-  if (c > repro::kTileRows || d > repro::kTileCols || dv > repro::kTileCols || d % 8
-      || dv % 8 || run_rows <= 0 || run_rows % kStepRows) {
+  if (c > repro::kTileRows || d > kWideMaxD || dv > kWideMaxDv || d % 8 || dv % 8
+      || run_rows <= 0 || run_rows % kStepRows) {
     return cudaErrorInvalidValue;
   }
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        query_side_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
-  const dim3 grid((n + run_rows - 1) / run_rows, b);
-  query_side_tc<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kl),
-      static_cast<const bf16*>(mm), static_cast<const bf16*>(v), delta,
-      static_cast<bf16*>(out), n, c, d, dv, scale, seg, pos_offset, run_rows);
-  return static_cast<int>(cudaGetLastError());
+  return d <= kCols
+      ? launch_tiles<1>(q, kl, mm, v, delta, out, b, n, c, d, dv, scale, seg, pos_offset,
+                        run_rows, st)
+      : launch_tiles<kWideCT>(q, kl, mm, v, delta, out, b, n, c, d, dv, scale, seg,
+                              pos_offset, run_rows, st);
 }
 
 }  // namespace tc
@@ -303,7 +442,8 @@ extern "C" int query_side_launch(
     const void* q, const void* kl, const void* mm, const void* v,
     const void* delta, void* out, int b, int n, int c, int d, int dv,
     float scale, int seg, int pos_offset, int run_rows, int dtype, void* stream) {
-  if (d > kMaxD || dv > kMaxD || c > kMaxC || b <= 0 || n <= 0 || c <= 0) {
+  if (d > kWideMaxD || dv > kWideMaxDv || c > kMaxC || b <= 0 || n <= 0 || c <= 0
+      || d <= 0 || dv <= 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -314,7 +454,22 @@ extern "C" int query_side_launch(
   }
   if (dtype != repro::kF32) return cudaErrorInvalidValue;
   const dim3 grid(b, (n + kRows - 1) / kRows);
-  query_side_kernel<float><<<grid, kThreads, 0, st>>>(
+  if (d <= kMaxD && dv <= kMaxD) {
+    query_side_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kl),
+        static_cast<const float*>(mm), static_cast<const float*>(v), dl,
+        static_cast<float*>(out), n, c, d, dv, scale, seg, pos_offset);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static bool sized = false;   // past 48 KB of shared memory
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        query_side_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fma_smem_bytes(kWideMaxD));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  query_side_wide_kernel<<<grid, kThreads, fma_smem_bytes(kWideMaxD), st>>>(
       static_cast<const float*>(q), static_cast<const float*>(kl),
       static_cast<const float*>(mm), static_cast<const float*>(v), dl,
       static_cast<float*>(out), n, c, d, dv, scale, seg, pos_offset);

@@ -13,13 +13,39 @@ Each wrapper counts its kernel launches in a plain integer attribute
 ``reset_launch_counts`` zeroes them, so a run can show that its path went
 through the kernels.
 
-``MAX_HEAD_DIM`` is the largest head dim (d and dv) that every kernel
-takes (each ``.cu`` file's ``kMaxD``); the serving engine refuses larger
-heads on CUDA at construction.
+``HEAD_DIM_LIMITS`` holds each kernel's own largest (d, dv): the key /
+query width and the value width it takes (each ``.cu`` file's ``kMaxD``
+and ``kMaxDv``). K1, K2 and K5 take absorbed MLA's 576 / 512 (kv_lora 512
++ rope 64 keys, the 512-wide latents as values) through wide-head variants
+they dispatch to by shape; the training kernels K3 and K4 stay at 128.
+The serving engine refuses, on CUDA and at construction, head dims past
+the limits of the kernels it will launch.
 """
 from __future__ import annotations
 
-MAX_HEAD_DIM = 128
+HEAD_DIM_LIMITS = {
+    "landmark_summary": (576, 512),
+    "query_side": (576, 512),
+    "paged_row_stats": (576, 512),
+    "landmark_summary_bwd": (128, 128),
+    "query_side_bwd": (128, 128),
+}
+SERVE_KERNELS = ("landmark_summary", "query_side", "paged_row_stats")
+
+
+def kernels_past(d: int, dv: int, names) -> list[str]:
+    """The kernels among ``names`` whose (d, dv) limit head dims (d, dv)
+    exceed."""
+    return [name for name in names
+            if d > HEAD_DIM_LIMITS[name][0] or dv > HEAD_DIM_LIMITS[name][1]]
+
+
+def check_head_dims(name: str, d: int, dv: int) -> None:
+    """Raise ValueError unless kernel ``name`` takes head dims (d, dv)."""
+    if kernels_past(d, dv, (name,)):
+        max_d, max_dv = HEAD_DIM_LIMITS[name]
+        raise ValueError(f"{name}: head dims (d={d}, dv={dv}) exceed the kernel's "
+                         f"({max_d}, {max_dv})")
 
 
 def _wrappers():

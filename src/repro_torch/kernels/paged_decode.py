@@ -1,10 +1,13 @@
 """Gather-free paged decode kernel K5: online-softmax row partials read
 straight from the shared K/V block pools through per-lane block tables.
 
-    paged_row_stats_lanes(q, k_pool, v_pool, table, kv_valid)
+    paged_row_stats_lanes(q, k_pools, v_pool, table, kv_valid)
         -> fp32 (m, l, acc) of softmax(scale * q . K[0..kv_valid-1]) rows
 
-mirrors ``repro/kernels/paged_decode.py:162``. Lanes are the leading batch
+mirrors ``repro/kernels/paged_decode.py:162``. Scores sum over the key
+pools, q's features split across them in order: the dense family passes
+one pool, absorbed MLA two (the 512-wide latent pool and the 64-wide rope
+pool, the latent pool also the value pool). Lanes are the leading batch
 axis, so one launch serves every lane of a decode tick; the reference's
 single-lane entry point and its ``custom_vmap`` rule have no counterpart.
 Rows with no valid key return the absorbing anchor (m=-1e30, l=0, acc=0)
@@ -20,11 +23,12 @@ import dataclasses
 import torch
 
 from repro_torch.core.attention import NEG_INF
-from repro_torch.kernels import MAX_HEAD_DIM
+from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 
 _STEP_KEYS = 32    # keys of one kernel step, one per lane (csrc kStepKeys)
 _ROWS_PER_CTA = 64  # query rows a CTA takes; more take more CTAs (csrc kMaxRows)
+_MAX_POOLS = 2      # key pools the kernel takes (csrc paged_row_stats_launch)
 # CTAs the slot-chunk plan aims at: two resident per SM of the H100's 132,
 # two waves (a sweep of 264-1056 at a 16k horizon found 528 fastest).
 SLOT_TARGET_CTAS = 528
@@ -134,61 +138,71 @@ def paged_row_stats_plain(q, k_pools, v_pool, table, kv_valid, *,
     return m, l, acc
 
 
-def paged_row_stats_lanes(q: torch.Tensor, k_pool: torch.Tensor,
-                          v_pool: torch.Tensor, table: torch.Tensor,
-                          kv_valid: torch.Tensor, *, scale: float,
-                          block_size: int):
-    """One call for all lanes. q (lanes, hkv, r, d); k_pool
-    (hkv, num_blocks, bs, d); v_pool (hkv, num_blocks, bs, dv); table
-    (lanes, n_slots) int32; kv_valid (lanes,) int32. Returns fp32
-    (m, l, acc): (lanes, hkv, r, 1) x2 and (lanes, hkv, r, dv). On the
-    card the kernel runs one CTA per (chunk of ``slot_chunk_plan``, kv
-    head, lane) and, with more than one chunk, a second launch merges the
-    chunks' partials in order. The reference's several key pools (MLA) are
-    one pool here: the dense family has one."""
+def paged_row_stats_lanes(q: torch.Tensor, k_pools, v_pool: torch.Tensor,
+                          table: torch.Tensor, kv_valid: torch.Tensor, *,
+                          scale: float, block_size: int):
+    """One call for all lanes. q (lanes, hkv, r, d); ``k_pools`` a tuple of
+    key pools (hkv, num_blocks, bs, d_p) whose widths d_p sum to d (q's
+    features split across them in order; a ``ValueError`` otherwise, as
+    the reference raises); v_pool (hkv, num_blocks, bs, dv), which may be
+    the first key pool itself (absorbed MLA); table (lanes, n_slots)
+    int32; kv_valid (lanes,) int32. Returns fp32 (m, l, acc): (lanes, hkv,
+    r, 1) x2 and (lanes, hkv, r, dv). On the card the kernel runs one CTA
+    per (chunk of ``slot_chunk_plan``, kv head, row group, lane) and, with
+    more than one chunk, a second launch merges the chunks' partials in
+    order."""
+    k_pools = tuple(k_pools)
     lanes, hkv, r, d = q.shape
     hp, nb, bs, dv = v_pool.shape
-    if (bs != block_size or hp != hkv or k_pool.shape[:3] != v_pool.shape[:3]
-            or k_pool.shape[-1] != d):
+    splits = tuple(int(p.shape[-1]) for p in k_pools)
+    if sum(splits) != d:
+        raise ValueError(f"key-pool feature dims {splits} must sum to q's last dim {d}")
+    if (bs != block_size or hp != hkv
+            or any(p.shape[:3] != v_pool.shape[:3] for p in k_pools)):
         raise ValueError("paged_row_stats_lanes: pool shapes disagree")
     if table.shape[0] != lanes or kv_valid.shape != (lanes,):
         raise ValueError("paged_row_stats_lanes: table/kv_valid need one row "
                          "per lane")
     if not q.is_cuda:
-        return paged_row_stats_plain(q, (k_pool,), v_pool, table, kv_valid,
+        return paged_row_stats_plain(q, k_pools, v_pool, table, kv_valid,
                                      scale=scale)
-    return _paged_row_stats_cuda(q, k_pool, v_pool, table, kv_valid,
+    return _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid,
                                  scale=scale)
 
 
-def _paged_row_stats_cuda(q, k_pool, v_pool, table, kv_valid, *, scale):
+def _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, *, scale):
     """Check the operands and launch csrc/paged_row_stats.cu (the
-    arguments of ``paged_row_stats_plain`` with one key pool) on the grid
-    of ``slot_chunk_plan``, with the workspace of its partials allocated
-    here (two launches when the plan has more than one chunk)."""
+    arguments of ``paged_row_stats_plain``, at most two key pools) on the
+    grid of ``slot_chunk_plan``, with the workspace of its partials
+    allocated here (two launches when the plan has more than one chunk).
+    When the value pool is the first key pool (the same storage), the
+    kernel copies each block once for scores and values."""
     lanes, hkv, r, d = q.shape
     _, nb, bs, dv = v_pool.shape
     check_operands("paged_row_stats_lanes", {
-        "q": q, "k_pool": k_pool, "v_pool": v_pool, "table": table,
-        "kv_valid": kv_valid})
+        "q": q, **{f"k_pool{i}": p for i, p in enumerate(k_pools)}, "v_pool": v_pool,
+        "table": table, "kv_valid": kv_valid})
     dev = q.device
-    if str(q.dtype) not in DTYPE_CODES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if not 0 < len(k_pools) <= _MAX_POOLS:
+        raise ValueError(f"paged_row_stats_lanes: 1 to {_MAX_POOLS} key pools, "
+                         f"got {len(k_pools)}")
+    if str(q.dtype) not in DTYPE_CODES or any(
+            t.dtype != q.dtype for t in (*k_pools, v_pool)):
         raise ValueError("paged_row_stats_lanes: q and the pools must share "
                          "an fp32 or bf16 dtype")
     if table.dtype != torch.int32 or kv_valid.dtype != torch.int32:
         raise ValueError("paged_row_stats_lanes: table and kv_valid must be "
                          "int32")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"paged_row_stats_lanes: head dims (d={d}, dv={dv}) "
-                         f"exceed the kernel's {MAX_HEAD_DIM}")
+    check_head_dims("paged_row_stats", d, dv)
     es = q.element_size()
+    widths = [p.shape[-1] for p in k_pools]
     # The kernel bulk-copies whole pool blocks (16-byte aligned, whole
     # 16-byte units) and reads rows in 4-element chunks.
-    if (d % 4 or dv % 4 or (bs * d * es) % 16 or (bs * dv * es) % 16
-            or q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16):
-        raise ValueError(f"paged_row_stats_lanes: q and pool blocks of {bs} x ({d}, "
-                         f"{dv}) {q.dtype} must be 16-byte aligned, the blocks whole "
-                         f"16-byte units, d and dv multiples of 4")
+    if (any(w % 4 or (bs * w * es) % 16 for w in (*widths, dv))
+            or any(t.data_ptr() % 16 for t in (q, *k_pools, v_pool))):
+        raise ValueError(f"paged_row_stats_lanes: q and pool blocks of {bs} x "
+                         f"({widths}, {dv}) {q.dtype} must be 16-byte aligned, the "
+                         f"blocks whole 16-byte units, widths multiples of 4")
     m = torch.empty((lanes, hkv, r, 1), dtype=torch.float32, device=dev)
     l = torch.empty((lanes, hkv, r, 1), dtype=torch.float32, device=dev)
     acc = torch.empty((lanes, hkv, r, dv), dtype=torch.float32, device=dev)
@@ -196,11 +210,13 @@ def _paged_row_stats_cuda(q, k_pool, v_pool, table, kv_valid, *, scale):
         plan = slot_chunk_plan(lanes, hkv, table.shape[1], bs)
         floats = plan.workspace_floats(r, dv)
         ws = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
-        launch("paged_row_stats", q.data_ptr(), k_pool.data_ptr(),
-               v_pool.data_ptr(), table.data_ptr(), kv_valid.data_ptr(),
-               m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-               ws.data_ptr() if ws is not None else None, lanes, hkv, r,
-               d, dv, nb, bs, table.shape[1], plan.chunk_slots, float(scale),
+        k1 = k_pools[1] if len(k_pools) > 1 else None
+        launch("paged_row_stats", q.data_ptr(), k_pools[0].data_ptr(),
+               k1.data_ptr() if k1 is not None else None, v_pool.data_ptr(),
+               table.data_ptr(), kv_valid.data_ptr(), m.data_ptr(), l.data_ptr(),
+               acc.data_ptr(), ws.data_ptr() if ws is not None else None, lanes, hkv,
+               r, widths[0], widths[1] if k1 is not None else 0, dv, nb, bs,
+               table.shape[1], plan.chunk_slots, float(scale),
                DTYPE_CODES[str(q.dtype)], torch.cuda.current_stream(dev).cuda_stream)
         paged_row_stats_lanes.launches += 1
     return m, l, acc

@@ -19,13 +19,15 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import NEG_INF
-from repro_torch.kernels import MAX_HEAD_DIM
+from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 
 _MAX_C = 64    # landmark columns query_side's kernel keeps resident
 # The bf16 tensor-core kernels of K1 and K3 (csrc/mma.cuh): 64 landmark rows
 # per CTA (wgmma's M; K3 takes c <= 64), keys in tiles of 64, head dims
-# multiples of 8 up to MAX_HEAD_DIM.
+# multiples of 8 up to each kernel's limit (kernels.HEAD_DIM_LIMITS); K1 and
+# K2 past 128 take d in 128-column tiles and dv in 128-column tiles on a grid
+# axis (their wide-head variants, chosen inside the .cu by shape).
 ROW_TILE = 64
 KEY_TILE = 64
 # CTAs the chunk plan and K2's query-tile plan aim at: two resident per SM
@@ -145,11 +147,12 @@ def tensor_core_pair(q_l: torch.Tensor, k: torch.Tensor) -> bool:
 
 def check_tensor_core_shapes(name: str, tensors: dict, dims: dict) -> None:
     """Raise unless the tensor-core kernels take these operands: head dims
-    multiples of 8 up to MAX_HEAD_DIM and 16-byte-aligned data (cp.async)."""
+    positive multiples of 8 (the limits are ``check_head_dims``'s) and
+    16-byte-aligned data (cp.async)."""
     for dim, val in dims.items():
-        if val % 8 or not 0 < val <= MAX_HEAD_DIM:
-            raise ValueError(f"{name}: bf16 {dim}={val} must be a multiple of 8 "
-                             f"in (0, {MAX_HEAD_DIM}]")
+        if val % 8 or val <= 0:
+            raise ValueError(f"{name}: bf16 {dim}={val} must be a positive "
+                             f"multiple of 8")
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
@@ -234,8 +237,7 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
     if q_l.dtype == torch.bfloat16 and k.dtype == torch.float32:
         raise ValueError("landmark_summary: bf16 queries against fp32 keys "
                          "are not built")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"landmark_summary: head dims ({d}, {dv}) > {MAX_HEAD_DIM}")
+    check_head_dims("landmark_summary", d, dv)
     out = torch.empty((b, c, dv), dtype=v.dtype, device=v.device)
     m = l = None
     if return_stats:
@@ -336,9 +338,9 @@ def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
                          "fp32 or bf16 dtype")
     if delta.dtype != torch.float32:
         raise ValueError("query_side: delta must be fp32")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or c > _MAX_C:
-        raise ValueError(f"query_side: dims (d={d}, dv={dv}, c={c}) exceed "
-                         f"the kernel's ({MAX_HEAD_DIM}, {MAX_HEAD_DIM}, {_MAX_C})")
+    check_head_dims("query_side", d, dv)
+    if c > _MAX_C:
+        raise ValueError(f"query_side: c={c} exceeds the kernel's {_MAX_C}")
     run_rows = 0
     if q.dtype == torch.bfloat16:
         check_tensor_core_shapes("query_side", {"q": q, "k_l": k_l, "m_mat": m_mat,

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import NEG_INF
-from repro_torch.kernels import MAX_HEAD_DIM
+from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 from repro_torch.kernels.ss_attention import (_MAX_C, ROW_TILE,
                                               _stream_handle, b_side_mask,
@@ -117,8 +117,7 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end)
     if q_l.dtype == torch.bfloat16 and k.dtype == torch.float32:
         raise ValueError("landmark_summary_bwd: bf16 queries against fp32 keys "
                          "are not built")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"landmark_summary_bwd: head dims ({d}, {dv}) > {MAX_HEAD_DIM}")
+    check_head_dims("landmark_summary_bwd", d, dv)
     dq = torch.empty_like(q_l)
     dk = torch.empty_like(k)
     dv_out = torch.empty_like(v)
@@ -209,9 +208,9 @@ def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset):
                          "fp32 or bf16 dtype")
     if delta.dtype != torch.float32:
         raise ValueError("query_side_bwd: delta must be fp32")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or c > _MAX_C:
-        raise ValueError(f"query_side_bwd: dims (d={d}, dv={dv}, c={c}) exceed "
-                         f"the kernel's ({MAX_HEAD_DIM}, {MAX_HEAD_DIM}, {_MAX_C})")
+    check_head_dims("query_side_bwd", d, dv)
+    if c > _MAX_C:
+        raise ValueError(f"query_side_bwd: c={c} exceeds the kernel's {_MAX_C}")
     if q.dtype == torch.bfloat16:
         check_tensor_core_shapes("query_side_bwd",
                                  {"q": q, "k_l": k_l, "m_mat": m_mat, "v": v, "g": g},

@@ -1,7 +1,9 @@
-"""Model-level GQA attention (dense decoder half of
-``repro/models/attention.py``): parameter specs, the spectral-shift config,
-the kv-head group broadcast, the projections and the full-sequence forward
-the trainer runs. Per-head tensors are (B, H, S, Dh)."""
+"""Model-level attention (``repro/models/attention.py``): GQA's parameter
+specs, the spectral-shift config, the kv-head group broadcast, the
+projections and the full-sequence forward the trainer runs; and MLA's
+(multi-head latent attention, the DeepSeek-V2 family) specs and the
+projections of its absorbed serving form. Per-head tensors are
+(B, H, S, Dh)."""
 from __future__ import annotations
 
 import torch
@@ -107,3 +109,68 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     v = _broadcast_kv(v, cfg.num_heads)
     out = _core_attention(cfg, impl, q, k, v, causal=(mode == "causal"))
     return output_projection(out.to(x.dtype), p["w_o"]), None
+
+
+# --------------------------------------------------------------------------
+# MLA: multi-head latent attention (``attention.py:192-218``). Serving runs
+# it absorbed: keys are the rms-normed kv_lora latent beside the shared
+# rotary key (de = kv_lora + rope columns, one stream for every head),
+# queries are q_nope pushed through w_uk beside the rotary query, and the
+# values are the latents themselves, up-projected by w_uv after mixing.
+# The full-sequence ``mla_forward`` the trainer would run is not ported.
+# --------------------------------------------------------------------------
+def mla_specs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    dh = cfg.resolved_head_dim          # nope dim per head (== value dim)
+    dr = cfg.rope_head_dim
+    r = cfg.kv_lora_rank
+    return {
+        "w_q_nope": ParamSpec((d, h, dh), ("embed", "heads", "head_dim")),
+        "w_q_rope": ParamSpec((d, h, dr), ("embed", "heads", "head_dim")),
+        "w_dkv": ParamSpec((d, r), ("embed", "kv_lora")),
+        "w_k_rope": ParamSpec((d, dr), ("embed", "head_dim")),
+        "w_uk": ParamSpec((r, h, dh), ("kv_lora", "heads", "head_dim")),
+        "w_uv": ParamSpec((r, h, dh), ("kv_lora", "heads", "head_dim")),
+        "w_o": ParamSpec((h, dh, d), ("heads", "head_dim", "embed")),
+        "norm_kv": ParamSpec((r,), ("kv_lora",), init="ones"),
+    }
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The standard MLA score scale, 1 / sqrt(dh + dr)."""
+    return (cfg.resolved_head_dim + cfg.rope_head_dim) ** -0.5
+
+
+def mla_project_kv(p: dict, cfg: ModelConfig, x: torch.Tensor, sin, cos):
+    """x (B, S, D) -> the rms-normed latent c_kv (B, S, r) and the rotated
+    shared key k_rope (B, S, dr); (sin, cos) broadcast against (B, 1, S,
+    dr/2)."""
+    from repro_torch.models.layers import rms_norm
+
+    c_kv = rms_norm(x @ p["w_dkv"].to(x.dtype), p["norm_kv"], cfg.norm_eps)
+    k_rope = (x @ p["w_k_rope"].to(x.dtype))[:, None]
+    return c_kv, apply_rotary(k_rope, sin, cos)[:, 0]
+
+
+def mla_latents(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, S, D), positions (B, S) -> latent c_kv (B, S, r) [rms-normed],
+    k_rope (B, 1, S, dr) (``attention.py:211``)."""
+    sin, cos = rotary_angles(positions, cfg.rope_head_dim, cfg.rope_theta)
+    c_kv, k_rope = mla_project_kv(p, cfg, x, sin[:, None], cos[:, None])
+    return c_kv, k_rope[:, None]
+
+
+def mla_project_q(p: dict, cfg: ModelConfig, x: torch.Tensor, sin, cos) -> torch.Tensor:
+    """x (B, S, D) -> the absorbed query (B, H, S, r + dr): q_nope through
+    w_uk beside the rotated q_rope."""
+    q_nope = project_heads(x, p["w_q_nope"])
+    q_rope = apply_rotary(project_heads(x, p["w_q_rope"]), sin, cos)
+    q_abs = torch.einsum("bhse,rhe->bhsr", q_nope, p["w_uk"].to(x.dtype))
+    return torch.cat([q_abs, q_rope], dim=-1)
+
+
+def mla_output(p: dict, out_lat: torch.Tensor, dtype) -> torch.Tensor:
+    """Mixed latents (B, H, S, r) -> up-projected by w_uv, then w_o:
+    (B, S, D)."""
+    out = torch.einsum("bhsr,rhe->bhse", out_lat.to(dtype), p["w_uv"].to(dtype))
+    return output_projection(out, p["w_o"])

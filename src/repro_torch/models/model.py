@@ -1,6 +1,8 @@
-"""Dense decoder assembly (the dense family of ``repro/models/model.py``):
-parameter specs, embedding, unembedding, the working-precision copy, and
-the full-sequence forward and loss the trainer differentiates.
+"""Decoder assembly (``repro/models/model.py``): parameter specs of the
+dense family and of the ``moe`` family (GQA or MLA attention, MoE
+feed-forward), embedding, unembedding, the working-precision copy, and the
+full-sequence forward and loss the trainer differentiates (dense family
+only: training MLA needs attention impls that are not ported).
 
     model_forward(params, cfg, batch)  -> (logits (B,S,V), aux)
     loss_fn(params, cfg, batch)        -> (loss, metrics)
@@ -16,8 +18,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, resolve_remat
-from repro_torch.models.attention import gqa_forward, gqa_specs
+from repro_torch.models.attention import gqa_forward, gqa_specs, mla_specs
 from repro_torch.models.layers import mlp_forward, mlp_specs, rms_norm
+from repro_torch.models.moe import moe_specs
 from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
 from repro_torch.train.losses import next_token_loss
 
@@ -34,16 +37,20 @@ def _norm_spec(d: int) -> ParamSpec:
 
 
 def dense_layer_specs(cfg: ModelConfig) -> dict:
-    if cfg.mla or cfg.moe:
-        raise NotImplementedError("MLA / MoE layers are not ported yet")
-    return {"norm_attn": _norm_spec(cfg.d_model), "attn": gqa_specs(cfg),
-            "norm_mlp": _norm_spec(cfg.d_model),
-            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.act)}
+    """``model.py:66``: GQA or MLA attention, SwiGLU MLP or MoE."""
+    specs = {"norm_attn": _norm_spec(cfg.d_model),
+             "attn": mla_specs(cfg) if cfg.mla else gqa_specs(cfg),
+             "norm_mlp": _norm_spec(cfg.d_model)}
+    if cfg.moe:
+        specs["moe"] = moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.act)
+    return specs
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    """``repro/models/model.py:264`` for ``family="dense"``."""
-    if cfg.family != "dense":
+    """``repro/models/model.py:264`` for ``family`` "dense" and "moe"."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     d, v = cfg.d_model, cfg.vocab_padded
     specs: dict = {
@@ -143,9 +150,11 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     """Full-sequence causal forward (``model.py:399``) of the dense family.
     ``batch["tokens"]`` (B, S) int. The fp32 master ``params`` are cast to
     the working copy here, inside the autograd graph, so gradients reach
-    the masters. Returns (logits (B,S,V) in the compute dtype, aux)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    the masters. Returns (logits (B,S,V) in the compute dtype, aux).
+    The ``moe`` family is served, not trained: its MLA needs the
+    ``chunked`` / ``spectral_shift`` attention impls, not ported."""
+    if cfg.family != "dense" or cfg.mla or cfg.moe:
+        raise NotImplementedError(f"training family {cfg.family!r} is not ported yet")
     params = working_params(params, cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)

@@ -19,15 +19,25 @@ step (``PagedKVCache.make_paged_step`` / ``make_fused_step``).
   landmark-to-key softmax rebuilt each tick), which only this route
   serves.
 
+MLA layers (``mla_decode``) decode absorbed: attention runs over the
+(kv_lora + rope) keys with the latents as values, one kv head for all
+query heads; on the paged route K5 reads the latent and rope pools as two
+key pools, the latent pool also the value pool.
+
+The ``moe`` family's feed-forward is ``models/moe.py``'s ``moe_forward``,
+routed per lane (each lane is its own batch row, so lanes never share
+capacity).
+
 A ``decode_streaming="frozen"`` step reads neither the pools nor a view
 for its spectral-shift core on either route (K5 never launches): it
 touches the lane-dense state and the new token only. The engine rebases
 the frozen rows at segment boundaries (``decode_state.rebase_layer``).
 
 Cache layout consumed here: ``cache["pos"]`` (B,) int32 and
-``cache["layers"]`` with ``k``/``v`` either pools (L, Hkv, num_blocks, bs,
-Dh) or views (L, B, Hkv, S, Dh), and lane-dense leaves (L, B, ...)
-(``serve/kv_cache.py`` for the names).
+``cache["layers"]`` with the sequence leaves (``k``/``v``, or MLA's
+``latent``/``rope`` with a unit kv-head axis) either pools (L, Hkv,
+num_blocks, bs, D) or views (L, B, Hkv, S, D), and lane-dense leaves
+(L, B, ...) (``serve/kv_cache.py`` for the names).
 """
 from __future__ import annotations
 
@@ -38,10 +48,13 @@ from repro_torch.core.spectral_shift import ss_core
 from repro_torch.kernels.ops import flash_merge
 from repro_torch.kernels.paged_decode import paged_row_stats_lanes
 from repro_torch.models.attention import (_broadcast_kv, gqa_project_qkv,
+                                          mla_output, mla_project_kv,
+                                          mla_project_q, mla_scale,
                                           output_projection)
 from repro_torch.models.layers import apply_rotary, mlp_forward, rms_norm, rotary_angles
 from repro_torch.models.model import (_embed_tokens, _unembed, layer_params,
                                       torch_dtype, working_params)
+from repro_torch.models.moe import moe_forward
 from repro_torch.serve.decode_state import (STREAM_LEAVES, key_mask,
                                             landmark_counts, landmark_means,
                                             lmk_add, masked_softmax,
@@ -135,13 +148,14 @@ def _view_active_stats_fn(k_view, v_view, pos, scale: float):
 # --------------------------------------------------------------------------
 # Gather-free reads of the block pools through kernel K5.
 # --------------------------------------------------------------------------
-def _paged_merged_stats(q_g, k_pool, v_pool, k_new_g, v_new_g, table,
+def _paged_merged_stats(q_g, k_pools, v_pool, k_new_g, v_new_g, table,
                         block_size: int, pos, scale: float):
     """Exact softmax partials of rows q_g (B, Hkv, R, d) over keys 0..pos
-    (``decode.py:156``): K5 streams the pools (keys 0..pos-1), the current
-    token (k_new_g (B, Hkv, d), v_new_g (B, Hkv, dv)) is merged on top."""
+    (``decode.py:156``): K5 streams the pools (keys 0..pos-1; the key
+    pools' widths sum to d), the current token (k_new_g (B, Hkv, d),
+    v_new_g (B, Hkv, dv)) is merged on top."""
     m, l, acc = paged_row_stats_lanes(
-        q_g.contiguous(), k_pool, v_pool, table, pos, scale=scale,
+        q_g.contiguous(), k_pools, v_pool, table, pos, scale=scale,
         block_size=block_size)
     s_new = torch.einsum("bhrd,bhd->bhr", q_g.float(),
                          k_new_g.float())[..., None] * scale
@@ -149,7 +163,7 @@ def _paged_merged_stats(q_g, k_pool, v_pool, k_new_g, v_new_g, table,
                        v_new_g[:, :, None, :].float())
 
 
-def _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g, table,
+def _paged_active_stats_fn(k_pools, v_pool, k_new_g, v_new_g, table,
                            block_size: int, pos, scale: float):
     """``active_stats_fn`` hook (``decode.py:179``): the active landmark
     row of each query head, grouped onto its kv head, recomputed through
@@ -159,7 +173,7 @@ def _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g, table,
     def fn(q_act):  # (B, H, 1, d)
         b, h = q_act.shape[:2]
         q_g = q_act.reshape(b, hkv, h // hkv, q_act.shape[-1])
-        m, l, acc = _paged_merged_stats(q_g, k_pool, v_pool, k_new_g,
+        m, l, acc = _paged_merged_stats(q_g, k_pools, v_pool, k_new_g,
                                         v_new_g, table, block_size, pos, scale)
         return (m.reshape(b, h, 1, 1), l.reshape(b, h, 1, 1),
                 acc.reshape(b, h, 1, acc.shape[-1]))
@@ -167,7 +181,7 @@ def _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g, table,
     return fn
 
 
-def full_decode_attention_paged(q, k_pool, v_pool, k_new_g, v_new_g, table,
+def full_decode_attention_paged(q, k_pools, v_pool, k_new_g, v_new_g, table,
                                 block_size: int, pos, scale: float):
     """Exact decode attention (one query row per head) from the block pools
     (``decode.py:202``): K5 with r = H / Hkv rows per kv head.
@@ -175,7 +189,7 @@ def full_decode_attention_paged(q, k_pool, v_pool, k_new_g, v_new_g, table,
     b, h = q.shape[:2]
     hkv = v_pool.shape[0]
     q_g = q.float().reshape(b, hkv, h // hkv, q.shape[-1])
-    m, l, acc = _paged_merged_stats(q_g, k_pool, v_pool, k_new_g, v_new_g,
+    m, l, acc = _paged_merged_stats(q_g, k_pools, v_pool, k_new_g, v_new_g,
                                     table, block_size, pos, scale)
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, h, 1, out.shape[-1]).to(q.dtype)
@@ -208,7 +222,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
     frozen = (cfg.decode_attention_impl == "spectral_shift"
               and cfg.decode_streaming == "frozen")
     if paged:
-        k_pool, v_pool = cache["k"], cache["v"]
+        k_pools, v_pool = (cache["k"],), cache["v"]
         k_new_g, v_new_g = k[:, :, 0], v[:, :, 0]           # raw kv heads
     elif not frozen:
         k_view = _update_seq(cache["k"], k, pos)
@@ -230,7 +244,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
             if frozen:
                 stats_fn = None
             elif paged:
-                stats_fn = _paged_active_stats_fn(k_pool, v_pool, k_new_g, v_new_g,
+                stats_fn = _paged_active_stats_fn(k_pools, v_pool, k_new_g, v_new_g,
                                                   table, block_size, pos, scale)
             else:
                 stats_fn = _view_active_stats_fn(k_view, v_view, pos, scale)
@@ -239,7 +253,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
                 seq_max, stats_fn)
             new.update(zip(STREAM_LEAVES, new_stats))
     elif paged:
-        out = full_decode_attention_paged(q, k_pool, v_pool, k_new_g, v_new_g,
+        out = full_decode_attention_paged(q, k_pools, v_pool, k_new_g, v_new_g,
                                           table, block_size, pos, scale)
     else:
         out = full_decode_attention(q, _broadcast_kv(k_view, cfg.num_heads),
@@ -247,12 +261,83 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
     return output_projection(out, p["w_o"]), new
 
 
+def mla_decode(p, cfg: ModelConfig, x, cache, pos, *, seq_max: int,
+               table=None, block_size: int = 0):
+    """One layer's absorbed MLA decode (``decode.py:314``): attention in the
+    (kv_lora + rope) latent space, the latents as values, up-projected
+    after mixing. ``cache`` this layer's leaves: ``latent``/``rope`` pools
+    (1, nb, bs, r|dr) when ``table`` is given (the paged route: K5 reads
+    them as two key pools, the latent pool also the value pool), else views
+    (B, 1, S, r|dr) (the gather route); lane leaves (B, ...). Returns
+    (attn_out (B, 1, D), new layer leaves) with ``latent``/``rope`` the new
+    token (B, 1, 1, r|dr)."""
+    dr = cfg.rope_head_dim
+    sin, cos = rotary_angles(pos[:, None], dr, cfg.rope_theta)   # (B, 1, dr/2)
+    sin, cos = sin[:, None], cos[:, None]
+    c_kv, k_rope = mla_project_kv(p, cfg, x, sin, cos)           # (B, 1, r|dr)
+    q_eff = mla_project_q(p, cfg, x, sin, cos)                   # (B, H, 1, de)
+    k_eff_new = torch.cat([c_kv, k_rope], dim=-1)                # (B, 1, de)
+
+    new = {"latent": c_kv[:, None], "rope": k_rope[:, None]}
+    new["k_lmk"] = lmk_add(cache["k_lmk"], k_eff_new, pos, seq_max)
+    new["q_lmk"] = lmk_add(cache["q_lmk"], q_eff[:, :, 0], pos, seq_max)
+    new.update((name, cache[name]) for name in STREAM_LEAVES)
+    scale = mla_scale(cfg)
+    h = cfg.num_heads
+    paged = table is not None
+    frozen = (cfg.decode_attention_impl == "spectral_shift"
+              and cfg.decode_streaming == "frozen")
+    if paged:
+        k_pools, v_pool = (cache["latent"], cache["rope"]), cache["latent"]
+    elif not frozen:
+        lat_view = _update_seq(cache["latent"], new["latent"], pos)
+        k_view = torch.cat([lat_view, _update_seq(cache["rope"], new["rope"], pos)],
+                           dim=-1)                               # (B, 1, S, de)
+    if cfg.decode_attention_impl == "spectral_shift":
+        k_lmk = _broadcast_kv(new["k_lmk"], h)
+        if cfg.decode_streaming == "recompute":
+            if paged:
+                raise ValueError("decode_streaming='recompute' rebuilds the dense "
+                                 "B matrix and is only served by the gather route")
+            out_lat = ss_decode_attention(
+                q_eff, _broadcast_kv(k_view, h), _broadcast_kv(lat_view, h),
+                new["q_lmk"], k_lmk, pos, cfg, scale, seq_max)
+        else:
+            k_new = k_eff_new.expand(-1, h, -1)                  # (B, H, de)
+            v_new = c_kv.expand(-1, h, -1)                       # (B, H, r)
+            stats = tuple(cache[name] for name in STREAM_LEAVES)
+            if frozen:
+                stats_fn = None
+            elif paged:
+                stats_fn = _paged_active_stats_fn(k_pools, v_pool, k_eff_new, c_kv,
+                                                  table, block_size, pos, scale)
+            else:
+                stats_fn = _view_active_stats_fn(k_view, lat_view, pos, scale)
+            out_lat, new_stats = ss_decode_attention_streaming(
+                q_eff, k_new, v_new, new["q_lmk"], k_lmk, stats, pos, cfg, scale,
+                seq_max, stats_fn)
+            new.update(zip(STREAM_LEAVES, new_stats))
+    elif paged:
+        out_lat = full_decode_attention_paged(q_eff, k_pools, v_pool, k_eff_new, c_kv,
+                                              table, block_size, pos, scale)
+    else:
+        out_lat = full_decode_attention(q_eff, _broadcast_kv(k_view, h),
+                                        _broadcast_kv(lat_view, h), pos, scale)
+    return mla_output(p, out_lat, x.dtype), new
+
+
 def _dense_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
+    """``decode.py:496``: attention (GQA or MLA), then the MLP or MoE."""
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-    attn, new_cache = gqa_decode(lp["attn"], cfg, h, lcache, pos, **route)
+    attn_fn = mla_decode if cfg.mla else gqa_decode
+    attn, new_cache = attn_fn(lp["attn"], cfg, h, lcache, pos, **route)
     x = x + attn
     h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-    return x + mlp_forward(lp["mlp"], h, cfg.act), new_cache
+    if cfg.moe:
+        ff, _ = moe_forward(lp["moe"], cfg, h)
+    else:
+        ff = mlp_forward(lp["mlp"], h, cfg.act)
+    return x + ff, new_cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
@@ -264,7 +349,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     route). Returns ``(logits (B, 1, V), {"pos": pos + 1, "layers":
     [per-layer leaves]})`` where each layer's ``k``/``v`` is the new token
     to commit."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     params = working_params(params, cfg)
     pos = cache["pos"]

@@ -30,7 +30,7 @@ from repro_torch.core.attention import NEG_INF
 from repro_torch.core.landmarks import segment_counts
 from repro_torch.core.spectral_shift import ss_core
 from repro_torch.kernels.ops import flash_merge
-from repro_torch.models.attention import _broadcast_kv
+from repro_torch.models.attention import _broadcast_kv, mla_scale
 
 STREAM_LEAVES = ("bv_m", "bv_l", "bv_acc")
 
@@ -186,19 +186,31 @@ def resegment_sums(sums: torch.Tensor, seg_from: int, seg_to: int) -> torch.Tens
     return torch.einsum("sc,...sd->...cd", route, sums.float()).to(sums.dtype)
 
 
+def layer_keys(cfg, lcache: dict):
+    """A layer's keys, values and score scale from its dense views: GQA's
+    ``k``/``v`` (B, Hkv, S, Dh) at 1 / sqrt(Dh); MLA's absorbed keys, the
+    ``latent`` and ``rope`` rows side by side (B, 1, S, de), with the
+    latents as values, at 1 / sqrt(dh + dr) (the ``mla`` branches of
+    ``_rebase_attn_layer`` :335 and ``_reseed_attn_layer`` :455)."""
+    if cfg.mla:
+        return (torch.cat([lcache["latent"], lcache["rope"]], dim=-1),
+                lcache["latent"], mla_scale(cfg))
+    return lcache["k"], lcache["v"], cfg.resolved_head_dim ** -0.5
+
+
 def reseed_layer(cfg, lcache: dict, pos, seq_max: int) -> dict:
     """Re-found one layer's streaming state (``_reseed_attn_layer``
     :443): recompute every reached row's (m, l, acc) exactly over keys
-    0..pos. ``lcache`` holds lane-batched leaves: ``k``/``v`` dense views
-    (B, Hkv, S, Dh), the rest (B, ...); ``pos`` (B,) the index of each
-    lane's last attached token."""
+    0..pos. ``lcache`` holds lane-batched leaves: the sequence leaves as
+    dense views (B, Hkv, S, D), the rest (B, ...); ``pos`` (B,) the index
+    of each lane's last attached token."""
     c = cfg.num_landmarks
     counts = landmark_counts(pos, seq_max, c)
     q_l = landmark_means(lcache["q_lmk"], counts)
+    k, v, scale = layer_keys(cfg, lcache)
     m, l, acc = recompute_stats(
-        q_l, _broadcast_kv(lcache["k"], cfg.num_heads),
-        _broadcast_kv(lcache["v"], cfg.num_heads), pos,
-        cfg.resolved_head_dim ** -0.5, row_valid=counts > 0)
+        q_l, _broadcast_kv(k, cfg.num_heads), _broadcast_kv(v, cfg.num_heads), pos,
+        scale, row_valid=counts > 0)
     return dict(lcache, bv_m=m, bv_l=l, bv_acc=acc)
 
 
@@ -214,9 +226,9 @@ def rebase_layer(cfg, lcache: dict, pos, seq_max: int) -> dict:
     q_l = landmark_means(lcache["q_lmk"], counts)
     active = pos.long() // segment_len(seq_max, c)
     rows = torch.stack([torch.clamp(active - 1, min=0), active], dim=1)
+    k, v, scale = layer_keys(cfg, lcache)
     m, l, acc = rebase_rows(tuple(lcache[name] for name in STREAM_LEAVES), q_l,
-                            lcache["k"], lcache["v"], pos,
-                            cfg.resolved_head_dim ** -0.5, rows)
+                            k, v, pos, scale, rows)
     return dict(lcache, bv_m=m, bv_l=l, bv_acc=acc)
 
 

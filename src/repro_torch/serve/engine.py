@@ -1,6 +1,10 @@
 """Serving engine: paged KV cache + two-phase scheduler over spectral-shift
 decode (``repro/serve/engine.py``, the two-phase tick ``_tick_inner``).
 
+It serves the dense family and the ``moe`` family (GQA or absorbed MLA
+attention with an MoE feed-forward: DeepSeek-V2-Lite), one cache layout
+per family (``serve/kv_cache.py``).
+
 Each tick admits waiting requests FCFS, grows the block tables of the
 decoding lanes (preempting the youngest request when the pool runs dry),
 then advances every decoding lane with ONE batched decode step and samples
@@ -80,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.kernels import MAX_HEAD_DIM
+from repro_torch.kernels import HEAD_DIM_LIMITS, SERVE_KERNELS, kernels_past
 from repro_torch.models.model import working_params
 from repro_torch.serve.chaos import ChaosInjector, EngineStalled, FaultPlan
 from repro_torch.serve.decode import decode_step
@@ -143,14 +147,28 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def kernel_head_dims(cfg: ModelConfig) -> tuple[int, int]:
+    """The (d, dv) the serving kernels see: absorbed MLA's keys of kv_lora +
+    rope columns and its kv_lora-wide latent values, else the head dim."""
+    if cfg.mla:
+        return cfg.kv_lora_rank + cfg.rope_head_dim, cfg.kv_lora_rank
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device) -> None:
+    d, dv = kernel_head_dims(cfg)
+    past = [f"{name} ({HEAD_DIM_LIMITS[name][0]}, {HEAD_DIM_LIMITS[name][1]})"
+            for name in kernels_past(d, dv, SERVE_KERNELS)]
     unsupported = {
-        "family != 'dense'": cfg.family != "dense" or cfg.mla or cfg.moe,
+        # MLA / MoE layers are served as family "moe" (its cache layout);
+        # the dense family with those flags set is refused
+        "family not 'dense' or 'moe'": (cfg.family not in ("dense", "moe")
+                                        or (cfg.family == "dense" and (cfg.mla or cfg.moe))),
         "telemetry": serve.telemetry,
-        # every kernel takes head dims up to MAX_HEAD_DIM (not MLA's
-        # 576/512): refused here, not on the first tick
-        f"head_dim {cfg.resolved_head_dim} > {MAX_HEAD_DIM} on CUDA":
-            device.type == "cuda" and cfg.resolved_head_dim > MAX_HEAD_DIM,
+        # each serving kernel takes head dims up to its own limit: refused
+        # here, not on the first tick
+        f"head dims (d={d}, dv={dv}) past {', '.join(past)} on CUDA":
+            device.type == "cuda" and bool(past),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:

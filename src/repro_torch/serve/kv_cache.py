@@ -1,6 +1,7 @@
-"""Decode-state layout of the dense GQA decoder (``repro/serve/kv_cache.py``).
+"""Decode-state layout (``repro/serve/kv_cache.py``) of the attention
+families the port serves: dense GQA, and ``moe`` with GQA or MLA.
 
-Per layer (stacked on a leading ``layers`` axis):
+Per layer (stacked on a leading ``layers`` axis), GQA:
 
 * ``k``/``v`` (B, Hkv, S, Dh): the sequence-shaped leaves, the ones the
   paged engine keeps in shared block pools;
@@ -9,6 +10,16 @@ Per layer (stacked on a leading ``layers`` axis):
 * ``bv_m``/``bv_l`` (B, H, c, 1) and ``bv_acc`` (B, H, c, Dh): the fp32
   streaming online-softmax partials of the B-side summary
   (serve/decode_state.py).
+
+MLA (``_mla_cache``, :61), served absorbed: the sequence leaves are the
+kv_lora ``latent`` (r wide) and the rotary key ``rope`` (dr wide), the
+keys are their concatenation (de = r + dr) and the values the latents.
+The reference stores them (B, S, r) and (B, S, dr) and its ``k_lmk``
+(B, c, de); here each carries a unit axis where GQA has its kv heads,
+(B, 1, S, r), (B, 1, S, dr) and (B, 1, c, de): absorbed MLA is GQA with
+one kv head of width de, so the pools, the gathers, the commits and
+kernel K5 take it as they take GQA's K/V. ``q_lmk`` is (B, H, c, de),
+``bv_acc`` (B, H, c, r).
 
 Leaves without a dtype are stored in fp32, as the reference stores them.
 """
@@ -39,11 +50,31 @@ def _gqa_cache(cfg: ModelConfig, b: int, s: int) -> dict:
     }
 
 
+def _mla_cache(cfg: ModelConfig, b: int, s: int) -> dict:
+    r, dr, c, h = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.num_landmarks, cfg.num_heads
+    de = r + dr  # effective (absorbed) key dim
+    f32 = torch.float32
+    return {
+        "latent": ParamSpec((b, 1, s, r), (BATCH, "kv_heads", SEQ, None), init="zeros"),
+        "rope": ParamSpec((b, 1, s, dr), (BATCH, "kv_heads", SEQ, None), init="zeros"),
+        "q_lmk": ParamSpec((b, h, c, de), (BATCH, "heads", None, None), init="zeros"),
+        "k_lmk": ParamSpec((b, 1, c, de), (BATCH, "kv_heads", None, None), init="zeros"),
+        "bv_m": ParamSpec((b, h, c, 1), (BATCH, "heads", None, None), init="zeros", dtype=f32),
+        "bv_l": ParamSpec((b, h, c, 1), (BATCH, "heads", None, None), init="zeros", dtype=f32),
+        # values are the kv_lora latents in absorbed MLA decode
+        "bv_acc": ParamSpec((b, h, c, r), (BATCH, "heads", None, None), init="zeros", dtype=f32),
+    }
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """Full decode-state ParamSpec tree of a dense model."""
-    if cfg.family != "dense":
+    """Full decode-state ParamSpec tree (``kv_cache.py:187``) of the
+    ``dense`` and ``moe`` families."""
+    if cfg.family == "dense" and not cfg.mla:
+        layer = _gqa_cache(cfg, batch, seq_len)
+    elif cfg.family == "moe":
+        layer = (_mla_cache if cfg.mla else _gqa_cache)(cfg, batch, seq_len)
+    else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    layer = _gqa_cache(cfg, batch, seq_len)
     layers = (stack_layer_specs(layer, cfg.num_layers) if cfg.scan_layers
               else [layer for _ in range(cfg.num_layers)])
     return {"pos": ParamSpec((), (), init="zeros", dtype=torch.int32),

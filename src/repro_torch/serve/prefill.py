@@ -17,6 +17,13 @@ the (bucket-padded) prompt computes per layer
   windows longer than c), else recomputed in plain torch; zeros for
   ``decode_attention_impl="full"``, which keeps no stats.
 
+MLA layers (``_mla_prefill``, ``_mla_chunk``) run the same routes absorbed:
+keys are the rms-normed kv_lora latent beside the rotary key (576 wide at
+DeepSeek-V2-Lite), broadcast to every query head before the kernels as
+the reference broadcasts them, and the values the latents (512 wide); the
+``moe`` family's feed-forward is ``moe_forward`` over the padded window
+(its capacity counts the pad, as the reference's does).
+
 Chunked prefill (``chunk_prefill``, ``prefill.py:627``) advances a lane by
 one fixed-size chunk of its prompt at global positions start..: the chunk
 attends with the exact replay math over the lane's committed keys plus
@@ -36,10 +43,13 @@ from repro_torch.core.attention import full_attention
 from repro_torch.kernels.ops import flash_merge, ss_attention_fused
 from repro_torch.kernels.ss_attention import landmark_summary
 from repro_torch.models.attention import (_broadcast_kv, gqa_project_qkv,
+                                          mla_output, mla_project_kv,
+                                          mla_project_q, mla_scale,
                                           output_projection, ss_config_from)
 from repro_torch.models.layers import apply_rotary, mlp_forward, rms_norm, rotary_angles
 from repro_torch.models.model import (_embed_tokens, _unembed, layer_params,
                                       torch_dtype, working_params)
+from repro_torch.models.moe import moe_forward
 from repro_torch.serve.decode import full_decode_attention, ss_decode_attention
 from repro_torch.serve.decode_state import (STREAM_LEAVES, landmark_counts,
                                             landmark_means, mask_stats_rows,
@@ -147,6 +157,11 @@ def _seed_stream_stats(cfg: ModelConfig, prefill_impl: str, q_l, kb, vb,
     return mask_stats_rows((m, l, acc), keep)
 
 
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The rotary width: MLA's rope columns, else the head dim."""
+    return cfg.rope_head_dim if cfg.mla else cfg.resolved_head_dim
+
+
 def _gqa_prefill(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
                  n_valid: int, prefill_impl: str):
     q, k, v = gqa_project_qkv(p, cfg, x)
@@ -191,14 +206,67 @@ def _gqa_prefill(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
     return attn, new_cache
 
 
+def _mla_kv(c_kv, k_rope, t_mask):
+    """Pad-masked MLA cache rows and keys of a window: latent (B, 1, n, r),
+    rope (B, 1, n, dr) and the absorbed keys (B, 1, n, de): one kv head."""
+    pad = t_mask[None, :, None]
+    lat = torch.where(pad, c_kv, 0).to(c_kv.dtype)[:, None]
+    rope = torch.where(pad, k_rope, 0).to(k_rope.dtype)[:, None]
+    return lat, rope, torch.cat([lat, rope], dim=-1)
+
+
+def _mla_prefill(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
+                 n_valid: int, prefill_impl: str):
+    """``prefill.py:261``: the absorbed keys and latent values broadcast to
+    every head (materialized, as the reference's broadcast feeds its
+    kernels), then the GQA prefill's attention and stats seed."""
+    c_kv, k_rope = mla_project_kv(p, cfg, x, sin, cos)
+    q_eff = mla_project_q(p, cfg, x, sin, cos)               # (B, H, n, de)
+    lat, rope, k_eff = _mla_kv(c_kv, k_rope, t_mask)
+    h = cfg.num_heads
+    kb, vb = _broadcast_kv(k_eff, h), _broadcast_kv(lat, h)
+
+    q_sums = k_sums_b = None
+    if not _fused(cfg, prefill_impl) and cfg.decode_attention_impl == "spectral_shift":
+        q_sums = _prefix_sums(oh, q_eff)
+        k_sums = _prefix_sums(oh, k_eff)                     # (n, B, 1, c, de)
+        q_sum, k_sum = q_sums[-1], k_sums[-1]
+        k_sums_b = _broadcast_sums(k_sums, h)
+        del k_sums
+    else:
+        q_sum = _landmark_sums(oh, q_eff)                    # (B, H, c, de)
+        k_sum = _landmark_sums(oh, k_eff)                    # (B, 1, c, de)
+    scale = mla_scale(cfg)
+    out_lat = _attend_prefill(cfg, prefill_impl, q_eff, kb, vb, scale, n_valid,
+                              seq_max, q_sums, k_sums_b)
+    del q_sums, k_sums_b
+    counts = landmark_counts(torch.tensor([n_valid - 1], device=x.device), seq_max,
+                             cfg.num_landmarks)
+    bv_m, bv_l, bv_acc = _seed_stream_stats(
+        cfg, prefill_impl, landmark_means(q_sum, counts), kb, vb, n_valid, scale,
+        seq_max)
+    new_cache = {"latent": lat, "rope": rope, "q_lmk": q_sum, "k_lmk": k_sum,
+                 "bv_m": bv_m, "bv_l": bv_l, "bv_acc": bv_acc}
+    return mla_output(p, out_lat, x.dtype), new_cache
+
+
+def _feed_forward(lp, cfg: ModelConfig, x):
+    """The block's second half: x + MLP or MoE of its rms norm."""
+    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+    if cfg.moe:
+        ff, _ = moe_forward(lp["moe"], cfg, h)
+    else:
+        ff = mlp_forward(lp["mlp"], h, cfg.act)
+    return x + ff
+
+
 def _dense_layer_prefill(lp, cfg: ModelConfig, x, sin, cos, t_mask, oh,
                          seq_max: int, n_valid: int, prefill_impl: str):
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-    attn, new_cache = _gqa_prefill(lp["attn"], cfg, h, sin, cos, t_mask, oh,
-                                   seq_max, n_valid, prefill_impl)
-    x = x + attn
-    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-    return x + mlp_forward(lp["mlp"], h, cfg.act), new_cache
+    fn = _mla_prefill if cfg.mla else _gqa_prefill
+    attn, new_cache = fn(lp["attn"], cfg, h, sin, cos, t_mask, oh, seq_max, n_valid,
+                         prefill_impl)
+    return _feed_forward(lp, cfg, x + attn), new_cache
 
 
 def batched_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -210,7 +278,7 @@ def batched_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     B=1 cache layout: ``cache["layers"][name]`` stacked (L, 1, ...), K/V
     zero past n_valid, ``cache["pos"] = n_valid``. The next-token logits
     are at index ``n_valid - 1``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if prefill_impl not in ("ss_fused", "replay"):
         raise ValueError(f"unknown prefill_impl {prefill_impl!r}")
@@ -226,7 +294,7 @@ def batched_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed_tokens(params, cfg, tokens).to(torch_dtype(cfg.compute_dtype))
     t_mask, oh = _routing(n, n_valid, seq_max, cfg.num_landmarks, x.device)
     positions = torch.arange(n, device=x.device)[None]
-    sin, cos = rotary_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    sin, cos = rotary_angles(positions, _rope_dim(cfg), cfg.rope_theta)
     sin, cos = sin[:, None], cos[:, None]                   # (1, 1, n, dh/2)
 
     per_layer = []
@@ -349,14 +417,48 @@ def _gqa_chunk(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
     return attn, new_cache
 
 
+def _mla_chunk(p, cfg: ModelConfig, x, sin, cos, t_mask, oh, seq_max: int,
+               stats_impl: str, start: int, chunk_valid: int, lcache: dict):
+    """One MLA layer of a chunk (``prefill.py:541``). ``lcache`` the lane's
+    B=1 leaves: ``latent``/``rope`` its committed rows (1, 1, >= start,
+    r|dr), the rest as carried from the previous chunk."""
+    c_kv, k_rope = mla_project_kv(p, cfg, x, sin, cos)
+    q_eff = mla_project_q(p, cfg, x, sin, cos)
+    lat, rope, k_eff = _mla_kv(c_kv, k_rope, t_mask)
+    h = cfg.num_heads
+
+    q_sums = lcache["q_lmk"].float()[None] + _prefix_sums(oh, q_eff)
+    k_sums = lcache["k_lmk"].float()[None] + _prefix_sums(oh, k_eff)
+    kb, vb = _broadcast_kv(k_eff, h), _broadcast_kv(lat, h)
+    k_sums_b = _broadcast_sums(k_sums, h)
+    # assembled keys 0..end-1: committed rows + this chunk at [start, end)
+    lat_full = _insert_chunk(lcache["latent"], lat, start)
+    kfb = _broadcast_kv(torch.cat([lat_full, _insert_chunk(lcache["rope"], rope, start)],
+                                  dim=-1), h)
+    vfb = _broadcast_kv(lat_full, h)
+
+    scale = mla_scale(cfg)
+    out_lat = _attend_prefill(cfg, "replay", q_eff, kfb, vfb, scale, chunk_valid,
+                              seq_max, q_sums, k_sums_b, pos0=start)
+    del k_sums_b
+    counts = landmark_counts(torch.tensor([start + chunk_valid - 1], device=x.device),
+                             seq_max, cfg.num_landmarks)
+    q_l = landmark_means(q_sums[-1], counts)
+    bv_m, bv_l, bv_acc = _merge_chunk_stats(
+        cfg, stats_impl, tuple(lcache[name] for name in STREAM_LEAVES), q_l, kb,
+        vb, kfb, vfb, start, chunk_valid, scale, seq_max)
+    new_cache = {"latent": lat, "rope": rope, "q_lmk": q_sums[-1], "k_lmk": k_sums[-1],
+                 "bv_m": bv_m, "bv_l": bv_l, "bv_acc": bv_acc}
+    return mla_output(p, out_lat, x.dtype), new_cache
+
+
 def _dense_layer_chunk(lp, lcache, cfg: ModelConfig, x, sin, cos, t_mask, oh,
                        seq_max: int, stats_impl: str, start: int, chunk_valid: int):
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-    attn, new_cache = _gqa_chunk(lp["attn"], cfg, h, sin, cos, t_mask, oh, seq_max,
-                                 stats_impl, start, chunk_valid, lcache)
-    x = x + attn
-    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-    return x + mlp_forward(lp["mlp"], h, cfg.act), new_cache
+    fn = _mla_chunk if cfg.mla else _gqa_chunk
+    attn, new_cache = fn(lp["attn"], cfg, h, sin, cos, t_mask, oh, seq_max,
+                         stats_impl, start, chunk_valid, lcache)
+    return _feed_forward(lp, cfg, x + attn), new_cache
 
 
 def chunk_prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
@@ -374,7 +476,7 @@ def chunk_prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     1``. Chunk attention is the exact replay math, so chunked prefill
     equals whole-prompt ``replay`` prefill; ``stats_impl`` routes only
     the stats handoff."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     params = working_params(params, cfg)
     start, chunk_valid = int(start), int(chunk_valid)
@@ -386,7 +488,7 @@ def chunk_prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     # pad positions may lie past the horizon's last segment: routed nowhere
     seg_idx = torch.clamp((start + t) // segment_len(seq_max, c), max=c - 1)
     oh = F.one_hot(seg_idx, c).float() * t_mask[:, None]
-    sin, cos = rotary_angles((start + t)[None], cfg.resolved_head_dim, cfg.rope_theta)
+    sin, cos = rotary_angles((start + t)[None], _rope_dim(cfg), cfg.rope_theta)
     sin, cos = sin[:, None], cos[:, None]
 
     layers = cache["layers"]

@@ -26,7 +26,7 @@ from repro.kernels.paged_decode import paged_row_stats_lanes as j_paged  # noqa:
 from repro.kernels.ss_attention import landmark_summary as j_ls  # noqa: E402
 from repro.kernels.ss_attention import query_side as j_qs  # noqa: E402
 from repro_torch.core.attention import SSConfig  # noqa: E402
-from repro_torch.kernels import MAX_HEAD_DIM, build, launch_counts  # noqa: E402
+from repro_torch.kernels import HEAD_DIM_LIMITS, build, launch_counts  # noqa: E402
 from repro_torch.kernels import ops, paged_decode  # noqa: E402
 from repro_torch.kernels.paged_decode import (SLOT_TARGET_CTAS,  # noqa: E402
                                               paged_row_stats_lanes,
@@ -370,11 +370,10 @@ def test_paged_row_stats_plain_matches_pallas(splits):
     out = paged_row_stats_plain(*args, scale=scale)
     for o, r in zip(out, ref):
         _close(o, r)
-    if len(k_pools) == 1:  # the wrapper (one key pool) runs the same plain version
-        wrapped = paged_row_stats_lanes(args[0], args[1][0], *args[2:],
-                                        scale=scale, block_size=bs)
-        for o, w in zip(out, wrapped):
-            torch.testing.assert_close(w, o, rtol=0, atol=0)
+    # the wrapper (one or two key pools) runs the same plain version
+    wrapped = paged_row_stats_lanes(*args, scale=scale, block_size=bs)
+    for o, w in zip(out, wrapped):
+        torch.testing.assert_close(w, o, rtol=0, atol=0)
     m, l, acc = out
     # zero valid keys: exactly the absorbing anchor
     assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(acc[0] == 0)
@@ -395,8 +394,8 @@ def test_paged_row_stats_plain_matches_pallas_at_48_rows(bs):
     ref = j_paged(jnp.asarray(q), (jnp.asarray(k_pool),), jnp.asarray(v_pool),
                   jnp.asarray(table), jnp.asarray(kv_valid), scale=0.25,
                   block_size=bs, interpret=True)
-    out = paged_row_stats_lanes(*(torch.from_numpy(a) for a in (q, k_pool, v_pool, table,
-                                                                 kv_valid)),
+    out = paged_row_stats_lanes(torch.from_numpy(q), (torch.from_numpy(k_pool),),
+                                *(torch.from_numpy(a) for a in (v_pool, table, kv_valid)),
                                 scale=0.25, block_size=bs)
     for o, r_ in zip(out, ref):
         _close(o, r_)
@@ -593,17 +592,28 @@ def test_slot_chunk_limits_match_the_cuda_source():
 
 @pytest.mark.parametrize("source", sorted(build.SOURCES))
 def test_every_kernel_takes_max_head_dim(source):
-    """The one head-dim limit the serving engine refuses past on CUDA is
-    each kernel's own: every .cu file's kMaxD equals MAX_HEAD_DIM."""
+    """The head-dim limits the wrappers and the serving engine hold each
+    kernel to are the kernel's own: a .cu file with wide-head variants
+    takes (kWideMaxD, kWideMaxDv), one without them (kMaxD, kMaxD), and
+    that pair is the file's entry of HEAD_DIM_LIMITS."""
     src = (build.CSRC / f"{source}.cu").read_text()
-    found = re.findall(r"constexpr int kMaxD = (\d+);", src)
-    assert found and all(int(v) == MAX_HEAD_DIM for v in found)
+
+    def const(name):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert len(found) <= 1, f"{source}.cu defines {name} more than once"
+        return int(found[0]) if found else None
+
+    narrow = const("kMaxD")
+    assert narrow == 128
+    wide = (const("kWideMaxD"), const("kWideMaxDv"))
+    limits = wide if wide != (None, None) else (narrow, narrow)
+    assert limits == HEAD_DIM_LIMITS[source]
 
 
 K5_BAD_OPERANDS = {
     # name: (r, d, dv, bs, misaligned, dtype)
-    "value_dim_above_128": (9, 32, 132, 8, False, torch.float32),
-    "head_dim_above_128": (2, 132, 32, 8, False, torch.float32),
+    "value_dim_above_512": (9, 32, 516, 8, False, torch.float32),
+    "head_dim_above_576": (2, 580, 32, 8, False, torch.float32),
     "bf16_block_not_16_byte_units": (48, 4, 4, 33, False, torch.bfloat16),
     "head_dim_not_multiple_of_4": (2, 30, 32, 8, False, torch.float32),
     "misaligned_pool": (2, 32, 32, 8, True, torch.float32),
@@ -626,7 +636,7 @@ def test_k5_operands_the_kernel_does_not_take_raise(case):
     before = launch_counts()
     with pytest.raises(ValueError):
         paged_decode._paged_row_stats_cuda(
-            torch.zeros(lanes, hkv, r, d, dtype=dtype), pool(d), pool(dv),
+            torch.zeros(lanes, hkv, r, d, dtype=dtype), (pool(d),), pool(dv),
             torch.zeros(lanes, n_slots, dtype=torch.int32),
             torch.zeros(lanes, dtype=torch.int32), scale=0.5)
     assert launch_counts() == before

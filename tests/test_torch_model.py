@@ -194,7 +194,7 @@ def test_full_decode_attention_paged_matches_jax():
     table = np.array([[3, 7, 0, 0], [5, 1, 9, 2]], np.int32)
     pos = np.array([11, 29], np.int32)
     out = decode.full_decode_attention_paged(
-        torch.from_numpy(q), torch.from_numpy(k_pool), torch.from_numpy(v_pool),
+        torch.from_numpy(q), (torch.from_numpy(k_pool),), torch.from_numpy(v_pool),
         torch.from_numpy(k_new), torch.from_numpy(v_new), torch.from_numpy(table),
         bs, torch.from_numpy(pos), d**-0.5)
     for lane in range(lanes):

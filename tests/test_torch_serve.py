@@ -121,13 +121,24 @@ def test_engine_still_refuses_telemetry_and_other_families(weights, field):
 
 
 def test_engine_refuses_head_dims_past_the_kernels_on_cuda(weights, monkeypatch):
-    """K1, K2 and K5 take head dims up to 128: on CUDA a config past that is
-    refused at construction, before any weight reaches the device (the
-    device check is patched, so no card is needed)."""
+    """On CUDA a config whose kernel-facing head dims exceed a serving
+    kernel's own limit (K1, K2, K5: d 576, dv 512) is refused at
+    construction, before any weight reaches the device (the device check
+    is patched, so no card is needed): GQA's head dim, and MLA's kv_lora +
+    rope keys and kv_lora values. DeepSeek-V2-Lite's own 576 / 512 pass
+    the check."""
+    from repro_torch.serve.engine import _check_supported, kernel_head_dims
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = dataclasses.replace(reduced_cfg(), head_dim=132)
-    with pytest.raises(NotImplementedError, match="head_dim 132 > 128"):
+    cfg = dataclasses.replace(reduced_cfg(), head_dim=580)
+    with pytest.raises(NotImplementedError, match=r"head dims \(d=580, dv=580\) past"):
         ServeEngine(cfg, weights[2], device="cuda")
+    deepseek = get_config("deepseek-v2-lite-16b")
+    assert kernel_head_dims(deepseek) == (576, 512)
+    _check_supported(deepseek, base.ServeConfig(), torch.device("cuda"))
+    wide = dataclasses.replace(deepseek, rope_head_dim=128)
+    with pytest.raises(NotImplementedError, match=r"head dims \(d=640, dv=512\) past"):
+        _check_supported(wide, base.ServeConfig(), torch.device("cuda"))
 
 
 @pytest.mark.parametrize("cls", ["ModelConfig", "ServeConfig", "TrainConfig",
@@ -185,6 +196,8 @@ print(json.dumps({"modules": names, "leaks": sorted(
     assert "repro_torch.launch.serve" in result["modules"]
     assert "repro_torch.train.trainer" in result["modules"]
     assert "repro_torch.launch.train" in result["modules"]
+    assert "repro_torch.models.moe" in result["modules"]
+    assert "repro_torch.configs.deepseek_v2_lite_16b" in result["modules"]
     assert result["leaks"] == []
 
 
