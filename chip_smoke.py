@@ -98,7 +98,21 @@ result line):
    peak GiB) and its first 4 layers under frozen streaming with chunks of
    128 and the prefix cache over the same sequence
    (``serve_deepseek_chunked_frozen``: tokens identical to a cold frozen
-   chunked engine);
+   chunked engine); telemetry on the card: the main path again with
+   ``telemetry=True`` and ``numerics_probe_every=4`` (``serve_telemetry``:
+   tokens and K1 / K2 / K5 launches identical to the telemetry-off main
+   path of the same weights, a JSONL dump that parses with the port's core
+   metric families, a Chrome trace that validates, no non-finite value
+   seen by the numerics probe, ``program_shapes`` flat when the same
+   prompts run again; the mean ms of the tick spans and tok/s with
+   telemetry on and off), one main-path run under ``torch.profiler`` with
+   annotated spans (``serve_telemetry_annotated``: every span name among
+   the profiler's events), frozen at 28 layers with telemetry
+   (``serve_frozen_telemetry``: one drift residual per lane rebase, tokens
+   identical to ``serve_frozen``), the 8-layer frozen prefix path's engine
+   with telemetry (``prefix_attach`` and ``cow`` in the lifelines, a valid
+   trace) and the chaos plans with telemetry (``chaos_injections_total``
+   equal to ``stats()["chaos_injections"]``);
 5. training: the ``Trainer`` on full-width Qwen2-7B cut to
    ``--train-layers`` layers, bf16 compute over fp32 master weights, seq
    4096, batch 2, 5 steps each under ``remat="full"`` (launches per step
@@ -106,6 +120,9 @@ result line):
    round trip of the parameters) and ``remat="auto"`` (ss_stats on the
    card: K1 4 / K2 8 / K3 4 / K4 4) and ``remat="dots"`` (K1 8 / K2 8 /
    K3 4 / K4 4), every loss finite, ms per step and peak memory of each;
+   then ``remat="full"`` again with a ``Telemetry`` (``train_telemetry``:
+   ``train_step_seconds`` counts every step, the losses equal the run
+   without it);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
    training runs, and by path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -1947,6 +1964,7 @@ def serve_run(torch, dev, arch: str, layers: int, serve, label: str, params=None
     engine = ServeEngine(cfg, weights, serve=serve, device=dev)
     out = serve_requests(engine, SERVE_LENS, max_new, seed=0)
     out["stats"] = engine.stats()
+    out["snapshot"] = engine.telemetry.metrics.snapshot()
     log_served(torch, dev, out, serve, label)
     check_served(torch, engine, out, label, len(SERVE_LENS))
     del engine
@@ -1965,14 +1983,19 @@ def serve_phase(torch, dev, layers: int) -> dict:
     path's launch counts."""
     from repro_torch.configs.base import ServeConfig
 
-    main = serve_run(torch, dev, "qwen2-7b", layers,
-                     ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
-                                 decode_impl="paged", seed=0), "main path")
+    weights = serve_params(torch, dev, "qwen2-7b", layers, "main path")
+    main_serve = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                             decode_impl="paged", seed=0)
+    main = serve_run(torch, dev, "qwen2-7b", layers, main_serve, "main path", params=weights)
     missing = [k for k in SERVE_KERNELS if main["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
+    telemetry = serve_telemetry_phase(torch, dev, weights, main_serve, main)
     default = serve_run(torch, dev, "qwen2-7b", layers, ServeConfig(seed=0),
-                        "default route")
+                        "default route", params=weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
     if any(default["launches"].values()) or default["decode_impl"] != "gather":
         raise AssertionError(f"serve default route: a port kernel launched or the "
                              f"route is not gather: {default['launches']}, "
@@ -1984,9 +2007,145 @@ def serve_phase(torch, dev, layers: int) -> dict:
     missing = [k for k in SERVE_KERNELS if granite["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"serve granite-20b: kernels never launched: {missing}")
-    return {"serve": main["launches"], "serve_default_route": default["launches"],
+    return {"serve": main["launches"], **telemetry,
+            "serve_default_route": default["launches"],
             "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers),
             **serve_frozen_phase(torch, dev, layers), **serve_deepseek_phase(torch, dev)}
+
+
+# The reference's core metric families (``tests/test_telemetry.py:308``)
+# without ``autotune_plan_resolutions_total`` (the dispatch module is not
+# ported); the exact main path has no rebase, so the two frozen families
+# are checked on ``serve_frozen_telemetry``.
+CORE_FAMILIES = ("serve_ttft_ticks", "serve_latency_ticks", "serve_ttft_seconds",
+                 "serve_itl_seconds", "serve_admitted_total", "serve_tokens_total",
+                 "serve_ticks_total", "span_seconds", "pool_utilization",
+                 "pool_fragmentation", "spectrum_mass_top1_ema")
+FROZEN_FAMILIES = ("serve_rebases_total", "drift_rebase_residual")
+TICK_SPANS = ("serve_tick", "admit", "prefill", "decode_dispatch", "device_sync",
+              "sample_emit")
+
+
+def span_means_ms(snapshot: dict) -> dict:
+    """Mean host ms of each span name in a registry snapshot."""
+    return {k.split("=", 1)[1]: 1e3 * v["sum"] / v["count"]
+            for k, v in snapshot.get("span_seconds", {}).items() if v["count"]}
+
+
+def check_trace(telemetry, label: str, kinds=()) -> None:
+    """The telemetry's Chrome trace validates; ``kinds`` all appear among
+    its lifeline events."""
+    from repro_torch.telemetry import chrome_trace, validate_trace
+
+    trace = chrome_trace(telemetry)
+    errors = validate_trace(trace)
+    if errors:
+        raise AssertionError(f"{label}: the Chrome trace does not validate: {errors[:5]}")
+    seen = {k for line in telemetry.flight.lifelines() for k in line.kinds()}
+    if set(kinds) - seen:
+        raise AssertionError(f"{label}: lifelines lack {set(kinds) - seen}")
+    log(f"serve {label}: Chrome trace of {len(trace['traceEvents'])} events validates"
+        + (f", lifelines hold {sorted(kinds)}" if kinds else ""))
+
+
+def serve_telemetry_phase(torch, dev, weights, main_serve, main: dict) -> dict:
+    """The main path with telemetry on, on the main path's weights:
+
+    * ``serve_telemetry``: ``telemetry=True``, ``numerics_probe_every=4``;
+      tokens and launch counts identical to the telemetry-off ``main`` run;
+      the JSONL dump parses and holds CORE_FAMILIES, the Chrome trace
+      validates, the numerics probe ran and saw no non-finite value, and
+      ``program_shapes`` stays flat when the same prompts run again; prints
+      the mean ms of each tick span and tok/s with telemetry on and off;
+    * ``serve_telemetry_annotated``: the main path with
+      ``Telemetry(annotate=True)`` under ``profile_session``: every span
+      name of the run is among the profiler's events.
+
+    Returns each path's launch counts."""
+    import numpy as np
+
+    from repro_torch import telemetry as tel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, params = weights
+    serve = dataclasses.replace(main_serve, telemetry=True, numerics_probe_every=4)
+    engine = ServeEngine(cfg, params, serve=serve, device=dev)
+    out = serve_requests(engine, SERVE_LENS, 16, seed=0)
+    check_served(torch, engine, out, "serve_telemetry", len(SERVE_LENS))
+    if out["outputs"] != main["outputs"] or out["launches"] != main["launches"]:
+        raise AssertionError(f"serve_telemetry: tokens or launches differ from the "
+                             f"telemetry-off main path: {out['launches']} vs "
+                             f"{main['launches']}")
+    snap = engine.telemetry.metrics.snapshot()
+    shapes = engine.stats()["program_shapes"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
+        path = os.path.join(tmp, "telemetry.jsonl")
+        n = engine.telemetry.dump_jsonl(path, meta={"path": "serve_telemetry"})
+        with open(path) as fh:
+            lines = [json.loads(x) for x in fh]
+    names = {x["name"] for x in lines if x["kind"] == "metric"}
+    if len(lines) != n or lines[0]["kind"] != "meta" or set(CORE_FAMILIES) - names:
+        raise AssertionError(f"serve_telemetry: JSONL of {len(lines)} lines (wrote {n}) "
+                             f"lacks {set(CORE_FAMILIES) - names}")
+    check_trace(engine.telemetry, "serve_telemetry")
+    nonfinite = sum(v["value"] for v in snap.get("numerics_nonfinite_total", {}).values())
+    checks = snap.get("numerics_checks_total", {}).get("value", 0)
+    if nonfinite or not checks:
+        raise AssertionError(f"serve_telemetry: numerics probe {checks} checks, "
+                             f"{nonfinite} non-finite values")
+    means = span_means_ms(snap)
+    # the same prompts again, new uids: every argument signature was seen
+    rng = np.random.default_rng(0)
+    for uid, n_tok in enumerate(SERVE_LENS):
+        engine.submit(Request(100 + uid, rng.integers(3, cfg.vocab_size, n_tok).tolist(),
+                              max_new_tokens=16))
+    engine.run()
+    again = engine.stats()["program_shapes"]
+    if again != shapes:
+        raise AssertionError(f"serve_telemetry: program_shapes grew on a second pass of "
+                             f"the same prompts: {shapes} -> {again}")
+    log(f"serve serve_telemetry: tokens and launches identical to the telemetry-off main "
+        f"path ({out['launches']}); JSONL {n} lines; numerics checks {int(checks)}, "
+        f"non-finite 0; program_shapes {shapes}, flat over a second pass; span mean ms "
+        + ", ".join(f"{k} {means[k]:.3f}" for k in TICK_SPANS if k in means)
+        + f" over {snap['serve_ticks_total']['value']:.0f} ticks; tok/s telemetry on "
+        f"{out['tok_per_s']:.1f}, off {main['tok_per_s']:.1f}; TTFT mean ms on "
+        f"{1e3 * sum(out['ttft_s']) / len(out['ttft_s']):.1f}, off "
+        f"{1e3 * sum(main['ttft_s']) / len(main['ttft_s']):.1f}")
+    del engine
+    gc.collect()
+
+    t = tel.Telemetry(annotate=True)
+    engine = ServeEngine(cfg, params, serve=main_serve, device=dev, telemetry=t)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with tel.profile_session(None) as prof:  # the profiler's own trace is not written
+        rng = np.random.default_rng(0)
+        for uid, n_tok in enumerate(SERVE_LENS):
+            engine.submit(Request(uid, rng.integers(3, cfg.vocab_size, n_tok).tolist(),
+                                  max_new_tokens=16))
+        outputs = engine.run()
+    annotated = launch_counts()
+    seconds = time.perf_counter() - t0
+    averages = prof.key_averages()
+    keys = {e.key for e in averages}
+    spans = {e["name"] for e in t.tracer.events}
+    if set(TICK_SPANS) - spans or spans - keys:
+        raise AssertionError(f"serve_telemetry_annotated: spans {sorted(spans)}; missing "
+                             f"from the profiler's events: {sorted(spans - keys)}")
+    if outputs != main["outputs"]:
+        raise AssertionError("serve_telemetry_annotated: tokens differ from the main path")
+    device_us = sum(e.self_device_time_total for e in averages
+                    if e.key not in spans and e.self_device_time_total > 0)
+    log(f"serve serve_telemetry_annotated: {sorted(spans)} all among the profiler's "
+        f"{len(keys)} event names; profiled run {seconds:.3f}s, device busy "
+        f"{device_us / 1e3:.1f} ms, launches {annotated}")
+    del engine, prof, averages
+    gc.collect()
+    return {"serve_telemetry": out["launches"], "serve_telemetry_annotated": annotated}
 
 
 def serve_deepseek_phase(torch, dev) -> dict:
@@ -2110,12 +2269,15 @@ def serve_chunked_phase(torch, dev, layers: int) -> dict:
             "serve_park_resume": park, "serve_prefix_cache": prefix["launches"]}
 
 
-def prefix_runs(torch, dev, cfg, params, chunked, label: str) -> tuple:
+def prefix_runs(torch, dev, cfg, params, chunked, label: str,
+                telemetry: bool = False) -> tuple:
     """The prefix path's sequence, one request at a time to completion, on
     an engine with ``prefix_cache=True`` over ``chunked``'s settings and on
     a cold ``chunked`` engine: A (384 tokens), A, B (A's first 256 + 77),
     C (333), C, 16 new tokens each, launch counts reset just before each
-    engine. Returns (prefix run, cold run), each checked by
+    engine. With ``telemetry`` the prefix engine runs with it on: its
+    lifelines must hold ``prefix_attach`` and ``cow`` and its trace must
+    validate. Returns (prefix run, cold run), each checked by
     ``check_served``."""
     import numpy as np
 
@@ -2127,7 +2289,8 @@ def prefix_runs(torch, dev, cfg, params, chunked, label: str) -> tuple:
     b = a[:256] + rng.integers(3, cfg.vocab_size, 77).tolist()
     c = rng.integers(3, cfg.vocab_size, 333).tolist()
     runs = {}
-    for name, serve in (("prefix", dataclasses.replace(chunked, prefix_cache=True)),
+    for name, serve in (("prefix", dataclasses.replace(chunked, prefix_cache=True,
+                                                       telemetry=telemetry)),
                         ("cold", chunked)):
         engine = ServeEngine(cfg, params, serve=serve, device=dev)
         torch.cuda.synchronize()
@@ -2154,6 +2317,10 @@ def prefix_runs(torch, dev, cfg, params, chunked, label: str) -> tuple:
             + f", launches {out['launches']}, peak "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
         check_served(torch, engine, out, f"{label} ({name})", 5)
+        if engine.telemetry.enabled:
+            check_trace(engine.telemetry, f"{label} ({name})",
+                        kinds=("prefix_attach", "cow", "prefill_chunk", "rebase"
+                               if cfg.decode_streaming == "frozen" else "decode"))
         del engine
         gc.collect()
     torch.cuda.empty_cache()
@@ -2249,7 +2416,8 @@ def assert_no_leaks(engine, label: str) -> None:
 def traced_run(torch, dev, cfg, params, serve, trace, label: str, plan=None) -> dict:
     """``trace`` through ``replay_trace`` on a fresh engine (chaos ``plan``
     if given), launch counts reset just before; the engine must drain with
-    every uid ``finished`` and no block leaked."""
+    every uid ``finished`` and no block leaked. With ``serve.telemetry`` and
+    a plan, ``chaos_injections_total`` must equal the injector's count."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.workload import replay_trace
@@ -2281,6 +2449,14 @@ def traced_run(torch, dev, cfg, params, serve, trace, label: str, plan=None) -> 
         raise AssertionError(f"{label}: outcomes other than finished: {bad}")
     assert_no_leaks(engine, label)
     check_served(torch, engine, out, label, len(trace))
+    if engine.telemetry.enabled and plan is not None:
+        counted = engine.telemetry.metrics.snapshot().get("chaos_injections_total", {})
+        total = sum(v["value"] for v in counted.values())
+        if total != st["chaos_injections"]:
+            raise AssertionError(f"{label}: chaos_injections_total {counted} != "
+                                 f"{st['chaos_injections']} injections")
+        log(f"serve {label}: chaos_injections_total {int(total)} = stats()"
+            f"['chaos_injections'], by site {dict(sorted(counted.items()))}")
     del engine
     gc.collect()
     return out
@@ -2293,16 +2469,22 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
     * ``serve_frozen``: the main path's model, depth and settings with
       ``decode_streaming="frozen"``: K1 and K2 launch, K5 never (a frozen
       tick reads no pool); boundary rebases and their ms;
+    * ``serve_frozen_telemetry``: the same with telemetry on: tokens and
+      launches of ``serve_frozen``, one drift residual per lane rebase
+      (p50 / p99 printed), the core and frozen metric families;
     * ``serve_frozen_chunked_prefix`` (CHAOS_LAYERS layers): frozen with
       ``chunked_prefill`` (chunks of 128) and ``prefix_cache`` over the
       prefix path's A A B C C: hits 3, misses 2, tokens identical to a
-      cold frozen chunked engine, K5 never;
+      cold frozen chunked engine, K5 never; the prefix engine runs with
+      telemetry (``prefix_attach`` and ``cow`` lifeline events, a valid
+      trace);
     * ``serve_chaos`` (CHAOS_LAYERS layers, exact streaming,
       ``chunked_prefill`` + ``prefix_cache`` + ``watchdog_ticks=16``): a
       seeded Poisson trace, fault-free and then under each of the chaos
       soak's four plans at seed 0: every run drains, every uid finishes,
       no block leaks, at least one injection, tokens identical to the
-      fault-free run's;
+      fault-free run's; the plans run with telemetry, and
+      ``chaos_injections_total`` equals the injector's count;
     * ``serve_guard`` (CHAOS_LAYERS layers, frozen, ``numerics_guard``): a
       ``nan_stats`` rule on lane 0 at ticks 3-4 walks the ladder
       (quarantines 2, demotions 1); the demoted lane runs the exact program
@@ -2329,6 +2511,23 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
         raise AssertionError(f"serve_frozen: launches {ran}: K1 and K2 must run, K5 not")
     if st["rebases"] <= 0:
         raise AssertionError("serve_frozen: no boundary rebase ran")
+    frozen_tel = serve_run(torch, dev, "qwen2-7b", layers,
+                           dataclasses.replace(main_serve, telemetry=True),
+                           "serve_frozen_telemetry", params=(frozen_cfg, params))
+    tst, drift = frozen_tel["stats"], frozen_tel["snapshot"].get("drift_rebase_residual", {})
+    missing = set(CORE_FAMILIES + FROZEN_FAMILIES) - set(frozen_tel["snapshot"])
+    if (frozen_tel["outputs"] != frozen["outputs"] or frozen_tel["launches"] != ran
+            or drift.get("count") != tst["rebases"] or missing):
+        raise AssertionError(f"serve_frozen_telemetry: tokens or launches differ from "
+                             f"serve_frozen, or drift residuals {drift} against "
+                             f"{tst['rebases']} rebases, or families {missing} missing")
+    log(f"serve serve_frozen_telemetry: tokens and launches identical to serve_frozen; "
+        f"{drift['count']} drift residuals for {tst['rebases']} lane rebases, p50 "
+        f"{drift['p50']:.4g}, p99 {drift['p99']:.4g} (bucket bounds), mean "
+        f"{drift['sum'] / drift['count']:.4g}, last "
+        f"{frozen_tel['snapshot']['drift_rebase_residual_last']['value']:.4g}; spectrum "
+        f"top-1 share EMA {frozen_tel['snapshot']['spectrum_mass_top1_ema']['value']:.4g}; "
+        f"span mean ms {json.dumps({k: round(v, 3) for k, v in span_means_ms(frozen_tel['snapshot']).items()})}")
 
     n = min(CHAOS_LAYERS, layers)
     cfg8, frozen8, params8 = (dataclasses.replace(cfg, num_layers=n),
@@ -2336,7 +2535,7 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
                               first_layers(params, n))
     chunked = dataclasses.replace(main_serve, chunked_prefill=True, prefill_chunk_tokens=128)
     prefix, cold = prefix_runs(torch, dev, frozen8, params8, chunked,
-                               "serve_frozen_chunked_prefix")
+                               "serve_frozen_chunked_prefix", telemetry=True)
     pst = prefix["stats"]
     if (pst["prefix"]["hits"], pst["prefix"]["misses"]) != (3, 2):
         raise AssertionError(f"serve_frozen_chunked_prefix: prefix {pst['prefix']}: "
@@ -2358,7 +2557,8 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
     for name, rules in CHAOS_PLANS.items():
         plan = chaos.FaultPlan(seed=0, rules=tuple(chaos.FaultRule(site, **kw)
                                                    for site, kw in rules))
-        out = traced_run(torch, dev, cfg8, params8, soak, trace,
+        out = traced_run(torch, dev, cfg8, params8,
+                         dataclasses.replace(soak, telemetry=True), trace,
                          f"serve_chaos ({name})", plan=plan)
         if out["stats"]["chaos_injections"] <= 0:
             raise AssertionError(f"serve_chaos ({name}): no fault was injected")
@@ -2397,7 +2597,8 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
     del params, params8
     gc.collect()
     torch.cuda.empty_cache()
-    return {"serve_frozen": ran, "serve_frozen_chunked_prefix": prefix["launches"],
+    return {"serve_frozen": ran, "serve_frozen_telemetry": frozen_tel["launches"],
+            "serve_frozen_chunked_prefix": prefix["launches"],
             "serve_chaos": chaos_launches, "serve_guard": guard["launches"]}
 
 
@@ -2405,7 +2606,7 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
 # phase 5: training
 # --------------------------------------------------------------------------
 def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
-                round_trip: bool = True) -> dict:
+                round_trip: bool = True, telemetry: bool = False) -> tuple:
     """The single-device ``Trainer`` on full-width Qwen2-7B cut to ``layers``
     layers: bf16 compute, fp32 master weights and AdamW state, ``remat``,
     ``attention_impl="spectral_shift_fused"``, seq 4096, batch TRAIN_BATCH,
@@ -2414,13 +2615,17 @@ def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
     "dots" (forward plus the remat recompute; backward once), and K1 1
     under "auto" (on the card: "ss_stats", which keeps K1's outputs). With
     ``round_trip`` a checkpoint round trip of the parameters on the card
-    must then be bit-identical. Returns (summed launch counts, mean ms per
-    step after the first, peak GiB)."""
+    must then be bit-identical. With ``telemetry`` the trainer holds a
+    ``Telemetry``: ``train_step_seconds`` and the ``train_step`` spans must
+    count every step, the gauges hold the last step's metrics. Returns
+    (summed launch counts, mean ms per step after the first, peak GiB, the
+    losses)."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.base import ShapeConfig, TrainConfig, resolve_remat
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.params import tree_leaves
+    from repro_torch.telemetry import Telemetry
     from repro_torch.train.trainer import Trainer
 
     cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=layers,
@@ -2439,7 +2644,8 @@ def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
         tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
                            checkpoint_dir=os.path.join(ckpt_dir, "trainer"))
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, tcfg, shape, device=dev)
+        trainer = Trainer(cfg, tcfg, shape, device=dev,
+                          telemetry=Telemetry() if telemetry else None)
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in tree_leaves(trainer.params))
         log(f"train remat={remat} ({resolved}): qwen2-7b d_model={cfg.d_model} layers="
@@ -2471,11 +2677,26 @@ def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
             f"{1e3 * mean_s:.1f} ms ({tokens / mean_s:.0f} tokens/s), peak device "
             f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [h["loss"] for h in trainer.metrics_history]
+        if telemetry:
+            snap = trainer.telemetry.metrics.snapshot()
+            step_s = snap["train_step_seconds"]
+            gauges = {k: snap[f"train_{k}"]["value"] for k in ("loss", "grad_norm", "lr")}
+            last = trainer.metrics_history[-1]
+            if (step_s["count"] != steps
+                    or snap["span_seconds"]["span=train_step"]["count"] != steps
+                    or any(gauges[k] != last[k] for k in gauges)):
+                raise AssertionError(f"train telemetry: train_step_seconds {step_s}, gauges "
+                                     f"{gauges} against {steps} steps and {last}")
+            log(f"train remat={remat} with telemetry: train_step_seconds count "
+                f"{step_s['count']}, mean {1e3 * step_s['sum'] / step_s['count']:.1f} ms; "
+                f"gauges {gauges}; program_shapes "
+                f"{snap['program_shapes_total']['program=train_step']['value']:.0f}")
         if not round_trip:
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
-            return totals, 1e3 * mean_s, peak_gib
+            return totals, 1e3 * mean_s, peak_gib, losses
         t0 = time.perf_counter()
         ckpt = Checkpointer(os.path.join(ckpt_dir, "round_trip"), keep=1)
         ckpt.save(trainer.step, {"params": trainer.params}, blocking=True)
@@ -2490,7 +2711,7 @@ def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
         del trainer, restored
     gc.collect()
     torch.cuda.empty_cache()
-    return totals, 1e3 * mean_s, peak_gib
+    return totals, 1e3 * mean_s, peak_gib, losses
 
 
 def main(argv=None) -> int:
@@ -2530,15 +2751,24 @@ def main(argv=None) -> int:
     model_phase(torch, dev)
     grad_phase(torch, dev)
     served = serve_phase(torch, dev, args.layers)
-    trained, full_ms, full_peak = train_phase(torch, dev, args.train_layers, TRAIN_STEPS)
-    auto, auto_ms, auto_peak = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
-                                           remat="auto", round_trip=False)
-    dots, dots_ms, dots_peak = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
-                                           remat="dots", round_trip=False)
+    trained, full_ms, full_peak, full_losses = train_phase(torch, dev, args.train_layers,
+                                                           TRAIN_STEPS)
+    auto, auto_ms, auto_peak, _ = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
+                                              remat="auto", round_trip=False)
+    dots, dots_ms, dots_peak, _ = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
+                                              remat="dots", round_trip=False)
+    traced, traced_ms, _, traced_losses = train_phase(torch, dev, args.train_layers,
+                                                      TRAIN_STEPS, round_trip=False,
+                                                      telemetry=True)
+    if traced_losses != full_losses:
+        raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "
+                             f"without telemetry {full_losses}")
     log(f"train: remat full {full_ms:.1f} ms per step, peak {full_peak:.2f} GiB; remat "
         f"auto (ss_stats) {auto_ms:.1f} ms per step, peak {auto_peak:.2f} GiB; remat "
-        f"dots {dots_ms:.1f} ms per step, peak {dots_peak:.2f} GiB")
-    paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots)
+        f"dots {dots_ms:.1f} ms per step, peak {dots_peak:.2f} GiB; remat full with "
+        f"telemetry {traced_ms:.1f} ms per step, losses identical to the run without")
+    paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots,
+                 train_telemetry=traced)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

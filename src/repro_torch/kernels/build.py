@@ -11,6 +11,10 @@ The file name carries a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and a stale library is never loaded.
 Nothing is compiled at import: ``library(name)`` builds on first use, and
 ``build()`` compiles several sources in parallel (one ``nvcc`` each).
+Each build counts in ``kernel_builds_total{program=}`` (the program whose
+call triggered it, ``telemetry/accounting.py:tagged_program``) and
+``kernel_build_seconds`` once telemetry points the accounting registry at
+a live one.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from repro_torch.telemetry.accounting import note_kernel_build
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -90,6 +96,7 @@ def build(names=SOURCES) -> dict:
             continue
         os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        note_kernel_build(report[name]["seconds"])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report

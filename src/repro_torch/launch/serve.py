@@ -17,7 +17,11 @@ cache (which rides the chunked tick); the summary then gives the ms per
 tick of ticks that ran chunks and of ticks that did not, apart.
 ``--decode-streaming exact|frozen|recompute`` picks the decode state's
 policy (default exact); under frozen the summary adds the boundary
-rebases and their ms each.
+rebases and their ms each. ``--telemetry-dir DIR`` serves with
+``ServeConfig(telemetry=True)`` and writes ``DIR/telemetry.jsonl`` (the
+metrics, tick spans and flight lifelines) and ``DIR/trace.json`` (a
+Perfetto / chrome://tracing trace of the spans, the request lifelines and
+the pool's counter tracks), and prints the mean ms of each span.
 ``--reduced`` serves the reduced test config, ``--device cpu`` runs the
 kernels' plain versions instead. Weights and prompts come from seed 0.
 """
@@ -169,6 +173,9 @@ def main(argv=None):
                     choices=("exact", "frozen", "recompute"),
                     help="ModelConfig.decode_streaming: frozen streams every "
                          "landmark row and rebases at segment boundaries")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="serve with telemetry on and write telemetry.jsonl and "
+                         "trace.json (Perfetto) here")
     ap.add_argument("--profile", action="store_true",
                     help="run under torch.profiler and print the device's "
                          "busy share of that same run and its costliest "
@@ -185,7 +192,8 @@ def main(argv=None):
                         prefill_impl=args.prefill_impl, decode_impl=args.decode_impl,
                         chunked_prefill=args.chunk_tokens > 0,
                         prefill_chunk_tokens=args.chunk_tokens or 64,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache,
+                        telemetry=bool(args.telemetry_dir))
     engine = ServeEngine(cfg, random_params(cfg, 0, device),
                          serve=serve, device=device)
     lens = [int(x) for x in args.prompt_lens.split(",")]
@@ -206,6 +214,20 @@ def main(argv=None):
           f"{tick_summary(out)}, preemptions={out['preemptions']}, "
           f"route {out['mode']} / {out['decode_impl']} decode, "
           f"launches={out['launches']}")
+    if args.telemetry_dir:
+        import os
+
+        from repro_torch.telemetry import write_chrome_trace
+
+        os.makedirs(args.telemetry_dir, exist_ok=True)
+        tel = engine.telemetry
+        n = tel.dump_jsonl(os.path.join(args.telemetry_dir, "telemetry.jsonl"))
+        events = write_chrome_trace(os.path.join(args.telemetry_dir, "trace.json"), tel)
+        spans = tel.metrics.snapshot().get("span_seconds", {})
+        means = {k.split("=", 1)[1]: round(1e3 * v["sum"] / v["count"], 3)
+                 for k, v in spans.items()}
+        print(f"[serve] telemetry: {n} JSONL lines and a trace of {events} events in "
+              f"{args.telemetry_dir}; span mean ms {means}")
     return out
 
 

@@ -15,12 +15,15 @@ the kernels' plain versions run instead. The shape is the reference's
 ``train_4k`` preset, with ``--seq`` and ``--batch`` overriding its sequence
 length and global batch. Checkpoints go to ``--ckpt-dir`` (every
 ``TrainConfig.checkpoint_every`` steps and once at the end) only when it
-is given.
+is given. ``--metrics-out PATH`` writes the per-step metrics history
+(loss, ce, grad norm, lr, step time) as JSON, as the reference's
+launcher does.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import tempfile
 
@@ -47,6 +50,8 @@ def main(argv=None):
                     help="run the steps after the first under torch.profiler and "
                          "print the device's busy share of that window and its "
                          "costliest operations")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the per-step metrics history here as JSON")
     args = ap.parse_args(argv)
     if args.profile and args.steps < 2:
         ap.error("--profile needs --steps >= 2 (the first step is not profiled)")
@@ -100,6 +105,9 @@ def main(argv=None):
           f"steps={len(history)} loss {first['loss']:.4f} -> {last['loss']:.4f}, "
           f"first step {first['step_time_s']:.3f}s, mean step after it "
           f"{mean_s:.3f}s ({tokens / mean_s:.1f} tokens/s), peak device memory {peak}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(history, f, indent=2)
     return history
 
 

@@ -36,10 +36,9 @@ Every firing decision derives from ``(plan.seed, site, tick, ordinal,
 lane)`` through a fresh numpy Philox stream, the same stream as the
 reference's, so a plan fires on the same opportunities in both engines
 and a failing seed replays exactly. ``injections`` counts every firing,
-``by_site`` per site. The reference also records each firing as a
-flight-recorder event and in a metrics counter; until the port has
-telemetry, ``flight`` and ``registry`` are accepted and are None in the
-engine.
+``by_site`` per site. Each firing is also a flight-recorder ``chaos``
+event (uid -1) and counts in ``chaos_injections_total{site=}``: the
+engine passes its scheduler's flight recorder and registry.
 """
 from __future__ import annotations
 

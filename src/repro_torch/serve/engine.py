@@ -56,10 +56,30 @@ reseeded exactly from its K/V), non-finite logits replay-preempt it, and
 after ``numerics_demote_after`` trips a frozen lane is demoted to the
 exact program (on the paged route K5 runs for it). ``watchdog_ticks``
 arms the no-progress watchdog: reclaim parked blocks, then preempt the
-youngest lane, then raise ``EngineStalled``. Telemetry (the flight
-recorder, the metrics registry, the drift and spectrum monitors, the
-numerics probe) is not ported: the constructor refuses it, and the
-counters are plain values in ``stats()``.
+youngest lane, then raise ``EngineStalled``. The scheduler's always-real
+registry counts the ladder (``numerics_quarantines_total``,
+``numerics_demotions_total``, ``serve_watchdog_fires_total``,
+``serve_recovery_ticks``).
+
+``ServeConfig(telemetry=True)`` (or a caller's ``Telemetry``) turns on the
+reference's instrumentation at its call points (``engine.py:163-492``,
+``:1082-1507``): one registry shared by the scheduler, the prefix cache
+and the chaos injector; the tick spans ``serve_tick``, ``admit``,
+``prefill``, ``prefill_chunk``, ``decode_dispatch``, ``device_sync``,
+``sample_emit`` and ``rebase``; the flight lifelines; the pool fn-gauges
+and per-tick counter samples; ``SpectrumMonitor`` at retirement and at
+each rebase, ``DriftMonitor`` at each frozen rebase; the numerics probe
+every ``numerics_probe_every`` ticks; and program accounting over
+``prefill``, ``prefill_chunk``, ``decode_tick``, ``rebase``,
+``prefix_attach`` and ``decode_exact`` (``stats()["program_shapes"]``:
+argument signatures, the counterpart of the reference's XLA compiles).
+With telemetry off every site calls the shared no-op objects: no device
+sync, no allocation, no ``stats()`` key. Nothing on the telemetry path
+touches the generator, the storage or the logits, so greedy tokens do
+not move. On CUDA the spans are host time: ``decode_dispatch`` holds the
+eager launches of the step and the syncs hidden in them (the commit's
+``torch.nonzero``, the pageable uploads of tables and tokens), and
+``device_sync`` the wait for the logits' copy to the host.
 
 Host syncs of the chunked tick on CUDA, besides the one at the sample
 boundary: the decode step's commit (``PagedKVCache._commit``,
@@ -90,9 +110,19 @@ from repro_torch.serve.chaos import ChaosInjector, EngineStalled, FaultPlan
 from repro_torch.serve.decode import decode_step
 from repro_torch.serve.decode_state import (STREAM_LEAVES, make_rebase_fn,
                                             make_reseed_fn, segment_len)
-from repro_torch.serve.paged import BlockAllocator, PagedKVCache, PrefixCache
+from repro_torch.serve.paged import (BlockAllocator, PagedKVCache, PrefixCache,
+                                     bucket_view_slots)
 from repro_torch.serve.prefill import batched_prefill, make_chunk_prefill_fn
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.telemetry import (DriftMonitor, NullNumericsProbe, NumericsProbe,
+                                   ProgramAccounting, SpectrumMonitor, Telemetry,
+                                   bv_row_residual)
+from repro_torch.telemetry import accounting
+from repro_torch.telemetry.metrics import TICK_BUCKETS
+
+# the programs of program accounting, in the reference's stats() order
+PROGRAMS = ("prefill", "prefill_chunk", "decode_tick", "rebase", "prefix_attach",
+            "decode_exact")
 
 
 @dataclasses.dataclass
@@ -120,6 +150,7 @@ class _Lane:
     # chunked prefill: mid-prefill lanes are not decode candidates
     prefilling: bool = False
     prefill_pos: int = 0      # prompt tokens committed so far
+    chunk_idx: int = 0        # next chunk ordinal (flight lifeline labels)
     # prefix cache: dense snapshots at block-aligned chunk boundaries
     # (token count -> dense_snapshot), given to the cache entry at the end
     stat_points: dict = dataclasses.field(default_factory=dict)
@@ -164,7 +195,6 @@ def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device)
         # the dense family with those flags set is refused
         "family not 'dense' or 'moe'": (cfg.family not in ("dense", "moe")
                                         or (cfg.family == "dense" and (cfg.mla or cfg.moe))),
-        "telemetry": serve.telemetry,
         # each serving kernel takes head dims up to its own limit: refused
         # here, not on the first tick
         f"head dims (d={d}, dv={dv}) past {', '.join(past)} on CUDA":
@@ -178,11 +208,25 @@ def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device)
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  serve: Optional[ServeConfig] = None, device="cuda",
-                 chaos: Optional[FaultPlan] = None):
+                 chaos: Optional[FaultPlan] = None, telemetry: Optional[Telemetry] = None):
         serve = serve or ServeConfig()
         self.device = resolve_device(device)
         _check_supported(cfg, serve, self.device)
         self.cfg, self.serve = cfg, serve
+        # one registry, tracer and flight recorder behind ServeConfig.telemetry
+        # (or a caller's Telemetry); disabled: the shared no-op objects. The
+        # scheduler keeps a real registry either way (its percentiles are
+        # part of stats()) and shares this one when telemetry is on.
+        self.telemetry = telemetry if telemetry is not None else Telemetry(
+            enabled=serve.telemetry)
+        self.telemetry.stamp_provenance(cfg, serve, device=self.device)
+        tel_reg = self.telemetry.metrics if self.telemetry.enabled else None
+        # Program accounting over the hot programs (``engine.py:461``): a
+        # steady-state engine shows program_shapes_total flat.
+        self._acct = None
+        if tel_reg is not None:
+            accounting.set_metrics(tel_reg)  # the kernel-build hook counts too
+            self._acct = ProgramAccounting(tel_reg)
         # working copy cast once (the reference casts inside each program)
         self.params = working_params(tree_to(params, self.device), cfg)
         self.max_lanes, self.max_seq = serve.max_lanes, serve.max_seq
@@ -212,6 +256,8 @@ class ServeEngine:
         bs = serve.block_size
         self._chunk = min(-(-serve.prefill_chunk_tokens // bs) * bs, self.max_seq)
         self.sched = Scheduler(alloc, self.max_lanes, serve.blocks_per_lane,
+                               registry=tel_reg,
+                               flight=self.telemetry.flight if self.telemetry.enabled else None,
                                chunk_tokens=self._chunk if self._chunked else 0,
                                max_queue=serve.max_queue)
         self.sched.requeue_cb = self._on_preempt
@@ -221,7 +267,8 @@ class ServeEngine:
         self._parked: dict[int, dict] = {}  # uid -> snapshot + progress
         self.prefix = None
         if self._prefix_enabled:
-            self.prefix = PrefixCache(alloc, max_blocks=serve.prefix_cache_blocks)
+            self.prefix = PrefixCache(alloc, max_blocks=serve.prefix_cache_blocks,
+                                      registry=tel_reg)
             self.sched.prefix_probe = self._prefix_probe
             self.sched.cow_cb = self.kv.copy_block
             self._probe_pins: dict[int, object] = {}  # uid -> soft-pinned entry
@@ -237,19 +284,46 @@ class ServeEngine:
         self._progress = True
         self._stall_ticks = self._wd_interventions = 0
         self._wd_fired_tick: Optional[int] = None
-        self.quarantines = self.demotions = self.watchdog_fires = 0
-        # ticks from a watchdog intervention to restored progress
-        self.recovery_ticks: list[int] = []
+        reg = self.sched.registry
+        self._quarantines = reg.counter(
+            "numerics_quarantines_total",
+            help="lanes quarantined by the numerics guard (streaming stats "
+                 "rebuilt in place from cached K/V)")
+        self._demotions = reg.counter(
+            "numerics_demotions_total",
+            help="frozen-mode lanes demoted to the exact decode program after "
+                 "repeated numerics-guard trips")
+        self._wd_fires = reg.counter("serve_watchdog_fires_total",
+                                     help="no-progress watchdog escalations")
+        self._recovery_h = reg.histogram(
+            "serve_recovery_ticks",
+            help="ticks from the first watchdog intervention to restored progress",
+            buckets=TICK_BUCKETS)
         # one injector for every site, so the per-tick ordinals (and with
         # them the whole schedule) replay from (plan.seed, tick)
         self.chaos = None
         if chaos is not None:
-            self.chaos = ChaosInjector(chaos)
+            self.chaos = ChaosInjector(chaos, flight=self.sched.flight,
+                                       registry=self.sched.registry)
             self.sched.chaos = self.chaos
             if alloc is not None:
                 alloc.chaos = self.chaos
             if self.prefix is not None:
                 self.prefix.chaos = self.chaos
+        if self.telemetry.enabled:
+            reg = self.telemetry.metrics
+            self._ticks_total = reg.counter("serve_ticks_total", help="engine ticks executed")
+            if alloc is not None:
+                # fn-gauges: evaluated only when the registry is read
+                reg.gauge("pool_blocks_used", fn=lambda: float(alloc.num_used),
+                          help="allocated KV blocks")
+                reg.gauge("pool_blocks_free", fn=lambda: float(alloc.num_free),
+                          help="free KV blocks")
+                reg.gauge("pool_utilization",
+                          fn=lambda: alloc.num_used / max(alloc.num_blocks - 1, 1),
+                          help="allocated fraction of the usable pool")
+                reg.gauge("pool_fragmentation", fn=alloc.fragmentation,
+                          help="1 - longest contiguous free run / free blocks")
 
         # Decode route (``engine.py:296-328``): recompute-mode spectral shift
         # rebuilds the dense B matrix, so only the gather route serves it.
@@ -258,12 +332,18 @@ class ServeEngine:
             and cfg.decode_streaming == "recompute")
         self.decode_impl = ("paged" if serve.decode_impl == "paged" and paged_ok
                             else "gather")
-        self._step = self._make_step(cfg)
+        self._step = self._make_step(cfg, "decode_tick")
         self.batched = serve.batched_prefill
+        self._prefill = self._account(
+            lambda tokens, n: batched_prefill(self.params, cfg, tokens, n,
+                                              seq_max=self.max_seq,
+                                              prefill_impl=serve.prefill_impl),
+            "prefill")
         if self._chunked:
-            self._chunk_step = self.kv.make_chunk_step(
+            self._chunk_step = self._account(self.kv.make_chunk_step(
                 make_chunk_prefill_fn(self.params, cfg, seq_max=self.max_seq,
-                                      stats_impl=serve.prefill_impl), self._chunk)
+                                      stats_impl=serve.prefill_impl), self._chunk),
+                "prefill_chunk")
         # the streaming stats exist (exact / frozen spectral shift): they
         # can be reseeded from K/V and the guard scans them
         self._streams = (cfg.decode_attention_impl == "spectral_shift"
@@ -274,7 +354,9 @@ class ServeEngine:
         self.rebase_s = 0.0
         self._frozen_rebase = self._streams and cfg.decode_streaming == "frozen"
         if self._frozen_rebase:
-            self._rebase_step = self.kv.make_rebase_step(make_rebase_fn(cfg, self.max_seq))
+            self._rebase_step = self._account(
+                self.kv.make_rebase_step(make_rebase_fn(cfg, self.max_seq)), "rebase",
+                static=(3,))
         # "recompute" attach: every stats row re-derived from the shared K/V
         self._reseed_step = None
         if self._prefix_enabled and serve.prefix_attach == "recompute" and self._streams:
@@ -282,16 +364,37 @@ class ServeEngine:
         # bucket rounded up to a block multiple so prefill writes whole blocks
         self._bucket = -(-serve.prefill_bucket // bs) * bs
 
-    def _make_step(self, cfg: ModelConfig):
-        """The decode tick of ``cfg`` on the engine's route."""
+        # Online monitors (telemetry only): the landmark-mass spectrum at
+        # retirements and rebases, the drift residual at frozen rebases.
+        self._drift_mon = self._spectrum_mon = None
+        if self.telemetry.enabled and self._streams:
+            self._spectrum_mon = SpectrumMonitor(self.telemetry.metrics)
+            if self._frozen_rebase:
+                self._drift_mon = DriftMonitor(self.telemetry.metrics)
+        # the numerics probe forces a sync: ServeConfig.numerics_probe_every
+        # sets its cadence
+        self._numerics = (NumericsProbe(tel_reg)
+                          if tel_reg is not None and serve.numerics_probe_every > 0
+                          else NullNumericsProbe())
+
+    def _account(self, fn, program: str, static=()):
+        """``fn`` under program accounting when telemetry is on. ``static``:
+        the arguments whose value enters the signature, the gather route's
+        view length (argument 4 of a decode tick, 3 of a rebase or reseed),
+        a shape in the reference."""
+        return fn if self._acct is None else self._acct.wrap(fn, program, static)
+
+    def _make_step(self, cfg: ModelConfig, program: str):
+        """The decode tick of ``cfg`` on the engine's route, accounted as
+        ``program``."""
         if self.decode_impl == "paged":
-            return self.kv.make_paged_step(
+            return self._account(self.kv.make_paged_step(
                 lambda cache, tokens, table: decode_step(
                     self.params, cfg, cache, tokens, seq_max=self.max_seq,
-                    paged_table=table, block_size=self.serve.block_size))
-        return self.kv.make_fused_step(
+                    paged_table=table, block_size=self.serve.block_size)), program)
+        return self._account(self.kv.make_fused_step(
             lambda cache, tokens: decode_step(self.params, cfg, cache, tokens,
-                                              seq_max=self.max_seq))
+                                              seq_max=self.max_seq)), program, static=(4,))
 
     # -- public API ----------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -346,14 +449,18 @@ class ServeEngine:
             mode=f"{'paged' if self.kv.paged else 'dense'}+{prefill}-prefill",
             decode_impl=self.decode_impl,
             decode_streaming=self.cfg.decode_streaming,
-            quarantines=self.quarantines, demotions=self.demotions,
-            watchdog_fires=self.watchdog_fires, recovery_ticks=self.recovery_ticks)
+            quarantines=int(self._quarantines.value), demotions=int(self._demotions.value),
+            watchdog_fires=int(self._wd_fires.value))
         if self._frozen_rebase:
             st.update(rebases=self.rebases, rebase_s=self.rebase_s)
         if self.chaos is not None:
             st["chaos_injections"] = self.chaos.injections
         if self.prefix is not None:
             st["prefix"] = self.prefix.stats()
+        if self.telemetry.enabled:
+            st["telemetry"] = self.telemetry.tracer.summary()
+            st["flight"] = self.telemetry.flight.summary()
+            st["program_shapes"] = {p: self._acct.shapes(p) for p in PROGRAMS}
         return st
 
     # -- request lifecycle -----------------------------------------------------
@@ -408,7 +515,8 @@ class ServeEngine:
                 or not self.kv.paged):
             return False
         self._parked[lane.req.uid] = {"snap": self.kv.dense_snapshot(lane_idx),
-                                      "prefill_pos": lane.prefill_pos}
+                                      "prefill_pos": lane.prefill_pos,
+                                      "chunk_idx": lane.chunk_idx}
         self.parks += 1
         return True
 
@@ -418,6 +526,11 @@ class ServeEngine:
 
     def _retire(self, i: int) -> None:
         lane = self.lanes[i]
+        if self._spectrum_mon is not None and lane.pos > 0:
+            # the finished request's landmark-mass concentration
+            m, l = self._lane_m_l(i)
+            self._spectrum_mon.observe(
+                m, l, min((lane.pos - 1) // self._seg + 1, self.cfg.num_landmarks))
         uid = lane.req.uid
         self.finished[uid] = list(lane.generated)
         self.outcomes[uid] = "finished"
@@ -494,8 +607,11 @@ class ServeEngine:
         else:
             lane.prefill_pos = n_attach
             lane.prefilling = True
-        self.prefix.note_hit(entry)
+        self.prefix.note_hit(entry, len(blocks))
         self.sched.mark_prefix_hit(req.uid)
+        self.telemetry.flight.record(req.uid, "prefix_attach", tick=self._tick, lane=i,
+                                     blocks=len(blocks), tokens=n_attach,
+                                     mode="full" if full else "partial")
         if self._reseed_step is not None:
             self._run_reseed(i, n_attach - 1)
         if full:
@@ -536,13 +652,14 @@ class ServeEngine:
             n_pad = min(-(-n // self._bucket) * self._bucket, self.max_seq)
         tokens = torch.zeros((1, n_pad), dtype=torch.long)
         tokens[0, :n] = torch.as_tensor(req.prompt)
-        logits, pcache = batched_prefill(
-            self.params, self.cfg, tokens.to(self.device), n,
-            seq_max=self.max_seq, prefill_impl=self.serve.prefill_impl)
+        self.telemetry.flight.record(req.uid, "prefill_start", bucket=n_pad, lane=i,
+                                     tick=self._tick)
+        logits, pcache = self._prefill(tokens.to(self.device), n)
         self.kv.write_prefill(i, pcache, self.sched.table_row(i), n_tokens=n)
         lane.pos = n
         lane.prefilled_tick = self._tick
         lg = logits[0, n - 1, : self.cfg.vocab_size].float().cpu().numpy()
+        self.telemetry.flight.record(req.uid, "prefill_end", bucket=n_pad)
         self.prefill_s += time.perf_counter() - t0
         self._emit_token(i, lg)
 
@@ -629,15 +746,15 @@ class ServeEngine:
         the same pools (on the paged route, through K5)."""
         if self._exact_step is None:
             self._exact_step = self._make_step(
-                dataclasses.replace(self.cfg, decode_streaming="exact"))
+                dataclasses.replace(self.cfg, decode_streaming="exact"), "decode_exact")
 
     def _ensure_reseed_step(self) -> bool:
         """The stats-reseed program (``engine.py:906``), shared by the
         recompute attach and the guard's quarantine; False when the decode
         state does not stream."""
         if self._reseed_step is None and self._streams:
-            self._reseed_step = self.kv.make_rebase_step(
-                make_reseed_fn(self.cfg, self.max_seq))
+            self._reseed_step = self._account(self.kv.make_rebase_step(
+                make_reseed_fn(self.cfg, self.max_seq)), "prefix_attach", static=(3,))
         return self._reseed_step is not None
 
     def _grow_decoders(self, candidates: list[int]) -> list[int]:
@@ -683,8 +800,18 @@ class ServeEngine:
                 logits[i, : self.cfg.vocab_size] = np.nan
 
     def _post_decode_checks(self, active: list[int], logits: Optional[np.ndarray]):
-        """Post-sync, pre-emit (``engine.py:959``, without telemetry's
-        numerics probe): chaos corruption, then the guard's scan."""
+        """Post-sync, pre-emit (``engine.py:959``): the numerics probe at its
+        cadence (the host logits, each active lane's ``m`` and ``l`` where
+        they lie), chaos corruption, then the guard's scan."""
+        probe_every = self.serve.numerics_probe_every
+        if probe_every > 0 and self._tick % probe_every == 0 and self.telemetry.enabled:
+            if logits is not None:
+                self._numerics.check("decode_logits", logits)
+            if self._streams:
+                m_all, l_all = self.kv.storage["bv_m"], self.kv.storage["bv_l"]
+                for i in active:
+                    self._numerics.check("landmark_m", m_all[:, i])
+                    self._numerics.check("landmark_l", l_all[:, i])
         if logits is None:
             return None
         if self.chaos is not None:
@@ -731,7 +858,9 @@ class ServeEngine:
             trips = self._guard_trips.get(uid, 0) + 1
             self._guard_trips[uid] = trips
             if bad_stats and self._ensure_reseed_step():
-                self.quarantines += 1
+                self._quarantines.inc()
+                self.sched.flight.record(uid, "quarantine", tick=self._tick, lane=i,
+                                         trips=trips)
                 # lane.pos is still the position this tick's step wrote
                 self._run_reseed(i, lane.pos)
             else:
@@ -740,7 +869,8 @@ class ServeEngine:
                     and self.cfg.decode_streaming == "frozen"
                     and uid not in self._demoted):
                 self._demoted.add(uid)
-                self.demotions += 1
+                self._demotions.inc()
+                self.sched.flight.record(uid, "demote", tick=self._tick, trips=trips)
 
     # -- no-progress watchdog --------------------------------------------------
     def _watchdog_check(self) -> None:
@@ -753,14 +883,16 @@ class ServeEngine:
             return
         if self._progress or self.sched.idle:
             if self._wd_fired_tick is not None:
-                self.recovery_ticks.append(self._tick - self._wd_fired_tick)
+                self._recovery_h.observe(self._tick - self._wd_fired_tick)
                 self._wd_fired_tick = None
             self._stall_ticks = self._wd_interventions = 0
             return
         self._stall_ticks += 1
         if self._stall_ticks < wd:
             return
-        self.watchdog_fires += 1
+        self._wd_fires.inc()
+        self.sched.flight.record(-1, "watchdog", tick=self._tick,
+                                 stall_ticks=self._stall_ticks, rung=self._wd_interventions)
         if self._wd_fired_tick is None:
             self._wd_fired_tick = self._tick
         self._wd_interventions += 1
@@ -794,11 +926,18 @@ class ServeEngine:
 
     def _run_rebase(self, hits: list[int]) -> None:
         """Rebase the given lanes (``engine.py:1399``): gather their views,
-        recompute rows active - 1 and active, commit the stats."""
+        recompute rows active - 1 and active, commit the stats; then the
+        rebase counter, the flight events and the drift probe."""
         t0 = time.perf_counter()
         positions = np.zeros(self.max_lanes, np.int32)
         for i in hits:
             positions[i] = self.lanes[i].pos - 1
+        # The reference's pre-rebase snapshot survives its functional
+        # update; here the rebase commits in place (index_copy_), so the
+        # probe's rows are copied (index_select: a new tensor, queued
+        # before the rebase on the same stream), never viewed.
+        pre = ({i: self._drift_rows(i, int(positions[i])) for i in hits}
+               if self._drift_mon is not None else None)
         # fresh tables: retirements above freed blocks
         self._rebase_step(self.sched.tables(), positions, hits,
                           self.kv.view_blocks_needed(positions, hits))
@@ -806,35 +945,122 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
         self.rebase_s += time.perf_counter() - t0
         self.rebases += len(hits)
+        self.telemetry.metrics.counter(
+            "serve_rebases_total", help="frozen-mode boundary rebases").inc(len(hits))
+        for i in hits:
+            self.telemetry.flight.record(self.lanes[i].req.uid, "rebase", tick=self._tick,
+                                         pos=int(positions[i]))
+        if pre is not None:
+            self._probe_rebase_drift(hits, positions, pre)
+
+    def _drift_rows(self, i: int, p: int) -> tuple:
+        """Copies of lane ``i``'s ``l`` and ``acc`` at the landmark rows the
+        rebase at position ``p`` recomputes (j - 1 and j, j = p // seg): all
+        the drift formula reads."""
+        j = p // self._seg
+        idx = torch.as_tensor([j - 1, j] if j > 0 else [j], device=self.device)
+        return tuple(self.kv.storage[name][:, i].index_select(-2, idx)
+                     for name in ("bv_l", "bv_acc"))
+
+    def _lane_m_l(self, i: int) -> tuple:
+        """Host copies of lane ``i``'s ``m`` and ``l`` (every layer), for the
+        spectrum monitor."""
+        return tuple(self.kv.storage[name][:, i].cpu().numpy() for name in ("bv_m", "bv_l"))
+
+    def _probe_rebase_drift(self, hits, positions, pre) -> None:
+        """The free residual probe (``engine.py:1438``): the rebase just
+        recomputed the boundary rows exactly, so streamed (pre) against
+        exact (post) on those rows is the frozen-mode drift, by the
+        offline formula (``monitors.bv_row_residual``)."""
+        for i in hits:
+            p = int(positions[i])
+            post = self._drift_rows(i, p)
+            pl, pa = (t.cpu().numpy() for t in pre[i])
+            ql, qa = (t.cpu().numpy() for t in post)
+            self._drift_mon.observe(bv_row_residual((pl, pa), (ql, qa), range(pl.shape[-2])))
+            if self._spectrum_mon is not None:
+                m, l = self._lane_m_l(i)
+                self._spectrum_mon.observe(m, l, min(p // self._seg + 1,
+                                                     self.cfg.num_landmarks))
 
     # -- one engine tick -------------------------------------------------------
     def tick(self) -> None:
-        self._progress = False
-        if self._chunked:
-            self._tick_chunked()
-        else:
-            self._tick_two_phase()
-        self._watchdog_check()
+        with self.telemetry.span("serve_tick"):
+            self._progress = False
+            if self._chunked:
+                self._tick_chunked()
+            else:
+                self._tick_two_phase()
+            self._watchdog_check()
 
     def _begin_tick(self) -> None:
         """Advance the clock, fire the tick-scoped chaos sites, expire
-        deadlines (``engine.py:1087``)."""
+        deadlines (``engine.py:1087``); with telemetry, count the tick and
+        sample the counter tracks."""
         self._tick += 1
         self.sched.tick_now = self._tick
         if self.chaos is not None:
             self.chaos.begin_tick(self._tick)
             self._apply_tick_chaos()
         self._expire_deadlines()
+        if self.telemetry.enabled:
+            self._ticks_total.inc()
+            fl = self.telemetry.flight
+            fl.counter_sample("queue_depth", len(self.sched.waiting))
+            alloc = self.sched.allocator
+            if alloc is not None:
+                fl.counter_sample("pool_blocks_used", alloc.num_used)
+                fl.counter_sample("pool_fragmentation", alloc.fragmentation())
+
+    def _sample_emit(self, active: list[int], logits: np.ndarray, firsts=()) -> None:
+        """Advance every active lane that survived the checks: a chaos
+        ``drop_sample`` replay-preempts it, token replay feeds its next
+        prompt token, else its token is sampled and emitted. Then the first
+        token of each prefill the chunked tick completed (``firsts``:
+        (lane, host logits))."""
+        with self.telemetry.span("sample_emit"):
+            for i in active:
+                lane = self.lanes[i]
+                if lane.free:  # the guard replay-preempted it after the sync
+                    continue
+                if self.chaos is not None and self.chaos.fire("drop_sample", lane=i):
+                    # the token is lost before commit: recover by replay
+                    self.sched.preempt(i)
+                    continue
+                lane.pos += 1
+                self.telemetry.flight.record(lane.req.uid, "decode", tick=self._tick,
+                                             pos=lane.pos)
+                if lane.prompt_left:  # token replay: ignore the sample
+                    lane.next_token = lane.prompt_left.popleft()
+                    continue
+                self._emit_token(i, logits[i, : self.cfg.vocab_size])
+            for i, lg in firsts:
+                if self.lanes[i].free:  # cancelled mid-tick
+                    continue
+                if self._prefix_enabled:
+                    # before the emit, which may retire the lane
+                    self._maybe_cache_prefix(i, lg)
+                self._emit_token(i, lg)
+
+    def _rebase_after_emit(self, active: list[int]) -> None:
+        if self._frozen_rebase:
+            hits = self._rebase_hits(active)
+            if hits:
+                with self.telemetry.span("rebase", lanes=len(hits)):
+                    self._run_rebase(hits)
 
     def _tick_two_phase(self) -> None:
         self._begin_tick()
-        admissions = self.sched.admit()
+        tel = self.telemetry
+        with tel.span("admit"):
+            admissions = self.sched.admit()
         if admissions:
             self._progress = True
         for i, req in admissions:
             lane = self.lanes[i] = _Lane(req=req)
             if self.batched and req.prompt:
-                self._run_prefill(i, req)
+                with tel.span("prefill", lane=i):
+                    self._run_prefill(i, req)
             else:
                 # token replay (``engine.py:1124``): the prompt goes through
                 # the decode step one token per tick, from zeroed state
@@ -848,27 +1074,18 @@ class ServeEngine:
         if not active:
             return
         t0 = time.perf_counter()
-        logits = self._merge_logits(self._dispatch_decode(active))
+        # Host spans at the reference's points, no sync added: on CUDA
+        # decode_dispatch also waits wherever the step syncs (the commit's
+        # torch.nonzero, pageable uploads), device_sync on the logits' copy.
+        with tel.span("decode_dispatch", lanes=len(active)):
+            parts = self._dispatch_decode(active)
+        with tel.span("device_sync"):
+            logits = self._merge_logits(parts)
         self.decode_s += time.perf_counter() - t0
         self.decode_ticks += 1
         logits = self._post_decode_checks(active, logits)
-        for i in active:
-            lane = self.lanes[i]
-            if lane.free:  # the guard replay-preempted it after the sync
-                continue
-            if self.chaos is not None and self.chaos.fire("drop_sample", lane=i):
-                # the token is lost before commit: recover by replay
-                self.sched.preempt(i)
-                continue
-            lane.pos += 1
-            if lane.prompt_left:  # token replay: ignore the sample
-                lane.next_token = lane.prompt_left.popleft()
-                continue
-            self._emit_token(i, logits[i, : self.cfg.vocab_size])
-        if self._frozen_rebase:
-            hits = self._rebase_hits(active)
-            if hits:
-                self._run_rebase(hits)
+        self._sample_emit(active, logits)
+        self._rebase_after_emit(active)
 
     def _tick_chunked(self) -> None:
         """One continuous-batching tick (``engine.py:1201``): decode
@@ -878,14 +1095,19 @@ class ServeEngine:
         then the host sync at the sample boundary. Decode lanes advance
         every tick however much prefill is pending."""
         self._begin_tick()
+        tel = self.telemetry
         t0 = time.perf_counter()
         active = self._grow_decoders([i for i, l in enumerate(self.lanes)
                                       if not l.free and not l.prefilling
                                       and l.prefilled_tick != self._tick])
-        parts = self._dispatch_decode(active) if active else []
+        parts = []
+        if active:
+            with tel.span("decode_dispatch", lanes=len(active)):
+                parts = self._dispatch_decode(active)
 
         # ---- admissions: parked requests resume at their chunk boundary --
-        admissions = self.sched.admit()
+        with tel.span("admit"):
+            admissions = self.sched.admit()
         if admissions:
             self._progress = True
         for i, req in admissions:
@@ -895,6 +1117,7 @@ class ServeEngine:
                 self.parked_resumes += 1
                 self.kv.dense_restore(i, parked["snap"])
                 lane.prefill_pos = parked["prefill_pos"]
+                lane.chunk_idx = parked["chunk_idx"]
                 lane.prefilling = True
             elif self._prefix_enabled and self._try_attach_prefix(i, req):
                 pass  # the attach set the lane (full or partial hit)
@@ -927,10 +1150,19 @@ class ServeEngine:
                     continue  # pool dry: the chunk stalls, never evicts a decoder
                 ctoks = np.zeros((1, self._chunk), np.int64)
                 ctoks[0, :cv] = req.prompt[start:start + cv]
-                lg = self._chunk_step(self.sched.table_row(i),
-                                      torch.as_tensor(ctoks, device=self.device),
-                                      i, start, cv)
+                # the table row sliced as the reference's is (``engine.py:1295``):
+                # it spans the committed prefix and the chunk's slots
+                row = self.sched.table_row(i)
+                if self.kv.paged:
+                    row = row[:bucket_view_slots(start // bs + self._chunk // bs,
+                                                 self.serve.blocks_per_lane)]
+                with tel.span("prefill_chunk", lane=i, chunk=lane.chunk_idx):
+                    lg = self._chunk_step(row, torch.as_tensor(ctoks, device=self.device),
+                                          i, start, cv)
+                tel.flight.record(req.uid, "prefill_chunk", tick=self._tick,
+                                  chunk=lane.chunk_idx, tok0=start, tok1=start + cv, lane=i)
                 lane.prefill_pos = start + cv
+                lane.chunk_idx += 1
                 launched += 1
                 if lane.prefill_pos >= len(req.prompt):
                     lane.prefilling = False
@@ -954,30 +1186,13 @@ class ServeEngine:
             self._progress = True
 
         # ---- the sample boundary: one sync for every logits row ----------
-        logits = self._merge_logits(parts)
-        firsts = [(i, lg[0, cv - 1, : self.cfg.vocab_size].float().cpu().numpy())
-                  for i, lg, cv in firsts]
+        with tel.span("device_sync"):
+            logits = self._merge_logits(parts)
+            firsts = [(i, lg[0, cv - 1, : self.cfg.vocab_size].float().cpu().numpy())
+                      for i, lg, cv in firsts]
         logits = self._post_decode_checks(active, logits)
-        for i in active:
-            lane = self.lanes[i]
-            if lane.free:  # the guard replay-preempted it after the sync
-                continue
-            if self.chaos is not None and self.chaos.fire("drop_sample", lane=i):
-                self.sched.preempt(i)
-                continue
-            lane.pos += 1
-            self._emit_token(i, logits[i, : self.cfg.vocab_size])
-        for i, lg in firsts:
-            if self.lanes[i].free:  # cancelled mid-tick
-                continue
-            if self._prefix_enabled:
-                # before the emit, which may retire the lane
-                self._maybe_cache_prefix(i, lg)
-            self._emit_token(i, lg)
-        if self._frozen_rebase:
-            hits = self._rebase_hits(active)
-            if hits:
-                self._run_rebase(hits)
+        self._sample_emit(active, logits, firsts)
+        self._rebase_after_emit(active)
 
         self.decode_ticks += bool(active)
         self.chunks += launched

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.serve.kv_cache import cache_leaf_layout
+from repro_torch.telemetry.metrics import TICK_BUCKETS, MetricsRegistry
 
 ZERO_BLOCK = 0
 
@@ -260,9 +261,11 @@ class PrefixCache:
     block (``_cache_refs`` counts them), so an entry is reclaimable when no
     live table maps any of its blocks; eviction is LRU, soft-pinned entries
     last, and cascades down overlapping chains. Hits, misses and evictions
-    are plain counters."""
+    count in ``registry`` (the engine's when telemetry is on, else a
+    private one), with the blocks each hit maps in ``prefix_hit_blocks``."""
 
-    def __init__(self, allocator: BlockAllocator, max_blocks: int = 0):
+    def __init__(self, allocator: BlockAllocator, max_blocks: int = 0,
+                 registry=None):
         self.allocator = allocator
         self.block_size = allocator.block_size
         self.max_blocks = max_blocks
@@ -270,7 +273,17 @@ class PrefixCache:
         self._entries: list[PrefixEntry] = []
         self._cache_refs: dict[int, int] = {}
         self._clock = 0
-        self.hits = self.misses = self.evictions = 0
+        self.registry = registry if registry is not None else MetricsRegistry()
+        r = self.registry
+        self._hits = r.counter("prefix_cache_hits_total",
+                               help="admissions attached to a cached prefix")
+        self._misses = r.counter("prefix_cache_misses_total",
+                                 help="admissions that found no usable cached prefix")
+        self._evictions = r.counter("prefix_cache_evictions_total",
+                                    help="cached prefixes dropped (LRU cap or pool pressure)")
+        self._hit_blocks = r.histogram("prefix_hit_blocks",
+                                       help="shared blocks mapped per cache hit",
+                                       buckets=TICK_BUCKETS)
         self.chaos = None  # set by the engine: a ChaosInjector ("hash_collision")
         allocator.prefix_cache = self
 
@@ -305,12 +318,13 @@ class PrefixCache:
         return (k == len(prompt) // bs and entry.n_tokens == len(prompt)
                 and entry.tail == list(prompt[k * bs:]) and entry.logits is not None)
 
-    def note_hit(self, entry: PrefixEntry) -> None:
+    def note_hit(self, entry: PrefixEntry, n_blocks: int) -> None:
         self.touch(entry)
-        self.hits += 1
+        self._hits.inc()
+        self._hit_blocks.observe(n_blocks)
 
     def note_miss(self) -> None:
-        self.misses += 1
+        self._misses.inc()
 
     def pin(self, entry: PrefixEntry) -> None:
         """Soft pin across an admission window: LRU-bumped and evicted only
@@ -395,7 +409,7 @@ class PrefixCache:
             else:
                 del self._cache_refs[b]
             self.allocator.release_ref(b)
-        self.evictions += 1
+        self._evictions.inc()
         return True
 
     def remap(self, mapping: dict[int, int]) -> None:
@@ -410,8 +424,9 @@ class PrefixCache:
 
     def stats(self) -> dict:
         return {"entries": len(self._entries), "blocks": self.block_count(),
-                "index_keys": len(self._index), "hits": self.hits,
-                "misses": self.misses, "evictions": self.evictions}
+                "index_keys": len(self._index), "hits": int(self._hits.value),
+                "misses": int(self._misses.value),
+                "evictions": int(self._evictions.value)}
 
 
 class PagedKVCache:

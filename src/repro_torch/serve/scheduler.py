@@ -1,6 +1,6 @@
-"""FCFS scheduler over the block pool (``repro/serve/scheduler.py``
-without telemetry): two-phase, or chunk-aware continuous batching when the
-engine passes ``chunk_tokens > 0``.
+"""FCFS scheduler over the block pool (``repro/serve/scheduler.py``):
+two-phase, or chunk-aware continuous batching when the engine passes
+``chunk_tokens > 0``.
 
 * FCFS waiting queue: a request is admitted when a lane is free AND the
   pool can cover its admission need: the whole prompt (ceil(prompt_len /
@@ -27,16 +27,20 @@ engine passes ``chunk_tokens > 0``.
 * The chaos ``admission_stall`` site (``chaos``, set by the engine) makes
   ``admit`` admit nothing for the tick.
 
-Counters are plain integers and the latency samples plain lists;
-``stats()``'s percentiles are exact order statistics of those samples
-(nearest rank), where the reference reports the upper bound of a
-histogram bucket. A preempted request's first token after re-admission
-counts as neither TTFT nor inter-token latency but as resume TTFT.
+Counters and latency samples live in a metrics registry that is always
+real (the engine's when telemetry is on, else the scheduler's own), so
+``stats()`` is the reference's view over the same histograms: tick
+percentiles from unit buckets (exact up to 64 ticks), seconds
+percentiles as the upper bound of the bucket holding the rank. A
+preempted request's first token after re-admission counts as neither
+TTFT nor inter-token latency but as resume TTFT. ``flight`` (a flight
+recorder; a no-op one by default) gets the queue-side lifecycle events
+(submit, reject, admit, cow, park_drop, preempt, requeue, finish, cancel,
+deadline) at the reference's call points.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from collections import deque
 from typing import Optional
@@ -44,6 +48,9 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.serve.paged import ZERO_BLOCK, BlockAllocator
+from repro_torch.telemetry.flight import NullFlightRecorder
+from repro_torch.telemetry.metrics import (LATENCY_BUCKETS, TICK_BUCKETS,
+                                           MetricsRegistry)
 
 
 @dataclasses.dataclass
@@ -67,17 +74,10 @@ class RequestTiming:
         return self.first_token_s - self.arrived_s
 
 
-def percentile(xs: list, p: float) -> Optional[float]:
-    """Nearest-rank percentile: an observed sample, None for no samples."""
-    if not xs:
-        return None
-    ordered = sorted(xs)
-    return ordered[max(math.ceil(p / 100 * len(ordered)), 1) - 1]
-
-
 class Scheduler:
     def __init__(self, allocator: Optional[BlockAllocator], max_lanes: int,
-                 blocks_per_lane: int, chunk_tokens: int = 0, max_queue: int = 0):
+                 blocks_per_lane: int, registry: Optional[MetricsRegistry] = None,
+                 flight=None, chunk_tokens: int = 0, max_queue: int = 0):
         self.allocator = allocator  # None: no paged state
         self.max_lanes = max_lanes
         self.blocks_per_lane = blocks_per_lane
@@ -98,12 +98,65 @@ class Scheduler:
         self.requeue_cb = self.park_cb = self.park_drop_cb = None
         self.prefix_probe = self.cow_cb = None
         self._warm_uids: set = set()
-        self.admitted = self.finished = self.preemptions = self.tokens = 0
-        self.cow_copies = self.rejected = self.cancelled = self.deadline_expired = 0
-        self.ttft_s: list[float] = []
-        self.itl_s: list[float] = []
-        self.resume_ttft_s: list[float] = []
-        self.ttft_warm_s: list[float] = []
+        self.flight = flight if flight is not None else NullFlightRecorder()
+        self.registry = registry if registry is not None else MetricsRegistry()
+        r = self.registry
+        self._admitted = r.counter("serve_admitted_total", help="requests admitted to a lane")
+        self._finished = r.counter("serve_finished_total", help="requests retired normally")
+        self._preempted = r.counter("serve_preempted_total", help="preemptions (youngest-victim)")
+        self._requeued = r.counter("serve_requeued_total",
+                                   help="preempted requests requeued at the head")
+        self._tokens = r.counter("serve_tokens_total",
+                                 help="decode tokens emitted (recounts recomputed tokens)")
+        r.gauge("serve_queue_depth", help="requests waiting for a lane",
+                fn=lambda: float(len(self.waiting)))
+        r.gauge("serve_active_lanes", help="lanes holding a request",
+                fn=lambda: float(sum(u is not None for u in self.lane_uid)))
+        self._ttft_ticks = r.histogram(
+            "serve_ttft_ticks", help="engine ticks from arrival to first token",
+            buckets=TICK_BUCKETS)
+        self._latency_ticks = r.histogram(
+            "serve_latency_ticks", help="engine ticks from arrival to finish",
+            buckets=TICK_BUCKETS)
+        self._ttft_s = r.histogram(
+            "serve_ttft_seconds", help="wall seconds from arrival to first token",
+            buckets=LATENCY_BUCKETS)
+        self._itl_s = r.histogram(
+            "serve_itl_seconds",
+            help="wall seconds between consecutive tokens of one request",
+            buckets=LATENCY_BUCKETS)
+        self._resume_ttft_s = r.histogram(
+            "serve_resume_ttft_seconds",
+            help="wall seconds from requeue to the first post-resume token "
+                 "(kept out of both ttft and itl)",
+            buckets=LATENCY_BUCKETS)
+        self._warm_ttft_s = r.histogram(
+            "serve_ttft_warm_seconds",
+            help="wall seconds from arrival to first token for requests "
+                 "admitted onto a cached prefix (also counted in "
+                 "serve_ttft_seconds)",
+            buckets=LATENCY_BUCKETS)
+        self._cow_copies = r.counter(
+            "prefix_cow_copies_total", help="shared blocks copied on first divergent write")
+        self._rejected = r.counter(
+            "serve_rejected_total", help="submissions refused by the max_queue admission bound")
+        self._cancelled = r.counter(
+            "serve_cancelled_total", help="requests terminated by client cancellation")
+        self._deadline_expired = r.counter(
+            "serve_deadline_expired_total",
+            help="requests terminated by their deadline_ticks budget")
+
+    @property
+    def total_preemptions(self) -> int:
+        return int(self._preempted.value)
+
+    @property
+    def total_admitted(self) -> int:
+        return int(self._admitted.value)
+
+    @property
+    def total_finished(self) -> int:
+        return int(self._finished.value)
 
     # -- block tables ---------------------------------------------------------
     def table_row(self, lane: int) -> np.ndarray:
@@ -124,13 +177,18 @@ class Scheduler:
         """Queue a request; False (no timing entry made) when the
         ``max_queue`` bound rejects it."""
         if self.max_queue > 0 and len(self.waiting) >= self.max_queue:
-            self.rejected += 1
+            self._rejected.inc()
+            self.flight.record(req.uid, "reject", tick=self.tick_now,
+                               queue_depth=len(self.waiting),
+                               retry_after_ticks=max(1, len(self.waiting)))
             return False
         self.waiting.append(req)
         t = self.timing.setdefault(req.uid, RequestTiming())
         if t.arrived < 0:
             t.arrived = self.tick_now
             t.arrived_s = time.perf_counter()
+            self.flight.record(req.uid, "submit", prompt_len=len(req.prompt),
+                               tick=self.tick_now)
         return True
 
     def _blocks_for_prompt(self, req) -> int:
@@ -173,8 +231,11 @@ class Scheduler:
             self.waiting.popleft()
             self.lane_uid[lane] = req.uid
             self.admit_order[req.uid] = self.tick_now
-            self.timing[req.uid].admitted = self.tick_now
-            self.admitted += 1
+            t = self.timing[req.uid]
+            t.admitted = self.tick_now
+            self._admitted.inc()
+            self.flight.record(req.uid, "admit", lane=lane, tick=self.tick_now,
+                               queued_ticks=self.tick_now - t.arrived)
             admissions.append((lane, req))
         return admissions
 
@@ -209,7 +270,8 @@ class Scheduler:
             if got is not None:
                 if self.cow_cb is not None:
                     self.cow_cb(*got)
-                self.cow_copies += 1
+                self._cow_copies.inc()
+                self.flight.record(uid, "cow", tick=self.tick_now, src=got[0], dst=got[1])
                 break
             if not self._make_room(lane):
                 return False
@@ -242,6 +304,7 @@ class Scheduler:
         self.allocator.free(uid)
         if self.park_drop_cb is not None:
             self.park_drop_cb(uid)
+        self.flight.record(uid, "park_drop", tick=self.tick_now)
         return True
 
     def _youngest_lane(self) -> Optional[int]:
@@ -269,10 +332,13 @@ class Scheduler:
         t.new_tokens = 0
         t.last_token_s = None
         t.requeued_s = time.perf_counter()
-        self.preemptions += 1
+        self._preempted.inc()
+        self.flight.record(uid, "preempt", lane=lane, tick=self.tick_now, parked=parked)
         req = self.requeue_cb(lane) if self.requeue_cb else None
         if req is not None:
             self.waiting.appendleft(req)
+            self._requeued.inc()
+            self.flight.record(uid, "requeue", tick=self.tick_now)
 
     def release(self, lane: int) -> None:
         """Normal retirement: free blocks, mark finished."""
@@ -283,8 +349,12 @@ class Scheduler:
             self.allocator.free(uid)
         self.lane_uid[lane] = None
         self.admit_order.pop(uid, None)
-        self.timing[uid].finished = self.tick_now
-        self.finished += 1
+        t = self.timing[uid]
+        t.finished = self.tick_now
+        self._finished.inc()
+        self._latency_ticks.observe(t.finished - t.arrived)
+        self.flight.record(uid, "finish", tick=self.tick_now, tokens=t.new_tokens,
+                           latency_ticks=t.finished - t.arrived)
 
     def remove_waiting(self, uid: int):
         """Take a queued (not admitted) request out of the queue: the
@@ -314,9 +384,11 @@ class Scheduler:
         if t is not None:
             t.finished = self.tick_now
         if outcome == "cancelled":
-            self.cancelled += 1
+            self._cancelled.inc()
+            self.flight.record(uid, "cancel", tick=self.tick_now)
         elif outcome == "deadline_expired":
-            self.deadline_expired += 1
+            self._deadline_expired.inc()
+            self.flight.record(uid, "deadline", tick=self.tick_now)
 
     def mark_prefix_hit(self, uid: int) -> None:
         """Its first token also counts as a warm TTFT."""
@@ -327,40 +399,60 @@ class Scheduler:
         now = time.perf_counter()
         if t.requeued_s is not None:
             # first token after a requeue: neither TTFT nor ITL
-            self.resume_ttft_s.append(now - t.requeued_s)
+            self._resume_ttft_s.observe(now - t.requeued_s)
             t.requeued_s = None
             if t.first_token < 0:
                 t.first_token = self.tick_now
         elif t.first_token < 0:
             t.first_token = self.tick_now
             t.first_token_s = now
+            self._ttft_ticks.observe(t.first_token - t.arrived)
             if t.arrived_s is not None:
-                self.ttft_s.append(now - t.arrived_s)
+                self._ttft_s.observe(now - t.arrived_s)
                 if uid in self._warm_uids:
-                    self.ttft_warm_s.append(now - t.arrived_s)
+                    self._warm_ttft_s.observe(now - t.arrived_s)
         elif t.last_token_s is not None:
-            self.itl_s.append(now - t.last_token_s)
-        self._warm_uids.discard(uid)
+            self._itl_s.observe(now - t.last_token_s)
+        self._warm_uids.discard(uid)  # one-shot
         t.last_token_s = now
         t.new_tokens += 1
-        self.tokens += 1
+        self._tokens.inc()
 
     @property
     def idle(self) -> bool:
         return not self.waiting and all(u is None for u in self.lane_uid)
 
     def stats(self) -> dict:
-        out = {"queued": len(self.waiting),
-               "active": sum(u is not None for u in self.lane_uid),
-               "admitted": self.admitted, "finished": self.finished,
-               "preemptions": self.preemptions, "tokens": self.tokens,
-               "new_tokens": sum(t.new_tokens for t in self.timing.values()),
-               "cow_copies": self.cow_copies, "parked": len(self.parked),
-               "rejected": self.rejected, "cancelled": self.cancelled,
-               "deadline_expired": self.deadline_expired}
-        for name in ("ttft_s", "itl_s", "resume_ttft_s", "ttft_warm_s"):
-            out[f"{name}_p50"] = percentile(getattr(self, name), 50)
-            out[f"{name}_p99"] = percentile(getattr(self, name), 99)
+        """The reference's view over the registry (plus live queue and lane
+        state); every percentile is None until its first observation."""
+        th, lh = self._ttft_ticks, self._latency_ticks
+        out = {
+            "queued": len(self.waiting),
+            "active": sum(u is not None for u in self.lane_uid),
+            "admitted": self.total_admitted,
+            "finished": self.total_finished,
+            "preemptions": self.total_preemptions,
+            "new_tokens": sum(t.new_tokens for t in self.timing.values()),
+            "ttft_ticks_p50": th.percentile(50),
+            "ttft_ticks_p90": th.percentile(90),
+            "ttft_ticks_p99": th.percentile(99),
+            "latency_ticks_p50": lh.percentile(50),
+            "latency_ticks_p90": lh.percentile(90),
+            "latency_ticks_p99": lh.percentile(99),
+            "ttft_s_p50": self._ttft_s.percentile(50),
+            "ttft_s_p99": self._ttft_s.percentile(99),
+            "itl_s_p50": self._itl_s.percentile(50),
+            "itl_s_p99": self._itl_s.percentile(99),
+            "resume_ttft_s_p50": self._resume_ttft_s.percentile(50),
+            "resume_ttft_s_p99": self._resume_ttft_s.percentile(99),
+            "ttft_warm_s_p50": self._warm_ttft_s.percentile(50),
+            "ttft_warm_s_p99": self._warm_ttft_s.percentile(99),
+            "cow_copies": int(self._cow_copies.value),
+            "parked": len(self.parked),
+            "rejected": int(self._rejected.value),
+            "cancelled": int(self._cancelled.value),
+            "deadline_expired": int(self._deadline_expired.value),
+        }
         if self.allocator is not None:
             out["kv"] = self.allocator.stats()
         return out

@@ -7,8 +7,17 @@ Per step: build the batch for the step counter, place it on the device,
 run the train step (K1/K2 forward, K3/K4 backward on the card), record
 the metrics and ``step_time_s``; every ``checkpoint_every`` steps a
 threaded checkpoint is published atomically. The reference's mesh,
-shardings, elastic re-planning, heartbeats, failure injection, telemetry
-and autotune warm-up are not ported; settings that need them raise.
+shardings, elastic re-planning, heartbeats, failure injection and
+autotune warm-up are not ported; settings that need them raise.
+
+``telemetry=`` takes a caller-owned ``Telemetry`` (``repro/train/
+trainer.py:70-92``): each step runs in a ``step_span("train_step",
+step)``, its wall time goes to ``train_step_seconds`` and the last
+step's loss, ce, grad norm and lr to the gauges ``train_loss``,
+``train_ce``, ``train_grad_norm`` and ``train_lr``; the step program is
+under program accounting (``program_shapes_total{program="train_step"}``)
+and the run's configs are stamped into the provenance. Without one the
+no-op bundle stands in.
 
 Runs on CUDA unless the caller passes ``device="cpu"`` (the kernels' plain
 versions then run instead); asking for CUDA without a GPU raises.
@@ -17,6 +26,8 @@ from __future__ import annotations
 
 import logging
 import time
+from typing import Optional
+
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -27,6 +38,8 @@ from repro_torch.models.params import init_params, map_specs
 from repro_torch.optim.adamw import AdamWState, adamw_init
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.serve.engine import resolve_device
+from repro_torch.telemetry import LATENCY_BUCKETS, ProgramAccounting, Telemetry
+from repro_torch.telemetry import accounting
 from repro_torch.train.train_step import make_train_step
 
 log = logging.getLogger("repro_torch.trainer")
@@ -49,15 +62,26 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, shape: ShapeConfig,
-                 *, device="cuda"):
+                 *, device="cuda", telemetry: Optional[Telemetry] = None):
         _check_supported(cfg, tcfg)
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.shape = cfg, tcfg, shape
+        self.telemetry = telemetry if telemetry is not None else Telemetry(enabled=False)
         self.data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                                 global_batch=shape.global_batch, seed=tcfg.seed)
         self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
         self.step_fn = make_train_step(cfg, tcfg, warmup_cosine(
             tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps))
+        if self.telemetry.enabled:
+            r = self.telemetry.metrics
+            self.telemetry.stamp_provenance(cfg, tcfg, device=self.device)
+            accounting.set_metrics(r)
+            self.step_fn = ProgramAccounting(r).wrap(self.step_fn, "train_step")
+            self._step_hist = r.histogram("train_step_seconds",
+                                          help="wall time per optimizer step",
+                                          buckets=LATENCY_BUCKETS)
+            self._gauges = {name: r.gauge(f"train_{name}", help=f"last step's {name}")
+                            for name in ("loss", "ce", "grad_norm", "lr")}
         self.step = 0
         self.metrics_history: list[dict] = []
         self._init_or_restore()
@@ -89,15 +113,21 @@ class Trainer:
         end = self.step + num_steps
         while self.step < end:
             t0 = time.perf_counter()
-            batch = to_device(self.data.batch(self.step), self.device)
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
-            # float() waits for the step's device work to finish
-            metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+            with self.telemetry.step_span("train_step", self.step):
+                batch = to_device(self.data.batch(self.step), self.device)
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch)
+                # float() waits for the step's device work to finish
+                metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
             dt = time.perf_counter() - t0
             metrics["step"] = self.step
             metrics["step_time_s"] = dt
             self.metrics_history.append(metrics)
+            if self.telemetry.enabled:
+                self._step_hist.observe(dt)
+                for name, g in self._gauges.items():
+                    if name in metrics:
+                        g.set(metrics[name])
             self.step += 1
             if self.tcfg.checkpoint_every and self.step % self.tcfg.checkpoint_every == 0:
                 self.save(blocking=False)

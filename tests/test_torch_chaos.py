@@ -21,7 +21,9 @@ own weights (through ``params_from_numpy``):
   JAX engine's;
 * a chaos run replays bit-identically;
 * the soak: the reference's four plans x seeds 0-2 on its Poisson trace
-  (``telemetry=False``: the port's only setting). Every run drains, every
+  (``telemetry=False``; the chaos flight events and
+  ``chaos_injections_total`` with telemetry on are held to the JAX engine
+  in ``tests/test_torch_telemetry_engine.py``). Every run drains, every
   uid ends ``finished``, no block leaks, and the tokens equal the JAX
   engine's fault-free run on that seed's trace. At seed 0 the JAX chaos
   engine runs too, and the port's ``injections``, outcomes and

@@ -90,12 +90,12 @@ def test_engine_refuses_cuda_without_a_gpu(weights, monkeypatch):
                                                ("serve", "max_queue", 4),
                                                ("serve", "watchdog_ticks", 8)])
 def test_engine_rejects_unported_settings(weights, which, field, value):
-    """Telemetry (the flight recorder, the metrics registry, the monitors)
-    is not ported: refused at construction, alone and beside each of the
-    settings below, which the port serves (frozen streaming, also under
-    the chunked tick and the prefix cache (``tests/test_torch_frozen.py``),
-    the numerics guard, ``max_queue``, the watchdog
-    (``tests/test_torch_chaos.py``))."""
+    """Every setting of the list is served, alone and with telemetry on
+    beside it (the flight recorder, the registry, the monitors:
+    ``tests/test_torch_telemetry_engine.py``): frozen streaming, also
+    under the chunked tick and the prefix cache
+    (``tests/test_torch_frozen.py``), the numerics guard, ``max_queue``,
+    the watchdog (``tests/test_torch_chaos.py``). Nothing is refused."""
     cfg, serve = reduced_cfg(), base.ServeConfig()
     if which == "model":
         cfg = dataclasses.replace(cfg, **{field: value})
@@ -103,21 +103,25 @@ def test_engine_rejects_unported_settings(weights, which, field, value):
         serve = dataclasses.replace(serve, **{field: value})
         if field in ("prefix_cache", "chunked_prefill"):
             cfg = dataclasses.replace(cfg, decode_streaming="frozen")
-    if field != "telemetry":
-        ServeEngine(cfg, weights[2], serve=serve, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ServeEngine(cfg, weights[2], serve=dataclasses.replace(serve, telemetry=True),
-                    device="cpu")
+    alone = ServeEngine(cfg, weights[2], serve=serve, device="cpu")
+    assert alone.telemetry.enabled == (field == "telemetry")
+    eng = ServeEngine(cfg, weights[2], serve=dataclasses.replace(serve, telemetry=True),
+                      device="cpu")
+    assert eng.telemetry.enabled and eng.sched.registry is eng.telemetry.metrics
+    assert set(eng.stats()) - set(alone.stats()) <= {"telemetry", "flight",
+                                                      "program_shapes"}
 
 
 @pytest.mark.parametrize("field", ["moe", "mla"])
 def test_engine_still_refuses_telemetry_and_other_families(weights, field):
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ServeEngine(reduced_cfg(), weights[2], serve=base.ServeConfig(telemetry=True),
-                    device="cpu")
+    """Telemetry constructs (``ServeConfig(telemetry=True)`` is served);
+    the dense family with MoE or MLA flags set is still refused."""
+    eng = ServeEngine(reduced_cfg(), weights[2], serve=base.ServeConfig(telemetry=True),
+                      device="cpu")
+    assert eng.stats()["program_shapes"]["decode_tick"] == 0
     with pytest.raises(NotImplementedError, match="family"):
         ServeEngine(dataclasses.replace(reduced_cfg(), **{field: True}), weights[2],
-                    device="cpu")
+                    serve=base.ServeConfig(telemetry=True), device="cpu")
 
 
 def test_engine_refuses_head_dims_past_the_kernels_on_cuda(weights, monkeypatch):
@@ -198,6 +202,9 @@ print(json.dumps({"modules": names, "leaks": sorted(
     assert "repro_torch.launch.train" in result["modules"]
     assert "repro_torch.models.moe" in result["modules"]
     assert "repro_torch.configs.deepseek_v2_lite_16b" in result["modules"]
+    for module in ("", ".metrics", ".tracing", ".flight", ".monitors", ".provenance",
+                   ".export", ".accounting"):
+        assert f"repro_torch.telemetry{module}" in result["modules"]
     assert result["leaks"] == []
 
 
