@@ -42,7 +42,13 @@ result line):
    site; K2; K5 with the latent (512) and rope (64) pools, the latent pool
    also the value pool, at the serving shape and a 16k horizon, against
    one concatenated pool and on NaN-poisoned split-slot edges), fp32 and
-   bf16, timed beside their plain versions and bounds;
+   bf16, timed beside their plain versions and bounds; every tiling the
+   dispatch registry's measured sweeps can choose (``tiling_checks``: K1-K4
+   at the training shape at block_n 256 / 512 / 1024, K1 / K2 at the
+   serving shape at 256 / 512, K5 at chunk_slots 4 / 8 / 16) in fp32 and
+   bf16, K5' (the single-lane ``paged_row_stats``) on every lane, overrides
+   the kernels cannot take refused before any launch; K1-K4 at paper-bert's
+   training shape (64 batch-heads, d = 64), timed;
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -112,7 +118,12 @@ result line):
    identical to ``serve_frozen``), the 8-layer frozen prefix path's engine
    with telemetry (``prefix_attach`` and ``cow`` in the lifelines, a valid
    trace) and the chaos plans with telemetry (``chaos_injections_total``
-   equal to ``stats()["chaos_injections"]``);
+   equal to ``stats()["chaos_injections"]``); ``serve_autotune``: the main
+   path with ``autotune=True`` (the engine's warm-up times K5 across view
+   quanta and slot chunks on the device; tokens compared with the
+   autotune-off run; the chosen tilings' logits held to the kernels' own
+   plans at 2 fp32 layers, MODEL_TOL); every autotune-off engine resolves
+   heuristic plans only (the run's autotune cache is a fresh file);
 5. training: the ``Trainer`` on full-width Qwen2-7B cut to
    ``--train-layers`` layers, bf16 compute over fp32 master weights, seq
    4096, batch 2, 5 steps each under ``remat="full"`` (launches per step
@@ -122,7 +133,18 @@ result line):
    K3 4 / K4 4), every loss finite, ms per step and peak memory of each;
    then ``remat="full"`` again with a ``Telemetry`` (``train_telemetry``:
    ``train_step_seconds`` counts every step, the losses equal the run
-   without it);
+   without it); ``train_autotune`` (``autotune=True``: the warm-up times
+   K1-K4 forward and backward at each tiling at the train shape on the
+   device, 3 steps at the winner's tiling with the phase-5 launches,
+   losses held to the heuristic plan's, a control with a broken K1 that
+   the bound must catch, a second Trainer resolves from the disk cache
+   without a sweep); ``train_paper_bert`` (the paper's config at full
+   size, 3 steps each under spectral_shift, nystrom and
+   spectral_shift_fused, the fused losses held to spectral_shift's, the
+   same broken-K1 controls, and spectral_shift_fused with
+   ``attention_backend="jnp"``: no launch); ``train_chunked`` (Qwen2-7B's
+   own ``chunked`` attention beside ``full``: no kernel launches); then
+   each kernel timed at the tiling the sweeps chose (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
    training runs, and by path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -223,11 +245,14 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, floor: float = 0.0):
     """Device time per call of ``fn``: the summed device activities
     (kernels, copies, memsets) that ``iters`` calls launch, by torch.profiler,
     over ``iters``. Unlike ``cuda_ms`` it leaves out the host's time between
-    launches, which a small kernel issued back to back can be bound by."""
+    launches, which a small kernel issued back to back can be bound by.
+    A window whose time falls below ``floor`` (the bound: no launch can
+    beat it) lost activity and is profiled again; None (not measured)
+    after three such windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -236,7 +261,9 @@ def device_ms(fn, iters: int = 20) -> float:
     calls[0]()
     torch.cuda.synchronize()
     # The profiler now and then hands back a window with no device activity
-    # at all (seen once on an H100): profile again, and fail after three.
+    # at all (seen once on an H100), or with part of it (a time below the
+    # bound): profile again.
+    seen = 0.0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
@@ -244,8 +271,13 @@ def device_ms(fn, iters: int = 20) -> float:
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        seen = max(seen, us)
+        if us > 0 and us / 1e3 / iters >= floor:
             return us / 1e3 / iters
+    if seen > 0:
+        log(f"device_ms: every window fell below the bound {floor:.4f} ms "
+            f"(at most {seen / 1e3 / iters:.4f} ms): not measured")
+        return None
     raise RuntimeError("device_ms: the profiler recorded no device activity "
                        "in three windows")
 
@@ -326,6 +358,31 @@ def check(label: str, pairs) -> float:
             raise AssertionError(f"{label}: {name} rel err {rel:.3e} > {tol}")
     log(f"check {label}: " + ", ".join(parts) + " of max-abs ok")
     return worst
+
+
+def timed_entry(tag: str, e: dict) -> dict:
+    """Time a held entry (``fn`` with its ``plain`` version and ``library``
+    call): CUDA-event ms, profiler device ms, bound; logs one line and
+    returns the fields of a ``kernels`` row."""
+    ms, plain_ms = cuda_ms(e["fn"]), cuda_ms(e["plain"])
+    bound_ms, bound_by = e["bound"]
+    dev_ms = device_ms(e["fn"], floor=bound_ms)
+    lib_ms = cuda_ms(e["library"]) if e["library"] is not None else None
+    warm = f", warm L2 {cuda_ms(e['warm']):.4f} ms" if "warm" in e else ""
+    label = getattr(e["library"], "label", "")
+    if tag.startswith("paged_row_stats"):
+        log(f"time {tag}: device us per kernel {device_us_by_kernel(e['fn'])}")
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+    by_dev = "" if dev_ms is None else f" ({100 * bound_ms / dev_ms:.1f}% by device time)"
+    log(f"time {tag} [{e['shape']}]: kernel {ms:.4f} ms (device {dev})"
+        f"{warm}, plain "
+        f"{plain_ms:.4f} ms, library "
+        f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
+        f"{f' ({label})' if label else ''}, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{100 * bound_ms / ms:.1f}% of bound{by_dev}, "
+        f"{'no library' if lib_ms is None else f'{ms / lib_ms:.2f}x the library'}")
+    return dict(max_abs_err=e["err"], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
 # --------------------------------------------------------------------------
@@ -497,28 +554,13 @@ def kernel_phase(torch, dev) -> list[dict]:
     granite_ss_checks(torch, dev)
     entries.update(train_kernel_entries(torch, dev))
     entries.update(mla_kernel_entries(torch, dev))
+    entries["paged_row_stats_single_lane"] = tiling_checks(torch, dev)
+    # paper-bert's training launches: 8 batch x 8 heads of d = 64
+    entries.update({f"bert_{k}": e for k, e in train_kernel_entries(
+        torch, dev, b=PAPER_BERT_BATCH * 8, d=64).items()})
 
-    # ---- timing ------------------------------------------------------------
     def timed(tag):
-        e = entries[tag]
-        ms, plain_ms = cuda_ms(e["fn"]), cuda_ms(e["plain"])
-        dev_ms = device_ms(e["fn"])
-        lib_ms = cuda_ms(e["library"]) if e["library"] is not None else None
-        bound_ms, bound_by = e["bound"]
-        warm = f", warm L2 {cuda_ms(e['warm']):.4f} ms" if "warm" in e else ""
-        label = getattr(e["library"], "label", "")
-        if tag.startswith("paged_row_stats"):
-            log(f"time {tag}: device us per kernel {device_us_by_kernel(e['fn'])}")
-        log(f"time {tag} [{e['shape']}]: kernel {ms:.4f} ms (device {dev_ms:.4f})"
-            f"{warm}, plain "
-            f"{plain_ms:.4f} ms, library "
-            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
-            f"{f' ({label})' if label else ''}, bound {bound_ms:.4f} ms ({bound_by}); "
-            f"{100 * bound_ms / ms:.1f}% of bound ({100 * bound_ms / dev_ms:.1f}% by device "
-            f"time), "
-            f"{'no library' if lib_ms is None else f'{ms / lib_ms:.2f}x the library'}")
-        return dict(max_abs_err=e["err"], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        return timed_entry(tag, entries[tag])
 
     results = []
     for name, src, replaces in (
@@ -546,6 +588,10 @@ def kernel_phase(torch, dev) -> list[dict]:
             # the training path's forward launch (same kernel and counter)
             row["train_launch"] = dict(shape=entries[f"{name}_train"]["shape"],
                                        **timed(f"{name}_train"))
+        # paper-bert's training launch (d = 64; same kernel and counter)
+        tag = f"bert_{name}_train" if f"bert_{name}_train" in entries else f"bert_{name}"
+        if tag in entries:
+            row["paper_bert_launch"] = dict(shape=entries[tag]["shape"], **timed(tag))
         # DeepSeek-V2-Lite's launches (absorbed MLA: d = 576, dv = 512; the
         # same kernels, through their wide-head variants, and counters)
         for tag, key in {
@@ -567,6 +613,13 @@ def kernel_phase(torch, dev) -> list[dict]:
                              ("paged_row_stats_granite_long", "granite_long_horizon_launch")):
                 row[key] = dict(shape=entries[tag]["shape"], **timed(tag))
         results.append(row)
+    # K5': the reference's single-lane entry, K5 launched with one lane (its
+    # launches count in K5's wrapper; no driven path calls it: the engine
+    # launches K5 once for every lane)
+    results.append(dict(name="paged_row_stats_single_lane", route="cuda",
+                        source="src/repro_torch/csrc/paged_row_stats.cu",
+                        replaces="src/repro/kernels/paged_decode.py:267", launches=0,
+                        **timed("paged_row_stats_single_lane")))
     return results
 
 
@@ -1154,12 +1207,16 @@ def mla_kernel_entries(torch, dev) -> dict:
     return entries
 
 
-def train_kernel_entries(torch, dev) -> dict:
+def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -> dict:
     """Held and timed entries of the training path's kernel launches at its
-    shapes (batch 2 x 28 heads, seq 4096, c 64, d 128, causal: seg 64): K1
-    with stats and K2 forward, K3 and K4 backward, each against its plain
+    shapes (batch 2 x 28 heads, seq 4096, c 64, d 128, causal: seg 64; or
+    ``b`` batch-heads of head dim ``d``, paper-bert's 64 x 64): K1 with
+    stats and K2 forward, K3 and K4 backward, each against its plain
     version in fp32 (TF32 off) and bf16, plus K3 with kv_valid and K4 with
-    a q_offset. Timing entries are the bf16 causal launches."""
+    a q_offset. ``tile`` > 0 launches every kernel at that tiling (a
+    dispatch plan's ``block_n``: K1 / K3 ``chunk_keys``, K2 / K4
+    ``run_rows``), which the fp32 kernels of K1-K3 do not use. Timing
+    entries are the bf16 causal launches."""
     from repro_torch.kernels.ss_attention import (b_side_mask, landmark_summary,
                                                   landmark_summary_plain,
                                                   query_side, query_side_plain)
@@ -1169,9 +1226,11 @@ def train_kernel_entries(torch, dev) -> dict:
                                                       query_side_bwd_plain)
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    b, n, c, d = 56, 4096, 64, 128
+    n, c = 4096, 64
     seg = n // c
     scale = d**-0.5
+    k13, k24 = dict(chunk_keys=tile), dict(run_rows=tile)
+    at = f" tile={tile}" if tile else ""
 
     def randn(*shape, s=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
@@ -1186,24 +1245,29 @@ def train_kernel_entries(torch, dev) -> dict:
         es = 2 if dt == torch.bfloat16 else 4
         # ---- K1 with stats, causal ---------------------------------------
         q_l, k, v = randn(b, c, d, s=0.5, dtype=dt), randn(b, n, d, s=0.5, dtype=dt), randn(b, n, d, dtype=dt)
-        bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=True, return_stats=True)
+        bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=True, return_stats=True,
+                                    **k13)
         rbv, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
                                              return_stats=True)
-        err1 = check(f"K1 landmark_summary train b={b} c={c} n={n} causal stats {dname}",
+        err1 = check(f"K1 landmark_summary train b={b} c={c} n={n} d={d} causal stats "
+                     f"{dname}{at}",
                      [("out", bv, rbv, None), ("m", m, rm, None), ("l", l, rl, None)])
         # ---- K3 -------------------------------------------------------------
         g = randn(b, c, d, dtype=dt)
         dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
-        out = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale, causal=True)
+        out = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale, causal=True,
+                                   **k13)
         ref = landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale, seg=seg)
-        err3 = check(f"K3 landmark_summary_bwd b={b} c={c} n={n} causal {dname}",
+        err3 = check(f"K3 landmark_summary_bwd b={b} c={c} n={n} d={d} causal {dname}{at}",
                      [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"), out, ref)])
         kvv = 3000
-        bv2, m2, l2 = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv, return_stats=True)
-        out = landmark_summary_bwd(q_l, k, v, bv2, m2, l2, g, scale=scale, kv_valid=kvv)
+        bv2, m2, l2 = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv, return_stats=True,
+                                       **k13)
+        out = landmark_summary_bwd(q_l, k, v, bv2, m2, l2, g, scale=scale, kv_valid=kvv,
+                                   **k13)
         dcoef2 = torch.sum(g.float() * bv2.float(), dim=-1, keepdim=True)
         ref = landmark_summary_bwd_plain(q_l, k, v, g, m2, l2, dcoef2, scale=scale, kv_end=kvv)
-        check(f"K3 landmark_summary_bwd b={b} c={c} n={n} kv_valid={kvv} {dname}",
+        check(f"K3 landmark_summary_bwd b={b} c={c} n={n} d={d} kv_valid={kvv} {dname}{at}",
               [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"), out, ref)])
         if not (torch.all(out[1][:, kvv:] == 0) and torch.all(out[2][:, kvv:] == 0)):
             raise AssertionError("K3: keys at or past kv_valid must get zero dK/dV")
@@ -1211,17 +1275,17 @@ def train_kernel_entries(torch, dev) -> dict:
             bmask = b_side_mask(c, n, seg=seg, device=dev)
             entries["landmark_summary_train"] = dict(
                 fn=partial(landmark_summary, q_l, k, v, scale=scale, causal=True,
-                           return_stats=True),
+                           return_stats=True, **k13),
                 plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, seg=seg,
                               return_stats=True),
                 library=library_with_stats(q_l, k, v, bmask, scale=scale), err=err1,
                 bound=bound(es * (2 * b * c * d + 2 * b * n * d) + 8 * b * c,
                             2 * pairs * 2 * d, "bfloat16"),
                 shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal, with "
-                      f"stats (training forward)")
+                      f"stats (training forward){at}")
             entries["landmark_summary_bwd"] = dict(
                 fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, scale=scale,
-                           causal=True),
+                           causal=True, **k13),
                 plain=partial(landmark_summary_bwd_plain, q_l, k, v, g, m, l, dcoef,
                               scale=scale, seg=seg),
                 library=sdpa_backward(partial(sdpa_4d, attn_mask=bmask, scale=scale),
@@ -1230,30 +1294,32 @@ def train_kernel_entries(torch, dev) -> dict:
                 bound=bound(es * (3 * b * c * d + 2 * b * n * d) + 8 * b * c
                             + es * (b * c * d + 2 * b * n * d),
                             2 * pairs * 5 * d, "bfloat16"),
-                shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal")
+                shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal{at}")
         # ---- K2 causal and K4 -------------------------------------------
         q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
         m_mat, v = randn(b, c, d, dtype=dt), randn(b, n, d, dtype=dt)
         delta = randn(b, 1, 1, s=0.1).abs()
-        err2 = check(f"K2 query_side train b={b} n={n} c={c} causal {dname}",
-                     [("out", query_side(q, k_l, m_mat, v, delta, scale=scale, causal=True),
+        err2 = check(f"K2 query_side train b={b} n={n} c={c} d={d} causal {dname}{at}",
+                     [("out", query_side(q, k_l, m_mat, v, delta, scale=scale, causal=True,
+                                         **k24),
                        query_side_plain(q, k_l, m_mat, v, delta, scale=scale, seg=seg), None)])
         g = randn(b, n, d, dtype=dt)
         names = ("dq", "dk_l", "dm", "dv", "ddelta")
-        out = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale, causal=True)
+        out = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale, causal=True, **k24)
         ref = query_side_bwd_plain(q, k_l, m_mat, v, delta, g, scale=scale, seg=seg)
-        err4 = check(f"K4 query_side_bwd b={b} n={n} c={c} causal {dname}",
+        err4 = check(f"K4 query_side_bwd b={b} n={n} c={c} d={d} causal {dname}{at}",
                      [(nm, o, r, None) for nm, o, r in zip(names, out, ref)])
         out = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale, causal=True,
-                             seq_len_k=2 * n, q_offset=1000)
+                             seq_len_k=2 * n, q_offset=1000, **k24)
         ref = query_side_bwd_plain(q, k_l, m_mat, v, delta, g, scale=scale,
                                    seg=2 * seg, pos_offset=1000)
-        check(f"K4 query_side_bwd b={b} n={n} c={c} causal q_offset=1000 "
-              f"seq_len_k={2 * n} {dname}",
+        check(f"K4 query_side_bwd b={b} n={n} c={c} d={d} causal q_offset=1000 "
+              f"seq_len_k={2 * n} {dname}{at}",
               [(nm, o, r, None) for nm, o, r in zip(names, out, ref)])
         if dt == torch.bfloat16:
             entries["query_side_train"] = dict(
-                fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale, causal=True),
+                fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale, causal=True,
+                           **k24),
                 plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale,
                               seg=seg),
                 library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale,
@@ -1262,10 +1328,10 @@ def train_kernel_entries(torch, dev) -> dict:
                 bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b,
                             2 * pairs * 2 * d, "bfloat16"),
                 shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal "
-                      f"(training forward)")
+                      f"(training forward){at}")
             entries["query_side_bwd"] = dict(
                 fn=partial(query_side_bwd, q, k_l, m_mat, v, delta, g, scale=scale,
-                           causal=True),
+                           causal=True, **k24),
                 plain=partial(query_side_bwd_plain, q, k_l, m_mat, v, delta, g,
                               scale=scale, seg=seg),
                 library=sdpa_backward(partial(sdpa_query_side, scale=scale,
@@ -1275,7 +1341,7 @@ def train_kernel_entries(torch, dev) -> dict:
                 bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b
                             + es * (2 * b * n * d + 2 * b * c * d) + 4 * b,
                             2 * pairs * 5 * d + 4 * b * n * d, "bfloat16"),
-                shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal")
+                shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal{at}")
     return entries
 
 
@@ -1284,7 +1350,7 @@ def train_kernel_entries(torch, dev) -> dict:
 # --------------------------------------------------------------------------
 def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
                 block_size=16, decode_impl="paged", prefill="ss_fused",
-                store_dtype=None):
+                store_dtype=None, view_quantum: int = 0):
     """Prefill each prompt into its own lane, then ``steps`` decode steps
     for all lanes on ``decode_impl``'s route (``paged``: K5 over the pools;
     ``gather``: dense views). ``prefill``: "ss_fused" or "replay" (the
@@ -1298,7 +1364,9 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
     the CPU, fed tokens, a dict: the cache's streaming stats (m, l, acc),
     each (layers, lanes, ...), after the prefills and after the decode
     steps, and the rebases, the cache, the block tables and the positions
-    the next step would write)."""
+    the next step would write). ``view_quantum``: the decode plan's, the
+    tables cut as the engine cuts them (0 = whole tables); the kernels'
+    tilings come from the caller's ``dispatch.use_tiling``."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.decode_state import make_rebase_fn
@@ -1349,8 +1417,14 @@ def drive_model(torch, params, cfg, device, prompt_lens, feed=None, steps=4,
     stat_names = ("bv_m", "bv_l", "bv_acc")
     stats = {"prefill": [kv.storage[name].cpu() for name in stat_names]}
     if decode_impl == "paged":
-        step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
+        paged_step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
             params, cfg, c_, t_, seq_max=seq_max, paged_table=tb, block_size=bs))
+
+        def step(tables, *rest):
+            if view_quantum:   # the table cut as the engine cuts it
+                tables = tables[:, :kv.view_blocks_needed(
+                    positions.numpy(), list(range(lanes)), view_quantum)].contiguous()
+            return paged_step(tables, *rest)
     else:
         fused = kv.make_fused_step(lambda c_, t_: decode_step(params, cfg, c_, t_,
                                                               seq_max=seq_max))
@@ -1914,8 +1988,13 @@ def serve_params(torch, dev, arch: str, layers: int, label: str):
 
 def check_served(torch, engine, out: dict, label: str, n_requests: int) -> None:
     """Every request finished with tokens in the vocabulary, every cache
-    leaf finite, no training kernel launched."""
+    leaf finite, no training kernel launched; without ``autotune`` the
+    engine's plans are the heuristic's (the kernels' own tilings)."""
     vocab = engine.cfg.vocab_size
+    plans = [p for p in (engine.decode_plan, engine.prefill_plan) if p is not None]
+    if not engine.cfg.autotune and any(p.source != "heuristic" for p in plans):
+        raise AssertionError(f"serve {label}: autotune off, yet the plans {plans} are "
+                             f"not the heuristic's")
     if out["finished"] != n_requests:
         raise AssertionError(f"serve {label}: not every request finished")
     for uid, toks in out["outputs"].items():
@@ -1991,6 +2070,7 @@ def serve_phase(torch, dev, layers: int) -> dict:
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
     telemetry = serve_telemetry_phase(torch, dev, weights, main_serve, main)
+    tuned, decode_plan, _ = serve_autotune_phase(torch, dev, weights, main_serve, main)
     default = serve_run(torch, dev, "qwen2-7b", layers, ServeConfig(seed=0),
                         "default route", params=weights)
     del weights
@@ -2007,20 +2087,20 @@ def serve_phase(torch, dev, layers: int) -> dict:
     missing = [k for k in SERVE_KERNELS if granite["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"serve granite-20b: kernels never launched: {missing}")
-    return {"serve": main["launches"], **telemetry,
-            "serve_default_route": default["launches"],
+    return {"serve": main["launches"], **telemetry, "serve_autotune": tuned,
+            "_decode_plan": decode_plan, "serve_default_route": default["launches"],
             "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers),
             **serve_frozen_phase(torch, dev, layers), **serve_deepseek_phase(torch, dev)}
 
 
-# The reference's core metric families (``tests/test_telemetry.py:308``)
-# without ``autotune_plan_resolutions_total`` (the dispatch module is not
-# ported); the exact main path has no rebase, so the two frozen families
-# are checked on ``serve_frozen_telemetry``.
+# The reference's core metric families (``tests/test_telemetry.py:308``);
+# the exact main path has no rebase, so the two frozen families are
+# checked on ``serve_frozen_telemetry``.
 CORE_FAMILIES = ("serve_ttft_ticks", "serve_latency_ticks", "serve_ttft_seconds",
                  "serve_itl_seconds", "serve_admitted_total", "serve_tokens_total",
                  "serve_ticks_total", "span_seconds", "pool_utilization",
-                 "pool_fragmentation", "spectrum_mass_top1_ema")
+                 "pool_fragmentation", "autotune_plan_resolutions_total",
+                 "spectrum_mass_top1_ema")
 FROZEN_FAMILIES = ("serve_rebases_total", "drift_rebase_residual")
 TICK_SPANS = ("serve_tick", "admit", "prefill", "decode_dispatch", "device_sync",
               "sample_emit")
@@ -2605,6 +2685,21 @@ def serve_frozen_phase(torch, dev, layers: int) -> dict:
 # --------------------------------------------------------------------------
 # phase 5: training
 # --------------------------------------------------------------------------
+def check_heuristic_plan(cfg, shape, dev, label: str) -> None:
+    """Without ``autotune``, a ``spectral_shift_fused`` model's train key
+    resolves to the heuristic's plan (the kernels' own tilings): no plan
+    a registry or an earlier cache file holds steers the run."""
+    from repro_torch.kernels import dispatch
+
+    if cfg.attention_impl != "spectral_shift_fused" or cfg.autotune:
+        return
+    key = dispatch.make_key(shape.seq_len, cfg.num_landmarks, cfg.resolved_head_dim,
+                            cfg.compute_dtype, cfg.is_decoder_only, backend=dev.type)
+    plan = dispatch.get_plan(key)
+    if plan.source != "heuristic":
+        raise AssertionError(f"{label}: autotune off, yet {key.encode()} resolves {plan}")
+
+
 def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
                 round_trip: bool = True, telemetry: bool = False) -> tuple:
     """The single-device ``Trainer`` on full-width Qwen2-7B cut to ``layers``
@@ -2692,6 +2787,7 @@ def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
                 f"{step_s['count']}, mean {1e3 * step_s['sum'] / step_s['count']:.1f} ms; "
                 f"gauges {gauges}; program_shapes "
                 f"{snap['program_shapes_total']['program=train_step']['value']:.0f}")
+        check_heuristic_plan(cfg, shape, dev, f"train remat={remat}")
         if not round_trip:
             del trainer
             gc.collect()
@@ -2714,6 +2810,574 @@ def train_phase(torch, dev, layers: int, steps: int, remat: str = "full",
     return totals, 1e3 * mean_s, peak_gib, losses
 
 
+# --------------------------------------------------------------------------
+# dispatch: the tilings a measured sweep can choose, and the autotuned paths
+# --------------------------------------------------------------------------
+TILINGS = (256, 512, 1024)       # dispatch.autotune's block_n candidates
+SERVE_TILINGS = (256, 512)       # the same at the serving key (n bucket 512)
+SLOT_CHUNKS = (4, 8, 16)         # dispatch.autotune_decode's chunk_slots
+PAPER_BERT_BATCH = 8             # train_4k's global batch of 256 cut to 8
+# paper-bert's losses, K1-K4 (spectral_shift_fused) against the plain-torch
+# spectral_shift, relative: two bf16 routes of one function through 12
+# random-weight layers, where the Newton-Schulz core amplifies rounding
+# (ROADMAP Queue 3, P1). On the card (H100 80GB HBM3, 700 W) the sound
+# runs read 2.4e-3, 1.6e-3 and 3.8e-3 at steps 0-2
+PAPER_BERT_TOL = 2e-2
+# train_autotune's losses against the heuristic plan's, relative: step 0
+# (a forward pass on the same weights) at 5e-3, later steps at 2e-2. Another
+# key chunk reorders K1's fp32 merge, which moves bf16 roundings of BV that
+# the random-weight core amplifies through 4 bf16 layers (P1), and AdamW
+# turns rounding-level gradient differences into lr-sized steps (P3): on
+# the card chunks of 1024 keys against the own plan's 448 read 1.4e-3 at
+# step 0, 3.8e-3 and 6.2e-3 at steps 1-2
+TUNE_LOSS_TOL = (5e-3, 2e-2)
+# Both loss bounds are sanity checks, not parity checks: a random-weight
+# loss barely moves with attention (K1's output zeroed moves step 0 by
+# 9.4e-4 on Qwen2-7B, 3.3e-3 on paper-bert; the steps after it by 0.13-0.29).
+# Of the broken-K1 controls (broken_k1) the bounds must catch "zero_bv"
+# (K1's output zeroed); "drop_chunk" (the values of the last CONTROL_KEYS
+# keys zeroed, about one key chunk of K1's own plan) stays within them, as a
+# sound tiling's rounding does, and is only read (PERF.md §6). The kernels'
+# parity at every tiling is held in phase 2, the model's in phase 3.
+CONTROLS = {"zero_bv": True, "drop_chunk": False}   # kind: must a bound catch it
+CONTROL_KEYS = 512
+# attention_backend="jnp" runs the very function spectral_shift runs: its
+# step-0 loss (one forward on the same weights) equal up to float rounding;
+# later steps are read only (an AdamW step turns run-to-run rounding into
+# lr-sized moves, P3)
+JNP_BACKEND_TOL = 1e-6
+
+
+def tiling_checks(torch, dev) -> dict:
+    """Every tiling the measured sweeps can choose, held against the plain
+    versions in fp32 and bf16: K1-K4 at the training shape at each of
+    TILINGS (``train_kernel_entries(tile=...)``: K1 / K3 ``chunk_keys``,
+    K2 / K4 ``run_rows``), K1 / K2 at the serving shape at SERVE_TILINGS,
+    K5 at each of SLOT_CHUNKS and K5' (``paged_row_stats``: one lane, K5
+    launched with one lane) on every lane of the serving shape; K1, K2 and
+    K5 under ``dispatch.use_tiling`` (the engine's route to a plan's tiling)
+    bitwise equal to their launches at that tiling. Overrides the kernels
+    cannot take raise ValueError before any launch. Returns
+    K5''s timing entry."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.dispatch import use_tiling
+    from repro_torch.kernels.paged_decode import (paged_row_stats,
+                                                  paged_row_stats_lanes,
+                                                  paged_row_stats_plain)
+    from repro_torch.kernels.ss_attention import (landmark_summary,
+                                                  landmark_summary_plain,
+                                                  query_side, query_side_plain)
+    from repro_torch.kernels.ss_attention_bwd import query_side_bwd
+
+    for tile in TILINGS:
+        train_kernel_entries(torch, dev, tile=tile)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, c, d, n, kvv = 28, 64, 128, 352, 333
+    scale = d**-0.5
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q_l, k, v = randn(b, c, d, s=0.5, dtype=dt), randn(b, n, d, s=0.5, dtype=dt), randn(b, n, d, dtype=dt)
+        q, k_l, m_mat = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt), randn(b, c, d, dtype=dt)
+        delta = randn(b, 1, 1, s=0.1).abs()
+        ref1 = landmark_summary_plain(q_l, k, v, scale=scale, kv_end=kvv)
+        ref2 = query_side_plain(q, k_l, m_mat, v, delta, scale=scale)
+        for tile in SERVE_TILINGS:
+            out1 = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv, chunk_keys=tile)
+            out2 = query_side(q, k_l, m_mat, v, delta, scale=scale, run_rows=tile)
+            check(f"K1 landmark_summary serving b={b} n={n} kv_valid={kvv} {dname} "
+                  f"chunk_keys={tile}", [("out", out1, ref1, None)])
+            check(f"K2 query_side serving b={b} n={n} {dname} run_rows={tile}",
+                  [("out", out2, ref2, None)])
+            with use_tiling(tile):   # the engine's route to the tiling: the same launch
+                if not (torch.equal(out1, landmark_summary(q_l, k, v, scale=scale,
+                                                           kv_valid=kvv))
+                        and torch.equal(out2, query_side(q, k_l, m_mat, v, delta,
+                                                         scale=scale))):
+                    raise AssertionError(f"tiling: K1 / K2 under use_tiling({tile}) differ "
+                                         f"from their launch at that tiling")
+    kv_valid = [0, 17, 300, 512]
+    bs = 16
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k_pool, v_pool, table, kvt = paged_inputs(torch, dev, gen, kv_valid, dtype=dt)
+        rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvt, scale=scale)
+        live = rl[..., 0] > 0
+        for cs in SLOT_CHUNKS:
+            m, l, acc = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kvt, scale=scale,
+                                              block_size=bs, chunk_slots=cs)
+            check(f"K5 paged_row_stats kv_valid={kv_valid} {dname} chunk_slots={cs}",
+                  [("m", m[..., 0], rm[..., 0], live), ("l", l, rl, None),
+                   ("acc", acc, racc, None)])
+            with use_tiling(chunk_slots=cs):
+                ctx = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kvt, scale=scale,
+                                            block_size=bs)
+            if not all(torch.equal(a, b_) for a, b_ in zip(ctx, (m, l, acc))):
+                raise AssertionError(f"tiling: K5 under use_tiling(chunk_slots={cs}) "
+                                     f"differs from its launch at that chunk")
+        for cs in (0, SLOT_CHUNKS[0]):
+            for ln, kv in enumerate(kv_valid):
+                m, l, acc = paged_row_stats(q[ln], (k_pool,), v_pool, table[ln], kv,
+                                            scale=scale, block_size=bs, chunk_slots=cs)
+                if not kv:   # no valid key: exactly the anchor
+                    if not (torch.all(m == -1e30) and torch.all(l == 0)
+                            and torch.all(acc == 0)):
+                        raise AssertionError("K5': kv_valid 0 must return the anchor")
+                    continue
+                check(f"K5' paged_row_stats one lane kv_valid={kv} {dname} "
+                      f"chunk_slots={cs}",
+                      [("m", m[..., 0], rm[ln, ..., 0], live[ln]), ("l", l, rl[ln], None),
+                       ("acc", acc, racc[ln], None)])
+    before = launch_counts()
+    q, k_pool, v_pool, table, kvt = paged_inputs(torch, dev, gen, kv_valid)
+    bad = [("chunk_keys=96", lambda: landmark_summary(
+                randn(b, c, d, dtype=torch.bfloat16), randn(b, n, d, dtype=torch.bfloat16),
+                randn(b, n, d, dtype=torch.bfloat16), scale=scale, chunk_keys=96)),
+           ("run_rows=96", lambda: query_side(
+               *(randn(*s_, dtype=torch.bfloat16) for s_ in ((b, n, d), (b, c, d), (b, c, d),
+                                                             (b, n, d))),
+               randn(b, 1, 1), scale=scale, run_rows=96)),
+           ("K4 run_rows=64", lambda: query_side_bwd(
+               *(randn(*s_, dtype=torch.bfloat16) for s_ in ((b, n, d), (b, c, d), (b, c, d),
+                                                             (b, n, d))),
+               randn(b, 1, 1), randn(b, n, d, dtype=torch.bfloat16), scale=scale,
+               run_rows=64)),
+           ("chunk_slots=3", lambda: paged_row_stats_lanes(
+               q, (k_pool,), v_pool, table, kvt, scale=scale, block_size=bs,
+               chunk_slots=3))]
+    for name, call in bad:
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"tiling: the override {name} did not raise")
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError("tiling: a refused override launched a kernel")
+    log(f"tilings: K1-K4 at {TILINGS} (training shape), K1 / K2 at {SERVE_TILINGS} "
+        f"(serving shape), K5 at chunk_slots {SLOT_CHUNKS}, K5' on every lane, fp32 and "
+        f"bf16, ok; under use_tiling bitwise equal; overrides {[nm for nm, _ in bad]} refused before any launch")
+    # K5' timed: one lane of the serving shape at kv_valid 512, pools warm
+    q, k_pool, v_pool, table, kvt = paged_inputs(torch, dev, gen, [512])
+    err = check("K5' paged_row_stats one lane kv_valid=512 fp32 (timed)", [
+        (nm, o, r, None) for nm, o, r in zip(
+            ("m", "l", "acc"),
+            paged_row_stats(q[0], (k_pool,), v_pool, table[0], 512, scale=scale,
+                            block_size=bs),
+            (x[0] for x in paged_row_stats_plain(q, (k_pool,), v_pool, table, kvt,
+                                                 scale=scale)))])
+    return dict(
+        fn=[partial(paged_row_stats, q[0], (k_pool,), v_pool, table[0], 512, scale=scale,
+                    block_size=bs)],
+        plain=partial(paged_row_stats_plain, q, (k_pool,), v_pool, table, kvt, scale=scale),
+        library=None, err=err, bound=k5_bound([512], 4, 7, d, d, bs),
+        shape=f"one lane, hkv=4 r=7 bs={bs} slots=32 kv_valid=512 fp32, L2 warm")
+
+
+@contextlib.contextmanager
+def broken_k1(kind: str):
+    """A deliberately wrong attention route, the control of a training
+    loss bound: ``ss_attention_fused``'s K1 call with the values of its last
+    CONTROL_KEYS keys zeroed (``"drop_chunk"``: what a split-key merge that
+    lost one chunk's partial would give, near enough) or with its output
+    zeroed (``"zero_bv"``). Every kernel still launches as before."""
+    import torch
+    from repro_torch.kernels import ops
+
+    orig = ops.landmark_summary_op
+
+    def wrong(q_l, k, v, **kw):
+        if kind == "zero_bv":
+            return orig(q_l, k, v, **kw) * 0
+        keep = v.shape[1] - CONTROL_KEYS
+        return orig(q_l, k, torch.cat([v[:, :keep], torch.zeros_like(v[:, keep:])], 1),
+                    **kw)
+
+    ops.landmark_summary_op = wrong
+    try:
+        yield
+    finally:
+        ops.landmark_summary_op = orig
+
+
+def rel_diffs(losses, ref) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+
+
+def controls(torch, dev, cfg, shape, ref: list, tols: list, label: str) -> dict:
+    """Each broken-K1 control (``broken_k1``) for 3 steps of ``cfg``, its
+    losses' relative distance from ``ref`` read against each step's bound in
+    ``tols``: a control CONTROLS marks must pass a bound at some step, or
+    the bound could not tell that broken route from a sound one. Returns
+    each control's distances."""
+    out = {}
+    for kind, must in CONTROLS.items():
+        with broken_k1(kind):
+            run = train_steps(torch, dev, cfg, shape, len(tols), f"{label} control {kind}")
+        out[kind] = rel_diffs(run["losses"], ref)
+        caught = any(r > t for r, t in zip(out[kind], tols))
+        log(f"{label} control {kind}: rel diff from the sound reference "
+            f"{['%.2e' % x for x in out[kind]]} (bounds {tols}): "
+            f"{'caught' if caught else 'within the bounds'}")
+        if must and not caught:
+            raise AssertionError(f"{label}: the control {kind} stays within the bounds "
+                                 f"{tols} ({out[kind]}): the bound cannot catch it")
+    return out
+
+
+def train_autotune_phase(torch, dev, layers: int, ref_losses: list) -> tuple:
+    """``train_autotune``: the phase-5 trainer (full-width Qwen2-7B cut to
+    ``layers`` layers, train_4k at batch TRAIN_BATCH, spectral_shift_fused,
+    remat full) with ``autotune=True``, the cache in a temporary directory
+    (``REPRO_AUTOTUNE_CACHE``). Its warm-up times K1-K4, forward and
+    backward, at each tiling the kernels take at the train shape on the
+    device, registers and saves the fastest (each candidate's ms printed);
+    the plan must be a kernel plan. 3 steps follow, with the phase-5
+    launches per step (K1 2 / K2 2 / K3 1 / K4 1 a layer) and losses
+    within TUNE_LOSS_TOL of the heuristic plan's (``ref_losses``); the
+    broken-K1 controls must pass that bound. A second ``Trainer`` with a
+    new registry (as a new process) resolves from disk: ``outcome="disk"``
+    1, no sweep. Returns (launch counts of the 3 steps, the plan)."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=layers,
+                              attention_impl="spectral_shift_fused", remat="full",
+                              autotune=True)
+    shape = ShapeConfig("train_4k", 4096, TRAIN_BATCH, "train")
+    steps = 3
+    tols = [TUNE_LOSS_TOL[min(i, 1)] for i in range(steps)]
+    run_cache = os.environ["REPRO_AUTOTUNE_CACHE"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as tmp:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "ss_autotune.json")
+        dispatch.clear_registry()
+        try:
+            tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                               checkpoint_dir=os.path.join(tmp, "a"))
+            tel = Telemetry()
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, tcfg, shape, device=dev, telemetry=tel)
+            plan = trainer.plan
+            key = dispatch.make_key(shape.seq_len, cfg.num_landmarks, cfg.resolved_head_dim,
+                                    cfg.compute_dtype, True, backend=dev.type)
+            sweep = dispatch.SWEEPS[key.encode()]
+            snap = tel.metrics.snapshot()
+            log(f"train_autotune: sweep at b={shape.global_batch * cfg.num_heads} n="
+                f"{shape.seq_len} c={cfg.num_landmarks} d={cfg.resolved_head_dim} bf16 causal "
+                f"(key {key.encode()}), device ms of K1+K2+K3+K4: "
+                + ", ".join(f"{p.impl}/b{p.block_n} {1e3 * t:.4f}" for p, t in sweep)
+                + f"; winner {plan.impl}/b{plan.block_n} ({plan.source}); sweep launches "
+                f"(counted apart) {dispatch.SWEEP_LAUNCHES}; resolutions "
+                f"{snap['autotune_plan_resolutions_total']}, sweeps "
+                f"{snap['autotune_sweeps_total']}; trainer ready in "
+                f"{time.perf_counter() - t0:.1f}s")
+            if (plan.source != "autotuned" or plan.impl != "fused"
+                    or snap["autotune_sweeps_total"] != {"family=self": {"value": 1.0}}):
+                raise AssertionError(f"train_autotune: the warm-up did not sweep the "
+                                     f"kernels once: {plan}, {snap}")
+            expected = dict(landmark_summary=2 * layers, query_side=2 * layers,
+                            paged_row_stats=0, landmark_summary_bwd=layers,
+                            query_side_bwd=layers)
+            totals = dict.fromkeys(expected, 0)
+            for i in range(steps):
+                reset_launch_counts()
+                trainer.run(1)
+                counts = launch_counts()
+                if counts != expected:
+                    raise AssertionError(f"train_autotune: launches {counts} != {expected}")
+                for k_ in totals:
+                    totals[k_] += counts[k_]
+            losses = [h["loss"] for h in trainer.metrics_history]
+            later = [h["step_time_s"] for h in trainer.metrics_history[1:]]
+            rel = rel_diffs(losses, ref_losses)
+            log(f"train_autotune: {steps} steps under {plan.impl}/b{plan.block_n}: losses "
+                f"{['%.4f' % x for x in losses]} vs the heuristic plan's "
+                f"{['%.4f' % x for x in ref_losses[:steps]]}, rel diff "
+                f"{['%.2e' % x for x in rel]} (tol {tols}); "
+                f"{1e3 * sum(later) / len(later):.1f} ms per step after the first, "
+                f"launches per step {expected}")
+            if any(r > t for r, t in zip(rel, tols)):
+                raise AssertionError(f"train_autotune: losses {losses} differ from "
+                                     f"{ref_losses}: rel {rel} past {tols}")
+            repeats = []   # the sweep again, unsaved: is its winner stable?
+            for _ in range(2):
+                rerun = dispatch.autotune(shape.seq_len, cfg.num_landmarks,
+                                          cfg.resolved_head_dim, dtype=cfg.compute_dtype,
+                                          causal=True, batch=shape.global_batch * cfg.num_heads,
+                                          backward=True, save=False)
+                repeats.append(f"winner b{rerun.block_n}: " + ", ".join(
+                    f"b{p.block_n} {1e3 * t:.4f}" for p, t in dispatch.SWEEPS[key.encode()]))
+            log(f"train_autotune: the sweep repeated twice (device ms of K1-K4): "
+                + "; ".join(repeats))
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            dispatch.clear_registry()   # a new process: the plan comes from disk
+            tel2 = Telemetry()
+            again = Trainer(cfg, dataclasses.replace(
+                tcfg, checkpoint_dir=os.path.join(tmp, "b")), shape, device=dev,
+                telemetry=tel2)
+            snap2 = tel2.metrics.snapshot()
+            log(f"train_autotune: a second Trainer (new registry) resolves "
+                f"{again.plan.impl}/b{again.plan.block_n} ({again.plan.source}); "
+                f"resolutions {snap2['autotune_plan_resolutions_total']}, sweeps "
+                f"{snap2.get('autotune_sweeps_total', {})}, plan_resolution spans "
+                f"{snap2['span_seconds']['span=plan_resolution']['count']}")
+            if (snap2["autotune_plan_resolutions_total"] != {"outcome=disk": {"value": 1.0}}
+                    or "autotune_sweeps_total" in snap2
+                    or (again.plan.impl, again.plan.block_n) != (plan.impl, plan.block_n)):
+                raise AssertionError(f"train_autotune: the second trainer did not resolve "
+                                     f"from disk: {again.plan}, {snap2}")
+            del again
+        finally:
+            os.environ["REPRO_AUTOTUNE_CACHE"] = run_cache
+            dispatch.clear_registry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    controls(torch, dev, dataclasses.replace(cfg, autotune=False), shape, ref_losses[:steps],
+             tols, "train_autotune")
+    return totals, plan
+
+
+def serve_autotune_phase(torch, dev, weights, main_serve, main: dict) -> tuple:
+    """``serve_autotune``: the main path's model, weights and settings with
+    ``autotune=True``: the engine's warm-up times K5 on the device across
+    the view quanta and slot chunks at block 16 and this deployment's lanes
+    and heads (a "paged" plan: the gather route is plain PyTorch and no
+    candidate on the card), and resolves the prefill plan. K1, K2 and K5
+    must launch. Then the chosen tilings' logits against the kernels'
+    own at 2 full-width fp32 layers (``drive_model(plans=...)``): within
+    MODEL_TOL of max-abs. Returns (launch counts, decode plan, prefill
+    plan)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import random_params
+
+    cfg, params = weights
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as tmp:
+        acfg = dataclasses.replace(cfg, autotune=True,
+                                   autotune_cache=os.path.join(tmp, "ss_autotune.json"))
+        dispatch.clear_registry()
+        try:
+            out = serve_run(torch, dev, "qwen2-7b", cfg.num_layers, main_serve,
+                            "serve_autotune", params=(acfg, params))
+            dkey = dispatch.make_key(main_serve.max_seq, cfg.num_landmarks,
+                                     cfg.resolved_head_dim, cfg.compute_dtype, True,
+                                     backend=dev.type, family="decode")
+            pkey = dispatch.make_key(main_serve.max_seq, cfg.num_landmarks,
+                                     cfg.resolved_head_dim, cfg.compute_dtype, False,
+                                     backend=dev.type)
+            dplan, pplan = dispatch.get_plan(dkey), dispatch.get_plan(pkey)
+            sweep = dispatch.SWEEPS[dkey.encode()]
+        finally:
+            dispatch.clear_registry()
+    same = sum(out["outputs"][u] == main["outputs"][u] for u in main["outputs"])
+    log(f"serve_autotune: decode sweep at block {main_serve.block_size} ({dkey.encode()}): "
+        + ", ".join(f"{p.impl}/b{p.block_n}/t{p.block_table} {1e3 * t:.4f} ms"
+                    for p, t in sweep)
+        + f"; decode plan {out['stats']['decode_plan']}, prefill plan "
+        f"{pplan.impl}/b{pplan.block_n} ({pplan.source}); {same}/{len(main['outputs'])} "
+        f"requests' tokens identical to the autotune-off main path")
+    missing = [k for k in SERVE_KERNELS if out["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"serve_autotune: kernels never launched: {missing}")
+    if dplan.source != "autotuned" or dplan.impl != "paged":
+        raise AssertionError(f"serve_autotune: the decode key was not swept over K5: "
+                             f"{dplan}")
+    plans = (pplan.block_n, dplan.block_n, dplan.block_table)
+    mcfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2, compute_dtype="float32")
+    mparams = random_params(mcfg, seed=0, device=dev)
+    prompt_lens = (48, 333)
+    own, fed, _ = drive_model(torch, mparams, mcfg, dev, prompt_lens)
+    with dispatch.use_tiling(pplan.block_n, dplan.block_n):
+        tuned, _, _ = drive_model(torch, mparams, mcfg, dev, prompt_lens, feed=fed,
+                                  view_quantum=dplan.block_table)
+    del mparams
+    torch.cuda.empty_cache()
+    errs = logit_errs(torch, "serve_autotune", tuned, own, prompt_lens)
+    log(f"serve_autotune: 2 fp32 layers, prompts {prompt_lens}, 4 paged decode steps at "
+        f"the chosen tilings (prefill block_n, K5 chunk_slots, view quantum) = {plans} vs "
+        f"the kernels' own: logit err of max-abs per output "
+        f"{['%.2e' % e for e in errs]} (tol {MODEL_TOL})")
+    if not max(errs) <= MODEL_TOL:
+        raise AssertionError(f"serve_autotune: logit err {max(errs):.3e} > {MODEL_TOL}")
+    return out["launches"], dplan, pplan
+
+
+def train_steps(torch, dev, cfg, shape, steps: int, label: str) -> dict:
+    """``steps`` steps of a fresh ``Trainer`` (seed 0): losses, mean ms per
+    step after the first, peak GiB and the launches summed over the
+    steps."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                           checkpoint_dir=tmp)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, tcfg, shape, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check_heuristic_plan(cfg, shape, dev, label)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        hist = trainer.run(steps)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    later = [h["step_time_s"] for h in hist[1:]]
+    ms = 1e3 * sum(later) / len(later)
+    tokens = shape.seq_len * shape.global_batch
+    log(f"{label}: {cfg.name} {cfg.attention_impl} layers={cfg.num_layers} d_model="
+        f"{cfg.d_model} heads={cfg.num_heads} seq {shape.seq_len} batch "
+        f"{shape.global_batch}: losses {['%.4f' % x for x in losses]}, {ms:.1f} ms per "
+        f"step after the first ({tokens / ms * 1e3:.0f} tokens/s), peak {peak:.2f} GiB, "
+        f"launches {counts}, init {init_s:.1f}s")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    return dict(losses=losses, ms=ms, peak=peak, launches=counts)
+
+
+def train_paper_bert_phase(torch, dev) -> dict:
+    """``train_paper_bert``: the paper's own config at its full size (12
+    layers, d_model 512, 8 heads of 64, c = 64, vocab 30522), train_4k's
+    seq 4096 at batch PAPER_BERT_BATCH, 3 steps each under
+    ``spectral_shift`` (plain torch: no kernel may launch), ``nystrom`` (no
+    kernel), ``spectral_shift_fused`` (K1-K4 through dispatch at d = 64:
+    K1 2 / K2 2 / K3 1 / K4 1 per layer and step under remat full) and
+    ``spectral_shift_fused`` with ``attention_backend="jnp"`` (``jnp_backend``:
+    dispatch's plain route, no kernel may launch, the step-0 loss within
+    JNP_BACKEND_TOL of spectral_shift's); the fused losses within PAPER_BERT_TOL (relative) of
+    spectral_shift's, and the broken-K1 controls past it. Returns each run's
+    launch counts by path name."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, PAPER_BERT_BATCH, "train")
+    runs = {}
+    variants = {"spectral_shift": {}, "nystrom": {}, "spectral_shift_fused": {},
+                "jnp_backend": dict(attention_impl="spectral_shift_fused",
+                                    attention_backend="jnp")}
+    for name, kw in variants.items():
+        cfg = dataclasses.replace(get_config("paper-bert"),
+                                  **(kw or dict(attention_impl=name)))
+        runs[name] = train_steps(torch, dev, cfg, shape, 3, f"train_paper_bert {name}")
+        layers = cfg.num_layers
+        want = (dict(landmark_summary=6 * layers, query_side=6 * layers, paged_row_stats=0,
+                     landmark_summary_bwd=3 * layers, query_side_bwd=3 * layers)
+                if name == "spectral_shift_fused" else dict.fromkeys(runs[name]["launches"], 0))
+        if runs[name]["launches"] != want:
+            raise AssertionError(f"train_paper_bert {name}: launches "
+                                 f"{runs[name]['launches']} != {want}")
+    ref, fused = runs["spectral_shift"]["losses"], runs["spectral_shift_fused"]["losses"]
+    jnp_rel = rel_diffs(runs["jnp_backend"]["losses"], ref)
+    if not jnp_rel[0] <= JNP_BACKEND_TOL:
+        raise AssertionError(f"train_paper_bert: attention_backend='jnp' step-0 loss "
+                             f"{runs['jnp_backend']['losses'][0]} differs from "
+                             f"spectral_shift's {ref[0]}")
+    rel = rel_diffs(fused, ref)
+    log(f"train_paper_bert: ms per step spectral_shift {runs['spectral_shift']['ms']:.1f}, "
+        f"nystrom {runs['nystrom']['ms']:.1f}, spectral_shift_fused "
+        f"{runs['spectral_shift_fused']['ms']:.1f}; fused losses vs spectral_shift's rel "
+        f"diff {['%.2e' % x for x in rel]} (tol {PAPER_BERT_TOL})")
+    if not max(rel) <= PAPER_BERT_TOL:
+        raise AssertionError(f"train_paper_bert: fused losses {fused} differ from "
+                             f"spectral_shift's {ref} by {max(rel):.3e} > {PAPER_BERT_TOL}")
+    log(f"train_paper_bert: nystrom's losses vs spectral_shift's rel diff "
+        f"{['%.2e' % x for x in rel_diffs(runs['nystrom']['losses'], ref)]}; "
+        f"attention_backend='jnp' launched no kernel, losses vs spectral_shift's rel diff "
+        f"{['%.2e' % x for x in jnp_rel]} (step 0 tol {JNP_BACKEND_TOL}), "
+        f"{runs['jnp_backend']['ms']:.1f} ms per step")
+    controls(torch, dev, dataclasses.replace(get_config("paper-bert"),
+                                             attention_impl="spectral_shift_fused"),
+             shape, ref, [PAPER_BERT_TOL] * len(ref), "train_paper_bert")
+    return {f"train_paper_bert_{impl}": r["launches"] for impl, r in runs.items()}
+
+
+def train_chunked_phase(torch, dev, layers: int) -> dict:
+    """``train_chunked``: full-width Qwen2-7B with its own config's
+    ``attention_impl="chunked"`` (exact attention over key blocks of 1024,
+    plain torch), ``layers`` layers, train_4k's seq 4096 at batch
+    TRAIN_BATCH, 3 steps, beside the same under ``"full"``: no kernel may
+    launch; step time and peak memory of each. Returns their launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, TRAIN_BATCH, "train")
+    out = {}
+    for impl in ("chunked", "full"):
+        cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=layers,
+                                  attention_impl=impl)
+        run = train_steps(torch, dev, cfg, shape, 3, f"train_{impl}")
+        if any(run["launches"].values()):
+            raise AssertionError(f"train_{impl}: a kernel launched: {run['launches']}")
+        out[f"train_{impl}"] = run
+    log(f"train_chunked: {out['train_chunked']['ms']:.1f} ms per step, peak "
+        f"{out['train_chunked']['peak']:.2f} GiB; full {out['train_full']['ms']:.1f} ms per "
+        f"step, peak {out['train_full']['peak']:.2f} GiB")
+    return {k: v["launches"] for k, v in out.items()}
+
+
+def autotuned_rows(torch, dev, kernels: list, train_plan, decode_plan) -> None:
+    """Time each kernel at the tiling the sweeps chose, at the shape of its
+    heuristic row (K1-K4 at the training shape, K5 at the serving shape),
+    as a nested ``autotuned_launch`` entry of its ``kernels`` row."""
+    rows = {k["name"]: k for k in kernels}
+    tile = train_plan.block_n
+    if tile:
+        entries = train_kernel_entries(torch, dev, tile=tile)
+        for name, tag in (("landmark_summary", "landmark_summary_train"),
+                          ("query_side", "query_side_train"),
+                          ("landmark_summary_bwd", "landmark_summary_bwd"),
+                          ("query_side_bwd", "query_side_bwd")):
+            rows[name]["autotuned_launch"] = dict(
+                plan=f"{train_plan.impl}/b{tile}", shape=entries[tag]["shape"],
+                **timed_entry(f"{tag} autotuned", entries[tag]))
+    else:
+        log("autotuned rows: the training sweep chose the kernels' own tilings: "
+            "the heuristic rows are its rows")
+    cs = decode_plan.block_n
+    if cs:
+        from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                      paged_row_stats_plain)
+
+        gen = torch.Generator(device=dev).manual_seed(7)
+        kv_valid = [0, 17, 300, 512]
+        q, k_pool, v_pool, table, kvt = paged_inputs(torch, dev, gen, kv_valid)
+        pools = cold_pools(k_pool, v_pool)
+        scale = 128 ** -0.5
+        out = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kvt, scale=scale,
+                                    block_size=16, chunk_slots=cs)
+        ref = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvt, scale=scale)
+        live = ref[1][..., 0] > 0
+        err = check(f"K5 paged_row_stats chunk_slots={cs} (autotuned)",
+                    [("m", out[0][..., 0], ref[0][..., 0], live), ("l", out[1], ref[1], None),
+                     ("acc", out[2], ref[2], None)])
+        rows["paged_row_stats"]["autotuned_launch"] = dict(
+            plan=f"paged/b{cs}/t{decode_plan.block_table}",
+            **timed_entry("paged_row_stats autotuned", dict(
+                fn=[partial(paged_row_stats_lanes, q, (kp,), vp, table, kvt, scale=scale,
+                            block_size=16, chunk_slots=cs) for kp, vp in pools],
+                plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvt,
+                               scale=scale) for kp, vp in pools],
+                library=None, err=err, bound=k5_bound(kv_valid, 4, 7, 128, 128, 16),
+                shape=f"lanes=4 hkv=4 r=7 bs=16 slots=32 kv_valid={kv_valid} fp32, "
+                      f"L2 cold ({len(pools)} pool copies), chunk_slots={cs}")))
+    else:
+        log("autotuned rows: the decode sweep chose K5's own slot chunk: its "
+            "heuristic rows are its rows")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -2732,6 +3396,14 @@ def main(argv=None) -> int:
         raise SystemExit(f"[chip_smoke] {src / 'repro_torch'} not found: run "
                          f"from a checkout of the repository")
     sys.path.insert(0, str(src))
+    # A fresh autotune cache for the run: no plan a user's cache holds may
+    # steer the paths held to the kernels' own tilings.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as tmp:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "ss_autotune.json")
+        return run(args, torch, t_start)
+
+
+def run(args, torch, t_start: float) -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
@@ -2760,6 +3432,10 @@ def main(argv=None) -> int:
     traced, traced_ms, _, traced_losses = train_phase(torch, dev, args.train_layers,
                                                       TRAIN_STEPS, round_trip=False,
                                                       telemetry=True)
+    tuned, train_plan = train_autotune_phase(torch, dev, args.train_layers, full_losses)
+    bert = train_paper_bert_phase(torch, dev)
+    chunked = train_chunked_phase(torch, dev, args.train_layers)
+    autotuned_rows(torch, dev, kernels, train_plan, served.pop("_decode_plan"))
     if traced_losses != full_losses:
         raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "
                              f"without telemetry {full_losses}")
@@ -2768,9 +3444,11 @@ def main(argv=None) -> int:
         f"dots {dots_ms:.1f} ms per step, peak {dots_peak:.2f} GiB; remat full with "
         f"telemetry {traced_ms:.1f} ms per step, losses identical to the run without")
     paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots,
-                 train_telemetry=traced)
+                 train_telemetry=traced, train_autotune=tuned, **bert, **chunked)
     for k in kernels:
-        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+        # K5' launches through K5's wrapper and counter: no path of its own
+        k["launches_by_path"] = {path: counts.get(k["name"], 0)
+                                 for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     log(f"total {time.perf_counter() - t_start:.1f}s")
 

@@ -5,8 +5,13 @@ tensors.
     K1  ss_attention.landmark_summary      (csrc/landmark_summary.cu)
     K2  ss_attention.query_side            (csrc/query_side.cu)
     K5  paged_decode.paged_row_stats_lanes (csrc/paged_row_stats.cu)
+    K5' paged_decode.paged_row_stats       (K5 launched with one lane)
     K3  ss_attention_bwd.landmark_summary_bwd (csrc/landmark_summary_bwd.cu)
     K4  ss_attention_bwd.query_side_bwd       (csrc/query_side_bwd.cu)
+
+``ops`` holds the fused attention built on them (``ss_attention_fused``,
+``nystrom_attention_fused``), ``dispatch`` the plan registry with measured
+autotune that picks a route and the kernels' tiling per shape.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``); ``launch_counts`` reads them and
@@ -67,3 +72,37 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+# Public entry points, as the reference's package exports them (imported
+# last: the kernel modules import the limits above).
+from repro_torch.kernels.dispatch import (  # noqa: E402
+    Plan,
+    PlanKey,
+    autotune,
+    autotune_decode,
+    dispatch_ss_attention,
+    get_plan,
+    load_cache,
+    make_key,
+    register_plan,
+    save_cache,
+)
+from repro_torch.kernels.ops import (  # noqa: E402
+    flash_merge,
+    flash_rescale,
+    landmark_summary_op,
+    nystrom_attention_fused,
+    query_side_op,
+    ss_attention_fused,
+    ss_core_factors,
+)
+from repro_torch.kernels.paged_decode import (  # noqa: E402
+    paged_row_stats,
+    paged_row_stats_lanes,
+)
+from repro_torch.kernels.ss_attention import landmark_summary, query_side  # noqa: E402
+from repro_torch.kernels.ss_attention_bwd import (  # noqa: E402
+    landmark_summary_bwd,
+    query_side_bwd,
+)

@@ -12,6 +12,12 @@ plus the online-softmax partial-state algebra (``flash_rescale`` /
 ``flash_merge``) that decode uses to merge the current token into the
 kernels' partials.
 
+``block_n`` (a dispatch plan's tiling, ``kernels/dispatch.py``) reaches
+K1 / K3 as ``chunk_keys`` and K2 / K4 as ``run_rows``; 0 leaves K1 / K2 to
+the serving tiling in effect (``dispatch.use_tiling``) and every kernel
+otherwise to its own plan. ``nystrom_attention_fused`` is the same with delta = 0
+(``ops.py:341``).
+
 Steps 3 and 5 are differentiable: the custom ops
 ``repro_torch::landmark_summary`` and ``repro_torch::query_side`` (the
 reference's custom-VJP ``landmark_summary_op`` / ``query_side_op``,
@@ -24,6 +30,7 @@ residuals are saved and K1 computes no stats.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -66,35 +73,38 @@ def flash_merge(m_a, l_a, acc_a, m_b, l_b, acc_b):
 @torch.library.custom_op("repro_torch::landmark_summary", mutates_args=())
 def landmark_summary_stats(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float, causal: bool,
-                           kv_valid: Optional[int]) -> tuple[torch.Tensor, torch.Tensor,
-                                                             torch.Tensor]:
+                           kv_valid: Optional[int],
+                           chunk_keys: int = 0) -> tuple[torch.Tensor, torch.Tensor,
+                                                         torch.Tensor]:
     """K1 with its fp32 stats (``landmark_summary_op`` :91): (BV, m, l). Its
     outputs are the residuals the reference tags ``ss_bv`` / ``ss_stats``
     (``ops.py:112``), the ones ``remat="ss_stats"`` keeps."""
     return landmark_summary(q_l, k, v, scale=scale, causal=causal,
-                            return_stats=True, kv_valid=kv_valid)
+                            return_stats=True, kv_valid=kv_valid,
+                            chunk_keys=chunk_keys)
 
 
 @landmark_summary_stats.register_fake
-def _(q_l, k, v, scale, causal, kv_valid):
+def _(q_l, k, v, scale, causal, kv_valid, chunk_keys=0):
     b, c, _ = q_l.shape
     stat = q_l.new_empty((b, c, 1), dtype=torch.float32)
     return v.new_empty((b, c, v.shape[-1])), stat, torch.empty_like(stat)
 
 
 def _landmark_summary_setup(ctx, inputs, output):
-    q_l, k, v, scale, causal, kv_valid = inputs
+    q_l, k, v, scale, causal, kv_valid, chunk_keys = inputs
     bv, m, l = output
     ctx.save_for_backward(q_l, k, v, bv, m, l)
-    ctx.meta = (scale, causal, kv_valid)
+    ctx.meta = (scale, causal, kv_valid, chunk_keys)
 
 
 def _landmark_summary_backward(ctx, g, _gm, _gl):
     q_l, k, v, bv, m, l = ctx.saved_tensors
-    scale, causal, kv_valid = ctx.meta
+    scale, causal, kv_valid, chunk_keys = ctx.meta
     dq, dk, dv = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
-                                      causal=causal, kv_valid=kv_valid)
-    return dq, dk, dv, None, None, None
+                                      causal=causal, kv_valid=kv_valid,
+                                      chunk_keys=chunk_keys)
+    return dq, dk, dv, None, None, None, None
 
 
 landmark_summary_stats.register_autograd(_landmark_summary_backward,
@@ -104,30 +114,32 @@ landmark_summary_stats.register_autograd(_landmark_summary_backward,
 @torch.library.custom_op("repro_torch::query_side", mutates_args=())
 def query_side_differentiable(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
                               v: torch.Tensor, delta: torch.Tensor, scale: float,
-                              causal: bool, seq_len_k: int) -> torch.Tensor:
+                              causal: bool, seq_len_k: int,
+                              run_rows: int = 0) -> torch.Tensor:
     """K2 (``query_side_op`` :135); K4 recomputes P in its backward, so the
     residuals are the inputs."""
     return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
-                      seq_len_k=seq_len_k)
+                      seq_len_k=seq_len_k, run_rows=run_rows)
 
 
 @query_side_differentiable.register_fake
-def _(q, k_l, m_mat, v, delta, scale, causal, seq_len_k):
+def _(q, k_l, m_mat, v, delta, scale, causal, seq_len_k, run_rows=0):
     return q.new_empty((*q.shape[:2], v.shape[-1]))
 
 
 def _query_side_setup(ctx, inputs, output):
-    q, k_l, m_mat, v, delta, scale, causal, seq_len_k = inputs
+    q, k_l, m_mat, v, delta, scale, causal, seq_len_k, run_rows = inputs
     ctx.save_for_backward(q, k_l, m_mat, v, delta)
-    ctx.meta = (scale, causal, seq_len_k)
+    ctx.meta = (scale, causal, seq_len_k, run_rows)
 
 
 def _query_side_backward(ctx, g):
     q, k_l, m_mat, v, delta = ctx.saved_tensors
-    scale, causal, seq_len_k = ctx.meta
+    scale, causal, seq_len_k, run_rows = ctx.meta
     dq, dkl, dm, dv, dd = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale,
-                                         causal=causal, seq_len_k=seq_len_k)
-    return dq, dkl, dm, dv, dd, None, None, None
+                                         causal=causal, seq_len_k=seq_len_k,
+                                         run_rows=run_rows)
+    return dq, dkl, dm, dv, dd, None, None, None, None
 
 
 query_side_differentiable.register_autograd(_query_side_backward,
@@ -139,26 +151,30 @@ def _needs_grad(*tensors) -> bool:
 
 
 def landmark_summary_op(q_l, k, v, *, scale: float, causal: bool = False,
-                        kv_valid: Optional[int] = None) -> torch.Tensor:
+                        kv_valid: Optional[int] = None,
+                        chunk_keys: int = 0) -> torch.Tensor:
     """K1 as a differentiable op: through the ``repro_torch::landmark_summary``
     custom op when a gradient is needed, else the kernel alone (no stats,
-    nothing saved)."""
+    nothing saved). ``chunk_keys`` reaches K1 and K3."""
     if _needs_grad(q_l, k, v):
         return landmark_summary_stats(q_l, k, v, float(scale), bool(causal),
-                                      None if kv_valid is None else int(kv_valid))[0]
+                                      None if kv_valid is None else int(kv_valid),
+                                      int(chunk_keys))[0]
     return landmark_summary(q_l, k, v, scale=scale, causal=causal,
-                            kv_valid=kv_valid)
+                            kv_valid=kv_valid, chunk_keys=chunk_keys)
 
 
 def query_side_op(q, k_l, m_mat, v, delta, *, scale: float,
-                  causal: bool = False, seq_len_k: int = 0) -> torch.Tensor:
+                  causal: bool = False, seq_len_k: int = 0,
+                  run_rows: int = 0) -> torch.Tensor:
     """K2 as a differentiable op (the ``repro_torch::query_side`` custom op
-    when a gradient is needed, else the kernel alone)."""
+    when a gradient is needed, else the kernel alone). ``run_rows`` reaches
+    K2 and K4."""
     if _needs_grad(q, k_l, m_mat, v, delta):
         return query_side_differentiable(q, k_l, m_mat, v, delta, float(scale),
-                                         bool(causal), int(seq_len_k))
+                                         bool(causal), int(seq_len_k), int(run_rows))
     return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
-                      seq_len_k=seq_len_k)
+                      seq_len_k=seq_len_k, run_rows=run_rows)
 
 
 # --------------------------------------------------------------------------
@@ -176,7 +192,7 @@ def ss_core_factors(q_l, k_l, cfg: SSConfig, scale: float, n_k):
     a = _softmax(torch.einsum("...cd,...ed->...ce", q_l.float(), k_l.float())
                  * scale, tril if cfg.causal else None)
     core = ss_core(a, method=cfg.method, pinv_iters=cfg.pinv_iters,
-                   use_shift=cfg.use_shift)
+                   rank_tol=cfg.rank_tol, use_shift=cfg.use_shift)
     eye = torch.eye(c, dtype=torch.float32, device=dev)
     if cfg.delta_scale == "corrected" and cfg.use_shift:
         delta = core.delta * (c / n_k)
@@ -196,9 +212,13 @@ def ss_core_factors(q_l, k_l, cfg: SSConfig, scale: float, n_k):
 def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        cfg: SSConfig = SSConfig(), *,
                        scale: Optional[float] = None,
-                       kv_valid: Optional[int] = None) -> torch.Tensor:
+                       kv_valid: Optional[int] = None, block_n: int = 0,
+                       block_c: int = 0) -> torch.Tensor:
     """Kernel-backed spectral-shifting attention, shapes (..., n, d);
-    differentiable in q, k and v.
+    differentiable in q, k and v. ``block_n`` / ``block_c``: a dispatch
+    plan's tiling (``dispatch.check_tiling`` raises, before any launch on
+    CUDA, for one the kernels cannot take; the CPU's plain versions ignore
+    it).
 
     ``kv_valid`` (host int): only the first ``kv_valid`` positions are
     real; landmark means and the B-side softmax mask the padded tail, so a
@@ -223,6 +243,12 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n <= c and n_k <= c:
         # Degenerate small-n regime: exact attention, as the reference does.
         return full_attention(q, k, v, causal=cfg.causal, scale=scale)
+    if q.is_cuda:
+        from repro_torch.kernels.dispatch import check_tiling
+
+        check_tiling(block_n, block_c, backward=_needs_grad(q, k, v))
+    else:
+        block_n = 0
     scale = scale if scale is not None else 1.0 / (d**0.5)
     b = 1
     for s_ in lead:
@@ -246,7 +272,8 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u, delta_core = ss_core_factors(
         q_l, k_l, cfg, scale, n_k if kv_valid is None else kv_valid)
     bv = landmark_summary_op(q_l.contiguous(), kf, vf, scale=scale,
-                             causal=cfg.causal, kv_valid=kv_valid)  # (b, c, dv)
+                             causal=cfg.causal, kv_valid=kv_valid,
+                             chunk_keys=block_n)  # (b, c, dv)
     m_mat = (u.float() @ bv.float()).to(v.dtype)
     if cfg.include_shift_identity and n <= n_k:
         # + delta_ss I_n -> + delta_ss * V on the query-aligned rows of V.
@@ -258,5 +285,16 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               device=q.device)
     out = query_side_op(qf, k_l.contiguous(), m_mat.contiguous(), v_q,
                         delta.contiguous(), scale=scale, causal=cfg.causal,
-                        seq_len_k=n_k)
+                        seq_len_k=n_k, run_rows=block_n)
     return out.reshape(*lead, n, dv)
+
+
+def nystrom_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            cfg: SSConfig = SSConfig(use_shift=False,
+                                                     include_shift_identity=False),
+                            *, scale: Optional[float] = None,
+                            block_n: int = 0) -> torch.Tensor:
+    """Kernel-backed Nystromformer baseline (``ops.py:341``): K1 / K2 with
+    delta = 0 and no shifted-identity term."""
+    cfg = dataclasses.replace(cfg, use_shift=False, include_shift_identity=False)
+    return ss_attention_fused(q, k, v, cfg, scale=scale, block_n=block_n)

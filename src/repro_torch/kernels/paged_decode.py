@@ -9,7 +9,9 @@ pools, q's features split across them in order: the dense family passes
 one pool, absorbed MLA two (the 512-wide latent pool and the 64-wide rope
 pool, the latent pool also the value pool). Lanes are the leading batch
 axis, so one launch serves every lane of a decode tick; the reference's
-single-lane entry point and its ``custom_vmap`` rule have no counterpart.
+single-lane entry point is ``paged_row_stats`` (K5 launched with one
+lane); its ``custom_vmap`` rule has no counterpart, since the port's
+decode tick launches K5 once for every lane.
 Rows with no valid key return the absorbing anchor (m=-1e30, l=0, acc=0)
 that ``kernels.ops.flash_merge`` re-anchors at the first merged score.
 For CUDA tensors the wrapper launches ``csrc/paged_row_stats.cu`` on the
@@ -25,6 +27,7 @@ import torch
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
+from repro_torch.kernels.dispatch import current_tiling
 
 _STEP_KEYS = 32    # keys of one kernel step, one per lane (csrc kStepKeys)
 _ROWS_PER_CTA = 64  # query rows a CTA takes; more take more CTAs (csrc kMaxRows)
@@ -86,30 +89,44 @@ class SlotChunkPlan:
         return self.lanes * self.hkv * self.chunks * r * (dv + 2)
 
 
-def slot_chunk_plan(lanes: int, hkv: int, n_slots: int,
-                    block_size: int) -> SlotChunkPlan:
+def slot_step(block_size: int) -> int:
+    """Table slots of one kernel step: max(1, 32 // bs) whole blocks."""
+    return max(1, _STEP_KEYS // block_size)
+
+
+def slot_chunk_plan(lanes: int, hkv: int, n_slots: int, block_size: int,
+                    chunk_slots: int = 0) -> SlotChunkPlan:
     """The slot-chunk plan of K5 for ``lanes`` lanes of ``hkv`` kv heads and
     a table of ``n_slots`` slots of ``block_size`` keys: enough chunks per
     (lane, kv head) for about SLOT_TARGET_CTAS CTAs, each a whole number of
     steps of whole blocks (``step_slots`` = max(1, 32 // bs) slots: 2 at
     bs 16, 1 at bs 24, 32 or 64). Sized from the table's width alone:
-    kv_valid lives on the device, so the host never waits for it."""
-    step = max(1, _STEP_KEYS // block_size)
-    units = -(-n_slots // step)
-    want = -(-SLOT_TARGET_CTAS // max(1, lanes * hkv))
-    chunk_slots = step * max(1, -(-units // max(1, min(units, want))))
+    kv_valid lives on the device, so the host never waits for it.
+    ``chunk_slots`` > 0 overrides the chunk (whole steps: a positive
+    multiple of ``slot_step``)."""
+    step = slot_step(block_size)
+    if chunk_slots:
+        if chunk_slots < 0 or chunk_slots % step:
+            raise ValueError(f"slot_chunk_plan: chunk_slots={chunk_slots} must be a "
+                             f"positive multiple of {step} (whole steps at block "
+                             f"size {block_size})")
+    else:
+        units = -(-n_slots // step)
+        want = -(-SLOT_TARGET_CTAS // max(1, lanes * hkv))
+        chunk_slots = step * max(1, -(-units // max(1, min(units, want))))
     return SlotChunkPlan(lanes=lanes, hkv=hkv, n_slots=n_slots, block_size=block_size,
                          step_slots=step, chunk_slots=chunk_slots,
                          chunks=max(1, -(-n_slots // chunk_slots)))
 
 
 def paged_row_stats_plain(q, k_pools, v_pool, table, kv_valid, *,
-                          scale: float):
+                          scale: float, chunk_slots: int = 0):
     """Plain version of K5, mirroring ``repro/kernels/paged_decode.py:162``
     ``paged_row_stats_lanes`` (body ``_paged_row_stats_kernel`` :83): the
     lane's slots are gathered through ``table``, scores summed over the key
     pools (q's features split across them in order), keys at positions
-    >= kv_valid[lane] masked with -1e30 and their weights zeroed."""
+    >= kv_valid[lane] masked with -1e30 and their weights zeroed.
+    ``chunk_slots`` (the kernel's tiling) is ignored."""
     lanes, hkv, r, _ = q.shape
     n_slots = table.shape[1]
     tbl = table.long()
@@ -140,7 +157,7 @@ def paged_row_stats_plain(q, k_pools, v_pool, table, kv_valid, *,
 
 def paged_row_stats_lanes(q: torch.Tensor, k_pools, v_pool: torch.Tensor,
                           table: torch.Tensor, kv_valid: torch.Tensor, *,
-                          scale: float, block_size: int):
+                          scale: float, block_size: int, chunk_slots: int = 0):
     """One call for all lanes. q (lanes, hkv, r, d); ``k_pools`` a tuple of
     key pools (hkv, num_blocks, bs, d_p) whose widths d_p sum to d (q's
     features split across them in order; a ``ValueError`` otherwise, as
@@ -150,7 +167,9 @@ def paged_row_stats_lanes(q: torch.Tensor, k_pools, v_pool: torch.Tensor,
     r, 1) x2 and (lanes, hkv, r, dv). On the card the kernel runs one CTA
     per (chunk of ``slot_chunk_plan``, kv head, row group, lane) and, with
     more than one chunk, a second launch merges the chunks' partials in
-    order."""
+    order; ``chunk_slots`` > 0 sets the chunk (whole steps; 0 = the decode
+    plan's in effect, ``dispatch.use_tiling``, else ``slot_chunk_plan``'s),
+    which the plain version ignores."""
     k_pools = tuple(k_pools)
     lanes, hkv, r, d = q.shape
     hp, nb, bs, dv = v_pool.shape
@@ -166,11 +185,12 @@ def paged_row_stats_lanes(q: torch.Tensor, k_pools, v_pool: torch.Tensor,
     if not q.is_cuda:
         return paged_row_stats_plain(q, k_pools, v_pool, table, kv_valid,
                                      scale=scale)
-    return _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid,
-                                 scale=scale)
+    return _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, scale=scale,
+                                 chunk_slots=chunk_slots or current_tiling().chunk_slots)
 
 
-def _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, *, scale):
+def _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, *, scale,
+                          chunk_slots=0):
     """Check the operands and launch csrc/paged_row_stats.cu (the
     arguments of ``paged_row_stats_plain``, at most two key pools) on the
     grid of ``slot_chunk_plan``, with the workspace of its partials
@@ -194,6 +214,7 @@ def _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, *, scale):
         raise ValueError("paged_row_stats_lanes: table and kv_valid must be "
                          "int32")
     check_head_dims("paged_row_stats", d, dv)
+    plan = slot_chunk_plan(lanes, hkv, table.shape[1], bs, chunk_slots)
     es = q.element_size()
     widths = [p.shape[-1] for p in k_pools]
     # The kernel bulk-copies whole pool blocks (16-byte aligned, whole
@@ -207,7 +228,6 @@ def _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, *, scale):
     l = torch.empty((lanes, hkv, r, 1), dtype=torch.float32, device=dev)
     acc = torch.empty((lanes, hkv, r, dv), dtype=torch.float32, device=dev)
     if lanes and hkv and r:
-        plan = slot_chunk_plan(lanes, hkv, table.shape[1], bs)
         floats = plan.workspace_floats(r, dv)
         ws = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
         k1 = k_pools[1] if len(k_pools) > 1 else None
@@ -223,3 +243,18 @@ def _paged_row_stats_cuda(q, k_pools, v_pool, table, kv_valid, *, scale):
 
 
 paged_row_stats_lanes.launches = 0
+
+
+def paged_row_stats(q: torch.Tensor, k_pools, v_pool: torch.Tensor,
+                    table: torch.Tensor, kv_valid, *, scale: float,
+                    block_size: int, chunk_slots: int = 0):
+    """Single-lane K5 (``repro/kernels/paged_decode.py:267``): q (hkv, r,
+    d), table (n_slots,) int32, kv_valid a scalar. Adds the lane axis,
+    launches ``paged_row_stats_lanes`` with one lane (its kernel on CUDA
+    tensors, its plain version on CPU ones) and returns fp32 (m, l, acc) of
+    shapes (hkv, r, 1), (hkv, r, 1), (hkv, r, dv)."""
+    kv = torch.as_tensor(kv_valid, dtype=torch.int32, device=q.device).reshape(1)
+    m, l, acc = paged_row_stats_lanes(
+        q[None], k_pools, v_pool, table.to(torch.int32)[None], kv, scale=scale,
+        block_size=block_size, chunk_slots=chunk_slots)
+    return m[0], l[0], acc[0]

@@ -8,8 +8,13 @@ Both take the segment-causal masks and the dynamic bounds of the
 reference (``repro/kernels/ss_attention.py``). For a CUDA tensor the
 wrapper launches the hand-written kernel (``csrc/landmark_summary.cu``,
 ``csrc/query_side.cu``) or raises; for a CPU tensor it runs the plain
-version beside it. The TPU kernels' tiling knobs (``block_n``, ``block_c``,
-``interpret``) have no counterpart: the CUDA kernels tile for themselves.
+version beside it. The bf16 kernels tile by their own plans
+(``chunk_plan``, ``query_tile_plan``) unless the caller passes a tiling
+(``chunk_keys``, ``run_rows``: a dispatch plan's ``block_n``,
+``kernels/dispatch.py``); one they cannot take raises ``ValueError``
+before any launch. The fp32 kernels do not tile keys or query runs and
+the plain versions ignore every tiling. The reference's ``block_c`` and
+``interpret`` have no counterpart.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
+from repro_torch.kernels.dispatch import current_tiling
 
 _MAX_C = 64    # landmark columns query_side's kernel keeps resident
 # The bf16 tensor-core kernels of K1 and K3 (csrc/mma.cuh): 64 landmark rows
@@ -83,20 +89,31 @@ class ChunkPlan:
         return self.b * self.chunks * self.c * per_row if self.chunks > 1 else 0
 
 
+def check_multiple(name: str, what: str, value: int, quantum: int) -> None:
+    """Raise ValueError unless ``value`` is a positive multiple of
+    ``quantum`` (a tiling a kernel takes)."""
+    if value <= 0 or value % quantum:
+        raise ValueError(f"{name}: {what}={value} must be a positive multiple of "
+                         f"{quantum}")
+
+
 def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
-               kv_end: Optional[int] = None) -> ChunkPlan:
+               kv_end: Optional[int] = None, chunk_keys: int = 0) -> ChunkPlan:
     """The chunk plan of K1 / K3 for b batch-heads, c rows and n keys under
     ``seg`` (segment-causal, 0 = none) and ``kv_end``: n_end = the keys any
     row may attend; enough chunks per (head, row tile) to give about
-    TARGET_CTAS CTAs, at most one per 64-key tile."""
+    TARGET_CTAS CTAs, at most one per 64-key tile. ``chunk_keys`` > 0
+    overrides the chunk size (a whole number of KEY_TILE keys)."""
     n_end = n if kv_end is None else min(int(kv_end), n)
     if seg:
         n_end = min(n_end, c * seg)
     n_end = max(n_end, 0)
-    tiles = -(-n_end // KEY_TILE)
-    want = -(-TARGET_CTAS // max(1, b * -(-c // ROW_TILE)))
-    per = max(1, -(-tiles // max(1, min(tiles, want))))
-    chunk_keys = per * KEY_TILE
+    if chunk_keys:
+        check_multiple("chunk_plan", "chunk_keys", chunk_keys, KEY_TILE)
+    else:
+        tiles = -(-n_end // KEY_TILE)
+        want = -(-TARGET_CTAS // max(1, b * -(-c // ROW_TILE)))
+        chunk_keys = max(1, -(-tiles // max(1, min(tiles, want)))) * KEY_TILE
     return ChunkPlan(b=b, c=c, n_end=n_end, seg=seg, chunk_keys=chunk_keys,
                      chunks=-(-n_end // chunk_keys))
 
@@ -126,15 +143,19 @@ class QueryTilePlan:
 
 
 def query_tile_plan(b: int, n: int, *, step_rows: int = QUERY_TILE,
-                    target_ctas: Optional[int] = None) -> QueryTilePlan:
+                    target_ctas: Optional[int] = None,
+                    run_rows: int = 0) -> QueryTilePlan:
     """The query-tile plan for b batch-heads of n query rows: enough runs per
     head for about ``target_ctas`` CTAs (default TARGET_CTAS), at most one
-    per step of ``step_rows`` rows."""
-    target = TARGET_CTAS if target_ctas is None else target_ctas
-    steps = -(-n // step_rows)
-    want = -(-target // max(1, b))
-    per = max(1, -(-steps // max(1, min(steps, want))))
-    run_rows = per * step_rows
+    per step of ``step_rows`` rows. ``run_rows`` > 0 overrides the run
+    length (a whole number of steps)."""
+    if run_rows:
+        check_multiple("query_tile_plan", "run_rows", run_rows, step_rows)
+    else:
+        target = TARGET_CTAS if target_ctas is None else target_ctas
+        steps = -(-n // step_rows)
+        want = -(-target // max(1, b))
+        run_rows = max(1, -(-steps // max(1, min(steps, want)))) * step_rows
     return QueryTilePlan(b=b, n=n, step_rows=step_rows, run_rows=run_rows,
                          runs=-(-n // run_rows))
 
@@ -178,14 +199,16 @@ def b_side_mask(c: int, n: int, *, seg: int = 0, kv_offset: int = 0,
 
 def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
                            kv_offset: int = 0, kv_end: Optional[int] = None,
-                           return_stats: bool = False):
+                           return_stats: bool = False, chunk_keys: int = 0):
     """Plain version of K1, mirroring ``repro/kernels/ss_attention.py:195``
     ``landmark_summary`` (masks of ``_b_side_mask`` :62): key j has global
     position ``kv_offset + j`` and is valid iff it is < ``kv_end`` (default
     ``kv_offset + n``) and, with ``seg``, < (row + 1) * seg. One softmax
     over all keys instead of the kernel's stream; same masks, same -1e30
     anchor and 1e-30 floor. Returns ``out`` in v's dtype, plus fp32 (m, l)
-    of shape (b, c, 1) with ``return_stats``."""
+    of shape (b, c, 1) with ``return_stats``. ``chunk_keys`` (the kernel's
+    tiling) is taken and ignored, so this version stands in for
+    ``_landmark_summary_cuda`` with the same arguments."""
     mask = b_side_mask(q_l.shape[1], k.shape[1], seg=seg, kv_offset=kv_offset,
                        kv_end=kv_end, device=k.device)
     s = torch.einsum("bcd,bnd->bcn", q_l.float(), k.float()) * scale
@@ -201,15 +224,17 @@ def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
 def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, causal: bool = False,
                      return_stats: bool = False, kv_valid=None,
-                     seq_len_k: int = 0):
+                     seq_len_k: int = 0, chunk_keys: int = 0):
     """BV = softmax(Q~ K^T * scale) @ V. q_l (b, c, d), k (b, n, d),
     v (b, n, dv) -> (b, c, dv) in v's dtype [+ fp32 m, l (b, c, 1)].
 
     ``causal`` applies the segment-causal B-mask with seg =
     ceil(seq_len_k / c) (seq_len_k defaults to n). ``kv_valid`` (host int)
     masks key j unless j < kv_valid (bucketed prefill passes the prompt
-    length). The reference's ``kv_offset`` serves only its sharded driver,
-    which is not ported; the plain version keeps it."""
+    length). ``chunk_keys`` > 0 sets the bf16 kernel's key chunk (whole
+    KEY_TILEs; 0 = ``chunk_plan``'s). The reference's ``kv_offset`` serves
+    only its sharded driver, which is not ported; the plain version keeps
+    it."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     if k.shape != (b, n, d) or v.shape[:2] != (b, n):
@@ -221,10 +246,12 @@ def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
                                       kv_end=end, return_stats=return_stats)
     return _landmark_summary_cuda(q_l, k, v, scale=scale, seg=seg,
-                                  kv_end=end, return_stats=return_stats)
+                                  kv_end=end, return_stats=return_stats,
+                                  chunk_keys=chunk_keys or current_tiling().block_n)
 
 
-def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
+def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
+                           chunk_keys=0):
     """Check the operands and launch csrc/landmark_summary.cu (same
     arguments as ``landmark_summary_plain``): the tensor-core kernel for
     bf16 q_l, k, v, with the workspace of its chunk plan allocated here,
@@ -238,6 +265,8 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
         raise ValueError("landmark_summary: bf16 queries against fp32 keys "
                          "are not built")
     check_head_dims("landmark_summary", d, dv)
+    if chunk_keys:
+        check_multiple("landmark_summary", "chunk_keys", chunk_keys, KEY_TILE)
     out = torch.empty((b, c, dv), dtype=v.dtype, device=v.device)
     m = l = None
     if return_stats:
@@ -245,12 +274,12 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
         # op's outputs may not alias each other
         m = torch.empty((b, c, 1), dtype=torch.float32, device=v.device)
         l = torch.empty_like(m)
-    ws, chunk_keys = None, 0
+    ws, tile = None, 0
     if tensor_core_pair(q_l, k):
         check_tensor_core_shapes("landmark_summary", {"q_l": q_l, "k": k, "v": v},
                                  {"d": d, "dv": dv})
-        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end)
-        chunk_keys = plan.chunk_keys
+        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys)
+        tile = plan.chunk_keys
         if plan.chunks > 1:
             ws = torch.empty(plan.workspace_floats(dv + 2), dtype=torch.float32,
                              device=v.device)
@@ -259,7 +288,7 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats):
                out.data_ptr(), m.data_ptr() if m is not None else None,
                l.data_ptr() if l is not None else None,
                ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, chunk_keys, DTYPE_CODES[str(q_l.dtype)],
+               float(scale), kv_end, seg, tile, DTYPE_CODES[str(q_l.dtype)],
                DTYPE_CODES[str(k.dtype)], _stream_handle(v))
         landmark_summary.launches += 1
     return (out, m, l) if return_stats else out
@@ -291,10 +320,10 @@ def query_side_probs(q, k_l, *, scale: float, seg: int = 0,
 
 
 def query_side_plain(q, k_l, m_mat, v, delta, *, scale: float, seg: int = 0,
-                     pos_offset: int = 0):
+                     pos_offset: int = 0, run_rows: int = 0):
     """Plain version of K2, mirroring ``repro/kernels/ss_attention.py:365``
     ``query_side``: ``query_side_probs`` then ``P @ M + delta * V`` in fp32,
-    output in q's dtype."""
+    output in q's dtype (``run_rows``, the kernel's tiling, ignored)."""
     p = query_side_probs(q, k_l, scale=scale, seg=seg, pos_offset=pos_offset)
     out = torch.einsum("bnc,bcd->bnd", p, m_mat.float())
     out = out + delta.float() * v.float()
@@ -303,12 +332,15 @@ def query_side_plain(q, k_l, m_mat, v, delta, *, scale: float, seg: int = 0,
 
 def query_side(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
                v: torch.Tensor, delta: torch.Tensor, *, scale: float,
-               causal: bool = False, seq_len_k: int = 0, q_offset=None):
+               causal: bool = False, seq_len_k: int = 0, q_offset=None,
+               run_rows: int = 0):
     """out = softmax(Q K~^T * scale) @ M + delta * V. q (b, n, d),
     k_l (b, c, d), m_mat (b, c, dv), v (b, n, dv), delta (b, 1, 1) fp32 ->
     (b, n, dv) in q's dtype. ``causal`` applies the segment-causal F-mask
     with seg = ceil(seq_len_k / c) and the queries at the tail of the
-    seq_len_k context, or at ``q_offset`` when given."""
+    seq_len_k context, or at ``q_offset`` when given. ``run_rows`` > 0 sets
+    the bf16 kernel's query run (whole QUERY_TILEs; 0 = the serving tiling
+    in effect, ``dispatch.use_tiling``, else ``query_tile_plan``'s)."""
     b, n, d = q.shape
     c, dv = k_l.shape[1], v.shape[2]
     if (k_l.shape != (b, c, d) or m_mat.shape != (b, c, dv)
@@ -321,10 +353,12 @@ def query_side(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
         return query_side_plain(q, k_l, m_mat, v, delta, scale=scale, seg=seg,
                                 pos_offset=pos_offset)
     return _query_side_cuda(q, k_l, m_mat, v, delta, scale=scale, seg=seg,
-                            pos_offset=pos_offset)
+                            pos_offset=pos_offset,
+                            run_rows=run_rows or current_tiling().block_n)
 
 
-def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
+def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset,
+                     run_rows=0):
     """Check the operands and launch csrc/query_side.cu (same arguments as
     ``query_side_plain``): the tensor-core kernel for bf16 operands, on the
     runs of its query-tile plan, else the fp32 kernel."""
@@ -341,16 +375,18 @@ def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset):
     check_head_dims("query_side", d, dv)
     if c > _MAX_C:
         raise ValueError(f"query_side: c={c} exceeds the kernel's {_MAX_C}")
-    run_rows = 0
+    if run_rows:
+        check_multiple("query_side", "run_rows", run_rows, QUERY_TILE)
+    tile = 0
     if q.dtype == torch.bfloat16:
         check_tensor_core_shapes("query_side", {"q": q, "k_l": k_l, "m_mat": m_mat,
                                                 "v": v}, {"d": d, "dv": dv})
-        run_rows = query_tile_plan(b, n).run_rows
+        tile = query_tile_plan(b, n, run_rows=run_rows).run_rows
     out = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
     if b and n:
         launch("query_side", q.data_ptr(), k_l.data_ptr(), m_mat.data_ptr(),
                v.data_ptr(), delta.data_ptr(), out.data_ptr(), b, n, c, d, dv,
-               float(scale), seg, pos_offset, run_rows, DTYPE_CODES[str(q.dtype)],
+               float(scale), seg, pos_offset, tile, DTYPE_CODES[str(q.dtype)],
                _stream_handle(q))
         query_side.launches += 1
     return out

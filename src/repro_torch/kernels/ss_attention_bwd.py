@@ -22,8 +22,9 @@ import torch
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
-from repro_torch.kernels.ss_attention import (_MAX_C, ROW_TILE,
+from repro_torch.kernels.ss_attention import (_MAX_C, KEY_TILE, ROW_TILE,
                                               _stream_handle, b_side_mask,
+                                              check_multiple,
                                               check_tensor_core_shapes, chunk_plan,
                                               query_side_probs, query_tile_plan,
                                               tensor_core_pair)
@@ -39,12 +40,14 @@ QS_BWD_STEP_ROWS = 128
 QS_BWD_TARGET_CTAS = 132
 
 
-def query_side_bwd_plan(b: int, n: int):
+def query_side_bwd_plan(b: int, n: int, run_rows: int = 0):
     """K4's query-tile plan, for both dtypes (the fp32 kernel walks the same
     runs): the most runs per head that keep b x runs within
-    QS_BWD_TARGET_CTAS, at least one."""
+    QS_BWD_TARGET_CTAS, at least one; ``run_rows`` > 0 overrides the run
+    length (whole QS_BWD_STEP_ROWS)."""
     return query_tile_plan(b, n, step_rows=QS_BWD_STEP_ROWS,
-                           target_ctas=max(1, QS_BWD_TARGET_CTAS // max(1, b)) * b)
+                           target_ctas=max(1, QS_BWD_TARGET_CTAS // max(1, b)) * b,
+                           run_rows=run_rows)
 
 
 # --------------------------------------------------------------------------
@@ -52,13 +55,13 @@ def query_side_bwd_plan(b: int, n: int):
 # --------------------------------------------------------------------------
 def landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, *, scale: float,
                                seg: int = 0, kv_offset: int = 0,
-                               kv_end: Optional[int] = None):
+                               kv_end: Optional[int] = None, chunk_keys: int = 0):
     """Plain version of K3, mirroring ``ss_attention_bwd.py:49``
     ``_landmark_summary_bwd_kernel`` over all keys at once: the masks of
     ``b_side_mask``, p = exp(s - m) / max(l, 1e-30) zeroed where masked (a
     row with no valid key has l = 0 and keeps p = 0). ``dcoef`` is
     D = rowsum(g o BV), fp32 (b, c, 1). Returns (dq_l, dk, dv) in q_l's,
-    k's and v's dtypes."""
+    k's and v's dtypes (``chunk_keys``, the kernel's tiling, ignored)."""
     mask = b_side_mask(q_l.shape[1], k.shape[1], seg=seg, kv_offset=kv_offset,
                        kv_end=kv_end, device=k.device)
     qf, kf, vf, gf = q_l.float(), k.float(), v.float(), g.float()
@@ -76,11 +79,12 @@ def landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, *, scale: float,
 def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bv: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                          g: torch.Tensor, *, scale: float, causal: bool = False,
-                         kv_valid=None, seq_len_k: int = 0):
+                         kv_valid=None, seq_len_k: int = 0, chunk_keys: int = 0):
     """Backward of ``landmark_summary``: (dq_l, dk, dv) from K1's inputs, its
     output ``bv`` and fp32 stats ``m``, ``l`` (b, c, 1), and the cotangent
     ``g`` of bv (made contiguous here: autograd may hand it expanded). Same
-    ``causal`` / ``kv_valid`` / ``seq_len_k`` as the forward call."""
+    ``causal`` / ``kv_valid`` / ``seq_len_k`` as the forward call;
+    ``chunk_keys`` > 0 sets the bf16 kernel's key chunk (whole KEY_TILEs)."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     if (k.shape != (b, n, d) or v.shape[:2] != (b, n)
@@ -96,10 +100,11 @@ def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale,
                                           seg=seg, kv_end=end)
     return _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, scale=scale,
-                                      seg=seg, kv_end=end)
+                                      seg=seg, kv_end=end, chunk_keys=chunk_keys)
 
 
-def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end):
+def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end,
+                               chunk_keys=0):
     """Check the operands and launch csrc/landmark_summary_bwd.cu (same
     arguments as ``landmark_summary_bwd_plain``): the tensor-core pass for
     bf16 q_l, k, v, g (c <= 64), with the dQ~ workspace of its chunk plan
@@ -118,18 +123,20 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end)
         raise ValueError("landmark_summary_bwd: bf16 queries against fp32 keys "
                          "are not built")
     check_head_dims("landmark_summary_bwd", d, dv)
+    if chunk_keys:
+        check_multiple("landmark_summary_bwd", "chunk_keys", chunk_keys, KEY_TILE)
     dq = torch.empty_like(q_l)
     dk = torch.empty_like(k)
     dv_out = torch.empty_like(v)
-    ws, chunk_keys = None, 0
+    ws, tile = None, 0
     if tensor_core_pair(q_l, k):
         if c > ROW_TILE:
             raise ValueError(f"landmark_summary_bwd: bf16 c={c} > {ROW_TILE}")
         check_tensor_core_shapes("landmark_summary_bwd",
                                  {"q_l": q_l, "k": k, "v": v, "g": g},
                                  {"d": d, "dv": dv})
-        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end)
-        chunk_keys = plan.chunk_keys
+        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys)
+        tile = plan.chunk_keys
         if plan.chunks > 1:
             ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
                              device=k.device)
@@ -138,7 +145,7 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end)
                g.data_ptr(), m.data_ptr(), l.data_ptr(), dcoef.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(),
                ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, chunk_keys, DTYPE_CODES[str(q_l.dtype)],
+               float(scale), kv_end, seg, tile, DTYPE_CODES[str(q_l.dtype)],
                DTYPE_CODES[str(k.dtype)], _stream_handle(k))
         landmark_summary_bwd.launches += 1
     return dq, dk, dv_out
@@ -151,11 +158,12 @@ landmark_summary_bwd.launches = 0
 # K4: query side backward.
 # --------------------------------------------------------------------------
 def query_side_bwd_plain(q, k_l, m_mat, v, delta, g, *, scale: float,
-                         seg: int = 0, pos_offset: int = 0):
+                         seg: int = 0, pos_offset: int = 0, run_rows: int = 0):
     """Plain version of K4, mirroring ``ss_attention_bwd.py:206``
     ``_query_side_bwd_kernel`` over all rows at once, with K2's
-    ``query_side_probs``. Returns (dq, dk_l, dm, dv, ddelta): dq, dv in
-    q's / v's dtype, dk_l, dm in k_l's / m_mat's, ddelta fp32 (b, 1, 1)."""
+    ``query_side_probs`` (``run_rows``, the kernel's tiling, ignored).
+    Returns (dq, dk_l, dm, dv, ddelta): dq, dv in q's / v's dtype, dk_l, dm
+    in k_l's / m_mat's, ddelta fp32 (b, 1, 1)."""
     p = query_side_probs(q, k_l, scale=scale, seg=seg, pos_offset=pos_offset)
     qf, gf = q.float(), g.float()
     dp = torch.einsum("bne,bce->bnc", gf, m_mat.float())
@@ -172,10 +180,12 @@ def query_side_bwd_plain(q, k_l, m_mat, v, delta, g, *, scale: float,
 def query_side_bwd(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
                    v: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, *,
                    scale: float, causal: bool = False, seq_len_k: int = 0,
-                   q_offset=None):
+                   q_offset=None, run_rows: int = 0):
     """Backward of ``query_side``: (dq, dk_l, dm, dv, ddelta) from K2's
     inputs and the cotangent ``g`` of its output (made contiguous here).
-    Same ``causal`` / ``seq_len_k`` / ``q_offset`` as the forward call."""
+    Same ``causal`` / ``seq_len_k`` / ``q_offset`` as the forward call;
+    ``run_rows`` > 0 sets the query run (whole QS_BWD_STEP_ROWS; 0 =
+    ``query_side_bwd_plan``'s)."""
     b, n, d = q.shape
     c, dv = k_l.shape[1], v.shape[2]
     if (k_l.shape != (b, c, d) or m_mat.shape != (b, c, dv)
@@ -190,10 +200,11 @@ def query_side_bwd(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
         return query_side_bwd_plain(q, k_l, m_mat, v, delta, g, scale=scale,
                                     seg=seg, pos_offset=pos_offset)
     return _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, scale=scale,
-                                seg=seg, pos_offset=pos_offset)
+                                seg=seg, pos_offset=pos_offset, run_rows=run_rows)
 
 
-def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset):
+def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset,
+                         run_rows=0):
     """Check the operands and launch csrc/query_side_bwd.cu (same arguments
     as ``query_side_bwd_plain``): the tensor-core kernel for bf16 operands,
     else the fp32 kernel, on the runs of ``query_side_bwd_plan`` with the
@@ -220,7 +231,7 @@ def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset):
     dkl = torch.empty_like(k_l)
     dm = torch.empty_like(m_mat)
     dd = torch.empty((b, 1, 1), dtype=torch.float32, device=q.device)
-    plan = query_side_bwd_plan(b, n)
+    plan = query_side_bwd_plan(b, n, run_rows=run_rows)
     parts = b * plan.runs
     ws = torch.empty(plan.workspace_floats(c, d, dv), dtype=torch.float32,
                      device=q.device)

@@ -1,19 +1,27 @@
 """Training launcher: the port's single-device Trainer, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --layers 4 --seq 4096 \\
-        --batch 2 --steps 5
+        --batch 2 --steps 5 --attention spectral_shift_fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper-bert \\
+        --attention spectral_shift_fused --autotune
 
-trains Qwen2-7B at full width (``--layers`` cuts depth, never width) from
-random fp32 master weights (seed 0) on ``SyntheticLM`` batches, with
-``attention_impl="spectral_shift_fused"`` (K1/K2 forward, K3/K4 backward)
-and ``remat="full"``, and prints the first and last loss, the mean step
-time after the first step, tokens/s and the peak device memory
-(``--profile``: also the device's busy share of the steps after the first
-and its costliest operations, by ``torch.profiler``).
+trains ``--arch`` (qwen2-7b by default, or paper-bert, the paper's own
+setting) at full width (``--layers`` cuts depth, never width) from random
+fp32 master weights (seed 0) on ``SyntheticLM`` batches, with the
+config's own ``attention_impl`` or ``--attention`` (``spectral_shift_fused``:
+K1/K2 forward, K3/K4 backward) and ``remat="full"``, at learning rate
+``--lr``, and prints the first and last loss, the mean step time after the
+first step, tokens/s and the peak device memory (``--profile``: also the
+device's busy share of the steps after the first and its costliest
+operations, by ``torch.profiler``). ``--autotune`` measures the kernels'
+tiling at the train shape before the first step (``Trainer.
+_warm_attention_plans``) and keeps the winner in the autotune cache
+(``--autotune-cache PATH``, else ``REPRO_AUTOTUNE_CACHE`` or
+``~/.cache/repro/ss_autotune.json``), which later runs read instead.
 ``--reduced --device cpu`` runs the reduced test config on the CPU, where
 the kernels' plain versions run instead. The shape is the reference's
-``train_4k`` preset, with ``--seq`` and ``--batch`` overriding its sequence
-length and global batch. Checkpoints go to ``--ckpt-dir`` (every
+``--shape`` preset (``train_4k``), with ``--seq`` and ``--batch``
+overriding its sequence length and global batch. Checkpoints go to ``--ckpt-dir`` (every
 ``TrainConfig.checkpoint_every`` steps and once at the end) only when it
 is given. ``--metrics-out PATH`` writes the per-step metrics history
 (loss, ce, grad norm, lr, step time) as JSON, as the reference's
@@ -30,12 +38,15 @@ import tempfile
 import torch
 
 from repro_torch.configs.base import SHAPE_PRESETS, ShapeConfig, TrainConfig, reduced
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.train.trainer import Trainer
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_IDS + ["paper-bert"])
+    ap.add_argument("--shape", default="train_4k",
+                    choices=[n for n, p in SHAPE_PRESETS.items() if p.kind == "train"])
     ap.add_argument("--reduced", action="store_true",
                     help="shrink to smoke scale (CPU-runnable)")
     ap.add_argument("--layers", type=int, default=0,
@@ -43,6 +54,14 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0, help="override global batch")
     ap.add_argument("--seq", type=int, default=0, help="override seq len")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--attention", default=None,
+                    help="override training attention impl")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure the attention kernels' tiling at the train shape "
+                         "(ModelConfig.autotune)")
+    ap.add_argument("--autotune-cache", default="",
+                    help="autotune cache file (ModelConfig.autotune_cache)")
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory (default: none is written)")
     ap.add_argument("--device", default="cuda")
@@ -57,19 +76,22 @@ def main(argv=None):
         ap.error("--profile needs --steps >= 2 (the first step is not profiled)")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    cfg = dataclasses.replace(cfg, attention_impl="spectral_shift_fused")
+    if args.attention:
+        cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    preset = SHAPE_PRESETS["train_4k"]
+    cfg = dataclasses.replace(cfg, autotune=args.autotune,
+                              autotune_cache=args.autotune_cache)
+    preset = SHAPE_PRESETS[args.shape]
     shape = ShapeConfig(name=preset.name, seq_len=args.seq or preset.seq_len,
                         global_batch=args.batch or preset.global_batch, kind="train")
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as scratch:
         tcfg = TrainConfig(
-            total_steps=max(args.steps, 10), warmup_steps=max(args.steps // 10, 1),
+            learning_rate=args.lr, total_steps=max(args.steps, 10), warmup_steps=max(args.steps // 10, 1),
             checkpoint_dir=args.ckpt_dir or scratch,
             checkpoint_every=TrainConfig.checkpoint_every if args.ckpt_dir else 0)
         trainer = Trainer(cfg, tcfg, shape, device=args.device)
@@ -100,7 +122,11 @@ def main(argv=None):
     tokens = shape.global_batch * shape.seq_len
     peak = (f"{torch.cuda.max_memory_allocated(trainer.device) / 2**30:.2f} GiB"
             if cuda else "n/a on cpu")
-    print(f"[train] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+    plan = trainer.plan
+    if plan is not None:
+        print(f"[train] attention plan: {plan.impl} block_n={plan.block_n} ({plan.source})")
+    print(f"[train] {cfg.name} {cfg.attention_impl} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} "
           f"seq={shape.seq_len} batch={shape.global_batch} on {trainer.device}: "
           f"steps={len(history)} loss {first['loss']:.4f} -> {last['loss']:.4f}, "
           f"first step {first['step_time_s']:.3f}s, mean step after it "

@@ -9,8 +9,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.attention import SSConfig, full_attention
-from repro_torch.kernels.ops import ss_attention_fused
+from repro_torch.core.attention import (SSConfig, chunked_attention, full_attention,
+                                        spectral_shift_attention)
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.params import ParamSpec
 
@@ -28,14 +28,30 @@ def ss_config_from(cfg: ModelConfig, causal: bool = False) -> SSConfig:
 
 def _core_attention(cfg: ModelConfig, impl: str, q, k, v, *, causal: bool):
     """q (B,H,S,Dh) vs k/v (B,H,S,Dh) -> (B,H,S,Dh) (``attention.py:46``).
-    ``spectral_shift_fused`` runs ``ss_attention_fused``: the kernels for
-    CUDA tensors, their plain versions for CPU tensors. The reference's
-    dispatch registry and its other impls are not ported."""
+    ``spectral_shift_fused`` routes through the dispatch registry
+    (``kernels/dispatch.py``) with ``cfg.attention_backend`` and
+    ``cfg.autotune``: the kernels for CUDA tensors (their plain versions
+    for CPU tensors) at the plan's tiling, or the plain-torch route under
+    a "jnp" plan or backend. ``spectral_shift`` / ``nystrom`` are that
+    plain route; ``chunked`` is exact attention over key blocks."""
     if impl == "full":
         return full_attention(q, k, v, causal=causal)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal)
     if impl == "spectral_shift_fused":
-        return ss_attention_fused(q, k, v, ss_config_from(cfg, causal=causal))
-    raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
+        from repro_torch.kernels.dispatch import dispatch_ss_attention
+
+        return dispatch_ss_attention(q, k, v, ss_config_from(cfg, causal=causal),
+                                     backend=cfg.attention_backend,
+                                     autotune_enabled=cfg.autotune)
+    if impl in ("spectral_shift", "nystrom"):
+        ss = ss_config_from(cfg, causal=causal)
+        if impl == "nystrom":
+            ss = SSConfig(num_landmarks=ss.num_landmarks, pinv_iters=ss.pinv_iters,
+                          method=ss.method, use_shift=False,
+                          include_shift_identity=False, causal=causal)
+        return spectral_shift_attention(q, k, v, ss)
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 def _broadcast_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:

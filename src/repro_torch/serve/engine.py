@@ -104,7 +104,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.kernels import HEAD_DIM_LIMITS, SERVE_KERNELS, kernels_past
+from repro_torch.kernels import HEAD_DIM_LIMITS, SERVE_KERNELS, dispatch, kernels_past
 from repro_torch.models.model import working_params
 from repro_torch.serve.chaos import ChaosInjector, EngineStalled, FaultPlan
 from repro_torch.serve.decode import decode_step
@@ -332,8 +332,9 @@ class ServeEngine:
             and cfg.decode_streaming == "recompute")
         self.decode_impl = ("paged" if serve.decode_impl == "paged" and paged_ok
                             else "gather")
-        self._step = self._make_step(cfg, "decode_tick")
         self.batched = serve.batched_prefill
+        self._warm_plans(cfg, serve)
+        self._step = self._make_step(cfg, "decode_tick")
         self._prefill = self._account(
             lambda tokens, n: batched_prefill(self.params, cfg, tokens, n,
                                               seq_max=self.max_seq,
@@ -376,6 +377,49 @@ class ServeEngine:
         self._numerics = (NumericsProbe(tel_reg)
                           if tel_reg is not None and serve.numerics_probe_every > 0
                           else NullNumericsProbe())
+
+    def _warm_plans(self, cfg: ModelConfig, serve: ServeConfig) -> None:
+        """Warm the dispatch registry for the serving shapes
+        (``engine.py:399-441``): the decode key (one step against the
+        max_seq horizon; with ``autotune=True`` an unseen key runs the
+        measured sweep here, once, at this deployment's block size, lanes
+        and heads: K5's tilings, and on the CPU the gather route too) and,
+        for ss_fused prefill, the full-sequence key whose plan tiles K1 /
+        K2. Resolution loads the disk cache, ``autotune_cache`` moving it.
+        The decode plan's ``block_table`` is the paged tick's view quantum;
+        its ``block_n`` (K5's chunk, a paged plan's only) and the prefill
+        plan's ``block_n`` (K1 / K2's) reach every launch of a tick through
+        ``dispatch.use_tiling`` (0 = the kernels' own plans, what the
+        heuristic gives)."""
+        if self.telemetry.enabled:
+            dispatch.set_metrics(self.telemetry.metrics)
+        if cfg.autotune_cache:
+            dispatch.set_cache_path(cfg.autotune_cache)
+            dispatch.load_cache()
+        d = cfg.resolved_head_dim
+        hkv = 1 if cfg.mla else cfg.num_kv_heads
+
+        def tune_decode(key):
+            return dispatch.autotune_decode(
+                key.n, key.c, key.d, dtype=key.dtype, backend=key.backend,
+                block_size=serve.block_size, lanes=self.max_lanes, hkv=hkv,
+                rows=cfg.num_heads // hkv)
+
+        dev = self.device.type
+        self.decode_plan = dispatch.get_plan(dispatch.make_key(
+            self.max_seq, cfg.num_landmarks, d, cfg.compute_dtype, True, backend=dev,
+            family="decode"), autotune_enabled=cfg.autotune, tune_fn=tune_decode)
+        paged = self.decode_impl == "paged"
+        self._view_quantum = self.decode_plan.block_table if paged else 0
+        self._chunk_slots = (self.decode_plan.block_n
+                             if paged and self.decode_plan.impl == "paged" else 0)
+        self._prefill_block = 0
+        self.prefill_plan = None
+        if self.batched and serve.prefill_impl == "ss_fused":
+            self.prefill_plan = dispatch.get_plan(dispatch.make_key(
+                self.max_seq, cfg.num_landmarks, d, cfg.compute_dtype, False,
+                backend=dev))
+            self._prefill_block = self.prefill_plan.block_n
 
     def _account(self, fn, program: str, static=()):
         """``fn`` under program accounting when telemetry is on. ``static``:
@@ -447,6 +491,10 @@ class ServeEngine:
             chunk_ticks=self.chunk_ticks, chunk_tick_s=self.chunk_tick_s,
             plain_ticks=self.plain_ticks, plain_tick_s=self.plain_tick_s,
             mode=f"{'paged' if self.kv.paged else 'dense'}+{prefill}-prefill",
+            decode_plan=(f"{self.decode_plan.impl}/b{self.decode_plan.block_n}"
+                         + (f"/t{self.decode_plan.block_table}"
+                            if self.decode_plan.block_table else "")
+                         + f"/{self.decode_plan.source}"),
             decode_impl=self.decode_impl,
             decode_streaming=self.cfg.decode_streaming,
             quarantines=int(self._quarantines.value), demotions=int(self._demotions.value),
@@ -716,7 +764,12 @@ class ServeEngine:
                 tokens[i, 0] = self.lanes[i].next_token
                 positions[i] = self.lanes[i].pos
                 mask[i] = True
-            args = [tables, torch.as_tensor(tokens, device=dev),
+            table = tables
+            if self.decode_impl == "paged" and self._view_quantum:
+                # a measured view quantum: the table cut to a multiple of it
+                table = tables[:, :self.kv.view_blocks_needed(
+                    positions, group, self._view_quantum)].contiguous()
+            args = [table, torch.as_tensor(tokens, device=dev),
                     torch.as_tensor(positions, device=dev),
                     torch.as_tensor(mask, device=dev)]
             if self.decode_impl == "gather":
@@ -985,7 +1038,8 @@ class ServeEngine:
 
     # -- one engine tick -------------------------------------------------------
     def tick(self) -> None:
-        with self.telemetry.span("serve_tick"):
+        with self.telemetry.span("serve_tick"), dispatch.use_tiling(self._prefill_block,
+                                                                   self._chunk_slots):
             self._progress = False
             if self._chunked:
                 self._tick_chunked()

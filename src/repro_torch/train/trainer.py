@@ -6,18 +6,25 @@
 Per step: build the batch for the step counter, place it on the device,
 run the train step (K1/K2 forward, K3/K4 backward on the card), record
 the metrics and ``step_time_s``; every ``checkpoint_every`` steps a
-threaded checkpoint is published atomically. The reference's mesh,
-shardings, elastic re-planning, heartbeats, failure injection and
-autotune warm-up are not ported; settings that need them raise.
+threaded checkpoint is published atomically. Before the first step
+``_warm_attention_plans`` resolves the attention plan of the train shape
+(``repro/train/trainer.py:177``): with ``autotune=True`` under
+``spectral_shift_fused`` and backend "auto", from memory or the cache
+(``autotune_cache`` moves it) or else by a measured sweep at the train
+shape. The reference's mesh, shardings, elastic re-planning, heartbeats,
+failure injection and ``grad_compression`` are not ported; settings that
+need them raise. ``opt_state_dtype`` is accepted and, as in the
+reference's trainer, not read (only its dry-run reads it).
 
 ``telemetry=`` takes a caller-owned ``Telemetry`` (``repro/train/
 trainer.py:70-92``): each step runs in a ``step_span("train_step",
 step)``, its wall time goes to ``train_step_seconds`` and the last
 step's loss, ce, grad norm and lr to the gauges ``train_loss``,
 ``train_ce``, ``train_grad_norm`` and ``train_lr``; the step program is
-under program accounting (``program_shapes_total{program="train_step"}``)
-and the run's configs are stamped into the provenance. Without one the
-no-op bundle stands in.
+under program accounting (``program_shapes_total{program="train_step"}``),
+the run's configs are stamped into the provenance, plan resolution counts
+into ``autotune_plan_resolutions_total`` and runs in a ``plan_resolution``
+span. Without one the no-op bundle stands in.
 
 Runs on CUDA unless the caller passes ``device="cpu"`` (the kernels' plain
 versions then run instead); asking for CUDA without a GPU raises.
@@ -33,6 +40,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticLM, to_device
+from repro_torch.kernels import dispatch
 from repro_torch.models.model import model_specs, torch_dtype
 from repro_torch.models.params import init_params, map_specs
 from repro_torch.optim.adamw import AdamWState, adamw_init
@@ -50,10 +58,9 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
         "family != 'dense'": cfg.family != "dense",
         "mla": cfg.mla,
         "moe": cfg.moe,
-        "attention_impl not in ('full', 'spectral_shift_fused')":
-            cfg.attention_impl not in ("full", "spectral_shift_fused"),
+        f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in (
+            "full", "chunked", "spectral_shift", "nystrom", "spectral_shift_fused"),
         "grad_compression": tcfg.grad_compression is not None,
-        "opt_state_dtype != 'float32'": tcfg.opt_state_dtype != "float32",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -74,6 +81,7 @@ class Trainer:
             tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps))
         if self.telemetry.enabled:
             r = self.telemetry.metrics
+            dispatch.set_metrics(r)
             self.telemetry.stamp_provenance(cfg, tcfg, device=self.device)
             accounting.set_metrics(r)
             self.step_fn = ProgramAccounting(r).wrap(self.step_fn, "train_step")
@@ -85,6 +93,37 @@ class Trainer:
         self.step = 0
         self.metrics_history: list[dict] = []
         self._init_or_restore()
+        self.plan = self._warm_attention_plans()
+
+    def _warm_attention_plans(self) -> Optional[dispatch.Plan]:
+        """Resolve the train shape's attention plan before the first step
+        (``trainer.py:177``): memory or the disk cache (``autotune_cache``
+        moves it), else a measured sweep at the train shape (batch x heads
+        batch-heads, compute dtype; K1-K4, forward and backward, on the
+        card), registered and saved. Only with
+        ``autotune=True`` under ``spectral_shift_fused`` and backend "auto"
+        (a forced backend never reads the registry). Returns the plan."""
+        cfg = self.cfg
+        if (not cfg.autotune or cfg.attention_impl != "spectral_shift_fused"
+                or cfg.attention_backend != "auto"):
+            return None
+        if cfg.autotune_cache:
+            dispatch.set_cache_path(cfg.autotune_cache)
+            dispatch.load_cache()
+        key = dispatch.make_key(self.shape.seq_len, cfg.num_landmarks,
+                                cfg.resolved_head_dim, cfg.compute_dtype,
+                                cfg.is_decoder_only, backend=self.device.type)
+        with self.telemetry.span("plan_resolution", n=key.n):
+            plan = dispatch.get_plan(key)
+            if plan.source == "heuristic":  # nothing measured for this shape
+                plan = dispatch.autotune(
+                    self.shape.seq_len, cfg.num_landmarks, cfg.resolved_head_dim,
+                    dtype=cfg.compute_dtype, causal=cfg.is_decoder_only,
+                    backend=key.backend, backward=True,
+                    batch=self.shape.global_batch * cfg.num_heads)
+        log.info("attention plan for n=%d (%s): impl=%s block_n=%d",
+                 self.shape.seq_len, plan.source, plan.impl, plan.block_n)
+        return plan
 
     def _init_or_restore(self) -> None:
         specs = model_specs(self.cfg)

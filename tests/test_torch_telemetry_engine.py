@@ -28,9 +28,10 @@ on the CPU.
   run under ``torch.profiler``.
 
 The reference's core metric families (``tests/test_telemetry.py:308``)
-include ``autotune_plan_resolutions_total``, which comes from
-``kernels/dispatch.py``; the port has no dispatch module yet (ROADMAP
-Queue 1 item 8), so its contract is that list without it.
+include ``autotune_plan_resolutions_total``, which the engine's plan
+warm-up counts through ``kernels/dispatch.py``; the port's contract is
+the same list (its values against the JAX engine's:
+``tests/test_torch_dispatch.py``).
 """
 from __future__ import annotations
 
@@ -71,8 +72,8 @@ CORE_FAMILIES = (
     "serve_ttft_ticks", "serve_latency_ticks", "serve_ttft_seconds",
     "serve_itl_seconds", "serve_admitted_total", "serve_tokens_total",
     "serve_ticks_total", "serve_rebases_total", "span_seconds",
-    "pool_utilization", "pool_fragmentation", "drift_rebase_residual",
-    "spectrum_mass_top1_ema",
+    "pool_utilization", "pool_fragmentation", "autotune_plan_resolutions_total",
+    "drift_rebase_residual", "spectrum_mass_top1_ema",
 )
 # counters and tick-valued histograms that must equal the JAX engine's
 # (wall-clock families excepted; the monitors' floats are held apart)

@@ -310,9 +310,11 @@ def test_core_attention_full_matches_jax_and_rejects_unported():
     logits, _ = model.model_forward(_port_params(jparams), cfg,
                                     pipeline.to_device({"tokens": tokens}, "cpu"))
     assert _rel_err(logits, jlogits) <= 1e-5
+    # every impl of the dense family is ported (tests/test_torch_dense_impls.py);
+    # what is left to reject is a name the reference rejects too
     q = torch.zeros(1, 4, 8, 32)
-    with pytest.raises(NotImplementedError):
-        attention._core_attention(cfg, "chunked", q, q, q, causal=True)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attention._core_attention(cfg, "linformer", q, q, q, causal=True)
 
 
 # --------------------------------------------------------------------------
@@ -443,8 +445,8 @@ def test_trainer_threaded_checkpoints_and_gc(tmp_path):
     assert all(np.isfinite(h["step_time_s"]) for h in trainer.metrics_history)
 
 
-@pytest.mark.parametrize("setting", [{"attention_impl": "nystrom"},
-                                     {"attention_impl": "chunked"},
+@pytest.mark.parametrize("setting", [{"mla": True},
+                                     {"attention_impl": "linformer"},
                                      {"grad_compression": "int8"}])
 def test_trainer_rejects_unported_settings(tmp_path, setting):
     _, cfg = _cfgs(1)
