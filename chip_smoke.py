@@ -48,7 +48,10 @@ result line):
    serving shape at 256 / 512, K5 at chunk_slots 4 / 8 / 16) in fp32 and
    bf16, K5' (the single-lane ``paged_row_stats``) on every lane, overrides
    the kernels cannot take refused before any launch; K1-K4 at paper-bert's
-   training shape (64 batch-heads, d = 64), timed;
+   training shape (64 batch-heads, d = 64), timed; K1-K4 at Hymba-1.5B's
+   training shape (50 batch-heads of d = 64) and K5 at its decode shape
+   (hkv 5, r 5, d = 64, bs 16, kv_valid 0 / 17 / 60 / 116, fp32 and bf16)
+   and at a 16k horizon (``hymba_k5_entries``), held and timed;
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -68,7 +71,13 @@ result line):
    keys (held in float64, printed in fp32 beside exact streaming's); then
    DeepSeek-V2-Lite at full width, 2 fp32 layers (absorbed MLA + MoE),
    kernel route against plain route: logits, and the streaming stats after
-   the prefills and after the decode steps;
+   the prefills and after the decode steps; then Hymba-1.5B at full width
+   (``hymba_model_checks``): token-replay serving through the paged decode
+   step (K5 from kv_valid 0), kernel route against plain route, 1 fp32
+   layer held, 2 printed; the loss and grads of a 2-layer fp32 grad step
+   under spectral_shift_fused, kernel against plain route, and remat
+   "ss_stats" against "none"; and one fp32 grad step of DeepSeek-V2-Lite
+   at 2 layers, chunked against full attention;
 4. serving, bf16 random weights from a seeded ``torch.Generator``, 4
    lanes, max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens
    each, the launch counts of each run read on their own: the main path
@@ -104,7 +113,11 @@ result line):
    peak GiB) and its first 4 layers under frozen streaming with chunks of
    128 and the prefix cache over the same sequence
    (``serve_deepseek_chunked_frozen``: tokens identical to a cold frozen
-   chunked engine); telemetry on the card: the main path again with
+   chunked engine); Hymba-1.5B (``serve_hymba``: all 32 layers at full
+   width, ``ss_fused`` + ``paged``, prompts of 16/40/64/100 tokens, which
+   the family prefills by token replay, as the reference: K5 32 a tick, K1
+   and K2 never; ``serve_hymba_frozen``: frozen streaming, K5 never,
+   lane rebases); telemetry on the card: the main path again with
    ``telemetry=True`` and ``numerics_probe_every=4`` (``serve_telemetry``:
    tokens and K1 / K2 / K5 launches identical to the telemetry-off main
    path of the same weights, a JSONL dump that parses with the port's core
@@ -200,6 +213,8 @@ GRAD_TOL = 5e-4
 # "dots" against remat "none", the same kernel route, relative to max-abs.
 REMAT_TOL = 1e-6
 SERVE_KERNELS = ("landmark_summary", "query_side", "paged_row_stats")
+TRAIN_KERNELS = ("landmark_summary", "query_side", "landmark_summary_bwd",
+                 "query_side_bwd")
 TRAIN_BATCH = 2   # train_4k's global batch of 256 cut to what one card holds
 TRAIN_STEPS = 5
 L2_BYTES = 50 * 2**20   # H100 SXM L2
@@ -558,6 +573,11 @@ def kernel_phase(torch, dev) -> list[dict]:
     # paper-bert's training launches: 8 batch x 8 heads of d = 64
     entries.update({f"bert_{k}": e for k, e in train_kernel_entries(
         torch, dev, b=PAPER_BERT_BATCH * 8, d=64).items()})
+    # Hymba-1.5B's training launches (2 batch x 25 heads of d = 64, the 5 kv
+    # heads broadcast) and its decode launch (hkv 5, r 5, d = 64)
+    entries.update({f"hymba_{k}": e for k, e in train_kernel_entries(
+        torch, dev, b=HYMBA_TRAIN_BATCH * 25, d=64).items()})
+    entries.update(hymba_k5_entries(torch, dev))
 
     def timed(tag):
         return timed_entry(tag, entries[tag])
@@ -592,6 +612,10 @@ def kernel_phase(torch, dev) -> list[dict]:
         tag = f"bert_{name}_train" if f"bert_{name}_train" in entries else f"bert_{name}"
         if tag in entries:
             row["paper_bert_launch"] = dict(shape=entries[tag]["shape"], **timed(tag))
+        # Hymba-1.5B's training launch (d = 64, b = 50; same kernel and counter)
+        tag = f"hymba_{name}_train" if f"hymba_{name}_train" in entries else f"hymba_{name}"
+        if tag in entries and name != "paged_row_stats":
+            row["hymba_train_launch"] = dict(shape=entries[tag]["shape"], **timed(tag))
         # DeepSeek-V2-Lite's launches (absorbed MLA: d = 576, dv = 512; the
         # same kernels, through their wide-head variants, and counters)
         for tag, key in {
@@ -610,7 +634,9 @@ def kernel_phase(torch, dev) -> list[dict]:
                 **timed("paged_row_stats_long"))
             # granite-20b's decode launch (r = 48, bs 64) at 512 and 16k keys
             for tag, key in (("paged_row_stats_granite", "granite_launch"),
-                             ("paged_row_stats_granite_long", "granite_long_horizon_launch")):
+                             ("paged_row_stats_granite_long", "granite_long_horizon_launch"),
+                             ("hymba_paged_row_stats", "hymba_decode_launch"),
+                             ("hymba_paged_row_stats_long", "hymba_long_horizon_launch")):
                 row[key] = dict(shape=entries[tag]["shape"], **timed(tag))
         results.append(row)
     # K5': the reference's single-lane entry, K5 launched with one lane (its
@@ -1604,6 +1630,7 @@ def model_phase(torch, dev) -> None:
     chunked_model_checks(torch, dev, prompt_lens)
     frozen_model_checks(torch, dev, prompt_lens)
     deepseek_model_checks(torch, dev)
+    hymba_model_checks(torch, dev)
 
 
 def deepseek_model_checks(torch, dev) -> None:
@@ -1897,7 +1924,7 @@ def grad_phase(torch, dev) -> None:
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.serve import random_params
-    from repro_torch.models.params import flatten_with_paths, tree_leaves
+    from repro_torch.models.params import tree_leaves
     from repro_torch.train.train_step import make_grad_step
 
     cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
@@ -1910,20 +1937,14 @@ def grad_phase(torch, dev) -> None:
     before = launch_counts()
     loss, grads = step(params, batch)
     after = launch_counts()
-    used = ("landmark_summary", "query_side", "landmark_summary_bwd", "query_side_bwd")
-    if any(after[k] <= before[k] for k in used):
+    if any(after[k] <= before[k] for k in TRAIN_KERNELS):
         raise AssertionError(f"grad parity: kernel route skipped a kernel: {after}")
     with plain_route():
         ploss, pgrads = step(params, batch)
     if launch_counts() != after:
         raise AssertionError("grad parity: the plain route launched a kernel")
     loss_err = abs(float(loss) - float(ploss)) / abs(float(ploss))
-    errs = {}
-    for (path, g), pg in zip(flatten_with_paths(grads).items(), tree_leaves(pgrads)):
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"grad parity: non-finite gradient in {path}")
-        err, scale = max_err(g, pg)
-        errs[path] = err / max(scale, 1e-30)
+    errs = grad_errs(torch, grads, pgrads)
     worst = max(errs, key=errs.get)
     log(f"grad parity: qwen2-7b full width 2 layers fp32 seq 512, kernel route vs "
         f"plain route on the card: loss {float(loss):.6f} vs {float(ploss):.6f} "
@@ -1940,7 +1961,7 @@ def grad_phase(torch, dev) -> None:
         t0 = time.perf_counter()
         before = launch_counts()
         rloss, rgrads = make_grad_step(dataclasses.replace(cfg, remat=remat))(params, batch)
-        counts = {k: launch_counts()[k] - before[k] for k in used}
+        counts = {k: launch_counts()[k] - before[k] for k in TRAIN_KERNELS}
         bitwise = float(rloss) == float(loss) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)))
         rerr = max(max_err(a, b)[0] / max(max_err(a, b)[1], 1e-30)
@@ -2025,13 +2046,13 @@ def log_served(torch, dev, out: dict, serve, label: str) -> None:
 
 
 def serve_run(torch, dev, arch: str, layers: int, serve, label: str, params=None,
-              max_new: int = 16) -> dict:
+              max_new: int = 16, lens=SERVE_LENS, warm_len: int = 200) -> dict:
     """One serving run of full-width ``arch`` cut to ``layers`` layers under
     ``serve`` (weights drawn here unless ``params`` (cfg, params) is
-    given): a warm-up engine, then prompts of SERVE_LENS tokens,
-    ``max_new`` new tokens each, launch counts reset just before and read
-    just after, checked by ``check_served``; returns the launcher's
-    summary."""
+    given): a warm-up engine on one prompt of ``warm_len`` tokens, then
+    prompts of ``lens`` tokens, ``max_new`` new tokens each, launch counts
+    reset just before and read just after, checked by ``check_served``;
+    returns the launcher's summary."""
     from repro_torch.launch.serve import serve_requests
     from repro_torch.serve.engine import ServeEngine
 
@@ -2039,13 +2060,14 @@ def serve_run(torch, dev, arch: str, layers: int, serve, label: str, params=None
                                                                   layers, label)
     torch.cuda.reset_peak_memory_stats(dev)   # the peak below is this run's
     # warm-up (library handles, allocator) on an engine of its own
-    serve_requests(ServeEngine(cfg, weights, serve=serve, device=dev), [200], 2, seed=1)
+    serve_requests(ServeEngine(cfg, weights, serve=serve, device=dev), [warm_len], 2,
+                   seed=1)
     engine = ServeEngine(cfg, weights, serve=serve, device=dev)
-    out = serve_requests(engine, SERVE_LENS, max_new, seed=0)
+    out = serve_requests(engine, lens, max_new, seed=0)
     out["stats"] = engine.stats()
     out["snapshot"] = engine.telemetry.metrics.snapshot()
     log_served(torch, dev, out, serve, label)
-    check_served(torch, engine, out, label, len(SERVE_LENS))
+    check_served(torch, engine, out, label, len(lens))
     del engine
     if params is None:
         del weights
@@ -2090,7 +2112,8 @@ def serve_phase(torch, dev, layers: int) -> dict:
     return {"serve": main["launches"], **telemetry, "serve_autotune": tuned,
             "_decode_plan": decode_plan, "serve_default_route": default["launches"],
             "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers),
-            **serve_frozen_phase(torch, dev, layers), **serve_deepseek_phase(torch, dev)}
+            **serve_frozen_phase(torch, dev, layers), **serve_deepseek_phase(torch, dev),
+            **serve_hymba_phase(torch, dev)}
 
 
 # The reference's core metric families (``tests/test_telemetry.py:308``);
@@ -3378,6 +3401,362 @@ def autotuned_rows(torch, dev, kernels: list, train_plan, decode_plan) -> None:
             "heuristic rows are its rows")
 
 
+# --------------------------------------------------------------------------
+# Hymba-1.5B (hybrid: GQA + mamba) and DeepSeek-V2-Lite training
+# --------------------------------------------------------------------------
+HYMBA = "hymba-1.5b"
+HYMBA_LENS = [16, 40, 64, 100]   # token replay costs a tick per prompt token
+HYMBA_TRAIN_BATCH = 2            # train_4k's global batch of 256 cut to 2
+DEEPSEEK_TRAIN_LAYERS = 4        # of 27: 16 B a parameter of masters and AdamW state
+DEEPSEEK_TRAIN_BATCH = 1
+
+
+def hymba_k5_entries(torch, dev) -> dict:
+    """K5 at Hymba-1.5B's decode shape (4 lanes, 5 kv heads, r = 5 query
+    rows each, d = dv = 64, bs 16, 32 slots; kv_valid 0 / 17 / 60 / 116,
+    the first replay tick's empty lane among them; fp32 pools as the engine
+    stores them, and bf16) and at a 16k horizon (2k-16k keys, 1024 slots),
+    held against its plain version (the kv_valid-0 lane exactly (m=-1e30,
+    l=0, acc=0)) and set up for timing with L2 cold."""
+    from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
+                                                  paged_row_stats_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    hkv, r, d, bs = 5, 5, 64, 16
+    scale = d**-0.5
+    out = {}
+    for tag, kv, n_slots in (("hymba_paged_row_stats", [0, 17, 60, 116], 32),
+                             ("hymba_paged_row_stats_long", [2048, 4096, 8192, 16384],
+                              1024)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k_pool, v_pool, table, kvv = paged_inputs(
+                torch, dev, gen, kv, hkv=hkv, r=r, d=d, dv=d, bs=bs, n_slots=n_slots,
+                dtype=dt)
+            m, l, acc = paged_row_stats_lanes(q, (k_pool,), v_pool, table, kvv,
+                                              scale=scale, block_size=bs)
+            rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvv,
+                                                 scale=scale)
+            shape = (f"hymba-1.5b decode: lanes=4 hkv={hkv} r={r} d=dv={d} bs={bs} "
+                     f"slots={n_slots} kv_valid={kv} {str(dt).split('.')[-1]}")
+            empty = [i for i, k in enumerate(kv) if k == 0]
+            if empty and not (torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0)
+                              and torch.all(acc[empty] == 0)):
+                raise AssertionError("K5 at Hymba's shape: a lane with kv_valid = 0 must "
+                                     "return (m=-1e30, l=0, acc=0)")
+            live = rl[..., 0] > 0
+            err = check(f"K5 {shape}", [("m", m[..., 0], rm[..., 0], live),
+                                        ("l", l, rl, None), ("acc", acc, racc, None)])
+        # timed in fp32, the pools' type on the path
+        pools = cold_pools(k_pool, v_pool)
+        out[tag] = dict(
+            fn=[partial(paged_row_stats_lanes, q, (kp,), vp, table, kvv, scale=scale,
+                        block_size=bs) for kp, vp in pools],
+            plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvv, scale=scale)
+                   for kp, vp in pools],
+            library=None, err=err, bound=k5_bound(kv, hkv, r, d, d, bs),
+            shape=f"{shape}, L2 cold ({len(pools)} pool copies)")
+    return out
+
+
+def drive_replay(torch, params, cfg, device, prompt_lens, feed=None, steps: int = 4,
+                 block_size: int = 16) -> tuple:
+    """Serving of a family without batched prefill (Hymba) as the engine
+    runs it: every lane fed its prompt one token a tick through the paged
+    decode step (K5 over the pools) from zeroed lane state, the first tick
+    at kv_valid 0, then greedy tokens; a lane whose prompt has ended
+    decodes while the others replay; ``steps`` ticks past the longest
+    prompt. ``feed``: the tokens to feed each tick instead (another run's).
+    Returns (per-tick logits (lanes, V) on the CPU, fed tokens per tick,
+    ticks)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.paged import BlockAllocator, PagedKVCache
+
+    serve = ServeConfig(max_lanes=len(prompt_lens), max_seq=512, block_size=block_size,
+                        decode_impl="paged")
+    bs, seq_max = serve.block_size, serve.max_seq
+    kv = PagedKVCache(cfg, serve, device)
+    alloc = BlockAllocator(serve.resolved_num_blocks, bs)
+    step = kv.make_paged_step(lambda c_, t_, tb: decode_step(
+        params, cfg, c_, t_, seq_max=seq_max, paged_table=tb, block_size=bs))
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in prompt_lens]
+    lanes = len(prompts)
+    positions = torch.zeros(lanes, dtype=torch.int32)
+    nxt = [p[0] for p in prompts]
+    outs, fed = [], []
+    ticks = max(prompt_lens) + steps
+    for t in range(ticks):
+        tables = torch.zeros((lanes, seq_max // bs), dtype=torch.int32)
+        for lane in range(lanes):
+            if int(positions[lane]) // bs >= len(alloc.tables.get(lane, [])):
+                alloc.alloc(lane, 1)
+            tables[lane, :len(alloc.tables[lane])] = torch.tensor(alloc.tables[lane])
+        toks = feed[t] if feed is not None else nxt
+        fed.append(list(toks))
+        lg = step(tables.to(device), torch.tensor(toks)[:, None].to(device),
+                  positions.to(device), torch.ones(lanes, dtype=torch.bool, device=device))
+        outs.append(lg[:, 0].float().cpu())
+        positions += 1
+        greedy = lg[:, 0].argmax(-1).cpu().tolist()
+        nxt = [p[t + 1] if t + 1 < len(p) else g for p, g in zip(prompts, greedy)]
+    return outs, fed, ticks
+
+
+def grad_errs(torch, grads, pgrads) -> dict:
+    """Each gradient leaf's max-abs error against ``pgrads``, relative to
+    its max-abs; every leaf must be finite."""
+    from repro_torch.models.params import flatten_with_paths, tree_leaves
+
+    errs = {}
+    for (path, g), pg in zip(flatten_with_paths(grads).items(), tree_leaves(pgrads)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite gradient in {path}")
+        err, scale = max_err(g, pg)
+        errs[path] = err / max(scale, 1e-30)
+    return errs
+
+
+def hymba_model_checks(torch, dev) -> None:
+    """Hymba-1.5B at full width, fp32, kernel route against the plain route
+    on the card: token-replay serving logits (``drive_replay``, prompts of
+    16 and 40 tokens and 4 greedy ticks past the longer: K5 once a layer a
+    tick at hkv 5, r 5, d 64, from kv_valid 0) at 1 layer, every tick at
+    MODEL_TOL, and at 2 layers printed: replay runs every position through
+    the first 2-4 landmark segments, where the second layer amplifies
+    delta's rounding (ROADMAP P2; measured up to 5.3e-3 there, 2.4e-4
+    past); at 2 layers the loss and every gradient leaf of one grad step under
+    ``spectral_shift_fused`` (seq 512, batch 1: K1-K4 at d = 64 beside the
+    mamba scan) at GRAD_TOL; and remat "ss_stats" (the selective
+    checkpoint meeting the mamba ops: K1's outputs kept, the rest, the scan
+    included, recomputed) against "none" at REMAT_TOL. Then one fp32 grad
+    step of DeepSeek-V2-Lite at full width, 2 layers, seq 512 (MLA + MoE,
+    no kernel): ``chunked`` attention against ``full``, at GRAD_TOL."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import make_grad_step
+
+    worst = {}
+    for layers in (1, 2):
+        cfg = dataclasses.replace(get_config(HYMBA), num_layers=layers,
+                                  compute_dtype="float32")
+        t0 = time.perf_counter()
+        params = random_params(cfg, seed=0, device=dev)
+        before = launch_counts()
+        card, fed, ticks = drive_replay(torch, params, cfg, dev, (16, 40))
+        after = launch_counts()
+        k5 = after["paged_row_stats"] - before["paged_row_stats"]
+        if (k5 != ticks * cfg.num_layers
+                or any(after[k] != before[k] for k in TRAIN_KERNELS)):
+            raise AssertionError(f"model parity {HYMBA}: K5 launched {k5} times, want "
+                                 f"{ticks * cfg.num_layers}; launches {after}")
+        with plain_route():
+            plain, _, _ = drive_replay(torch, params, cfg, dev, (16, 40), feed=fed)
+        if launch_counts() != after:
+            raise AssertionError(f"model parity {HYMBA}: the plain route launched a kernel")
+        errs = []
+        for a, b in zip(card, plain):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"model parity {HYMBA}: non-finite logits")
+            err, scale = max_err(a, b)
+            errs.append(err / scale)
+        worst[layers] = max(errs)
+        # positions 8-31 are the first 2-4 landmark segments (seg 8): P2
+        log(f"model parity: {HYMBA} full width (d_model={cfg.d_model}, heads="
+            f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, ssm state "
+            f"{cfg.ssm_state}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}) {layers} fp32 "
+            f"layer(s), token replay of prompts (16, 40) + 4 ticks through the paged "
+            f"decode step ({ticks} ticks, K5 {k5}), kernel route vs plain route on the "
+            f"card: worst logit err of max-abs {max(errs):.2e} (positions 8-31: "
+            f"{max(errs[8:32]):.2e}, past them {max(errs[32:]):.2e}) "
+            + (f"(tol {MODEL_TOL})" if layers == 1 else "(printed: P1, P2)")
+            + f"; {time.perf_counter() - t0:.1f}s")
+        if layers == 1:
+            del params
+    if not worst[1] <= MODEL_TOL:
+        raise AssertionError(f"model parity {HYMBA}: 1-layer logit err {worst[1]:.3e} > "
+                             f"{MODEL_TOL}")
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, remat="none", attention_impl="spectral_shift_fused")
+    batch = to_device(SyntheticLM(cfg.vocab_size, 512, 1, seed=0).batch(0), dev)
+    step = make_grad_step(cfg)
+    before = launch_counts()
+    loss, grads = step(params, batch)
+    after = launch_counts()
+    if any(after[k] <= before[k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"grad parity {HYMBA}: kernel route skipped a kernel: {after}")
+    with plain_route():
+        ploss, pgrads = step(params, batch)
+    if launch_counts() != after:
+        raise AssertionError(f"grad parity {HYMBA}: the plain route launched a kernel")
+    loss_err = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    errs = grad_errs(torch, grads, pgrads)
+    worst = max(errs, key=errs.get)
+    before = launch_counts()
+    rloss, rgrads = make_grad_step(dataclasses.replace(cfg, remat="ss_stats"))(params, batch)
+    k1 = launch_counts()["landmark_summary"] - before["landmark_summary"]
+    rerr = max(grad_errs(torch, rgrads, grads).values())
+    lerr = abs(float(rloss) - float(loss)) / abs(float(loss))
+    bitwise = float(rloss) == float(loss) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)))
+    log(f"grad parity: {HYMBA} full width 2 layers fp32 seq 512, kernel route vs plain "
+        f"route on the card: loss {float(loss):.6f} vs {float(ploss):.6f} (rel "
+        f"{loss_err:.2e}, tol {GRAD_TOL}), worst grad err of max-abs {errs[worst]:.2e} "
+        f"({worst}, tol {GRAD_TOL}); remat ss_stats vs none: loss rel {lerr:.2e}, worst "
+        f"grad err {rerr:.2e} (tol {REMAT_TOL}), bitwise {bitwise}, K1 launches {k1} "
+        f"(want {cfg.num_layers}); {time.perf_counter() - t0:.1f}s")
+    if not (loss_err <= GRAD_TOL and errs[worst] <= GRAD_TOL):
+        raise AssertionError(f"grad parity {HYMBA}: loss err {loss_err:.3e} or grad err "
+                             f"{errs[worst]:.3e} ({worst}) > {GRAD_TOL}")
+    if not (lerr <= REMAT_TOL and rerr <= REMAT_TOL and k1 == cfg.num_layers):
+        raise AssertionError(f"grad parity {HYMBA}: remat ss_stats differs from none by "
+                             f"{max(lerr, rerr):.3e} (tol {REMAT_TOL}) or launched K1 {k1} "
+                             f"times")
+    del params, grads, pgrads, rgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=2, compute_dtype="float32",
+                              remat="none")
+    params = random_params(cfg, seed=0, device=dev)
+    batch = to_device(SyntheticLM(cfg.vocab_size, 512, 1, seed=0).batch(0), dev)
+    before = launch_counts()
+    out = {impl: make_grad_step(dataclasses.replace(cfg, attention_impl=impl))(params, batch)
+           for impl in ("chunked", "full")}
+    if launch_counts() != before:
+        raise AssertionError(f"grad parity {DEEPSEEK}: a kernel launched")
+    (loss, grads), (floss, fgrads) = out["chunked"], out["full"]
+    loss_err = abs(float(loss) - float(floss)) / abs(float(floss))
+    errs = grad_errs(torch, grads, fgrads)
+    worst = max(errs, key=errs.get)
+    log(f"grad parity: {DEEPSEEK} full width 2 layers fp32 seq 512 (MLA + MoE, capacity "
+        f"{cfg.capacity_factor}), chunked vs full attention on the card: loss "
+        f"{float(loss):.6f} vs {float(floss):.6f} (rel {loss_err:.2e}, tol {GRAD_TOL}), "
+        f"worst grad err of max-abs {errs[worst]:.2e} ({worst}, tol {GRAD_TOL}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not (loss_err <= GRAD_TOL and errs[worst] <= GRAD_TOL):
+        raise AssertionError(f"grad parity {DEEPSEEK}: loss err {loss_err:.3e} or grad err "
+                             f"{errs[worst]:.3e} ({worst}) > {GRAD_TOL}")
+    del params, out, grads, fgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_hymba_phase(torch, dev) -> dict:
+    """``serve_hymba``: Hymba-1.5B, all 32 layers at full width, bf16 random
+    weights (seed 0), 4 lanes, max_seq 512, block 16, ``ss_fused`` +
+    ``paged`` (the family prefills by token replay whatever the route, as
+    in the reference: K1 and K2 never launch, K5 once a layer a tick for
+    all lanes), prompts of HYMBA_LENS tokens, 16 new tokens each; then
+    ``serve_hymba_frozen``, the same under frozen streaming (K5 never;
+    boundary rebases). Returns each path's launch counts."""
+    from repro_torch.configs.base import ServeConfig
+
+    cfg, params = serve_params(torch, dev, HYMBA, 32, "serve_hymba")
+    serve = ServeConfig(max_lanes=4, max_seq=512, block_size=16, prefill_impl="ss_fused",
+                        decode_impl="paged", seed=0)
+    runs = {}
+    for label, c in (("serve_hymba", cfg),
+                     ("serve_hymba_frozen",
+                      dataclasses.replace(cfg, decode_streaming="frozen"))):
+        out = serve_run(torch, dev, HYMBA, cfg.num_layers, serve, label, params=(c, params),
+                        lens=HYMBA_LENS, warm_len=16)
+        ticks, ran = out["decode_ticks"], out["launches"]
+        frozen = c.decode_streaming == "frozen"
+        want_k5 = 0 if frozen else ticks * cfg.num_layers
+        if (out["mode"] != "paged+replay-prefill" or ran["paged_row_stats"] != want_k5
+                or any(v for k, v in ran.items() if k != "paged_row_stats")
+                or (frozen and not out["rebases"])):
+            raise AssertionError(f"{label}: route {out['mode']}, {ticks} ticks, launches "
+                                 f"{ran}, rebases {out['rebases']}: want replay prefill, "
+                                 f"K5 {want_k5} ({cfg.num_layers} a tick unless frozen), "
+                                 f"no other kernel")
+        log(f"serve {label}: {ticks} ticks, K5 {ran['paged_row_stats']} "
+            f"({ran['paged_row_stats'] / max(ticks, 1):.0f} a tick)"
+            + (f", {out['rebases']} rebases, {1e3 * out['rebase_s'] / out['rebases']:.2f} "
+               f"ms each" if frozen else ""))
+        runs[label] = ran
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def train_hymba_phase(torch, dev) -> dict:
+    """``train_hymba``: Hymba-1.5B, all 32 layers at full width, train_4k's
+    seq 4096 at batch HYMBA_TRAIN_BATCH, remat "full", 3 steps under
+    ``spectral_shift_fused`` (K1-K4 at 50 batch-heads of d = 64: K1 2 / K2
+    2 / K3 1 / K4 1 a layer and step) and 3 under the config's own
+    ``chunked`` (no kernel); the step-0 losses within PAPER_BERT_TOL
+    (relative, a sanity bound) of each other. Returns each run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, HYMBA_TRAIN_BATCH, "train")
+    runs = {}
+    for impl in ("spectral_shift_fused", "chunked"):
+        cfg = dataclasses.replace(get_config(HYMBA), attention_impl=impl, remat="full")
+        label = "train_hymba" if impl == "spectral_shift_fused" else f"train_hymba_{impl}"
+        runs[label] = train_steps(torch, dev, cfg, shape, 3, label)
+        n = 3 * cfg.num_layers
+        want = (dict(landmark_summary=2 * n, query_side=2 * n, paged_row_stats=0,
+                     landmark_summary_bwd=n, query_side_bwd=n)
+                if impl == "spectral_shift_fused" else dict.fromkeys(TRAIN_KERNELS + (
+                    "paged_row_stats",), 0))
+        if runs[label]["launches"] != want:
+            raise AssertionError(f"{label}: launches {runs[label]['launches']} != {want}")
+    fused, chunked = runs["train_hymba"]["losses"], runs["train_hymba_chunked"]["losses"]
+    rel = rel_diffs(fused, chunked)
+    log(f"train_hymba: spectral_shift_fused {runs['train_hymba']['ms']:.1f} ms per step, "
+        f"peak {runs['train_hymba']['peak']:.2f} GiB; chunked "
+        f"{runs['train_hymba_chunked']['ms']:.1f} ms per step, peak "
+        f"{runs['train_hymba_chunked']['peak']:.2f} GiB; fused losses vs chunked rel diff "
+        f"{['%.2e' % x for x in rel]} (step 0 tol {PAPER_BERT_TOL})")
+    if not rel[0] <= PAPER_BERT_TOL:
+        raise AssertionError(f"train_hymba: step-0 loss {fused[0]} differs from chunked's "
+                             f"{chunked[0]} by {rel[0]:.3e} > {PAPER_BERT_TOL}")
+    return {k: v["launches"] for k, v in runs.items()}
+
+
+def train_deepseek_phase(torch, dev) -> dict:
+    """``train_deepseek``: DeepSeek-V2-Lite at full width cut to
+    DEEPSEEK_TRAIN_LAYERS layers, train_4k's seq 4096 at batch
+    DEEPSEEK_TRAIN_BATCH, remat "full", 3 steps under its config's own
+    ``chunked`` and 3 under ``spectral_shift`` (MLA runs the plain
+    spectral-shift attention under every approximate impl, as the
+    reference: no kernel may launch); the step-0 losses within
+    PAPER_BERT_TOL of each other. Returns each run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, DEEPSEEK_TRAIN_BATCH, "train")
+    runs = {}
+    for impl in ("chunked", "spectral_shift"):
+        cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=DEEPSEEK_TRAIN_LAYERS,
+                                  attention_impl=impl, remat="full")
+        label = "train_deepseek" if impl == "chunked" else f"train_deepseek_{impl}"
+        runs[label] = train_steps(torch, dev, cfg, shape, 3, label)
+        if any(runs[label]["launches"].values()):
+            raise AssertionError(f"{label}: a kernel launched: {runs[label]['launches']}")
+    rel = rel_diffs(runs["train_deepseek_spectral_shift"]["losses"],
+                    runs["train_deepseek"]["losses"])
+    log(f"train_deepseek: chunked {runs['train_deepseek']['ms']:.1f} ms per step, peak "
+        f"{runs['train_deepseek']['peak']:.2f} GiB; spectral_shift "
+        f"{runs['train_deepseek_spectral_shift']['ms']:.1f} ms per step, peak "
+        f"{runs['train_deepseek_spectral_shift']['peak']:.2f} GiB; losses vs chunked rel "
+        f"diff {['%.2e' % x for x in rel]} (step 0 tol {PAPER_BERT_TOL})")
+    if not rel[0] <= PAPER_BERT_TOL:
+        raise AssertionError(f"train_deepseek: step-0 losses differ by {rel[0]:.3e} > "
+                             f"{PAPER_BERT_TOL}")
+    return {k: v["launches"] for k, v in runs.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -3435,6 +3814,8 @@ def run(args, torch, t_start: float) -> int:
     tuned, train_plan = train_autotune_phase(torch, dev, args.train_layers, full_losses)
     bert = train_paper_bert_phase(torch, dev)
     chunked = train_chunked_phase(torch, dev, args.train_layers)
+    hymba = train_hymba_phase(torch, dev)
+    deepseek = train_deepseek_phase(torch, dev)
     autotuned_rows(torch, dev, kernels, train_plan, served.pop("_decode_plan"))
     if traced_losses != full_losses:
         raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "
@@ -3444,7 +3825,8 @@ def run(args, torch, t_start: float) -> int:
         f"dots {dots_ms:.1f} ms per step, peak {dots_peak:.2f} GiB; remat full with "
         f"telemetry {traced_ms:.1f} ms per step, losses identical to the run without")
     paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots,
-                 train_telemetry=traced, train_autotune=tuned, **bert, **chunked)
+                 train_telemetry=traced, train_autotune=tuned, **bert, **chunked, **hymba,
+                 **deepseek)
     for k in kernels:
         # K5' launches through K5's wrapper and counter: no path of its own
         k["launches_by_path"] = {path: counts.get(k["name"], 0)

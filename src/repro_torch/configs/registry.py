@@ -8,15 +8,17 @@ import torch
 
 from repro_torch.configs.base import SHAPE_PRESETS, ModelConfig, ShapeConfig
 
-# The dense and moe configs the port runs, in the reference's order; the
-# other families' configs (xlstm, whisper, hymba, kimi-k2, llava) are not
-# ported (ROADMAP Queue 1).
+# The dense, hybrid and moe configs the port runs, in the reference's
+# order; the other families' configs (xlstm, whisper, llava) are not ported
+# (ROADMAP Queue 1).
 ARCH_IDS = [
     "qwen2-72b",
     "qwen2-7b",
     "deepseek-67b",
     "granite-20b",
+    "hymba-1.5b",
     "deepseek-v2-lite-16b",
+    "kimi-k2-1t-a32b",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
@@ -48,7 +50,7 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple[dict, dict]:
     if shape.kind not in ("train", "prefill"):
         raise NotImplementedError("decode batch specs come with the dry-run "
                                   "(ROADMAP Queue 1, multi-device)")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     b, s = shape.global_batch, shape.seq_len
     return ({"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")},

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --prompt-lens 48,200,333,480 --max-new 16
 
-serves a full-width model (``--arch``: qwen2-7b, the default, granite-20b
-or deepseek-v2-lite-16b, absorbed MLA with an MoE feed-forward; every layer;
-bf16 working weights drawn from a seeded ``torch.Generator``) through ``ServeConfig(prefill_impl="ss_fused",
-decode_impl="paged")`` and prints requests finished, tokens, tok/s, TTFT,
-the route and the launch count of each kernel. ``--prefill-impl``,
+serves a full-width model (``--arch``: qwen2-7b, the default, granite-20b,
+deepseek-v2-lite-16b, absorbed MLA with an MoE feed-forward, or hymba-1.5b,
+GQA and a mamba SSM in parallel, which prefills by token replay whatever
+the flags, as in the reference; every layer; bf16 working weights drawn
+from a seeded ``torch.Generator``) through
+``ServeConfig(prefill_impl="ss_fused", decode_impl="paged")`` and prints
+requests finished, tokens, tok/s, TTFT, the route and the launch count of
+each kernel. ``--prefill-impl``,
 ``--decode-impl``, ``--block-size`` and ``--no-paged`` pick another
 route (``--prefill-impl replay --decode-impl gather`` is the reference's
 default ``ServeConfig()``). ``--chunk-tokens N`` switches to the

@@ -4,9 +4,16 @@
         --batch 2 --steps 5 --attention spectral_shift_fused
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-bert \\
         --attention spectral_shift_fused --autotune
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+        --seq 4096 --batch 2 --steps 3 --attention spectral_shift_fused
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --layers 4 --seq 4096 --batch 1 --steps 3
 
-trains ``--arch`` (qwen2-7b by default, or paper-bert, the paper's own
-setting) at full width (``--layers`` cuts depth, never width) from random
+trains ``--arch`` (qwen2-7b by default; paper-bert, the paper's own
+setting; the ``moe`` configs deepseek-v2-lite-16b, whose MLA runs no
+kernel under any impl as in the reference, and kimi-k2-1t-a32b, which fits
+no single card at full width and runs with ``--reduced``; the hybrid
+hymba-1.5b) at full width (``--layers`` cuts depth, never width) from random
 fp32 master weights (seed 0) on ``SyntheticLM`` batches, with the
 config's own ``attention_impl`` or ``--attention`` (``spectral_shift_fused``:
 K1/K2 forward, K3/K4 backward) and ``remat="full"``, at learning rate

@@ -1,9 +1,9 @@
 """Model-level attention (``repro/models/attention.py``): GQA's parameter
 specs, the spectral-shift config, the kv-head group broadcast, the
 projections and the full-sequence forward the trainer runs; and MLA's
-(multi-head latent attention, the DeepSeek-V2 family) specs and the
-projections of its absorbed serving form. Per-head tensors are
-(B, H, S, Dh)."""
+(multi-head latent attention, the DeepSeek-V2 family) specs, its
+full-sequence forward and the projections of its absorbed serving form.
+Per-head tensors are (B, H, S, Dh)."""
 from __future__ import annotations
 
 import torch
@@ -133,7 +133,8 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # rotary key (de = kv_lora + rope columns, one stream for every head),
 # queries are q_nope pushed through w_uk beside the rotary query, and the
 # values are the latents themselves, up-projected by w_uv after mixing.
-# The full-sequence ``mla_forward`` the trainer would run is not ported.
+# Training runs the full-sequence ``mla_forward``, which materialises the
+# per-head keys and values instead.
 # --------------------------------------------------------------------------
 def mla_specs(cfg: ModelConfig) -> dict:
     d, h = cfg.d_model, cfg.num_heads
@@ -190,3 +191,34 @@ def mla_output(p: dict, out_lat: torch.Tensor, dtype) -> torch.Tensor:
     (B, S, D)."""
     out = torch.einsum("bhsr,rhe->bhse", out_lat.to(dtype), p["w_uv"].to(dtype))
     return output_projection(out, p["w_o"])
+
+
+def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                *, impl: str, mode: str = "causal") -> torch.Tensor:
+    """Full-sequence, non-absorbed MLA (``attention.py:221``): per-head
+    k_nope and v up-projected from the latent, the shared rotary key
+    broadcast to every head, q = [q_nope, q_rope], scale (dh + dr)^-0.5.
+    ``impl`` "full" and "chunked" are exact; every other impl runs the
+    plain ``spectral_shift_attention``, as the reference's does, so no
+    kernel launches here. Returns (B, S, D)."""
+    dt = x.dtype
+    dr = cfg.rope_head_dim
+    c_kv, k_rope = mla_latents(p, cfg, x, positions)            # (B,S,r), (B,1,S,dr)
+    sin, cos = rotary_angles(positions, dr, cfg.rope_theta)
+    q_nope = project_heads(x, p["w_q_nope"])
+    q_rope = apply_rotary(project_heads(x, p["w_q_rope"]), sin[:, None], cos[:, None])
+    k_nope = torch.einsum("bsr,rhe->bhse", c_kv, p["w_uk"].to(dt))
+    v = torch.einsum("bsr,rhe->bhse", c_kv, p["w_uv"].to(dt))
+    h = cfg.num_heads
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(-1, h, -1, -1)], dim=-1)
+    causal = mode == "causal"
+    scale = mla_scale(cfg)
+    if impl == "full":
+        out = full_attention(q, k, v, causal=causal, scale=scale)
+    elif impl == "chunked":
+        out = chunked_attention(q, k, v, causal=causal, scale=scale)
+    else:
+        out = spectral_shift_attention(q, k, v, ss_config_from(cfg, causal=causal),
+                                       scale=scale)
+    return output_projection(out.to(dt), p["w_o"])

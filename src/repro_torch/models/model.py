@@ -1,8 +1,8 @@
 """Decoder assembly (``repro/models/model.py``): parameter specs of the
-dense family and of the ``moe`` family (GQA or MLA attention, MoE
-feed-forward), embedding, unembedding, the working-precision copy, and the
-full-sequence forward and loss the trainer differentiates (dense family
-only: training MLA needs attention impls that are not ported).
+dense family, the ``moe`` family (GQA or MLA attention, MoE feed-forward)
+and the ``hybrid`` family (Hymba: GQA attention and a mamba selective SSM
+in parallel, then an MLP), embedding, unembedding, the working-precision
+copy, and the full-sequence forward and loss the trainer differentiates.
 
     model_forward(params, cfg, batch)  -> (logits (B,S,V), aux)
     loss_fn(params, cfg, batch)        -> (loss, metrics)
@@ -18,9 +18,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, resolve_remat
-from repro_torch.models.attention import gqa_forward, gqa_specs, mla_specs
+from repro_torch.models.attention import gqa_forward, gqa_specs, mla_forward, mla_specs
 from repro_torch.models.layers import mlp_forward, mlp_specs, rms_norm
-from repro_torch.models.moe import moe_specs
+from repro_torch.models.moe import moe_forward, moe_specs
+from repro_torch.models.ssm import mamba_forward, mamba_specs
 from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
 from repro_torch.train.losses import next_token_loss
 
@@ -48,10 +49,34 @@ def dense_layer_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def hymba_layer_specs(cfg: ModelConfig) -> dict:
+    """``model.py:102``: the mamba branch runs over the full width
+    (d_inner = d_model), dt rank max(d / 16, 8)."""
+    d = cfg.d_model
+    return {
+        "norm_mix": _norm_spec(d),
+        "attn": gqa_specs(cfg),
+        "mamba": mamba_specs(d, d, cfg.ssm_state, cfg.conv_width, max(d // 16, 8)),
+        "gate_attn": ParamSpec((d,), ("embed",), init="ones"),
+        "gate_ssm": ParamSpec((d,), ("embed",), init="ones"),
+        "norm_mlp": _norm_spec(d),
+        "mlp": mlp_specs(d, cfg.d_ff, cfg.act),
+    }
+
+
+def _layer_specs_for(cfg: ModelConfig) -> dict:
+    """``model.py:256`` for the families the port runs."""
+    if cfg.family in ("dense", "moe"):
+        return dense_layer_specs(cfg)
+    if cfg.family == "hybrid":
+        return hymba_layer_specs(cfg)
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
 def model_specs(cfg: ModelConfig) -> dict:
-    """``repro/models/model.py:264`` for ``family`` "dense" and "moe"."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """``repro/models/model.py:264`` for ``family`` "dense", "moe" and
+    "hybrid"."""
+    layer = _layer_specs_for(cfg)
     d, v = cfg.d_model, cfg.vocab_padded
     specs: dict = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), scale=0.02),
@@ -59,7 +84,6 @@ def model_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
-    layer = dense_layer_specs(cfg)
     if cfg.scan_layers:
         specs["layers"] = stack_layer_specs(layer, cfg.num_layers)
     else:
@@ -68,14 +92,43 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 
 def dense_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
-    """Pre-norm attention + SwiGLU block (``model.py:79``). Returns
-    (x, aux); aux is 0 for the dense family."""
+    """Pre-norm attention (GQA, or MLA with ``cfg.mla``) and a SwiGLU MLP
+    or, with ``cfg.moe``, the MoE feed-forward (``model.py:79``). Returns
+    (x, aux): the MoE load-balance loss, else 0. The expert-parallel
+    ``moe_impl="ep"`` is multi-device and refused."""
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    attn_out, _ = gqa_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
+    if cfg.mla:
+        attn_out = mla_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
+    else:
+        attn_out, _ = gqa_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
     x = x + attn_out
+    h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+    if cfg.moe:
+        if cfg.moe_impl == "ep":
+            raise NotImplementedError("moe_impl 'ep' (expert parallel) is multi-device: "
+                                      "not ported yet")
+        ff, aux = moe_forward(p["moe"], cfg, h)
+    else:
+        ff = mlp_forward(p["mlp"], h, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, aux
+
+
+def hymba_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
+    """Hymba (``model.py:115``): attention heads and mamba heads in
+    parallel on the same normed input, mixed by per-channel gates, then a
+    SwiGLU MLP. Returns (x, 0)."""
+    h = rms_norm(x, p["norm_mix"], cfg.norm_eps)
+    attn_out, _ = gqa_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
+    ssm_out, _ = mamba_forward(p["mamba"], h, cfg.ssm_state, chunk=cfg.ssm_chunk)
+    x = x + (p["gate_attn"].to(x.dtype) * attn_out + p["gate_ssm"].to(x.dtype) * ssm_out)
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     x = x + mlp_forward(p["mlp"], h, cfg.act)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+LAYER_FORWARD = {"dense": dense_layer_forward, "moe": dense_layer_forward,
+                 "hybrid": hymba_layer_forward}
 
 
 def _unstacked_layers(params) -> list:
@@ -129,31 +182,34 @@ def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
     on the card, ``full`` on the CPU) picks what each layer keeps for its
     backward: ``"none"`` every activation; ``"full"`` only the layer's
     inputs (``torch.utils.checkpoint``, non-reentrant); ``"ss_stats"`` and
-    ``"dots"`` a selective checkpoint (``REMAT_POLICIES``)."""
+    ``"dots"`` a selective checkpoint (``REMAT_POLICIES``). The layer
+    function is the family's (``model.py:336``); aux sums over layers."""
+    layer_fn = LAYER_FORWARD[cfg.family]
     remat = resolve_remat(cfg.remat, "gpu" if x.is_cuda else "cpu")
     if remat not in ("none", "full", *REMAT_POLICIES):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstacked_layers(params):
         if remat == "none":
-            x, a = dense_layer_forward(lp, cfg, x, positions, impl, mode)
+            x, a = layer_fn(lp, cfg, x, positions, impl, mode)
         else:
             kw = {} if remat == "full" else {"context_fn": partial(
                 create_selective_checkpoint_contexts, REMAT_POLICIES[remat])}
-            x, a = checkpoint(dense_layer_forward, lp, cfg, x, positions, impl,
-                              mode, use_reentrant=False, **kw)
+            x, a = checkpoint(layer_fn, lp, cfg, x, positions, impl, mode,
+                              use_reentrant=False, **kw)
         aux = aux + a
     return x, aux
 
 
 def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
-    """Full-sequence causal forward (``model.py:399``) of the dense family.
+    """Full-sequence causal forward (``model.py:399``) of the dense, moe
+    and hybrid families (``cfg.mla`` / ``cfg.moe`` honoured whatever the
+    family, as the reference's ``dense_layer_forward`` does).
     ``batch["tokens"]`` (B, S) int. The fp32 master ``params`` are cast to
     the working copy here, inside the autograd graph, so gradients reach
-    the masters. Returns (logits (B,S,V) in the compute dtype, aux).
-    The ``moe`` family is served, not trained: its MLA needs the
-    ``chunked`` / ``spectral_shift`` attention impls, not ported."""
-    if cfg.family != "dense" or cfg.mla or cfg.moe:
+    the masters. Returns (logits (B,S,V) in the compute dtype, aux: the
+    MoE load-balance loss summed over layers)."""
+    if cfg.family not in LAYER_FORWARD:
         raise NotImplementedError(f"training family {cfg.family!r} is not ported yet")
     params = working_params(params, cfg)
     tokens = batch["tokens"]

@@ -28,6 +28,12 @@ The ``moe`` family's feed-forward is ``models/moe.py``'s ``moe_forward``,
 routed per lane (each lane is its own batch row, so lanes never share
 capacity).
 
+Hybrid (Hymba) layers (``_hymba_layer_decode``) run ``gqa_decode`` on the
+layer's attention leaves and ``mamba_decode`` (one step of the selective
+SSM and its causal conv) on its mamba leaves ``ssm_h`` / ``conv``, which
+are lane-dense on both routes; the engine's storage holds both groups
+under their leaf names, and a layer's new leaves come back in one dict.
+
 A ``decode_streaming="frozen"`` step reads neither the pools nor a view
 for its spectral-shift core on either route (K5 never launches): it
 touches the lane-dense state and the new token only. The engine rebases
@@ -42,6 +48,7 @@ num_blocks, bs, D) or views (L, B, Hkv, S, D), and lane-dense leaves
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.spectral_shift import ss_core
@@ -60,6 +67,7 @@ from repro_torch.serve.decode_state import (STREAM_LEAVES, key_mask,
                                             lmk_add, masked_softmax,
                                             recompute_stats,
                                             ss_decode_attention_streaming)
+from repro_torch.serve.kv_cache import MAMBA_LEAVES
 
 DENSE_LEAVES = ("q_lmk", "k_lmk", *STREAM_LEAVES)
 
@@ -340,6 +348,52 @@ def _dense_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
     return x + ff, new_cache
 
 
+def mamba_decode(p, cfg: ModelConfig, x, state):
+    """One step of the selective SSM (``decode.py:418``). x (B, 1, D);
+    ``state`` {``ssm_h`` (B, di, N) fp32, ``conv`` (B, W - 1, di)}.
+    Returns (out (B, 1, D), new state)."""
+    dt = x.dtype
+    ui = x[:, 0] @ p["w_in"].to(dt)                              # (B, 2di)
+    di = ui.shape[-1] // 2
+    u, z = ui[..., :di], ui[..., di:]
+    ctx = torch.cat([state["conv"].to(dt), u[:, None]], dim=1)   # (B, W, di)
+    u_conv = torch.einsum("bwd,wd->bd", ctx, p["conv_w"].to(dt)) + p["conv_b"].to(dt)
+    u_conv = F.silu(u_conv)
+    n = cfg.ssm_state
+    bc = u_conv @ p["w_bc"].to(dt)
+    b_mat, c_mat = bc[..., :n], bc[..., n:]
+    dt_pre = (u_conv @ p["w_dt"].to(dt)) @ p["w_dt_out"].to(dt)
+    delta = F.softplus(dt_pre.float() + p["b_dt"].float())
+    a = -torch.exp(p["a_log"].float())
+    abar = torch.exp(delta[..., None] * a)                       # (B, di, N)
+    bbar = delta[..., None] * b_mat.float()[:, None, :] * u_conv.float()[..., None]
+    h_new = abar * state["ssm_h"] + bbar
+    y = torch.einsum("bdn,bn->bd", h_new, c_mat.float())
+    y = y + p["d_skip"].float() * u_conv.float()
+    out = (y.to(dt) * F.silu(z)) @ p["w_out"].to(dt)
+    return out[:, None], {"ssm_h": h_new, "conv": ctx[:, 1:]}
+
+
+def _hymba_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
+    """``decode.py:511``: GQA decode and the mamba step on the same normed
+    input, mixed by the per-channel gates, then the MLP. ``lcache`` holds
+    both groups' leaves by name; so does the returned dict."""
+    h = rms_norm(x, lp["norm_mix"], cfg.norm_eps)
+    attn_cache = {k: v for k, v in lcache.items() if k not in MAMBA_LEAVES}
+    attn, new_cache = gqa_decode(lp["attn"], cfg, h, attn_cache, pos, **route)
+    ssm, ssm_state = mamba_decode(lp["mamba"], cfg, h,
+                                  {k: lcache[k] for k in MAMBA_LEAVES})
+    x = x + (lp["gate_attn"].to(x.dtype) * attn + lp["gate_ssm"].to(x.dtype) * ssm)
+    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+    x = x + mlp_forward(lp["mlp"], h, cfg.act)
+    new_cache.update(ssm_state)
+    return x, new_cache
+
+
+LAYER_DECODE = {"dense": _dense_layer_decode, "moe": _dense_layer_decode,
+                "hybrid": _hymba_layer_decode}
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
                 seq_max: int, paged_table: torch.Tensor = None,
                 block_size: int = 0):
@@ -349,8 +403,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     route). Returns ``(logits (B, 1, V), {"pos": pos + 1, "layers":
     [per-layer leaves]})`` where each layer's ``k``/``v`` is the new token
     to commit."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in LAYER_DECODE:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    layer_decode = LAYER_DECODE[cfg.family]
     params = working_params(params, cfg)
     pos = cache["pos"]
     layers = cache["layers"]
@@ -358,7 +413,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     new_layers = []
     for i in range(cfg.num_layers):
         lcache = {name: t[i] for name, t in layers.items()}
-        x, nc = _dense_layer_decode(
+        x, nc = layer_decode(
             layer_params(params, i), cfg, x, lcache, pos, seq_max=seq_max,
             table=paged_table, block_size=block_size)
         new_layers.append(nc)

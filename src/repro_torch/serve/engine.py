@@ -1,9 +1,15 @@
 """Serving engine: paged KV cache + two-phase scheduler over spectral-shift
 decode (``repro/serve/engine.py``, the two-phase tick ``_tick_inner``).
 
-It serves the dense family and the ``moe`` family (GQA or absorbed MLA
-attention with an MoE feed-forward: DeepSeek-V2-Lite), one cache layout
-per family (``serve/kv_cache.py``).
+It serves the dense family, the ``moe`` family (GQA or absorbed MLA
+attention with an MoE feed-forward: DeepSeek-V2-Lite) and the ``hybrid``
+family (Hymba: GQA and a mamba SSM in parallel), one cache layout per
+family (``serve/kv_cache.py``). A family without batched prefill
+(``prefill.prefill_supported``: hybrid) prefills by token replay, one
+prompt token a tick through the decode step from zeroed lane state, and
+the chunked tick and the prefix cache are silently off for it
+(``engine.py:180-197``, ``:328``), as in the reference; ``stats()["mode"]``
+then says ``+replay-prefill``.
 
 Each tick admits waiting requests FCFS, grows the block tables of the
 decoding lanes (preempting the youngest request when the pool runs dry),
@@ -112,7 +118,8 @@ from repro_torch.serve.decode_state import (STREAM_LEAVES, make_rebase_fn,
                                             make_reseed_fn, segment_len)
 from repro_torch.serve.paged import (BlockAllocator, PagedKVCache, PrefixCache,
                                      bucket_view_slots)
-from repro_torch.serve.prefill import batched_prefill, make_chunk_prefill_fn
+from repro_torch.serve.prefill import (batched_prefill, make_chunk_prefill_fn,
+                                      prefill_supported)
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.telemetry import (DriftMonitor, NullNumericsProbe, NumericsProbe,
                                    ProgramAccounting, SpectrumMonitor, Telemetry,
@@ -193,8 +200,9 @@ def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device)
     unsupported = {
         # MLA / MoE layers are served as family "moe" (its cache layout);
         # the dense family with those flags set is refused
-        "family not 'dense' or 'moe'": (cfg.family not in ("dense", "moe")
-                                        or (cfg.family == "dense" and (cfg.mla or cfg.moe))),
+        "family not 'dense', 'moe' or 'hybrid'": (
+            cfg.family not in ("dense", "moe", "hybrid")
+            or (cfg.family in ("dense", "hybrid") and (cfg.mla or cfg.moe))),
         # each serving kernel takes head dims up to its own limit: refused
         # here, not on the first tick
         f"head dims (d={d}, dv={dv}) past {', '.join(past)} on CUDA":
@@ -249,9 +257,12 @@ class ServeEngine:
         alloc = (BlockAllocator(serve.resolved_num_blocks, serve.block_size)
                  if self.kv.paged else None)
         # The prefix cache rides the chunked tick and needs paged storage
-        # (silently off otherwise, ``engine.py:180``).
-        self._prefix_enabled = serve.prefix_cache and self.kv.paged
-        self._chunked = serve.chunked_prefill or self._prefix_enabled
+        # and a family with batched prefill; the chunked tick needs batched
+        # prefill too (silently off otherwise, ``engine.py:180-197``).
+        self._prefix_enabled = (serve.prefix_cache and self.kv.paged
+                                and prefill_supported(cfg))
+        self._chunked = ((serve.chunked_prefill or self._prefix_enabled)
+                         and prefill_supported(cfg))
         # chunk rounded up to a block multiple: chunk starts stay aligned
         bs = serve.block_size
         self._chunk = min(-(-serve.prefill_chunk_tokens // bs) * bs, self.max_seq)
@@ -332,7 +343,7 @@ class ServeEngine:
             and cfg.decode_streaming == "recompute")
         self.decode_impl = ("paged" if serve.decode_impl == "paged" and paged_ok
                             else "gather")
-        self.batched = serve.batched_prefill
+        self.batched = serve.batched_prefill and prefill_supported(cfg)
         self._warm_plans(cfg, serve)
         self._step = self._make_step(cfg, "decode_tick")
         self._prefill = self._account(

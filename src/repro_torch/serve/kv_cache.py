@@ -1,5 +1,5 @@
-"""Decode-state layout (``repro/serve/kv_cache.py``) of the attention
-families the port serves: dense GQA, and ``moe`` with GQA or MLA.
+"""Decode-state layout (``repro/serve/kv_cache.py``) of the families the
+port serves: dense GQA, ``moe`` with GQA or MLA, and ``hybrid`` (Hymba).
 
 Per layer (stacked on a leading ``layers`` axis), GQA:
 
@@ -21,6 +21,14 @@ one kv head of width de, so the pools, the gathers, the commits and
 kernel K5 take it as they take GQA's K/V. ``q_lmk`` is (B, H, c, de),
 ``bv_acc`` (B, H, c, r).
 
+Hybrid (``cache_specs``' ``hybrid`` branch, :199): each layer is
+``{"attn": <GQA leaves>, "mamba": {"ssm_h", "conv"}}``, the mamba state
+(``_mamba_state``, :77) being the fp32 SSM state ``ssm_h`` (B, di, N) and
+the causal conv's tail ``conv`` (B, W - 1, di). They have no ``cache_seq``
+axis, so they stay dense per lane beside the paged attention leaves. Leaf
+names are unique across the two groups: the engine's storage keys leaves
+by their last path name (``serve/paged.py``).
+
 Leaves without a dtype are stored in fp32, as the reference stores them.
 """
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch.models.params import ParamSpec, map_specs, stack_layer_specs
 BATCH = "cache_batch"
 SEQ = "cache_seq"
 STREAM_STAT_LEAVES = ("bv_m", "bv_l", "bv_acc")
+MAMBA_LEAVES = ("ssm_h", "conv")
 
 
 def _gqa_cache(cfg: ModelConfig, b: int, s: int) -> dict:
@@ -66,13 +75,26 @@ def _mla_cache(cfg: ModelConfig, b: int, s: int) -> dict:
     }
 
 
+def _mamba_state(cfg: ModelConfig, b: int, d_inner: int) -> dict:
+    """``kv_cache.py:77``."""
+    return {
+        "ssm_h": ParamSpec((b, d_inner, cfg.ssm_state), (BATCH, "ff_act", None),
+                           init="zeros", dtype=torch.float32),
+        "conv": ParamSpec((b, cfg.conv_width - 1, d_inner), (BATCH, None, "ff_act"),
+                          init="zeros"),
+    }
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Full decode-state ParamSpec tree (``kv_cache.py:187``) of the
-    ``dense`` and ``moe`` families."""
+    ``dense``, ``moe`` and ``hybrid`` families."""
     if cfg.family == "dense" and not cfg.mla:
         layer = _gqa_cache(cfg, batch, seq_len)
     elif cfg.family == "moe":
         layer = (_mla_cache if cfg.mla else _gqa_cache)(cfg, batch, seq_len)
+    elif cfg.family == "hybrid":
+        layer = {"attn": _gqa_cache(cfg, batch, seq_len),
+                 "mamba": _mamba_state(cfg, batch, cfg.d_model)}
     else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     layers = (stack_layer_specs(layer, cfg.num_layers) if cfg.scan_layers

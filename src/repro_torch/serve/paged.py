@@ -432,9 +432,13 @@ class PrefixCache:
 class PagedKVCache:
     """Device storage for one engine's decode state: pools for ``k``/``v``
     (``paged=True``) or lane-dense K/V (``paged=False``), lane-dense
-    tensors for the landmark sums and the streaming stats. ``storage``
-    maps leaf name -> tensor; ``pool_names`` are the pooled leaves,
-    ``seq_names`` the sequence-shaped ones either way."""
+    tensors for the landmark sums, the streaming stats and, for the hybrid
+    family, the mamba state. ``storage`` maps leaf name -> tensor: a
+    nested layer (hybrid's ``attn/*`` and ``mamba/*``) is keyed by each
+    leaf's last path name, which must be unique, so every commit, reset,
+    snapshot, restore, rebase and block move below takes the mamba leaves
+    as lane-dense leaves like any other. ``pool_names`` are the pooled
+    leaves, ``seq_names`` the sequence-shaped ones either way."""
 
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, device):
         self.cfg, self.serve = cfg, serve
@@ -448,6 +452,8 @@ class PagedKVCache:
             name = path.rsplit("/", 1)[-1]
             if name == "pos":
                 continue
+            if name in self.storage:
+                raise ValueError(f"cache leaf name {name!r} is not unique ({path})")
             # stacked layer leaf: (L, B=1, *rest); the batch axis is 1
             layers, rest = spec.shape[0], spec.shape[2:]
             dt = spec.dtype or torch.float32

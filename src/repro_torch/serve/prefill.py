@@ -82,6 +82,22 @@ def _landmark_sums(oh: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nc,bhnd->bhcd", oh, x.float())
 
 
+def prefill_supported(cfg: ModelConfig) -> bool:
+    """Families whose whole decode state one forward pass derives
+    (``prefill.py:89``). Hybrid and ssm stacks carry a recurrent state:
+    they prefill by token replay through the decode step."""
+    return cfg.family in ("dense", "moe", "vlm")
+
+
+def _check_family(cfg: ModelConfig, what: str) -> None:
+    """The reference's refusal (``prefill.py:355``, ``:655``) for a family
+    without batched prefill; vlm has it there but is not ported."""
+    if not prefill_supported(cfg):
+        raise ValueError(f"{what} prefill unsupported for family {cfg.family}")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
 def _fused(cfg: ModelConfig, prefill_impl: str) -> bool:
     """Whether the prompt's attention runs the ss_fused branch (else the
     replay branch: ``prefill.py:146``)."""
@@ -278,8 +294,7 @@ def batched_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     B=1 cache layout: ``cache["layers"][name]`` stacked (L, 1, ...), K/V
     zero past n_valid, ``cache["pos"] = n_valid``. The next-token logits
     are at index ``n_valid - 1``."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    _check_family(cfg, "batched")
     if prefill_impl not in ("ss_fused", "replay"):
         raise ValueError(f"unknown prefill_impl {prefill_impl!r}")
     n = tokens.shape[1]
@@ -476,8 +491,7 @@ def chunk_prefill(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     1``. Chunk attention is the exact replay math, so chunked prefill
     equals whole-prompt ``replay`` prefill; ``stats_impl`` routes only
     the stats handoff."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    _check_family(cfg, "chunked")
     params = working_params(params, cfg)
     start, chunk_valid = int(start), int(chunk_valid)
     n = tokens.shape[1]

@@ -11,10 +11,14 @@ threaded checkpoint is published atomically. Before the first step
 (``repro/train/trainer.py:177``): with ``autotune=True`` under
 ``spectral_shift_fused`` and backend "auto", from memory or the cache
 (``autotune_cache`` moves it) or else by a measured sweep at the train
-shape. The reference's mesh, shardings, elastic re-planning, heartbeats,
-failure injection and ``grad_compression`` are not ported; settings that
-need them raise. ``opt_state_dtype`` is accepted and, as in the
-reference's trainer, not read (only its dry-run reads it).
+shape. It trains the dense family, the ``moe`` family (GQA or MLA
+attention, MoE feed-forward with its load-balance loss) and the ``hybrid``
+family (Hymba). The reference's mesh, shardings, elastic re-planning,
+heartbeats, failure injection, ``grad_compression`` and the expert-parallel
+``moe_impl="ep"`` are not ported; settings that need them raise, as do the
+families not ported yet (``ssm``, ``audio``, ``vlm``). ``opt_state_dtype``
+is accepted and, as in the reference's trainer, not read (only its dry-run
+reads it).
 
 ``telemetry=`` takes a caller-owned ``Telemetry`` (``repro/train/
 trainer.py:70-92``): each step runs in a ``step_span("train_step",
@@ -55,9 +59,9 @@ log = logging.getLogger("repro_torch.trainer")
 
 def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
     unsupported = {
-        "family != 'dense'": cfg.family != "dense",
-        "mla": cfg.mla,
-        "moe": cfg.moe,
+        f"family {cfg.family!r} (the port trains 'dense', 'moe' and 'hybrid')":
+            cfg.family not in ("dense", "moe", "hybrid"),
+        "moe_impl 'ep' (expert parallel, multi-device)": cfg.moe and cfg.moe_impl == "ep",
         f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in (
             "full", "chunked", "spectral_shift", "nystrom", "spectral_shift_fused"),
         "grad_compression": tcfg.grad_compression is not None,
