@@ -51,7 +51,15 @@ result line):
    training shape (64 batch-heads, d = 64), timed; K1-K4 at Hymba-1.5B's
    training shape (50 batch-heads of d = 64) and K5 at its decode shape
    (hkv 5, r 5, d = 64, bs 16, kv_valid 0 / 17 / 60 / 116, fp32 and bf16)
-   and at a 16k horizon (``hymba_k5_entries``), held and timed;
+   and at a 16k horizon (``hymba_k5_entries``), held and timed; K5 at
+   Whisper-base's decode shape (hkv 8, r 1, d = 64, kv_valid 0 / 17 / 60 /
+   116) and at its 4096-key ``dec_pos`` horizon (``whisper_k5_entries``);
+   K1-K4 at Whisper-base's encoder training shape, bidirectional (b = 32,
+   n = 1500, c = 32, d = 64: ``bidir_train_kernel_entries``); K5 at
+   LLaVA-NeXT-34B's decode shape (hkv 8, r 7, d = 128, kv_valid 48 / 200 /
+   333 / 480) and K1 (as the fused prefill and as the stats seed) and K2 at
+   its prefill shape (b = 56, n = 352, kv_valid 333: ``llava_ss_entries``),
+   each held in fp32 and bf16 and timed;
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -77,7 +85,17 @@ result line):
    layer held, 2 printed; the loss and grads of a 2-layer fp32 grad step
    under spectral_shift_fused, kernel against plain route, and remat
    "ss_stats" against "none"; and one fp32 grad step of DeepSeek-V2-Lite
-   at 2 layers, chunked against full attention;
+   at 2 layers, chunked against full attention; LLaVA-NeXT-34B at full
+   width, 2 fp32 layers, in the Qwen2-7B loop (prefill logits and 4 paged
+   decode steps, kernel route against plain route); Whisper-base
+   (``whisper_model_checks``): token-replay serving through the paged
+   decode step (K5 from kv_valid 0), kernel route against plain route, 1
+   fp32 decoder layer held, 2 printed, and one grad step with its encoder
+   under spectral_shift_fused (K1-K4 bidirectional at n = 1500), against
+   the plain route and against spectral_shift, 1 + 1 layers held, 2 + 2
+   printed; xLSTM-350M at all 24 blocks (``xlstm_model_checks``): 16
+   tokens replayed through the decode step against ``model_forward`` from
+   the same served zero state, within 2e-2 (no kernel);
 4. serving, bf16 random weights from a seeded ``torch.Generator``, 4
    lanes, max_seq 512, prompts of 48/200/333/480 tokens, 16 new tokens
    each, the launch counts of each run read on their own: the main path
@@ -117,7 +135,14 @@ result line):
    width, ``ss_fused`` + ``paged``, prompts of 16/40/64/100 tokens, which
    the family prefills by token replay, as the reference: K5 32 a tick, K1
    and K2 never; ``serve_hymba_frozen``: frozen streaming, K5 never,
-   lane rebases); telemetry on the card: the main path again with
+   lane rebases); Whisper-base (``serve_whisper``: its 6 decoder layers,
+   ``ss_fused`` + ``paged``, prompts of 16/40/64/100 tokens by token
+   replay, cross K/V zero as the reference's engine serves them: K5 6 a
+   tick; ``serve_whisper_frozen``: K5 never, lane rebases);
+   LLaVA-NeXT-34B cut to 16 layers (``serve_llava``: the main path's
+   settings and prompts, text only: K1 96 / K2 48 / K5 16 a tick);
+   xLSTM-350M (``serve_xlstm``: all 24 blocks, token replay on lane-dense
+   state, ``dense+replay-prefill``, no launch); telemetry on the card: the main path again with
    ``telemetry=True`` and ``numerics_probe_every=4`` (``serve_telemetry``:
    tokens and K1 / K2 / K5 launches identical to the telemetry-off main
    path of the same weights, a JSONL dump that parses with the port's core
@@ -156,8 +181,15 @@ result line):
    spectral_shift_fused, the fused losses held to spectral_shift's, the
    same broken-K1 controls, and spectral_shift_fused with
    ``attention_backend="jnp"``: no launch); ``train_chunked`` (Qwen2-7B's
-   own ``chunked`` attention beside ``full``: no kernel launches); then
-   each kernel timed at the tiling the sweeps chose (``autotuned_launch``);
+   own ``chunked`` attention beside ``full``: no kernel launches);
+   ``train_whisper`` (Whisper-base at 6 + 6 layers, decoder seq 4096, 1500
+   stub frames, batch 4, 3 steps with the encoder under spectral_shift and
+   under spectral_shift_fused: K1-K4 18 each), ``train_llava``
+   (LLaVA-NeXT-34B cut to 2 layers, 2048 stub patches + 2048 tokens, batch
+   1, 3 steps under chunked and spectral_shift_fused: K1 12 / K2 12 / K3 6
+   / K4 6) and ``train_xlstm`` (xLSTM-350M, all 24 blocks, seq 4096, batch
+   2, 2 steps, no launch); then each kernel timed at the tiling the sweeps
+   chose (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
    training runs, and by path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -578,6 +610,13 @@ def kernel_phase(torch, dev) -> list[dict]:
     entries.update({f"hymba_{k}": e for k, e in train_kernel_entries(
         torch, dev, b=HYMBA_TRAIN_BATCH * 25, d=64).items()})
     entries.update(hymba_k5_entries(torch, dev))
+    # Whisper-base's decode launch (hkv 8, r 1, d 64) and its encoder's
+    # training launches (bidirectional, b = 64, n = 1500, c = 32, d = 64);
+    # LLaVA-NeXT-34B's prefill (b = 56) and decode (hkv 8, r 7) launches
+    entries.update(whisper_k5_entries(torch, dev))
+    entries.update(bidir_train_kernel_entries(torch, dev))
+    entries.update(llava_k5_entries(torch, dev))
+    entries.update(llava_ss_entries(torch, dev))
 
     def timed(tag):
         return timed_entry(tag, entries[tag])
@@ -616,6 +655,19 @@ def kernel_phase(torch, dev) -> list[dict]:
         tag = f"hymba_{name}_train" if f"hymba_{name}_train" in entries else f"hymba_{name}"
         if tag in entries and name != "paged_row_stats":
             row["hymba_train_launch"] = dict(shape=entries[tag]["shape"], **timed(tag))
+        # Whisper-base's encoder training launch (bidirectional, d = 64, n =
+        # 1500, c = 32) and LLaVA-NeXT-34B's prefill launches (b = 56)
+        tag = (f"whisper_{name}_train" if f"whisper_{name}_train" in entries
+               else f"whisper_{name}")
+        if tag in entries and name != "paged_row_stats":
+            row["whisper_encoder_train_launch"] = dict(shape=entries[tag]["shape"],
+                                                       **timed(tag))
+        for tag, key in {"landmark_summary": (("llava_landmark_summary", "llava_prefill_launch"),
+                                              ("llava_landmark_summary_stats",
+                                               "llava_seed_stats_launch")),
+                         "query_side": (("llava_query_side", "llava_prefill_launch"),)
+                         }.get(name, ()):
+            row[key] = dict(shape=entries[tag]["shape"], **timed(tag))
         # DeepSeek-V2-Lite's launches (absorbed MLA: d = 576, dv = 512; the
         # same kernels, through their wide-head variants, and counters)
         for tag, key in {
@@ -636,7 +688,10 @@ def kernel_phase(torch, dev) -> list[dict]:
             for tag, key in (("paged_row_stats_granite", "granite_launch"),
                              ("paged_row_stats_granite_long", "granite_long_horizon_launch"),
                              ("hymba_paged_row_stats", "hymba_decode_launch"),
-                             ("hymba_paged_row_stats_long", "hymba_long_horizon_launch")):
+                             ("hymba_paged_row_stats_long", "hymba_long_horizon_launch"),
+                             ("whisper_paged_row_stats", "whisper_decode_launch"),
+                             ("whisper_paged_row_stats_long", "whisper_dec_pos_horizon_launch"),
+                             ("llava_paged_row_stats", "llava_decode_launch")):
                 row[key] = dict(shape=entries[tag]["shape"], **timed(tag))
         results.append(row)
     # K5': the reference's single-lane entry, K5 launched with one lane (its
@@ -688,9 +743,12 @@ def library_with_stats(q_l, k, v, mask, *, scale):
     the log-sum-exp m + log l, under the additive form of ``mask``."""
     import torch
 
-    bias = torch.zeros(mask.shape, dtype=q_l.dtype, device=q_l.device)
-    bias = bias.masked_fill(~mask, float("-inf"))[None, None].expand(
-        1, q_l.shape[0], *mask.shape)
+    # the kernel wants the bias's row stride a multiple of 8: pad the key
+    # axis and take a view of the first n columns
+    c, n = mask.shape
+    bias = torch.zeros((c, -(-n // 8) * 8), dtype=q_l.dtype, device=q_l.device)[:, :n]
+    bias = bias.masked_fill_(~mask, float("-inf"))[None, None].expand(
+        1, q_l.shape[0], c, n)
     fn = partial(torch.ops.aten._scaled_dot_product_efficient_attention,
                  q_l[None], k[None], v[None], bias, True, scale=scale)
     fn.label = "efficient attention, additive mask, with log-sum-exp"
@@ -1569,7 +1627,7 @@ def model_phase(torch, dev) -> None:
     from repro_torch.serve.engine import tree_to
 
     prompt_lens = (48, 333)
-    for arch, bs in (("qwen2-7b", 16), ("granite-20b", 64)):
+    for arch, bs in (("qwen2-7b", 16), ("granite-20b", 64), (LLAVA, 16)):
         cfg = dataclasses.replace(get_config(arch), num_layers=2, compute_dtype="float32")
         t0 = time.perf_counter()
         params = random_params(cfg, seed=0, device=dev)
@@ -1631,6 +1689,8 @@ def model_phase(torch, dev) -> None:
     frozen_model_checks(torch, dev, prompt_lens)
     deepseek_model_checks(torch, dev)
     hymba_model_checks(torch, dev)
+    whisper_model_checks(torch, dev)
+    xlstm_model_checks(torch, dev)
 
 
 def deepseek_model_checks(torch, dev) -> None:
@@ -2113,7 +2173,11 @@ def serve_phase(torch, dev, layers: int) -> dict:
             "_decode_plan": decode_plan, "serve_default_route": default["launches"],
             "serve_granite_20b": granite["launches"], **serve_chunked_phase(torch, dev, layers),
             **serve_frozen_phase(torch, dev, layers), **serve_deepseek_phase(torch, dev),
-            **serve_hymba_phase(torch, dev)}
+            **serve_hymba_phase(torch, dev),
+            **serve_replay_phase(torch, dev, WHISPER, "serve_whisper", WHISPER_LENS),
+            **serve_llava_phase(torch, dev),
+            **serve_replay_phase(torch, dev, XLSTM, "serve_xlstm", XLSTM_LENS,
+                                 frozen_twin=False)}
 
 
 # The reference's core metric families (``tests/test_telemetry.py:308``);
@@ -3233,10 +3297,10 @@ def serve_autotune_phase(torch, dev, weights, main_serve, main: dict) -> tuple:
     return out["launches"], dplan, pplan
 
 
-def train_steps(torch, dev, cfg, shape, steps: int, label: str) -> dict:
-    """``steps`` steps of a fresh ``Trainer`` (seed 0): losses, mean ms per
-    step after the first, peak GiB and the launches summed over the
-    steps."""
+def train_steps(torch, dev, cfg, shape, steps: int, label: str, data=None) -> dict:
+    """``steps`` steps of a fresh ``Trainer`` (seed 0; ``data``: its batch
+    source, ``SyntheticLM`` by default): losses, mean ms per step after the
+    first, peak GiB and the launches summed over the steps."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.train.trainer import Trainer
@@ -3245,7 +3309,7 @@ def train_steps(torch, dev, cfg, shape, steps: int, label: str) -> dict:
         tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
                            checkpoint_dir=tmp)
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, tcfg, shape, device=dev)
+        trainer = Trainer(cfg, tcfg, shape, device=dev, data=data)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         check_heuristic_plan(cfg, shape, dev, label)
@@ -3261,7 +3325,9 @@ def train_steps(torch, dev, cfg, shape, steps: int, label: str) -> dict:
     later = [h["step_time_s"] for h in hist[1:]]
     ms = 1e3 * sum(later) / len(later)
     tokens = shape.seq_len * shape.global_batch
-    log(f"{label}: {cfg.name} {cfg.attention_impl} layers={cfg.num_layers} d_model="
+    impl = cfg.attention_impl + (f" (encoder {cfg.encoder_attention_impl})"
+                                 if cfg.family == "audio" else "")
+    log(f"{label}: {cfg.name} {impl} layers={cfg.num_layers} d_model="
         f"{cfg.d_model} heads={cfg.num_heads} seq {shape.seq_len} batch "
         f"{shape.global_batch}: losses {['%.4f' % x for x in losses]}, {ms:.1f} ms per "
         f"step after the first ({tokens / ms * 1e3:.0f} tokens/s), peak {peak:.2f} GiB, "
@@ -3411,23 +3477,21 @@ DEEPSEEK_TRAIN_LAYERS = 4        # of 27: 16 B a parameter of masters and AdamW 
 DEEPSEEK_TRAIN_BATCH = 1
 
 
-def hymba_k5_entries(torch, dev) -> dict:
-    """K5 at Hymba-1.5B's decode shape (4 lanes, 5 kv heads, r = 5 query
-    rows each, d = dv = 64, bs 16, 32 slots; kv_valid 0 / 17 / 60 / 116,
-    the first replay tick's empty lane among them; fp32 pools as the engine
-    stores them, and bf16) and at a 16k horizon (2k-16k keys, 1024 slots),
-    held against its plain version (the kv_valid-0 lane exactly (m=-1e30,
-    l=0, acc=0)) and set up for timing with L2 cold."""
+def k5_model_entries(torch, dev, model: str, prefix: str, *, hkv: int, r: int, d: int,
+                     cases, bs: int = 16, seed: int = 10) -> dict:
+    """K5 at one model's decode shape: 4 lanes, ``hkv`` kv heads, ``r``
+    query rows each, d = dv = ``d``, block ``bs``; each case (tag suffix,
+    kv_valid per lane, table slots) in fp32 pools as the engine stores
+    them and in bf16, held against its plain version (a kv_valid-0 lane
+    exactly (m=-1e30, l=0, acc=0)) and set up for timing in fp32 with L2
+    cold."""
     from repro_torch.kernels.paged_decode import (paged_row_stats_lanes,
                                                   paged_row_stats_plain)
 
-    gen = torch.Generator(device=dev).manual_seed(10)
-    hkv, r, d, bs = 5, 5, 64, 16
+    gen = torch.Generator(device=dev).manual_seed(seed)
     scale = d**-0.5
     out = {}
-    for tag, kv, n_slots in (("hymba_paged_row_stats", [0, 17, 60, 116], 32),
-                             ("hymba_paged_row_stats_long", [2048, 4096, 8192, 16384],
-                              1024)):
+    for suffix, kv, n_slots in cases:
         for dt in (torch.bfloat16, torch.float32):
             q, k_pool, v_pool, table, kvv = paged_inputs(
                 torch, dev, gen, kv, hkv=hkv, r=r, d=d, dv=d, bs=bs, n_slots=n_slots,
@@ -3436,19 +3500,19 @@ def hymba_k5_entries(torch, dev) -> dict:
                                               scale=scale, block_size=bs)
             rm, rl, racc = paged_row_stats_plain(q, (k_pool,), v_pool, table, kvv,
                                                  scale=scale)
-            shape = (f"hymba-1.5b decode: lanes=4 hkv={hkv} r={r} d=dv={d} bs={bs} "
+            shape = (f"{model} decode: lanes=4 hkv={hkv} r={r} d=dv={d} bs={bs} "
                      f"slots={n_slots} kv_valid={kv} {str(dt).split('.')[-1]}")
             empty = [i for i, k in enumerate(kv) if k == 0]
             if empty and not (torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0)
                               and torch.all(acc[empty] == 0)):
-                raise AssertionError("K5 at Hymba's shape: a lane with kv_valid = 0 must "
-                                     "return (m=-1e30, l=0, acc=0)")
+                raise AssertionError(f"K5 at {model}'s shape: a lane with kv_valid = 0 "
+                                     f"must return (m=-1e30, l=0, acc=0)")
             live = rl[..., 0] > 0
             err = check(f"K5 {shape}", [("m", m[..., 0], rm[..., 0], live),
                                         ("l", l, rl, None), ("acc", acc, racc, None)])
         # timed in fp32, the pools' type on the path
         pools = cold_pools(k_pool, v_pool)
-        out[tag] = dict(
+        out[f"{prefix}_paged_row_stats{suffix}"] = dict(
             fn=[partial(paged_row_stats_lanes, q, (kp,), vp, table, kvv, scale=scale,
                         block_size=bs) for kp, vp in pools],
             plain=[partial(paged_row_stats_plain, q, (kp,), vp, table, kvv, scale=scale)
@@ -3456,6 +3520,14 @@ def hymba_k5_entries(torch, dev) -> dict:
             library=None, err=err, bound=k5_bound(kv, hkv, r, d, d, bs),
             shape=f"{shape}, L2 cold ({len(pools)} pool copies)")
     return out
+
+
+def hymba_k5_entries(torch, dev) -> dict:
+    """K5 at Hymba-1.5B's decode shape (5 kv heads, r = 5, d = 64; kv_valid
+    0 / 17 / 60 / 116, the first replay tick's empty lane among them) and
+    at a 16k horizon (2k-16k keys, 1024 slots)."""
+    return k5_model_entries(torch, dev, "hymba-1.5b", "hymba", hkv=5, r=5, d=64, cases=(
+        ("", [0, 17, 60, 116], 32), ("_long", [2048, 4096, 8192, 16384], 1024)))
 
 
 def drive_replay(torch, params, cfg, device, prompt_lens, feed=None, steps: int = 4,
@@ -3648,44 +3720,58 @@ def hymba_model_checks(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_hymba_phase(torch, dev) -> dict:
-    """``serve_hymba``: Hymba-1.5B, all 32 layers at full width, bf16 random
-    weights (seed 0), 4 lanes, max_seq 512, block 16, ``ss_fused`` +
-    ``paged`` (the family prefills by token replay whatever the route, as
-    in the reference: K1 and K2 never launch, K5 once a layer a tick for
-    all lanes), prompts of HYMBA_LENS tokens, 16 new tokens each; then
-    ``serve_hymba_frozen``, the same under frozen streaming (K5 never;
-    boundary rebases). Returns each path's launch counts."""
+def serve_replay_phase(torch, dev, arch: str, label: str, lens, frozen_twin: bool = True,
+                       layers: int = 0) -> dict:
+    """``label``: full-width ``arch`` (all its layers, or ``layers``), bf16
+    random weights (seed 0), 4 lanes, max_seq 512, block 16, ``ss_fused`` +
+    ``paged``, prompts of ``lens`` tokens, 16 new tokens each. The family
+    prefills by token replay whatever the route, as in the reference: K1
+    and K2 never launch; K5 once a layer a tick for all lanes when the
+    model has paged attention leaves (``paged+replay-prefill``), never when
+    it has none (xLSTM: ``dense+replay-prefill``, no ``"kv"``). With
+    ``frozen_twin``, ``{label}_frozen``: the same under frozen streaming (K5
+    never; boundary rebases). Returns each path's launch counts."""
     from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
 
-    cfg, params = serve_params(torch, dev, HYMBA, 32, "serve_hymba")
+    cfg, params = serve_params(torch, dev, arch, layers or get_config(arch).num_layers,
+                               label)
     serve = ServeConfig(max_lanes=4, max_seq=512, block_size=16, prefill_impl="ss_fused",
                         decode_impl="paged", seed=0)
     runs = {}
-    for label, c in (("serve_hymba", cfg),
-                     ("serve_hymba_frozen",
-                      dataclasses.replace(cfg, decode_streaming="frozen"))):
-        out = serve_run(torch, dev, HYMBA, cfg.num_layers, serve, label, params=(c, params),
-                        lens=HYMBA_LENS, warm_len=16)
+    twins = [(label, cfg)]
+    if frozen_twin:
+        twins.append((f"{label}_frozen", dataclasses.replace(cfg, decode_streaming="frozen")))
+    for name, c in twins:
+        out = serve_run(torch, dev, arch, cfg.num_layers, serve, name, params=(c, params),
+                        lens=lens, warm_len=16)
         ticks, ran = out["decode_ticks"], out["launches"]
+        attn = c.family != "ssm"
         frozen = c.decode_streaming == "frozen"
-        want_k5 = 0 if frozen else ticks * cfg.num_layers
-        if (out["mode"] != "paged+replay-prefill" or ran["paged_row_stats"] != want_k5
+        want_k5 = ticks * cfg.num_layers if attn and not frozen else 0
+        mode = f"{'paged' if attn else 'dense'}+replay-prefill"
+        if (out["mode"] != mode or ran["paged_row_stats"] != want_k5
                 or any(v for k, v in ran.items() if k != "paged_row_stats")
-                or (frozen and not out["rebases"])):
-            raise AssertionError(f"{label}: route {out['mode']}, {ticks} ticks, launches "
-                                 f"{ran}, rebases {out['rebases']}: want replay prefill, "
-                                 f"K5 {want_k5} ({cfg.num_layers} a tick unless frozen), "
-                                 f"no other kernel")
-        log(f"serve {label}: {ticks} ticks, K5 {ran['paged_row_stats']} "
+                or (frozen and not out["rebases"]) or (not attn and "kv" in out["stats"])):
+            raise AssertionError(f"{name}: route {out['mode']}, {ticks} ticks, launches "
+                                 f"{ran}, rebases {out['rebases']}: want {mode}, K5 "
+                                 f"{want_k5} ({cfg.num_layers} a tick unless frozen or "
+                                 f"attention-free), no other kernel")
+        log(f"serve {name}: {ticks} ticks, K5 {ran['paged_row_stats']} "
             f"({ran['paged_row_stats'] / max(ticks, 1):.0f} a tick)"
             + (f", {out['rebases']} rebases, {1e3 * out['rebase_s'] / out['rebases']:.2f} "
                f"ms each" if frozen else ""))
-        runs[label] = ran
+        runs[name] = ran
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return runs
+
+
+def serve_hymba_phase(torch, dev) -> dict:
+    """``serve_hymba`` (all 32 layers, prompts of HYMBA_LENS tokens) and
+    ``serve_hymba_frozen`` (``serve_replay_phase``)."""
+    return serve_replay_phase(torch, dev, HYMBA, "serve_hymba", HYMBA_LENS)
 
 
 def train_hymba_phase(torch, dev) -> dict:
@@ -3757,6 +3843,498 @@ def train_deepseek_phase(torch, dev) -> dict:
     return {k: v["launches"] for k, v in runs.items()}
 
 
+WHISPER = "whisper-base"
+LLAVA = "llava-next-34b"
+XLSTM = "xlstm-350m"
+WHISPER_LENS = [16, 40, 64, 100]   # token replay costs a tick per prompt token
+XLSTM_LENS = [16, 40, 64, 100]
+# train_4k's global batch of 256 cut to 4: at 8 the decoder's saved fp32
+# score blocks (no remat, as the reference's unrolled stack) and the
+# logits' log-sum-exp pass 80 GB
+WHISPER_TRAIN_BATCH = 4
+LLAVA_SERVE_LAYERS = 16            # of 60: 9.9 B parameters, 19.8 GB of bf16 weights
+LLAVA_TRAIN_LAYERS = 2             # of 60: 2.09 B parameters at 16 B each
+LLAVA_TRAIN_BATCH = 1
+XLSTM_TRAIN_BATCH = 2
+XLSTM_TOL = 2e-2   # replayed decode vs the forward (``tests/test_decode.py:59``)
+
+
+def whisper_k5_entries(torch, dev) -> dict:
+    """K5 at Whisper-base's decode shape (8 kv heads, r = 1, d = 64; kv_valid
+    0 / 17 / 60 / 116) and at the 4096-key horizon of its learned decoder
+    positions (``dec_pos``; 256 slots)."""
+    return k5_model_entries(torch, dev, WHISPER, "whisper", hkv=8, r=1, d=64, cases=(
+        ("", [0, 17, 60, 116], 32), ("_long", [512, 1024, 2048, 4096], 256)), seed=12)
+
+
+def llava_k5_entries(torch, dev) -> dict:
+    """K5 at LLaVA-NeXT-34B's decode shape (8 kv heads, r = 7, d = 128;
+    kv_valid 48 / 200 / 333 / 480, the main path's prompts)."""
+    return k5_model_entries(torch, dev, LLAVA, "llava", hkv=8, r=7, d=128, cases=(
+        ("", [48, 200, 333, 480], 32),), seed=13)
+
+
+def llava_ss_entries(torch, dev) -> dict:
+    """K1 and K2 at LLaVA-NeXT-34B's prefill shape (56 query heads of 128,
+    the 8 kv heads broadcast: b = 56, n = 352, kv_valid 333, c = 64), fp32
+    and bf16, held against their plain versions: K1 as
+    ``ss_attention_fused`` launches it (bf16, no stats) and as the seed of
+    the streaming stats (fp32 landmark means over bf16 keys, with stats),
+    K2 in bf16. Returns the timed entries."""
+    from repro_torch.kernels.ss_attention import (landmark_summary,
+                                                  landmark_summary_plain, query_side,
+                                                  query_side_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    b, c, d, n, kvv = 56, 64, 128, 352, 333
+    scale = d**-0.5
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    entries = {}
+    for q_dt, kv_dt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                        (torch.float32, torch.bfloat16)):
+        q_l = randn(b, c, d, s=0.5, dtype=q_dt)
+        k, v = randn(b, n, d, s=0.5, dtype=kv_dt), randn(b, n, d, dtype=kv_dt)
+        out, m, l = landmark_summary(q_l, k, v, scale=scale, kv_valid=kvv, return_stats=True)
+        ref, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, kv_end=kvv,
+                                             return_stats=True)
+        err = check(f"K1 landmark_summary {LLAVA} prefill b={b} c={c} n={n} "
+                    f"kv_valid={kvv} q={q_dt} kv={kv_dt}",
+                    [("out", out, ref, None), ("m", m, rm, None), ("l", l, rl, None)])
+        if kv_dt != torch.bfloat16:
+            continue
+        stats = q_dt == torch.float32
+        nbytes = (q_l.element_size() * b * c * d + 2 * (b * kvv * 2 * d + b * c * d)
+                  + (8 * b * c if stats else 0))
+        mask = torch.arange(n, device=dev)[None, :] < kvv
+        entries["llava_landmark_summary_stats" if stats else "llava_landmark_summary"] = dict(
+            fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=kvv,
+                       return_stats=stats),
+            plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, kv_end=kvv,
+                          return_stats=stats),
+            library=None if stats else partial(
+                torch.nn.functional.scaled_dot_product_attention, q_l[None], k[None],
+                v[None], attn_mask=mask.expand(c, n), scale=scale),
+            err=err, bound=bound(nbytes, 2 * b * c * kvv * 2 * d, "bfloat16"),
+            shape=(f"{LLAVA} prefill: b={b} c={c} n={n} kv_valid={kvv} d=dv={d} "
+                   + ("fp32 q, bf16 k/v, with stats (seed)" if stats
+                      else "bf16, no stats (ss_attention_fused)")))
+    for dt in (torch.float32, torch.bfloat16):
+        q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+        m_mat, v = randn(b, c, d, dtype=dt), randn(b, n, d, dtype=dt)
+        delta = randn(b, 1, 1, s=0.1).abs()
+        err = check(f"K2 query_side {LLAVA} prefill b={b} n={n} c={c} "
+                    f"{str(dt).split('.')[-1]}",
+                    [("out", query_side(q, k_l, m_mat, v, delta, scale=scale),
+                      query_side_plain(q, k_l, m_mat, v, delta, scale=scale), None)])
+    entries["llava_query_side"] = dict(
+        fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
+        plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
+        library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale),
+        err=err, bound=bound(2 * (2 * b * n * d + 2 * b * c * d + b * n * d) + 4 * b,
+                             2 * b * n * c * 2 * d, "bfloat16"),
+        shape=f"{LLAVA} prefill: b={b} n={n} c={c} d=dv={d} bf16")
+    return entries
+
+
+def bidir_train_kernel_entries(torch, dev, b: int = WHISPER_TRAIN_BATCH * 8,
+                               n: int = 1500, c: int = 32, d: int = 64) -> dict:
+    """Held and timed entries of Whisper-base's encoder training launches,
+    bidirectional (the paper's own setting): batch 4 x 8 heads, n = 1500
+    frames (a multiple of neither c nor the kernels' tiles: segments of
+    47, the last one padded), c = 32, d = 64. K1 with stats and K2 forward,
+    K3 and K4 backward, each against its plain version in fp32 (TF32 off)
+    and bf16; timing entries are the bf16 launches."""
+    from repro_torch.kernels.ss_attention import (landmark_summary,
+                                                  landmark_summary_plain, query_side,
+                                                  query_side_plain)
+    from repro_torch.kernels.ss_attention_bwd import (landmark_summary_bwd,
+                                                      landmark_summary_bwd_plain,
+                                                      query_side_bwd,
+                                                      query_side_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    scale = d**-0.5
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    full = torch.ones((c, n), dtype=torch.bool, device=dev)
+    pairs = b * c * n   # every (row, key) pair is attended
+    at = f"b={b} c={c} n={n} d=dv={d}"
+    entries = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        es = 2 if dt == torch.bfloat16 else 4
+        q_l, k, v = randn(b, c, d, s=0.5, dtype=dt), randn(b, n, d, s=0.5, dtype=dt), randn(b, n, d, dtype=dt)
+        bv, m, l = landmark_summary(q_l, k, v, scale=scale, return_stats=True)
+        rbv, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, return_stats=True)
+        err1 = check(f"K1 landmark_summary {WHISPER} encoder train {at} bidirectional stats "
+                     f"{dname}", [("out", bv, rbv, None), ("m", m, rm, None),
+                                  ("l", l, rl, None)])
+        g = randn(b, c, d, dtype=dt)
+        dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
+        out = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale)
+        ref = landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale)
+        err3 = check(f"K3 landmark_summary_bwd {WHISPER} encoder {at} bidirectional {dname}",
+                     [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"), out, ref)])
+        q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+        m_mat, v2 = randn(b, c, d, dtype=dt), randn(b, n, d, dtype=dt)
+        delta = randn(b, 1, 1, s=0.1).abs()
+        err2 = check(f"K2 query_side {WHISPER} encoder train {at} bidirectional {dname}",
+                     [("out", query_side(q, k_l, m_mat, v2, delta, scale=scale),
+                       query_side_plain(q, k_l, m_mat, v2, delta, scale=scale), None)])
+        g2 = randn(b, n, d, dtype=dt)
+        names = ("dq", "dk_l", "dm", "dv", "ddelta")
+        err4 = check(f"K4 query_side_bwd {WHISPER} encoder {at} bidirectional {dname}",
+                     [(nm, o, r, None) for nm, o, r in zip(
+                         names, query_side_bwd(q, k_l, m_mat, v2, delta, g2, scale=scale),
+                         query_side_bwd_plain(q, k_l, m_mat, v2, delta, g2, scale=scale))])
+    shape = f"{WHISPER} encoder training: {at} bf16, bidirectional"
+    entries["whisper_landmark_summary_train"] = dict(
+        fn=partial(landmark_summary, q_l, k, v, scale=scale, return_stats=True),
+        plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, return_stats=True),
+        library=library_with_stats(q_l, k, v, full, scale=scale), err=err1,
+        bound=bound(es * (2 * b * c * d + 2 * b * n * d) + 8 * b * c, 2 * pairs * 2 * d,
+                    "bfloat16"),
+        shape=f"{shape}, with stats")
+    entries["whisper_landmark_summary_bwd"] = dict(
+        fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, scale=scale),
+        plain=partial(landmark_summary_bwd_plain, q_l, k, v, g, m, l, dcoef, scale=scale),
+        library=sdpa_backward(partial(sdpa_4d, scale=scale), (q_l, k, v), g), err=err3,
+        bound=bound(es * (3 * b * c * d + 2 * b * n * d) + 8 * b * c
+                    + es * (b * c * d + 2 * b * n * d), 2 * pairs * 5 * d, "bfloat16"),
+        shape=shape)
+    entries["whisper_query_side_train"] = dict(
+        fn=partial(query_side, q, k_l, m_mat, v2, delta, scale=scale),
+        plain=partial(query_side_plain, q, k_l, m_mat, v2, delta, scale=scale),
+        library=partial(sdpa_query_side, q, k_l, m_mat, v2, delta, scale=scale), err=err2,
+        bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b, 2 * pairs * 2 * d,
+                    "bfloat16"),
+        shape=shape)
+    entries["whisper_query_side_bwd"] = dict(
+        fn=partial(query_side_bwd, q, k_l, m_mat, v2, delta, g2, scale=scale),
+        plain=partial(query_side_bwd_plain, q, k_l, m_mat, v2, delta, g2, scale=scale),
+        library=sdpa_backward(partial(sdpa_query_side, scale=scale),
+                              (q, k_l, m_mat, v2, delta), g2), err=err4,
+        bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b
+                    + es * (2 * b * n * d + 2 * b * c * d) + 4 * b,
+                    2 * pairs * 5 * d + 4 * b * n * d, "bfloat16"),
+        shape=shape)
+    return entries
+
+
+def frontend_batch(cfg, seq: int, batch: int):
+    """Whisper's and LLaVA's training batches: ``SyntheticLM`` tokens beside
+    seeded stub frame embeddings (1500 frames of d_model) or patch features
+    (min(2880, seq / 2) of 1024), ``batch_specs``' shapes."""
+    from repro_torch.configs.registry import ENCODER_SEQ
+    from repro_torch.data.pipeline import StubFrontendLM
+
+    return StubFrontendLM(cfg.family, cfg.vocab_size, seq, batch, d_model=cfg.d_model,
+                          num_patches=cfg.num_patches, enc_len=ENCODER_SEQ, seed=0)
+
+
+def whisper_model_checks(torch, dev) -> None:
+    """Whisper-base at full width, fp32, kernel route against the plain route
+    on the card: token-replay serving logits (``drive_replay``, prompts of
+    16 and 40 tokens, 4 greedy ticks past the longer; K5 once a decoder
+    layer a tick at hkv 8, r 1, d 64, from kv_valid 0; cross K/V zero, as
+    the engine serves them) at 1 decoder layer (MODEL_TOL) and 2 (printed);
+    then one grad step (seq 512, 1500 frames, batch 1) with the encoder
+    under ``spectral_shift_fused`` (K1-K4 bidirectional at n = 1500, c =
+    32, d = 64), kernel route against plain route and against the plain
+    ``spectral_shift``, loss and grads at GRAD_TOL with 1 encoder and 1
+    decoder layer, printed with 2 + 2 (ROADMAP P1: the random-weight
+    decoder's sharp cross attention amplifies rounding; in the CPU tests the
+    two packages' 2 + 2-layer gradients each sit 1e-2 from float64)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+    from repro_torch.train.train_step import make_grad_step
+
+    worst = {}
+    for layers in (1, 2):
+        cfg = dataclasses.replace(get_config(WHISPER), num_layers=layers,
+                                  encoder_layers=layers, compute_dtype="float32")
+        t0 = time.perf_counter()
+        params = random_params(cfg, seed=0, device=dev)
+        before = launch_counts()
+        card, fed, ticks = drive_replay(torch, params, cfg, dev, (16, 40))
+        after = launch_counts()
+        k5 = after["paged_row_stats"] - before["paged_row_stats"]
+        if (k5 != ticks * layers
+                or any(after[k] != before[k] for k in TRAIN_KERNELS)):
+            raise AssertionError(f"model parity {WHISPER}: K5 launched {k5} times, want "
+                                 f"{ticks * layers}; launches {after}")
+        with plain_route():
+            plain, _, _ = drive_replay(torch, params, cfg, dev, (16, 40), feed=fed)
+        if launch_counts() != after:
+            raise AssertionError(f"model parity {WHISPER}: the plain route launched a "
+                                 f"kernel")
+        errs = []
+        for a, b in zip(card, plain):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"model parity {WHISPER}: non-finite logits")
+            err, scale = max_err(a, b)
+            errs.append(err / scale)
+        worst[layers] = max(errs)
+        log(f"model parity: {WHISPER} full width (d_model={cfg.d_model}, heads="
+            f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, d_ff="
+            f"{cfg.d_ff}, vocab={cfg.vocab_size}) {layers} fp32 decoder layer(s), token "
+            f"replay of prompts (16, 40) + 4 ticks through the paged decode step "
+            f"({ticks} ticks, K5 {k5}), kernel route vs plain route on the card: worst "
+            f"logit err of max-abs {max(errs):.2e} (positions 8-31: "
+            f"{max(errs[8:32]):.2e}, past them {max(errs[32:]):.2e}) "
+            + (f"(tol {MODEL_TOL})" if layers == 1 else "(printed: P1, P2)")
+            + f"; {time.perf_counter() - t0:.1f}s")
+        del params
+    if not worst[1] <= MODEL_TOL:
+        raise AssertionError(f"model parity {WHISPER}: 1-layer logit err {worst[1]:.3e} > "
+                             f"{MODEL_TOL}")
+
+    for layers in (1, 2):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(WHISPER), num_layers=layers,
+                                  encoder_layers=layers, compute_dtype="float32",
+                                  remat="none", encoder_attention_impl="spectral_shift_fused")
+        params = random_params(cfg, seed=0, device=dev)
+        batch = to_device(frontend_batch(cfg, 512, 1).batch(0), dev)
+        before = launch_counts()
+        loss, grads = make_grad_step(cfg)(params, batch)
+        after = launch_counts()
+        ran = {k: after[k] - before[k] for k in TRAIN_KERNELS}
+        if ran != dict.fromkeys(TRAIN_KERNELS, layers):
+            raise AssertionError(f"grad parity {WHISPER}: launches {ran}, want "
+                                 f"{layers} of each of K1-K4 (the encoder's only)")
+        with plain_route():
+            ploss, pgrads = make_grad_step(cfg)(params, batch)
+        sloss, sgrads = make_grad_step(dataclasses.replace(
+            cfg, encoder_attention_impl="spectral_shift"))(params, batch)
+        if launch_counts() != after:
+            raise AssertionError(f"grad parity {WHISPER}: the plain routes launched a "
+                                 f"kernel")
+        res = {}
+        for name, (l2, g2) in (("plain route", (ploss, pgrads)),
+                               ("spectral_shift", (sloss, sgrads))):
+            lerr = abs(float(loss) - float(l2)) / abs(float(l2))
+            errs = grad_errs(torch, grads, g2)
+            w = max(errs, key=errs.get)
+            res[name] = (lerr, errs[w], w)
+        held = layers == 1
+        log(f"grad parity: {WHISPER} full width {layers} encoder + {layers} decoder fp32 "
+            f"layers, seq 512, 1500 frames, spectral_shift_fused encoder (K1-K4 "
+            f"{ran['landmark_summary']} each) vs "
+            + "; vs ".join(f"{k}: loss rel {v[0]:.2e}, worst grad err of max-abs "
+                           f"{v[1]:.2e} ({v[2]})" for k, v in res.items())
+            + (f" (tol {GRAD_TOL})" if held else " (printed: P1)")
+            + f"; {time.perf_counter() - t0:.1f}s")
+        if held and not all(v[0] <= GRAD_TOL and v[1] <= GRAD_TOL for v in res.values()):
+            raise AssertionError(f"grad parity {WHISPER}: {res} past {GRAD_TOL}")
+        del params, grads, pgrads, sgrads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def served_initial_state(torch):
+    """While the block runs, ``model_forward``'s mLSTM and sLSTM cells start
+    from the served state, every leaf zero (m = 0), instead of the
+    forward's fresh state (m = -1e30): the state the engine's token replay
+    starts from (``serve/kv_cache.py``), as in the reference."""
+    from repro_torch.models import model as m
+
+    mlstm, slstm = m.mlstm_chunked, m.slstm_scan
+
+    def mlstm_zero(q, k, v, ilog, flog, state=None, chunk=64):
+        b, h, _, dh = q.shape
+        zeros = [torch.zeros(shape, dtype=torch.float32, device=q.device)
+                 for shape in ((b, h, dh, dh), (b, h, dh), (b, h))]
+        return mlstm(q, k, v, ilog, flog, state=state or tuple(zeros), chunk=chunk)
+
+    def slstm_zero(xg, r_w, state=None):
+        b, _, h, _, dh = xg.shape
+        zero = torch.zeros((b, h, dh), dtype=torch.float32, device=xg.device)
+        return slstm(xg, r_w, state=state or (zero,) * 4)
+
+    m.mlstm_chunked, m.slstm_scan = mlstm_zero, slstm_zero
+    try:
+        yield
+    finally:
+        m.mlstm_chunked, m.slstm_scan = mlstm, slstm
+
+
+def xlstm_model_checks(torch, dev) -> None:
+    """xLSTM-350M at full width, all 24 blocks, fp32 (no kernel: attention-
+    free): 16 tokens of 2 lanes replayed one a tick through the decode step
+    from the zero state, as the engine serves them, against
+    ``model_forward`` over the same tokens with its cells started from that
+    same served state (``served_initial_state``), within the reference's
+    own ``tests/test_decode.py`` bound (|a - b| <= 2e-2 + 2e-2 |b|). The
+    plain forward starts at m = -1e30: against it the decode differs
+    wherever an sLSTM block is (printed; the reference's own decode and
+    forward differ as much: 1.06 of 0.91 at 24 reduced blocks)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import random_params
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.paged import PagedKVCache
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(XLSTM), compute_dtype="float32")
+    params = random_params(cfg, seed=0, device=dev)
+    kv = PagedKVCache(cfg, ServeConfig(max_lanes=2, max_seq=64), dev)
+    step = kv.make_fused_step(lambda c_, t_: decode_step(params, cfg, c_, t_, seq_max=64))
+    tokens = torch.randint(1, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(5)).to(dev)
+    before = launch_counts()
+    outs = []
+    for t in range(tokens.shape[1]):
+        lg = step(torch.zeros((2, 1), dtype=torch.int32, device=dev), tokens[:, t:t + 1],
+                  torch.full((2,), t, dtype=torch.int32, device=dev),
+                  torch.ones(2, dtype=torch.bool, device=dev), 1)
+        outs.append(lg[:, 0].float())
+    dec = torch.stack(outs, dim=1)
+    with torch.no_grad():
+        fresh, _ = model_forward(params, cfg, {"tokens": tokens})
+        with served_initial_state(torch):
+            served, _ = model_forward(params, cfg, {"tokens": tokens})
+    if launch_counts() != before:
+        raise AssertionError(f"model parity {XLSTM}: a kernel launched")
+    if not all(torch.isfinite(t).all() for t in (dec, fresh, served)):
+        raise AssertionError(f"model parity {XLSTM}: non-finite logits")
+    excess = float(((dec - served.float()).abs() - XLSTM_TOL * served.float().abs()).max())
+    err, scale = max_err(dec, served)
+    ferr, _ = max_err(dec, fresh)
+    log(f"model parity: {XLSTM} full width (d_model={cfg.d_model}, {cfg.num_layers} blocks, "
+        f"sLSTM every {cfg.slstm_every}, vocab={cfg.vocab_size}) fp32, 16 tokens replayed "
+        f"through the decode step vs model_forward from the served state on the card: "
+        f"max abs err {err:.3e} (logits max-abs {scale:.3e}), worst |a-b| - "
+        f"{XLSTM_TOL}|b| = {excess:.3e} (tol {XLSTM_TOL}); vs the forward from its "
+        f"fresh state (m = -1e30) {ferr:.3e} (printed); {time.perf_counter() - t0:.1f}s")
+    del params, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not excess <= XLSTM_TOL:
+        raise AssertionError(f"model parity {XLSTM}: decode vs forward {excess:.3e} past "
+                             f"the bound")
+
+
+def serve_llava_phase(torch, dev) -> dict:
+    """``serve_llava``: LLaVA-NeXT-34B at full width cut to
+    LLAVA_SERVE_LAYERS layers, the main path's settings and prompts (text
+    only, as the reference's engine serves the family): K1 twice and K2
+    once a layer for each prompt longer than c (200, 333, 480), K5 once a
+    layer a decode tick. Returns its launch counts."""
+    from repro_torch.configs.base import ServeConfig
+
+    serve = ServeConfig(max_lanes=4, max_seq=512, prefill_impl="ss_fused",
+                        decode_impl="paged", seed=0)
+    out = serve_run(torch, dev, LLAVA, LLAVA_SERVE_LAYERS, serve, "serve_llava")
+    ran, ticks = out["launches"], out["decode_ticks"]
+    long = sum(n > 64 for n in SERVE_LENS)
+    want = dict(landmark_summary=2 * long * LLAVA_SERVE_LAYERS,
+                query_side=long * LLAVA_SERVE_LAYERS,
+                paged_row_stats=ticks * LLAVA_SERVE_LAYERS)
+    if out["mode"] != "paged+batched-prefill" or any(ran[k] != v for k, v in want.items()):
+        raise AssertionError(f"serve_llava: route {out['mode']}, launches {ran}, want "
+                             f"{want}")
+    return {"serve_llava": ran}
+
+
+def train_whisper_phase(torch, dev) -> dict:
+    """``train_whisper``: Whisper-base, all 6 + 6 layers at full width,
+    train_4k's decoder seq 4096 beside 1500 stub frames, batch cut from 256
+    to WHISPER_TRAIN_BATCH, 3 steps under each encoder impl: the config's
+    own ``spectral_shift`` (no kernel) and ``spectral_shift_fused`` (K1-K4
+    bidirectional at b = 32, n = 1500, c = 32, d = 64: one of each a
+    layer and step, no remat, as the reference's unrolled stack); the
+    decoder's self-attention stays ``chunked``, its cross attention the
+    plain rectangular branch. Step-0 losses within PAPER_BERT_TOL of each
+    other. Returns each run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, WHISPER_TRAIN_BATCH, "train")
+    runs = {}
+    for impl in ("spectral_shift", "spectral_shift_fused"):
+        cfg = dataclasses.replace(get_config(WHISPER), encoder_attention_impl=impl)
+        label = "train_whisper" if impl == "spectral_shift_fused" else f"train_whisper_{impl}"
+        runs[label] = train_steps(torch, dev, cfg, shape, 3, label,
+                                  data=frontend_batch(cfg, shape.seq_len, shape.global_batch))
+        n = 3 * cfg.encoder_layers if impl == "spectral_shift_fused" else 0
+        want = dict(dict.fromkeys(TRAIN_KERNELS, n), paged_row_stats=0)
+        if runs[label]["launches"] != want:
+            raise AssertionError(f"{label}: launches {runs[label]['launches']} != {want}")
+    rel = rel_diffs(runs["train_whisper"]["losses"],
+                    runs["train_whisper_spectral_shift"]["losses"])
+    log(f"train_whisper: spectral_shift_fused {runs['train_whisper']['ms']:.1f} ms per "
+        f"step, peak {runs['train_whisper']['peak']:.2f} GiB; spectral_shift "
+        f"{runs['train_whisper_spectral_shift']['ms']:.1f} ms per step, peak "
+        f"{runs['train_whisper_spectral_shift']['peak']:.2f} GiB; losses rel diff "
+        f"{['%.2e' % x for x in rel]} (step 0 tol {PAPER_BERT_TOL})")
+    if not rel[0] <= PAPER_BERT_TOL:
+        raise AssertionError(f"train_whisper: step-0 losses differ by {rel[0]:.3e} > "
+                             f"{PAPER_BERT_TOL}")
+    return {k: v["launches"] for k, v in runs.items()}
+
+
+def train_llava_phase(torch, dev) -> dict:
+    """``train_llava``: LLaVA-NeXT-34B at full width cut to
+    LLAVA_TRAIN_LAYERS layers, train_4k's seq 4096 (2048 stub patches of
+    1024 features ahead of 2048 tokens) at batch LLAVA_TRAIN_BATCH, remat
+    "full", 3 steps under its own ``chunked`` (no kernel) and under
+    ``spectral_shift_fused`` (K1-K4 causal at b = 56, n 4096, c 64, d 128:
+    K1 2 / K2 2 / K3 1 / K4 1 a layer and step); step-0 losses within
+    PAPER_BERT_TOL. Returns each run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, LLAVA_TRAIN_BATCH, "train")
+    runs = {}
+    for impl in ("chunked", "spectral_shift_fused"):
+        cfg = dataclasses.replace(get_config(LLAVA), num_layers=LLAVA_TRAIN_LAYERS,
+                                  attention_impl=impl, remat="full")
+        label = "train_llava" if impl == "spectral_shift_fused" else f"train_llava_{impl}"
+        runs[label] = train_steps(torch, dev, cfg, shape, 3, label,
+                                  data=frontend_batch(cfg, shape.seq_len, shape.global_batch))
+        n = 3 * cfg.num_layers if impl == "spectral_shift_fused" else 0
+        want = dict(landmark_summary=2 * n, query_side=2 * n, landmark_summary_bwd=n,
+                    query_side_bwd=n, paged_row_stats=0)
+        if runs[label]["launches"] != want:
+            raise AssertionError(f"{label}: launches {runs[label]['launches']} != {want}")
+    rel = rel_diffs(runs["train_llava"]["losses"], runs["train_llava_chunked"]["losses"])
+    log(f"train_llava: spectral_shift_fused {runs['train_llava']['ms']:.1f} ms per step, "
+        f"peak {runs['train_llava']['peak']:.2f} GiB; chunked "
+        f"{runs['train_llava_chunked']['ms']:.1f} ms per step, peak "
+        f"{runs['train_llava_chunked']['peak']:.2f} GiB; fused losses vs chunked rel diff "
+        f"{['%.2e' % x for x in rel]} (step 0 tol {PAPER_BERT_TOL})")
+    if not rel[0] <= PAPER_BERT_TOL:
+        raise AssertionError(f"train_llava: step-0 losses differ by {rel[0]:.3e} > "
+                             f"{PAPER_BERT_TOL}")
+    return {k: v["launches"] for k, v in runs.items()}
+
+
+def train_xlstm_phase(torch, dev) -> dict:
+    """``train_xlstm``: xLSTM-350M, all 24 blocks at full width, train_4k's
+    seq 4096 at batch XLSTM_TRAIN_BATCH, 2 steps (no remat, as the
+    reference's unrolled stack; the 4 sLSTM blocks recur one step a token,
+    eager: host-bound). No kernel may launch. Returns its launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+
+    shape = ShapeConfig("train_4k", 4096, XLSTM_TRAIN_BATCH, "train")
+    run = train_steps(torch, dev, get_config(XLSTM), shape, 2, "train_xlstm")
+    if any(run["launches"].values()):
+        raise AssertionError(f"train_xlstm: a kernel launched: {run['launches']}")
+    return {"train_xlstm": run["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -3816,6 +4394,9 @@ def run(args, torch, t_start: float) -> int:
     chunked = train_chunked_phase(torch, dev, args.train_layers)
     hymba = train_hymba_phase(torch, dev)
     deepseek = train_deepseek_phase(torch, dev)
+    whisper = train_whisper_phase(torch, dev)
+    llava = train_llava_phase(torch, dev)
+    xlstm = train_xlstm_phase(torch, dev)
     autotuned_rows(torch, dev, kernels, train_plan, served.pop("_decode_plan"))
     if traced_losses != full_losses:
         raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "
@@ -3826,7 +4407,7 @@ def run(args, torch, t_start: float) -> int:
         f"telemetry {traced_ms:.1f} ms per step, losses identical to the run without")
     paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots,
                  train_telemetry=traced, train_autotune=tuned, **bert, **chunked, **hymba,
-                 **deepseek)
+                 **deepseek, **whisper, **llava, **xlstm)
     for k in kernels:
         # K5' launches through K5's wrapper and counter: no path of its own
         k["launches_by_path"] = {path: counts.get(k["name"], 0)

@@ -8,26 +8,29 @@ import torch
 
 from repro_torch.configs.base import SHAPE_PRESETS, ModelConfig, ShapeConfig
 
-# The dense, hybrid and moe configs the port runs, in the reference's
-# order; the other families' configs (xlstm, whisper, llava) are not ported
-# (ROADMAP Queue 1).
+# Every config of the reference's registry, in its order.
 ARCH_IDS = [
     "qwen2-72b",
     "qwen2-7b",
     "deepseek-67b",
     "granite-20b",
+    "xlstm-350m",
+    "whisper-base",
     "hymba-1.5b",
     "deepseek-v2-lite-16b",
     "kimi-k2-1t-a32b",
+    "llava-next-34b",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 _MODULES["paper-bert"] = "paper_bert"
 
+ENCODER_SEQ = 1500  # whisper's stub frame count (``registry.py:29``)
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(f"{name!r} is not ported yet; ported: {list_archs()} "
+        raise KeyError(f"unknown architecture {name!r}; known: {list_archs()} "
                        f"and 'paper-bert'")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG
 
@@ -46,12 +49,28 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple[dict, dict]:
     stand for the reference's ``jax.ShapeDtypeStruct``. The decode cells
     (a token and the whole KV cache) need the cache specs of the
     reference's ``serve/kv_cache.py``, which only its dry-run reads: not
-    ported (ROADMAP Queue 1, multi-device)."""
+    ported (ROADMAP Queue 1, multi-device). Whisper's batch carries
+    ``frames`` (b, ENCODER_SEQ, d_model) fp32 beside the tokens, LLaVA's
+    ``patches`` (b, p, 1024) fp32 and s - p tokens."""
     if shape.kind not in ("train", "prefill"):
         raise NotImplementedError("decode batch specs come with the dry-run "
                                   "(ROADMAP Queue 1, multi-device)")
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     b, s = shape.global_batch, shape.seq_len
-    return ({"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")},
-            {"tokens": ("batch", "seq")})
+
+    def meta(*shape_, dtype=torch.float32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    specs: dict = {}
+    axes: dict = {}
+    if cfg.family == "audio":
+        specs["frames"] = meta(b, ENCODER_SEQ, cfg.d_model)
+        axes["frames"] = ("batch", None, None)
+    elif cfg.family == "vlm":
+        # the patch prefix takes up to half the sequence (``registry.py:57``)
+        p = min(cfg.num_patches, s // 2)
+        specs["patches"] = meta(b, p, 1024)
+        axes["patches"] = ("batch", None, None)
+        s -= p
+    specs["tokens"] = meta(b, s, dtype=torch.int32)
+    axes["tokens"] = ("batch", "seq")
+    return specs, axes

@@ -4,6 +4,10 @@
   a copy task). Batch ``i`` is a pure function of (seed, i), the same
   numpy batch the reference builds, so a restart resumes by step counter.
 * ``TextFileLM``: byte-level windows of a local text file.
+* ``StubFrontendLM``: ``SyntheticLM`` tokens beside seeded features of a
+  stub frontend, at ``configs/registry.py:batch_specs``' shapes: Whisper's
+  ``frames``, LLaVA's ``patches`` (the launcher's data for those
+  families; the reference's trainer takes such batches through ``data=``).
 
 ``to_device`` takes the place of the reference's ``make_global_batch``:
 one device, no shardings.
@@ -57,6 +61,37 @@ class TextFileLM:
             [self._data[s : s + self.seq_len].astype(np.int32) for s in starts]
         )
         return {"tokens": toks}
+
+
+@dataclasses.dataclass
+class StubFrontendLM:
+    """Batch ``i`` (a pure function of (seed, i)): for ``family`` "audio",
+    ``frames`` (b, enc_len, d_model) standard normal fp32 beside ``seq_len``
+    tokens; for "vlm", ``patches`` (b, p, 1024) standard normal fp32,
+    p = min(num_patches, seq_len // 2), beside seq_len - p tokens; else
+    tokens only. Tokens are ``SyntheticLM``'s."""
+    family: str
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    d_model: int = 0
+    num_patches: int = 0
+    enc_len: int = 1500
+    seed: int = 0
+
+    def batch(self, step: int) -> dict:
+        b, s = self.global_batch, self.seq_len
+        out = {}
+        rng = np.random.default_rng(((self.seed << 20) ^ step) + 1)
+        if self.family == "audio":
+            out["frames"] = rng.standard_normal((b, self.enc_len, self.d_model),
+                                                dtype=np.float32)
+        elif self.family == "vlm":
+            p = min(self.num_patches, s // 2)
+            out["patches"] = rng.standard_normal((b, p, 1024), dtype=np.float32)
+            s -= p
+        out["tokens"] = SyntheticLM(self.vocab_size, s, b, self.seed).batch(step)["tokens"]
+        return out
 
 
 def to_device(host_batch: dict, device) -> dict:

@@ -4,9 +4,12 @@
         --prompt-lens 48,200,333,480 --max-new 16
 
 serves a full-width model (``--arch``: qwen2-7b, the default, granite-20b,
-deepseek-v2-lite-16b, absorbed MLA with an MoE feed-forward, or hymba-1.5b,
-GQA and a mamba SSM in parallel, which prefills by token replay whatever
-the flags, as in the reference; every layer; bf16 working weights drawn
+deepseek-v2-lite-16b, absorbed MLA with an MoE feed-forward, hymba-1.5b,
+GQA and a mamba SSM in parallel, or xlstm-350m, attention-free, both of
+which prefill by token replay whatever the flags, as in the reference; or
+llava-next-34b's decoder, text prompts only; whisper-base is refused, as
+the reference's launcher refuses it: its decoder needs encoder features;
+every layer unless ``--layers`` cuts depth; bf16 working weights drawn
 from a seeded ``torch.Generator``) through
 ``ServeConfig(prefill_impl="ss_fused", decode_impl="paged")`` and prints
 requests finished, tokens, tok/s, TTFT, the route and the launch count of
@@ -157,6 +160,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut depth to this many layers (width is never cut)")
     ap.add_argument("--prompt-lens", default="48,200,333,480")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--lanes", type=int, default=4)
@@ -185,11 +190,16 @@ def main(argv=None):
                          "operations")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = dataclasses.replace(get_config(args.arch),
                               decode_streaming=args.decode_streaming)
+    if cfg.family == "audio":
+        raise SystemExit("whisper serving needs encoder features (the reference's "
+                         "launcher refuses it too)")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     serve = ServeConfig(max_lanes=args.lanes, max_seq=args.max_seq,
                         block_size=args.block_size, paged=not args.no_paged,
                         prefill_impl=args.prefill_impl, decode_impl=args.decode_impl,

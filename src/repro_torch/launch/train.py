@@ -8,12 +8,19 @@
         --seq 4096 --batch 2 --steps 3 --attention spectral_shift_fused
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --layers 4 --seq 4096 --batch 1 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
+        --seq 4096 --batch 4 --steps 3 --encoder-attention spectral_shift_fused
 
 trains ``--arch`` (qwen2-7b by default; paper-bert, the paper's own
 setting; the ``moe`` configs deepseek-v2-lite-16b, whose MLA runs no
 kernel under any impl as in the reference, and kimi-k2-1t-a32b, which fits
 no single card at full width and runs with ``--reduced``; the hybrid
-hymba-1.5b) at full width (``--layers`` cuts depth, never width) from random
+hymba-1.5b; xlstm-350m, attention-free, no kernel; whisper-base, whose
+batches carry seeded stub frame embeddings (1500 frames) and whose
+encoder runs ``--encoder-attention``, bidirectional, the config's own
+``spectral_shift`` by default; llava-next-34b, whose batches carry seeded
+stub patch features, min(2880, seq / 2) of them ahead of the tokens:
+``data/pipeline.py:StubFrontendLM``) at full width (``--layers`` cuts depth, never width) from random
 fp32 master weights (seed 0) on ``SyntheticLM`` batches, with the
 config's own ``attention_impl`` or ``--attention`` (``spectral_shift_fused``:
 K1/K2 forward, K3/K4 backward) and ``remat="full"``, at learning rate
@@ -45,7 +52,8 @@ import tempfile
 import torch
 
 from repro_torch.configs.base import SHAPE_PRESETS, ShapeConfig, TrainConfig, reduced
-from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.configs.registry import ARCH_IDS, ENCODER_SEQ, get_config
+from repro_torch.data.pipeline import StubFrontendLM
 from repro_torch.train.trainer import Trainer
 
 
@@ -64,6 +72,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--attention", default=None,
                     help="override training attention impl")
+    ap.add_argument("--encoder-attention", default=None,
+                    help="override whisper's encoder attention impl")
     ap.add_argument("--autotune", action="store_true",
                     help="measure the attention kernels' tiling at the train shape "
                          "(ModelConfig.autotune)")
@@ -88,6 +98,8 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.attention:
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
+    if args.encoder_attention:
+        cfg = dataclasses.replace(cfg, encoder_attention_impl=args.encoder_attention)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     cfg = dataclasses.replace(cfg, autotune=args.autotune,
@@ -101,7 +113,13 @@ def main(argv=None):
             learning_rate=args.lr, total_steps=max(args.steps, 10), warmup_steps=max(args.steps // 10, 1),
             checkpoint_dir=args.ckpt_dir or scratch,
             checkpoint_every=TrainConfig.checkpoint_every if args.ckpt_dir else 0)
-        trainer = Trainer(cfg, tcfg, shape, device=args.device)
+        data = None
+        if cfg.family in ("audio", "vlm"):
+            data = StubFrontendLM(cfg.family, cfg.vocab_size, shape.seq_len,
+                                  shape.global_batch, d_model=cfg.d_model,
+                                  num_patches=cfg.num_patches,
+                                  enc_len=ENCODER_SEQ, seed=tcfg.seed)
+        trainer = Trainer(cfg, tcfg, shape, device=args.device, data=data)
         cuda = trainer.device.type == "cuda"
         if cuda:
             from repro_torch.kernels import build

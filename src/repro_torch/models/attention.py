@@ -1,6 +1,7 @@
 """Model-level attention (``repro/models/attention.py``): GQA's parameter
 specs, the spectral-shift config, the kv-head group broadcast, the
-projections and the full-sequence forward the trainer runs; and MLA's
+projections and the full-sequence forward the trainer runs; whisper's
+decoder-side cross attention; and MLA's
 (multi-head latent attention, the DeepSeek-V2 family) specs, its
 full-sequence forward and the projections of its absorbed serving form.
 Per-head tensors are (B, H, S, Dh)."""
@@ -8,9 +9,12 @@ from __future__ import annotations
 
 import torch
 
+import dataclasses
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (SSConfig, chunked_attention, full_attention,
                                         spectral_shift_attention)
+from repro_torch.core.landmarks import segment_means
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.params import ParamSpec
 
@@ -125,6 +129,39 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     v = _broadcast_kv(v, cfg.num_heads)
     out = _core_attention(cfg, impl, q, k, v, causal=(mode == "causal"))
     return output_projection(out.to(x.dtype), p["w_o"]), None
+
+
+def cross_attention_specs(cfg: ModelConfig) -> dict:
+    return gqa_specs(cfg)
+
+
+def cross_attention_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                            enc_out: torch.Tensor, *, impl: str) -> torch.Tensor:
+    """Decoder-side cross attention over the encoder output, bidirectional,
+    no rotary (``attention.py:152``). Under an approximate ``impl`` with
+    n_q != n_k the landmarks come from each sequence on its own and the
+    rectangular score matrix has no diagonal, so the + delta V term is off
+    (``attention.py:170-181``): the plain ``spectral_shift_attention``, no
+    kernel. n_q == n_k takes ``impl``'s own route."""
+    dt = x.dtype
+    q = project_heads(x, p["w_q"])
+    k = project_heads(enc_out.to(dt), p["w_k"])
+    v = project_heads(enc_out.to(dt), p["w_v"])
+    if cfg.qkv_bias:
+        q = q + p["b_q"].to(dt)[None, :, None, :]
+        k = k + p["b_k"].to(dt)[None, :, None, :]
+        v = v + p["b_v"].to(dt)[None, :, None, :]
+    k = _broadcast_kv(k, cfg.num_heads)
+    v = _broadcast_kv(v, cfg.num_heads)
+    if (impl in ("spectral_shift", "spectral_shift_fused", "nystrom")
+            and x.shape[1] != enc_out.shape[1]):
+        ss = dataclasses.replace(ss_config_from(cfg), include_shift_identity=False)
+        q_l = segment_means(q, ss.num_landmarks, via_matmul=ss.landmark_via_matmul)
+        k_l = segment_means(k, ss.num_landmarks, via_matmul=ss.landmark_via_matmul)
+        out = spectral_shift_attention(q, k, v, ss, q_landmarks=q_l, k_landmarks=k_l)
+    else:
+        out = _core_attention(cfg, impl, q, k, v, causal=False)
+    return output_projection(out.to(dt), p["w_o"])
 
 
 # --------------------------------------------------------------------------

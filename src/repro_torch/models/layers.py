@@ -1,7 +1,8 @@
 """Common neural layers (plain functions over parameter dicts).
 
-Mirrors ``repro/models/layers.py`` for the dense decoder: RMS norm, rotary
-embeddings (rotate-half) and the SwiGLU MLP.
+Mirrors ``repro/models/layers.py``: RMS norm and LayerNorm, rotary
+embeddings (rotate-half), whisper's sinusoidal positions, and the SwiGLU
+MLP or the gelu MLP with biases.
 """
 from __future__ import annotations
 
@@ -17,6 +18,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """``layers.py:17``: fp32 statistics with the population variance,
+    output in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def rotary_angles(positions: torch.Tensor, head_dim: int, theta: float):
@@ -37,19 +50,43 @@ def apply_rotary(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Fixed sinusoidal embeddings of the whisper encoder (``layers.py:46``):
+    (n, d) fp32, sines then cosines."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (the erf form
+    differs by about 1e-3)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_specs(d_model: int, d_ff: int, act: str) -> dict:
-    if act != "swiglu":
-        raise NotImplementedError(f"act {act!r} is not ported yet")
+    """``layers.py:57``: SwiGLU, or any other ``act`` the gelu MLP with
+    biases."""
+    if act == "swiglu":
+        return {
+            "w_gate": ParamSpec((d_model, d_ff), ("embed", "ff")),
+            "w_up": ParamSpec((d_model, d_ff), ("embed", "ff")),
+            "w_down": ParamSpec((d_ff, d_model), ("ff", "embed")),
+        }
     return {
-        "w_gate": ParamSpec((d_model, d_ff), ("embed", "ff")),
         "w_up": ParamSpec((d_model, d_ff), ("embed", "ff")),
+        "b_up": ParamSpec((d_ff,), ("ff",), init="zeros"),
         "w_down": ParamSpec((d_ff, d_model), ("ff", "embed")),
+        "b_down": ParamSpec((d_model,), ("embed",), init="zeros"),
     }
 
 
 def mlp_forward(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    if act != "swiglu":
-        raise NotImplementedError(f"act {act!r} is not ported yet")
+    """``layers.py:72``."""
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return h @ p["w_down"].to(dt)
+    h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)

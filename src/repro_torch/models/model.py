@@ -1,8 +1,21 @@
-"""Decoder assembly (``repro/models/model.py``): parameter specs of the
-dense family, the ``moe`` family (GQA or MLA attention, MoE feed-forward)
-and the ``hybrid`` family (Hymba: GQA attention and a mamba selective SSM
-in parallel, then an MLP), embedding, unembedding, the working-precision
-copy, and the full-sequence forward and loss the trainer differentiates.
+"""Model assembly (``repro/models/model.py``): parameter specs of every
+family the reference runs, embedding, unembedding, the working-precision
+copy, and the full-sequence forward and loss the trainer differentiates:
+
+* ``dense`` and ``vlm`` (LLaVA: a two-layer gelu projector of the stub's
+  1024-wide patch features, prepended to the token embeddings of the
+  dense decoder; labels on the text positions only);
+* ``moe`` (GQA or MLA attention, MoE feed-forward);
+* ``hybrid`` (Hymba: GQA attention and a mamba selective SSM in parallel,
+  then an MLP);
+* ``ssm`` (xLSTM: mLSTM blocks, every ``slstm_every``-th an sLSTM block;
+  an unrolled list of ``{"kind_mlstm": ...}`` / ``{"kind_slstm": ...}``);
+* ``audio`` (Whisper: a pre-LN encoder over the stub's frame embeddings,
+  bidirectional under ``encoder_attention_impl``, and a decoder of causal
+  self-attention, cross attention and a gelu MLP, with LayerNorm).
+
+The ``ssm`` and ``audio`` trunks run without remat, as the reference's
+unrolled loops (``model.py:328``, ``:424``) do.
 
     model_forward(params, cfg, batch)  -> (logits (B,S,V), aux)
     loss_fn(params, cfg, batch)        -> (loss, metrics)
@@ -14,14 +27,19 @@ from __future__ import annotations
 from functools import partial
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, resolve_remat
-from repro_torch.models.attention import gqa_forward, gqa_specs, mla_forward, mla_specs
-from repro_torch.models.layers import mlp_forward, mlp_specs, rms_norm
+from repro_torch.models.attention import (cross_attention_forward,
+                                          cross_attention_specs, gqa_forward,
+                                          gqa_specs, mla_forward, mla_specs)
+from repro_torch.models.layers import (gelu, layer_norm, mlp_forward, mlp_specs,
+                                       rms_norm, sinusoidal_positions)
 from repro_torch.models.moe import moe_forward, moe_specs
-from repro_torch.models.ssm import mamba_forward, mamba_specs
+from repro_torch.models.ssm import (_causal_conv, mamba_forward, mamba_specs,
+                                    mlstm_chunked, slstm_scan)
 from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
 from repro_torch.train.losses import next_token_loss
 
@@ -64,19 +82,141 @@ def hymba_layer_specs(cfg: ModelConfig) -> dict:
     }
 
 
+# -- xLSTM blocks (``model.py:136-204``) ------------------------------------
+def mlstm_block_specs(cfg: ModelConfig) -> dict:
+    """``model.py:136``: up-projection by 2, causal conv, q/k/v and the
+    (input, forget) gates per head, an inner norm, the output gate z."""
+    d = cfg.d_model
+    di = 2 * d
+    h = cfg.num_heads
+    return {
+        "norm": _norm_spec(d),
+        "w_up": ParamSpec((d, 2 * di), ("embed", "ff")),
+        "conv_w": ParamSpec((cfg.conv_width, di), (None, "ff"), scale=0.3),
+        "conv_b": ParamSpec((di,), ("ff",), init="zeros"),
+        "w_q": ParamSpec((di, di), ("ff", "ff_out")),
+        "w_k": ParamSpec((di, di), ("ff", "ff_out")),
+        "w_v": ParamSpec((di, di), ("ff", "ff_out")),
+        "w_if": ParamSpec((di, 2 * h), ("ff", None), scale=0.05),
+        "b_if": ParamSpec((2 * h,), (None,), init="zeros"),
+        "ln_inner": ParamSpec((di,), ("ff",), init="ones"),
+        "w_down": ParamSpec((di, d), ("ff", "embed")),
+    }
+
+
+def mlstm_block_forward(p, cfg: ModelConfig, x):
+    """``model.py:154``: x (B,S,D) -> x + the block's output."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dt = x.dtype
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    up = xn @ p["w_up"].to(dt)
+    di = up.shape[-1] // 2
+    xm, z = up[..., :di], up[..., di:]
+    xc = F.silu(_causal_conv(xm, p["conv_w"], p["conv_b"]))
+
+    def to_heads(a):
+        return a.reshape(b, s, h, di // h).transpose(1, 2)
+
+    q = to_heads(xc @ p["w_q"].to(dt))
+    k = to_heads(xc @ p["w_k"].to(dt))
+    v = to_heads(xm @ p["w_v"].to(dt))
+    gates = xc @ p["w_if"].to(dt) + p["b_if"].to(dt)            # (B,S,2H)
+    ilog = gates[..., :h].transpose(1, 2)                        # (B,H,S)
+    flog = F.logsigmoid(gates[..., h:].float()).transpose(1, 2)
+    core, _ = mlstm_chunked(q, k, v, ilog, flog, chunk=cfg.ssm_chunk)
+    core = core.transpose(1, 2).reshape(b, s, di)
+    core = rms_norm(core, p["ln_inner"], cfg.norm_eps)
+    return x + (core * F.silu(z)) @ p["w_down"].to(dt)
+
+
+def slstm_block_specs(cfg: ModelConfig) -> dict:
+    """``model.py:178``: per-head gates (input, forget, cell, output) from x
+    and block-diagonal recurrent weights, an inner norm, a gelu MLP."""
+    d = cfg.d_model
+    h = cfg.num_heads
+    dh = d // h
+    return {
+        "norm": _norm_spec(d),
+        "w_g": ParamSpec((d, h, 4, dh), ("embed", "heads", None, "head_dim")),
+        "b_g": ParamSpec((h, 4, dh), ("heads", None, "head_dim"), init="zeros"),
+        "r_w": ParamSpec((h, 4, dh, dh), ("heads", None, "head_dim", None), scale=0.05),
+        "ln_inner": ParamSpec((d,), ("embed",), init="ones"),
+        "w_out": ParamSpec((d, d), ("embed", "ff")),
+        "w_down": ParamSpec((d, d), ("ff", "embed")),
+    }
+
+
+def slstm_block_forward(p, cfg: ModelConfig, x):
+    """``model.py:193``: x (B,S,D) -> x + the block's output."""
+    b, s, d = x.shape
+    dt = x.dtype
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xg = torch.einsum("bsd,dhge->bshge", xn, p["w_g"].to(dt)) + p["b_g"].to(dt)
+    hs, _ = slstm_scan(xg, p["r_w"])
+    hs = rms_norm(hs.reshape(b, s, d), p["ln_inner"], cfg.norm_eps)
+    return x + gelu(hs @ p["w_out"].to(dt)) @ p["w_down"].to(dt)
+
+
+def is_slstm(cfg: ModelConfig, i: int) -> bool:
+    """Whether block ``i`` of an xLSTM stack is sLSTM (``model.py:276``)."""
+    return bool(cfg.slstm_every) and (i + 1) % cfg.slstm_every == 0
+
+
+# -- whisper layers: pre-LN, LayerNorm, gelu MLP (``model.py:208-253``) -----
+def _ln_specs(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
+
+
+def _ln(x, p, cfg: ModelConfig):
+    return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def whisper_enc_layer_specs(cfg: ModelConfig) -> dict:
+    return {"ln_attn": _ln_specs(cfg.d_model), "attn": gqa_specs(cfg),
+            "ln_mlp": _ln_specs(cfg.d_model),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, "gelu")}
+
+
+def whisper_enc_layer_forward(p, cfg: ModelConfig, x, positions, impl):
+    """``model.py:224``: bidirectional self-attention under ``impl``."""
+    attn, _ = gqa_forward(p["attn"], cfg, _ln(x, p["ln_attn"], cfg), positions,
+                          impl=impl, mode="bidir")
+    x = x + attn
+    return x + mlp_forward(p["mlp"], _ln(x, p["ln_mlp"], cfg), "gelu")
+
+
+def whisper_dec_layer_specs(cfg: ModelConfig) -> dict:
+    return {"ln_self": _ln_specs(cfg.d_model), "self_attn": gqa_specs(cfg),
+            "ln_cross": _ln_specs(cfg.d_model), "cross_attn": cross_attention_specs(cfg),
+            "ln_mlp": _ln_specs(cfg.d_model),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, "gelu")}
+
+
+def whisper_dec_layer_forward(p, cfg: ModelConfig, x, enc_out, positions, impl,
+                              cross_impl):
+    """``model.py:243``: causal self-attention under ``impl``, cross
+    attention under ``cross_impl``, the gelu MLP."""
+    attn, _ = gqa_forward(p["self_attn"], cfg, _ln(x, p["ln_self"], cfg), positions,
+                          impl=impl, mode="causal")
+    x = x + attn
+    x = x + cross_attention_forward(p["cross_attn"], cfg, _ln(x, p["ln_cross"], cfg),
+                                    enc_out, impl=cross_impl)
+    return x + mlp_forward(p["mlp"], _ln(x, p["ln_mlp"], cfg), "gelu")
+
+
 def _layer_specs_for(cfg: ModelConfig) -> dict:
-    """``model.py:256`` for the families the port runs."""
-    if cfg.family in ("dense", "moe"):
+    """``model.py:256``: the uniform trunk's layer."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return dense_layer_specs(cfg)
     if cfg.family == "hybrid":
         return hymba_layer_specs(cfg)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    raise NotImplementedError(f"unknown family {cfg.family!r}")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    """``repro/models/model.py:264`` for ``family`` "dense", "moe" and
-    "hybrid"."""
-    layer = _layer_specs_for(cfg)
+    """``repro/models/model.py:264``: every family's parameter tree."""
     d, v = cfg.d_model, cfg.vocab_padded
     specs: dict = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), scale=0.02),
@@ -84,10 +224,30 @@ def model_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
+    if cfg.family == "ssm":
+        specs["layers"] = [
+            {"kind_slstm": slstm_block_specs(cfg)} if is_slstm(cfg, i)
+            else {"kind_mlstm": mlstm_block_specs(cfg)} for i in range(cfg.num_layers)]
+        return specs
+    if cfg.family == "audio":
+        specs["enc_proj"] = ParamSpec((d, d), ("embed", "ff"))
+        specs["enc_layers"] = [whisper_enc_layer_specs(cfg)
+                               for _ in range(cfg.encoder_layers)]
+        specs["enc_ln"] = _ln_specs(d)
+        specs["dec_pos"] = ParamSpec((4096, d), (None, "embed"), scale=0.02)
+        specs["layers"] = [whisper_dec_layer_specs(cfg) for _ in range(cfg.num_layers)]
+        specs["dec_ln"] = _ln_specs(d)
+        return specs
+    layer = _layer_specs_for(cfg)
     if cfg.scan_layers:
         specs["layers"] = stack_layer_specs(layer, cfg.num_layers)
     else:
         specs["layers"] = [layer for _ in range(cfg.num_layers)]
+    if cfg.family == "vlm":
+        # the stub frontend's 1024-wide patch features -> a two-layer
+        # projector into the embedding space
+        specs["mm_proj"] = {"w1": ParamSpec((1024, d), (None, "embed")),
+                            "w2": ParamSpec((d, d), ("embed", "ff"))}
     return specs
 
 
@@ -128,7 +288,7 @@ def hymba_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
 
 
 LAYER_FORWARD = {"dense": dense_layer_forward, "moe": dense_layer_forward,
-                 "hybrid": hymba_layer_forward}
+                 "vlm": dense_layer_forward, "hybrid": hymba_layer_forward}
 
 
 def _unstacked_layers(params) -> list:
@@ -183,12 +343,20 @@ def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
     backward: ``"none"`` every activation; ``"full"`` only the layer's
     inputs (``torch.utils.checkpoint``, non-reentrant); ``"ss_stats"`` and
     ``"dots"`` a selective checkpoint (``REMAT_POLICIES``). The layer
-    function is the family's (``model.py:336``); aux sums over layers."""
+    function is the family's (``model.py:336``); aux sums over layers. The
+    ``ssm`` stack runs its blocks in order, without remat (``model.py:328``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            if "kind_slstm" in lp:
+                x = slstm_block_forward(lp["kind_slstm"], cfg, x)
+            else:
+                x = mlstm_block_forward(lp["kind_mlstm"], cfg, x)
+        return x, aux
     layer_fn = LAYER_FORWARD[cfg.family]
     remat = resolve_remat(cfg.remat, "gpu" if x.is_cuda else "cpu")
     if remat not in ("none", "full", *REMAT_POLICIES):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstacked_layers(params):
         if remat == "none":
             x, a = layer_fn(lp, cfg, x, positions, impl, mode)
@@ -202,18 +370,27 @@ def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
 
 
 def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
-    """Full-sequence causal forward (``model.py:399``) of the dense, moe
-    and hybrid families (``cfg.mla`` / ``cfg.moe`` honoured whatever the
-    family, as the reference's ``dense_layer_forward`` does).
-    ``batch["tokens"]`` (B, S) int. The fp32 master ``params`` are cast to
-    the working copy here, inside the autograd graph, so gradients reach
-    the masters. Returns (logits (B,S,V) in the compute dtype, aux: the
-    MoE load-balance loss summed over layers)."""
-    if cfg.family not in LAYER_FORWARD:
-        raise NotImplementedError(f"training family {cfg.family!r} is not ported yet")
+    """Full-sequence forward (``model.py:399``) of every family (``cfg.mla``
+    / ``cfg.moe`` honoured whatever the family, as the reference's
+    ``dense_layer_forward`` does). ``batch["tokens"]`` (B, S) int; the
+    ``vlm`` family's ``batch["patches"]`` (B, P, 1024), projected and put
+    ahead of the tokens; the ``audio`` family's ``batch["frames"]`` (B,
+    S_enc, D) (``_whisper_forward``). The fp32 master ``params`` are cast
+    to the working copy here, inside the autograd graph, so gradients reach
+    the masters. Returns (logits (B, S [+ P], V) in the compute dtype, aux:
+    the MoE load-balance loss summed over layers)."""
+    if cfg.family not in (*LAYER_FORWARD, "ssm", "audio"):
+        raise NotImplementedError(f"unknown family {cfg.family!r}")
     params = working_params(params, cfg)
+    if cfg.family == "audio":
+        return _whisper_forward(params, cfg, batch)
+    dt = torch_dtype(cfg.compute_dtype)
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
+    if cfg.family == "vlm":
+        mp = params["mm_proj"]
+        pe = gelu(batch["patches"].to(dt) @ mp["w1"].to(dt)) @ mp["w2"].to(dt)
+        x = torch.cat([pe, x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     x, aux = _run_trunk(params, cfg, x, positions, cfg.attention_impl, "causal")
@@ -221,9 +398,43 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     return _unembed(params, cfg, x), aux
 
 
+def _whisper_forward(params, cfg: ModelConfig, batch: dict):
+    """``model.py:424``: the encoder over ``frames`` projected by
+    ``enc_proj`` plus sinusoidal positions, ``encoder_attention_impl``
+    bidirectional; then the decoder, whose learned positions ``dec_pos``
+    are added only when s <= 4096, causal self-attention under
+    ``attention_impl`` and cross attention under
+    ``encoder_attention_impl``. Returns (logits, 0)."""
+    dt = torch_dtype(cfg.compute_dtype)
+    frames = batch["frames"].to(dt)
+    b, s_enc, _ = frames.shape
+    enc = frames @ params["enc_proj"].to(dt)
+    enc = enc + sinusoidal_positions(s_enc, cfg.d_model, frames.device).to(dt)
+    pos_enc = torch.arange(s_enc, device=frames.device).expand(b, s_enc)
+    for lp in params["enc_layers"]:
+        enc = whisper_enc_layer_forward(lp, cfg, enc, pos_enc, cfg.encoder_attention_impl)
+    enc = _ln(enc, params["enc_ln"], cfg)
+
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    x = _embed_tokens(params, cfg, tokens)
+    pos_emb = params["dec_pos"]
+    if s <= pos_emb.shape[0]:
+        x = x + pos_emb[:s].to(dt)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for lp in params["layers"]:
+        x = whisper_dec_layer_forward(lp, cfg, x, enc, positions, cfg.attention_impl,
+                                      cfg.encoder_attention_impl)
+    x = _ln(x, params["dec_ln"], cfg)
+    return _unembed(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def loss_fn(params, cfg: ModelConfig, batch: dict):
-    """Next-token cross entropy (``model.py:456``). Returns (loss, metrics)."""
+    """Next-token cross entropy (``model.py:456``) plus the MoE aux; the
+    ``vlm`` patch prefix carries no labels. Returns (loss, metrics)."""
     logits, aux = model_forward(params, cfg, batch)
+    if cfg.family == "vlm":
+        logits = logits[:, logits.shape[1] - batch["tokens"].shape[1]:]
     ce_loss, metrics = next_token_loss(logits, batch["tokens"])
     loss = ce_loss + cfg.router_aux_coef * aux
     metrics["aux"] = aux

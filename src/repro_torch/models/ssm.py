@@ -1,8 +1,12 @@
-"""The Mamba (S6) selective SSM of the hybrid family
-(``repro/models/ssm.py``): the depthwise causal conv, the parameter specs
-and the chunked selective scan the trainer runs. One-token decode lives in
-``serve/decode.py:mamba_decode``. The xLSTM cells (mLSTM, sLSTM) come with
-the ``ssm`` family.
+"""The recurrent cells (``repro/models/ssm.py``): the depthwise causal
+conv; xLSTM's mLSTM (the stabilised chunk-parallel form the trainer runs,
+and its one-token step) and sLSTM (a per-step recurrence); and the Mamba
+(S6) selective SSM of the hybrid family, its parameter specs and chunked
+scan. One-token decode of a whole block lives in ``serve/decode.py``.
+
+mLSTM and sLSTM are plain torch, as the reference has no Pallas kernel
+for them: the mLSTM chunk loop runs ceil(s / chunk) steps of batched
+products, the sLSTM loop one step per token (``slstm_scan``).
 
 The reference scans in XLA (``lax.associative_scan`` within a chunk,
 ``lax.scan`` across chunks), not in Pallas, so this stays plain torch:
@@ -29,6 +33,119 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     for i in range(width):
         out = out + xp[:, i:i + s] * w[i].to(x.dtype)
     return out + b.to(x.dtype)
+
+
+def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  ilog: torch.Tensor, flog: torch.Tensor,
+                  state: Optional[tuple] = None, chunk: int = 64):
+    """Stabilised chunk-parallel mLSTM (``ssm.py:32``). q/k/v (B,H,S,Dh);
+    ilog (B,H,S) the input gate's pre-activation, flog (B,H,S) the forget
+    gate's log-sigmoid. s is zero-padded up to a multiple of ``chunk``; a
+    fresh state is (C 0, n 0, m -1e30). One named difference: the in-chunk
+    decay matrix masks before its exp, so gradients stay finite at the
+    configs' own chunk of 256, where the reference's are NaN. Returns (h (B,H,S,Dh) in q's
+    dtype, final (C (B,H,Dh,Dh), n (B,H,Dh), m (B,H)) fp32)."""
+    b, h, s, dh = q.shape
+    k = k / (dh**0.5)
+    pad = -s % chunk
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
+        ilog, flog = F.pad(ilog, (0, pad)), F.pad(flog, (0, pad))
+    nc = (s + pad) // chunk
+    if state is None:
+        c_prev = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=q.device)
+        n_prev = torch.zeros((b, h, dh), dtype=torch.float32, device=q.device)
+        m_prev = torch.full((b, h), -1e30, dtype=torch.float32, device=q.device)
+    else:
+        c_prev, n_prev, m_prev = state
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    outs = []
+    for j in range(nc):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        qb, kb, vb = q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float()
+        ib, fb = ilog[:, :, sl].float(), flog[:, :, sl].float()
+        csf = torch.cumsum(fb, dim=-1)                       # (B,H,L)
+        g = torch.cummax(ib - csf, dim=-1).values
+        m_new = torch.maximum(m_prev[..., None] + csf, csf + g)
+        # D[s, r] = exp(csf_s - csf_r + i_r - m_s), r <= s. The mask is
+        # taken before the exp: above the diagonal lw grows with the chunk
+        # (-csf is a sum of log-sigmoids) and its exp overflows at chunks of
+        # ~128+, and the reference's where(mask, exp(lw), 0) then gives NaN
+        # gradients (0 * inf); the forward is the same either way.
+        lw = csf[..., :, None] - csf[..., None, :] + ib[..., None, :] - m_new[..., :, None]
+        dmat = torch.exp(torch.where(mask, lw, float("-inf")))  # (B,H,L,L)
+        w = (qb @ kb.transpose(-1, -2)) * dmat
+        h_intra = w @ vb
+        inter = torch.exp(m_prev[..., None] + csf - m_new)   # (B,H,L)
+        h_inter = torch.einsum("bhde,bhse->bhsd", c_prev, qb) * inter[..., None]
+        n_eff = inter[..., None] * n_prev[..., None, :] + dmat @ kb
+        denom = torch.maximum(torch.abs(torch.einsum("bhsd,bhsd->bhs", qb, n_eff)),
+                              torch.exp(-m_new))
+        outs.append(((h_intra + h_inter) / denom[..., None]).to(q.dtype))
+        m_last = m_new[..., -1]
+        wstate = torch.exp(csf[..., -1:] - csf + ib - m_last[..., None])  # (B,H,L)
+        decay = torch.exp(m_prev + csf[..., -1] - m_last)
+        c_prev = (decay[..., None, None] * c_prev
+                  + torch.einsum("bhr,bhrd,bhre->bhde", wstate, vb, kb))
+        n_prev = decay[..., None] * n_prev + torch.einsum("bhr,bhrd->bhd", wstate, kb)
+        m_prev = m_last
+    return torch.cat(outs, dim=2)[:, :, :s], (c_prev, n_prev, m_prev)
+
+
+def mlstm_step(q, k, v, ilog, flog, state):
+    """One-token mLSTM (``ssm.py:139``). q/k/v (B,H,Dh); ilog/flog (B,H);
+    state (C, n, m). Returns (h (B,H,Dh) fp32, new state)."""
+    c_prev, n_prev, m_prev = state
+    dh = q.shape[-1]
+    k = k.float() / (dh**0.5)
+    q, v = q.float(), v.float()
+    f32, i32 = flog.float(), ilog.float()
+    m_new = torch.maximum(f32 + m_prev, i32)
+    fprime = torch.exp(f32 + m_prev - m_new)[..., None]
+    iprime = torch.exp(i32 - m_new)[..., None]
+    c_new = fprime[..., None] * c_prev + iprime[..., None] * (v[..., :, None] * k[..., None, :])
+    n_new = fprime * n_prev + iprime * k
+    num = torch.einsum("bhde,bhe->bhd", c_new, q)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n_new, q)), torch.exp(-m_new))
+    return num / den[..., None], (c_new, n_new, m_new)
+
+
+def slstm_cell(pre: torch.Tensor, c, n, m):
+    """One sLSTM step from the fp32 gate pre-activations pre (B,H,4,Dh)
+    (input, forget, cell, output) and the state (c, n, m). Returns (c, n,
+    m, h)."""
+    il, fl, zl, ol = pre.unbind(2)
+    m_new = torch.maximum(fl + m, il)
+    i_p = torch.exp(il - m_new)
+    f_p = torch.exp(fl + m - m_new)
+    c_new = f_p * c + i_p * torch.tanh(zl)
+    n_new = f_p * n + i_p
+    h_new = torch.sigmoid(ol) * c_new / torch.clamp(n_new, min=1.0)
+    return c_new, n_new, m_new, h_new
+
+
+def slstm_scan(x_gates: torch.Tensor, r_w: torch.Tensor, state: Optional[tuple] = None):
+    """Recurrent sLSTM over time (``ssm.py:161``), one step per token.
+    x_gates (B,S,H,4,Dh) the gates' pre-activations from x; r_w (H,4,Dh,Dh)
+    the block-diagonal recurrent weights; a fresh state is (c 0, n 0,
+    m -1e30, h 0). Returns (h (B,S,H,Dh) in x_gates' dtype, final (c, n,
+    m, h) fp32)."""
+    b, s, h, _, dh = x_gates.shape
+    if state is None:
+        zeros = torch.zeros((b, h, dh), dtype=torch.float32, device=x_gates.device)
+        state = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
+    c, n, m, hprev = state
+    # the recurrent weights laid out once as (H, Dh, 4 Dh) for a batched
+    # product per step: an einsum against (H, 4, Dh, Dh) copies them into
+    # that layout at every step, and autograd keeps each copy (4 MiB a
+    # step at xLSTM-350M's width)
+    rw = r_w.float().permute(0, 2, 1, 3).reshape(h, dh, 4 * dh)
+    hs = []
+    for t in range(s):
+        rec = torch.bmm(hprev.transpose(0, 1), rw).view(h, b, 4, dh).transpose(0, 1)
+        c, n, m, hprev = slstm_cell(x_gates[:, t].float() + rec, c, n, m)
+        hs.append(hprev)
+    return torch.stack(hs, dim=1).to(x_gates.dtype), (c, n, m, hprev)
 
 
 def mamba_specs(d_model: int, d_inner: int, state: int, conv_width: int,

@@ -34,13 +34,25 @@ SSM and its causal conv) on its mamba leaves ``ssm_h`` / ``conv``, which
 are lane-dense on both routes; the engine's storage holds both groups
 under their leaf names, and a layer's new leaves come back in one dict.
 
+xLSTM blocks (the ``ssm`` family: ``mlstm_block_decode``,
+``slstm_block_decode``) step their recurrent cells on lane-dense state
+alone; no leaf has a sequence axis and no kernel runs.
+
+Whisper's decoder (``_whisper_decode``) runs ``gqa_decode`` on each
+layer's self-attention leaves (K5 on the paged route), then cross
+attention as an fp32 softmax over all 1500 rows of the layer's
+``cross_k`` / ``cross_v``, which serving leaves at zero, as the
+reference's engine does; its learned positions are clamped at row 4095.
+
 A ``decode_streaming="frozen"`` step reads neither the pools nor a view
 for its spectral-shift core on either route (K5 never launches): it
 touches the lane-dense state and the new token only. The engine rebases
 the frozen rows at segment boundaries (``decode_state.rebase_layer``).
 
 Cache layout consumed here: ``cache["pos"]`` (B,) int32 and
-``cache["layers"]`` with the sequence leaves (``k``/``v``, or MLA's
+``cache["layers"]``, keyed as the engine's storage
+(``kv_cache.storage_layout``; ``kv_cache.layer_leaves`` picks a layer's
+leaves), with the sequence leaves (``k``/``v``, or MLA's
 ``latent``/``rope`` with a unit kv-head axis) either pools (L, Hkv,
 num_blocks, bs, D) or views (L, B, Hkv, S, D), and lane-dense leaves
 (L, B, ...) (``serve/kv_cache.py`` for the names).
@@ -57,17 +69,19 @@ from repro_torch.kernels.paged_decode import paged_row_stats_lanes
 from repro_torch.models.attention import (_broadcast_kv, gqa_project_qkv,
                                           mla_output, mla_project_kv,
                                           mla_project_q, mla_scale,
-                                          output_projection)
-from repro_torch.models.layers import apply_rotary, mlp_forward, rms_norm, rotary_angles
+                                          output_projection, project_heads)
+from repro_torch.models.layers import (apply_rotary, gelu, layer_norm, mlp_forward,
+                                       rms_norm, rotary_angles)
 from repro_torch.models.model import (_embed_tokens, _unembed, layer_params,
                                       torch_dtype, working_params)
 from repro_torch.models.moe import moe_forward
+from repro_torch.models.ssm import mlstm_step, slstm_cell
 from repro_torch.serve.decode_state import (STREAM_LEAVES, key_mask,
                                             landmark_counts, landmark_means,
                                             lmk_add, masked_softmax,
                                             recompute_stats,
                                             ss_decode_attention_streaming)
-from repro_torch.serve.kv_cache import MAMBA_LEAVES
+from repro_torch.serve.kv_cache import MAMBA_LEAVES, layer_leaves
 
 DENSE_LEAVES = ("q_lmk", "k_lmk", *STREAM_LEAVES)
 
@@ -390,8 +404,87 @@ def _hymba_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
     return x, new_cache
 
 
+def mlstm_block_decode(p, cfg: ModelConfig, x, state):
+    """One token through an mLSTM block (``decode.py:443``). x (B, 1, D);
+    ``state`` {``c``, ``n``, ``m``, ``conv``}. Returns (x + out, new
+    state)."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    dt = x.dtype
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    up = xn[:, 0] @ p["w_up"].to(dt)                             # (B, 2di)
+    di = up.shape[-1] // 2
+    xm, z = up[..., :di], up[..., di:]
+    ctx = torch.cat([state["conv"].to(dt), xm[:, None]], dim=1)  # (B, W, di)
+    xc = F.silu(torch.einsum("bwd,wd->bd", ctx, p["conv_w"].to(dt)) + p["conv_b"].to(dt))
+    q = (xc @ p["w_q"].to(dt)).reshape(b, h, di // h)
+    k = (xc @ p["w_k"].to(dt)).reshape(b, h, di // h)
+    v = (xm @ p["w_v"].to(dt)).reshape(b, h, di // h)
+    gates = xc @ p["w_if"].to(dt) + p["b_if"].to(dt)
+    core, (c_n, n_n, m_n) = mlstm_step(q, k, v, gates[..., :h],
+                                       F.logsigmoid(gates[..., h:].float()),
+                                       (state["c"], state["n"], state["m"]))
+    core = rms_norm(core.reshape(b, di), p["ln_inner"], cfg.norm_eps)
+    # the cell's output is fp32: as in the reference, the product and the
+    # residual promote to fp32 (the stack runs fp32 from here on)
+    gated = core * F.silu(z)
+    out = gated @ p["w_down"].to(dt).to(gated.dtype)
+    return x + out[:, None], {"c": c_n, "n": n_n, "m": m_n, "conv": ctx[:, 1:]}
+
+
+def slstm_block_decode(p, cfg: ModelConfig, x, state):
+    """One token through an sLSTM block (``decode.py:468``). x (B, 1, D);
+    ``state`` {``c``, ``n``, ``m``, ``h``}. Returns (x + out, new state)."""
+    b = x.shape[0]
+    dt = x.dtype
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xg = torch.einsum("bd,dhge->bhge", xn[:, 0], p["w_g"].to(dt)) + p["b_g"].to(dt)
+    rec = torch.einsum("bhd,hgde->bhge", state["h"], p["r_w"].float())
+    c_new, n_new, m_new, h_new = slstm_cell(xg.float() + rec, state["c"], state["n"],
+                                            state["m"])
+    hs = rms_norm(h_new.reshape(b, cfg.d_model).to(dt), p["ln_inner"], cfg.norm_eps)
+    out = gelu(hs @ p["w_out"].to(dt)) @ p["w_down"].to(dt)
+    return x + out[:, None], {"c": c_new, "n": n_new, "m": m_new, "h": h_new}
+
+
+def _xlstm_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
+    """One xLSTM block (``decode_step``'s ``ssm`` branch, ``decode.py:549``).
+    ``lcache`` is keyed by storage keys (``kind_mlstm/c`` and the like);
+    so is the returned state."""
+    keys = {k.rsplit("/", 1)[-1]: k for k in lcache}
+    state = {name: lcache[k] for name, k in keys.items()}
+    if "kind_slstm" in lp:
+        x, new = slstm_block_decode(lp["kind_slstm"], cfg, x, state)
+    else:
+        x, new = mlstm_block_decode(lp["kind_mlstm"], cfg, x, state)
+    return x, {keys[name]: t for name, t in new.items()}
+
+
+def _whisper_layer_decode(lp, cfg: ModelConfig, x, lcache, pos, **route):
+    """One Whisper decoder layer (``_whisper_decode``, ``decode.py:598``):
+    ``gqa_decode`` self-attention, cross attention as an fp32 softmax
+    over the layer's ``cross_k`` / ``cross_v`` (B, H, 1500, Dh), the gelu
+    MLP. The cross leaves are read, never returned."""
+    def ln(t, name):
+        return layer_norm(t, lp[name]["scale"], lp[name]["bias"], cfg.norm_eps)
+
+    dt = x.dtype
+    attn, new_cache = gqa_decode(lp["self_attn"], cfg, ln(x, "ln_self"), lcache, pos,
+                                 **route)
+    x = x + attn
+    cp = lp["cross_attn"]
+    q = project_heads(ln(x, "ln_cross"), cp["w_q"])             # (B, H, 1, Dh)
+    scores = (q.float() @ lcache["cross_k"].float().transpose(-1, -2)
+              * cfg.resolved_head_dim**-0.5)
+    cr = (torch.softmax(scores, dim=-1) @ lcache["cross_v"].float()).to(dt)
+    x = x + output_projection(cr, cp["w_o"])
+    x = x + mlp_forward(lp["mlp"], ln(x, "ln_mlp"), "gelu")
+    return x, new_cache
+
+
 LAYER_DECODE = {"dense": _dense_layer_decode, "moe": _dense_layer_decode,
-                "hybrid": _hymba_layer_decode}
+                "vlm": _dense_layer_decode, "hybrid": _hymba_layer_decode,
+                "ssm": _xlstm_layer_decode, "audio": _whisper_layer_decode}
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
@@ -404,18 +497,24 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     [per-layer leaves]})`` where each layer's ``k``/``v`` is the new token
     to commit."""
     if cfg.family not in LAYER_DECODE:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise NotImplementedError(f"unknown family {cfg.family!r}")
     layer_decode = LAYER_DECODE[cfg.family]
     params = working_params(params, cfg)
     pos = cache["pos"]
     layers = cache["layers"]
-    x = _embed_tokens(params, cfg, tokens).to(torch_dtype(cfg.compute_dtype))
+    dt = torch_dtype(cfg.compute_dtype)
+    x = _embed_tokens(params, cfg, tokens).to(dt)
+    if cfg.family == "audio":
+        dec_pos = params["dec_pos"]
+        x = x + dec_pos[torch.clamp(pos.long(), max=dec_pos.shape[0] - 1)][:, None].to(dt)
     new_layers = []
     for i in range(cfg.num_layers):
-        lcache = {name: t[i] for name, t in layers.items()}
         x, nc = layer_decode(
-            layer_params(params, i), cfg, x, lcache, pos, seq_max=seq_max,
-            table=paged_table, block_size=block_size)
+            layer_params(params, i), cfg, x, layer_leaves(cfg, layers, i), pos,
+            seq_max=seq_max, table=paged_table, block_size=block_size)
         new_layers.append(nc)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "audio":
+        x = layer_norm(x, params["dec_ln"]["scale"], params["dec_ln"]["bias"], cfg.norm_eps)
+    else:
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), {"pos": pos + 1, "layers": new_layers}

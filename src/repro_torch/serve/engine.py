@@ -1,13 +1,18 @@
 """Serving engine: paged KV cache + two-phase scheduler over spectral-shift
 decode (``repro/serve/engine.py``, the two-phase tick ``_tick_inner``).
 
-It serves the dense family, the ``moe`` family (GQA or absorbed MLA
-attention with an MoE feed-forward: DeepSeek-V2-Lite) and the ``hybrid``
-family (Hymba: GQA and a mamba SSM in parallel), one cache layout per
-family (``serve/kv_cache.py``). A family without batched prefill
-(``prefill.prefill_supported``: hybrid) prefills by token replay, one
-prompt token a tick through the decode step from zeroed lane state, and
-the chunked tick and the prefix cache are silently off for it
+It serves every family of the reference's engine, one cache layout per
+family (``serve/kv_cache.py``): dense and ``vlm`` (LLaVA's decoder; text
+prompts only, as the reference's engine), ``moe`` (GQA or absorbed MLA
+attention with an MoE feed-forward: DeepSeek-V2-Lite), ``hybrid`` (Hymba:
+GQA and a mamba SSM in parallel), ``ssm`` (xLSTM: no attention, no
+sequence-shaped leaf, so its storage is lane-dense with no allocator:
+``stats()["mode"]`` ``dense+...`` and no ``"kv"``) and ``audio``
+(Whisper's decoder, served without an encoder pass: its cross K/V stay
+zero, as the reference's). A family without batched prefill
+(``prefill.prefill_supported``: hybrid, ssm, audio) prefills by token
+replay, one prompt token a tick through the decode step from zeroed lane
+state, and the chunked tick and the prefix cache are silently off for it
 (``engine.py:180-197``, ``:328``), as in the reference; ``stats()["mode"]``
 then says ``+replay-prefill``.
 
@@ -193,16 +198,20 @@ def kernel_head_dims(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.resolved_head_dim, cfg.resolved_head_dim
 
 
+# every family of the reference's engine
+FAMILIES = ("dense", "moe", "hybrid", "vlm", "ssm", "audio")
+
+
 def _check_supported(cfg: ModelConfig, serve: ServeConfig, device: torch.device) -> None:
     d, dv = kernel_head_dims(cfg)
     past = [f"{name} ({HEAD_DIM_LIMITS[name][0]}, {HEAD_DIM_LIMITS[name][1]})"
             for name in kernels_past(d, dv, SERVE_KERNELS)]
     unsupported = {
         # MLA / MoE layers are served as family "moe" (its cache layout);
-        # the dense family with those flags set is refused
-        "family not 'dense', 'moe' or 'hybrid'": (
-            cfg.family not in ("dense", "moe", "hybrid")
-            or (cfg.family in ("dense", "hybrid") and (cfg.mla or cfg.moe))),
+        # the other families with those flags set are refused
+        f"family {cfg.family!r}": (
+            cfg.family not in FAMILIES
+            or (cfg.family != "moe" and (cfg.mla or cfg.moe))),
         # each serving kernel takes head dims up to its own limit: refused
         # here, not on the first tick
         f"head dims (d={d}, dv={dv}) past {', '.join(past)} on CUDA":

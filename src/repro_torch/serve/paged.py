@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.serve.kv_cache import cache_leaf_layout
+from repro_torch.serve.decode_state import STREAM_LEAVES
+from repro_torch.serve.kv_cache import layer_leaves, storage_layout
 from repro_torch.telemetry.metrics import TICK_BUCKETS, MetricsRegistry
 
 ZERO_BLOCK = 0
@@ -430,37 +431,36 @@ class PrefixCache:
 
 
 class PagedKVCache:
-    """Device storage for one engine's decode state: pools for ``k``/``v``
-    (``paged=True``) or lane-dense K/V (``paged=False``), lane-dense
-    tensors for the landmark sums, the streaming stats and, for the hybrid
-    family, the mamba state. ``storage`` maps leaf name -> tensor: a
-    nested layer (hybrid's ``attn/*`` and ``mamba/*``) is keyed by each
-    leaf's last path name, which must be unique, so every commit, reset,
-    snapshot, restore, rebase and block move below takes the mamba leaves
-    as lane-dense leaves like any other. ``pool_names`` are the pooled
-    leaves, ``seq_names`` the sequence-shaped ones either way."""
+    """Device storage for one engine's decode state: pools for the
+    sequence-shaped leaves (``paged=True``, when the model has any: an
+    attention-free stack such as xLSTM has none and is stored lane-dense,
+    ``paged`` False, as the reference's ``has_paged_leaves``) or lane-dense
+    K/V (``paged=False``), lane-dense tensors for everything else (the
+    landmark sums, the streaming stats, Hymba's mamba state, xLSTM's cell
+    states, Whisper's cross K/V). ``storage`` maps a key of
+    ``kv_cache.storage_layout`` -> a tensor whose first axis stacks the
+    key's layers (``layer_ids[key]``, in layer order): every commit,
+    reset, snapshot, restore, rebase and block move below takes each key
+    alike. ``pool_names`` are the pooled leaves, ``seq_names`` the
+    sequence-shaped ones either way."""
 
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, device):
         self.cfg, self.serve = cfg, serve
         self.block_size = serve.block_size
         self.max_lanes, self.max_seq = serve.max_lanes, serve.max_seq
         self.num_blocks = serve.resolved_num_blocks
-        self.paged = serve.paged
+        layout = storage_layout(cfg, serve.max_seq)
+        self.paged = serve.paged and any(
+            leaf.seq_axis is not None for leaf in layout.values())
         self.pool_names, self.dense_names, self.seq_names = [], [], []
         self.storage: dict[str, torch.Tensor] = {}
-        for path, spec, seq_axis in cache_leaf_layout(cfg, serve.max_seq):
-            name = path.rsplit("/", 1)[-1]
-            if name == "pos":
-                continue
-            if name in self.storage:
-                raise ValueError(f"cache leaf name {name!r} is not unique ({path})")
-            # stacked layer leaf: (L, B=1, *rest); the batch axis is 1
-            layers, rest = spec.shape[0], spec.shape[2:]
-            dt = spec.dtype or torch.float32
-            if seq_axis is not None:
+        self.layer_ids = {name: leaf.layers for name, leaf in layout.items()}
+        for name, leaf in layout.items():
+            layers, rest, j = len(leaf.layers), leaf.shape, leaf.seq_axis
+            dt = leaf.dtype or torch.float32
+            if j is not None:
                 self.seq_names.append(name)
-            if seq_axis is not None and self.paged:
-                j = seq_axis - 2          # seq position within rest
+            if j is not None and self.paged:
                 shape = (layers, *rest[:j], self.num_blocks, self.block_size,
                          *rest[j + 1:])
                 self.pool_names.append(name)
@@ -568,26 +568,30 @@ class PagedKVCache:
     def _commit(self, new_layers: list, tables, positions, active) -> None:
         """Write, for active lanes only and in place, each layer's new token
         K/V into its row (a block row of the pool, or the lane's dense row
-        at its position) and the lane-dense leaves."""
+        at its position) and the lane-dense leaves the layer returned
+        (``new_layers[i]`` keyed as the storage; a leaf no step writes,
+        Whisper's cross K/V, is not returned)."""
         bs = self.block_size
         lanes = torch.nonzero(active).squeeze(1)
         pos = positions.long()[lanes]
         if self.pool_names:
             blocks = tables.long()[lanes, pos // bs]
             offs = pos % bs
-        for i, new in enumerate(new_layers):
-            for name in self.seq_names:
-                vals = new[name][lanes, :, 0]             # (A, Hkv, Dh)
-                if name in self.pool_names:
-                    pool = self.storage[name][i]          # (Hkv, NB, bs, Dh)
-                    pool[:, blocks, offs] = vals.transpose(0, 1).to(pool.dtype)
-                else:
-                    dense = self.storage[name][i]         # (lanes, Hkv, S, Dh)
-                    dense[lanes, :, pos] = vals.to(dense.dtype)
-            for name in self.dense_names:
-                if name not in self.seq_names:
-                    self.storage[name][i].index_copy_(
-                        0, lanes, new[name][lanes].to(self.storage[name].dtype))
+        for name, ids in self.layer_ids.items():
+            store = self.storage[name]
+            seq = name in self.seq_names
+            for j, i in enumerate(ids):
+                new = new_layers[i].get(name)
+                if new is None:
+                    continue
+                if not seq:
+                    store[j].index_copy_(0, lanes, new[lanes].to(store.dtype))
+                    continue
+                vals = new[lanes, :, 0]                   # (A, Hkv, Dh)
+                if name in self.pool_names:               # (Hkv, NB, bs, Dh)
+                    store[j][:, blocks, offs] = vals.transpose(0, 1).to(store.dtype)
+                else:                                     # (lanes, Hkv, S, Dh)
+                    store[j][lanes, :, pos] = vals.to(store.dtype)
 
     def make_paged_step(self, decode_step_fn):
         """The gather-free decode tick (``paged.py:750``):
@@ -701,12 +705,12 @@ class PagedKVCache:
                                    device=dev)
             views = {name: self._gather_leaf(t, rows) if name in self.pool_names else t
                      for name, t in self.storage.items()}
-            layers = [{name: v[i] for name, v in views.items()}
+            layers = [layer_leaves(self.cfg, views, i)
                       for i in range(self.cfg.num_layers)]
-            for i, lc in enumerate(rebase_fn(layers, pos)):
-                for name in self.dense_names:
-                    if name not in self.seq_names:
-                        self.storage[name][i].index_copy_(
-                            0, sel, lc[name][sel].to(self.storage[name].dtype))
+            new_layers = rebase_fn(layers, pos)
+            for name in STREAM_LEAVES:   # the only leaves a rebase rewrites
+                store = self.storage[name]
+                for j, i in enumerate(self.layer_ids[name]):
+                    store[j].index_copy_(0, sel, new_layers[i][name][sel].to(store.dtype))
 
         return fn

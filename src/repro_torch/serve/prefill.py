@@ -91,11 +91,10 @@ def prefill_supported(cfg: ModelConfig) -> bool:
 
 def _check_family(cfg: ModelConfig, what: str) -> None:
     """The reference's refusal (``prefill.py:355``, ``:655``) for a family
-    without batched prefill; vlm has it there but is not ported."""
+    without batched prefill. ``vlm`` prefills its text prompt as the dense
+    family does."""
     if not prefill_supported(cfg):
         raise ValueError(f"{what} prefill unsupported for family {cfg.family}")
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
 def _fused(cfg: ModelConfig, prefill_impl: str) -> bool:

@@ -11,12 +11,16 @@ threaded checkpoint is published atomically. Before the first step
 (``repro/train/trainer.py:177``): with ``autotune=True`` under
 ``spectral_shift_fused`` and backend "auto", from memory or the cache
 (``autotune_cache`` moves it) or else by a measured sweep at the train
-shape. It trains the dense family, the ``moe`` family (GQA or MLA
-attention, MoE feed-forward with its load-balance loss) and the ``hybrid``
-family (Hymba). The reference's mesh, shardings, elastic re-planning,
-heartbeats, failure injection, ``grad_compression`` and the expert-parallel
-``moe_impl="ep"`` are not ported; settings that need them raise, as do the
-families not ported yet (``ssm``, ``audio``, ``vlm``). ``opt_state_dtype``
+shape. It trains every family: dense, ``moe`` (GQA or MLA attention, MoE
+feed-forward with its load-balance loss), ``hybrid`` (Hymba), ``ssm``
+(xLSTM), ``audio`` (Whisper) and ``vlm`` (LLaVA). ``data=`` takes the
+batches (``batch(step) -> dict`` of numpy arrays), as the reference's
+``data=`` (``repro/train/trainer.py:97``); the default is ``SyntheticLM``,
+tokens only, so Whisper and LLaVA need a source with ``frames`` /
+``patches`` (``data/pipeline.py:StubFrontendLM``). The reference's mesh,
+shardings, elastic re-planning, heartbeats, failure injection,
+``grad_compression`` and the expert-parallel ``moe_impl="ep"`` are not
+ported; settings that need them raise. ``opt_state_dtype``
 is accepted and, as in the reference's trainer, not read (only its dry-run
 reads it).
 
@@ -57,13 +61,18 @@ from repro_torch.train.train_step import make_train_step
 log = logging.getLogger("repro_torch.trainer")
 
 
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
+ATTENTION_IMPLS = ("full", "chunked", "spectral_shift", "nystrom", "spectral_shift_fused")
+
+
 def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
     unsupported = {
-        f"family {cfg.family!r} (the port trains 'dense', 'moe' and 'hybrid')":
-            cfg.family not in ("dense", "moe", "hybrid"),
+        f"family {cfg.family!r}": cfg.family not in FAMILIES,
         "moe_impl 'ep' (expert parallel, multi-device)": cfg.moe and cfg.moe_impl == "ep",
-        f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in (
-            "full", "chunked", "spectral_shift", "nystrom", "spectral_shift_fused"),
+        f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in ATTENTION_IMPLS
+            and not (cfg.family == "ssm" and cfg.attention_impl == "none"),
+        f"encoder_attention_impl {cfg.encoder_attention_impl!r}": (
+            cfg.family == "audio" and cfg.encoder_attention_impl not in ATTENTION_IMPLS),
         "grad_compression": tcfg.grad_compression is not None,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -73,13 +82,13 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, shape: ShapeConfig,
-                 *, device="cuda", telemetry: Optional[Telemetry] = None):
+                 *, device="cuda", telemetry: Optional[Telemetry] = None, data=None):
         _check_supported(cfg, tcfg)
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.shape = cfg, tcfg, shape
         self.telemetry = telemetry if telemetry is not None else Telemetry(enabled=False)
-        self.data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
-                                global_batch=shape.global_batch, seed=tcfg.seed)
+        self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                                        global_batch=shape.global_batch, seed=tcfg.seed)
         self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
         self.step_fn = make_train_step(cfg, tcfg, warmup_cosine(
             tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps))

@@ -170,5 +170,5 @@ def test_registry_helpers():
     assert tuple(specs["tokens"].shape) == jspecs["tokens"].shape
     assert str(specs["tokens"].dtype).removeprefix("torch.") == jspecs["tokens"].dtype.name
     assert axes == jaxes
-    with pytest.raises(KeyError, match="not ported"):
-        registry.get_config("xlstm-350m")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        registry.get_config("rwkv-7b")

@@ -124,6 +124,24 @@ def test_engine_still_refuses_telemetry_and_other_families(weights, field):
                     serve=base.ServeConfig(telemetry=True), device="cpu")
 
 
+def test_engine_refuses_an_unknown_family(weights):
+    """Every family of the reference's engine is served (``xlstm``,
+    ``whisper`` and ``llava`` in ``tests/test_torch_xlstm.py``,
+    ``_whisper.py``, ``_vlm.py``); a family string the reference does not
+    know is refused at construction, as are its cache specs and decode
+    step."""
+    from repro_torch.serve import decode, kv_cache
+
+    cfg = dataclasses.replace(reduced_cfg(), family="rwkv")
+    with pytest.raises(NotImplementedError, match="family 'rwkv'"):
+        ServeEngine(cfg, weights[2], device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        kv_cache.cache_specs(cfg, 1, 64)
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        decode.decode_step(weights[2], cfg, {}, torch.zeros((1, 1), dtype=torch.long),
+                           seq_max=64)
+
+
 def test_engine_refuses_head_dims_past_the_kernels_on_cuda(weights, monkeypatch):
     """On CUDA a config whose kernel-facing head dims exceed a serving
     kernel's own limit (K1, K2, K5: d 576, dv 512) is refused at

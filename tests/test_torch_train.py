@@ -445,7 +445,7 @@ def test_trainer_threaded_checkpoints_and_gc(tmp_path):
     assert all(np.isfinite(h["step_time_s"]) for h in trainer.metrics_history)
 
 
-@pytest.mark.parametrize("setting", [{"family": "ssm"},
+@pytest.mark.parametrize("setting", [{"family": "rwkv"},
                                      {"attention_impl": "linformer"},
                                      {"grad_compression": "int8"}])
 def test_trainer_rejects_unported_settings(tmp_path, setting):
