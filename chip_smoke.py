@@ -59,7 +59,14 @@ result line):
    LLaVA-NeXT-34B's decode shape (hkv 8, r 7, d = 128, kv_valid 48 / 200 /
    333 / 480) and K1 (as the fused prefill and as the stats seed) and K2 at
    its prefill shape (b = 56, n = 352, kv_valid 333: ``llava_ss_entries``),
-   each held in fp32 and bf16 and timed;
+   each held in fp32 and bf16 and timed; the context-parallel attention's
+   launches (``shard_kernel_entries``): K1 and K3 at every shard's
+   ``kv_offset`` and K2 and K4 at its ``q_offset``, Qwen2-7B's training
+   shape at n = 8192 over 2 and 4 shards and n = 8000 over 4, Whisper's
+   bidirectional encoder shape (n = 1500, c = 32) over 2 and ``sp_train``'s
+   paper-bert shape (b = 16, n = 8192, d = 64, causal) over 2, in fp32 and bf16
+   (K1's rows that reach no key of a shard come back empty, K3's keys no
+   row reaches get zero dK / dV), the last shard of each timed;
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -188,8 +195,21 @@ result line):
    (LLaVA-NeXT-34B cut to 2 layers, 2048 stub patches + 2048 tokens, batch
    1, 3 steps under chunked and spectral_shift_fused: K1 12 / K2 12 / K3 6
    / K4 6) and ``train_xlstm`` (xLSTM-350M, all 24 blocks, seq 4096, batch
-   2, 2 steps, no launch); then each kernel timed at the tiling the sweeps
-   chose (``autotuned_launch``);
+   2, 2 steps, no launch); then context parallelism on 4 ranks that share
+   the card (``sp_phase``: ``launch/mesh.py:spawn_local``, a 2 x 2
+   ("data", "model") mesh, gloo staging the collectives through the host):
+   ``sp_attention`` (the sharded attention at Qwen2-7B's shape, n = 8192,
+   causal, over 2 and 4 shards, against the single-device fused route:
+   fp32 within 2e-4 / 5e-4 of max-abs forward / gradients, bf16 printed,
+   remat "ss_stats" bitwise equal to none, K1-K4 counted on each rank)
+   and ``sp_train`` (paper-bert at full width and depth, global seq 8192,
+   batch 4, 3 steps, data over "data" and the sequence over "model",
+   step 0's loss within 1.5e-3 of the single-process ``Trainer``'s, a
+   bound a control with one shard's B-side partial dropped must exceed,
+   the later losses within the sanity bound 5e-3, a 1-layer fp32 twin's
+   gradients within 5e-4; ms a step, peak
+   GiB and the collectives' share per rank); then each kernel timed at the
+   tiling the sweeps chose (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
    training runs, and by path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -617,6 +637,9 @@ def kernel_phase(torch, dev) -> list[dict]:
     entries.update(bidir_train_kernel_entries(torch, dev))
     entries.update(llava_k5_entries(torch, dev))
     entries.update(llava_ss_entries(torch, dev))
+    # the context-parallel attention's launches: K1 / K3 at kv_offset, K2 / K4
+    # at q_offset, every shard of each split
+    entries.update(shard_kernel_entries(torch, dev))
 
     def timed(tag):
         return timed_entry(tag, entries[tag])
@@ -662,6 +685,12 @@ def kernel_phase(torch, dev) -> list[dict]:
         if tag in entries and name != "paged_row_stats":
             row["whisper_encoder_train_launch"] = dict(shape=entries[tag]["shape"],
                                                        **timed(tag))
+        # a sequence shard's launches (the last shard of each timed split;
+        # same kernels and counters)
+        if name in TRAIN_KERNELS:
+            for case, key in SHARD_TIMED.items():
+                row[key] = dict(shape=entries[f"{case}_{name}"]["shape"],
+                                **timed(f"{case}_{name}"))
         for tag, key in {"landmark_summary": (("llava_landmark_summary", "llava_prefill_launch"),
                                               ("llava_landmark_summary_stats",
                                                "llava_seed_stats_launch")),
@@ -4026,6 +4055,163 @@ def bidir_train_kernel_entries(torch, dev, b: int = WHISPER_TRAIN_BATCH * 8,
     return entries
 
 
+# Context parallelism: each case is a sequence split over shards,
+# K1 / K3 at each shard's kv_offset and K2 / K4 at its q_offset.
+SHARD_CASES = {
+    # name: (b, c, n global, shards, d, causal)
+    "qwen2_sp2": (56, 64, 8192, 2, 128, True),
+    "qwen2_sp4": (56, 64, 8192, 4, 128, True),
+    "qwen2_sp4_ragged": (56, 64, 8000, 4, 128, True),
+    "whisper_sp2": (WHISPER_TRAIN_BATCH * 8, 32, 1500, 2, 64, False),
+    # sp_train's launches: paper-bert, 2 rows a rank x 8 heads of 64, the
+    # 8192-token sequence over the 2 ranks of "model"
+    "bert_sp2": (16, 64, 8192, 2, 64, True),
+}
+# the timed shards: the last of each split (its low landmark rows reach no
+# key of it), bf16
+SHARD_TIMED = {"qwen2_sp2": "seq_shard_launch", "qwen2_sp4_ragged": "seq_shard_ragged_launch",
+               "whisper_sp2": "whisper_seq_shard_launch",
+               "bert_sp2": "paper_bert_seq_shard_launch"}
+
+
+def shard_kernel_entries(torch, dev) -> dict:
+    """K1 and K3 with ``kv_offset`` and K2 and K4 at a shard's ``q_offset``,
+    as the context-parallel attention (``kernels/sharded.py``) launches them
+    on each rank, against their plain versions in fp32 (TF32 off) and bf16
+    at KERNEL_TOL, for every shard of every SHARD_CASES split: Qwen2-7B's
+    training shape (b 56, c 64, n 8192, d 128, causal) over 2 and 4 shards
+    and n 8000 over 4 (ragged: 2000 keys a shard, not a whole number of
+    64-key tiles, and segments of 125 keys that straddle the shards),
+    Whisper's bidirectional encoder shape (b 32, c 32, n 1500, d 64) over
+    2, and sp_train's paper-bert shape (b 16, c 64, n 8192, d 64, causal,
+    segments of 128) over 2. K1's rows that reach no key of the shard must come back (out 0,
+    m -1e30, l 0); K3's dK / dV of keys no row reaches, zero. Timing
+    entries: the last shard of each SHARD_TIMED split in bf16."""
+    from repro_torch.kernels.ss_attention import (b_side_mask, landmark_summary,
+                                                  landmark_summary_plain, query_side,
+                                                  query_side_plain)
+    from repro_torch.kernels.ss_attention_bwd import (landmark_summary_bwd,
+                                                      landmark_summary_bwd_plain,
+                                                      query_side_bwd,
+                                                      query_side_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def randn(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    entries = {}
+    names = ("dq", "dk_l", "dm", "dv", "ddelta")
+    for case, (b, c, n, shards, d, causal) in SHARD_CASES.items():
+        n_loc = -(-n // shards)
+        seg = -(-n // c) if causal else 0
+        scale = d**-0.5
+        for i in range(shards):
+            off = i * n_loc
+            end = min(n, off + n_loc)
+            at = (f"{case} shard {i}/{shards}: b={b} c={c} n={n} n_loc={n_loc} "
+                  f"kv_offset={off} d={d} {'causal' if causal else 'bidirectional'}")
+            bmask = b_side_mask(c, n_loc, seg=seg, kv_offset=off, kv_end=end, device=dev)
+            empty = ~bmask.any(dim=1)
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt).split(".")[-1]
+                es = 2 if dt == torch.bfloat16 else 4
+                kw1 = dict(scale=scale, causal=causal, kv_valid=n, seq_len_k=n,
+                           kv_offset=off)
+                q_l = randn(b, c, d, s=0.5, dtype=dt)
+                k, v = randn(b, n_loc, d, s=0.5, dtype=dt), randn(b, n_loc, d, dtype=dt)
+                bv, m, l = landmark_summary(q_l, k, v, return_stats=True, **kw1)
+                rbv, rm, rl = landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
+                                                     kv_offset=off, kv_end=end,
+                                                     return_stats=True)
+                err1 = check(f"K1 kv_offset {at} {dname}",
+                             [("out", bv, rbv, None), ("m", m, rm, None), ("l", l, rl, None)])
+                if not (torch.all(bv[:, empty] == 0) and torch.all(m[:, empty] == -1e30)
+                        and torch.all(l[:, empty] == 0)):
+                    raise AssertionError(f"K1 {at} {dname}: rows with no key must get "
+                                         f"out 0, m -1e30, l 0")
+                # K3 against the stats K1 gave (the sharded attention hands it the merged
+                # global ones: any consistent (bv, m, l) holds it)
+                g = randn(b, c, d, dtype=dt)
+                dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
+                out3 = landmark_summary_bwd(q_l, k, v, bv, m, l, g, **kw1)
+                ref3 = landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale,
+                                                  seg=seg, kv_offset=off, kv_end=end)
+                err3 = check(f"K3 kv_offset {at} {dname}",
+                             [(nm, o, r, None) for nm, o, r in zip(("dq_l", "dk", "dv"),
+                                                                   out3, ref3)])
+                unreached = ~bmask.any(dim=0)
+                if not (torch.all(out3[1][:, unreached] == 0)
+                        and torch.all(out3[2][:, unreached] == 0)):
+                    raise AssertionError(f"K3 {at} {dname}: keys no row reaches must get "
+                                         f"zero dK / dV")
+                kw2 = dict(scale=scale, causal=causal, seq_len_k=n, q_offset=off)
+                q, k_l = randn(b, n_loc, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
+                m_mat, v2 = randn(b, c, d, dtype=dt), randn(b, n_loc, d, dtype=dt)
+                delta = randn(b, 1, 1, s=0.1).abs()
+                err2 = check(f"K2 q_offset {at} {dname}",
+                             [("out", query_side(q, k_l, m_mat, v2, delta, **kw2),
+                               query_side_plain(q, k_l, m_mat, v2, delta, scale=scale,
+                                                seg=seg, pos_offset=off), None)])
+                g2 = randn(b, n_loc, d, dtype=dt)
+                err4 = check(f"K4 q_offset {at} {dname}",
+                             [(nm, o, r, None) for nm, o, r in zip(
+                                 names, query_side_bwd(q, k_l, m_mat, v2, delta, g2, **kw2),
+                                 query_side_bwd_plain(q, k_l, m_mat, v2, delta, g2,
+                                                      scale=scale, seg=seg,
+                                                      pos_offset=off))])
+                if dt != torch.bfloat16 or case not in SHARD_TIMED or i != shards - 1:
+                    continue
+                # the work this shard's data needs: attended (row, key) pairs
+                # of K1 / K3 and (query, column) pairs of K2 / K4
+                pairs1 = b * int(bmask.sum())
+                qpos = off + torch.arange(n_loc, device=dev)
+                fmask = (torch.arange(c, device=dev)[None, :] <= (qpos // seg)[:, None]
+                         if seg else torch.ones((n_loc, c), dtype=torch.bool, device=dev))
+                pairs2 = b * int(fmask.sum())
+                shape = (f"{at.split(': ', 1)[1]}, bf16 (the last of {shards} shards, "
+                         f"{int(empty.sum())} of {c} rows reach no key)")
+                entries[f"{case}_landmark_summary"] = dict(
+                    fn=partial(landmark_summary, q_l, k, v, return_stats=True, **kw1),
+                    plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, seg=seg,
+                                  kv_offset=off, kv_end=end, return_stats=True),
+                    library=library_with_stats(q_l, k, v, bmask, scale=scale), err=err1,
+                    bound=bound(es * (2 * b * c * d + 2 * b * n_loc * d) + 8 * b * c,
+                                2 * pairs1 * 2 * d, "bfloat16"),
+                    shape=f"{shape}, with stats")
+                entries[f"{case}_landmark_summary_bwd"] = dict(
+                    fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, **kw1),
+                    plain=partial(landmark_summary_bwd_plain, q_l, k, v, g, m, l, dcoef,
+                                  scale=scale, seg=seg, kv_offset=off, kv_end=end),
+                    library=sdpa_backward(partial(sdpa_4d, attn_mask=bmask, scale=scale),
+                                          (q_l, k, v), g), err=err3,
+                    bound=bound(es * (3 * b * c * d + 2 * b * n_loc * d) + 8 * b * c
+                                + es * (b * c * d + 2 * b * n_loc * d),
+                                2 * pairs1 * 5 * d, "bfloat16"),
+                    shape=shape)
+                entries[f"{case}_query_side"] = dict(
+                    fn=partial(query_side, q, k_l, m_mat, v2, delta, **kw2),
+                    plain=partial(query_side_plain, q, k_l, m_mat, v2, delta, scale=scale,
+                                  seg=seg, pos_offset=off),
+                    library=partial(sdpa_query_side, q, k_l, m_mat, v2, delta, scale=scale,
+                                    attn_mask=fmask), err=err2,
+                    bound=bound(es * (3 * b * n_loc * d + 2 * b * c * d) + 4 * b,
+                                2 * pairs2 * 2 * d, "bfloat16"),
+                    shape=shape.replace(" rows reach no key", " landmark rows reach no key"))
+                entries[f"{case}_query_side_bwd"] = dict(
+                    fn=partial(query_side_bwd, q, k_l, m_mat, v2, delta, g2, **kw2),
+                    plain=partial(query_side_bwd_plain, q, k_l, m_mat, v2, delta, g2,
+                                  scale=scale, seg=seg, pos_offset=off),
+                    library=sdpa_backward(partial(sdpa_query_side, scale=scale,
+                                                  attn_mask=fmask),
+                                          (q, k_l, m_mat, v2, delta), g2), err=err4,
+                    bound=bound(es * (3 * b * n_loc * d + 2 * b * c * d) + 4 * b
+                                + es * (2 * b * n_loc * d + 2 * b * c * d) + 4 * b,
+                                2 * pairs2 * 5 * d + 4 * b * n_loc * d, "bfloat16"),
+                    shape=shape)
+    return entries
+
+
 def frontend_batch(cfg, seq: int, batch: int):
     """Whisper's and LLaVA's training batches: ``SyntheticLM`` tokens beside
     seeded stub frame embeddings (1500 frames of d_model) or patch features
@@ -4335,6 +4521,350 @@ def train_xlstm_phase(torch, dev) -> dict:
     return {"train_xlstm": run["launches"]}
 
 
+# --------------------------------------------------------------------------
+# context parallelism: ranks on the one card
+# --------------------------------------------------------------------------
+SP_MESH = (2, 2)                 # ("data", "model"): 4 ranks on the one card
+SP_ATTENTION = dict(b=56, c=64, n=8192, d=128)   # Qwen2-7B's training shape, 8k
+SP_FWD_TOL, SP_GRAD_TOL = 2e-4, 5e-4   # fp32, TF32 off, relative to max-abs
+SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS = 8192, 4, 3
+SP_LOSS_TOL = 5e-3               # SP against single-process losses, relative
+SP_STEP0_TOL = 1.5e-3            # step 0 (a forward of the same weights), relative
+SP_TIMEOUT_S = 600.0             # every collective of the ranks' group
+
+
+def _counted(totals: dict, fn):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before and
+    add the launches it made to ``totals``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    for k, v in launch_counts().items():
+        totals[k] = totals.get(k, 0) + v
+    return out
+
+
+def sp_attention_rank(mesh, b: int, c: int, n: int, d: int) -> dict:
+    """One rank of ``sp_attention``: ``ss_attention_fused_sharded`` on its
+    rows of Qwen2-7B's training shape at n = 8192 (causal), the sequence
+    over "model" (2 shards; the two "data" rows are replicas) and over
+    ("data", "model") (4 shards), forward and the gradients of
+    sum(out * w), in fp32 and bf16, against the single-device fused route
+    on the card over the whole sequence (this rank's rows); then remat
+    "ss_stats"'s policy against none (bf16). Returns host values only:
+    errors, ms, launches of the sharded runs (the reference's excluded),
+    peak GiB and the seconds in collectives."""
+    import torch
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    from repro_torch.core.attention import SSConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sharded import shard_sequence, ss_attention_fused_sharded
+    from repro_torch.models.model import _ss_stats_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = SSConfig(num_landmarks=c, causal=True, landmark_via_matmul=True)
+    launches: dict = {}
+    res = {"rank": mesh.rank, "cases": {}}
+    torch.cuda.reset_peak_memory_stats(dev)
+    coll0, t_all = mesh.collective_seconds, time.perf_counter()
+    for axes in (("model",), ("data", "model")):
+        shards, idx = mesh.axis_size(axes), mesh.index(axes)
+        n_loc = n // shards
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            gen = torch.Generator(device=dev).manual_seed(24)
+            q, k, v, w = ((torch.randn((b, n, d), generator=gen, device=dev) * s).to(dt)
+                          for s in (0.5, 0.5, 1.0, 1.0))
+            ql, kl, vl = (shard_sequence(x, mesh, axes).requires_grad_(True)
+                          for x in (q, k, v))
+            wl = shard_sequence(w, mesh, axes)
+
+            def loss(a, b_, c_):
+                out = ss_attention_fused_sharded(a, b_, c_, cfg, mesh=mesh, seq_axes=axes)
+                return out, (out.float() * wl.float()).sum()
+
+            def run():
+                out, val = loss(ql, kl, vl)
+                grads = torch.autograd.grad(val, (ql, kl, vl))
+                torch.cuda.synchronize(dev)
+                return out.detach(), grads
+
+            out, grads = _counted(launches, run)
+            t0 = time.perf_counter()
+            _counted(launches, run)
+            ms = 1e3 * (time.perf_counter() - t0)
+            # the single-device fused route over the whole sequence
+            qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+            ref = ops.ss_attention_fused(qg, kg, vg, cfg)
+            rgrads = torch.autograd.grad((ref.float() * w.float()).sum(), (qg, kg, vg))
+            rows = slice(idx * n_loc, (idx + 1) * n_loc)
+
+            def rel(a, r):
+                r = r[:, rows].float()
+                return float((a.float() - r).abs().max() / r.abs().max())
+
+            res["cases"][(shards, dname)] = dict(
+                fwd=rel(out, ref.detach()), grads=[rel(g, r) for g, r in zip(grads, rgrads)],
+                ms=ms)
+            if dname == "bfloat16":
+                def grads_of(context_fn):
+                    def go():
+                        if context_fn is None:
+                            _, val = loss(ql, kl, vl)
+                        else:
+                            _, val = checkpoint(loss, ql, kl, vl, use_reentrant=False,
+                                                context_fn=context_fn)
+                        return torch.autograd.grad(val, (ql, kl, vl))
+                    return go
+
+                calls = mesh.collective_calls
+                g_none = _counted(launches, grads_of(None))
+                mid = mesh.collective_calls
+                g_ss = _counted(launches, grads_of(
+                    partial(create_selective_checkpoint_contexts, _ss_stats_policy)))
+                res["cases"][(shards, "ss_stats")] = dict(
+                    bitwise=all(torch.equal(a, b2) for a, b2 in zip(g_none, g_ss)),
+                    collectives=(mid - calls, mesh.collective_calls - mid))
+            del q, k, v, w, ql, kl, vl, wl, out, grads, qg, kg, vg, ref, rgrads
+            torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["collective_share"] = (mesh.collective_seconds - coll0) / (time.perf_counter() - t_all)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return res
+
+
+def sp_step0_ce(trainer, mesh, drop: bool) -> float:
+    """The global CE of step 0's batch at the trainer's initial weights, a
+    forward only under its mesh. ``drop``: the control, the flash merge of
+    the context-parallel B-side without the partial of the sequence's second
+    shard (its keys lost to every landmark row), patched here and restored."""
+    import torch
+
+    import repro_torch.kernels.sharded as sharded
+    from repro_torch.train.train_step import make_eval_step
+
+    rescale = sharded.flash_rescale
+
+    def dropped(m, l, acc, m_g):
+        l_r, acc_r = rescale(m, l, acc, m_g)
+        if mesh.index("model") == 1:
+            return torch.zeros_like(l_r), torch.zeros_like(acc_r)
+        return l_r, acc_r
+
+    if drop:
+        sharded.flash_rescale = dropped
+    try:
+        with trainer._rules(), torch.no_grad():
+            _, metrics = make_eval_step(trainer.cfg)(trainer.params, trainer._batch(0))
+    finally:
+        sharded.flash_rescale = rescale
+    return float(metrics["ce"])
+
+
+def sp_paper_bert(overrides=None):
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config("paper-bert"), attention_impl="spectral_shift_fused",
+                               **(overrides or {}))
+
+
+def sp_train_rank(mesh, seq: int, batch: int, steps: int) -> dict:
+    """One rank of ``sp_train``: the ``Trainer`` on paper-bert at full width
+    and depth under ``spectral_shift_fused``, data over "data" and the
+    sequence over "model" (``{"seq": "model"}``): step 0's forward at the
+    initial weights, sound and with one shard's B-side partial dropped
+    (``sp_step0_ce``, uncounted); losses, ms a step after the first, peak
+    GiB, the share of the steps in collectives and the launches of the
+    steps; then the 1-layer fp32 twin: one grad step under
+    the mesh (gradients summed over the ranks) and, on rank 0, the
+    single-device grad step on the whole batch, held leaf by leaf."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, make_global_batch, to_device
+    from repro_torch.distributed.sharding import apply_seq_sharding_config, sharding_rules
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train.train_step import make_grad_step
+    from repro_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    ov = {"seq": "model"}
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_ckpt_") as tmp:
+        tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                           checkpoint_dir=tmp)
+        trainer = Trainer(sp_paper_bert(), tcfg, shape, mesh, rule_overrides=ov)
+        plan = trainer.plan
+        step0 = {name: sp_step0_ce(trainer, mesh, drop)
+                 for name, drop in (("sound", False), ("control", True))}
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll0, t0 = mesh.collective_seconds, time.perf_counter()
+        hist = _counted(launches, lambda: trainer.run(steps))
+        share = (mesh.collective_seconds - coll0) / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the 1-layer fp32 twin (TF32 off): one grad step, held leaf by leaf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg1 = apply_seq_sharding_config(sp_paper_bert(dict(
+        num_layers=1, compute_dtype="float32", remat="none")), mesh, ov)
+    params = init_params(model_specs(cfg1), torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    host = SyntheticLM(cfg1.vocab_size, seq, batch, seed=0).batch(0)
+    with sharding_rules(mesh, ov):
+        loss, grads = make_grad_step(cfg1)(params,
+                                           to_device(make_global_batch(host, mesh, ov), dev))
+    twin = None
+    if mesh.rank == 0:
+        ref_loss, ref = make_grad_step(cfg1)(params, to_device(host, dev))
+        twin = dict(loss=abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+                    grad=max(float((a - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                             for a, r in zip(tree_leaves(grads), tree_leaves(ref))))
+    return dict(rank=mesh.rank, losses=[h["loss"] for h in hist],
+                ms=1e3 * sum(h["step_time_s"] for h in hist[1:]) / max(1, len(hist) - 1),
+                peak_gib=peak, collective_share=share, launches=launches,
+                plan=None if plan is None else (plan.impl, plan.block_n, plan.source),
+                twin=twin, step0=step0)
+
+
+def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int) -> dict:
+    """Both context-parallel paths on one rank of the SP_MESH group."""
+    out = {"attention": sp_attention_rank(mesh, **attention)}
+    gc.collect()
+    out["train"] = sp_train_rank(mesh, seq, batch, steps)
+    return out
+
+
+def sp_phase(torch, dev) -> dict:
+    """``sp_attention`` and ``sp_train``: 4 ranks on the one card
+    (``launch/mesh.py:spawn_local``, gloo: NCCL will not put two ranks of
+    one communicator on one GPU, so the (c, .)-sized collectives are staged
+    through host memory; no figure here is one for NVLink), a ("data",
+    "model") mesh of 2 x 2. ``sp_attention``: the context-parallel attention
+    at Qwen2-7B's shape (b 56, c 64, n 8192, d 128, causal) over 2 and 4
+    shards against the single-device fused route, fp32 within SP_FWD_TOL /
+    SP_GRAD_TOL of max-abs, bf16 printed, remat "ss_stats" bitwise equal
+    to none (its two B-side collectives not rerun), K1-K4 counted per
+    rank. ``sp_train``: paper-bert (12 layers, d 512, 8 heads of 64, c 64)
+    at global seq 8192, batch 4, 3 steps, data over "data" and the
+    sequence over "model", its step-0 loss (a forward of the same weights)
+    within SP_STEP0_TOL of the single-process Trainer's (run first, here),
+    a bound that a control with one shard's B-side partial dropped must
+    exceed, and its later losses within the sanity bound SP_LOSS_TOL, its
+    launches per rank K1 2 / K2 2 / K3 1 / K4 1 a layer and step (remat
+    full); the 1-layer fp32 twin's gradients within GRAD_TOL. Returns the
+    launches of each path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import spawn_local
+
+    shape = ShapeConfig("train_4k", SP_TRAIN_SEQ, SP_TRAIN_BATCH, "train")
+    single = train_steps(torch, dev, sp_paper_bert(), shape, SP_TRAIN_STEPS,
+                         "sp_train single-process reference")
+    t0 = time.perf_counter()
+    ranks = spawn_local(sp_rank, SP_MESH, ("data", "model"),
+                        args=(SP_ATTENTION, SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS),
+                        backend="gloo", device="cuda", timeout_s=SP_TIMEOUT_S, threads=2)
+    wall = time.perf_counter() - t0
+    # ---- sp_attention ------------------------------------------------------
+    for key in ((2, "float32"), (2, "bfloat16"), (4, "float32"), (4, "bfloat16")):
+        cases = [r["attention"]["cases"][key] for r in ranks]
+        fwd = max(cs["fwd"] for cs in cases)
+        grads = [max(cs["grads"][j] for cs in cases) for j in range(3)]
+        log(f"sp_attention {key[0]} shards {key[1]}: forward rel err {fwd:.2e}, grads dq / "
+            f"dk / dv {['%.2e' % g for g in grads]} of max-abs against the single-device "
+            f"fused route; forward + backward ms per rank "
+            f"{['%.1f' % cs['ms'] for cs in cases]}")
+        if key[1] == "float32" and not (fwd <= SP_FWD_TOL and max(grads) <= SP_GRAD_TOL):
+            raise AssertionError(f"sp_attention {key}: forward {fwd:.3e} (tol {SP_FWD_TOL}) "
+                                 f"or grads {max(grads):.3e} (tol {SP_GRAD_TOL})")
+    for shards in (2, 4):
+        ss = [r["attention"]["cases"][(shards, "ss_stats")] for r in ranks]
+        if not all(s["bitwise"] for s in ss):
+            raise AssertionError(f"sp_attention {shards} shards: remat ss_stats gradients "
+                                 f"differ from none")
+        # the recompute reruns the landmark all-reduce alone: the B-side op is kept
+        if any(s["collectives"][1] != s["collectives"][0] + 1 for s in ss):
+            raise AssertionError(f"sp_attention {shards} shards: collectives none / "
+                                 f"ss_stats {[s['collectives'] for s in ss]}")
+    att_launches = [r["attention"]["launches"] for r in ranks]
+    # per rank: 2 dtypes x 2 meshes x 2 runs (K1-K4 one each) + the two remat
+    # runs x 2 meshes (K1 2, K2 3, K3 2, K4 2)
+    want = dict(landmark_summary=12, query_side=14, landmark_summary_bwd=12,
+                query_side_bwd=12, paged_row_stats=0)
+    if any(lc != want for lc in att_launches):
+        raise AssertionError(f"sp_attention: launches per rank {att_launches} != {want}")
+    log(f"sp_attention: remat ss_stats gradients bitwise equal to none on every rank; "
+        f"launches per rank {att_launches[0]}; collectives "
+        f"{['%.1f%%' % (100 * r['attention']['collective_share']) for r in ranks]} of each "
+        f"rank's phase; peak GiB per rank "
+        f"{['%.2f' % r['attention']['peak_gib'] for r in ranks]}")
+    # ---- sp_train ----------------------------------------------------------
+    trains = [r["train"] for r in ranks]
+    losses = trains[0]["losses"]
+    if any(t["losses"] != losses for t in trains):
+        raise AssertionError(f"sp_train: ranks disagree on the losses "
+                             f"{[t['losses'] for t in trains]}")
+    rel = rel_diffs(losses, single["losses"])
+    layers = sp_paper_bert().num_layers
+    per_rank = dict(landmark_summary=2 * layers * SP_TRAIN_STEPS,
+                    query_side=2 * layers * SP_TRAIN_STEPS,
+                    landmark_summary_bwd=layers * SP_TRAIN_STEPS,
+                    query_side_bwd=layers * SP_TRAIN_STEPS, paged_row_stats=0)
+    if any(t["launches"] != per_rank for t in trains):
+        raise AssertionError(f"sp_train: launches per rank "
+                             f"{[t['launches'] for t in trains]} != {per_rank}")
+    twin = trains[0]["twin"]
+    # step 0 is a forward of the same weights on both sides: held at
+    # SP_STEP0_TOL, which the control (one shard's B-side partial dropped)
+    # must exceed; the later steps' bf16 drift is held at SP_LOSS_TOL only
+    # (a sanity bound: Adam's first steps amplify rounding)
+    step0 = trains[0]["step0"]
+    if any(t["step0"] != step0 for t in trains):
+        raise AssertionError(f"sp_train: ranks disagree on step 0's CE "
+                             f"{[t['step0'] for t in trains]}")
+    ref0 = single["losses"][0]
+    sound0, control0 = (abs(step0[k] - ref0) / abs(ref0) for k in ("sound", "control"))
+    log(f"sp_train step 0 (a forward at the initial weights): SP loss rel {rel[0]:.2e} "
+        f"(tol {SP_STEP0_TOL}), SP forward CE {step0['sound']:.6f} (rel {sound0:.2e}); "
+        f"control, shard 1's B-side partial dropped from the merge: CE "
+        f"{step0['control']:.6f} (rel {control0:.2e}, must exceed the tol); single-process "
+        f"{ref0:.6f}")
+    if not rel[0] <= SP_STEP0_TOL:
+        raise AssertionError(f"sp_train: step 0 loss {losses[0]} vs {ref0}: {rel[0]:.3e} > "
+                             f"{SP_STEP0_TOL}")
+    if not control0 > SP_STEP0_TOL:
+        raise AssertionError(f"sp_train: the control (a dropped B-side partial) moves step "
+                             f"0's CE by {control0:.3e}, within the bound {SP_STEP0_TOL}: "
+                             f"the check would not see it")
+    log(f"sp_train: paper-bert 12 layers seq {SP_TRAIN_SEQ} batch {SP_TRAIN_BATCH} over "
+        f"{SP_MESH[0]} x {SP_MESH[1]} ranks (plan {trains[0]['plan']}): losses "
+        f"{['%.4f' % x for x in losses]} vs single-process {['%.4f' % x for x in single['losses']]} "
+        f"(rel {['%.2e' % x for x in rel]}, tol {SP_LOSS_TOL}); ms per step after the first "
+        f"{['%.1f' % t['ms'] for t in trains]} (single-process {single['ms']:.1f}); peak "
+        f"GiB per rank {['%.2f' % t['peak_gib'] for t in trains]}; collectives "
+        f"{['%.1f%%' % (100 * t['collective_share']) for t in trains]} of each rank's steps "
+        f"(gloo through the host); launches per rank {trains[0]['launches']}; 1-layer fp32 "
+        f"twin loss rel {twin['loss']:.2e}, worst grad leaf {twin['grad']:.2e} of max-abs "
+        f"(tol {GRAD_TOL}); the ranks' group {wall:.1f}s")
+    if not max(rel) <= SP_LOSS_TOL:
+        raise AssertionError(f"sp_train: losses {losses} vs {single['losses']}: "
+                             f"{max(rel):.3e} > {SP_LOSS_TOL}")
+    if not (twin["grad"] <= GRAD_TOL and twin["loss"] <= GRAD_TOL):
+        raise AssertionError(f"sp_train: 1-layer fp32 twin {twin} past {GRAD_TOL}")
+
+    def total(rows):
+        return {k: sum(r[k] for r in rows) for k in rows[0]}
+
+    return {"sp_attention": total(att_launches),
+            "sp_train": total([t["launches"] for t in trains])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -4397,6 +4927,7 @@ def run(args, torch, t_start: float) -> int:
     whisper = train_whisper_phase(torch, dev)
     llava = train_llava_phase(torch, dev)
     xlstm = train_xlstm_phase(torch, dev)
+    sp = sp_phase(torch, dev)
     autotuned_rows(torch, dev, kernels, train_plan, served.pop("_decode_plan"))
     if traced_losses != full_losses:
         raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "
@@ -4407,7 +4938,7 @@ def run(args, torch, t_start: float) -> int:
         f"telemetry {traced_ms:.1f} ms per step, losses identical to the run without")
     paths = dict(served, train=trained, train_remat_auto=auto, train_remat_dots=dots,
                  train_telemetry=traced, train_autotune=tuned, **bert, **chunked, **hymba,
-                 **deepseek, **whisper, **llava, **xlstm)
+                 **deepseek, **whisper, **llava, **xlstm, **sp)
     for k in kernels:
         # K5' launches through K5's wrapper and counter: no path of its own
         k["launches_by_path"] = {path: counts.get(k["name"], 0)

@@ -15,9 +15,21 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // B-side mask: landmark row r may attend keys [0, b_side_reach(r)) of the
-// n_end keys any row may attend (segment-causal when seg > 0).
-__device__ __forceinline__ int b_side_reach(int r, int n_end, int seg) {
-  return seg > 0 ? min(n_end, (r + 1) * seg) : n_end;
+// n_end keys any row may attend, the keys of a shard whose first key sits at
+// global position kv_off (0 unsharded). Segment-causal when seg > 0: global
+// position below (r + 1) * seg, so on a later shard the reach of a low row
+// is <= 0 (it attends no key of the shard).
+__device__ __forceinline__ int b_side_reach(int r, int n_end, int seg, int kv_off) {
+  return seg > 0 ? min(n_end, (r + 1) * seg - kv_off) : n_end;
+}
+
+// Keys [0, n) of a shard at global offset kv_off that some landmark row may
+// attend: below the global kv_valid and, segment-causal, below c * seg.
+// May be <= 0 (no key of the shard is attended).
+__host__ __device__ __forceinline__ int b_side_end(int n, int c, int kv_valid, int seg,
+                                                   int kv_off) {
+  const int end = min(n, kv_valid - kv_off);
+  return seg > 0 ? min(end, c * seg - kv_off) : end;
 }
 
 // Storage-type codes shared with kernels/build.py.

@@ -6,13 +6,17 @@
 //
 // What it computes, per batch-head b and landmark row r:
 //   s_rj = scale * q_l[b,r] . k[b,j]   for keys j in [0, n)
-//   key j is valid iff j < kv_valid (kv_valid already clamped to n by the
-//   wrapper) and, when seg > 0 (segment-causal), j < (r + 1) * seg;
+//   key j sits at global position kv_off + j (kv_off = 0 unsharded; the
+//   context-parallel attention passes its shard's offset) and is valid iff
+//   kv_off + j < kv_valid (global, clamped to kv_off + n by the wrapper)
+//   and, when seg > 0 (segment-causal), kv_off + j < (r + 1) * seg;
 //   m_r = max of the valid s_rj (-1e30 if none), l_r = sum exp(s_rj - m_r),
 //   out[b,r] = (sum exp(s_rj - m_r) v[b,j]) / max(l_r, 1e-30), in v's type,
 //   and optionally m_r, l_r in fp32 (the stats prefill hands to decode).
 //   Masked keys contribute exactly 0: a row with no valid key returns
-//   (m=-1e30, l=0, out=0), never exp(0) = 1.
+//   (m=-1e30, l=0, out=0), never exp(0) = 1. On a later shard the low rows
+//   reach no key at all; every kernel still writes their empty row, since
+//   the outputs come from torch.empty.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): the function must
 // read K and V once and does 4 d flops per attended (row, key) pair. At the
@@ -87,7 +91,7 @@ landmark_summary_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out,
                         float* __restrict__ m_out, float* __restrict__ l_out,
                         int c, int n, int d, int dv, float scale,
-                        int kv_valid, int seg) {
+                        int kv_valid, int seg, int kv_off) {
   __shared__ float q_s[kRows][kMaxD];
   __shared__ float k_s[kTileN][kMaxD + 1];
   __shared__ float v_s[kTileN][kMaxD];
@@ -108,8 +112,7 @@ landmark_summary_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
         ? repro::to_float(qb[static_cast<size_t>(row0 + r) * d + col]) : 0.f;
   }
   // Keys [0, n_end) are the only ones any row of this CTA may attend.
-  int n_end = min(n, kv_valid);
-  if (seg > 0) n_end = min(n_end, min(row0 + kRows, c) * seg);
+  const int n_end = repro::b_side_end(n, min(row0 + kRows, c), kv_valid, seg, kv_off);
 
   float m_r[kRowsPerWarp], l_r[kRowsPerWarp], acc[kRowsPerWarp][kMaxD / 32];
 #pragma unroll
@@ -140,7 +143,7 @@ landmark_summary_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       const int r = warp * kRowsPerWarp + rr;
       const int row = row0 + r;
       bool valid = key < n_end && row < c;
-      if (seg > 0) valid = valid && key < (row + 1) * seg;
+      if (seg > 0) valid = valid && key < (row + 1) * seg - kv_off;
       float s = kNegInf;
       if (valid) {
         float dot = 0.f;
@@ -265,7 +268,7 @@ landmark_summary_wide_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out,
                              float* __restrict__ m_out, float* __restrict__ l_out,
                              int c, int n, int d, int dv, float scale,
-                             int kv_valid, int seg) {
+                             int kv_valid, int seg, int kv_off) {
   using W = Wide<T>;
   constexpr int kVec = W::kVec;
   extern __shared__ __align__(16) uint8_t wide_smem[];
@@ -283,8 +286,7 @@ landmark_summary_wide_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + static_cast<size_t>(bi) * n * d;
   const T* vb = v + static_cast<size_t>(bi) * n * dv;
   // Keys [0, n_end) are the only ones any row of this CTA may attend.
-  int n_end = min(n, kv_valid);
-  if (seg > 0) n_end = min(n_end, min(row0 + kRows, c) * seg);
+  const int n_end = repro::b_side_end(n, min(row0 + kRows, c), kv_valid, seg, kv_off);
 
   load_rows(k_s, W::kKStride, kb, d, 0, n_end, tid);
   repro::cp_async_commit();
@@ -339,7 +341,7 @@ landmark_summary_wide_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
     for (int rr = 0; rr < kWideRowsPerWarp; ++rr) {
       const int row = row0 + r0 + rr;
       bool valid = key < n_end && row < c;
-      if (seg > 0) valid = valid && key < (row + 1) * seg;
+      if (seg > 0) valid = valid && key < (row + 1) * seg - kv_off;
       const float s = valid ? dot[rr] * scale : kNegInf;
       const float m_new = fmaxf(m_r[rr], repro::warp_max(s));
       const float p = valid ? expf(s - m_new) : 0.f;
@@ -407,14 +409,14 @@ landmark_summary_wide_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 template <typename TQ, typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  float* m_out, float* l_out, int b, int c, int n, int d,
-                 int dv, float scale, int kv_valid, int seg,
+                 int dv, float scale, int kv_valid, int seg, int kv_off,
                  cudaStream_t st) {
   if (d <= kMaxD && dv <= kMaxD) {
     const dim3 grid(b, (c + kRows - 1) / kRows);
     landmark_summary_kernel<TQ, T><<<grid, kThreads, 0, st>>>(
         static_cast<const TQ*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, c, n, d,
-        dv, scale, kv_valid, seg);
+        dv, scale, kv_valid, seg, kv_off);
     return static_cast<int>(cudaGetLastError());
   }
   // the wide kernel copies 16-byte chunks of k and v rows
@@ -434,7 +436,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   landmark_summary_wide_kernel<TQ, T><<<grid, kWideThreads, Wide<T>::kSmem, st>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, c, n, d,
-      dv, scale, kv_valid, seg);
+      dv, scale, kv_valid, seg, kv_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,7 +469,8 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float* __restrict__ m_out, float* __restrict__ l_out,
                     float* __restrict__ ws_m, float* __restrict__ ws_l,
                     float* __restrict__ ws_acc, int c, int n, int d, int dv,
-                    float scale, int n_end, int seg, int chunk_keys, int chunks) {
+                    float scale, int n_end, int seg, int kv_off, int chunk_keys,
+                    int chunks) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
   // grid.z = b x value tiles: this CTA's value columns [dv0, dv0 + dvw)
@@ -477,11 +480,29 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int dv0 = vt * kCols, dvw = min(kCols, dv - dv0);
   const int key0 = chunk * chunk_keys;
   const int key_end = min(key0 + chunk_keys, n_end);
-  // No row of this tile reaches the chunk (segment-causal): nothing to do.
-  if (key0 >= repro::b_side_reach(min(c, row0 + kRows) - 1, n_end, seg)) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // No row of this tile reaches the chunk (segment-causal): nothing to do,
+  // unless the plan has one chunk, which writes the output directly. Then
+  // the chunk is the first, so no row of the tile reaches any key (a low
+  // row tile on a later shard): each gets the empty row the merge gives.
+  if (key0 >= repro::b_side_reach(min(c, row0 + kRows) - 1, n_end, seg, kv_off)) {
+    if (chunks == 1) {
+      const int rows = min(kRows, c - row0);
+      for (int i = tid; i < rows * dvw; i += kThreads) {
+        const int r = i / dvw, col = i - r * dvw;
+        out[(static_cast<size_t>(bi) * c + row0 + r) * dv + dv0 + col] = __float2bfloat16(0.f);
+      }
+      if (m_out != nullptr && vt == 0) {
+        for (int r = tid; r < rows; r += kThreads) {
+          m_out[static_cast<size_t>(bi) * c + row0 + r] = repro::kNegInf;
+          l_out[static_cast<size_t>(bi) * c + row0 + r] = 0.f;
+        }
+      }
+    }
+    return;
+  }
   const int tiles = (key_end - key0 + kKeys - 1) / kKeys;
   const int steps = tiles * kCT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
 
   const bf16* kb = k + static_cast<size_t>(bi) * n * d;
@@ -509,7 +530,7 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r_lo = row0 + 16 * warp + g;
   // Keys the warp's last existing row may attend; the warp idles past them.
   const int warp_reach = row0 + 16 * warp < c
-      ? repro::b_side_reach(min(c, row0 + 16 * warp + 16) - 1, n_end, seg) : 0;
+      ? repro::b_side_reach(min(c, row0 + 16 * warp + 16) - 1, n_end, seg, kv_off) : 0;
   const float sl2 = scale * repro::kLog2e;
   float mx[2] = {repro::kNegInf, repro::kNegInf}, lsum[2] = {0.f, 0.f};
   float acc[16][4];
@@ -552,7 +573,7 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int key = t0 + 8 * j + 2 * qd + (e & 1);
           const int row = r_lo + 8 * (e >> 1);
           const bool ok =
-              key < key_end && row < c && key < repro::b_side_reach(row, n_end, seg);
+              key < key_end && row < c && key < repro::b_side_reach(row, n_end, seg, kv_off);
           valid |= static_cast<uint32_t>(ok) << (4 * j + e);
           s[4 * j + e] = ok ? s[4 * j + e] * sl2 : repro::kNegInf;
           tmax[e >> 1] = fmaxf(tmax[e >> 1], s[4 * j + e]);
@@ -618,7 +639,7 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m_out[rc] = m_nat;
         l_out[rc] = lsum[i];
       }
-    } else if (key0 < repro::b_side_reach(row, n_end, seg)) {
+    } else if (key0 < repro::b_side_reach(row, n_end, seg, kv_off)) {
       const size_t w = (static_cast<size_t>(bi) * chunks + chunk) * c + row;
       float* o = ws_acc + w * dv + dv0;
 #pragma unroll
@@ -636,16 +657,17 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // One CTA per (batch-head, row), threads over the value columns: merges the
 // partials of the chunks the row reaches, in chunk order, with flash_merge's
-// rule (a chunk with m = -1e30, l = 0 is absorbed; a row that reaches none
-// gets m = -1e30, l = 0, out = 0).
+// rule (a chunk with m = -1e30, l = 0 is absorbed; a row that reaches none,
+// every row when the plan has no chunk, gets m = -1e30, l = 0, out = 0).
 __global__ void __launch_bounds__(128)
 landmark_summary_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
                        const float* __restrict__ ws_acc, bf16* __restrict__ out,
                        float* __restrict__ m_out, float* __restrict__ l_out, int c,
-                       int dv, int n_end, int seg, int chunk_keys, int chunks) {
+                       int dv, int n_end, int seg, int kv_off, int chunk_keys,
+                       int chunks) {
   const int bi = blockIdx.x / c, row = blockIdx.x - bi * c;
-  const int nch =
-      min(chunks, (repro::b_side_reach(row, n_end, seg) + chunk_keys - 1) / chunk_keys);
+  const int reach = max(0, repro::b_side_reach(row, n_end, seg, kv_off));
+  const int nch = min(chunks, (reach + chunk_keys - 1) / chunk_keys);
   const size_t w0 = static_cast<size_t>(bi) * chunks * c + row;
   float m = repro::kNegInf;
   for (int ch = 0; ch < nch; ++ch) m = fmaxf(m, ws_m[w0 + static_cast<size_t>(ch) * c]);
@@ -672,8 +694,8 @@ landmark_summary_merge(const float* __restrict__ ws_m, const float* __restrict__
 template <int kCT>
 int launch_tiles(const void* q, const void* k, const void* v, void* out, float* m_out,
                  float* l_out, float* ws_m, float* ws_l, float* ws_acc, int b, int c, int n,
-                 int d, int dv, float scale, int n_end, int seg, int chunk_keys, int chunks,
-                 cudaStream_t st) {
+                 int d, int dv, float scale, int n_end, int seg, int kv_off, int chunk_keys,
+                 int chunks, cudaStream_t st) {
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -686,19 +708,18 @@ int launch_tiles(const void* q, const void* k, const void* v, void* out, float* 
   landmark_summary_tc<kCT><<<grid, kThreads, smem_bytes(kCT), st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), m_out, l_out, ws_m, ws_l, ws_acc, c, n, d, dv, scale, n_end,
-      seg, chunk_keys, chunks);
+      seg, kv_off, chunk_keys, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
            float* l_out, float* ws, int b, int c, int n, int d, int dv, float scale,
-           int kv_valid, int seg, int chunk_keys, cudaStream_t st) {
+           int kv_valid, int seg, int kv_off, int chunk_keys, cudaStream_t st) {
   if (d > kWideMaxD || dv > kWideMaxDv || d % 8 || dv % 8 || chunk_keys <= 0
       || chunk_keys % kKeys) {
     return cudaErrorInvalidValue;
   }
-  int n_end = min(n, kv_valid);
-  if (seg > 0) n_end = min(n_end, c * seg);
+  const int n_end = repro::b_side_end(n, c, kv_valid, seg, kv_off);
   const int chunks = n_end > 0 ? (n_end + chunk_keys - 1) / chunk_keys : 0;
   // workspace: m and l (b, chunks, c), then acc (b, chunks, c, dv)
   const size_t rows = static_cast<size_t>(b) * chunks * c;
@@ -709,15 +730,15 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
   if (chunks >= 1) {
     const int err = d <= kCols
         ? launch_tiles<1>(q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, b, c, n, d, dv,
-                          scale, n_end, seg, chunk_keys, chunks, st)
+                          scale, n_end, seg, kv_off, chunk_keys, chunks, st)
         : launch_tiles<kWideCT>(q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, b, c, n, d,
-                                dv, scale, n_end, seg, chunk_keys, chunks, st);
+                                dv, scale, n_end, seg, kv_off, chunk_keys, chunks, st);
     if (err != cudaSuccess) return err;
   }
   if (chunks != 1) {
     landmark_summary_merge<<<b * c, 128, 0, st>>>(ws_m, ws_l, ws_acc,
                                                   static_cast<bf16*>(out), m_out, l_out, c,
-                                                  dv, n_end, seg, chunk_keys, chunks);
+                                                  dv, n_end, seg, kv_off, chunk_keys, chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -733,12 +754,14 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
 // the plan has one chunk); fp32/fp32 and fp32 queries against bf16 keys
 // (the prefill handoff streams fp32 landmark means against bf16 keys, as the
 // reference does) run the fp32 kernel, which takes no workspace. m_out and
-// l_out may both be null (no stats). Returns cudaGetLastError() after the
-// launches (0 = launched).
+// l_out may both be null (no stats). kv_valid is global and kv_off the
+// global position of key 0 (a shard's offset; 0 unsharded). Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int landmark_summary_launch(
     const void* q, const void* k, const void* v, void* out, void* m_out,
     void* l_out, void* ws, int b, int c, int n, int d, int dv, float scale,
-    int kv_valid, int seg, int chunk_keys, int q_dtype, int kv_dtype, void* stream) {
+    int kv_valid, int seg, int kv_off, int chunk_keys, int q_dtype, int kv_dtype,
+    void* stream) {
   if (d > kWideMaxD || dv > kWideMaxDv || d <= 0 || dv <= 0 || b <= 0 || c <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -747,8 +770,8 @@ extern "C" int landmark_summary_launch(
   using bf16 = __nv_bfloat16;
   const bool qf = q_dtype == repro::kF32, qb = q_dtype == repro::kBF16;
   const bool kf = kv_dtype == repro::kF32, kb = kv_dtype == repro::kBF16;
-  if (qb && kb) return tc::launch(q, k, v, out, mo, lo, static_cast<float*>(ws), b, c, n, d, dv, scale, kv_valid, seg, chunk_keys, st);
-  if (qf && kf) return launch_typed<float, float>(q, k, v, out, mo, lo, b, c, n, d, dv, scale, kv_valid, seg, st);
-  if (qf && kb) return launch_typed<float, bf16>(q, k, v, out, mo, lo, b, c, n, d, dv, scale, kv_valid, seg, st);
+  if (qb && kb) return tc::launch(q, k, v, out, mo, lo, static_cast<float*>(ws), b, c, n, d, dv, scale, kv_valid, seg, kv_off, chunk_keys, st);
+  if (qf && kf) return launch_typed<float, float>(q, k, v, out, mo, lo, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
+  if (qf && kb) return launch_typed<float, bf16>(q, k, v, out, mo, lo, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
   return cudaErrorInvalidValue;
 }

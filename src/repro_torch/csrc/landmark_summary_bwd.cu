@@ -4,9 +4,10 @@
 // landmark_summary_bwd (body _landmark_summary_bwd_kernel :49, mask
 // _b_side_mask of ss_attention.py:62).
 //
-// What it computes, per batch-head b, landmark row r and key j (valid iff
-// j < kv_valid, kv_valid already clamped to n by the wrapper, and, when
-// seg > 0, j < (r + 1) * seg):
+// What it computes, per batch-head b, landmark row r and key j (at global
+// position kv_off + j: a shard's offset under the context-parallel attention,
+// else 0; valid iff kv_off + j < kv_valid, global and clamped to
+// kv_off + n by the wrapper, and, when seg > 0, kv_off + j < (r + 1) * seg):
 //   p_rj  = exp(scale * q_l[r] . k[j] - m_r) / max(l_r, 1e-30), 0 if masked
 //   ds_rj = p_rj * (g[r] . v[j] - D_r) * scale
 //   dV[j] = sum_r p_rj g[r],  dK[j] = sum_r ds_rj q_l[r],
@@ -15,7 +16,8 @@
 // the wrapper), so P is rebuilt exactly, without a second reduction pass.
 // A row with no valid key has l = 0 and keeps p = 0. Sums are fp32; dQ~
 // is written in q_l's type, dK and dV in k's / v's. Keys that no row may
-// attend, or at or past kv_valid, get exact zeros.
+// attend, or at or past kv_valid, get exact zeros. Under a sequence shard
+// m and l are the merged global stats and dQ~ is the shard's partial.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): at the training
 // shape (b = 56 batch-heads, c = 64, n = 4096, d = dv = 128, seg = 64, bf16)
@@ -92,7 +94,7 @@ ls_bwd_keys_pass(const TQ* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ m, const float* __restrict__ l,
                  const float* __restrict__ dcoef, T* __restrict__ dk,
                  T* __restrict__ dvo, int c, int n, int d, int dv, float scale,
-                 int kv_valid, int seg) {
+                 int kv_valid, int seg, int kv_off) {
   __shared__ float k_s[kTileN][kMaxD + 1];
   __shared__ float v_s[kTileN][kMaxD + 1];
   __shared__ float q_s[kRows][kMaxD];
@@ -111,7 +113,7 @@ ls_bwd_keys_pass(const TQ* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + static_cast<size_t>(bi) * n * d;
   const T* vb = v + static_cast<size_t>(bi) * n * dv;
 
-  const int n_end = min(n, kv_valid);
+  const int n_end = min(n, kv_valid - kv_off);
   for (int i = tid; i < kTileN * d; i += kThreads) {
     const int j = i / d, col = i - j * d;
     k_s[j][col] = t0 + j < n_end
@@ -124,9 +126,10 @@ ls_bwd_keys_pass(const TQ* __restrict__ q, const T* __restrict__ k,
   }
   // Rows [r_begin, r_end) are the only ones that may attend a key of this
   // tile: none when the tile starts at or past the valid end; under the
-  // segment-causal mask, row r attends key t0 only if t0 < (r + 1) * seg.
+  // segment-causal mask, row r attends key t0 only if its global position
+  // kv_off + t0 < (r + 1) * seg.
   const int r_end = t0 < n_end ? c : 0;
-  const int r_begin = seg > 0 ? (min(t0 / seg, c) / kRows) * kRows : 0;
+  const int r_begin = seg > 0 ? (min((kv_off + t0) / seg, c) / kRows) * kRows : 0;
 
   const int col = tid;
   float acc_k[kTileN], acc_v[kTileN];
@@ -152,7 +155,7 @@ ls_bwd_keys_pass(const TQ* __restrict__ q, const T* __restrict__ k,
       const int r = warp * kRowsPerWarp + rr;
       const int row = r0 + r;
       bool valid = row < c && key < n_end;
-      if (seg > 0) valid = valid && key < (row + 1) * seg;
+      if (seg > 0) valid = valid && key < (row + 1) * seg - kv_off;
       float p = 0.f, ds = 0.f;
       if (valid) {
         rebuild(q_s[r], g_s[r], k_s[lane], v_s[lane], d, dv, scale, m[bc + row],
@@ -191,7 +194,8 @@ ls_bwd_rows_pass(const TQ* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
                  const float* __restrict__ m, const float* __restrict__ l,
                  const float* __restrict__ dcoef, TQ* __restrict__ dq, int c,
-                 int n, int d, int dv, float scale, int kv_valid, int seg) {
+                 int n, int d, int dv, float scale, int kv_valid, int seg,
+                 int kv_off) {
   __shared__ float q_s[kRows][kMaxD];
   __shared__ float g_s[kRows][kMaxD];
   __shared__ float k_s[kTileN][kMaxD + 1];
@@ -220,8 +224,7 @@ ls_bwd_rows_pass(const TQ* __restrict__ q, const T* __restrict__ k,
         ? repro::to_float(gb[static_cast<size_t>(row0 + r) * dv + cc]) : 0.f;
   }
   // Keys [0, n_end) are the only ones any row of this CTA may attend.
-  int n_end = min(n, kv_valid);
-  if (seg > 0) n_end = min(n_end, min(row0 + kRows, c) * seg);
+  const int n_end = repro::b_side_end(n, min(row0 + kRows, c), kv_valid, seg, kv_off);
 
   float m_r[kRowsPerWarp], l_r[kRowsPerWarp], d_r[kRowsPerWarp];
   float acc[kRowsPerWarp][kMaxD / 32];
@@ -255,7 +258,7 @@ ls_bwd_rows_pass(const TQ* __restrict__ q, const T* __restrict__ k,
       const int r = warp * kRowsPerWarp + rr;
       const int row = row0 + r;
       bool valid = row < c && key < n_end;
-      if (seg > 0) valid = valid && key < (row + 1) * seg;
+      if (seg > 0) valid = valid && key < (row + 1) * seg - kv_off;
       float p = 0.f, ds = 0.f;
       if (valid) {
         rebuild(q_s[r], g_s[r], k_s[lane], v_s[lane], d, dv, scale, m_r[rr],
@@ -292,19 +295,19 @@ template <typename TQ, typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* g,
                  const float* m, const float* l, const float* dcoef, void* dq,
                  void* dk, void* dv_out, int b, int c, int n, int d, int dv,
-                 float scale, int kv_valid, int seg, cudaStream_t st) {
+                 float scale, int kv_valid, int seg, int kv_off, cudaStream_t st) {
   const TQ* qt = static_cast<const TQ*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(g);
   ls_bwd_keys_pass<TQ, T><<<dim3(b, (n + kTileN - 1) / kTileN), kThreads, 0, st>>>(
       qt, kt, vt, gt, m, l, dcoef, static_cast<T*>(dk), static_cast<T*>(dv_out),
-      c, n, d, dv, scale, kv_valid, seg);
+      c, n, d, dv, scale, kv_valid, seg, kv_off);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ls_bwd_rows_pass<TQ, T><<<dim3(b, (c + kRows - 1) / kRows), kThreads, 0, st>>>(
       qt, kt, vt, gt, m, l, dcoef, static_cast<TQ*>(dq), c, n, d, dv, scale,
-      kv_valid, seg);
+      kv_valid, seg, kv_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -356,7 +359,7 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float* __restrict__ m, const float* __restrict__ l,
           const float* __restrict__ dcoef, bf16* __restrict__ dq,
           bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ ws_dq,
-          int c, int n, int d, int dv, float scale, int n_end, int seg,
+          int c, int n, int d, int dv, float scale, int n_end, int seg, int kv_off,
           int chunk_keys, int chunks) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -404,7 +407,7 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     dr[i] = row < c ? dcoef[bc + row] : 0.f;
   }
   const int warp_reach =
-      16 * warp < c ? repro::b_side_reach(min(c, 16 * warp + 16) - 1, n_end, seg) : 0;
+      16 * warp < c ? repro::b_side_reach(min(c, 16 * warp + 16) - 1, n_end, seg, kv_off) : 0;
   const float sl2 = scale * repro::kLog2e;
   float dqa[16][4];
 #pragma unroll
@@ -447,7 +450,7 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int key = t0 + 8 * j + 2 * qd + (e & 1);
         const int i = e >> 1, row = r_lo + 8 * i;
         const bool ok =
-            key < key_end && row < c && key < repro::b_side_reach(row, n_end, seg);
+            key < key_end && row < c && key < repro::b_side_reach(row, n_end, seg, kv_off);
         const float p = ok ? exp2f(s[4 * j + e] * sl2 - m2[i]) * inv_l[i] : 0.f;
         s[4 * j + e] = p;
         dp[4 * j + e] = p * (dp[4 * j + e] - dr[i]) * scale;
@@ -476,9 +479,10 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // P and dS staged
     // dV = P^T g and dK = dS^T Q~ for keys t0 + 16 warp ..; row groups that
-    // cannot reach the warp's first key hold zeros of P and dS: skipped.
+    // cannot reach the warp's first key (global position kv_off + key_w)
+    // hold zeros of P and dS: skipped.
     const int key_w = t0 + 16 * warp;
-    const int kk0 = seg > 0 ? min(key_w / seg, kRows) / 16 : 0;
+    const int kk0 = seg > 0 ? min((kv_off + key_w) / seg, kRows) / 16 : 0;
     float acc[16][4];
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
@@ -511,7 +515,7 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
               __floats2bfloat162_rn(dqa[j][2 * i], dqa[j][2 * i + 1]);
         }
       }
-    } else if (key0 < repro::b_side_reach(row, n_end, seg)) {
+    } else if (key0 < repro::b_side_reach(row, n_end, seg, kv_off)) {
       float* o = ws_dq + ((static_cast<size_t>(bi) * chunks + chunk) * c + row) * d;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -526,12 +530,12 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // partials of the chunks the row reaches, in chunk order (zeros if none).
 __global__ void __launch_bounds__(128)
 ls_bwd_dq_reduce(const float* __restrict__ ws_dq, bf16* __restrict__ dq, int c, int d,
-                 int n_end, int seg, int chunk_keys, int chunks) {
+                 int n_end, int seg, int kv_off, int chunk_keys, int chunks) {
   const int bi = blockIdx.x / c, row = blockIdx.x - bi * c;
   const int col = threadIdx.x;
   if (col >= d) return;
-  const int nch =
-      min(chunks, (repro::b_side_reach(row, n_end, seg) + chunk_keys - 1) / chunk_keys);
+  const int reach = max(0, repro::b_side_reach(row, n_end, seg, kv_off));
+  const int nch = min(chunks, (reach + chunk_keys - 1) / chunk_keys);
   float a = 0.f;
   for (int ch = 0; ch < nch; ++ch) {
     a += ws_dq[((static_cast<size_t>(bi) * chunks + ch) * c + row) * d + col];
@@ -542,13 +546,12 @@ ls_bwd_dq_reduce(const float* __restrict__ ws_dq, bf16* __restrict__ dq, int c, 
 int launch(const void* q, const void* k, const void* v, const void* g, const float* m,
            const float* l, const float* dcoef, void* dq, void* dk, void* dv_out,
            float* ws_dq, int b, int c, int n, int d, int dv, float scale, int kv_valid,
-           int seg, int chunk_keys, cudaStream_t st) {
+           int seg, int kv_off, int chunk_keys, cudaStream_t st) {
   if (c > kRows || d > repro::kTileCols || dv > repro::kTileCols || d % 8 || dv % 8
       || chunk_keys <= 0 || chunk_keys % kKeys) {
     return cudaErrorInvalidValue;
   }
-  int n_end = min(n, kv_valid);
-  if (seg > 0) n_end = min(n_end, c * seg);
+  const int n_end = repro::b_side_end(n, c, kv_valid, seg, kv_off);
   const int chunks = n_end > 0 ? (n_end + chunk_keys - 1) / chunk_keys : 0;
   if (chunks > 1 && ws_dq == nullptr) return cudaErrorInvalidValue;
   static bool sized = false;
@@ -564,12 +567,12 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), m, l, dcoef, static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv_out), ws_dq, c, n, d, dv, scale, n_end,
-      seg, chunk_keys, chunks);
+      seg, kv_off, chunk_keys, chunks);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunks != 1) {
     ls_bwd_dq_reduce<<<b * c, 128, 0, st>>>(ws_dq, static_cast<bf16*>(dq), c, d, n_end,
-                                            seg, chunk_keys, chunks);
+                                            seg, kv_off, chunk_keys, chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -584,13 +587,15 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
 // wrapper's chunk plan) with ws_dq the fp32 workspace of the chunks' dQ~
 // partials (null when the plan has one chunk); fp32/fp32 and fp32 queries
 // against bf16 keys, as K1 builds, run the fp32 passes (no workspace). m, l
-// and dcoef are fp32 (b, c). Returns cudaGetLastError() after the launches
-// (0 = launched).
+// and dcoef are fp32 (b, c). kv_valid is global and kv_off the global
+// position of key 0 (a shard's offset; 0 unsharded). Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int landmark_summary_bwd_launch(
     const void* q, const void* k, const void* v, const void* g,
     const void* m, const void* l, const void* dcoef, void* dq, void* dk,
     void* dv_out, void* ws_dq, int b, int c, int n, int d, int dv, float scale,
-    int kv_valid, int seg, int chunk_keys, int q_dtype, int kv_dtype, void* stream) {
+    int kv_valid, int seg, int kv_off, int chunk_keys, int q_dtype, int kv_dtype,
+    void* stream) {
   if (d > kMaxD || dv > kMaxD || b <= 0 || c <= 0 || n <= 0) {
     return cudaErrorInvalidValue;
   }
@@ -601,8 +606,8 @@ extern "C" int landmark_summary_bwd_launch(
   using bf16 = __nv_bfloat16;
   const bool qf = q_dtype == repro::kF32, qb = q_dtype == repro::kBF16;
   const bool kf = kv_dtype == repro::kF32, kb = kv_dtype == repro::kBF16;
-  if (qb && kb) return tc::launch(q, k, v, g, mf, lf, df, dq, dk, dv_out, static_cast<float*>(ws_dq), b, c, n, d, dv, scale, kv_valid, seg, chunk_keys, st);
-  if (qf && kf) return launch_typed<float, float>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, st);
-  if (qf && kb) return launch_typed<float, bf16>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, st);
+  if (qb && kb) return tc::launch(q, k, v, g, mf, lf, df, dq, dk, dv_out, static_cast<float*>(ws_dq), b, c, n, d, dv, scale, kv_valid, seg, kv_off, chunk_keys, st);
+  if (qf && kf) return launch_typed<float, float>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
+  if (qf && kb) return launch_typed<float, bf16>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
   return cudaErrorInvalidValue;
 }

@@ -9,8 +9,11 @@
   ``frames``, LLaVA's ``patches`` (the launcher's data for those
   families; the reference's trainer takes such batches through ``data=``).
 
-``to_device`` takes the place of the reference's ``make_global_batch``:
-one device, no shardings.
+``to_device`` places a host batch on one device. ``make_global_batch``
+(``pipeline.py:66``) is a rank's share under a mesh: every rank builds the
+same global batch from the seed and takes its rows (the axes the "batch"
+rule spans) and its slice of the sequence (the "seq" rule's), plus the
+``targets`` its positions predict.
 """
 from __future__ import annotations
 
@@ -102,3 +105,29 @@ def to_device(host_batch: dict, device) -> dict:
         t = torch.from_numpy(np.asarray(arr))
         out[k] = (t.long() if not t.is_floating_point() else t).to(device)
     return out
+
+
+def make_global_batch(host_batch: dict, mesh, overrides=None) -> dict:
+    """This rank's share of a global host batch under ``mesh`` and the
+    logical-axis rules (``distributed/sharding.py``, with ``overrides``):
+    ``tokens`` (B, S) -> the rank's rows (B / ranks over the batch axes)
+    and its sequence slice (S / ranks over the sequence axes), beside
+    ``targets``: the token each of its positions predicts, the next global
+    position's (0 at the last one, as the unsplit loss drops it). Both
+    must divide evenly. Only token batches split so."""
+    from repro_torch.distributed.sharding import batch_axes, seq_axes
+
+    if set(host_batch) != {"tokens"}:
+        raise NotImplementedError(f"make_global_batch splits token batches only, not "
+                                  f"{sorted(set(host_batch) - {'tokens'})}")
+    tokens = np.asarray(host_batch["tokens"])
+    b, s = tokens.shape
+    rows, seq = batch_axes(mesh, overrides), seq_axes(mesh, overrides)
+    nb, ns = mesh.axis_size(rows), mesh.axis_size(seq)
+    if b % nb or s % ns:
+        raise ValueError(f"a batch of {b} x {s} tokens does not split into {nb} x {ns} "
+                         f"equal shares")
+    targets = np.concatenate([tokens[:, 1:], np.zeros((b, 1), tokens.dtype)], axis=1)
+    r0, s0 = mesh.index(rows) * (b // nb), mesh.index(seq) * (s // ns)
+    take = (slice(r0, r0 + b // nb), slice(s0, s0 + s // ns))
+    return {"tokens": tokens[take], "targets": targets[take]}

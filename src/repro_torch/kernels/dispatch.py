@@ -72,9 +72,18 @@ configs here the two never meet.
 ``autotune_plan_resolutions_total`` counts every ``get_plan`` call: an
 eager attention site resolves at each call, where the reference's jitted
 step resolves once per trace, so over training steps the port's "memory"
-count grows with the calls. ``seq_shards > 1`` keys need the
-context-parallel driver, which is not ported: ``make_key`` raises for
-them.
+count grows with the calls.
+
+Context parallelism. Inside ``distributed.sharding.sharding_rules`` with
+the sequence split over more than one rank, a self-attention site keys
+``seq_shards`` (and the GLOBAL n, the rank's rows times the shards) and
+every kernel route ("fused", "interpret", "sharded") runs the
+context-parallel attention (``kernels/sharded.py``) on the rank's rows. The
+heuristic for such a key is "sharded" at the kernels' own tiling (0);
+``get_plan`` never sweeps one (the single-rank sweep cannot reproduce the
+multi-rank program), as the reference. A plain-torch route ("jnp") or a
+cross-attention shape under a sequence shard raises: a rank holds only its
+own rows, and nothing gathers the rest for them.
 """
 from __future__ import annotations
 
@@ -249,16 +258,13 @@ def make_key(n: int, c: int, d: int, dtype, causal: bool,
              backend: Optional[str] = None, family: str = "self",
              seq_shards: int = 1) -> PlanKey:
     """The key of an attention call of n tokens (``family="decode"``: one
-    query against a cache horizon of n). Raises for ``seq_shards > 1``: the
-    port has no context-parallel driver."""
+    query against a cache horizon of n); ``seq_shards`` keys
+    context-parallel cells by the ranks the sequence axis spans."""
     if family not in _FAMILIES:
         raise ValueError(f"unknown key family {family!r}; want one of {_FAMILIES}")
-    if int(seq_shards) > 1:
-        raise NotImplementedError(
-            "seq_shards > 1 keys route through the context-parallel driver "
-            "(repro/kernels/sharded.py), which is not ported")
     return PlanKey(backend=backend or default_backend(), n=_bucket(n), c=c, d=d,
-                   dtype=dtype_name(dtype), causal=causal, family=family)
+                   dtype=dtype_name(dtype), causal=causal, family=family,
+                   seq_shards=max(int(seq_shards), 1))
 
 
 def cache_path() -> str:
@@ -703,17 +709,27 @@ def dispatch_ss_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Route one attention call through the registry. ``backend``: "auto"
     resolves a plan for the call's key (a sweep, when enabled, measures at
     this call's batch); "fused" / "jnp" / "sharded" force that route at
-    the kernels' own tiling ("sharded" outside a mesh is "fused", as in the
-    reference). "interpret" is the reference's Pallas interpret mode: on
-    the CPU it runs the plain versions (the port's counterpart), on CUDA it
-    raises. On CUDA "auto" resolves to the kernels only (``get_plan``).
-    Shapes (..., n, d); differentiable on every route."""
+    the kernels' own tiling ("sharded" outside a sequence shard is
+    "fused", as in the reference). "interpret" is the reference's Pallas
+    interpret mode: on the CPU it runs the plain versions (the port's
+    counterpart), on CUDA it raises. On CUDA "auto" resolves to the
+    kernels only (``get_plan``). Under an active sequence shard
+    (``distributed.sharding.active_seq_sharding``) q, k, v are the rank's
+    rows and a kernel route runs the context-parallel attention (module
+    docstring). Shapes (..., n, d); differentiable on every route."""
+    from repro_torch.distributed.sharding import active_seq_sharding
     from repro_torch.kernels.ops import ss_attention_fused
 
     n, d = q.shape[-2], q.shape[-1]
+    mesh, seq_axes, _ = active_seq_sharding()
+    n_shards = mesh.axis_size(seq_axes) if seq_axes else 1
+    if n_shards > 1 and n != k.shape[-2]:
+        raise NotImplementedError(
+            f"attention with n_q={n} != n_k={k.shape[-2]} under a sequence shard: the "
+            f"context-parallel attention is self-attention only")
     if backend == "auto":
-        key = make_key(n, cfg.num_landmarks, d, q.dtype, cfg.causal,
-                       backend=q.device.type)
+        key = make_key(n * n_shards, cfg.num_landmarks, d, q.dtype, cfg.causal,
+                       backend=q.device.type, seq_shards=n_shards)
         batch = math.prod(q.shape[:-2])
 
         def tune(k_):
@@ -732,9 +748,18 @@ def dispatch_ss_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("'paged' plans serve the decode key family (block-pool "
                          "serving ticks); self-attention sites cannot route through it")
     if impl == "jnp":
+        if n_shards > 1:
+            raise NotImplementedError(
+                "the plain-torch ('jnp') route under a sequence shard would attend "
+                "over the rank's own rows only; use a kernel route")
         return spectral_shift_attention(q, k, v, cfg, scale=scale)
     if impl == "interpret" and q.is_cuda:
         raise ValueError("'interpret' is the reference's Pallas interpret mode; "
                          "on CUDA the port runs its kernels ('fused')")
+    if n_shards > 1:
+        from repro_torch.kernels.sharded import ss_attention_fused_sharded
+
+        return ss_attention_fused_sharded(q, k, v, cfg, mesh=mesh, seq_axes=seq_axes,
+                                          scale=scale, block_n=block_n)
     return ss_attention_fused(q, k, v, cfg, scale=scale, block_n=block_n,
                               block_c=block_c)

@@ -115,31 +115,33 @@ landmark_summary_stats.register_autograd(_landmark_summary_backward,
 def query_side_differentiable(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
                               v: torch.Tensor, delta: torch.Tensor, scale: float,
                               causal: bool, seq_len_k: int,
-                              run_rows: int = 0) -> torch.Tensor:
+                              run_rows: int = 0,
+                              q_offset: Optional[int] = None) -> torch.Tensor:
     """K2 (``query_side_op`` :135); K4 recomputes P in its backward, so the
-    residuals are the inputs."""
+    residuals are the inputs. ``q_offset``: the queries' first global
+    position (a sequence shard's offset; None = the tail of seq_len_k)."""
     return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
-                      seq_len_k=seq_len_k, run_rows=run_rows)
+                      seq_len_k=seq_len_k, q_offset=q_offset, run_rows=run_rows)
 
 
 @query_side_differentiable.register_fake
-def _(q, k_l, m_mat, v, delta, scale, causal, seq_len_k, run_rows=0):
+def _(q, k_l, m_mat, v, delta, scale, causal, seq_len_k, run_rows=0, q_offset=None):
     return q.new_empty((*q.shape[:2], v.shape[-1]))
 
 
 def _query_side_setup(ctx, inputs, output):
-    q, k_l, m_mat, v, delta, scale, causal, seq_len_k, run_rows = inputs
+    q, k_l, m_mat, v, delta, scale, causal, seq_len_k, run_rows, q_offset = inputs
     ctx.save_for_backward(q, k_l, m_mat, v, delta)
-    ctx.meta = (scale, causal, seq_len_k, run_rows)
+    ctx.meta = (scale, causal, seq_len_k, run_rows, q_offset)
 
 
 def _query_side_backward(ctx, g):
     q, k_l, m_mat, v, delta = ctx.saved_tensors
-    scale, causal, seq_len_k, run_rows = ctx.meta
+    scale, causal, seq_len_k, run_rows, q_offset = ctx.meta
     dq, dkl, dm, dv, dd = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale,
                                          causal=causal, seq_len_k=seq_len_k,
-                                         run_rows=run_rows)
-    return dq, dkl, dm, dv, dd, None, None, None, None
+                                         q_offset=q_offset, run_rows=run_rows)
+    return dq, dkl, dm, dv, dd, None, None, None, None, None
 
 
 query_side_differentiable.register_autograd(_query_side_backward,
@@ -166,15 +168,17 @@ def landmark_summary_op(q_l, k, v, *, scale: float, causal: bool = False,
 
 def query_side_op(q, k_l, m_mat, v, delta, *, scale: float,
                   causal: bool = False, seq_len_k: int = 0,
-                  run_rows: int = 0) -> torch.Tensor:
+                  run_rows: int = 0, q_offset: Optional[int] = None) -> torch.Tensor:
     """K2 as a differentiable op (the ``repro_torch::query_side`` custom op
     when a gradient is needed, else the kernel alone). ``run_rows`` reaches
-    K2 and K4."""
+    K2 and K4, ``q_offset`` (a sequence shard's first query position) both."""
+    q_offset = None if q_offset is None else int(q_offset)
     if _needs_grad(q, k_l, m_mat, v, delta):
         return query_side_differentiable(q, k_l, m_mat, v, delta, float(scale),
-                                         bool(causal), int(seq_len_k), int(run_rows))
+                                         bool(causal), int(seq_len_k), int(run_rows),
+                                         q_offset)
     return query_side(q, k_l, m_mat, v, delta, scale=scale, causal=causal,
-                      seq_len_k=seq_len_k, run_rows=run_rows)
+                      seq_len_k=seq_len_k, q_offset=q_offset, run_rows=run_rows)
 
 
 # --------------------------------------------------------------------------

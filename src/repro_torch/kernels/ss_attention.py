@@ -5,7 +5,9 @@
 * ``query_side`` (K2): ``out = softmax(scale * Q K~^T) M + delta * V``.
 
 Both take the segment-causal masks and the dynamic bounds of the
-reference (``repro/kernels/ss_attention.py``). For a CUDA tensor the
+reference (``repro/kernels/ss_attention.py``), K1 its ``kv_offset`` (a
+sequence shard's global key offset, ``kernels/sharded.py``) and K2 its
+``q_offset``. For a CUDA tensor the
 wrapper launches the hand-written kernel (``csrc/landmark_summary.cu``,
 ``csrc/query_side.cu``) or raises; for a CPU tensor it runs the plain
 version beside it. The bf16 kernels tile by their own plans
@@ -56,31 +58,37 @@ class ChunkPlan:
     """How the tensor-core K1 and K3 cut the keys [0, n_end) that some row
     may attend into ``chunks`` chunks of ``chunk_keys`` keys (whole 64-key
     tiles), one CTA per (chunk, row tile, batch-head). Each chunk leaves
-    fp32 partials for the rows that reach it, merged in chunk order."""
+    fp32 partials for the rows that reach it, merged in chunk order. Keys
+    are local to a shard whose key 0 sits at global position
+    ``kv_offset`` (0 unsharded); the segment-causal reach is global."""
     b: int
     c: int
     n_end: int
     seg: int
     chunk_keys: int
     chunks: int
+    kv_offset: int = 0
 
     def bounds(self, i: int) -> tuple[int, int]:
         """Keys [start, end) of chunk i."""
         return i * self.chunk_keys, min((i + 1) * self.chunk_keys, self.n_end)
 
     def reach(self, r: int) -> int:
-        """Row r may attend keys [0, reach(r))."""
-        return min(self.n_end, (r + 1) * self.seg) if self.seg else self.n_end
+        """Row r may attend keys [0, reach(r)) (none when <= 0: a low row on
+        a later shard)."""
+        if not self.seg:
+            return self.n_end
+        return min(self.n_end, (r + 1) * self.seg - self.kv_offset)
 
     def first_row(self, i: int) -> int:
         """The first row that can attend a key of chunk i (c if none)."""
         if not self.seg:
             return 0
-        return min(self.c, self.bounds(i)[0] // self.seg)
+        return min(self.c, (self.kv_offset + self.bounds(i)[0]) // self.seg)
 
     def row_chunks(self, r: int) -> int:
         """Chunks row r reaches: 0 .. row_chunks(r) - 1."""
-        return -(-self.reach(r) // self.chunk_keys)
+        return max(0, -(-self.reach(r) // self.chunk_keys))
 
     def workspace_floats(self, per_row: int) -> int:
         """fp32 workspace of the partials, ``per_row`` floats per row and
@@ -98,15 +106,18 @@ def check_multiple(name: str, what: str, value: int, quantum: int) -> None:
 
 
 def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
-               kv_end: Optional[int] = None, chunk_keys: int = 0) -> ChunkPlan:
+               kv_end: Optional[int] = None, chunk_keys: int = 0,
+               kv_offset: int = 0) -> ChunkPlan:
     """The chunk plan of K1 / K3 for b batch-heads, c rows and n keys under
-    ``seg`` (segment-causal, 0 = none) and ``kv_end``: n_end = the keys any
-    row may attend; enough chunks per (head, row tile) to give about
-    TARGET_CTAS CTAs, at most one per 64-key tile. ``chunk_keys`` > 0
+    ``seg`` (segment-causal, 0 = none) and ``kv_end`` (global, like the
+    segment-causal bound; the keys' first global position is
+    ``kv_offset``): n_end = the keys any row may attend
+    (``common.cuh:b_side_end``); enough chunks per (head, row tile) to give
+    about TARGET_CTAS CTAs, at most one per 64-key tile. ``chunk_keys`` > 0
     overrides the chunk size (a whole number of KEY_TILE keys)."""
-    n_end = n if kv_end is None else min(int(kv_end), n)
+    n_end = n if kv_end is None else min(int(kv_end) - kv_offset, n)
     if seg:
-        n_end = min(n_end, c * seg)
+        n_end = min(n_end, c * seg - kv_offset)
     n_end = max(n_end, 0)
     if chunk_keys:
         check_multiple("chunk_plan", "chunk_keys", chunk_keys, KEY_TILE)
@@ -115,7 +126,7 @@ def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
         want = -(-TARGET_CTAS // max(1, b * -(-c // ROW_TILE)))
         chunk_keys = max(1, -(-tiles // max(1, min(tiles, want)))) * KEY_TILE
     return ChunkPlan(b=b, c=c, n_end=n_end, seg=seg, chunk_keys=chunk_keys,
-                     chunks=-(-n_end // chunk_keys))
+                     chunks=-(-n_end // chunk_keys), kv_offset=kv_offset)
 
 
 # --------------------------------------------------------------------------
@@ -224,34 +235,37 @@ def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
 def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, causal: bool = False,
                      return_stats: bool = False, kv_valid=None,
-                     seq_len_k: int = 0, chunk_keys: int = 0):
+                     seq_len_k: int = 0, kv_offset: int = 0, chunk_keys: int = 0):
     """BV = softmax(Q~ K^T * scale) @ V. q_l (b, c, d), k (b, n, d),
     v (b, n, dv) -> (b, c, dv) in v's dtype [+ fp32 m, l (b, c, 1)].
 
-    ``causal`` applies the segment-causal B-mask with seg =
-    ceil(seq_len_k / c) (seq_len_k defaults to n). ``kv_valid`` (host int)
-    masks key j unless j < kv_valid (bucketed prefill passes the prompt
-    length). ``chunk_keys`` > 0 sets the bf16 kernel's key chunk (whole
-    KEY_TILEs; 0 = ``chunk_plan``'s). The reference's ``kv_offset`` serves
-    only its sharded driver, which is not ported; the plain version keeps
-    it."""
+    Key j sits at global position ``kv_offset + j`` (a sequence shard's
+    offset under ``kernels/sharded.py``; 0 otherwise). ``causal`` applies
+    the segment-causal B-mask on global positions with seg =
+    ceil(seq_len_k / c) (seq_len_k defaults to n). ``kv_valid`` (host int,
+    global) masks key j unless kv_offset + j < kv_valid (bucketed prefill
+    passes the prompt length; the sharded attention the true sequence end); it
+    is clamped to kv_offset + n. A row that reaches no key returns
+    (out 0, m -1e30, l 0). ``chunk_keys`` > 0 sets the bf16 kernel's key
+    chunk (whole KEY_TILEs; 0 = ``chunk_plan``'s)."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     if k.shape != (b, n, d) or v.shape[:2] != (b, n):
         raise ValueError(f"landmark_summary: shapes q_l {tuple(q_l.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     seg = -(-(seq_len_k or n) // c) if causal else 0
-    end = n if kv_valid is None else min(int(kv_valid), n)
+    off = int(kv_offset)
+    end = off + n if kv_valid is None else min(int(kv_valid), off + n)
     if not q_l.is_cuda:
-        return landmark_summary_plain(q_l, k, v, scale=scale, seg=seg,
+        return landmark_summary_plain(q_l, k, v, scale=scale, seg=seg, kv_offset=off,
                                       kv_end=end, return_stats=return_stats)
-    return _landmark_summary_cuda(q_l, k, v, scale=scale, seg=seg,
+    return _landmark_summary_cuda(q_l, k, v, scale=scale, seg=seg, kv_offset=off,
                                   kv_end=end, return_stats=return_stats,
                                   chunk_keys=chunk_keys or current_tiling().block_n)
 
 
 def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
-                           chunk_keys=0):
+                           kv_offset=0, chunk_keys=0):
     """Check the operands and launch csrc/landmark_summary.cu (same
     arguments as ``landmark_summary_plain``): the tensor-core kernel for
     bf16 q_l, k, v, with the workspace of its chunk plan allocated here,
@@ -278,7 +292,8 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
     if tensor_core_pair(q_l, k):
         check_tensor_core_shapes("landmark_summary", {"q_l": q_l, "k": k, "v": v},
                                  {"d": d, "dv": dv})
-        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys)
+        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys,
+                          kv_offset=kv_offset)
         tile = plan.chunk_keys
         if plan.chunks > 1:
             ws = torch.empty(plan.workspace_floats(dv + 2), dtype=torch.float32,
@@ -288,7 +303,7 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
                out.data_ptr(), m.data_ptr() if m is not None else None,
                l.data_ptr() if l is not None else None,
                ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, tile, DTYPE_CODES[str(q_l.dtype)],
+               float(scale), kv_end, seg, kv_offset, tile, DTYPE_CODES[str(q_l.dtype)],
                DTYPE_CODES[str(k.dtype)], _stream_handle(v))
         landmark_summary.launches += 1
     return (out, m, l) if return_stats else out

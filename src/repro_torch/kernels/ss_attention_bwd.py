@@ -79,12 +79,17 @@ def landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, *, scale: float,
 def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bv: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                          g: torch.Tensor, *, scale: float, causal: bool = False,
-                         kv_valid=None, seq_len_k: int = 0, chunk_keys: int = 0):
+                         kv_valid=None, seq_len_k: int = 0, kv_offset: int = 0,
+                         chunk_keys: int = 0):
     """Backward of ``landmark_summary``: (dq_l, dk, dv) from K1's inputs, its
     output ``bv`` and fp32 stats ``m``, ``l`` (b, c, 1), and the cotangent
     ``g`` of bv (made contiguous here: autograd may hand it expanded). Same
-    ``causal`` / ``kv_valid`` / ``seq_len_k`` as the forward call;
-    ``chunk_keys`` > 0 sets the bf16 kernel's key chunk (whole KEY_TILEs)."""
+    ``causal`` / ``kv_valid`` / ``seq_len_k`` / ``kv_offset`` as the forward
+    call. Under a sequence shard (``kernels/sharded.py``) ``bv``, ``m`` and
+    ``l`` are the merged global ones and ``g`` the summed cotangent: dK, dV
+    are then the shard's own rows and dq_l the shard's partial. Keys no row
+    reaches get zeros. ``chunk_keys`` > 0 sets the bf16 kernel's key chunk
+    (whole KEY_TILEs)."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     if (k.shape != (b, n, d) or v.shape[:2] != (b, n)
@@ -92,19 +97,21 @@ def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or m.shape != (b, c, 1) or l.shape != (b, c, 1)):
         raise ValueError("landmark_summary_bwd: operand shapes disagree")
     seg = -(-(seq_len_k or n) // c) if causal else 0
-    end = n if kv_valid is None else min(int(kv_valid), n)
+    off = int(kv_offset)
+    end = off + n if kv_valid is None else min(int(kv_valid), off + n)
     g = g.contiguous()
     # D_r = sum_j P_rj (g_r . v_j) = g_r . BV_r: O(c dv), stays in torch.
     dcoef = torch.sum(g.float() * bv.float(), dim=-1, keepdim=True)
     if not q_l.is_cuda:
         return landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, scale=scale,
-                                          seg=seg, kv_end=end)
+                                          seg=seg, kv_offset=off, kv_end=end)
     return _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, scale=scale,
-                                      seg=seg, kv_end=end, chunk_keys=chunk_keys)
+                                      seg=seg, kv_offset=off, kv_end=end,
+                                      chunk_keys=chunk_keys)
 
 
 def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end,
-                               chunk_keys=0):
+                               kv_offset=0, chunk_keys=0):
     """Check the operands and launch csrc/landmark_summary_bwd.cu (same
     arguments as ``landmark_summary_bwd_plain``): the tensor-core pass for
     bf16 q_l, k, v, g (c <= 64), with the dQ~ workspace of its chunk plan
@@ -135,7 +142,8 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end,
         check_tensor_core_shapes("landmark_summary_bwd",
                                  {"q_l": q_l, "k": k, "v": v, "g": g},
                                  {"d": d, "dv": dv})
-        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys)
+        plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys,
+                          kv_offset=kv_offset)
         tile = plan.chunk_keys
         if plan.chunks > 1:
             ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
@@ -145,7 +153,7 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end,
                g.data_ptr(), m.data_ptr(), l.data_ptr(), dcoef.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(),
                ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, tile, DTYPE_CODES[str(q_l.dtype)],
+               float(scale), kv_end, seg, kv_offset, tile, DTYPE_CODES[str(q_l.dtype)],
                DTYPE_CODES[str(k.dtype)], _stream_handle(k))
         landmark_summary_bwd.launches += 1
     return dq, dk, dv_out

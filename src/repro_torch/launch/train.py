@@ -1,4 +1,5 @@
-"""Training launcher: the port's single-device Trainer, on the card.
+"""Training launcher: the port's Trainer, on the card, on one device or on
+local ranks over a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --layers 4 --seq 4096 \\
         --batch 2 --steps 5 --attention spectral_shift_fused
@@ -10,6 +11,9 @@
         --arch deepseek-v2-lite-16b --layers 4 --seq 4096 --batch 1 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
         --seq 4096 --batch 4 --steps 3 --encoder-attention spectral_shift_fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper-bert \\
+        --attention spectral_shift_fused --seq 8192 --batch 4 --steps 3 \\
+        --nproc 4 --mesh 2x2 --seq-axis model
 
 trains ``--arch`` (qwen2-7b by default; paper-bert, the paper's own
 setting; the ``moe`` configs deepseek-v2-lite-16b, whose MLA runs no
@@ -40,6 +44,17 @@ overriding its sequence length and global batch. Checkpoints go to ``--ckpt-dir`
 is given. ``--metrics-out PATH`` writes the per-step metrics history
 (loss, ce, grad norm, lr, step time) as JSON, as the reference's
 launcher does.
+
+``--nproc N --mesh DxM`` spawns N local ranks (``launch/mesh.py:
+spawn_local``) over a ("data", "model") mesh of D x M and trains
+data-parallel over "data" and, with ``--seq-axis model`` (the rule
+override ``{"seq": "model"}``), sequence-parallel over "model": attention
+through the context-parallel attention (``kernels/sharded.py``). Ranks take
+GPU rank mod the GPU count and run gloo when they share a card (NCCL
+will not put two ranks of one communicator on one GPU) or run on the
+CPU, nccl when each owns one. Only the launching process
+prints: rank 0's losses and times, every rank's peak memory and the share
+of rank 0's steps spent in collectives.
 """
 from __future__ import annotations
 
@@ -48,6 +63,7 @@ import dataclasses
 import json
 import logging
 import tempfile
+import time
 
 import torch
 
@@ -88,11 +104,74 @@ def main(argv=None):
                          "costliest operations")
     ap.add_argument("--metrics-out", default="",
                     help="write the per-step metrics history here as JSON")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="local ranks to spawn (1: no mesh)")
+    ap.add_argument("--mesh", default=None, type=_mesh_shape,
+                    help="DxM: the (data, model) mesh of the ranks (default Nx1)")
+    ap.add_argument("--seq-axis", default="", choices=["", "data", "model"],
+                    help="shard the sequence over this mesh axis (rule override "
+                         "{'seq': AXIS})")
     args = ap.parse_args(argv)
     if args.profile and args.steps < 2:
         ap.error("--profile needs --steps >= 2 (the first step is not profiled)")
-
+    if args.nproc > 1 or args.mesh:
+        if args.profile:
+            ap.error("--profile runs on one device (no --nproc)")
+        mesh_shape = args.mesh or (args.nproc, 1)
+        if mesh_shape[0] * mesh_shape[1] != args.nproc:
+            ap.error(f"--mesh {mesh_shape[0]}x{mesh_shape[1]} must have D * M = --nproc "
+                     f"{args.nproc}")
+        return _spawn(args, mesh_shape)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    history, lines = _train(args)
+    for line in lines:
+        print(line)
+    return history
+
+
+def _mesh_shape(text: str) -> tuple:
+    parts = text.split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise argparse.ArgumentTypeError(f"{text!r} is not DxM (e.g. 2x2)")
+    return int(parts[0]), int(parts[1])
+
+
+def _spawn(args, mesh_shape):
+    from repro_torch.launch.mesh import spawn_local
+
+    share = args.device == "cpu" or torch.cuda.device_count() < args.nproc
+    backend = "gloo" if share else "nccl"
+    if args.device != "cpu":
+        from repro_torch.kernels import build
+
+        build.build()   # once, before the ranks: they load the built libraries
+    results = spawn_local(_rank_train, mesh_shape, ("data", "model"), args=(args,),
+                          backend=backend, device="cpu" if args.device == "cpu" else "cuda",
+                          timeout_s=1800.0)
+    history, lines, _ = results[0]
+    peaks = [r[2] for r in results]
+    for line in lines:
+        print(line)
+    if peaks[0] is not None:
+        print(f"[train] mesh {mesh_shape[0]}x{mesh_shape[1]} ({backend}): peak device "
+              f"memory per rank " + ", ".join(f"{p:.2f}" for p in peaks) + " GiB")
+    return history
+
+
+def _rank_train(mesh, args):
+    """One rank of a ``--nproc`` run: (history, rank 0's lines, peak GiB)."""
+    logging.basicConfig(level=logging.INFO if mesh.rank == 0 else logging.WARNING,
+                        format=f"%(asctime)s [rank {mesh.rank}] %(message)s")
+    overrides = {"seq": args.seq_axis} if args.seq_axis else {}
+    history, lines = _train(args, mesh, overrides)
+    cuda = mesh.device.type == "cuda"
+    peak = torch.cuda.max_memory_allocated(mesh.device) / 2**30 if cuda else None
+    return history, lines, peak
+
+
+def _train(args, mesh=None, overrides=None):
+    """Build the config, shape and Trainer from the flags and run it.
+    Returns (history, the summary lines)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -119,7 +198,8 @@ def main(argv=None):
                                   shape.global_batch, d_model=cfg.d_model,
                                   num_patches=cfg.num_patches,
                                   enc_len=ENCODER_SEQ, seed=tcfg.seed)
-        trainer = Trainer(cfg, tcfg, shape, device=args.device, data=data)
+        trainer = Trainer(cfg, tcfg, shape, mesh, rule_overrides=overrides,
+                          device=args.device, data=data)
         cuda = trainer.device.type == "cuda"
         if cuda:
             from repro_torch.kernels import build
@@ -137,7 +217,10 @@ def main(argv=None):
             wall = sum(h["step_time_s"] for h in history[1:])
             print(f"[train] profile of steps 1..{args.steps - 1}: {profile_top(prof, wall)}")
         else:
+            t_run = time.perf_counter()
+            coll0 = mesh.collective_seconds if mesh is not None else 0.0
             history = trainer.run(args.steps)
+            t_run = time.perf_counter() - t_run
         if args.ckpt_dir:
             trainer.save(blocking=True)
 
@@ -147,19 +230,27 @@ def main(argv=None):
     tokens = shape.global_batch * shape.seq_len
     peak = (f"{torch.cuda.max_memory_allocated(trainer.device) / 2**30:.2f} GiB"
             if cuda else "n/a on cpu")
+    lines = []
     plan = trainer.plan
     if plan is not None:
-        print(f"[train] attention plan: {plan.impl} block_n={plan.block_n} ({plan.source})")
-    print(f"[train] {cfg.name} {cfg.attention_impl} layers={cfg.num_layers} "
-          f"d_model={cfg.d_model} "
-          f"seq={shape.seq_len} batch={shape.global_batch} on {trainer.device}: "
-          f"steps={len(history)} loss {first['loss']:.4f} -> {last['loss']:.4f}, "
-          f"first step {first['step_time_s']:.3f}s, mean step after it "
-          f"{mean_s:.3f}s ({tokens / mean_s:.1f} tokens/s), peak device memory {peak}")
-    if args.metrics_out:
+        lines.append(f"[train] attention plan: {plan.impl} block_n={plan.block_n} "
+                     f"({plan.source})")
+    where = str(trainer.device) if mesh is None else f"{mesh.size} ranks {mesh.shape}"
+    lines.append(f"[train] {cfg.name} {cfg.attention_impl} layers={cfg.num_layers} "
+                 f"d_model={cfg.d_model} "
+                 f"seq={shape.seq_len} batch={shape.global_batch} on {where}: "
+                 f"steps={len(history)} loss {first['loss']:.4f} -> {last['loss']:.4f}, "
+                 f"first step {first['step_time_s']:.3f}s, mean step after it "
+                 f"{mean_s:.3f}s ({tokens / mean_s:.1f} tokens/s), peak device memory "
+                 f"{peak}")
+    if mesh is not None and not args.profile:
+        share = (mesh.collective_seconds - coll0) / t_run
+        lines.append(f"[train] collectives: {100 * share:.1f}% of rank 0's steps "
+                     f"({mesh.backend}; CUDA operands staged through the host under gloo)")
+    if args.metrics_out and (mesh is None or mesh.rank == 0):
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=2)
-    return history
+    return history, lines
 
 
 if __name__ == "__main__":

@@ -37,7 +37,17 @@ def _core_attention(cfg: ModelConfig, impl: str, q, k, v, *, causal: bool):
     ``cfg.autotune``: the kernels for CUDA tensors (their plain versions
     for CPU tensors) at the plan's tiling, or the plain-torch route under
     a "jnp" plan or backend. ``spectral_shift`` / ``nystrom`` are that
-    plain route; ``chunked`` is exact attention over key blocks."""
+    plain route; ``chunked`` is exact attention over key blocks. Under a
+    sequence shard only ``spectral_shift_fused`` runs (through the
+    context-parallel attention): the others would attend over the rank's own
+    rows."""
+    if impl != "spectral_shift_fused":
+        from repro_torch.distributed.sharding import active_seq_sharding
+
+        if active_seq_sharding()[1]:
+            raise NotImplementedError(
+                f"attention_impl {impl!r} under a sequence shard: only "
+                f"'spectral_shift_fused' runs sequence-parallel")
     if impl == "full":
         return full_attention(q, k, v, causal=causal)
     if impl == "chunked":

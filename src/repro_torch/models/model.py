@@ -20,6 +20,15 @@ unrolled loops (``model.py:328``, ``:424``) do.
     model_forward(params, cfg, batch)  -> (logits (B,S,V), aux)
     loss_fn(params, cfg, batch)        -> (loss, metrics)
 
+Under a sequence shard (``distributed.sharding.sharding_rules`` with the
+"seq" rule over ranks) a rank runs its slice of the sequence: positions
+start at its global offset, attention goes through the context-parallel
+attention, and the loss divides by the global token count
+(``train/losses.py:sharded_token_loss``). Only the dense family runs so:
+the others carry state along the sequence (the mamba and xLSTM scans,
+Whisper's encoder and cross attention, LLaVA's patch prefix) or route
+tokens over the whole batch (MoE), and raise.
+
 The forward passes the serving path runs live in ``serve/prefill.py``
 (whole prompt) and ``serve/decode.py`` (one token per lane)."""
 from __future__ import annotations
@@ -32,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, resolve_remat
+from repro_torch.distributed.sharding import active_reduce_axes, active_seq_sharding, seq_offset
 from repro_torch.models.attention import (cross_attention_forward,
                                           cross_attention_specs, gqa_forward,
                                           gqa_specs, mla_forward, mla_specs)
@@ -41,7 +51,7 @@ from repro_torch.models.moe import moe_forward, moe_specs
 from repro_torch.models.ssm import (_causal_conv, mamba_forward, mamba_specs,
                                     mlstm_chunked, slstm_scan)
 from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
-from repro_torch.train.losses import next_token_loss
+from repro_torch.train.losses import next_token_loss, sharded_token_loss
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
@@ -310,11 +320,18 @@ def _unstacked_layers(params) -> list:
     return [pick(slices, i) for i in range(tree_leaves(layers)[0].shape[0])]
 
 
+# the ops whose outputs remat="ss_stats" keeps, by name (the B-side op is
+# registered only once the context-parallel attention is imported)
+_SS_STATS_OPS = ("repro_torch::landmark_summary", "repro_torch::landmark_summary_sp")
+
+
 def _ss_stats_policy(ctx, op, *args, **kwargs):
     """``remat="ss_stats"`` (``save_only_these_names("ss_bv", "ss_stats")``,
     ``model.py:355``): keep only the outputs of K1's op, BV and its fp32
-    (m, l), so the recompute skips K1; recompute everything else."""
-    if op is torch.ops.repro_torch.landmark_summary.default:
+    (m, l), or under a sequence shard the merged global ones of the
+    context-parallel B-side (``kernels/sharded.py``), so the recompute
+    skips K1; recompute everything else."""
+    if op.name() in _SS_STATS_OPS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -381,6 +398,10 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     the MoE load-balance loss summed over layers)."""
     if cfg.family not in (*LAYER_FORWARD, "ssm", "audio"):
         raise NotImplementedError(f"unknown family {cfg.family!r}")
+    if active_seq_sharding()[1] and (cfg.family != "dense" or cfg.moe):
+        raise NotImplementedError(
+            f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard: "
+            f"only the dense family runs sequence-parallel")
     params = working_params(params, cfg)
     if cfg.family == "audio":
         return _whisper_forward(params, cfg, batch)
@@ -392,7 +413,8 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
         pe = gelu(batch["patches"].to(dt) @ mp["w1"].to(dt)) @ mp["w2"].to(dt)
         x = torch.cat([pe, x], dim=1)
     b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    # global positions: a sequence shard's rows start at its offset
+    positions = (seq_offset(s) + torch.arange(s, device=x.device)).expand(b, s)
     x, aux = _run_trunk(params, cfg, x, positions, cfg.attention_impl, "causal")
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), aux
@@ -431,11 +453,20 @@ def _whisper_forward(params, cfg: ModelConfig, batch: dict):
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
     """Next-token cross entropy (``model.py:456``) plus the MoE aux; the
-    ``vlm`` patch prefix carries no labels. Returns (loss, metrics)."""
+    ``vlm`` patch prefix carries no labels. Returns (loss, metrics). A
+    rank's slice of a batch split over a mesh carries ``targets``
+    (``data/pipeline.py:make_global_batch``): its loss is then the rank's
+    share of the global mean (``sharded_token_loss``), and the metrics are
+    global."""
     logits, aux = model_forward(params, cfg, batch)
     if cfg.family == "vlm":
         logits = logits[:, logits.shape[1] - batch["tokens"].shape[1]:]
-    ce_loss, metrics = next_token_loss(logits, batch["tokens"])
+    if "targets" in batch:
+        mesh, axes = active_reduce_axes()
+        ce_loss, metrics = sharded_token_loss(logits, batch["targets"], mesh=mesh,
+                                              axes=axes)
+    else:
+        ce_loss, metrics = next_token_loss(logits, batch["tokens"])
     loss = ce_loss + cfg.router_aux_coef * aux
     metrics["aux"] = aux
     return loss, metrics

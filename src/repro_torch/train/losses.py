@@ -2,20 +2,21 @@
 
 ``next_token_loss`` is the LM objective: masked next-token cross entropy
 in fp32, with optional z-loss (a logit-norm regularizer) and label
-smoothing.
+smoothing. ``sharded_token_loss`` is a rank's share of it when the batch's
+rows and sequence are split over a mesh.
 """
 from __future__ import annotations
 
 import torch
 
 
-def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor, *,
-                    z_loss: float = 0.0, label_smoothing: float = 0.0):
-    """Masked next-token CE (``losses.py:14``). logits (B, S, V): position t
-    predicts token t + 1; tokens (B, S) int, 0 = pad. Returns
-    (loss, metrics)."""
-    targets = tokens[:, 1:].long()
-    lg = logits[:, :-1].float()
+def _masked_ce(logits, targets, *, z_loss: float, label_smoothing: float, total):
+    """CE of fp32 ``logits`` (b, s, V) against ``targets`` (b, s), 0 =
+    none, divided by the token count ``total`` gives; the metrics go
+    through ``total`` too (identity on one device, a sum over ranks on a
+    mesh). Returns (loss, metrics)."""
+    targets = targets.long()
+    lg = logits.float()
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, targets[..., None])[..., 0]
     ce_tok = logz - gold
@@ -24,13 +25,41 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor, *,
         mean_lp = torch.mean(lg, dim=-1) - logz
         ce_tok = (1 - label_smoothing) * ce_tok - label_smoothing * mean_lp
     mask = (targets != 0).float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(total(mask.sum()), min=1.0)
     ce = torch.sum(ce_tok * mask) / denom
-    metrics = {"ce": ce, "tokens": denom}
+    ce_all = total(ce)
+    metrics = {"ce": ce_all, "tokens": denom}
     loss = ce
     if z_loss:
         zl = torch.sum(torch.square(logz) * mask) / denom
         loss = loss + z_loss * zl
-        metrics["z_loss"] = zl
-    metrics["ppl_proxy"] = torch.exp(torch.clamp(ce, max=20.0))
+        metrics["z_loss"] = total(zl)
+    metrics["ppl_proxy"] = torch.exp(torch.clamp(ce_all, max=20.0))
     return loss, metrics
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor, *,
+                    z_loss: float = 0.0, label_smoothing: float = 0.0):
+    """Masked next-token CE (``losses.py:14``). logits (B, S, V): position t
+    predicts token t + 1; tokens (B, S) int, 0 = pad. Returns
+    (loss, metrics)."""
+    return _masked_ce(logits[:, :-1], tokens[:, 1:], z_loss=z_loss,
+                      label_smoothing=label_smoothing, total=lambda x: x)
+
+
+def sharded_token_loss(logits: torch.Tensor, targets: torch.Tensor, *, mesh, axes,
+                       z_loss: float = 0.0, label_smoothing: float = 0.0):
+    """A rank's share of the global next-token CE, for a batch whose rows
+    and sequence are split over the mesh ``axes``. logits (b, s, V) are the
+    rank's positions; targets (b, s) int the token each predicts (the next
+    position's, which for a shard's last position is the first token of
+    the next slice), 0 = none (pad, or the last global position). The
+    token count is summed over ``axes``, so the ranks' losses add up to
+    ``next_token_loss`` of the whole batch and their gradients, summed over
+    ``axes``, to its gradient. Returns (loss, metrics): loss the rank's
+    share; metrics the global values (not differentiable)."""
+    def total(x):
+        return mesh.all_reduce(x.detach(), "sum", axes) if mesh is not None else x.detach()
+
+    return _masked_ce(logits, targets, z_loss=z_loss, label_smoothing=label_smoothing,
+                      total=total)

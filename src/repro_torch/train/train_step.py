@@ -6,6 +6,12 @@ fp32. Gradients come from ``torch.autograd.grad`` of ``loss_fn`` with
 respect to every parameter leaf, the counterpart of ``jax.value_and_grad``.
 The optimizer writes the parameters and its moments in place (see
 ``optim/adamw.py``); the returned trees are the ones passed in.
+
+Under a mesh (``distributed.sharding.sharding_rules``) each rank's loss is
+its share of the global mean (``losses.sharded_token_loss``): the step
+sums the gradients and the loss over every axis the batch or the sequence
+spans, as one flat fp32 buffer, before the optimizer, so the grad norm,
+the clipping and the update are the same on every rank.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.distributed.sharding import active_reduce_axes
 from repro_torch.models.model import loss_fn
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim.adamw import adamw_update
@@ -29,6 +36,20 @@ def value_and_grad(params, cfg: ModelConfig, batch: dict):
                                          materialize_grads=True))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_map(lambda _: next(grads), live)
+
+
+def _sum_over_ranks(loss, grads):
+    """Under a mesh, the loss and every gradient leaf summed (fp32) over the
+    axes the batch or the sequence spans, the leaves as one flat buffer in
+    one collective; as they are otherwise."""
+    mesh, axes = active_reduce_axes()
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return loss, grads
+    leaves = tree_leaves(grads)
+    flat = mesh.all_reduce(torch.cat([g.float().reshape(-1) for g in leaves]), "sum", axes)
+    parts = iter(flat.split([g.numel() for g in leaves]))
+    return (mesh.all_reduce(loss, "sum", axes),
+            tree_map(lambda g: next(parts).view(g.shape), grads))
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, lr_fn: Callable):
@@ -52,6 +73,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, lr_fn: Callable):
             metrics = {}
         else:
             loss, metrics, grads = value_and_grad(params, cfg, batch)
+        loss, grads = _sum_over_ranks(loss, grads)
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
                                                       tcfg, lr_fn)
         metrics = dict(metrics)
@@ -64,11 +86,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, lr_fn: Callable):
 
 def make_grad_step(cfg: ModelConfig):
     """Forward + backward only, no optimizer update: the cell the
-    gradient-parity checks compare across routes."""
+    gradient-parity checks compare across routes (under a mesh, the
+    gradients and loss summed over the batch's and sequence's axes)."""
 
     def grad_step(params, batch):
         loss, _, grads = value_and_grad(params, cfg, batch)
-        return loss, grads
+        return _sum_over_ranks(loss, grads)
 
     return grad_step
 

@@ -1,7 +1,9 @@
-"""Single-device training loop (``repro/train/trainer.py``).
+"""Training loop (``repro/train/trainer.py``), on one device or on the
+ranks of a mesh.
 
-    trainer = Trainer(cfg, tcfg, shape)   # init, or restore the latest step
-    trainer.run(num_steps)                # step loop
+    trainer = Trainer(cfg, tcfg, shape)         # init, or restore the latest step
+    trainer = Trainer(cfg, tcfg, shape, mesh, rule_overrides={"seq": "model"})
+    trainer.run(num_steps)                      # step loop
 
 Per step: build the batch for the step counter, place it on the device,
 run the train step (K1/K2 forward, K3/K4 backward on the card), record
@@ -17,10 +19,28 @@ feed-forward with its load-balance loss), ``hybrid`` (Hymba), ``ssm``
 batches (``batch(step) -> dict`` of numpy arrays), as the reference's
 ``data=`` (``repro/train/trainer.py:97``); the default is ``SyntheticLM``,
 tokens only, so Whisper and LLaVA need a source with ``frames`` /
-``patches`` (``data/pipeline.py:StubFrontendLM``). The reference's mesh,
-shardings, elastic re-planning, heartbeats, failure injection,
-``grad_compression`` and the expert-parallel ``moe_impl="ep"`` are not
-ported; settings that need them raise. ``opt_state_dtype``
+``patches`` (``data/pipeline.py:StubFrontendLM``).
+
+With a ``mesh`` (``distributed/mesh.py``; every rank constructs its Trainer
+with the same arguments) the trainer runs data- and sequence-parallel
+under the logical-axis rules (``distributed/sharding.py``,
+``rule_overrides`` as the reference's): ``apply_seq_sharding_config``
+first; parameters replicated and asserted identical on every rank after
+init; each step every rank builds the global batch from the seed and takes
+its rows and sequence slice (``make_global_batch``), its loss is its share
+of the global mean and the step sums the gradients over the batch's and
+sequence's axes before the optimizer (``train/train_step.py``); rank 0
+writes the checkpoints, every rank restores. Under a sequence shard
+attention runs the context-parallel attention (``kernels/sharded.py``) and
+``_warm_attention_plans`` resolves the sharded key. Refused, as waiting
+(ROADMAP): a rule that shards parameters over an axis of size > 1 (tensor
+parallelism, FSDP, expert parallelism), any family but the dense one
+under a sequence shard, MoE and the frontend families (Whisper, LLaVA)
+under any split of the batch. The reference's elastic re-planning,
+heartbeats, failure injection and the expert-parallel ``moe_impl="ep"``
+are not ported; ``grad_compression`` stays refused (the reference accepts
+it and reads it nowhere; ``optim/compression.py`` holds the collective).
+``opt_state_dtype``
 is accepted and, as in the reference's trainer, not read (only its dry-run
 reads it).
 
@@ -35,10 +55,14 @@ into ``autotune_plan_resolutions_total`` and runs in a ``plan_resolution``
 span. Without one the no-op bundle stands in.
 
 Runs on CUDA unless the caller passes ``device="cpu"`` (the kernels' plain
-versions then run instead); asking for CUDA without a GPU raises.
+versions then run instead); asking for CUDA without a GPU raises. With a
+mesh the ranks run on the mesh's device, and a ``device`` that names
+another (the default "cuda" beside a CPU mesh) raises.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import logging
 import time
 from typing import Optional
@@ -47,10 +71,13 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.data.pipeline import SyntheticLM, to_device
+from repro_torch.data.pipeline import SyntheticLM, make_global_batch, to_device
+from repro_torch.distributed.sharding import (apply_seq_sharding_config, batch_axes,
+                                              param_rule_conflicts, seq_axes,
+                                              seq_axis_sharded, sharding_rules)
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import model_specs, torch_dtype
-from repro_torch.models.params import init_params, map_specs
+from repro_torch.models.params import init_params, map_specs, tree_leaves
 from repro_torch.optim.adamw import AdamWState, adamw_init
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.serve.engine import resolve_device
@@ -65,8 +92,22 @@ FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 ATTENTION_IMPLS = ("full", "chunked", "spectral_shift", "nystrom", "spectral_shift_fused")
 
 
-def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
+def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+                     overrides: Optional[dict] = None) -> None:
+    seq_split = mesh is not None and seq_axis_sharded(mesh, overrides)
+    rows_split = mesh is not None and mesh.axis_size(batch_axes(mesh, overrides)) > 1
+    conflicts = param_rule_conflicts(mesh, overrides) if mesh is not None else []
     unsupported = {
+        f"parameter sharding ({', '.join(conflicts)}: tensor parallelism, FSDP, "
+        f"expert parallelism)": bool(conflicts),
+        f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard": (
+            seq_split and (cfg.family != "dense" or cfg.moe)),
+        f"attention {cfg.attention_impl!r} / backend {cfg.attention_backend!r} under a "
+        f"sequence shard (only the fused kernels' context-parallel attention)": (
+            seq_split and (cfg.attention_impl != "spectral_shift_fused"
+                           or cfg.attention_backend == "jnp")),
+        f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} with the batch split over "
+        f"ranks": rows_split and (cfg.moe or cfg.family in ("audio", "vlm")),
         f"family {cfg.family!r}": cfg.family not in FAMILIES,
         "moe_impl 'ep' (expert parallel, multi-device)": cfg.moe and cfg.moe_impl == "ep",
         f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in ATTENTION_IMPLS
@@ -82,9 +123,23 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig) -> None:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, shape: ShapeConfig,
-                 *, device="cuda", telemetry: Optional[Telemetry] = None, data=None):
-        _check_supported(cfg, tcfg)
-        self.device = resolve_device(device)
+                 mesh=None, *, rule_overrides: Optional[dict] = None, device="cuda",
+                 telemetry: Optional[Telemetry] = None, data=None):
+        self.mesh = mesh
+        self.rule_overrides = dict(rule_overrides or {})
+        if mesh is not None:
+            cfg = apply_seq_sharding_config(cfg, mesh, self.rule_overrides, log=log)
+        _check_supported(cfg, tcfg, mesh, self.rule_overrides)
+        if mesh is not None:
+            # the mesh's device is the rank's (its GPU index); ``device`` may
+            # leave the index out, never name another device
+            want = torch.device(device)
+            if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+                raise ValueError(f"Trainer: device {want} but the mesh's ranks run on "
+                                 f"{mesh.device}; pass the mesh's device")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.cfg, self.tcfg, self.shape = cfg, tcfg, shape
         self.telemetry = telemetry if telemetry is not None else Telemetry(enabled=False)
         self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
@@ -106,7 +161,30 @@ class Trainer:
         self.step = 0
         self.metrics_history: list[dict] = []
         self._init_or_restore()
+        if mesh is not None:
+            self._check_replicated()
         self.plan = self._warm_attention_plans()
+
+    def _rules(self):
+        """The logical-axis rules' context for the step loop (none without
+        a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_rules(self.mesh, self.rule_overrides)
+
+    def _check_replicated(self) -> None:
+        """Raise unless every rank holds bit-identical parameters and
+        optimizer state (a digest of their bytes, gathered)."""
+        import torch.distributed as dist
+
+        h = hashlib.sha256()
+        for t in tree_leaves(self.state()):
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, h.hexdigest())
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"Trainer: ranks hold different parameters after init "
+                               f"(digests {digests})")
 
     def _warm_attention_plans(self) -> Optional[dispatch.Plan]:
         """Resolve the train shape's attention plan before the first step
@@ -117,6 +195,22 @@ class Trainer:
         ``autotune=True`` under ``spectral_shift_fused`` and backend "auto"
         (a forced backend never reads the registry). Returns the plan."""
         cfg = self.cfg
+        if (self.mesh is not None and seq_axis_sharded(self.mesh, self.rule_overrides)
+                and cfg.attention_impl == "spectral_shift_fused"
+                and cfg.attention_backend == "auto"):
+            # the sharded key: its heuristic or a registered plan, never a
+            # sweep (``get_plan``; a single-rank sweep cannot reproduce it)
+            shards = self.mesh.axis_size(seq_axes(self.mesh, self.rule_overrides))
+            key = dispatch.make_key(self.shape.seq_len, cfg.num_landmarks,
+                                    cfg.resolved_head_dim, cfg.compute_dtype,
+                                    cfg.is_decoder_only, backend=self.device.type,
+                                    seq_shards=shards)
+            with self.telemetry.span("plan_resolution", n=key.n):
+                plan = dispatch.get_plan(key, autotune_enabled=cfg.autotune)
+            log.info("attention plan for n=%d over %d sequence shards (%s): impl=%s "
+                     "block_n=%d", self.shape.seq_len, shards, plan.source, plan.impl,
+                     plan.block_n)
+            return plan
         if (not cfg.autotune or cfg.attention_impl != "spectral_shift_fused"
                 or cfg.attention_backend != "auto"):
             return None
@@ -159,33 +253,45 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def save(self, blocking: bool = False) -> None:
-        self.ckpt.save(self.step, self.state(), blocking=blocking)
+        """Checkpoint the state (under a mesh, rank 0 writes: the state is
+        replicated)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self.ckpt.save(self.step, self.state(), blocking=blocking)
+
+    def _batch(self, step: int) -> dict:
+        host = self.data.batch(step)
+        if self.mesh is not None:
+            host = make_global_batch(host, self.mesh, self.rule_overrides)
+        return to_device(host, self.device)
 
     def run(self, num_steps: int, log_every: int = 10) -> list[dict]:
         end = self.step + num_steps
-        while self.step < end:
-            t0 = time.perf_counter()
-            with self.telemetry.step_span("train_step", self.step):
-                batch = to_device(self.data.batch(self.step), self.device)
-                self.params, self.opt_state, metrics = self.step_fn(
-                    self.params, self.opt_state, batch)
-                # float() waits for the step's device work to finish
-                metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
-            dt = time.perf_counter() - t0
-            metrics["step"] = self.step
-            metrics["step_time_s"] = dt
-            self.metrics_history.append(metrics)
-            if self.telemetry.enabled:
-                self._step_hist.observe(dt)
-                for name, g in self._gauges.items():
-                    if name in metrics:
-                        g.set(metrics[name])
-            self.step += 1
-            if self.tcfg.checkpoint_every and self.step % self.tcfg.checkpoint_every == 0:
-                self.save(blocking=False)
-            if self.step % log_every == 0 or self.step == end:
-                log.info("step %d loss=%.4f ce=%.4f %.2fs", self.step,
-                         metrics.get("loss", float("nan")),
-                         metrics.get("ce", float("nan")), dt)
+        with self._rules():
+            while self.step < end:
+                t0 = time.perf_counter()
+                with self.telemetry.step_span("train_step", self.step):
+                    batch = self._batch(self.step)
+                    self.params, self.opt_state, metrics = self.step_fn(
+                        self.params, self.opt_state, batch)
+                    # float() waits for the step's device work to finish
+                    metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+                dt = time.perf_counter() - t0
+                metrics["step"] = self.step
+                metrics["step_time_s"] = dt
+                self.metrics_history.append(metrics)
+                if self.telemetry.enabled:
+                    self._step_hist.observe(dt)
+                    for name, g in self._gauges.items():
+                        if name in metrics:
+                            g.set(metrics[name])
+                self.step += 1
+                if self.tcfg.checkpoint_every and self.step % self.tcfg.checkpoint_every == 0:
+                    self.save(blocking=False)
+                if self.step % log_every == 0 or self.step == end:
+                    log.info("step %d loss=%.4f ce=%.4f %.2fs", self.step,
+                             metrics.get("loss", float("nan")),
+                             metrics.get("ce", float("nan")), dt)
         self.ckpt.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()   # rank 0's checkpoints are complete for every rank
         return self.metrics_history

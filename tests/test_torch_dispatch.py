@@ -15,7 +15,8 @@ the reference's ``repro.kernels.dispatch`` on the CPU.
   versions 1 and 2 load.
 * ``dispatch_ss_attention`` against the reference's for backend "auto",
   "jnp" and "fused" (the port's plain route, the reference's interpret
-  mode), causal and not; ``seq_shards > 1`` raises; "paged" and unknown
+  mode), causal and not; a ``seq_shards > 1`` key is kept and its
+  heuristic is "sharded" (``test_torch_sharded.py``); "paged" and unknown
   backends raise; "sharded" and, on the CPU, "interpret" run the fused
   route.
 * F3: ``attention_backend="jnp"`` reaches ``spectral_shift_attention``
@@ -330,8 +331,10 @@ def test_routes_and_refusals():
         dispatch.dispatch_ss_attention(q, k, v, cfg, backend="paged")
     with pytest.raises(ValueError, match="unknown attention backend"):
         dispatch.dispatch_ss_attention(q, k, v, cfg, backend="cuda")
-    with pytest.raises(NotImplementedError, match="seq_shards"):
-        dispatch.make_key(1024, 16, 16, torch.float32, False, seq_shards=4)
+    # a context-parallel key (kernels/sharded.py): keyed, never swept
+    sp = dispatch.make_key(1024, 16, 16, torch.float32, False, seq_shards=4)
+    assert sp.seq_shards == 4 and sp.encode().endswith("|sp4")
+    assert dispatch.heuristic_plan(sp).impl == "sharded"
     with pytest.raises(ValueError, match="family"):
         dispatch.make_key(128, 16, 16, torch.float32, False, family="wat")
     # the CUDA kernels' tilings: whole KEY_TILE / QUERY_TILE, K4's 128 rows
