@@ -66,7 +66,9 @@ result line):
    bidirectional encoder shape (n = 1500, c = 32) over 2 and ``sp_train``'s
    paper-bert shape (b = 16, n = 8192, d = 64, causal) over 2, in fp32 and bf16
    (K1's rows that reach no key of a shard come back empty, K3's keys no
-   row reaches get zero dK / dV), the last shard of each timed;
+   row reaches get zero dK / dV), the last shard of each timed; K1-K4 at
+   ``tp_train``'s rank shape (4 rows x 4 query heads: b = 16, n = 4096,
+   c = 64, d = 64, causal) in fp32 and bf16, timed (``tp_rank_launch``);
 3. model parity, 2 full-width layers in fp32, prefill logits and 4 paged
    decode steps, kernel route against the plain route (every kernel
    swapped for its plain version), both on the card: Qwen2-7B (block 16)
@@ -194,8 +196,9 @@ result line):
    under spectral_shift_fused: K1-K4 18 each), ``train_llava``
    (LLaVA-NeXT-34B cut to 2 layers, 2048 stub patches + 2048 tokens, batch
    1, 3 steps under chunked and spectral_shift_fused: K1 12 / K2 12 / K3 6
-   / K4 6) and ``train_xlstm`` (xLSTM-350M, all 24 blocks, seq 4096, batch
-   2, 2 steps, no launch); then context parallelism on 4 ranks that share
+   / K4 6) and ``train_xlstm`` (xLSTM-350M cut to 6 of its 24 blocks, one
+   of them sLSTM, seq 4096, batch 2, 2 steps, no launch); then context
+   parallelism and parameter sharding on 4 ranks that share
    the card (``sp_phase``: ``launch/mesh.py:spawn_local``, a 2 x 2
    ("data", "model") mesh, gloo staging the collectives through the host):
    ``sp_attention`` (the sharded attention at Qwen2-7B's shape, n = 8192,
@@ -208,8 +211,20 @@ result line):
    bound a control with one shard's B-side partial dropped must exceed,
    the later losses within the sanity bound 5e-3, a 1-layer fp32 twin's
    gradients within 5e-4; ms a step, peak
-   GiB and the collectives' share per rank); then each kernel timed at the
-   tiling the sweeps chose (``autotuned_launch``);
+   GiB and the collectives' share per rank; its parameters stay whole
+   through the override ``{"seq": "model", "embed": None}``) and
+   ``tp_train`` (paper-bert at full width and depth, seq 4096, global
+   batch 8, 3 steps under the default rules: FSDP over "data", query
+   heads, MLP width and vocab over "model", K1-K4 at each rank's 4 rows x
+   4 heads; its bf16 losses within the sanity bound 2e-2 of
+   ``train_paper_bert``'s fused run; step 0's forward of the same weights
+   at 4 fp32 layers within 1e-4 of one device's, a bound a control with
+   layer 0's MLP all-reduce dropped must exceed; the 1-layer fp32 twin's
+   gathered gradients within 5e-4, its checkpoint restored bitwise onto a
+   1 x 4 mesh and onto one device; ms a step, peak GiB, the collectives'
+   share);
+   then each kernel timed at the tiling the sweeps chose
+   (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
    training runs, and by path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -640,6 +655,10 @@ def kernel_phase(torch, dev) -> list[dict]:
     # the context-parallel attention's launches: K1 / K3 at kv_offset, K2 / K4
     # at q_offset, every shard of each split
     entries.update(shard_kernel_entries(torch, dev))
+    # tp_train's launches on a rank: paper-bert's 4 local rows x 4 local
+    # query heads of d = 64 (TP 2 x FSDP 2), the whole 4096-token sequence
+    entries.update({f"tp_{k}": e for k, e in train_kernel_entries(
+        torch, dev, b=TP_RANK_BATCH_HEADS, d=64).items()})
 
     def timed(tag):
         return timed_entry(tag, entries[tag])
@@ -685,6 +704,11 @@ def kernel_phase(torch, dev) -> list[dict]:
         if tag in entries and name != "paged_row_stats":
             row["whisper_encoder_train_launch"] = dict(shape=entries[tag]["shape"],
                                                        **timed(tag))
+        # a tensor-parallel rank's launches (tp_train: b = 16 local
+        # batch-heads; same kernels and counters)
+        tag = f"tp_{name}_train" if f"tp_{name}_train" in entries else f"tp_{name}"
+        if tag in entries:
+            row["tp_rank_launch"] = dict(shape=entries[tag]["shape"], **timed(tag))
         # a sequence shard's launches (the last shard of each timed split;
         # same kernels and counters)
         if name in TRAIN_KERNELS:
@@ -3366,7 +3390,7 @@ def train_steps(torch, dev, cfg, shape, steps: int, label: str, data=None) -> di
     return dict(losses=losses, ms=ms, peak=peak, launches=counts)
 
 
-def train_paper_bert_phase(torch, dev) -> dict:
+def train_paper_bert_phase(torch, dev) -> tuple:
     """``train_paper_bert``: the paper's own config at its full size (12
     layers, d_model 512, 8 heads of 64, c = 64, vocab 30522), train_4k's
     seq 4096 at batch PAPER_BERT_BATCH, 3 steps each under
@@ -3377,7 +3401,8 @@ def train_paper_bert_phase(torch, dev) -> dict:
     dispatch's plain route, no kernel may launch, the step-0 loss within
     JNP_BACKEND_TOL of spectral_shift's); the fused losses within PAPER_BERT_TOL (relative) of
     spectral_shift's, and the broken-K1 controls past it. Returns each run's
-    launch counts by path name."""
+    launch counts by path name, and the fused run (``tp_train``'s
+    single-process reference: the same config, shape, seed and steps)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
 
@@ -3419,7 +3444,8 @@ def train_paper_bert_phase(torch, dev) -> dict:
     controls(torch, dev, dataclasses.replace(get_config("paper-bert"),
                                              attention_impl="spectral_shift_fused"),
              shape, ref, [PAPER_BERT_TOL] * len(ref), "train_paper_bert")
-    return {f"train_paper_bert_{impl}": r["launches"] for impl, r in runs.items()}
+    return ({f"train_paper_bert_{impl}": r["launches"] for impl, r in runs.items()},
+            runs["spectral_shift_fused"])
 
 
 def train_chunked_phase(torch, dev, layers: int) -> dict:
@@ -3885,6 +3911,7 @@ LLAVA_SERVE_LAYERS = 16            # of 60: 9.9 B parameters, 19.8 GB of bf16 we
 LLAVA_TRAIN_LAYERS = 2             # of 60: 2.09 B parameters at 16 B each
 LLAVA_TRAIN_BATCH = 1
 XLSTM_TRAIN_BATCH = 2
+XLSTM_TRAIN_LAYERS = 6   # of 24: one sLSTM block (every sixth) and five mLSTM
 XLSTM_TOL = 2e-2   # replayed decode vs the forward (``tests/test_decode.py:59``)
 
 
@@ -4507,15 +4534,18 @@ def train_llava_phase(torch, dev) -> dict:
 
 
 def train_xlstm_phase(torch, dev) -> dict:
-    """``train_xlstm``: xLSTM-350M, all 24 blocks at full width, train_4k's
-    seq 4096 at batch XLSTM_TRAIN_BATCH, 2 steps (no remat, as the
-    reference's unrolled stack; the 4 sLSTM blocks recur one step a token,
-    eager: host-bound). No kernel may launch. Returns its launches."""
+    """``train_xlstm``: xLSTM-350M at full width cut to XLSTM_TRAIN_LAYERS
+    blocks (five mLSTM blocks and the sLSTM block that every sixth is),
+    train_4k's seq 4096 at batch XLSTM_TRAIN_BATCH, 2 steps (no remat, as
+    the reference's unrolled stack; the sLSTM block recurs one step a
+    token, eager: host-bound). No kernel may launch. Returns its
+    launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
 
     shape = ShapeConfig("train_4k", 4096, XLSTM_TRAIN_BATCH, "train")
-    run = train_steps(torch, dev, get_config(XLSTM), shape, 2, "train_xlstm")
+    cfg = dataclasses.replace(get_config(XLSTM), num_layers=XLSTM_TRAIN_LAYERS)
+    run = train_steps(torch, dev, cfg, shape, 2, "train_xlstm")
     if any(run["launches"].values()):
         raise AssertionError(f"train_xlstm: a kernel launched: {run['launches']}")
     return {"train_xlstm": run["launches"]}
@@ -4531,6 +4561,9 @@ SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS = 8192, 4, 3
 SP_LOSS_TOL = 5e-3               # SP against single-process losses, relative
 SP_STEP0_TOL = 1.5e-3            # step 0 (a forward of the same weights), relative
 SP_TIMEOUT_S = 600.0             # every collective of the ranks' group
+# the sequence over "model"; "embed": None keeps FSDP off "data", so
+# sp_train's parameters stay whole on every rank
+SP_OVERRIDES = {"seq": "model", "embed": None}
 
 
 def _counted(totals: dict, fn):
@@ -4636,15 +4669,34 @@ def sp_attention_rank(mesh, b: int, c: int, n: int, d: int) -> dict:
     return res
 
 
-def sp_step0_ce(trainer, mesh, drop: bool) -> float:
+def step0_ce(trainer, patch=None) -> float:
     """The global CE of step 0's batch at the trainer's initial weights, a
-    forward only under its mesh. ``drop``: the control, the flash merge of
-    the context-parallel B-side without the partial of the sequence's second
-    shard (its keys lost to every landmark row), patched here and restored."""
+    forward only under its mesh (and layout). ``patch``: (module, name,
+    value) set while it runs and restored after (a control)."""
+    import torch
+
+    from repro_torch.train.train_step import make_eval_step
+
+    if patch is not None:
+        module, name, value = patch
+        saved = getattr(module, name)
+        setattr(module, name, value)
+    try:
+        with trainer._rules(), torch.no_grad():
+            _, metrics = make_eval_step(trainer.cfg)(trainer.params, trainer._batch(0))
+    finally:
+        if patch is not None:
+            setattr(module, name, saved)
+    return float(metrics["ce"])
+
+
+def sp_step0_ce(trainer, mesh, drop: bool) -> float:
+    """``step0_ce``; ``drop``: the control, the flash merge of the
+    context-parallel B-side without the partial of the sequence's second
+    shard (its keys lost to every landmark row)."""
     import torch
 
     import repro_torch.kernels.sharded as sharded
-    from repro_torch.train.train_step import make_eval_step
 
     rescale = sharded.flash_rescale
 
@@ -4654,14 +4706,7 @@ def sp_step0_ce(trainer, mesh, drop: bool) -> float:
             return torch.zeros_like(l_r), torch.zeros_like(acc_r)
         return l_r, acc_r
 
-    if drop:
-        sharded.flash_rescale = dropped
-    try:
-        with trainer._rules(), torch.no_grad():
-            _, metrics = make_eval_step(trainer.cfg)(trainer.params, trainer._batch(0))
-    finally:
-        sharded.flash_rescale = rescale
-    return float(metrics["ce"])
+    return step0_ce(trainer, (sharded, "flash_rescale", dropped) if drop else None)
 
 
 def sp_paper_bert(overrides=None):
@@ -4680,7 +4725,10 @@ def sp_train_rank(mesh, seq: int, batch: int, steps: int) -> dict:
     GiB, the share of the steps in collectives and the launches of the
     steps; then the 1-layer fp32 twin: one grad step under
     the mesh (gradients summed over the ranks) and, on rank 0, the
-    single-device grad step on the whole batch, held leaf by leaf."""
+    single-device grad step on the whole batch, held leaf by leaf. The
+    parameters stay whole on every rank (``SP_OVERRIDES``), as they were
+    when the port applied no parameter rule, so its figures compare with
+    earlier runs'."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -4692,7 +4740,7 @@ def sp_train_rank(mesh, seq: int, batch: int, steps: int) -> dict:
     from repro_torch.train.trainer import Trainer
 
     dev = mesh.device
-    ov = {"seq": "model"}
+    ov = SP_OVERRIDES
     shape = ShapeConfig("train_4k", seq, batch, "train")
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_ckpt_") as tmp:
@@ -4733,16 +4781,161 @@ def sp_train_rank(mesh, seq: int, batch: int, steps: int) -> dict:
                 twin=twin, step0=step0)
 
 
-def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int) -> dict:
-    """Both context-parallel paths on one rank of the SP_MESH group."""
+# --------------------------------------------------------------------------
+# tensor parallelism x FSDP: the same ranks
+# --------------------------------------------------------------------------
+TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS = 4096, PAPER_BERT_BATCH, 3
+# a rank's attention batch-heads: 8 rows over 2 "data" ranks x 8 heads over
+# 2 "model" ranks
+TP_RANK_BATCH_HEADS = (TP_TRAIN_BATCH // 2) * (8 // 2)
+# Step 0's discriminating check: a forward of the initial weights at
+# TP_STEP0_LAYERS fp32 layers (TF32 off), TP x FSDP against one device. At
+# 12 layers the forward is chaotic (P1): on the CPU at full width and seq
+# 512, fp32 sits 2.3e-3 off float64, and TP moves the CE by 3.0e-3 there,
+# against 8.8e-8 at 4 layers, where dropping layer 0's MLP all-reduce
+# moves it by 3.2e-3 (float64: identical at 12 layers).
+TP_STEP0_LAYERS = 4
+TP_STEP0_TOL = 1e-4              # relative
+# The 12-layer bf16 losses: a sanity bound only (P1, P3). It separates no
+# fault: at 12 layers dropping layer 0's MLP all-reduce moves step 0 by
+# less than rounding does. The step-0 check above and the twin catch faults.
+TP_LOSS_TOL = 2e-2
+
+
+def tp_step0_ce(trainer, drop: bool) -> float:
+    """``step0_ce``; ``drop``: the control, layer 0's MLP row-parallel
+    all-reduce dropped (each rank keeps its partial sum of ``w_down``'s
+    product)."""
+    import repro_torch.models.layers as layers
+
+    constraint, calls = layers.logical_constraint, [0]
+
+    def dropped(x, axes, partial=()):
+        calls[0] += 1
+        return x if calls[0] == 1 else constraint(x, axes, partial)
+
+    return step0_ce(trainer, (layers, "logical_constraint", dropped) if drop else None)
+
+
+def tp_step0_config():
+    """paper-bert under the fused kernels cut to TP_STEP0_LAYERS fp32
+    layers: step 0's discriminating forward."""
+    return sp_paper_bert(dict(num_layers=TP_STEP0_LAYERS, compute_dtype="float32"))
+
+
+def params_digest(trainer) -> str:
+    """sha256 of the whole parameters' bytes (gathered: every rank calls
+    it)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(trainer.full_state()["params"]):
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_train_rank(mesh, seq: int, batch: int, steps: int, ckpt: str) -> dict:
+    """One rank of ``tp_train``: the ``Trainer`` on paper-bert at full width
+    and depth under ``spectral_shift_fused`` and the default rules: rows
+    and FSDP over "data", query heads, MLP width and vocab over "model"
+    (4 rows and 4 heads a rank: K1-K4 at b = 16). Step 0's forward at the
+    initial weights of ``tp_step0_config`` (4 fp32 layers), sound and with
+    layer 0's MLP all-reduce dropped (``tp_step0_ce``, uncounted); losses,
+    ms a step after the first, peak
+    GiB, the share of the steps in collectives and the launches of the
+    steps; a checkpoint of the last step into ``ckpt`` (rank 0 writes
+    whole arrays), restored onto a 1 x 4 mesh (``make_local_mesh(4)``:
+    the digest of its gathered parameters against the 2 x 2 run's); then
+    the 1-layer fp32 twin: one grad step on the rank's slices under the
+    layout, gradients gathered, and on rank 0 the single-device grad step
+    on the whole batch, held leaf by leaf."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, make_global_batch, to_device
+    from repro_torch.distributed.sharding import param_layout, sharding_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import gather_tree, init_params, shard_tree, tree_leaves
+    from repro_torch.train.train_step import make_grad_step
+    from repro_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    launches: dict = {}
+    tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                       checkpoint_dir=ckpt)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp0_") as tmp:
+        fp32 = Trainer(tp_step0_config(), dataclasses.replace(tcfg, checkpoint_dir=tmp),
+                       shape, mesh)
+        step0 = {name: tp_step0_ce(fp32, drop)
+                 for name, drop in (("sound", False), ("control", True))}
+        del fp32
+    trainer = Trainer(sp_paper_bert(), tcfg, shape, mesh)
+    tp = trainer.layout.tp
+    plan = trainer.plan
+    torch.cuda.reset_peak_memory_stats(dev)
+    coll0, t0 = mesh.collective_seconds, time.perf_counter()
+    hist = _counted(launches, lambda: trainer.run(steps))
+    share = (mesh.collective_seconds - coll0) / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    t_save = time.perf_counter()
+    trainer.save(blocking=True)
+    mesh.barrier()
+    save_s = time.perf_counter() - t_save
+    digest = params_digest(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh14 = make_local_mesh(4, device=dev)
+    onto = Trainer(sp_paper_bert(), tcfg, shape, mesh14)
+    restored = (onto.step, params_digest(onto) == digest, onto.layout.tp)
+    del onto
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the 1-layer fp32 twin (TF32 off): one grad step, held leaf by leaf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg1 = sp_paper_bert(dict(num_layers=1, compute_dtype="float32", remat="none"))
+    specs = model_specs(cfg1)
+    layout = param_layout(mesh, cfg1, specs)
+    params = init_params(specs, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    host = SyntheticLM(cfg1.vocab_size, seq, batch, seed=0).batch(0)
+    with sharding_rules(mesh, None, layout):
+        loss, grads = make_grad_step(cfg1)(shard_tree(params, layout.placements, mesh),
+                                           to_device(make_global_batch(host, mesh), dev))
+    grads = gather_tree(grads, layout.placements, mesh)
+    twin = None
+    if mesh.rank == 0:
+        ref_loss, ref = make_grad_step(cfg1)(params, to_device(host, dev))
+        twin = dict(loss=abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+                    grad=max(float((a - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                             for a, r in zip(tree_leaves(grads), tree_leaves(ref))))
+    return dict(rank=mesh.rank, losses=[h["loss"] for h in hist], tp=tuple(tp),
+                ms=1e3 * sum(h["step_time_s"] for h in hist[1:]) / max(1, len(hist) - 1),
+                peak_gib=peak, collective_share=share, launches=launches,
+                plan=None if plan is None else (plan.impl, plan.block_n, plan.source),
+                twin=twin, step0=step0, digest=digest, restored=restored, save_s=save_s)
+
+
+def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple) -> dict:
+    """The context-parallel paths and ``tp_train`` on one rank of the
+    SP_MESH group."""
     out = {"attention": sp_attention_rank(mesh, **attention)}
     gc.collect()
     out["train"] = sp_train_rank(mesh, seq, batch, steps)
+    gc.collect()
+    out["tp"] = tp_train_rank(mesh, *tp)
     return out
 
 
-def sp_phase(torch, dev) -> dict:
-    """``sp_attention`` and ``sp_train``: 4 ranks on the one card
+def sp_phase(torch, dev, bert_fused: dict) -> dict:
+    """``sp_attention``, ``sp_train`` and ``tp_train``: 4 ranks on the one card
     (``launch/mesh.py:spawn_local``, gloo: NCCL will not put two ranks of
     one communicator on one GPU, so the (c, .)-sized collectives are staged
     through host memory; no figure here is one for NVLink), a ("data",
@@ -4758,17 +4951,30 @@ def sp_phase(torch, dev) -> dict:
     a bound that a control with one shard's B-side partial dropped must
     exceed, and its later losses within the sanity bound SP_LOSS_TOL, its
     launches per rank K1 2 / K2 2 / K3 1 / K4 1 a layer and step (remat
-    full); the 1-layer fp32 twin's gradients within GRAD_TOL. Returns the
-    launches of each path, summed over the ranks."""
-    from repro_torch.configs.base import ShapeConfig
+    full); the 1-layer fp32 twin's gradients within GRAD_TOL. ``tp_train``:
+    paper-bert at seq 4096, global batch 8, 3 steps under the default
+    rules (tensor parallelism over "model", FSDP over "data"; K1-K4 at each
+    rank's 16 batch-heads), step 0's loss within TP_STEP0_TOL of the
+    single-process fused run of ``train_paper_bert`` (``bert_fused``: the
+    same config, shape, seed and steps), a bound that a control with layer
+    0's MLP all-reduce dropped must exceed, the later losses within the
+    sanity bound TP_LOSS_TOL, launches per rank K1 2 / K2 2 / K3 1 / K4 1
+    a layer and step (remat full), the 1-layer fp32 twin's gathered
+    gradients within GRAD_TOL, and its last step's checkpoint restored
+    bitwise (gathered parameters) onto a 1 x 4 mesh and onto one device.
+    Returns the launches of each path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.launch.mesh import spawn_local
+    from repro_torch.train.trainer import Trainer
 
     shape = ShapeConfig("train_4k", SP_TRAIN_SEQ, SP_TRAIN_BATCH, "train")
     single = train_steps(torch, dev, sp_paper_bert(), shape, SP_TRAIN_STEPS,
                          "sp_train single-process reference")
+    tp_ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ckpt_")
     t0 = time.perf_counter()
     ranks = spawn_local(sp_rank, SP_MESH, ("data", "model"),
-                        args=(SP_ATTENTION, SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS),
+                        args=(SP_ATTENTION, SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS,
+                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS, tp_ckpt.name)),
                         backend="gloo", device="cuda", timeout_s=SP_TIMEOUT_S, threads=2)
     wall = time.perf_counter() - t0
     # ---- sp_attention ------------------------------------------------------
@@ -4857,12 +5063,92 @@ def sp_phase(torch, dev) -> dict:
                              f"{max(rel):.3e} > {SP_LOSS_TOL}")
     if not (twin["grad"] <= GRAD_TOL and twin["loss"] <= GRAD_TOL):
         raise AssertionError(f"sp_train: 1-layer fp32 twin {twin} past {GRAD_TOL}")
+    # ---- tp_train ----------------------------------------------------------
+    tps = [r["tp"] for r in ranks]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp0_") as tmp:
+        one = Trainer(tp_step0_config(), TrainConfig(checkpoint_dir=tmp),
+                      ShapeConfig("train_4k", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train"),
+                      device=dev)
+        single0 = tp_step0_ce(one, False)
+        del one
+    with tp_ckpt:
+        one = Trainer(sp_paper_bert(), TrainConfig(checkpoint_dir=tp_ckpt.name),
+                      ShapeConfig("train_4k", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train"),
+                      device=dev)
+        one_restored = (one.step, params_digest(one) == tps[0]["digest"])
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_tp_train(tps, bert_fused, one_restored, single0)
 
     def total(rows):
         return {k: sum(r[k] for r in rows) for k in rows[0]}
 
     return {"sp_attention": total(att_launches),
-            "sp_train": total([t["launches"] for t in trains])}
+            "sp_train": total([t["launches"] for t in trains]),
+            "tp_train": total([t["launches"] for t in tps])}
+
+
+def check_tp_train(tps: list, single: dict, one_restored: tuple, single0: float) -> None:
+    """Hold ``tp_train``'s ranks (``tp_train_rank``'s results) to the
+    single-process fused run ``single``, to one device's step-0 CE of
+    ``tp_step0_config`` (``single0``) and to each other; log its figures."""
+    losses = tps[0]["losses"]
+    if any(t["losses"] != losses for t in tps):
+        raise AssertionError(f"tp_train: ranks disagree on the losses "
+                             f"{[t['losses'] for t in tps]}")
+    step0 = tps[0]["step0"]
+    if any(t["step0"] != step0 for t in tps):
+        raise AssertionError(f"tp_train: ranks disagree on step 0's CE "
+                             f"{[t['step0'] for t in tps]}")
+    rel = rel_diffs(losses, single["losses"])
+    sound0, control0 = (abs(step0[k] - single0) / abs(single0) for k in ("sound", "control"))
+    layers = sp_paper_bert().num_layers
+    per_rank = dict(landmark_summary=2 * layers * TP_TRAIN_STEPS,
+                    query_side=2 * layers * TP_TRAIN_STEPS,
+                    landmark_summary_bwd=layers * TP_TRAIN_STEPS,
+                    query_side_bwd=layers * TP_TRAIN_STEPS, paged_row_stats=0)
+    twin = tps[0]["twin"]
+    log(f"tp_train step 0 (a forward of the initial weights at {TP_STEP0_LAYERS} fp32 "
+        f"layers, TF32 off): TP x FSDP CE {step0['sound']:.7f} (rel {sound0:.2e}, tol "
+        f"{TP_STEP0_TOL}); control, layer 0's MLP all-reduce dropped: CE "
+        f"{step0['control']:.7f} (rel {control0:.2e}, must exceed the tol); one device "
+        f"{single0:.7f}")
+    log(f"tp_train: paper-bert 12 layers seq {TP_TRAIN_SEQ} batch {TP_TRAIN_BATCH} over "
+        f"{SP_MESH[0]} x {SP_MESH[1]} ranks, tensor-parallel axes (heads, kv heads, ff, "
+        f"vocab) {tps[0]['tp']}, FSDP over data (plan {tps[0]['plan']}): bf16 losses "
+        f"{['%.4f' % x for x in losses]} vs single-process "
+        f"{['%.4f' % x for x in single['losses']]} (rel {['%.2e' % x for x in rel]}, "
+        f"sanity tol {TP_LOSS_TOL}); ms per step after the first "
+        f"{['%.1f' % t['ms'] for t in tps]} (single-process {single['ms']:.1f}); peak GiB "
+        f"per rank {['%.2f' % t['peak_gib'] for t in tps]}; collectives "
+        f"{['%.1f%%' % (100 * t['collective_share']) for t in tps]} of each rank's steps "
+        f"(gloo on one card, staged through the host: no figure here stands for "
+        f"NVLink); launches per rank {tps[0]['launches']}; checkpoint gathered and "
+        f"written in {['%.1f' % t['save_s'] for t in tps]} s; restored onto 1 x 4 "
+        f"(step, bitwise, tensor-parallel axes) {tps[0]['restored']} and onto one "
+        f"device (step, bitwise) {one_restored}; 1-layer fp32 twin loss rel "
+        f"{twin['loss']:.2e}, worst gathered grad leaf {twin['grad']:.2e} of max-abs "
+        f"(tol {GRAD_TOL})")
+    if not sound0 <= TP_STEP0_TOL:
+        raise AssertionError(f"tp_train: step 0's CE {step0['sound']} vs {single0}: "
+                             f"{sound0:.3e} > {TP_STEP0_TOL}")
+    if not control0 > TP_STEP0_TOL:
+        raise AssertionError(f"tp_train: the control (a dropped MLP all-reduce) moves step "
+                             f"0's CE by {control0:.3e}, within the bound {TP_STEP0_TOL}: "
+                             f"the check would not see it")
+    if not max(rel) <= TP_LOSS_TOL:
+        raise AssertionError(f"tp_train: losses {losses} vs {single['losses']}: "
+                             f"{max(rel):.3e} > {TP_LOSS_TOL}")
+    if any(t["launches"] != per_rank for t in tps):
+        raise AssertionError(f"tp_train: launches per rank "
+                             f"{[t['launches'] for t in tps]} != {per_rank}")
+    if not (twin["grad"] <= GRAD_TOL and twin["loss"] <= GRAD_TOL):
+        raise AssertionError(f"tp_train: 1-layer fp32 twin {twin} past {GRAD_TOL}")
+    if any(t["restored"][:2] != (TP_TRAIN_STEPS, True) for t in tps) or one_restored != (
+            TP_TRAIN_STEPS, True):
+        raise AssertionError(f"tp_train: restores {[t['restored'] for t in tps]}, "
+                             f"{one_restored}: not the saved step's parameters")
 
 
 def main(argv=None) -> int:
@@ -4920,14 +5206,14 @@ def run(args, torch, t_start: float) -> int:
                                                       TRAIN_STEPS, round_trip=False,
                                                       telemetry=True)
     tuned, train_plan = train_autotune_phase(torch, dev, args.train_layers, full_losses)
-    bert = train_paper_bert_phase(torch, dev)
+    bert, bert_fused = train_paper_bert_phase(torch, dev)
     chunked = train_chunked_phase(torch, dev, args.train_layers)
     hymba = train_hymba_phase(torch, dev)
     deepseek = train_deepseek_phase(torch, dev)
     whisper = train_whisper_phase(torch, dev)
     llava = train_llava_phase(torch, dev)
     xlstm = train_xlstm_phase(torch, dev)
-    sp = sp_phase(torch, dev)
+    sp = sp_phase(torch, dev, bert_fused)
     autotuned_rows(torch, dev, kernels, train_plan, served.pop("_decode_plan"))
     if traced_losses != full_losses:
         raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "

@@ -6,8 +6,8 @@ row-major (rank = ((i0 * s1) + i1) * s2 + ...). It holds this rank's
 coordinates, one subgroup per set of axes (created at construction, by
 every rank in the same order, so that no rank ever creates a group alone)
 and the rank's device, the card unless the caller asks for the CPU.
-Collectives go through ``Mesh.all_reduce`` / ``Mesh.all_gather``, which
-also count the seconds spent in them.
+Collectives go through ``Mesh.all_reduce`` / ``Mesh.all_gather`` /
+``Mesh.reduce_scatter``, which also count the seconds spent in them.
 
 Backends. The backend is the process group's, the caller's choice:
 
@@ -22,9 +22,34 @@ Backends. The backend is the process group's, the caller's choice:
   and nothing waits for it: the seconds are CUDA events on the caller's
   stream, read when ``collective_seconds`` is.
 
+``Mesh.reduce_scatter`` is an all-reduce followed by the rank's slice:
+gloo has no reduce-scatter of its own. It moves the whole tensor where a
+ring reduce-scatter would move 1 / n of it a rank, and costs what an
+all-reduce of the tensor does.
+
+Region ops. Parameter sharding (``distributed/sharding.py:param_layout``)
+runs through four autograd-aware custom ops (torch transposes no
+collective, so each names its backward), which find their mesh by
+``mesh_id`` and take the axes comma-joined:
+
+* ``repro_torch::tp_copy``: identity forward, all-reduce backward (where a
+  replicated activation enters tensor-parallel work: each rank's cotangent
+  is its share);
+* ``repro_torch::tp_reduce``: all-reduce forward, identity backward (a
+  row-parallel product's partial sums; the vocab-parallel lookup and the
+  sum-exp and gold logit of the vocab-parallel cross entropy);
+* ``repro_torch::fsdp_gather``: a list of slices all-gathered along their
+  dims as one flat buffer forward, the cotangents summed and sliced back
+  (``reduce_scatter``) backward;
+* the vocab-parallel pieces are the masked lookup (``models/model.py``;
+  ``vocab_shard_index`` places an id in a rank's shard, for it and the
+  cross entropy's gold logit) and the cross entropy's max (``Mesh.all_reduce(..., "max")`` of a
+  detached tensor, ``train/losses.py``) around ``tp_reduce``.
+
 The launch layer (``launch/mesh.py``) builds meshes and spawns local ranks;
-the context-parallel attention's custom ops (``kernels/sharded.py``), which
-cannot take a process group as an argument, find a mesh by ``mesh_id``.
+the custom ops here and those of the context-parallel attention
+(``kernels/sharded.py``), which cannot take a process group as an argument,
+find a mesh by ``mesh_id``.
 """
 from __future__ import annotations
 
@@ -191,6 +216,14 @@ class Mesh:
 
         return self._collective(run, x, axes)
 
+    def reduce_scatter(self, x: torch.Tensor, axes=(), dim: int = 0) -> torch.Tensor:
+        """The sum of x over ``axes``, split along ``dim`` into as many
+        equal parts as the axes span ranks: this rank's part (its flat
+        index), an all-reduce and a slice."""
+        n = self.axis_size(axes)
+        out = self.all_reduce(x, "sum", axes)
+        return out if n == 1 else out.chunk(n, dim)[self.index(axes)].contiguous()
+
     def barrier(self) -> None:
         dist.barrier()
 
@@ -223,3 +256,116 @@ def _blocks(shape: tuple, names: tuple, axes: tuple) -> list:
         c = _unravel(r, shape)
         blocks.setdefault(tuple(c[i] for i in other), []).append(r)
     return [blocks[k] for k in sorted(blocks)]
+
+
+# --------------------------------------------------------------------------
+# Region ops of parameter sharding.
+# --------------------------------------------------------------------------
+def _split_axes(axes: str) -> tuple:
+    return tuple(a for a in axes.split(",") if a)
+
+
+@torch.library.custom_op("repro_torch::tp_copy", mutates_args=())
+def tp_copy(x: torch.Tensor, mesh_id: int, axes: str) -> torch.Tensor:
+    """x itself (a copy) forward; the cotangent summed over ``axes``
+    backward."""
+    return x.clone()
+
+
+@tp_copy.register_fake
+def _(x, mesh_id, axes):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::tp_reduce", mutates_args=())
+def tp_reduce(x: torch.Tensor, mesh_id: int, axes: str) -> torch.Tensor:
+    """x summed over ``axes`` forward, in x's dtype (over 2 ranks a bf16
+    sum rounds once, as an fp32 sum rounded to bf16 does; over more, once
+    an addition); the cotangent as it is backward."""
+    return mesh_by_id(mesh_id).all_reduce(x, "sum", _split_axes(axes))
+
+
+@tp_reduce.register_fake
+def _(x, mesh_id, axes):
+    return torch.empty_like(x)
+
+
+def _meta_setup(ctx, inputs, output):
+    ctx.meta = inputs[1:]
+
+
+tp_copy.register_autograd(
+    lambda ctx, g: (tp_reduce(g.contiguous(), *ctx.meta), None, None),
+    setup_context=_meta_setup)
+tp_reduce.register_autograd(
+    lambda ctx, g: (tp_copy(g.contiguous(), *ctx.meta), None, None),
+    setup_context=_meta_setup)
+
+
+@torch.library.custom_op("repro_torch::fsdp_gather", mutates_args=())
+def fsdp_gather(xs: list[torch.Tensor], dims: list[int], mesh_id: int,
+                axes: str) -> list[torch.Tensor]:
+    """Each slice of ``xs`` all-gathered over ``axes`` along its dim of
+    ``dims`` (ranks in flat-index order), as one flat buffer of their common
+    dtype in one collective."""
+    mesh, ax = mesh_by_id(mesh_id), _split_axes(axes)
+    n = mesh.axis_size(ax)
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    rows = mesh.all_gather(flat, ax).view(n, -1)
+    out, off = [], 0
+    for x, d in zip(xs, dims):
+        parts = rows[:, off:off + x.numel()]
+        out.append(torch.cat([p.view(x.shape) for p in parts], dim=d))
+        off += x.numel()
+    return out
+
+
+@fsdp_gather.register_fake
+def _(xs, dims, mesh_id, axes):
+    n = 1
+    for a in _split_axes(axes):
+        n *= mesh_by_id(mesh_id).shape[a]
+    out = []
+    for x, d in zip(xs, dims):
+        shape = list(x.shape)
+        shape[d] *= n
+        out.append(x.new_empty(shape))
+    return out
+
+
+def _fsdp_gather_setup(ctx, inputs, output):
+    ctx.dims, ctx.mesh_id, ctx.axes = inputs[1:]
+    ctx.shapes = [x.shape for x in inputs[0]]
+    ctx.dtypes = [x.dtype for x in inputs[0]]
+
+
+def _fsdp_gather_backward(ctx, grads):
+    """The cotangents summed over the axes (fp32) and cut back to this
+    rank's slices: row r of the flat buffer holds every leaf's part r."""
+    mesh, ax = mesh_by_id(ctx.mesh_id), _split_axes(ctx.axes)
+    n = mesh.axis_size(ax)
+    grads = [torch.zeros(s[:d] + (s[d] * n,) + s[d + 1:], dtype=torch.float32,
+                         device=mesh.device) if g is None else g.float()
+             for g, s, d in zip(grads, ctx.shapes, ctx.dims)]
+    rows = torch.stack([torch.cat([g.chunk(n, d)[r].reshape(-1)
+                                   for g, d in zip(grads, ctx.dims)]) for r in range(n)])
+    mine = mesh.reduce_scatter(rows, ax, dim=0)[0]
+    out, off = [], 0
+    for s, dt in zip(ctx.shapes, ctx.dtypes):
+        numel = math.prod(s)
+        out.append(mine[off:off + numel].view(s).to(dt))
+        off += numel
+    return out, None, None, None
+
+
+fsdp_gather.register_autograd(_fsdp_gather_backward, setup_context=_fsdp_gather_setup)
+
+
+def vocab_shard_index(ids: torch.Tensor, mesh: Mesh, axes: tuple, size: int):
+    """(index, mine) of vocab ids in this rank's shard of a vocab split
+    over ``axes`` in ``size`` rows a rank (rank i holds rows i * size..):
+    ``mine`` marks the ids the rank holds, ``index`` is their row in the
+    shard, 0 for the rest (a valid row, to be zeroed by ``mine``)."""
+    local = ids - mesh.index(axes) * size
+    mine = (local >= 0) & (local < size)
+    return torch.where(mine, local, 0), mine

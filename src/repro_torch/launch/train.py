@@ -14,6 +14,9 @@ local ranks over a mesh.
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-bert \\
         --attention spectral_shift_fused --seq 8192 --batch 4 --steps 3 \\
         --nproc 4 --mesh 2x2 --seq-axis model
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper-bert \\
+        --attention spectral_shift_fused --seq 4096 --batch 8 --steps 3 \\
+        --nproc 4 --model-parallel 2
 
 trains ``--arch`` (qwen2-7b by default; paper-bert, the paper's own
 setting; the ``moe`` configs deepseek-v2-lite-16b, whose MLA runs no
@@ -46,10 +49,15 @@ is given. ``--metrics-out PATH`` writes the per-step metrics history
 launcher does.
 
 ``--nproc N --mesh DxM`` spawns N local ranks (``launch/mesh.py:
-spawn_local``) over a ("data", "model") mesh of D x M and trains
-data-parallel over "data" and, with ``--seq-axis model`` (the rule
-override ``{"seq": "model"}``), sequence-parallel over "model": attention
-through the context-parallel attention (``kernels/sharded.py``). Ranks take
+spawn_local``) over a ("data", "model") mesh of D x M and trains under
+the default rules: data-parallel over "data", the dense family's
+parameters and moments FSDP over "data" and tensor-parallel over "model"
+(``distributed/sharding.py:param_layout``). ``--model-parallel M`` is the
+reference's flag: the mesh of ``make_local_mesh(M)``, (N / M) x M, and
+stands instead of ``--mesh``. With ``--seq-axis model`` (the rule
+override ``{"seq": "model"}``) the sequence splits over "model", attention
+through the context-parallel attention (``kernels/sharded.py``), and the
+parameters stay whole over the sequence's axis. Ranks take
 GPU rank mod the GPU count and run gloo when they share a card (NCCL
 will not put two ranks of one communicator on one GPU) or run on the
 CPU, nccl when each owns one. Only the launching process
@@ -70,6 +78,7 @@ import torch
 from repro_torch.configs.base import SHAPE_PRESETS, ShapeConfig, TrainConfig, reduced
 from repro_torch.configs.registry import ARCH_IDS, ENCODER_SEQ, get_config
 from repro_torch.data.pipeline import StubFrontendLM
+from repro_torch.models.params import tree_leaves
 from repro_torch.train.trainer import Trainer
 
 
@@ -108,12 +117,22 @@ def main(argv=None):
                     help="local ranks to spawn (1: no mesh)")
     ap.add_argument("--mesh", default=None, type=_mesh_shape,
                     help="DxM: the (data, model) mesh of the ranks (default Nx1)")
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="M: the reference's make_local_mesh(M) layout, (nproc / M) x M "
+                         "(instead of --mesh)")
     ap.add_argument("--seq-axis", default="", choices=["", "data", "model"],
                     help="shard the sequence over this mesh axis (rule override "
                          "{'seq': AXIS})")
     args = ap.parse_args(argv)
     if args.profile and args.steps < 2:
         ap.error("--profile needs --steps >= 2 (the first step is not profiled)")
+    if args.model_parallel:
+        if args.mesh:
+            ap.error("--model-parallel and --mesh both set the mesh: give one")
+        if args.nproc % args.model_parallel:
+            ap.error(f"--nproc {args.nproc} does not split into model axes of "
+                     f"{args.model_parallel}")
+        args.mesh = (args.nproc // args.model_parallel, args.model_parallel)
     if args.nproc > 1 or args.mesh:
         if args.profile:
             ap.error("--profile runs on one device (no --nproc)")
@@ -243,6 +262,12 @@ def _train(args, mesh=None, overrides=None):
                  f"first step {first['step_time_s']:.3f}s, mean step after it "
                  f"{mean_s:.3f}s ({tokens / mean_s:.1f} tokens/s), peak device memory "
                  f"{peak}")
+    if trainer.layout is not None:
+        tp = trainer.layout.tp
+        fsdp = sorted({a for p in tree_leaves(trainer.layout.placements) for a in p.gathered})
+        lines.append(f"[train] parameters and moments placed by the rules: heads over "
+                     f"{tp.heads}, kv heads over {tp.kv_heads}, ff over {tp.ff}, vocab "
+                     f"over {tp.vocab}, FSDP over {tuple(fsdp)}")
     if mesh is not None and not args.profile:
         share = (mesh.collective_seconds - coll0) / t_run
         lines.append(f"[train] collectives: {100 * share:.1f}% of rank 0's steps "

@@ -15,6 +15,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (SSConfig, chunked_attention, full_attention,
                                         spectral_shift_attention)
 from repro_torch.core.landmarks import segment_means
+from repro_torch.distributed.mesh import tp_copy
+from repro_torch.distributed.sharding import active_layout, logical_constraint
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.params import ParamSpec
 
@@ -68,10 +70,19 @@ def _core_attention(cfg: ModelConfig, impl: str, q, k, v, *, causal: bool):
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-def _broadcast_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _broadcast_kv(x: torch.Tensor, num_heads: int, group: int = 0, head0: int = 0,
+                  kv0: int = 0) -> torch.Tensor:
     """(B, Hkv, S, Dh) -> (B, H, S, Dh) by group broadcast (materialized, as
-    the reference's reshape of the broadcast is)."""
+    the reference's reshape of the broadcast is). Under tensor parallelism
+    x holds kv heads kv0.. and the result query heads head0.. of
+    ``num_heads`` local ones: query head g (GLOBAL index) takes kv head
+    g // ``group`` (the model's query heads per kv head)."""
     b, hkv, s, d = x.shape
+    if group:
+        idx = [(head0 + j) // group - kv0 for j in range(num_heads)]
+        if idx == list(range(hkv)):
+            return x
+        return x.index_select(1, torch.tensor(idx, device=x.device))
     if hkv == num_heads:
         return x
     g = num_heads // hkv
@@ -112,12 +123,14 @@ def output_projection(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, s, h * e) @ w_o.to(out.dtype).reshape(h * e, -1)
 
 
-def gqa_project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """x (B,S,D) -> q (B,H,S,Dh), k/v (B,Hkv,S,Dh), bias added, no rotary."""
+def gqa_project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, x_kv=None):
+    """x (B,S,D) -> q (B,H,S,Dh), k/v (B,Hkv,S,Dh) (from ``x_kv``, default
+    x), bias added, no rotary."""
     dt = x.dtype
+    x_kv = x if x_kv is None else x_kv
     q = project_heads(x, p["w_q"])
-    k = project_heads(x, p["w_k"])
-    v = project_heads(x, p["w_v"])
+    k = project_heads(x_kv, p["w_k"])
+    v = project_heads(x_kv, p["w_v"])
     if cfg.qkv_bias:
         q = q + p["b_q"].to(dt)[None, :, None, :]
         k = k + p["b_k"].to(dt)[None, :, None, :]
@@ -129,16 +142,44 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, impl: str, mode: str = "causal"):
     """Full-sequence GQA attention (``attention.py:129``): projections with
     bias, rotary inside (as ``gqa_project_qkv`` :112 applies it), kv-head
-    broadcast, core attention, output projection. Returns (out, None)."""
-    q, k, v = gqa_project_qkv(p, cfg, x)
+    broadcast, core attention, output projection. Returns (out, None).
+
+    Under tensor parallelism (``distributed.sharding.active_layout``: the
+    query heads split over the "model" axes) the rank holds its query
+    heads' slices of ``w_q`` / ``b_q`` / ``w_o``: x enters them through
+    ``tp_copy`` (its cotangent summed over the heads' axes), the kv heads
+    are the rank's own when they split too, else whole (the rank's kv
+    cotangent is its share: ``tp_copy`` on k and v), each local query head
+    meets its kv head by GLOBAL index, attention runs at the local heads
+    and the row-parallel output projection is summed over the heads' axes
+    (``logical_constraint``)."""
+    layout = active_layout()
+    axes = layout.tp.heads if layout is not None else ()
+    tp = None
+    if axes:
+        mesh, tp = layout.mesh, ",".join(axes)
+        x_q = tp_copy(x, mesh.mesh_id, tp)
+        q, k, v = gqa_project_qkv(p, cfg, x_q, x_q if layout.tp.kv_heads else x)
+    else:
+        q, k, v = gqa_project_qkv(p, cfg, x)
     if cfg.rope_theta > 0:
         sin, cos = rotary_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
         sin, cos = sin[:, None], cos[:, None]  # (B,1,S,Dh/2)
         q, k = apply_rotary(q, sin, cos), apply_rotary(k, sin, cos)
-    k = _broadcast_kv(k, cfg.num_heads)
-    v = _broadcast_kv(v, cfg.num_heads)
+    if tp is None:
+        k = _broadcast_kv(k, cfg.num_heads)
+        v = _broadcast_kv(v, cfg.num_heads)
+    else:
+        heads = q.shape[1]
+        kv0 = mesh.index(axes) * k.shape[1] if layout.tp.kv_heads else 0
+        if not layout.tp.kv_heads:
+            k, v = tp_copy(k, mesh.mesh_id, tp), tp_copy(v, mesh.mesh_id, tp)
+        group = cfg.num_heads // cfg.num_kv_heads
+        k = _broadcast_kv(k, heads, group, mesh.index(axes) * heads, kv0)
+        v = _broadcast_kv(v, heads, group, mesh.index(axes) * heads, kv0)
     out = _core_attention(cfg, impl, q, k, v, causal=(mode == "causal"))
-    return output_projection(out.to(x.dtype), p["w_o"]), None
+    out = output_projection(out.to(x.dtype), p["w_o"])
+    return logical_constraint(out, ("batch", "seq", "embed_act"), partial=axes), None
 
 
 def cross_attention_specs(cfg: ModelConfig) -> dict:

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import tp_copy
+from repro_torch.distributed.sharding import active_layout, logical_constraint
 from repro_torch.models.params import ParamSpec
 
 
@@ -83,10 +85,23 @@ def mlp_specs(d_model: int, d_ff: int, act: str) -> dict:
 
 
 def mlp_forward(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """``layers.py:72``."""
+    """``layers.py:72``. Under tensor parallelism (the hidden width split
+    over the "model" axes, ``distributed.sharding.active_layout``)
+    ``w_gate`` / ``w_up`` / ``b_up`` are column-parallel slices, x enters
+    them through ``tp_copy`` and the row-parallel ``w_down`` product is
+    summed over the width's axes before ``b_down``."""
+    layout = active_layout()
+    axes = layout.tp.ff if layout is not None else ()
+    if axes:
+        x = tp_copy(x, layout.mesh.mesh_id, ",".join(axes))
     dt = x.dtype
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-        return h @ p["w_down"].to(dt)
+        return _row_sum(h @ p["w_down"].to(dt), axes)
     h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+    return _row_sum(h @ p["w_down"].to(dt), axes) + p["b_down"].to(dt)
+
+
+def _row_sum(y: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """A row-parallel product's partial sums over ``axes`` summed."""
+    return logical_constraint(y, ("batch", "seq", "embed_act"), partial=axes)

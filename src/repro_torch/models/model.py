@@ -29,6 +29,17 @@ the others carry state along the sequence (the mamba and xLSTM scans,
 Whisper's encoder and cross attention, LLaVA's patch prefix) or route
 tokens over the whole batch (MoE), and raise.
 
+Under a parameter layout (``distributed.sharding.active_layout``: the
+dense family on a mesh under the parameter rules) ``params`` are the
+rank's slices: every leaf's FSDP dims are all-gathered just before use
+(``gather_params``: the top-level leaves at the start, a layer's inside
+its remat boundary, so the recompute gathers again and no gathered layer
+outlives its backward), then cast to the working copy; the layer runs
+tensor-parallel (``models/attention.py``, ``models/layers.py``); the
+embedding is a masked lookup of the rank's vocab rows summed over the
+vocab's axes, and the logits are the rank's vocab columns, which the
+vocab-parallel cross entropy takes (``train/losses.py``).
+
 The forward passes the serving path runs live in ``serve/prefill.py``
 (whole prompt) and ``serve/decode.py`` (one token per lane)."""
 from __future__ import annotations
@@ -41,7 +52,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, resolve_remat
-from repro_torch.distributed.sharding import active_reduce_axes, active_seq_sharding, seq_offset
+from repro_torch.distributed.mesh import fsdp_gather, tp_copy, vocab_shard_index
+from repro_torch.distributed.sharding import (Placement, active_layout, active_reduce_axes,
+                                              active_seq_sharding, logical_constraint,
+                                              seq_offset)
 from repro_torch.models.attention import (cross_attention_forward,
                                           cross_attention_specs, gqa_forward,
                                           gqa_specs, mla_forward, mla_specs)
@@ -50,7 +64,8 @@ from repro_torch.models.layers import (gelu, layer_norm, mlp_forward, mlp_specs,
 from repro_torch.models.moe import moe_forward, moe_specs
 from repro_torch.models.ssm import (_causal_conv, mamba_forward, mamba_specs,
                                     mlstm_chunked, slstm_scan)
-from repro_torch.models.params import ParamSpec, stack_layer_specs, tree_leaves
+from repro_torch.models.params import (ParamSpec, stack_layer_specs, tree_leaves,
+                                      tree_map)
 from repro_torch.train.losses import next_token_loss, sharded_token_loss
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -353,6 +368,47 @@ def _dots_policy(ctx, op, *args, **kwargs):
 REMAT_POLICIES = {"ss_stats": _ss_stats_policy, "dots": _dots_policy}
 
 
+def gather_params(tree, placements, cfg: ModelConfig):
+    """A tree of slices made whole where the model needs it whole (each
+    leaf's ``Placement.gather`` dims, all-gathered as one flat buffer per
+    set of axes: ``mesh.fsdp_gather``), then cast to the working copy
+    (``working_params``). The tensor-parallel dims stay the rank's."""
+    layout = active_layout()
+    leaves, places = tree_leaves(tree), tree_leaves(placements)
+    out = list(leaves)
+    groups: dict = {}
+    for i, pl in enumerate(places):
+        if pl.gather:
+            (dim, axes), = pl.gather     # a dense leaf has one FSDP dim
+            groups.setdefault(axes, []).append((i, dim))
+    for axes, members in groups.items():
+        full = fsdp_gather([leaves[i] for i, _ in members], [d for _, d in members],
+                           layout.mesh.mesh_id, ",".join(axes))
+        for (i, _), t in zip(members, full):
+            out[i] = t
+    it = iter(out)
+    return working_params(tree_map(lambda _: next(it), tree), cfg)
+
+
+def _layer_placements(layout, params) -> list:
+    """Each layer's leaf placements (the stacked ``layers`` dim dropped)."""
+    places = layout.placements["layers"]
+    if isinstance(places, list):
+        return places
+    one = tree_map(lambda p: Placement(p.dims[1:], tuple((d - 1, a) for d, a in p.gather)),
+                   places)
+    return [one] * tree_leaves(params["layers"])[0].shape[0]
+
+
+def _sharded_layer(layer_fn, placements):
+    """``layer_fn`` on a layer's slices: gathered and cast first, inside the
+    remat boundary."""
+    def run(lp, cfg, x, positions, impl, mode):
+        return layer_fn(gather_params(lp, placements, cfg), cfg, x, positions, impl, mode)
+
+    return run
+
+
 def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
     """The decoder trunk, layer by layer (``model.py:325``). Returns
     (x, aux). ``remat`` (``"auto"`` resolved for x's device: ``ss_stats``
@@ -374,13 +430,17 @@ def _run_trunk(params, cfg: ModelConfig, x, positions, impl, mode):
     remat = resolve_remat(cfg.remat, "gpu" if x.is_cuda else "cpu")
     if remat not in ("none", "full", *REMAT_POLICIES):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    for lp in _unstacked_layers(params):
+    layout = active_layout()
+    layers = _unstacked_layers(params)
+    fns = ([_sharded_layer(layer_fn, pl) for pl in _layer_placements(layout, params)]
+           if layout is not None else [layer_fn] * len(layers))
+    for fn, lp in zip(fns, layers):
         if remat == "none":
-            x, a = layer_fn(lp, cfg, x, positions, impl, mode)
+            x, a = fn(lp, cfg, x, positions, impl, mode)
         else:
             kw = {} if remat == "full" else {"context_fn": partial(
                 create_selective_checkpoint_contexts, REMAT_POLICIES[remat])}
-            x, a = checkpoint(layer_fn, lp, cfg, x, positions, impl, mode,
+            x, a = checkpoint(fn, lp, cfg, x, positions, impl, mode,
                               use_reentrant=False, **kw)
         aux = aux + a
     return x, aux
@@ -402,7 +462,13 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
         raise NotImplementedError(
             f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard: "
             f"only the dense family runs sequence-parallel")
-    params = working_params(params, cfg)
+    layout = active_layout()
+    if layout is None:
+        params = working_params(params, cfg)
+    else:   # the top-level leaves whole (bar the vocab's split), the layers later
+        top = {k: v for k, v in params.items() if k != "layers"}
+        params = dict(gather_params(top, {k: layout.placements[k] for k in top}, cfg),
+                      layers=params["layers"])
     if cfg.family == "audio":
         return _whisper_forward(params, cfg, batch)
     dt = torch_dtype(cfg.compute_dtype)
@@ -463,8 +529,10 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
         logits = logits[:, logits.shape[1] - batch["tokens"].shape[1]:]
     if "targets" in batch:
         mesh, axes = active_reduce_axes()
-        ce_loss, metrics = sharded_token_loss(logits, batch["targets"], mesh=mesh,
-                                              axes=axes)
+        layout = active_layout()
+        ce_loss, metrics = sharded_token_loss(
+            logits, batch["targets"], mesh=mesh, axes=axes,
+            vocab_axes=layout.tp.vocab if layout is not None else ())
     else:
         ce_loss, metrics = next_token_loss(logits, batch["tokens"])
     loss = ce_loss + cfg.router_aux_coef * aux
@@ -485,15 +553,35 @@ def layer_params(params: dict, i: int) -> dict:
     return take(layers)
 
 
+def _vocab_axes() -> tuple:
+    layout = active_layout()
+    return layout.tp.vocab if layout is not None else ()
+
+
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(torch_dtype(cfg.compute_dtype))
+    """The token embeddings. Vocab-parallel (the vocab split over the
+    "model" axes): the rank looks up the tokens among its own rows, zeros
+    the rest and the lookups are summed over the vocab's axes."""
+    axes = _vocab_axes()
+    table = params["embed"]
+    if not axes:
+        return table[tokens].to(torch_dtype(cfg.compute_dtype))
+    index, mine = vocab_shard_index(tokens, active_layout().mesh, axes, table.shape[0])
+    x = table[index].to(torch_dtype(cfg.compute_dtype))
+    x = x * mine[..., None].to(x.dtype)
+    return logical_constraint(x, ("batch", "seq", "embed_act"), partial=axes)
 
 
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The logits; vocab-parallel, the rank's vocab columns (x enters them
+    through ``tp_copy``)."""
     if cfg.tie_embeddings:
         w = params["embed"].to(x.dtype).T
     else:
         w = params["lm_head"].to(x.dtype)
+    axes = _vocab_axes()
+    if axes:
+        x = tp_copy(x, active_layout().mesh.mesh_id, ",".join(axes))
     return x @ w
 
 

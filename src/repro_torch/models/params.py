@@ -5,7 +5,10 @@ Mirrors ``repro/models/params.py``. A model declares a nested dict of
 ``torch.Generator``, and ``params_from_numpy`` is the weight bridge that
 takes the reference's parameters (``np.asarray`` of each JAX leaf) into the
 port with the same layouts (``w_q`` (d, h, dh), ``w_o`` (h, dh, d), the
-stacked ``layers`` axis first).
+stacked ``layers`` axis first). Under a parameter layout
+(``distributed/sharding.py:param_layout``) ``shard_tree`` cuts a whole
+tree to a rank's slices and ``gather_tree`` puts the whole tensors back
+together on every rank.
 """
 from __future__ import annotations
 
@@ -164,6 +167,36 @@ def tree_map(fn: Callable, tree, *rest):
     out = {path: fn(leaf, *(r[path] for r in rests))
            for path, leaf in flatten_with_paths(tree).items()}
     return unflatten_with_paths(tree, out)
+
+
+def shard_leaf(t: torch.Tensor, placement, mesh) -> torch.Tensor:
+    """The rank's slice of a whole tensor at its ``placement``
+    (``distributed.sharding.Placement``): each dimension cut into as many
+    equal parts as its mesh axes span ranks, the part at the rank's flat
+    index over them (a contiguous copy)."""
+    for dim, axes in enumerate(placement.dims):
+        if axes:
+            t = t.chunk(mesh.axis_size(axes), dim)[mesh.index(axes)]
+    return t.contiguous()
+
+
+def shard_tree(tree, placements, mesh):
+    """``shard_leaf`` over a tree and its placements (same structure)."""
+    return tree_map(lambda t, p: shard_leaf(t, p, mesh), tree, placements)
+
+
+def gather_tree(tree, placements, mesh):
+    """The whole tensors of a tree of slices, on every rank: each split
+    dimension all-gathered over its axes (a collective: every rank calls
+    it, in the same order)."""
+    def gather(t, placement):
+        t = t.detach()
+        for dim, axes in enumerate(placement.dims):
+            if axes:
+                t = mesh.all_gather(t, axes, dim=dim)
+        return t
+
+    return tree_map(gather, tree, placements)
 
 
 def count_params(specs) -> int:

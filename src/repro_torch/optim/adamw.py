@@ -33,18 +33,32 @@ def adamw_init(params) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
-                                   for x in tree_leaves(tree)]).sum())
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """The l2 norm of every leaf together. ``layout`` (a parameter layout,
+    ``distributed/sharding.py``): the leaves are the rank's slices, and
+    the squares of each are summed over the mesh axes that leaf is split
+    over (one all-reduce per set of axes), never over those it is
+    replicated on, so every rank gets the single device's norm."""
+    squares = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if layout is None:
+        return torch.sqrt(torch.stack(squares).sum())
+    groups: dict = {}
+    for sq, pl in zip(squares, tree_leaves(layout.placements)):
+        groups.setdefault(pl.split, []).append(sq)
+    total = [layout.mesh.all_reduce(torch.stack(g).sum(), "sum", axes) if axes
+             else torch.stack(g).sum() for axes, g in sorted(groups.items())]
+    return torch.sqrt(torch.stack(total).sum())
 
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, tcfg: TrainConfig,
-                 lr_fn: Callable[[torch.Tensor], torch.Tensor]):
+                 lr_fn: Callable[[torch.Tensor], torch.Tensor], layout=None):
     """One AdamW step (``adamw.py:38``), in place on ``params`` and the
-    moments of ``state``. Returns (params, new_state, metrics)."""
+    moments of ``state`` (under a parameter ``layout``, on the rank's
+    slices: the update is elementwise, the norm ``global_norm``'s).
+    Returns (params, new_state, metrics)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     clip_scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = tcfg.beta1, tcfg.beta2
     lr = lr_fn(step).float()

@@ -11,7 +11,13 @@ Under a mesh (``distributed.sharding.sharding_rules``) each rank's loss is
 its share of the global mean (``losses.sharded_token_loss``): the step
 sums the gradients and the loss over every axis the batch or the sequence
 spans, as one flat fp32 buffer, before the optimizer, so the grad norm,
-the clipping and the update are the same on every rank.
+the clipping and the update are the same on every rank. Under a parameter
+layout (``distributed.sharding.active_layout``) a leaf's gradient is its
+slice's: the FSDP gather's backward has already summed it over the axes
+it was gathered over, so the step sums it over the rest of the batch's and
+sequence's axes only, and over the tensor-parallel axes not at all (each
+rank's slice is complete: ``tp_copy`` summed the shares where a whole
+activation entered the slice's work).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.distributed.sharding import active_reduce_axes
+from repro_torch.distributed.sharding import active_layout, active_reduce_axes
 from repro_torch.models.model import loss_fn
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim.adamw import adamw_update
@@ -40,16 +46,29 @@ def value_and_grad(params, cfg: ModelConfig, batch: dict):
 
 def _sum_over_ranks(loss, grads):
     """Under a mesh, the loss and every gradient leaf summed (fp32) over the
-    axes the batch or the sequence spans, the leaves as one flat buffer in
-    one collective; as they are otherwise."""
+    axes the batch or the sequence spans (a leaf of a parameter layout:
+    those its FSDP gather did not sum), the leaves that share the axes as
+    one flat buffer in one collective; as they are otherwise."""
     mesh, axes = active_reduce_axes()
     if mesh is None or mesh.axis_size(axes) == 1:
         return loss, grads
     leaves = tree_leaves(grads)
-    flat = mesh.all_reduce(torch.cat([g.float().reshape(-1) for g in leaves]), "sum", axes)
-    parts = iter(flat.split([g.numel() for g in leaves]))
-    return (mesh.all_reduce(loss, "sum", axes),
-            tree_map(lambda g: next(parts).view(g.shape), grads))
+    layout = active_layout()
+    gathered = ([pl.gathered for pl in tree_leaves(layout.placements)]
+                if layout is not None else [()] * len(leaves))
+    groups: dict = {}
+    for i, done in enumerate(gathered):
+        groups.setdefault(tuple(a for a in axes if a not in done), []).append(i)
+    out = [g.float() for g in leaves]
+    for sum_axes, members in groups.items():
+        if mesh.axis_size(sum_axes) == 1:
+            continue
+        flat = mesh.all_reduce(torch.cat([out[i].reshape(-1) for i in members]), "sum",
+                               sum_axes)
+        for i, part in zip(members, flat.split([leaves[i].numel() for i in members])):
+            out[i] = part.view(leaves[i].shape)
+    it = iter(out)
+    return mesh.all_reduce(loss, "sum", axes), tree_map(lambda _: next(it), grads)
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, lr_fn: Callable):
@@ -75,7 +94,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, lr_fn: Callable):
             loss, metrics, grads = value_and_grad(params, cfg, batch)
         loss, grads = _sum_over_ranks(loss, grads)
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
-                                                      tcfg, lr_fn)
+                                                      tcfg, lr_fn, active_layout())
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -22,27 +22,41 @@ tokens only, so Whisper and LLaVA need a source with ``frames`` /
 ``patches`` (``data/pipeline.py:StubFrontendLM``).
 
 With a ``mesh`` (``distributed/mesh.py``; every rank constructs its Trainer
-with the same arguments) the trainer runs data- and sequence-parallel
-under the logical-axis rules (``distributed/sharding.py``,
-``rule_overrides`` as the reference's): ``apply_seq_sharding_config``
-first; parameters replicated and asserted identical on every rank after
-init; each step every rank builds the global batch from the seed and takes
-its rows and sequence slice (``make_global_batch``), its loss is its share
-of the global mean and the step sums the gradients over the batch's and
-sequence's axes before the optimizer (``train/train_step.py``); rank 0
-writes the checkpoints, every rank restores. Under a sequence shard
-attention runs the context-parallel attention (``kernels/sharded.py``) and
-``_warm_attention_plans`` resolves the sharded key. Refused, as waiting
-(ROADMAP): a rule that shards parameters over an axis of size > 1 (tensor
-parallelism, FSDP, expert parallelism), any family but the dense one
-under a sequence shard, MoE and the frontend families (Whisper, LLaVA)
-under any split of the batch. The reference's elastic re-planning,
-heartbeats, failure injection and the expert-parallel ``moe_impl="ep"``
-are not ported; ``grad_compression`` stays refused (the reference accepts
-it and reads it nowhere; ``optim/compression.py`` holds the collective).
-``opt_state_dtype``
-is accepted and, as in the reference's trainer, not read (only its dry-run
-reads it).
+with the same arguments) the trainer runs under the logical-axis rules
+(``distributed/sharding.py``, ``rule_overrides`` as the reference's):
+``apply_seq_sharding_config`` first; each step every rank builds the
+global batch from the seed and takes its rows and sequence slice
+(``make_global_batch``), its loss is its share of the global mean and the
+step sums the gradients over the batch's and sequence's axes before the
+optimizer (``train/train_step.py``). The dense family's parameters and
+both AdamW moments are placed by the parameter rules
+(``sharding.param_layout``, the reference's ``shardings_for`` at
+``repro/train/trainer.py:115-135``): by default FSDP over "data" and
+tensor parallelism over "model", a dimension the axes do not divide left
+whole, a mesh axis the sequence claims left out. Every rank builds the
+single-device Trainer's full initial tree from ``tcfg.seed`` (or loads the
+checkpoint's whole arrays) and keeps its slices (``Trainer.params``);
+ranks that hold the same slice are checked to hold the same bytes.
+``full_state()`` gathers the whole state on every rank (a collective:
+every rank calls it); checkpoints go through it, rank 0 writes whole
+arrays, so a checkpoint restores onto any layout or onto one device.
+Under a sequence shard attention runs the context-parallel attention
+(``kernels/sharded.py``) and ``_warm_attention_plans`` resolves the
+sharded key; elsewhere its sweep runs at the rank's rows times its query
+heads. Refused
+(ROADMAP): an explicit parameter override on the sequence's axis, for a
+family other than the dense one (or MoE, MLA: their parameters stay
+replicated), or that the dense layer cannot run
+(``sharding.param_rule_conflicts``); any family but the dense one under
+a sequence shard, MoE and the frontend families (Whisper, LLaVA) under any
+split of the batch. The reference's elastic re-planning, heartbeats,
+failure injection and the expert-parallel ``moe_impl="ep"`` are not
+ported; ``grad_compression`` stays refused (the reference accepts it and
+reads it nowhere; ``optim/compression.py`` holds the collective).
+``opt_state_dtype`` is accepted and, as in the reference's trainer, not
+read (only its dry-run reads it). ``lr_fn`` takes the learning-rate
+schedule, as the reference's (``repro/train/trainer.py:69``); the default
+is ``warmup_cosine`` from ``tcfg``.
 
 ``telemetry=`` takes a caller-owned ``Telemetry`` (``repro/train/
 trainer.py:70-92``): each step runs in a ``step_span("train_step",
@@ -65,19 +79,21 @@ import contextlib
 import hashlib
 import logging
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticLM, make_global_batch, to_device
-from repro_torch.distributed.sharding import (apply_seq_sharding_config, batch_axes,
+from repro_torch.distributed.sharding import (Placement, apply_seq_sharding_config,
+                                              batch_axes, param_layout,
                                               param_rule_conflicts, seq_axes,
                                               seq_axis_sharded, sharding_rules)
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import model_specs, torch_dtype
-from repro_torch.models.params import init_params, map_specs, tree_leaves
+from repro_torch.models.params import (flatten_with_paths, gather_tree, init_params,
+                                      map_specs, shard_tree, tree_leaves)
 from repro_torch.optim.adamw import AdamWState, adamw_init
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.serve.engine import resolve_device
@@ -96,10 +112,9 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                      overrides: Optional[dict] = None) -> None:
     seq_split = mesh is not None and seq_axis_sharded(mesh, overrides)
     rows_split = mesh is not None and mesh.axis_size(batch_axes(mesh, overrides)) > 1
-    conflicts = param_rule_conflicts(mesh, overrides) if mesh is not None else []
+    conflicts = param_rule_conflicts(mesh, overrides, cfg) if mesh is not None else []
     unsupported = {
-        f"parameter sharding ({', '.join(conflicts)}: tensor parallelism, FSDP, "
-        f"expert parallelism)": bool(conflicts),
+        f"parameter sharding ({', '.join(conflicts)})": bool(conflicts),
         f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard": (
             seq_split and (cfg.family != "dense" or cfg.moe)),
         f"attention {cfg.attention_impl!r} / backend {cfg.attention_backend!r} under a "
@@ -124,7 +139,8 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, shape: ShapeConfig,
                  mesh=None, *, rule_overrides: Optional[dict] = None, device="cuda",
-                 telemetry: Optional[Telemetry] = None, data=None):
+                 telemetry: Optional[Telemetry] = None, data=None,
+                 lr_fn: Optional[Callable] = None):
         self.mesh = mesh
         self.rule_overrides = dict(rule_overrides or {})
         if mesh is not None:
@@ -145,8 +161,11 @@ class Trainer:
         self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                                         global_batch=shape.global_batch, seed=tcfg.seed)
         self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
-        self.step_fn = make_train_step(cfg, tcfg, warmup_cosine(
-            tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps))
+        self.lr_fn = lr_fn or warmup_cosine(tcfg.learning_rate, tcfg.warmup_steps,
+                                            tcfg.total_steps)
+        self.layout = (param_layout(mesh, cfg, model_specs(cfg), self.rule_overrides)
+                       if mesh is not None else None)
+        self.step_fn = make_train_step(cfg, tcfg, self.lr_fn)
         if self.telemetry.enabled:
             r = self.telemetry.metrics
             dispatch.set_metrics(r)
@@ -162,7 +181,7 @@ class Trainer:
         self.metrics_history: list[dict] = []
         self._init_or_restore()
         if mesh is not None:
-            self._check_replicated()
+            self._check_slices()
         self.plan = self._warm_attention_plans()
 
     def _rules(self):
@@ -170,21 +189,35 @@ class Trainer:
         a mesh)."""
         if self.mesh is None:
             return contextlib.nullcontext()
-        return sharding_rules(self.mesh, self.rule_overrides)
+        return sharding_rules(self.mesh, self.rule_overrides, self.layout)
 
-    def _check_replicated(self) -> None:
-        """Raise unless every rank holds bit-identical parameters and
-        optimizer state (a digest of their bytes, gathered)."""
+    def _state_placements(self):
+        """The placements of ``state()``'s leaves (the moments' are their
+        parameters'; the step is whole)."""
+        places = self.layout.placements
+        return {"params": places, "opt": AdamWState(step=Placement(()), m=places, v=places)}
+
+    def _check_slices(self) -> None:
+        """Raise unless the ranks that hold the same slice of a leaf hold the
+        same bytes (a digest per leaf and slice, gathered; with whole
+        parameters, every rank's state)."""
         import torch.distributed as dist
 
-        h = hashlib.sha256()
-        for t in tree_leaves(self.state()):
-            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
-        digests = [None] * dist.get_world_size()
-        dist.all_gather_object(digests, h.hexdigest())
-        if len(set(digests)) != 1:
-            raise RuntimeError(f"Trainer: ranks hold different parameters after init "
-                               f"(digests {digests})")
+        mine = {}
+        places = (tree_leaves(self._state_placements()) if self.layout is not None
+                  else [Placement(())] * len(tree_leaves(self.state())))
+        for (path, t), pl in zip(flatten_with_paths(self.state()).items(), places):
+            where = tuple(self.mesh.index(axes) for axes in pl.dims)
+            data = t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+            mine[(path, where)] = hashlib.sha256(data).hexdigest()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        seen: dict = {}
+        for rank, digests in enumerate(every):
+            for key, digest in digests.items():
+                if seen.setdefault(key, digest) != digest:
+                    raise RuntimeError(f"Trainer: rank {rank} holds other bytes than a "
+                                       f"rank with the same slice of {key[0]} after init")
 
     def _warm_attention_plans(self) -> Optional[dispatch.Plan]:
         """Resolve the train shape's attention plan before the first step
@@ -226,13 +259,26 @@ class Trainer:
                 plan = dispatch.autotune(
                     self.shape.seq_len, cfg.num_landmarks, cfg.resolved_head_dim,
                     dtype=cfg.compute_dtype, causal=cfg.is_decoder_only,
-                    backend=key.backend, backward=True,
-                    batch=self.shape.global_batch * cfg.num_heads)
+                    backend=key.backend, backward=True, batch=self._attention_batch())
         log.info("attention plan for n=%d (%s): impl=%s block_n=%d",
                  self.shape.seq_len, plan.source, plan.impl, plan.block_n)
         return plan
 
+    def _attention_batch(self) -> int:
+        """Batch-heads of one attention call on this rank: its rows times
+        its query heads."""
+        rows = self.shape.global_batch
+        heads = self.cfg.num_heads
+        if self.mesh is not None:
+            rows //= self.mesh.axis_size(batch_axes(self.mesh, self.rule_overrides))
+        if self.layout is not None and self.layout.tp.heads:
+            heads //= self.mesh.axis_size(self.layout.tp.heads)
+        return rows * heads
+
     def _init_or_restore(self) -> None:
+        """The state from the latest checkpoint's whole arrays, else the
+        single-device initial tree from ``tcfg.seed``; under a parameter
+        layout every rank then keeps its slices."""
         specs = model_specs(self.cfg)
         latest = self.ckpt.latest_step()
         if latest is not None:
@@ -240,23 +286,35 @@ class Trainer:
             skel = map_specs(lambda _path, _spec: None, specs)
             state = self.ckpt.restore(latest, {"params": skel, "opt": AdamWState(
                 step=None, m=skel, v=skel)}, device=self.device)
-            self.params, self.opt_state = state["params"], state["opt"]
             self.step = latest
-            return
-        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        self.params = init_params(specs, gen, dtype=torch_dtype(self.cfg.param_dtype),
-                                  device=self.device)
-        self.opt_state = adamw_init(self.params)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+            params = init_params(specs, gen, dtype=torch_dtype(self.cfg.param_dtype),
+                                 device=self.device)
+            state = {"params": params, "opt": adamw_init(params)}
+        if self.layout is not None:
+            state = shard_tree(state, self._state_placements(), self.mesh)
+        self.params, self.opt_state = state["params"], state["opt"]
 
     def state(self) -> dict:
-        """What a checkpoint holds: ``{"params": ..., "opt": AdamWState}``."""
+        """The rank's state: ``{"params": ..., "opt": AdamWState}``, slices
+        under a parameter layout."""
         return {"params": self.params, "opt": self.opt_state}
 
+    def full_state(self) -> dict:
+        """The whole state, what a checkpoint holds, on every rank: under a
+        parameter layout each leaf's slices all-gathered (a collective:
+        every rank calls it); else ``state()`` itself."""
+        if self.layout is None:
+            return self.state()
+        return gather_tree(self.state(), self._state_placements(), self.mesh)
+
     def save(self, blocking: bool = False) -> None:
-        """Checkpoint the state (under a mesh, rank 0 writes: the state is
-        replicated)."""
+        """Checkpoint the whole state: every rank gathers it (on its main
+        thread), rank 0 writes (``blocking=False``: on its writer thread)."""
+        state = self.full_state()
         if self.mesh is None or self.mesh.rank == 0:
-            self.ckpt.save(self.step, self.state(), blocking=blocking)
+            self.ckpt.save(self.step, state, blocking=blocking)
 
     def _batch(self, step: int) -> dict:
         host = self.data.batch(step)

@@ -14,10 +14,11 @@ batch 4, ``attention_impl="spectral_shift_fused"`` with the reference's
   its losses against ``jax.jit(repro.train.train_step.make_train_step)``
   on one device from the same initial weights and batches (rel 1e-4;
   measured 2.2e-7);
-* no override: data-parallel over "data", "model" replicas (the default
-  rules' parameter entries are not applied), held the same way;
+* no override: data-parallel over "data" under the default rules, whose
+  parameter entries now apply (FSDP over "data", tensor parallelism over
+  "model"), held the same way;
 * checkpoints: rank 0 writes, a second Trainer on every rank restores the
-  same step and parameters; parameters identical on every rank;
+  same step and parameters; gathered parameters identical on every rank;
 * ``make_global_batch``: every rank's rows, sequence slice and targets
   reassemble the global batch and its next-token targets; ``make_local_mesh``
   lays the ranks out row-major, as ``spawn_local``'s mesh;
@@ -58,9 +59,11 @@ def _shape():
 
 
 def _params(tr) -> list:
+    """The whole parameters (``Trainer.full_state``: gathered under a
+    parameter layout; a collective that every rank calls)."""
     from repro_torch.models.params import tree_leaves
 
-    return [t.detach().numpy().copy() for t in tree_leaves(tr.params)]
+    return [t.detach().numpy().copy() for t in tree_leaves(tr.full_state()["params"])]
 
 
 def _refusals(mesh, ckpt: str) -> dict:
