@@ -121,9 +121,10 @@ result line):
    victims, resumed requests), each prompt alone at 8 layers, cold and
    preempted after its first chunk while the pool has room
    (``serve_park_resume``: the parked snapshot is restored, tokens and
-   launches identical to the cold run), and with ``prefix_cache=True`` over the
-   sequence A, A, B (A's first 256 tokens + 77), C, C one request at a
-   time (``serve_prefix_cache``: hits 3, misses 2, a copy-on-write, tokens
+   launches identical to the cold run), and at 8 layers with
+   ``prefix_cache=True`` over the sequence A, A, B (A's first 256 tokens +
+   77), C, C one request at a time (``serve_prefix_cache``: hits 3, misses
+   2, a copy-on-write, tokens
    identical to a cold chunked engine on the same sequence); then the
    main path with ``decode_streaming="frozen"`` (``serve_frozen``: K1 and
    K2 launch, K5 never; boundary rebases and their ms), and at 8 layers
@@ -140,11 +141,11 @@ result line):
    peak GiB) and its first 4 layers under frozen streaming with chunks of
    128 and the prefix cache over the same sequence
    (``serve_deepseek_chunked_frozen``: tokens identical to a cold frozen
-   chunked engine); Hymba-1.5B (``serve_hymba``: all 32 layers at full
-   width, ``ss_fused`` + ``paged``, prompts of 16/40/64/100 tokens, which
-   the family prefills by token replay, as the reference: K5 32 a tick, K1
-   and K2 never; ``serve_hymba_frozen``: frozen streaming, K5 never,
-   lane rebases); Whisper-base (``serve_whisper``: its 6 decoder layers,
+   chunked engine); Hymba-1.5B (``serve_hymba``: 8 of its 32 layers at
+   full width, ``ss_fused`` + ``paged``, prompts of 16/40/64/100 tokens,
+   which the family prefills by token replay, as the reference: K5 8 a
+   tick, K1 and K2 never; ``serve_hymba_frozen``: frozen streaming, K5
+   never, lane rebases); Whisper-base (``serve_whisper``: its 6 decoder layers,
    ``ss_fused`` + ``paged``, prompts of 16/40/64/100 tokens by token
    replay, cross K/V zero as the reference's engine serves them: K5 6 a
    tick; ``serve_whisper_frozen``: K5 never, lane rebases);
@@ -206,23 +207,35 @@ result line):
    fp32 within 2e-4 / 5e-4 of max-abs forward / gradients, bf16 printed,
    remat "ss_stats" bitwise equal to none, K1-K4 counted on each rank)
    and ``sp_train`` (paper-bert at full width and depth, global seq 8192,
-   batch 4, 3 steps, data over "data" and the sequence over "model",
+   batch 4, 2 steps, data over "data" and the sequence over "model",
    step 0's loss within 1.5e-3 of the single-process ``Trainer``'s, a
    bound a control with one shard's B-side partial dropped must exceed,
    the later losses within the sanity bound 5e-3, a 1-layer fp32 twin's
    gradients within 5e-4; ms a step, peak
    GiB and the collectives' share per rank; its parameters stay whole
    through the override ``{"seq": "model", "embed": None}``) and
-   ``tp_train`` (paper-bert at full width and depth, seq 4096, global
-   batch 8, 3 steps under the default rules: FSDP over "data", query
-   heads, MLP width and vocab over "model", K1-K4 at each rank's 4 rows x
-   4 heads; its bf16 losses within the sanity bound 2e-2 of
-   ``train_paper_bert``'s fused run; step 0's forward of the same weights
-   at 4 fp32 layers within 1e-4 of one device's, a bound a control with
-   layer 0's MLP all-reduce dropped must exceed; the 1-layer fp32 twin's
-   gathered gradients within 5e-4, its checkpoint restored bitwise onto a
-   1 x 4 mesh and onto one device; ms a step, peak GiB, the collectives'
-   share);
+   ``tp_train`` (paper-bert at full width cut to 4 fp32 layers, seq
+   4096, global batch 8, 2 steps under the default rules: FSDP over
+   "data", query heads, MLP width and vocab over "model", K1-K4 at each
+   rank's 4 rows x 4 heads; step 0's forward of the same weights within
+   1e-4 of one device's, a bound a control with layer 0's MLP all-reduce
+   dropped must exceed; the 1-layer fp32 twin's gathered gradients within
+   5e-4, the checkpoint restored bitwise onto a 1 x 4 mesh and onto one
+   device; ms a step, peak GiB, the collectives' share); ``ep_train``
+   (DeepSeek-V2-Lite at full width cut to 2 layers, ``moe_impl="ep"`` on a
+   4 x 1 mesh of the same ranks, 16 of the 64 experts a rank: step 0 at 1
+   fp32 layer with capacity E / k within 1e-6 of one device's under
+   "gspmd", a bound a control with the return exchange reversed must
+   exceed; then bf16, seq 2048, batch 4, 2 steps: ms a step, the
+   exchanges' and all-reduces' shares, the dropped slots, peak GiB; no
+   kernel) and ``pp_train`` (paper-bert at full width and depth over a
+   ("pipe",) mesh of 4 stages of 3 layers, 8 microbatches of 2 x 4096:
+   at 4 fp32 layers the pipelined forward and loss equal the sequential
+   layers' one microbatch at a time bitwise, the stage gradients within
+   1e-5, a control fed a stale activation must differ; then bf16, 3
+   forward + backward passes of the CE: ms a step, send / recv /
+   broadcast shares beside the schedule's bubble, peak GiB, K1-K4 24 each
+   a rank and step);
    then each kernel timed at the tiling the sweeps chose
    (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
@@ -2440,8 +2453,8 @@ def serve_chunked_phase(torch, dev, layers: int) -> dict:
       blocks, TIGHT_NEW new tokens, depth cut to TIGHT_LAYERS: decode growth
       runs the pool dry, so requests are preempted (victims caught
       mid-prefill are parked) and resume;
-    * ``serve_prefix_cache``: the same settings with ``prefix_cache=True``,
-      one request at a time to completion: A (384 tokens, cold), A (an
+    * ``serve_prefix_cache``: the same settings at TIGHT_LAYERS layers with
+      ``prefix_cache=True``, one request at a time to completion: A (384 tokens, cold), A (an
       aligned full hit), B = A's first 256 tokens + 77 of its own (a
       partial hit resuming at 256), C (333, cold), C (an unaligned full hit:
       copy-on-write); hits 3, misses 2, cow_copies >= 1, and greedy tokens
@@ -2473,7 +2486,8 @@ def serve_chunked_phase(torch, dev, layers: int) -> dict:
     park = park_resume_run(torch, dev, tight_cfg, first_layers(params, tight_cfg.num_layers),
                            chunked)
 
-    prefix, cold = prefix_runs(torch, dev, cfg, params, chunked, "serve_prefix_cache")
+    prefix, cold = prefix_runs(torch, dev, tight_cfg, first_layers(params, tight_cfg.num_layers),
+                               chunked, "serve_prefix_cache")
     st = prefix["stats"]
     if (st["prefix"]["hits"], st["prefix"]["misses"]) != (3, 2) or st["cow_copies"] < 1:
         raise AssertionError(f"serve_prefix_cache: prefix {st['prefix']}, cow_copies "
@@ -3390,7 +3404,7 @@ def train_steps(torch, dev, cfg, shape, steps: int, label: str, data=None) -> di
     return dict(losses=losses, ms=ms, peak=peak, launches=counts)
 
 
-def train_paper_bert_phase(torch, dev) -> tuple:
+def train_paper_bert_phase(torch, dev) -> dict:
     """``train_paper_bert``: the paper's own config at its full size (12
     layers, d_model 512, 8 heads of 64, c = 64, vocab 30522), train_4k's
     seq 4096 at batch PAPER_BERT_BATCH, 3 steps each under
@@ -3401,8 +3415,7 @@ def train_paper_bert_phase(torch, dev) -> tuple:
     dispatch's plain route, no kernel may launch, the step-0 loss within
     JNP_BACKEND_TOL of spectral_shift's); the fused losses within PAPER_BERT_TOL (relative) of
     spectral_shift's, and the broken-K1 controls past it. Returns each run's
-    launch counts by path name, and the fused run (``tp_train``'s
-    single-process reference: the same config, shape, seed and steps)."""
+    launch counts by path name."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
 
@@ -3444,8 +3457,7 @@ def train_paper_bert_phase(torch, dev) -> tuple:
     controls(torch, dev, dataclasses.replace(get_config("paper-bert"),
                                              attention_impl="spectral_shift_fused"),
              shape, ref, [PAPER_BERT_TOL] * len(ref), "train_paper_bert")
-    return ({f"train_paper_bert_{impl}": r["launches"] for impl, r in runs.items()},
-            runs["spectral_shift_fused"])
+    return {f"train_paper_bert_{impl}": r["launches"] for impl, r in runs.items()}
 
 
 def train_chunked_phase(torch, dev, layers: int) -> dict:
@@ -3528,6 +3540,7 @@ def autotuned_rows(torch, dev, kernels: list, train_plan, decode_plan) -> None:
 HYMBA = "hymba-1.5b"
 HYMBA_LENS = [16, 40, 64, 100]   # token replay costs a tick per prompt token
 HYMBA_TRAIN_BATCH = 2            # train_4k's global batch of 256 cut to 2
+HYMBA_LAYERS = 8                 # served and trained (of 32): chip time for ep_train / pp_train
 DEEPSEEK_TRAIN_LAYERS = 4        # of 27: 16 B a parameter of masters and AdamW state
 DEEPSEEK_TRAIN_BATCH = 1
 
@@ -3824,13 +3837,14 @@ def serve_replay_phase(torch, dev, arch: str, label: str, lens, frozen_twin: boo
 
 
 def serve_hymba_phase(torch, dev) -> dict:
-    """``serve_hymba`` (all 32 layers, prompts of HYMBA_LENS tokens) and
-    ``serve_hymba_frozen`` (``serve_replay_phase``)."""
-    return serve_replay_phase(torch, dev, HYMBA, "serve_hymba", HYMBA_LENS)
+    """``serve_hymba`` and ``serve_hymba_frozen`` at HYMBA_LAYERS, prompts
+    of HYMBA_LENS tokens (``serve_replay_phase``)."""
+    return serve_replay_phase(torch, dev, HYMBA, "serve_hymba", HYMBA_LENS,
+                              layers=HYMBA_LAYERS)
 
 
 def train_hymba_phase(torch, dev) -> dict:
-    """``train_hymba``: Hymba-1.5B, all 32 layers at full width, train_4k's
+    """``train_hymba``: Hymba-1.5B at full width cut to HYMBA_LAYERS, train_4k's
     seq 4096 at batch HYMBA_TRAIN_BATCH, remat "full", 3 steps under
     ``spectral_shift_fused`` (K1-K4 at 50 batch-heads of d = 64: K1 2 / K2
     2 / K3 1 / K4 1 a layer and step) and 3 under the config's own
@@ -3842,7 +3856,8 @@ def train_hymba_phase(torch, dev) -> dict:
     shape = ShapeConfig("train_4k", 4096, HYMBA_TRAIN_BATCH, "train")
     runs = {}
     for impl in ("spectral_shift_fused", "chunked"):
-        cfg = dataclasses.replace(get_config(HYMBA), attention_impl=impl, remat="full")
+        cfg = dataclasses.replace(get_config(HYMBA), attention_impl=impl, remat="full",
+                                  num_layers=HYMBA_LAYERS)
         label = "train_hymba" if impl == "spectral_shift_fused" else f"train_hymba_{impl}"
         runs[label] = train_steps(torch, dev, cfg, shape, 3, label)
         n = 3 * cfg.num_layers
@@ -4557,7 +4572,7 @@ def train_xlstm_phase(torch, dev) -> dict:
 SP_MESH = (2, 2)                 # ("data", "model"): 4 ranks on the one card
 SP_ATTENTION = dict(b=56, c=64, n=8192, d=128)   # Qwen2-7B's training shape, 8k
 SP_FWD_TOL, SP_GRAD_TOL = 2e-4, 5e-4   # fp32, TF32 off, relative to max-abs
-SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS = 8192, 4, 3
+SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS = 8192, 4, 2
 SP_LOSS_TOL = 5e-3               # SP against single-process losses, relative
 SP_STEP0_TOL = 1.5e-3            # step 0 (a forward of the same weights), relative
 SP_TIMEOUT_S = 600.0             # every collective of the ranks' group
@@ -4784,7 +4799,7 @@ def sp_train_rank(mesh, seq: int, batch: int, steps: int) -> dict:
 # --------------------------------------------------------------------------
 # tensor parallelism x FSDP: the same ranks
 # --------------------------------------------------------------------------
-TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS = 4096, PAPER_BERT_BATCH, 3
+TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS = 4096, PAPER_BERT_BATCH, 2
 # a rank's attention batch-heads: 8 rows over 2 "data" ranks x 8 heads over
 # 2 "model" ranks
 TP_RANK_BATCH_HEADS = (TP_TRAIN_BATCH // 2) * (8 // 2)
@@ -4796,10 +4811,8 @@ TP_RANK_BATCH_HEADS = (TP_TRAIN_BATCH // 2) * (8 // 2)
 # moves it by 3.2e-3 (float64: identical at 12 layers).
 TP_STEP0_LAYERS = 4
 TP_STEP0_TOL = 1e-4              # relative
-# The 12-layer bf16 losses: a sanity bound only (P1, P3). It separates no
-# fault: at 12 layers dropping layer 0's MLP all-reduce moves step 0 by
-# less than rounding does. The step-0 check above and the twin catch faults.
-TP_LOSS_TOL = 2e-2
+# The steps train that 4-layer fp32 config (the 12-layer bf16 steps, whose
+# loss bound separated no fault, went to pay for ep_train and pp_train).
 
 
 def tp_step0_ce(trainer, drop: bool) -> float:
@@ -4840,19 +4853,19 @@ def params_digest(trainer) -> str:
 
 def tp_train_rank(mesh, seq: int, batch: int, steps: int, ckpt: str) -> dict:
     """One rank of ``tp_train``: the ``Trainer`` on paper-bert at full width
-    and depth under ``spectral_shift_fused`` and the default rules: rows
-    and FSDP over "data", query heads, MLP width and vocab over "model"
-    (4 rows and 4 heads a rank: K1-K4 at b = 16). Step 0's forward at the
-    initial weights of ``tp_step0_config`` (4 fp32 layers), sound and with
-    layer 0's MLP all-reduce dropped (``tp_step0_ce``, uncounted); losses,
-    ms a step after the first, peak
-    GiB, the share of the steps in collectives and the launches of the
-    steps; a checkpoint of the last step into ``ckpt`` (rank 0 writes
-    whole arrays), restored onto a 1 x 4 mesh (``make_local_mesh(4)``:
-    the digest of its gathered parameters against the 2 x 2 run's); then
-    the 1-layer fp32 twin: one grad step on the rank's slices under the
-    layout, gradients gathered, and on rank 0 the single-device grad step
-    on the whole batch, held leaf by leaf."""
+    under ``spectral_shift_fused`` cut to ``tp_step0_config``'s 4 fp32
+    layers (TF32 off) and the default rules: rows and FSDP over "data",
+    query heads, MLP width and vocab over "model" (4 rows and 4 heads a
+    rank: K1-K4 at b = 16). Step 0's forward at the initial weights,
+    sound and with layer 0's MLP all-reduce dropped (``tp_step0_ce``,
+    uncounted); losses, ms a step after the first, peak GiB, the share of
+    the steps in collectives and the launches of the steps; a checkpoint
+    of the last step into ``ckpt`` (rank 0 writes whole arrays), restored
+    onto a 1 x 4 mesh (``make_local_mesh(4)``: the digest of its gathered
+    parameters against the 2 x 2 run's); then the 1-layer fp32 twin: one
+    grad step on the rank's slices under the layout, gradients gathered,
+    and on rank 0 the single-device grad step on the whole batch, held
+    leaf by leaf."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -4870,13 +4883,9 @@ def tp_train_rank(mesh, seq: int, batch: int, steps: int, ckpt: str) -> dict:
     tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
                        checkpoint_dir=ckpt)
     torch.backends.cuda.matmul.allow_tf32 = False
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp0_") as tmp:
-        fp32 = Trainer(tp_step0_config(), dataclasses.replace(tcfg, checkpoint_dir=tmp),
-                       shape, mesh)
-        step0 = {name: tp_step0_ce(fp32, drop)
-                 for name, drop in (("sound", False), ("control", True))}
-        del fp32
-    trainer = Trainer(sp_paper_bert(), tcfg, shape, mesh)
+    trainer = Trainer(tp_step0_config(), tcfg, shape, mesh)
+    step0 = {name: tp_step0_ce(trainer, drop)
+             for name, drop in (("sound", False), ("control", True))}
     tp = trainer.layout.tp
     plan = trainer.plan
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4893,7 +4902,7 @@ def tp_train_rank(mesh, seq: int, batch: int, steps: int, ckpt: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mesh14 = make_local_mesh(4, device=dev)
-    onto = Trainer(sp_paper_bert(), tcfg, shape, mesh14)
+    onto = Trainer(tp_step0_config(), tcfg, shape, mesh14)
     restored = (onto.step, params_digest(onto) == digest, onto.layout.tp)
     del onto
     gc.collect()
@@ -4923,19 +4932,323 @@ def tp_train_rank(mesh, seq: int, batch: int, steps: int, ckpt: str) -> dict:
                 twin=twin, step0=step0, digest=digest, restored=restored, save_s=save_s)
 
 
-def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple) -> dict:
-    """The context-parallel paths and ``tp_train`` on one rank of the
-    SP_MESH group."""
+# --------------------------------------------------------------------------
+# expert parallelism and the pipeline: the same ranks
+# --------------------------------------------------------------------------
+EP_MESH = (4, 1)                 # ("data", "model"): 16 of the 64 experts a rank
+EP_LAYERS, EP_SEQ, EP_BATCH, EP_STEPS = 2, 2048, 4, 2
+# Step 0's check: a forward of the initial weights at 1 fp32 layer (TF32
+# off), capacity E / k so that no slot drops on either route, seq
+# EP_CHECK_SEQ, EP over 4 ranks against the single-process "gspmd"
+# Trainer. The CPU rehearsal at reduced width (1 layer, fp32, seq 64) puts
+# EP 7.1e-8 off gspmd and the control (the return exchange with its source
+# order reversed) 9.2e-4 off; at full width on the card the sound run is
+# bitwise equal to one device's and the control moves the CE by 9.6e-6
+# only (the MoE's share of a random 1-layer model's CE is small): the
+# bound sits at 1e-6, 14x the rehearsal's sound gap.
+EP_CHECK_SEQ = 512
+EP_STEP0_TOL = 1e-6              # relative
+PP_STAGES, PP_MICRO, PP_MB, PP_SEQ, PP_STEPS = 4, 8, 2, 4096, 3
+# The pipeline's check: 4 fp32 layers, one a stage (TF32 off), against the
+# port's sequential ``reference_forward`` one microbatch at a time (the
+# same shapes): the forward and the loss bitwise; the trunk's gradients
+# sum over the microbatches in another order, held at PP_GRAD_TOL of
+# max-abs (CPU rehearsal at reduced width: 2.9e-7). The control, stage 1
+# fed the previous tick's activation, must break the forward's identity.
+PP_CHECK_LAYERS = 4
+PP_GRAD_TOL = 1e-5
+
+
+def ep_config(**overrides):
+    """DeepSeek-V2-Lite at full width cut to EP_LAYERS layers, expert
+    parallel."""
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(DEEPSEEK),
+                               **dict(dict(num_layers=EP_LAYERS, moe_impl="ep"), **overrides))
+
+
+def ep_check_config(moe_impl: str = "ep"):
+    """``ep_config`` at 1 fp32 layer with capacity E / k (no slot drops)."""
+    cfg = ep_config(num_layers=1, compute_dtype="float32", moe_impl=moe_impl)
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+def ep_step0_ce(trainer, control: bool) -> float:
+    """``step0_ce``; ``control``: the return exchange of every MoE layer
+    with its source order reversed (each shard's results handed to another
+    shard's tokens)."""
+    import repro_torch.models.moe as moe
+
+    exchange, calls = moe.ep_all_to_all, [0]
+
+    def reversed_return(x, mesh_id, axes):
+        calls[0] += 1
+        out = exchange(x, mesh_id, axes)
+        return out.flip(0) if calls[0] % 2 == 0 else out
+
+    return step0_ce(trainer, (moe, "ep_all_to_all", reversed_return) if control else None)
+
+
+def ep_train_rank(mesh, seq: int, batch: int, steps: int) -> dict:
+    """One rank of ``ep_train`` on a 4 x 1 ("data", "model") mesh over the
+    group's ranks: the ``Trainer`` on DeepSeek-V2-Lite at full width under
+    ``moe_impl="ep"``: step 0's forward of ``ep_check_config`` (1 fp32
+    layer, capacity E / k) sound and with the return exchange reversed
+    (``ep_step0_ce``, uncounted); then EP_LAYERS bf16 layers at the
+    config's own capacity 1.25: losses, ms a step after the first, the
+    shares of the steps in the exchanges (all-to-all) and in the
+    all-reduces (the gradients', the loss's, the aux means'), the share of
+    routed slots dropped, peak GiB. The whole initial tree is built in
+    host memory and only the rank's slices go to the card (the Trainer)."""
+    import torch
+
+    import repro_torch.models.moe as moe
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    emesh = Mesh(EP_MESH, ("data", "model"), device=dev, timeout_s=SP_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                           checkpoint_dir=tmp)
+        fp32 = Trainer(ep_check_config(), tcfg,
+                       ShapeConfig("train_4k", EP_CHECK_SEQ, batch, "train"), emesh)
+        experts = tuple(fp32.params["layers"]["moe"]["w_gate"].shape)
+        step0 = {name: ep_step0_ce(fp32, control)
+                 for name, control in (("sound", False), ("control", True))}
+        del fp32
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_init = time.perf_counter()
+        trainer = Trainer(ep_config(), tcfg, ShapeConfig("train_4k", seq, batch, "train"),
+                          emesh)
+        init_s = time.perf_counter() - t_init
+        moe.reset_slot_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops0, t0 = emesh.seconds_by_op(), time.perf_counter()
+        launches: dict = {}
+        hist = _counted(launches, lambda: trainer.run(steps))
+        wall = time.perf_counter() - t0
+        ops = {k: v - ops0.get(k, 0.0) for k, v in emesh.seconds_by_op().items()}
+        routed, kept = moe.slot_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=mesh.rank, step0=step0, experts=experts, init_s=init_s,
+                losses=[h["loss"] for h in hist], aux=[h["aux"] for h in hist],
+                ms=1e3 * sum(h["step_time_s"] for h in hist[1:]) / max(1, len(hist) - 1),
+                exchange_share=ops.get("all_to_all", 0.0) / wall,
+                all_reduce_share=ops.get("all_reduce", 0.0) / wall,
+                dropped=1.0 - kept / max(routed, 1), peak_gib=peak, launches=launches)
+
+
+def pp_parts(cfg, dev, stage: int):
+    """paper-bert's initial weights (seed 0, the single device's draw) as
+    the pipeline runs them: the top-level leaves whole and this stage's
+    layers (``stack_stages`` leaves (1, L/S, ...)), fp32 masters that
+    require grad."""
+    import torch
+
+    from repro_torch.distributed.pipeline import stack_stages
+    from repro_torch.models.model import layer_params, model_specs
+    from repro_torch.models.params import init_params, tree_map
+
+    params = init_params(model_specs(cfg), torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    layers = [layer_params(params, i) for i in range(cfg.num_layers)]
+    stage_params = tree_map(lambda t: t[stage:stage + 1].clone().requires_grad_(True),
+                            stack_stages(layers, PP_STAGES))
+    top = {k: v.requires_grad_(True) for k, v in params.items() if k != "layers"}
+    return top, stage_params, layers
+
+
+def pp_layer_fn(cfg):
+    """One paper-bert layer as the pipeline runs it: ``layer_fn(lp, x)``
+    on a layer's working copy, positions from x's shape."""
+    import torch
+
+    from repro_torch.models.model import dense_layer_forward
+
+    def layer_fn(lp, x):
+        pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[0], x.shape[1])
+        return dense_layer_forward(lp, cfg, x, pos, cfg.attention_impl, "causal")[0]
+
+    return layer_fn
+
+
+def pp_head_ce(cfg, top, x, tokens):
+    """The final norm, the head and the next-token CE of one microbatch
+    (``top``: the working copy; a checkpoint, so that its logits live one
+    microbatch at a time)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train.losses import next_token_loss
+
+    def head(norm, w, h, t):
+        return next_token_loss(rms_norm(h, norm, cfg.norm_eps) @ w, t)[0]
+
+    return checkpoint(head, top["final_norm"], top["lm_head"], x, tokens, use_reentrant=False)
+
+
+def pp_loss(cfg, top, stage_params, tokens, forward):
+    """The CE of a batch of tokens (B, S) through the pipelined trunk: the
+    embedding and the head on every rank, the batch as PP_MICRO
+    microbatches. Returns (loss, the trunk's output (M, mb, S, D))."""
+    from repro_torch.models.model import working_params
+
+    top, stage_params = working_params(top, cfg), working_params(stage_params, cfg)
+    x = top["embed"][tokens]
+    b, s, d = x.shape
+    out = forward(stage_params, x.reshape(PP_MICRO, b // PP_MICRO, s, d))
+    toks = tokens.reshape(PP_MICRO, b // PP_MICRO, s)
+    loss = sum(pp_head_ce(cfg, top, out[i], toks[i]) for i in range(PP_MICRO)) / PP_MICRO
+    return loss, out
+
+
+def pp_check(pmesh, seq: int) -> dict:
+    """The pipeline at PP_CHECK_LAYERS fp32 layers (TF32 off) against the
+    port's ``reference_forward`` one microbatch at a time on the same rank:
+    max-abs gaps of the output and the loss (bitwise expected), the worst
+    gradient leaf of this stage's layers relative to its max-abs, and the
+    control's output gap (stage 1 fed the previous tick's activation)."""
+    import torch
+
+    import repro_torch.distributed.pipeline as pipeline
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    dev, stage = pmesh.device, pmesh.coords["pipe"]
+    cfg = sp_paper_bert(dict(num_layers=PP_CHECK_LAYERS, compute_dtype="float32"))
+    top, stage_params, layers = pp_parts(cfg, dev, stage)
+    tokens = torch.from_numpy(SyntheticLM(cfg.vocab_size, seq, PP_MICRO * PP_MB,
+                                          seed=0).batch(0)["tokens"]).long().to(dev)
+    layer_fn = pp_layer_fn(cfg)
+    forward = pipeline.make_pipeline_forward(layer_fn, pmesh, "pipe")
+    loss, out = pp_loss(cfg, top, stage_params, tokens, forward)
+    loss.backward()
+    mine = [t.grad[0] for t in tree_leaves(stage_params)]
+    # the sequential reference, one microbatch at a time
+    seq_layers = [tree_map(lambda t: t.detach().clone().requires_grad_(True), lp)
+                  for lp in layers]
+    x = top["embed"].detach()[tokens].reshape(PP_MICRO, PP_MB, seq, -1)
+    toks = tokens.reshape(PP_MICRO, PP_MB, seq)
+    gap, ces = 0.0, []
+    for i in range(PP_MICRO):
+        y = pipeline.reference_forward(layer_fn, seq_layers, x[i])
+        gap = max(gap, float((y.detach() - out[i].detach()).abs().max()))
+        ces.append(pp_head_ce(cfg, top, y, toks[i]))
+        (ces[-1] / PP_MICRO).backward()
+    ref_loss = sum(ce.detach() for ce in ces) / PP_MICRO
+    per = PP_CHECK_LAYERS // PP_STAGES
+    ref = [torch.stack([t.grad for t in leaves])
+           for leaves in zip(*[tree_leaves(lp) for lp in
+                               seq_layers[stage * per:(stage + 1) * per]])]
+    grad = max(float((a - r).abs().max() / r.abs().max().clamp(min=1e-30))
+               for a, r in zip(mine, ref))
+    # the control: stage 1 gets, for microbatch i, microbatch i - 1's
+    # activation (the previous tick's; zeros for the first)
+    recv, prev = pipeline.pipe_recv, []
+
+    def stale(token, like, mesh_id, axis, src):
+        got = recv(token, like, mesh_id, axis, src)
+        if stage != 1:
+            return got
+        prev.append(got)
+        return prev[-2] if len(prev) > 1 else torch.zeros_like(got)
+
+    pipeline.pipe_recv = stale
+    try:
+        with torch.no_grad():
+            _, bad = pp_loss(cfg, top, stage_params, tokens, forward)
+    finally:
+        pipeline.pipe_recv = recv
+    control = max(float((bad[i] - out[i].detach()).abs().max()) for i in range(PP_MICRO))
+    return dict(out_gap=gap, loss_gap=abs(float(loss.detach()) - float(ref_loss)), grad=grad,
+                control=control, scale=float(out.detach().abs().max()))
+
+
+def pp_train_rank(mesh, seq: int, steps: int) -> dict:
+    """One rank of ``pp_train`` on a ("pipe",) mesh of PP_STAGES over the
+    group's ranks: ``pp_check``, then paper-bert at full width and depth
+    (bf16, ``spectral_shift_fused``), PP_STAGES stages of 3 layers, the
+    batch as PP_MICRO microbatches of PP_MB x ``seq``; ``steps`` forward +
+    backward passes of the CE: losses, ms a step after the first, the
+    shares of the steps in send, recv (the transfers and the waits for a
+    peer: the bubble) and the broadcast, peak GiB, K1-K4 launches."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.pipeline import make_pipeline_forward
+
+    dev = mesh.device
+    pmesh = Mesh((PP_STAGES,), ("pipe",), device=dev, timeout_s=SP_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check = pp_check(pmesh, seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = sp_paper_bert()
+    top, stage_params, _ = pp_parts(cfg, dev, pmesh.coords["pipe"])
+    forward = make_pipeline_forward(pp_layer_fn(cfg), pmesh, "pipe")
+    data = SyntheticLM(cfg.vocab_size, seq, PP_MICRO * PP_MB, seed=0)
+    launches: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops0 = pmesh.seconds_by_op()
+    losses, times = [], []
+    for step in range(steps):
+        tokens = torch.from_numpy(data.batch(step)["tokens"]).long().to(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+
+        def run():
+            loss, _ = pp_loss(cfg, top, stage_params, tokens, forward)
+            loss.backward()
+            return float(loss.detach())
+
+        losses.append(_counted(launches, run))
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    wall = sum(times)
+    ops = {k: v - ops0.get(k, 0.0) for k, v in pmesh.seconds_by_op().items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del top, stage_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=mesh.rank, check=check, losses=losses,
+                ms=1e3 * sum(times[1:]) / max(1, len(times) - 1),
+                shares={k: ops.get(k, 0.0) / wall for k in ("send", "recv", "broadcast")},
+                peak_gib=peak, launches=launches)
+
+
+def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
+            ep: tuple, pp: tuple) -> dict:
+    """The context-parallel paths, ``tp_train``, ``ep_train`` and
+    ``pp_train`` on one rank of the SP_MESH group, each phase's memory
+    freed before the next."""
+    import torch
+
     out = {"attention": sp_attention_rank(mesh, **attention)}
     gc.collect()
     out["train"] = sp_train_rank(mesh, seq, batch, steps)
     gc.collect()
     out["tp"] = tp_train_rank(mesh, *tp)
+    for name, fn, args in (("ep", ep_train_rank, ep), ("pp", pp_train_rank, pp)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = fn(mesh, *args)
+        out[name]["phase_s"] = time.perf_counter() - t0
     return out
 
 
-def sp_phase(torch, dev, bert_fused: dict) -> dict:
-    """``sp_attention``, ``sp_train`` and ``tp_train``: 4 ranks on the one card
+def sp_phase(torch, dev) -> dict:
+    """``sp_attention``, ``sp_train``, ``tp_train``, ``ep_train`` and
+    ``pp_train``: 4 ranks on the one card
     (``launch/mesh.py:spawn_local``, gloo: NCCL will not put two ranks of
     one communicator on one GPU, so the (c, .)-sized collectives are staged
     through host memory; no figure here is one for NVLink), a ("data",
@@ -4945,24 +5258,25 @@ def sp_phase(torch, dev, bert_fused: dict) -> dict:
     SP_GRAD_TOL of max-abs, bf16 printed, remat "ss_stats" bitwise equal
     to none (its two B-side collectives not rerun), K1-K4 counted per
     rank. ``sp_train``: paper-bert (12 layers, d 512, 8 heads of 64, c 64)
-    at global seq 8192, batch 4, 3 steps, data over "data" and the
+    at global seq 8192, batch 4, 2 steps, data over "data" and the
     sequence over "model", its step-0 loss (a forward of the same weights)
     within SP_STEP0_TOL of the single-process Trainer's (run first, here),
     a bound that a control with one shard's B-side partial dropped must
     exceed, and its later losses within the sanity bound SP_LOSS_TOL, its
     launches per rank K1 2 / K2 2 / K3 1 / K4 1 a layer and step (remat
     full); the 1-layer fp32 twin's gradients within GRAD_TOL. ``tp_train``:
-    paper-bert at seq 4096, global batch 8, 3 steps under the default
-    rules (tensor parallelism over "model", FSDP over "data"; K1-K4 at each
-    rank's 16 batch-heads), step 0's loss within TP_STEP0_TOL of the
-    single-process fused run of ``train_paper_bert`` (``bert_fused``: the
-    same config, shape, seed and steps), a bound that a control with layer
-    0's MLP all-reduce dropped must exceed, the later losses within the
-    sanity bound TP_LOSS_TOL, launches per rank K1 2 / K2 2 / K3 1 / K4 1
-    a layer and step (remat full), the 1-layer fp32 twin's gathered
-    gradients within GRAD_TOL, and its last step's checkpoint restored
-    bitwise (gathered parameters) onto a 1 x 4 mesh and onto one device.
-    Returns the launches of each path, summed over the ranks."""
+    paper-bert at TP_STEP0_LAYERS fp32 layers, seq 4096, global batch 8,
+    2 steps under the default rules (tensor parallelism over "model",
+    FSDP over "data"; K1-K4 at each rank's 16 batch-heads), step 0's loss
+    within TP_STEP0_TOL of one device's, a bound that a control with layer
+    0's MLP all-reduce dropped must exceed, launches per rank K1 2 / K2 2
+    / K3 1 / K4 1 a layer and step (remat full), the 1-layer fp32 twin's
+    gathered gradients within GRAD_TOL, and its last step's checkpoint
+    restored bitwise (gathered parameters) onto a 1 x 4 mesh and onto one
+    device. ``ep_train`` and ``pp_train`` on meshes of their own over the
+    same ranks (``ep_train_rank``, ``pp_train_rank``; the one-device
+    reference of ``ep_train``'s step 0 runs here first). Returns the
+    launches of each path, summed over the ranks."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.launch.mesh import spawn_local
     from repro_torch.train.trainer import Trainer
@@ -4970,11 +5284,21 @@ def sp_phase(torch, dev, bert_fused: dict) -> dict:
     shape = ShapeConfig("train_4k", SP_TRAIN_SEQ, SP_TRAIN_BATCH, "train")
     single = train_steps(torch, dev, sp_paper_bert(), shape, SP_TRAIN_STEPS,
                          "sp_train single-process reference")
+    # ep_train's single-process reference: step 0 of the same weights under
+    # "gspmd" on one device
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep0_") as tmp:
+        one = Trainer(ep_check_config("gspmd"), TrainConfig(checkpoint_dir=tmp),
+                      ShapeConfig("train_4k", EP_CHECK_SEQ, EP_BATCH, "train"), device=dev)
+        ep_single0 = step0_ce(one)
+        del one
+    gc.collect()
+    torch.cuda.empty_cache()
     tp_ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ckpt_")
     t0 = time.perf_counter()
     ranks = spawn_local(sp_rank, SP_MESH, ("data", "model"),
                         args=(SP_ATTENTION, SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS,
-                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS, tp_ckpt.name)),
+                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS, tp_ckpt.name),
+                              (EP_SEQ, EP_BATCH, EP_STEPS), (PP_SEQ, PP_STEPS)),
                         backend="gloo", device="cuda", timeout_s=SP_TIMEOUT_S, threads=2)
     wall = time.perf_counter() - t0
     # ---- sp_attention ------------------------------------------------------
@@ -5072,27 +5396,124 @@ def sp_phase(torch, dev, bert_fused: dict) -> dict:
         single0 = tp_step0_ce(one, False)
         del one
     with tp_ckpt:
-        one = Trainer(sp_paper_bert(), TrainConfig(checkpoint_dir=tp_ckpt.name),
+        one = Trainer(tp_step0_config(), TrainConfig(checkpoint_dir=tp_ckpt.name),
                       ShapeConfig("train_4k", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train"),
                       device=dev)
         one_restored = (one.step, params_digest(one) == tps[0]["digest"])
         del one
         gc.collect()
         torch.cuda.empty_cache()
-    check_tp_train(tps, bert_fused, one_restored, single0)
+    check_tp_train(tps, one_restored, single0)
+    eps = [r["ep"] for r in ranks]
+    check_ep_train(eps, ep_single0)
+    pps = [r["pp"] for r in ranks]
+    check_pp_train(pps)
+    log(f"the ranks' group {wall:.1f}s: ep_train {['%.1f' % e['phase_s'] for e in eps]} s, "
+        f"pp_train {['%.1f' % p['phase_s'] for p in pps]} s per rank")
 
     def total(rows):
         return {k: sum(r[k] for r in rows) for k in rows[0]}
 
     return {"sp_attention": total(att_launches),
             "sp_train": total([t["launches"] for t in trains]),
-            "tp_train": total([t["launches"] for t in tps])}
+            "tp_train": total([t["launches"] for t in tps]),
+            "ep_train": total([e["launches"] for e in eps]),
+            "pp_train": total([p["launches"] for p in pps])}
 
 
-def check_tp_train(tps: list, single: dict, one_restored: tuple, single0: float) -> None:
-    """Hold ``tp_train``'s ranks (``tp_train_rank``'s results) to the
-    single-process fused run ``single``, to one device's step-0 CE of
-    ``tp_step0_config`` (``single0``) and to each other; log its figures."""
+def check_ep_train(eps: list, single0: float) -> None:
+    """Hold ``ep_train``'s ranks (``ep_train_rank``'s results) to one
+    device's step-0 CE of ``ep_check_config`` under "gspmd" (``single0``)
+    and to each other; log its figures."""
+    losses, step0 = eps[0]["losses"], eps[0]["step0"]
+    if any(e["losses"] != losses or e["step0"] != step0 for e in eps):
+        raise AssertionError(f"ep_train: ranks disagree on the losses or step 0's CE "
+                             f"{[(e['losses'], e['step0']) for e in eps]}")
+    sound0, control0 = (abs(step0[k] - single0) / abs(single0) for k in ("sound", "control"))
+    cfg = ep_config()
+    log(f"ep_train step 0 (a forward of the initial weights at 1 fp32 layer, TF32 off, "
+        f"capacity E / k, seq {EP_CHECK_SEQ}): EP over {EP_MESH[0]} x {EP_MESH[1]} CE "
+        f"{step0['sound']:.7f} (rel {sound0:.2e}, tol {EP_STEP0_TOL}); control, the return "
+        f"exchange's source order reversed: CE {step0['control']:.7f} (rel {control0:.2e}, "
+        f"must exceed the tol); one device under gspmd {single0:.7f}")
+    log(f"ep_train: DeepSeek-V2-Lite {cfg.num_layers} layers (d {cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, capacity {cfg.capacity_factor}) bf16, "
+        f"seq {EP_SEQ} batch {EP_BATCH} over {EP_MESH[0]} x {EP_MESH[1]} ranks, expert "
+        f"slice per rank {eps[0]['experts']}: losses {['%.4f' % x for x in losses]}, aux "
+        f"{['%.4f' % x for x in eps[0]['aux']]}; ms per step after the first "
+        f"{['%.1f' % e['ms'] for e in eps]}; all-to-all "
+        f"{['%.1f%%' % (100 * e['exchange_share']) for e in eps]} and all-reduces "
+        f"{['%.1f%%' % (100 * e['all_reduce_share']) for e in eps]} of each rank's steps "
+        f"(gloo on one card, staged through the host); routed slots dropped "
+        f"{['%.2f%%' % (100 * e['dropped']) for e in eps]}; peak GiB per rank "
+        f"{['%.2f' % e['peak_gib'] for e in eps]}; Trainer built in "
+        f"{['%.1f' % e['init_s'] for e in eps]} s; launches per rank {eps[0]['launches']}")
+    if not sound0 <= EP_STEP0_TOL:
+        raise AssertionError(f"ep_train: step 0's CE {step0['sound']} vs {single0}: "
+                             f"{sound0:.3e} > {EP_STEP0_TOL}")
+    if not control0 > EP_STEP0_TOL:
+        raise AssertionError(f"ep_train: the control (a reversed return exchange) moves step "
+                             f"0's CE by {control0:.3e}, within the bound {EP_STEP0_TOL}: "
+                             f"the check would not see it")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ep_train: non-finite loss {losses}")
+    if any(sum(e["launches"].values()) for e in eps):
+        raise AssertionError(f"ep_train: MLA and the MoE run no kernel, but launched "
+                             f"{eps[0]['launches']}")
+
+
+def check_pp_train(pps: list) -> None:
+    """Hold ``pp_train``'s check (``pp_check``) and launches; log its
+    figures."""
+    losses = pps[0]["losses"]
+    if any(p["losses"] != losses for p in pps):
+        raise AssertionError(f"pp_train: ranks disagree on the losses "
+                             f"{[p['losses'] for p in pps]}")
+    checks = [p["check"] for p in pps]
+    per = sp_paper_bert().num_layers // PP_STAGES
+    per_rank = dict(landmark_summary=per * PP_MICRO * PP_STEPS,
+                    query_side=per * PP_MICRO * PP_STEPS,
+                    landmark_summary_bwd=per * PP_MICRO * PP_STEPS,
+                    query_side_bwd=per * PP_MICRO * PP_STEPS, paged_row_stats=0)
+    bubble = (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1)
+    log(f"pp_train check ({PP_CHECK_LAYERS} fp32 layers, one a stage, TF32 off, against "
+        f"reference_forward one microbatch at a time): output gap "
+        f"{[c['out_gap'] for c in checks]} (max-abs {checks[0]['scale']:.3e}), loss gap "
+        f"{[c['loss_gap'] for c in checks]} (bitwise expected); worst stage grad leaf "
+        f"{['%.2e' % c['grad'] for c in checks]} of max-abs (tol {PP_GRAD_TOL}); control, "
+        f"stage 1 fed the previous tick's activation: output gap "
+        f"{['%.3e' % c['control'] for c in checks]} (must be non-zero)")
+    log(f"pp_train: paper-bert {sp_paper_bert().num_layers} layers bf16 over {PP_STAGES} "
+        f"stages, {PP_MICRO} microbatches of {PP_MB} x {PP_SEQ}: losses "
+        f"{['%.4f' % x for x in losses]}; ms per step (forward + backward) after the first "
+        f"{['%.1f' % p['ms'] for p in pps]}; send "
+        f"{['%.1f%%' % (100 * p['shares']['send']) for p in pps]}, recv (transfers and "
+        f"waits: the measured bubble, the schedule's {100 * bubble:.1f}%) "
+        f"{['%.1f%%' % (100 * p['shares']['recv']) for p in pps]}, broadcast "
+        f"{['%.1f%%' % (100 * p['shares']['broadcast']) for p in pps]} of each rank's "
+        f"steps (gloo on one card, through the host); peak GiB per rank "
+        f"{['%.2f' % p['peak_gib'] for p in pps]}; launches per rank "
+        f"{[p['launches'] for p in pps]}")
+    if any(c["out_gap"] != 0.0 or c["loss_gap"] != 0.0 for c in checks):
+        raise AssertionError(f"pp_train: the pipelined forward differs from the sequential "
+                             f"one: {checks}")
+    if not all(c["grad"] <= PP_GRAD_TOL for c in checks):
+        raise AssertionError(f"pp_train: stage gradients {[c['grad'] for c in checks]} past "
+                             f"{PP_GRAD_TOL}")
+    if not all(c["control"] > 0.0 for c in checks[1:]):
+        raise AssertionError(f"pp_train: the control (a stale activation) left the output "
+                             f"unchanged: {[c['control'] for c in checks]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pp_train: non-finite loss {losses}")
+    if any(p["launches"] != per_rank for p in pps):
+        raise AssertionError(f"pp_train: launches per rank {[p['launches'] for p in pps]} "
+                             f"!= {per_rank}")
+
+
+def check_tp_train(tps: list, one_restored: tuple, single0: float) -> None:
+    """Hold ``tp_train``'s ranks (``tp_train_rank``'s results) to one
+    device's step-0 CE of ``tp_step0_config`` (``single0``) and to each
+    other; log its figures."""
     losses = tps[0]["losses"]
     if any(t["losses"] != losses for t in tps):
         raise AssertionError(f"tp_train: ranks disagree on the losses "
@@ -5101,27 +5522,23 @@ def check_tp_train(tps: list, single: dict, one_restored: tuple, single0: float)
     if any(t["step0"] != step0 for t in tps):
         raise AssertionError(f"tp_train: ranks disagree on step 0's CE "
                              f"{[t['step0'] for t in tps]}")
-    rel = rel_diffs(losses, single["losses"])
     sound0, control0 = (abs(step0[k] - single0) / abs(single0) for k in ("sound", "control"))
-    layers = sp_paper_bert().num_layers
-    per_rank = dict(landmark_summary=2 * layers * TP_TRAIN_STEPS,
-                    query_side=2 * layers * TP_TRAIN_STEPS,
-                    landmark_summary_bwd=layers * TP_TRAIN_STEPS,
-                    query_side_bwd=layers * TP_TRAIN_STEPS, paged_row_stats=0)
+    per_rank = dict(landmark_summary=2 * TP_STEP0_LAYERS * TP_TRAIN_STEPS,
+                    query_side=2 * TP_STEP0_LAYERS * TP_TRAIN_STEPS,
+                    landmark_summary_bwd=TP_STEP0_LAYERS * TP_TRAIN_STEPS,
+                    query_side_bwd=TP_STEP0_LAYERS * TP_TRAIN_STEPS, paged_row_stats=0)
     twin = tps[0]["twin"]
     log(f"tp_train step 0 (a forward of the initial weights at {TP_STEP0_LAYERS} fp32 "
         f"layers, TF32 off): TP x FSDP CE {step0['sound']:.7f} (rel {sound0:.2e}, tol "
         f"{TP_STEP0_TOL}); control, layer 0's MLP all-reduce dropped: CE "
         f"{step0['control']:.7f} (rel {control0:.2e}, must exceed the tol); one device "
         f"{single0:.7f}")
-    log(f"tp_train: paper-bert 12 layers seq {TP_TRAIN_SEQ} batch {TP_TRAIN_BATCH} over "
-        f"{SP_MESH[0]} x {SP_MESH[1]} ranks, tensor-parallel axes (heads, kv heads, ff, "
-        f"vocab) {tps[0]['tp']}, FSDP over data (plan {tps[0]['plan']}): bf16 losses "
-        f"{['%.4f' % x for x in losses]} vs single-process "
-        f"{['%.4f' % x for x in single['losses']]} (rel {['%.2e' % x for x in rel]}, "
-        f"sanity tol {TP_LOSS_TOL}); ms per step after the first "
-        f"{['%.1f' % t['ms'] for t in tps]} (single-process {single['ms']:.1f}); peak GiB "
-        f"per rank {['%.2f' % t['peak_gib'] for t in tps]}; collectives "
+    log(f"tp_train: paper-bert {TP_STEP0_LAYERS} fp32 layers seq {TP_TRAIN_SEQ} batch "
+        f"{TP_TRAIN_BATCH} over {SP_MESH[0]} x {SP_MESH[1]} ranks, tensor-parallel axes "
+        f"(heads, kv heads, ff, vocab) {tps[0]['tp']}, FSDP over data (plan "
+        f"{tps[0]['plan']}): losses {['%.4f' % x for x in losses]}; ms per step after the "
+        f"first {['%.1f' % t['ms'] for t in tps]}; peak GiB per rank "
+        f"{['%.2f' % t['peak_gib'] for t in tps]}; collectives "
         f"{['%.1f%%' % (100 * t['collective_share']) for t in tps]} of each rank's steps "
         f"(gloo on one card, staged through the host: no figure here stands for "
         f"NVLink); launches per rank {tps[0]['launches']}; checkpoint gathered and "
@@ -5137,9 +5554,8 @@ def check_tp_train(tps: list, single: dict, one_restored: tuple, single0: float)
         raise AssertionError(f"tp_train: the control (a dropped MLP all-reduce) moves step "
                              f"0's CE by {control0:.3e}, within the bound {TP_STEP0_TOL}: "
                              f"the check would not see it")
-    if not max(rel) <= TP_LOSS_TOL:
-        raise AssertionError(f"tp_train: losses {losses} vs {single['losses']}: "
-                             f"{max(rel):.3e} > {TP_LOSS_TOL}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tp_train: non-finite loss {losses}")
     if any(t["launches"] != per_rank for t in tps):
         raise AssertionError(f"tp_train: launches per rank "
                              f"{[t['launches'] for t in tps]} != {per_rank}")
@@ -5192,10 +5608,16 @@ def run(args, torch, t_start: float) -> int:
     log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f}s "
         f"(parallel nvcc, sm_90a); ptxas: {json.dumps(regs)}")
 
+    def elapsed(done: str) -> None:
+        log(f"{done}: {time.perf_counter() - t_start:.1f}s since the start")
+
     kernels = kernel_phase(torch, dev)
+    elapsed("phase 2")
     model_phase(torch, dev)
     grad_phase(torch, dev)
+    elapsed("phase 3")
     served = serve_phase(torch, dev, args.layers)
+    elapsed("phase 4")
     trained, full_ms, full_peak, full_losses = train_phase(torch, dev, args.train_layers,
                                                            TRAIN_STEPS)
     auto, auto_ms, auto_peak, _ = train_phase(torch, dev, args.train_layers, TRAIN_STEPS,
@@ -5205,15 +5627,19 @@ def run(args, torch, t_start: float) -> int:
     traced, traced_ms, _, traced_losses = train_phase(torch, dev, args.train_layers,
                                                       TRAIN_STEPS, round_trip=False,
                                                       telemetry=True)
+    elapsed("train remat full / auto / dots / telemetry")
     tuned, train_plan = train_autotune_phase(torch, dev, args.train_layers, full_losses)
-    bert, bert_fused = train_paper_bert_phase(torch, dev)
+    bert = train_paper_bert_phase(torch, dev)
     chunked = train_chunked_phase(torch, dev, args.train_layers)
+    elapsed("train_autotune, train_paper_bert, train_chunked")
     hymba = train_hymba_phase(torch, dev)
     deepseek = train_deepseek_phase(torch, dev)
     whisper = train_whisper_phase(torch, dev)
     llava = train_llava_phase(torch, dev)
     xlstm = train_xlstm_phase(torch, dev)
-    sp = sp_phase(torch, dev, bert_fused)
+    elapsed("train_hymba ... train_xlstm")
+    sp = sp_phase(torch, dev)
+    elapsed("the ranks' phases")
     autotuned_rows(torch, dev, kernels, train_plan, served.pop("_decode_plan"))
     if traced_losses != full_losses:
         raise AssertionError(f"train telemetry: losses {traced_losses} differ from the run "

@@ -7,7 +7,9 @@ coordinates, one subgroup per set of axes (created at construction, by
 every rank in the same order, so that no rank ever creates a group alone)
 and the rank's device, the card unless the caller asks for the CPU.
 Collectives go through ``Mesh.all_reduce`` / ``Mesh.all_gather`` /
-``Mesh.reduce_scatter``, which also count the seconds spent in them.
+``Mesh.reduce_scatter`` / ``Mesh.all_to_all`` / ``Mesh.broadcast`` and the
+point-to-point ``Mesh.send`` / ``Mesh.recv``, which also count the seconds
+spent in them, in all and by operation (``seconds_by_op``).
 
 Backends. The backend is the process group's, the caller's choice:
 
@@ -41,6 +43,9 @@ collective, so each names its backward), which find their mesh by
 * ``repro_torch::fsdp_gather``: a list of slices all-gathered along their
   dims as one flat buffer forward, the cotangents summed and sliced back
   (``reduce_scatter``) backward;
+* ``repro_torch::ep_all_to_all``: the expert-parallel exchange
+  (``models/moe.py:moe_forward_ep``), an all-to-all along dim 0 forward
+  and the inverse exchange, the same all-to-all, backward;
 * the vocab-parallel pieces are the masked lookup (``models/model.py``;
   ``vocab_shard_index`` places an id in a rank's shard, for it and the
   cross entropy's gold logit) and the cross entropy's max (``Mesh.all_reduce(..., "max")`` of a
@@ -106,7 +111,8 @@ class Mesh:
         self.backend = dist.get_backend()
         self.coords = dict(zip(axis_names, _unravel(self.rank, shape)))
         self._host_seconds = 0.0
-        self._events: list = []          # (start, end) CUDA events of unstaged collectives
+        self._by_op: dict[str, float] = {}
+        self._events: list = []          # (op, start, end) CUDA events of unstaged collectives
         self.collective_calls = 0
         timeout = datetime.timedelta(seconds=timeout_s)
         self._groups: dict[tuple, object] = {}
@@ -134,11 +140,25 @@ class Mesh:
     def collective_seconds(self) -> float:
         """Seconds spent in this mesh's collectives so far (reading it waits
         for the device collectives it has not timed yet)."""
-        for start, end in self._events:
-            end.synchronize()
-            self._host_seconds += start.elapsed_time(end) / 1e3
-        self._events.clear()
+        self._read_events()
         return self._host_seconds
+
+    def seconds_by_op(self) -> dict:
+        """``collective_seconds`` split by operation ("all_reduce",
+        "all_gather", "all_to_all", "broadcast", "send", "recv")."""
+        self._read_events()
+        return dict(self._by_op)
+
+    def _read_events(self) -> None:
+        """Count the device collectives timed by CUDA events so far."""
+        for op, start, end in self._events:
+            end.synchronize()
+            self._count(op, start.elapsed_time(end) / 1e3)
+        self._events.clear()
+
+    def _count(self, op: str, seconds: float) -> None:
+        self._host_seconds += seconds
+        self._by_op[op] = self._by_op.get(op, 0.0) + seconds
 
     def _axes(self, axes) -> tuple:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -162,12 +182,13 @@ class Mesh:
         """The process group over ``axes`` that holds this rank."""
         return self._groups[self._axes(axes)]
 
-    def _collective(self, fn, x: torch.Tensor, axes) -> torch.Tensor:
+    def _collective(self, fn, x: torch.Tensor, axes, op: str) -> torch.Tensor:
         """Run ``fn(buffer, group)`` on a copy of x, staged through host
         memory when gloo meets a CUDA tensor; returns the buffer on x's
-        device. Calls and seconds are counted: host seconds for a staged or
-        CPU operand (a staged one waits for its stream first, outside the
-        count), CUDA events for one that stays on the device."""
+        device. Calls and seconds are counted under ``op``: host seconds
+        for a staged or CPU operand (a staged one waits for its stream
+        first, outside the count), CUDA events for one that stays on the
+        device."""
         self.collective_calls += 1
         if x.is_cuda and self.backend != "gloo":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
@@ -175,7 +196,7 @@ class Mesh:
             start.record()
             out = fn(x.detach().clone(), self.group(axes))
             end.record()
-            self._events.append((start, end))
+            self._events.append((op, start, end))
             return out
         stage = x.is_cuda
         if stage:
@@ -186,7 +207,7 @@ class Mesh:
         if stage:
             out = out.to(x.device)
             torch.cuda.synchronize(x.device)
-        self._host_seconds += time.perf_counter() - t0
+        self._count(op, time.perf_counter() - t0)
         return out
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum", axes=()) -> torch.Tensor:
@@ -200,7 +221,7 @@ class Mesh:
             dist.all_reduce(buf, op=red, group=group)
             return buf
 
-        return self._collective(run, x, axes)
+        return self._collective(run, x, axes, "all_reduce")
 
     def all_gather(self, x: torch.Tensor, axes=(), dim: int = 0) -> torch.Tensor:
         """The ranks' x over ``axes``, concatenated along ``dim`` in the
@@ -214,7 +235,7 @@ class Mesh:
             dist.all_gather(parts, buf.contiguous(), group=group)
             return torch.cat(parts, dim=dim)
 
-        return self._collective(run, x, axes)
+        return self._collective(run, x, axes, "all_gather")
 
     def reduce_scatter(self, x: torch.Tensor, axes=(), dim: int = 0) -> torch.Tensor:
         """The sum of x over ``axes``, split along ``dim`` into as many
@@ -223,6 +244,70 @@ class Mesh:
         n = self.axis_size(axes)
         out = self.all_reduce(x, "sum", axes)
         return out if n == 1 else out.chunk(n, dim)[self.index(axes)].contiguous()
+
+    def all_to_all(self, x: torch.Tensor, axes=()) -> torch.Tensor:
+        """x's dim 0 cut into as many equal parts as ``axes`` span ranks,
+        part i sent to the rank of flat index i; returns the parts received,
+        stacked along dim 0 in the senders' flat-index order (the tiled
+        ``jax.lax.all_to_all`` with split and concat axis 0). Its own
+        inverse."""
+        n = self.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(f"Mesh.all_to_all: dim 0 of {tuple(x.shape)} does not split "
+                             f"into {n} parts")
+        if n == 1:
+            return x.detach().clone()
+
+        def run(buf, group):
+            buf = buf.contiguous()
+            out = torch.empty_like(buf)
+            dist.all_to_all_single(out, buf, group=group)
+            return out
+
+        return self._collective(run, x, axes, "all_to_all")
+
+    def peer(self, axes, index: int) -> int:
+        """The global rank at flat index ``index`` over ``axes`` that shares
+        this rank's coordinates on every other axis."""
+        axes = self._axes(axes)
+        coords = dict(self.coords)
+        for a, c in zip(axes, _unravel(index, tuple(self.shape[a] for a in axes))):
+            coords[a] = c
+        rank = 0
+        for a in self.axis_names:
+            rank = rank * self.shape[a] + coords[a]
+        return rank
+
+    def broadcast(self, x: torch.Tensor, axes, src: int) -> torch.Tensor:
+        """The tensor of the rank at flat index ``src`` over ``axes``, on
+        every rank of them (x: this rank's, of the same shape and dtype)."""
+        if self.axis_size(axes) == 1:
+            return x.detach().clone()
+
+        def run(buf, group):
+            dist.broadcast(buf, src=self.peer(axes, src), group=group)
+            return buf
+
+        return self._collective(run, x, axes, "broadcast")
+
+    def send(self, x: torch.Tensor, axes, dst: int) -> None:
+        """Send x to the rank at flat index ``dst`` over ``axes`` (blocks
+        until the transfer is done)."""
+        def run(buf, group):
+            dist.send(buf.contiguous(), dst=self.peer(axes, dst), group=group)
+            return buf
+
+        self._collective(run, x, axes, "send")
+
+    def recv(self, like: torch.Tensor, axes, src: int) -> torch.Tensor:
+        """A tensor of ``like``'s shape, dtype and device received from the
+        rank at flat index ``src`` over ``axes``."""
+        def run(buf, group):
+            dist.recv(buf, src=self.peer(axes, src), group=group)
+            return buf
+
+        buf = torch.empty_like(like, memory_format=torch.contiguous_format)
+        return self._collective(run, buf, axes, "recv")
 
     def barrier(self) -> None:
         dist.barrier()
@@ -359,6 +444,24 @@ def _fsdp_gather_backward(ctx, grads):
 
 
 fsdp_gather.register_autograd(_fsdp_gather_backward, setup_context=_fsdp_gather_setup)
+
+
+@torch.library.custom_op("repro_torch::ep_all_to_all", mutates_args=())
+def ep_all_to_all(x: torch.Tensor, mesh_id: int, axes: str) -> torch.Tensor:
+    """``Mesh.all_to_all`` of x over ``axes`` (dim 0 split, one part to
+    each rank); its backward is the inverse exchange of the cotangent,
+    the same all-to-all."""
+    return mesh_by_id(mesh_id).all_to_all(x, _split_axes(axes))
+
+
+@ep_all_to_all.register_fake
+def _(x, mesh_id, axes):
+    return torch.empty_like(x)
+
+
+ep_all_to_all.register_autograd(
+    lambda ctx, g: (ep_all_to_all(g.contiguous(), *ctx.meta), None, None),
+    setup_context=_meta_setup)
 
 
 def vocab_shard_index(ids: torch.Tensor, mesh: Mesh, axes: tuple, size: int):

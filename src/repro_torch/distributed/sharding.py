@@ -29,7 +29,13 @@ and from the FSDP one an axis it does not (an explicit override that puts
 a parameter axis there is refused, ``param_rule_conflicts``; GSPMD would
 take it), and the other families
 keep replicated parameters (an explicit parameter override for them is
-refused). Expert parallelism waits.
+refused). Under ``moe_impl="ep"`` the MoE family's expert leaves
+(``w_gate``, ``w_up``, ``w_down``) split their experts over the expert
+axes (``expert_axes``: every mesh axis but "model", the reference's
+``moe_forward_ep`` shard_map spec), which ``models/moe.py:moe_forward_ep``
+runs on; ``moe_ff`` stays whole over "model" (a named difference: the
+reference stores it split and gathers it at the shard_map's entry) and
+the other MoE / MLA leaves stay replicated.
 
 The active rules are process-wide, not thread-local as the reference's:
 autograd runs a checkpointed layer's recomputation on its own thread, and
@@ -76,6 +82,8 @@ PARAM_RULES = ("vocab", "embed", "embed_unsharded", "heads", "kv_heads", "head_d
 # parallelism) and the one it gathers just before use (FSDP).
 TP_RULES = ("heads", "kv_heads", "ff", "vocab")
 FSDP_RULES = ("embed",)
+# The parameter rule expert parallelism places (the rank's own experts).
+EP_RULES = ("experts",)
 
 def _axes_of(v) -> tuple:
     if v is None:
@@ -151,8 +159,19 @@ def apply_seq_sharding_config(cfg, mesh, overrides: Optional[dict] = None, log=N
 def shards_parameters(cfg) -> bool:
     """Whether the parameter rules apply to ``cfg``: the dense family with
     GQA and a plain MLP. The other families, MoE and MLA keep replicated
-    parameters (items 3 and 6 of ROADMAP's Queue 1)."""
+    parameters, bar the expert leaves under ``expert_parallel``."""
     return cfg.family == "dense" and not cfg.moe and not cfg.mla
+
+
+def expert_parallel(cfg) -> bool:
+    """Whether ``cfg`` runs the expert-parallel MoE (``moe_impl="ep"``)."""
+    return bool(cfg.moe) and cfg.moe_impl == "ep"
+
+
+def expert_axes(mesh) -> tuple:
+    """The mesh axes experts split over under expert parallelism: every
+    axis but "model" (``repro/models/moe.py:134``)."""
+    return tuple(a for a in mesh.axis_names if a != "model")
 
 
 def param_rules(mesh, overrides: Optional[dict] = None, cfg=None) -> dict:
@@ -164,7 +183,8 @@ def param_rules(mesh, overrides: Optional[dict] = None, cfg=None) -> dict:
     and the default FSDP rule keeps only axes the batch spans (its
     gradient is a sum of the rows' partials there). For a ``cfg`` whose
     parameters stay replicated (``shards_parameters``) every parameter
-    rule maps to ()."""
+    rule maps to (), bar ``"experts"`` under ``expert_parallel``, which
+    maps to the expert axes."""
     rules = _merged(overrides)
     claimed = set(_rule_axes(mesh, rules, "seq"))
     rows = set(batch_axes(mesh, overrides))
@@ -173,7 +193,9 @@ def param_rules(mesh, overrides: Optional[dict] = None, cfg=None) -> dict:
         axes = _rule_axes(mesh, rules, name)
         if name in PARAM_RULES:
             if cfg is not None and not shards_parameters(cfg):
-                axes = ()
+                # expert parallelism: the experts over the expert axes
+                axes = (tuple(a for a in expert_axes(mesh) if a not in claimed)
+                        if name in EP_RULES and expert_parallel(cfg) else ())
             elif not (overrides and name in overrides):
                 keep = ((lambda a: a not in rows) if name in TP_RULES else
                         (lambda a: a in rows) if name in FSDP_RULES else
@@ -306,9 +328,11 @@ class ParamLayout:
 def param_layout(mesh, cfg, specs, overrides: Optional[dict] = None) -> Optional[ParamLayout]:
     """The layout the rules give ``specs`` of ``cfg`` on ``mesh``, or None
     when every leaf stays whole (parameters replicated, as before any
-    parameter rule applied). Raises ``NotImplementedError`` for a layout
-    the dense layer cannot run (kv heads split where the query heads are
-    not, or the embedding and the unembedding split over other axes)."""
+    parameter rule applied). A leaf's FSDP dims are the ones gathered
+    before use; tensor-parallel and expert dims stay the rank's. Raises
+    ``NotImplementedError`` for a layout the dense layer cannot run (kv
+    heads split where the query heads are not, or the embedding and the
+    unembedding split over other axes)."""
     from repro_torch.models.params import map_specs, tree_leaves
 
     rules = param_rules(mesh, overrides, cfg)
@@ -316,11 +340,13 @@ def param_layout(mesh, cfg, specs, overrides: Optional[dict] = None) -> Optional
     def place(_path, spec):
         dims = named_sharding(mesh, spec.axes, rules, spec.shape)
         return Placement(dims, tuple((d, p) for d, (ax, p) in enumerate(zip(spec.axes, dims))
-                                     if p and ax not in TP_RULES))
+                                     if p and ax in FSDP_RULES))
 
     places = map_specs(place, specs)
     if not any(p.split for p in tree_leaves(places)):
         return None
+    if not shards_parameters(cfg):   # expert parallelism: no tensor-parallel dim
+        return ParamLayout(mesh=mesh, placements=places, tp=TensorParallel((), (), (), ()))
     stacked = not isinstance(places["layers"], list)
     layer = places["layers"] if stacked else places["layers"][0]
     tp = TensorParallel(heads=layer["attn"]["w_q"].dims[1 + stacked],
@@ -366,6 +392,12 @@ def sharding_rules(mesh, overrides: Optional[dict] = None,
     finally:
         with _lock:
             _active = None
+
+
+def active_mesh():
+    """The mesh of the active context (None outside one)."""
+    act = _active
+    return act.mesh if act is not None else None
 
 
 def active_layout() -> Optional[ParamLayout]:

@@ -61,7 +61,7 @@ from repro_torch.models.attention import (cross_attention_forward,
                                           gqa_specs, mla_forward, mla_specs)
 from repro_torch.models.layers import (gelu, layer_norm, mlp_forward, mlp_specs,
                                        rms_norm, sinusoidal_positions)
-from repro_torch.models.moe import moe_forward, moe_specs
+from repro_torch.models.moe import moe_forward, moe_forward_ep, moe_specs
 from repro_torch.models.ssm import (_causal_conv, mamba_forward, mamba_specs,
                                     mlstm_chunked, slstm_scan)
 from repro_torch.models.params import (ParamSpec, stack_layer_specs, tree_leaves,
@@ -279,8 +279,8 @@ def model_specs(cfg: ModelConfig) -> dict:
 def dense_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
     """Pre-norm attention (GQA, or MLA with ``cfg.mla``) and a SwiGLU MLP
     or, with ``cfg.moe``, the MoE feed-forward (``model.py:79``). Returns
-    (x, aux): the MoE load-balance loss, else 0. The expert-parallel
-    ``moe_impl="ep"`` is multi-device and refused."""
+    (x, aux): the MoE load-balance loss, else 0. ``moe_impl="ep"`` runs
+    ``moe_forward_ep``, which falls back to ``moe_forward`` off a mesh."""
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if cfg.mla:
         attn_out = mla_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
@@ -289,10 +289,8 @@ def dense_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
     x = x + attn_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     if cfg.moe:
-        if cfg.moe_impl == "ep":
-            raise NotImplementedError("moe_impl 'ep' (expert parallel) is multi-device: "
-                                      "not ported yet")
-        ff, aux = moe_forward(p["moe"], cfg, h)
+        moe_fn = moe_forward_ep if cfg.moe_impl == "ep" else moe_forward
+        ff, aux = moe_fn(p["moe"], cfg, h)
     else:
         ff = mlp_forward(p["mlp"], h, cfg.act)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -522,9 +520,11 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     ``vlm`` patch prefix carries no labels. Returns (loss, metrics). A
     rank's slice of a batch split over a mesh carries ``targets``
     (``data/pipeline.py:make_global_batch``): its loss is then the rank's
-    share of the global mean (``sharded_token_loss``), and the metrics are
-    global."""
+    share of the global mean (``sharded_token_loss``), its MoE aux the
+    whole batch's (``models/moe.py:batch_means``), of which it counts its
+    share, and the metrics are global."""
     logits, aux = model_forward(params, cfg, batch)
+    share = aux
     if cfg.family == "vlm":
         logits = logits[:, logits.shape[1] - batch["tokens"].shape[1]:]
     if "targets" in batch:
@@ -533,9 +533,11 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
         ce_loss, metrics = sharded_token_loss(
             logits, batch["targets"], mesh=mesh, axes=axes,
             vocab_axes=layout.tp.vocab if layout is not None else ())
+        if mesh is not None:
+            share = aux / mesh.axis_size(axes)
     else:
         ce_loss, metrics = next_token_loss(logits, batch["tokens"])
-    loss = ce_loss + cfg.router_aux_coef * aux
+    loss = ce_loss + cfg.router_aux_coef * share
     metrics["aux"] = aux
     return loss, metrics
 

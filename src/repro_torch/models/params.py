@@ -51,7 +51,9 @@ def init_params(specs, generator: torch.Generator, *,
     """Materialize parameters: normal leaves are N(0, 1) * fan-in scale,
     drawn from ``generator`` leaf by leaf in path order (a stacked leaf one
     layer slice at a time, so the fp32 draw never holds a whole stack).
-    ``device`` defaults to the generator's device."""
+    ``device`` defaults to the generator's device; on another device the
+    leaves hold what the generator's device draws, copied over a slice at
+    a time."""
     device = torch.device(device) if device is not None else generator.device
 
     def make(_path, spec: ParamSpec):
@@ -64,7 +66,7 @@ def init_params(specs, generator: torch.Generator, *,
         out = torch.empty(spec.shape, dtype=pdt, device=device)
         slices = out if spec.axes[:1] == ("layers",) else out[None]
         for sl in slices:
-            sl.copy_(torch.randn(sl.shape, generator=generator, device=device)
+            sl.copy_(torch.randn(sl.shape, generator=generator, device=generator.device)
                      * scale)
         return out
 
@@ -185,16 +187,17 @@ def shard_tree(tree, placements, mesh):
     return tree_map(lambda t, p: shard_leaf(t, p, mesh), tree, placements)
 
 
-def gather_tree(tree, placements, mesh):
+def gather_tree(tree, placements, mesh, device=None):
     """The whole tensors of a tree of slices, on every rank: each split
     dimension all-gathered over its axes (a collective: every rank calls
-    it, in the same order)."""
+    it, in the same order), each whole tensor moved to ``device`` (default:
+    where its slice is) before the next is gathered."""
     def gather(t, placement):
         t = t.detach()
         for dim, axes in enumerate(placement.dims):
             if axes:
                 t = mesh.all_gather(t, axes, dim=dim)
-        return t
+        return t if device is None else t.to(device)
 
     return tree_map(gather, tree, placements)
 

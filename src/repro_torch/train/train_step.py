@@ -13,11 +13,13 @@ sums the gradients and the loss over every axis the batch or the sequence
 spans, as one flat fp32 buffer, before the optimizer, so the grad norm,
 the clipping and the update are the same on every rank. Under a parameter
 layout (``distributed.sharding.active_layout``) a leaf's gradient is its
-slice's: the FSDP gather's backward has already summed it over the axes
-it was gathered over, so the step sums it over the rest of the batch's and
-sequence's axes only, and over the tensor-parallel axes not at all (each
-rank's slice is complete: ``tp_copy`` summed the shares where a whole
-activation entered the slice's work).
+slice's, and the step sums it over the batch's and sequence's axes that
+the slice is not split over: the FSDP gather's backward has already summed
+it over the axes it was gathered over, an expert slice's cotangent holds
+every source rank's tokens (the all-to-all's backward), and over the
+tensor-parallel axes nothing is summed (each rank's slice is complete:
+``tp_copy`` summed the shares where a whole activation entered the
+slice's work).
 """
 from __future__ import annotations
 
@@ -44,29 +46,51 @@ def value_and_grad(params, cfg: ModelConfig, batch: dict):
     return loss.detach(), metrics, tree_map(lambda _: next(grads), live)
 
 
+# The most elements one gradient all-reduce moves (256 MB of fp32): a larger
+# group of leaves goes in several, so its flat copies stay small beside the
+# gradients themselves.
+ALL_REDUCE_BUCKET = 1 << 26
+
+
+def _buckets(members: list, leaves: list) -> list:
+    """``members`` (leaf indices) in order, cut into runs of at most
+    ``ALL_REDUCE_BUCKET`` elements (a larger leaf alone)."""
+    out, size = [[]], 0
+    for i in members:
+        n = leaves[i].numel()
+        if out[-1] and size + n > ALL_REDUCE_BUCKET:
+            out.append([])
+            size = 0
+        out[-1].append(i)
+        size += n
+    return out
+
+
 def _sum_over_ranks(loss, grads):
     """Under a mesh, the loss and every gradient leaf summed (fp32) over the
     axes the batch or the sequence spans (a leaf of a parameter layout:
-    those its FSDP gather did not sum), the leaves that share the axes as
-    one flat buffer in one collective; as they are otherwise."""
+    those its slice is not split over), the leaves that share the axes as
+    one flat buffer a bucket (``ALL_REDUCE_BUCKET``); as they are
+    otherwise."""
     mesh, axes = active_reduce_axes()
     if mesh is None or mesh.axis_size(axes) == 1:
         return loss, grads
     leaves = tree_leaves(grads)
     layout = active_layout()
-    gathered = ([pl.gathered for pl in tree_leaves(layout.placements)]
-                if layout is not None else [()] * len(leaves))
+    split = ([pl.split for pl in tree_leaves(layout.placements)]
+             if layout is not None else [()] * len(leaves))
     groups: dict = {}
-    for i, done in enumerate(gathered):
+    for i, done in enumerate(split):
         groups.setdefault(tuple(a for a in axes if a not in done), []).append(i)
     out = [g.float() for g in leaves]
     for sum_axes, members in groups.items():
         if mesh.axis_size(sum_axes) == 1:
             continue
-        flat = mesh.all_reduce(torch.cat([out[i].reshape(-1) for i in members]), "sum",
-                               sum_axes)
-        for i, part in zip(members, flat.split([leaves[i].numel() for i in members])):
-            out[i] = part.view(leaves[i].shape)
+        for bucket in _buckets(members, leaves):
+            flat = mesh.all_reduce(torch.cat([out[i].reshape(-1) for i in bucket]), "sum",
+                                   sum_axes)
+            for i, part in zip(bucket, flat.split([leaves[i].numel() for i in bucket])):
+                out[i] = part.view(leaves[i].shape)
     it = iter(out)
     return mesh.all_reduce(loss, "sum", axes), tree_map(lambda _: next(it), grads)
 

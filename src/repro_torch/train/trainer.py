@@ -40,19 +40,26 @@ ranks that hold the same slice are checked to hold the same bytes.
 ``full_state()`` gathers the whole state on every rank (a collective:
 every rank calls it); checkpoints go through it, rank 0 writes whole
 arrays, so a checkpoint restores onto any layout or onto one device.
+The whole tree is built (or restored) in host memory and only the rank's
+slices go to its device. The MoE family trains with the batch split: under
+``moe_impl="gspmd"`` each rank routes its own rows (``models/moe.py``,
+the aux loss over the whole batch); under ``moe_impl="ep"`` the expert
+leaves and their moments split over the expert axes
+(``sharding.expert_axes``) and ``moe_forward_ep`` exchanges tokens with
+the experts' ranks; the other MoE / MLA leaves stay replicated.
 Under a sequence shard attention runs the context-parallel attention
 (``kernels/sharded.py``) and ``_warm_attention_plans`` resolves the
 sharded key; elsewhere its sweep runs at the rank's rows times its query
 heads. Refused
 (ROADMAP): an explicit parameter override on the sequence's axis, for a
-family other than the dense one (or MoE, MLA: their parameters stay
-replicated), or that the dense layer cannot run
-(``sharding.param_rule_conflicts``); any family but the dense one under
-a sequence shard, MoE and the frontend families (Whisper, LLaVA) under any
-split of the batch. The reference's elastic re-planning, heartbeats,
-failure injection and the expert-parallel ``moe_impl="ep"`` are not
-ported; ``grad_compression`` stays refused (the reference accepts it and
-reads it nowhere; ``optim/compression.py`` holds the collective).
+family other than the dense one (or MoE, MLA), or that the dense layer
+cannot run (``sharding.param_rule_conflicts``); any family but the dense
+one under a sequence shard; the frontend families (Whisper, LLaVA) under
+any split of the batch; ``moe_impl="ep"`` with the batch's rows split
+over other axes than the experts'. The reference's elastic re-planning,
+heartbeats and failure injection are not ported; ``grad_compression``
+stays refused (the reference accepts it and reads it nowhere;
+``optim/compression.py`` holds the collective).
 ``opt_state_dtype`` is accepted and, as in the reference's trainer, not
 read (only its dry-run reads it). ``lr_fn`` takes the learning-rate
 schedule, as the reference's (``repro/train/trainer.py:69``); the default
@@ -87,13 +94,13 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticLM, make_global_batch, to_device
 from repro_torch.distributed.sharding import (Placement, apply_seq_sharding_config,
-                                              batch_axes, param_layout,
-                                              param_rule_conflicts, seq_axes,
-                                              seq_axis_sharded, sharding_rules)
+                                              batch_axes, expert_axes, expert_parallel,
+                                              param_layout, param_rule_conflicts,
+                                              seq_axes, seq_axis_sharded, sharding_rules)
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import model_specs, torch_dtype
 from repro_torch.models.params import (flatten_with_paths, gather_tree, init_params,
-                                      map_specs, shard_tree, tree_leaves)
+                                      map_specs, shard_tree, tree_leaves, tree_map)
 from repro_torch.optim.adamw import AdamWState, adamw_init
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.serve.engine import resolve_device
@@ -113,18 +120,27 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     seq_split = mesh is not None and seq_axis_sharded(mesh, overrides)
     rows_split = mesh is not None and mesh.axis_size(batch_axes(mesh, overrides)) > 1
     conflicts = param_rule_conflicts(mesh, overrides, cfg) if mesh is not None else []
+    moe = f" (MoE, moe_impl {cfg.moe_impl!r})" if cfg.moe else ""
+    # expert parallelism routes a rank's rows to the ranks of its experts:
+    # the rows must split over the expert axes and nothing else
+    def spread(axes):
+        return tuple(a for a in axes if mesh.shape[a] > 1)
+
+    ep_rows = (mesh is not None and expert_parallel(cfg)
+               and spread(batch_axes(mesh, overrides)) != spread(expert_axes(mesh)))
     unsupported = {
         f"parameter sharding ({', '.join(conflicts)})": bool(conflicts),
-        f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard": (
+        f"family {cfg.family!r}{moe} under a sequence shard": (
             seq_split and (cfg.family != "dense" or cfg.moe)),
         f"attention {cfg.attention_impl!r} / backend {cfg.attention_backend!r} under a "
         f"sequence shard (only the fused kernels' context-parallel attention)": (
             seq_split and (cfg.attention_impl != "spectral_shift_fused"
                            or cfg.attention_backend == "jnp")),
-        f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} with the batch split over "
-        f"ranks": rows_split and (cfg.moe or cfg.family in ("audio", "vlm")),
+        f"family {cfg.family!r} with the batch split over ranks": (
+            rows_split and cfg.family in ("audio", "vlm")),
+        f"moe_impl 'ep' with the batch over {batch_axes(mesh, overrides) if mesh else ()}, "
+        f"not the expert axes {expert_axes(mesh) if mesh else ()}": ep_rows and not seq_split,
         f"family {cfg.family!r}": cfg.family not in FAMILIES,
-        "moe_impl 'ep' (expert parallel, multi-device)": cfg.moe and cfg.moe_impl == "ep",
         f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in ATTENTION_IMPLS
             and not (cfg.family == "ssm" and cfg.attention_impl == "none"),
         f"encoder_attention_impl {cfg.encoder_attention_impl!r}": (
@@ -198,15 +214,16 @@ class Trainer:
         return {"params": places, "opt": AdamWState(step=Placement(()), m=places, v=places)}
 
     def _check_slices(self) -> None:
-        """Raise unless the ranks that hold the same slice of a leaf hold the
-        same bytes (a digest per leaf and slice, gathered; with whole
-        parameters, every rank's state)."""
+        """Raise unless the ranks that hold the same slice of a parameter
+        hold the same bytes (a digest per leaf and slice, gathered; with
+        whole parameters, every rank's). The moments start as zeros or come
+        from the same checkpoint file."""
         import torch.distributed as dist
 
         mine = {}
-        places = (tree_leaves(self._state_placements()) if self.layout is not None
-                  else [Placement(())] * len(tree_leaves(self.state())))
-        for (path, t), pl in zip(flatten_with_paths(self.state()).items(), places):
+        places = (tree_leaves(self.layout.placements) if self.layout is not None
+                  else [Placement(())] * len(tree_leaves(self.params)))
+        for (path, t), pl in zip(flatten_with_paths(self.params).items(), places):
             where = tuple(self.mesh.index(axes) for axes in pl.dims)
             data = t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
             mine[(path, where)] = hashlib.sha256(data).hexdigest()
@@ -278,22 +295,29 @@ class Trainer:
     def _init_or_restore(self) -> None:
         """The state from the latest checkpoint's whole arrays, else the
         single-device initial tree from ``tcfg.seed``; under a parameter
-        layout every rank then keeps its slices."""
+        layout the whole tree is built in host memory (drawn on the
+        device's generator, so the weights are the single device's) and
+        every rank moves only its slices to the device."""
         specs = model_specs(self.cfg)
         latest = self.ckpt.latest_step()
+        host = torch.device("cpu") if self.layout is not None else self.device
         if latest is not None:
             log.info("restoring step %d", latest)
             skel = map_specs(lambda _path, _spec: None, specs)
             state = self.ckpt.restore(latest, {"params": skel, "opt": AdamWState(
-                step=None, m=skel, v=skel)}, device=self.device)
+                step=None, m=skel, v=skel)}, device=host)
+            if self.layout is not None:
+                state = shard_tree(state, self._state_placements(), self.mesh)
+                state = tree_map(lambda t: t.to(self.device), state)
             self.step = latest
         else:
             gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
             params = init_params(specs, gen, dtype=torch_dtype(self.cfg.param_dtype),
-                                 device=self.device)
+                                 device=host)
+            if self.layout is not None:
+                params = tree_map(lambda t: t.to(self.device),
+                                  shard_tree(params, self.layout.placements, self.mesh))
             state = {"params": params, "opt": adamw_init(params)}
-        if self.layout is not None:
-            state = shard_tree(state, self._state_placements(), self.mesh)
         self.params, self.opt_state = state["params"], state["opt"]
 
     def state(self) -> dict:
@@ -301,18 +325,19 @@ class Trainer:
         under a parameter layout."""
         return {"params": self.params, "opt": self.opt_state}
 
-    def full_state(self) -> dict:
+    def full_state(self, device=None) -> dict:
         """The whole state, what a checkpoint holds, on every rank: under a
         parameter layout each leaf's slices all-gathered (a collective:
-        every rank calls it); else ``state()`` itself."""
+        every rank calls it), each whole leaf moved to ``device`` as soon
+        as it is gathered (default: the rank's); else ``state()`` itself."""
         if self.layout is None:
             return self.state()
-        return gather_tree(self.state(), self._state_placements(), self.mesh)
+        return gather_tree(self.state(), self._state_placements(), self.mesh, device=device)
 
     def save(self, blocking: bool = False) -> None:
         """Checkpoint the whole state: every rank gathers it (on its main
         thread), rank 0 writes (``blocking=False``: on its writer thread)."""
-        state = self.full_state()
+        state = self.full_state(device="cpu")
         if self.mesh is None or self.mesh.rank == 0:
             self.ckpt.save(self.step, state, blocking=blocking)
 

@@ -38,7 +38,9 @@ interpret mode), weights from ``repro.models.params.init_params`` through
   change carries the trajectory. (At seq 64 the spread is wider: 6.6%,
   DeepSeek-V2-Lite's embedding change 1.03 max-abs, Kimi-K2's L2 9.8e-2.)
 * the ``Trainer`` and the launcher on both configs, remat "full" against
-  "none", and the refusal of ``moe_impl="ep"`` (multi-device).
+  "none", and ``moe_impl="ep"`` on one device: ``moe_forward`` there, as
+  the reference's ``moe_forward_ep`` falls back without a mesh
+  (``tests/test_torch_ep.py`` holds it over ranks).
 """
 from __future__ import annotations
 
@@ -300,9 +302,18 @@ def test_trainer_and_launcher_train_moe(tmp_path, arch):
     assert all(np.isfinite(m["loss"]) and m["aux"] > 0 for m in metrics)
 
 
-def test_expert_parallel_moe_is_refused(tmp_path):
+def test_expert_parallel_moe_falls_back_without_a_mesh(tmp_path):
+    """One single-device Trainer step under ``moe_impl="ep"`` equals the
+    ``"gspmd"`` one bit for bit: off a mesh ``moe_forward_ep`` is
+    ``moe_forward`` (``repro/models/moe.py:129``)."""
     _, cfg = _cfgs("kimi")
-    cfg = dataclasses.replace(cfg, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="ep"):
-        Trainer(cfg, base.TrainConfig(checkpoint_dir=str(tmp_path)),
-                base.ShapeConfig("t", SEQ, BATCH, "train"), device="cpu")
+    runs = {}
+    for impl in ("gspmd", "ep"):
+        tr = Trainer(dataclasses.replace(cfg, moe_impl=impl),
+                     base.TrainConfig(checkpoint_dir=str(tmp_path / impl), **TCFG),
+                     base.ShapeConfig("t", SEQ, BATCH, "train"), device="cpu")
+        runs[impl] = (tr.run(1)[0], tree_leaves(tr.params))
+    (m_g, p_g), (m_e, p_e) = runs["gspmd"], runs["ep"]
+    assert m_e["loss"] == m_g["loss"] and m_e["aux"] == m_g["aux"] > 0
+    for a, b in zip(p_e, p_g):
+        assert torch.equal(a, b)

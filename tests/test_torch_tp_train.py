@@ -129,7 +129,7 @@ def _refusals(mesh, ckpt: str) -> dict:
         "seq_axis": (cfg, {}, {"seq": "model", "heads": "model"}),
         "hybrid": (reduced(get_config("hymba-1.5b")), {}, {"heads": "model"}),
         "moe": (moe, {}, {"experts": "data"}),
-        "ep": (dataclasses.replace(moe, moe_impl="ep"), {}, None),
+        "ep": (dataclasses.replace(moe, moe_impl="ep"), {}, {"seq": "model"}),
         "compression": (cfg, {"grad_compression": "int8"}, None),
         "tp_over_batch": (cfg, {}, {"heads": "data"}),
         "fsdp_off_batch": (cfg, {}, {"embed": "model"}),
@@ -455,6 +455,13 @@ def test_global_norm_over_slices(port, tag):
 def test_trainer_refuses_what_waits(port, case, words):
     for r in port:
         assert words in r["refused"][case]
+
+
+def test_expert_parallel_moe_stays_refused_under_a_sequence_shard(port):
+    """``moe_impl="ep"`` trains over ranks, but not under a sequence shard
+    (ROADMAP Queue 1 item 6)."""
+    for r in port:
+        assert "sequence shard" in r["refused"]["ep"]
 
 
 def test_other_families_keep_replicated_parameters(port):
