@@ -235,7 +235,18 @@ result line):
    1e-5, a control fed a stale activation must differ; then bf16, 3
    forward + backward passes of the CE: ms a step, send / recv /
    broadcast shares beside the schedule's bubble, peak GiB, K1-K4 24 each
-   a rank and step);
+   a rank and step), ``dryrun`` (one ``tp_train`` step on the card under
+   ``FlopCounterMode`` with ``Mesh.traffic`` counted: its FLOPs by op,
+   K1-K4's from ``kernels/cost.py`` through their custom ops, its
+   collectives and state bytes equal to ``launch/dryrun.py:run_cell`` on a
+   2 x 2 ``AbstractMesh`` at every rank, exactly; the time of Qwen2-7B's
+   ``train_4k`` cell on the production mesh, on the host) and
+   ``elastic_train`` (``tp_train``'s config and shape over 4 hosts of one
+   rank, a checkpoint every 2 steps, host0 failing before step 2 of 4: the
+   survivors, world ranks 1 and 2, go on over 1 x 2 from the step-2
+   checkpoint, bitwise equal to an uninterrupted 1 x 2 restore, beside a
+   control restoring step 0's state at step 2 that must differ; the
+   restart's seconds, ms a step before and after, peak GiB);
    then each kernel timed at the tiling the sweeps chose
    (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
@@ -263,8 +274,6 @@ from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, 700 W
 # Logits of the 2-layer fp32 model, kernel route vs plain route, both on
 # the card. (On the CPU the plain route differs from either by up to 1.4e-2
 # at two layers: cuBLAS vs CPU BLAS rounding, amplified about tenfold per
@@ -394,26 +403,45 @@ def device_us_by_kernel(calls, iters: int = 20) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = flops / H100_PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+# Every bound below is the least time the card could take for a launch's
+# work: ``kernels/cost.py``'s bytes and flops of each kernel (the one
+# definition the FLOP counter of the dry-run reads too) at the H100's rates.
+def k1_bound(b, c, keys, d, dv, pairs, *, q_bytes=2, kv_bytes=2, out_bytes=2, stats=False):
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(*cost.landmark_summary_cost(
+        b, c, keys, d, dv, pairs, q_bytes=q_bytes, kv_bytes=kv_bytes, out_bytes=out_bytes,
+        stats=stats), "bfloat16")
+
+
+def k2_bound(b, n, c, d, dv, pairs, es=2):
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(*cost.query_side_cost(b, n, c, d, dv, pairs, es=es), "bfloat16")
+
+
+def k3_bound(b, c, keys, d, dv, pairs, es=2):
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(*cost.landmark_summary_bwd_cost(b, c, keys, d, dv, pairs, es=es),
+                         "bfloat16")
+
+
+def k4_bound(b, n, c, d, dv, pairs, es=2):
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(*cost.query_side_bwd_cost(b, n, c, d, dv, pairs, es=es), "bfloat16")
 
 
 def k5_bound(kv_valid, hkv: int, r: int, d: int, dv: int, bs: int,
              es: int = 4, v_is_key: bool = False) -> tuple[float, str]:
-    """K5's bound for one launch: q and the valid keys' K and V rows read
-    once (with ``v_is_key`` the values are the first dv columns of the
-    keys, absorbed MLA's latent pool, and are not read again), the table
-    entries and kv_valid, fp32 (m, l, acc) written once; 2 r (d + dv) flops
-    per key and kv head at the peak of the pools' type (``es`` bytes an
-    element: 2 is bf16, 4 fp32)."""
-    lanes, keys = len(kv_valid), sum(kv_valid)
-    blocks = sum(-(-x // bs) for x in kv_valid)
-    row = d if v_is_key else d + dv
-    nbytes = (es * (lanes * hkv * r * d + keys * hkv * row) + 4 * (blocks + lanes)
-              + 4 * lanes * hkv * r * (dv + 2))
-    return bound(nbytes, keys * hkv * r * 2 * (d + dv), "bfloat16" if es == 2 else "float32")
+    """K5's bound for one launch at the peak of the pools' type (``es``
+    bytes an element: 2 is bf16, 4 fp32)."""
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(*cost.paged_row_stats_cost(kv_valid, hkv, r, d, dv, bs, es=es,
+                                                    v_is_key=v_is_key),
+                         "bfloat16" if es == 2 else "float32")
 
 
 def cold_pools(k_pool, v_pool) -> list:
@@ -520,10 +548,6 @@ def kernel_phase(torch, dev) -> list[dict]:
             if n != 352 or kv_dt != torch.bfloat16:
                 continue
             stats = q_dt == torch.float32
-            qs = q_l.element_size()
-            nbytes = (qs * b * c * d + 2 * (b * end * 2 * d + b * c * d)
-                      + (8 * b * c if stats else 0))
-            flops = 2 * b * c * end * 2 * d
             tag = "landmark_summary_stats" if stats else "landmark_summary"
             mask = torch.arange(n, device=dev)[None, :] < end
             entries[tag] = dict(
@@ -535,7 +559,8 @@ def kernel_phase(torch, dev) -> list[dict]:
                     torch.nn.functional.scaled_dot_product_attention,
                     q_l[None], k[None], v[None], attn_mask=mask.expand(c, n),
                     scale=scale),
-                err=err, bound=bound(nbytes, flops, "bfloat16"),
+                err=err, bound=k1_bound(b, c, end, d, d, b * c * end,
+                                        q_bytes=q_l.element_size(), stats=stats),
                 shape=(f"b={b} c={c} n={n} kv_valid={end} d=dv={d} "
                        + ("fp32 q, bf16 k/v, with stats (seed)" if stats
                           else "bf16, no stats (ss_attention_fused)")))
@@ -555,13 +580,12 @@ def kernel_phase(torch, dev) -> list[dict]:
                     f"kv_valid={kv_valid} fp32 q, bf16 k/v",
                     [("out", out, ref, None), ("m", m, rm, None), ("l", l, rl, None)])
     # timed at kv_valid = n, the case of every chunk but a prompt's last
-    nbytes = 4 * b * c * d + 2 * (b * n * 2 * d + b * c * d) + 8 * b * c
     entries["landmark_summary_chunk"] = dict(
         fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=n,
                    return_stats=True),
         plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, kv_end=n,
                       return_stats=True),
-        library=None, err=err, bound=bound(nbytes, 2 * b * c * n * 2 * d, "bfloat16"),
+        library=None, err=err, bound=k1_bound(b, c, n, d, d, b * c * n, q_bytes=4, stats=True),
         shape=f"b={b} c={c} n={n} kv_valid={n} d=dv={d} fp32 q, bf16 k/v, with "
               f"stats (chunk site; no library call takes mixed dtypes)")
     # segment-causal variant (not on the serving path, held all the same)
@@ -582,14 +606,12 @@ def kernel_phase(torch, dev) -> list[dict]:
             err = check(f"K2 query_side b={b} n={n} c={c} {dname}",
                         [("out", out, ref, None)])
             if (dt, n) == (torch.bfloat16, 352):
-                nbytes = 2 * (2 * b * n * d + 2 * b * c * d + b * n * d) + 4 * b
-                flops = 2 * b * n * c * 2 * d
                 entries["query_side"] = dict(
                     fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
                     plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
                     library=partial(sdpa_query_side, q, k_l, m_mat, v, delta,
                                     scale=scale),
-                    err=err, bound=bound(nbytes, flops, "bfloat16"),
+                    err=err, bound=k2_bound(b, n, c, d, d, b * n * c),
                     shape=f"b={b} n={n} c={c} d=dv={d} bf16")
     q, k_l = randn(b, 160, d, s=0.5), randn(b, c, d, s=0.5)
     m_mat, v, delta = randn(b, c, d), randn(b, 160, d), randn(b, 1, 1, s=0.1).abs()
@@ -1237,9 +1259,6 @@ def mla_kernel_entries(torch, dev) -> dict:
                         [(nm, o, r_, None) for nm, o, r_ in zip(names, outs, refs)])
             if n != 352 or kv_dt != bf16:
                 continue
-            qs = q_l.element_size()
-            nbytes = (qs * b * c * d + 2 * (b * kvv * (d + dv) + b * c * dv)
-                      + (8 * b * c if stats else 0))
             mask = torch.arange(n, device=dev)[None, :] < kvv
             entries["mla_landmark_summary_stats" if stats else "mla_landmark_summary"] = dict(
                 fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=kvv,
@@ -1249,7 +1268,8 @@ def mla_kernel_entries(torch, dev) -> dict:
                 library=None if stats else partial(
                     torch.nn.functional.scaled_dot_product_attention, q_l[None], k[None],
                     v[None], attn_mask=mask.expand(c, n), scale=scale),
-                err=err, bound=bound(nbytes, 2 * b * c * kvv * (d + dv), "bfloat16"),
+                err=err, bound=k1_bound(b, c, kvv, d, dv, b * c * kvv,
+                                        q_bytes=q_l.element_size(), stats=stats),
                 shape=(f"b={b} c={c} n={n} kv_valid={kvv} d={d} dv={dv} "
                        + ("fp32 q, bf16 k/v, with stats (MLA seed)" if stats
                           else "bf16, no stats (MLA ss_attention_fused)")))
@@ -1264,12 +1284,12 @@ def mla_kernel_entries(torch, dev) -> dict:
                                              return_stats=True)
         err = check(f"K1 MLA chunk site b={b} c={c} n={n} kv_valid={kvv} fp32 q, bf16 k/v",
                     [("out", out, ref, None), ("m", m, rm, None), ("l", l, rl, None)])
-    nbytes = 4 * b * c * d + 2 * (b * n * (d + dv) + b * c * dv) + 8 * b * c
     entries["mla_landmark_summary_chunk"] = dict(
         fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=n, return_stats=True),
         plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, kv_end=n,
                       return_stats=True),
-        library=None, err=err, bound=bound(nbytes, 2 * b * c * n * (d + dv), "bfloat16"),
+        library=None, err=err,
+        bound=k1_bound(b, c, n, d, dv, b * c * n, q_bytes=4, stats=True),
         shape=f"b={b} c={c} n={n} kv_valid={n} d={d} dv={dv} fp32 q, bf16 k/v, with "
               f"stats (MLA chunk site; no library call takes mixed dtypes)")
 
@@ -1283,12 +1303,11 @@ def mla_kernel_entries(torch, dev) -> dict:
                         [("out", query_side(q, k_l, m_mat, v, delta, scale=scale),
                           query_side_plain(q, k_l, m_mat, v, delta, scale=scale), None)])
             if (n, dt) == (352, bf16):
-                nbytes = 2 * (b * n * d + b * c * (d + dv) + 2 * b * n * dv) + 4 * b
                 entries["mla_query_side"] = dict(
                     fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
                     plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
                     library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale),
-                    err=err, bound=bound(nbytes, 2 * b * n * c * (d + dv), "bfloat16"),
+                    err=err, bound=k2_bound(b, n, c, d, dv, b * n * c),
                     shape=f"b={b} n={n} c={c} d={d} dv={dv} bf16 (MLA)")
 
     # ---- K5: two key pools, the latent pool also the value pool --------------
@@ -1367,6 +1386,7 @@ def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -
     dispatch plan's ``block_n``: K1 / K3 ``chunk_keys``, K2 / K4
     ``run_rows``), which the fp32 kernels of K1-K3 do not use. Timing
     entries are the bf16 causal launches."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ss_attention import (b_side_mask, landmark_summary,
                                                   landmark_summary_plain,
                                                   query_side, query_side_plain)
@@ -1385,9 +1405,10 @@ def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -
     def randn(*shape, s=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
-    rows = torch.arange(c, device=dev)
-    # attended (row, key) pairs under the causal masks, the work the data needs
-    pairs = b * int(torch.clamp((rows + 1) * seg, max=n).sum())
+    # attended (row, key) and (query, column) pairs under the causal masks,
+    # the work the data needs
+    pairs1 = b * cost.b_side_pairs(c, n, seg=seg)
+    pairs2 = b * cost.f_side_pairs(n, c, seg=seg)
     fmask = torch.arange(c, device=dev)[None, :] <= (torch.arange(n, device=dev) // seg)[:, None]
     entries = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1429,8 +1450,8 @@ def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -
                 plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, seg=seg,
                               return_stats=True),
                 library=library_with_stats(q_l, k, v, bmask, scale=scale), err=err1,
-                bound=bound(es * (2 * b * c * d + 2 * b * n * d) + 8 * b * c,
-                            2 * pairs * 2 * d, "bfloat16"),
+                bound=k1_bound(b, c, n, d, d, pairs1, q_bytes=es, kv_bytes=es, out_bytes=es,
+                               stats=True),
                 shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal, with "
                       f"stats (training forward){at}")
             entries["landmark_summary_bwd"] = dict(
@@ -1441,9 +1462,7 @@ def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -
                 library=sdpa_backward(partial(sdpa_4d, attn_mask=bmask, scale=scale),
                                       (q_l, k, v), g),
                 err=err3,
-                bound=bound(es * (3 * b * c * d + 2 * b * n * d) + 8 * b * c
-                            + es * (b * c * d + 2 * b * n * d),
-                            2 * pairs * 5 * d, "bfloat16"),
+                bound=k3_bound(b, c, n, d, d, pairs1, es),
                 shape=f"b={b} c={c} n={n} seg={seg} d=dv={d} bf16, causal{at}")
         # ---- K2 causal and K4 -------------------------------------------
         q, k_l = randn(b, n, d, s=0.5, dtype=dt), randn(b, c, d, s=0.5, dtype=dt)
@@ -1475,8 +1494,7 @@ def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -
                 library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale,
                                 attn_mask=fmask),
                 err=err2,
-                bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b,
-                            2 * pairs * 2 * d, "bfloat16"),
+                bound=k2_bound(b, n, c, d, d, pairs2, es),
                 shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal "
                       f"(training forward){at}")
             entries["query_side_bwd"] = dict(
@@ -1488,9 +1506,7 @@ def train_kernel_entries(torch, dev, b: int = 56, d: int = 128, tile: int = 0) -
                                               attn_mask=fmask),
                                       (q, k_l, m_mat, v, delta), g),
                 err=err4,
-                bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b
-                            + es * (2 * b * n * d + 2 * b * c * d) + 4 * b,
-                            2 * pairs * 5 * d + 4 * b * n * d, "bfloat16"),
+                bound=k4_bound(b, n, c, d, d, pairs2, es),
                 shape=f"b={b} n={n} c={c} seg={seg} d=dv={d} bf16, causal{at}")
     return entries
 
@@ -3977,8 +3993,6 @@ def llava_ss_entries(torch, dev) -> dict:
         if kv_dt != torch.bfloat16:
             continue
         stats = q_dt == torch.float32
-        nbytes = (q_l.element_size() * b * c * d + 2 * (b * kvv * 2 * d + b * c * d)
-                  + (8 * b * c if stats else 0))
         mask = torch.arange(n, device=dev)[None, :] < kvv
         entries["llava_landmark_summary_stats" if stats else "llava_landmark_summary"] = dict(
             fn=partial(landmark_summary, q_l, k, v, scale=scale, kv_valid=kvv,
@@ -3988,7 +4002,8 @@ def llava_ss_entries(torch, dev) -> dict:
             library=None if stats else partial(
                 torch.nn.functional.scaled_dot_product_attention, q_l[None], k[None],
                 v[None], attn_mask=mask.expand(c, n), scale=scale),
-            err=err, bound=bound(nbytes, 2 * b * c * kvv * 2 * d, "bfloat16"),
+            err=err, bound=k1_bound(b, c, kvv, d, d, b * c * kvv,
+                                    q_bytes=q_l.element_size(), stats=stats),
             shape=(f"{LLAVA} prefill: b={b} c={c} n={n} kv_valid={kvv} d=dv={d} "
                    + ("fp32 q, bf16 k/v, with stats (seed)" if stats
                       else "bf16, no stats (ss_attention_fused)")))
@@ -4004,8 +4019,7 @@ def llava_ss_entries(torch, dev) -> dict:
         fn=partial(query_side, q, k_l, m_mat, v, delta, scale=scale),
         plain=partial(query_side_plain, q, k_l, m_mat, v, delta, scale=scale),
         library=partial(sdpa_query_side, q, k_l, m_mat, v, delta, scale=scale),
-        err=err, bound=bound(2 * (2 * b * n * d + 2 * b * c * d + b * n * d) + 4 * b,
-                             2 * b * n * c * 2 * d, "bfloat16"),
+        err=err, bound=k2_bound(b, n, c, d, d, b * n * c),
         shape=f"{LLAVA} prefill: b={b} n={n} c={c} d=dv={d} bf16")
     return entries
 
@@ -4018,6 +4032,7 @@ def bidir_train_kernel_entries(torch, dev, b: int = WHISPER_TRAIN_BATCH * 8,
     47, the last one padded), c = 32, d = 64. K1 with stats and K2 forward,
     K3 and K4 backward, each against its plain version in fp32 (TF32 off)
     and bf16; timing entries are the bf16 launches."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ss_attention import (landmark_summary,
                                                   landmark_summary_plain, query_side,
                                                   query_side_plain)
@@ -4033,7 +4048,7 @@ def bidir_train_kernel_entries(torch, dev, b: int = WHISPER_TRAIN_BATCH * 8,
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
     full = torch.ones((c, n), dtype=torch.bool, device=dev)
-    pairs = b * c * n   # every (row, key) pair is attended
+    pairs = b * cost.b_side_pairs(c, n)   # every (row, key) pair is attended
     at = f"b={b} c={c} n={n} d=dv={d}"
     entries = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -4068,31 +4083,27 @@ def bidir_train_kernel_entries(torch, dev, b: int = WHISPER_TRAIN_BATCH * 8,
         fn=partial(landmark_summary, q_l, k, v, scale=scale, return_stats=True),
         plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, return_stats=True),
         library=library_with_stats(q_l, k, v, full, scale=scale), err=err1,
-        bound=bound(es * (2 * b * c * d + 2 * b * n * d) + 8 * b * c, 2 * pairs * 2 * d,
-                    "bfloat16"),
+        bound=k1_bound(b, c, n, d, d, pairs, q_bytes=es, kv_bytes=es, out_bytes=es,
+                       stats=True),
         shape=f"{shape}, with stats")
     entries["whisper_landmark_summary_bwd"] = dict(
         fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, scale=scale),
         plain=partial(landmark_summary_bwd_plain, q_l, k, v, g, m, l, dcoef, scale=scale),
         library=sdpa_backward(partial(sdpa_4d, scale=scale), (q_l, k, v), g), err=err3,
-        bound=bound(es * (3 * b * c * d + 2 * b * n * d) + 8 * b * c
-                    + es * (b * c * d + 2 * b * n * d), 2 * pairs * 5 * d, "bfloat16"),
+        bound=k3_bound(b, c, n, d, d, pairs, es),
         shape=shape)
     entries["whisper_query_side_train"] = dict(
         fn=partial(query_side, q, k_l, m_mat, v2, delta, scale=scale),
         plain=partial(query_side_plain, q, k_l, m_mat, v2, delta, scale=scale),
         library=partial(sdpa_query_side, q, k_l, m_mat, v2, delta, scale=scale), err=err2,
-        bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b, 2 * pairs * 2 * d,
-                    "bfloat16"),
+        bound=k2_bound(b, n, c, d, d, pairs, es),
         shape=shape)
     entries["whisper_query_side_bwd"] = dict(
         fn=partial(query_side_bwd, q, k_l, m_mat, v2, delta, g2, scale=scale),
         plain=partial(query_side_bwd_plain, q, k_l, m_mat, v2, delta, g2, scale=scale),
         library=sdpa_backward(partial(sdpa_query_side, scale=scale),
                               (q, k_l, m_mat, v2, delta), g2), err=err4,
-        bound=bound(es * (3 * b * n * d + 2 * b * c * d) + 4 * b
-                    + es * (2 * b * n * d + 2 * b * c * d) + 4 * b,
-                    2 * pairs * 5 * d + 4 * b * n * d, "bfloat16"),
+        bound=k4_bound(b, n, c, d, d, pairs, es),
         shape=shape)
     return entries
 
@@ -4129,6 +4140,7 @@ def shard_kernel_entries(torch, dev) -> dict:
     segments of 128) over 2. K1's rows that reach no key of the shard must come back (out 0,
     m -1e30, l 0); K3's dK / dV of keys no row reaches, zero. Timing
     entries: the last shard of each SHARD_TIMED split in bf16."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ss_attention import (b_side_mask, landmark_summary,
                                                   landmark_summary_plain, query_side,
                                                   query_side_plain)
@@ -4206,11 +4218,11 @@ def shard_kernel_entries(torch, dev) -> dict:
                     continue
                 # the work this shard's data needs: attended (row, key) pairs
                 # of K1 / K3 and (query, column) pairs of K2 / K4
-                pairs1 = b * int(bmask.sum())
+                pairs1 = b * cost.b_side_pairs(c, n_loc, seg=seg, kv_offset=off, kv_end=end)
+                pairs2 = b * cost.f_side_pairs(n_loc, c, seg=seg, pos_offset=off)
                 qpos = off + torch.arange(n_loc, device=dev)
                 fmask = (torch.arange(c, device=dev)[None, :] <= (qpos // seg)[:, None]
                          if seg else torch.ones((n_loc, c), dtype=torch.bool, device=dev))
-                pairs2 = b * int(fmask.sum())
                 shape = (f"{at.split(': ', 1)[1]}, bf16 (the last of {shards} shards, "
                          f"{int(empty.sum())} of {c} rows reach no key)")
                 entries[f"{case}_landmark_summary"] = dict(
@@ -4218,8 +4230,8 @@ def shard_kernel_entries(torch, dev) -> dict:
                     plain=partial(landmark_summary_plain, q_l, k, v, scale=scale, seg=seg,
                                   kv_offset=off, kv_end=end, return_stats=True),
                     library=library_with_stats(q_l, k, v, bmask, scale=scale), err=err1,
-                    bound=bound(es * (2 * b * c * d + 2 * b * n_loc * d) + 8 * b * c,
-                                2 * pairs1 * 2 * d, "bfloat16"),
+                    bound=k1_bound(b, c, n_loc, d, d, pairs1, q_bytes=es, kv_bytes=es,
+                                   out_bytes=es, stats=True),
                     shape=f"{shape}, with stats")
                 entries[f"{case}_landmark_summary_bwd"] = dict(
                     fn=partial(landmark_summary_bwd, q_l, k, v, bv, m, l, g, **kw1),
@@ -4227,9 +4239,7 @@ def shard_kernel_entries(torch, dev) -> dict:
                                   scale=scale, seg=seg, kv_offset=off, kv_end=end),
                     library=sdpa_backward(partial(sdpa_4d, attn_mask=bmask, scale=scale),
                                           (q_l, k, v), g), err=err3,
-                    bound=bound(es * (3 * b * c * d + 2 * b * n_loc * d) + 8 * b * c
-                                + es * (b * c * d + 2 * b * n_loc * d),
-                                2 * pairs1 * 5 * d, "bfloat16"),
+                    bound=k3_bound(b, c, n_loc, d, d, pairs1, es),
                     shape=shape)
                 entries[f"{case}_query_side"] = dict(
                     fn=partial(query_side, q, k_l, m_mat, v2, delta, **kw2),
@@ -4237,8 +4247,7 @@ def shard_kernel_entries(torch, dev) -> dict:
                                   seg=seg, pos_offset=off),
                     library=partial(sdpa_query_side, q, k_l, m_mat, v2, delta, scale=scale,
                                     attn_mask=fmask), err=err2,
-                    bound=bound(es * (3 * b * n_loc * d + 2 * b * c * d) + 4 * b,
-                                2 * pairs2 * 2 * d, "bfloat16"),
+                    bound=k2_bound(b, n_loc, c, d, d, pairs2, es),
                     shape=shape.replace(" rows reach no key", " landmark rows reach no key"))
                 entries[f"{case}_query_side_bwd"] = dict(
                     fn=partial(query_side_bwd, q, k_l, m_mat, v2, delta, g2, **kw2),
@@ -4247,9 +4256,7 @@ def shard_kernel_entries(torch, dev) -> dict:
                     library=sdpa_backward(partial(sdpa_query_side, scale=scale,
                                                   attn_mask=fmask),
                                           (q, k_l, m_mat, v2, delta), g2), err=err4,
-                    bound=bound(es * (3 * b * n_loc * d + 2 * b * c * d) + 4 * b
-                                + es * (2 * b * n_loc * d + 2 * b * c * d) + 4 * b,
-                                2 * pairs2 * 5 * d + 4 * b * n_loc * d, "bfloat16"),
+                    bound=k4_bound(b, n_loc, c, d, d, pairs2, es),
                     shape=shape)
     return entries
 
@@ -5225,11 +5232,126 @@ def pp_train_rank(mesh, seq: int, steps: int) -> dict:
                 peak_gib=peak, launches=launches)
 
 
+# --------------------------------------------------------------------------
+# fault tolerance and the dry-run: the same ranks
+# --------------------------------------------------------------------------
+# elastic_train: tp_train's config and shape (paper-bert at 4 fp32 layers,
+# TP 2 x FSDP 2), hosts of one rank each; host0 fails before step
+# ELASTIC_FAIL_AT, the survivors (world ranks 1, 2) go on over 1 x 2 from the
+# checkpoint of that step.
+ELASTIC_HOSTS, ELASTIC_EVERY, ELASTIC_FAIL_AT, ELASTIC_STEPS = 4, 2, 2, 4
+ELASTIC_SURVIVORS = [1, 2]
+
+
+def elastic_train_rank(mesh, seq: int, batch: int, root: str) -> dict:
+    """One rank of ``elastic_train``: the ``Trainer`` on ``tp_step0_config``
+    over a 2 x 2 mesh of its own (the restart destroys the mesh it leaves)
+    with a ``HeartbeatMonitor`` of ELASTIC_HOSTS hosts and
+    ``FailureInjector({ELASTIC_FAIL_AT: ["host0"]})``, a checkpoint every
+    ELASTIC_EVERY steps and one of step 0, ELASTIC_STEPS steps: its losses,
+    ms a step, peak GiB, the restart's seconds (``recoveries``) and the
+    launches. Then, over the survivors' 1 x 2 sub-mesh, an uninterrupted
+    run restored from the failure step's checkpoint (``resume``: its steps
+    must equal the elastic run's bitwise) and the control, the step-0
+    checkpoint's state restored at the failure step (``control``: a wrong
+    step, whose loss must differ)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed.fault_tolerance import FailureInjector, HeartbeatMonitor
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def tcfg(name: str, every: int):
+        return TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=every,
+                           checkpoint_dir=os.path.join(root, name))
+
+    own = Mesh(SP_MESH, ("data", "model"), device=dev, timeout_s=SP_TIMEOUT_S)
+    monitor = HeartbeatMonitor([f"host{i}" for i in range(ELASTIC_HOSTS)], timeout_s=600)
+    trainer = Trainer(tp_step0_config(), tcfg("elastic", ELASTIC_EVERY), shape, own,
+                      monitor=monitor, injector=FailureInjector({ELASTIC_FAIL_AT: ["host0"]}))
+    trainer.save(blocking=True)   # step 0: the control's state
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches: dict = {}
+    hist = _counted(launches, lambda: trainer.run(ELASTIC_STEPS))
+    out = dict(rank=mesh.rank, losses={h["step"]: h["loss"] for h in hist},
+               ms={h["step"]: 1e3 * h["step_time_s"] for h in hist}, active=trainer.active,
+               mesh=dict(trainer.mesh.shape), hosts=list(monitor.hosts),
+               recoveries=trainer.recoveries, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == ELASTIC_SURVIVORS[0]:   # the new mesh's rank 0 wrote the checkpoints
+        for name, step in (("resume", ELASTIC_FAIL_AT), ("control", 0)):
+            shutil.copytree(os.path.join(root, "elastic", f"step_{step:08d}"),
+                            os.path.join(root, name, f"step_{ELASTIC_FAIL_AT:08d}"))
+    dist.barrier()
+    sub = Mesh((1, 2), ("data", "model"), ranks=ELASTIC_SURVIVORS, device=dev,
+               timeout_s=SP_TIMEOUT_S)
+    if sub.member:
+        for name, steps in (("resume", ELASTIC_STEPS - ELASTIC_FAIL_AT), ("control", 1)):
+            t = Trainer(tp_step0_config(), tcfg(name, 0), shape, sub)
+            out[name] = {h["step"]: h["loss"] for h in t.run(steps)}
+            del t
+            gc.collect()
+            torch.cuda.empty_cache()
+    sub.close()
+    return out
+
+
+def dryrun_rank(mesh, seq: int, batch: int, root: str) -> dict:
+    """One rank of ``dryrun``: ``tp_train``'s Trainer (``tp_step0_config``,
+    TP 2 x FSDP 2 on the group's mesh) runs one step on the card under
+    ``FlopCounterMode``, the mesh's collectives counted by op and group
+    (``Mesh.traffic``): its FLOPs by op, collectives
+    (``dryrun.collectives_since``), state bytes (the parameter slices and
+    two fp32 moments) and launches, for the parent to hold against
+    ``run_cell`` on a 2 x 2 ``AbstractMesh``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels.cost import register_flop_formulas
+    from repro_torch.launch.dryrun import collectives_since
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.trainer import Trainer
+
+    register_flop_formulas()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = Trainer(tp_step0_config(), TrainConfig(total_steps=10, warmup_steps=1,
+                                                     checkpoint_every=0, checkpoint_dir=root),
+                      ShapeConfig("train_4k", seq, batch, "train"), mesh)
+    leaves = tree_leaves(trainer.params)
+    state = sum(t.numel() * t.element_size() for t in leaves) + 2 * sum(
+        t.numel() * 4 for t in leaves)
+    before = mesh.traffic()
+    launches: dict = {}
+    with FlopCounterMode(display=False) as counter:
+        hist = _counted(launches, lambda: trainer.run(1))
+    collectives = collectives_since(mesh, before)
+    counts = counter.get_flop_counts()["Global"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=mesh.rank, state=float(state), launches=launches,
+                ms=1e3 * hist[0]["step_time_s"],
+                flops_by_op={str(k): float(v) for k, v in counts.items()},
+                collectives=collectives)
+
+
 def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
-            ep: tuple, pp: tuple) -> dict:
-    """The context-parallel paths, ``tp_train``, ``ep_train`` and
-    ``pp_train`` on one rank of the SP_MESH group, each phase's memory
-    freed before the next."""
+            ep: tuple, pp: tuple, elastic: tuple, dry: tuple) -> dict:
+    """The context-parallel paths, ``tp_train``, ``ep_train``, ``pp_train``,
+    ``dryrun`` and ``elastic_train`` on one rank of the SP_MESH group, each
+    phase's memory freed before the next."""
     import torch
 
     out = {"attention": sp_attention_rank(mesh, **attention)}
@@ -5237,7 +5359,9 @@ def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
     out["train"] = sp_train_rank(mesh, seq, batch, steps)
     gc.collect()
     out["tp"] = tp_train_rank(mesh, *tp)
-    for name, fn, args in (("ep", ep_train_rank, ep), ("pp", pp_train_rank, pp)):
+    for name, fn, args in (("ep", ep_train_rank, ep), ("pp", pp_train_rank, pp),
+                           ("dryrun", dryrun_rank, dry), ("elastic", elastic_train_rank,
+                                                          elastic)):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -5247,8 +5371,8 @@ def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
 
 
 def sp_phase(torch, dev) -> dict:
-    """``sp_attention``, ``sp_train``, ``tp_train``, ``ep_train`` and
-    ``pp_train``: 4 ranks on the one card
+    """``sp_attention``, ``sp_train``, ``tp_train``, ``ep_train``,
+    ``pp_train``, ``dryrun`` and ``elastic_train``: 4 ranks on the one card
     (``launch/mesh.py:spawn_local``, gloo: NCCL will not put two ranks of
     one communicator on one GPU, so the (c, .)-sized collectives are staged
     through host memory; no figure here is one for NVLink), a ("data",
@@ -5273,9 +5397,11 @@ def sp_phase(torch, dev) -> dict:
     / K3 1 / K4 1 a layer and step (remat full), the 1-layer fp32 twin's
     gathered gradients within GRAD_TOL, and its last step's checkpoint
     restored bitwise (gathered parameters) onto a 1 x 4 mesh and onto one
-    device. ``ep_train`` and ``pp_train`` on meshes of their own over the
-    same ranks (``ep_train_rank``, ``pp_train_rank``; the one-device
-    reference of ``ep_train``'s step 0 runs here first). Returns the
+    device. ``ep_train``, ``pp_train`` and ``elastic_train`` on meshes of
+    their own over the same ranks (``ep_train_rank``, ``pp_train_rank``,
+    ``elastic_train_rank``; the one-device reference of ``ep_train``'s step
+    0 runs here first), ``dryrun`` on the group's (``dryrun_rank``,
+    ``check_dryrun``). Returns the
     launches of each path, summed over the ranks."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.launch.mesh import spawn_local
@@ -5294,13 +5420,17 @@ def sp_phase(torch, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     tp_ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ckpt_")
+    elastic_root = tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_")
     t0 = time.perf_counter()
     ranks = spawn_local(sp_rank, SP_MESH, ("data", "model"),
                         args=(SP_ATTENTION, SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS,
                               (TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS, tp_ckpt.name),
-                              (EP_SEQ, EP_BATCH, EP_STEPS), (PP_SEQ, PP_STEPS)),
+                              (EP_SEQ, EP_BATCH, EP_STEPS), (PP_SEQ, PP_STEPS),
+                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name),
+                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name)),
                         backend="gloo", device="cuda", timeout_s=SP_TIMEOUT_S, threads=2)
     wall = time.perf_counter() - t0
+    elastic_root.cleanup()
     # ---- sp_attention ------------------------------------------------------
     for key in ((2, "float32"), (2, "bfloat16"), (4, "float32"), (4, "bfloat16")):
         cases = [r["attention"]["cases"][key] for r in ranks]
@@ -5408,8 +5538,14 @@ def sp_phase(torch, dev) -> dict:
     check_ep_train(eps, ep_single0)
     pps = [r["pp"] for r in ranks]
     check_pp_train(pps)
+    drys = [r["dryrun"] for r in ranks]
+    check_dryrun(drys)
+    els = [r["elastic"] for r in ranks]
+    check_elastic_train(els)
     log(f"the ranks' group {wall:.1f}s: ep_train {['%.1f' % e['phase_s'] for e in eps]} s, "
-        f"pp_train {['%.1f' % p['phase_s'] for p in pps]} s per rank")
+        f"pp_train {['%.1f' % p['phase_s'] for p in pps]} s, dryrun "
+        f"{['%.1f' % d['phase_s'] for d in drys]} s, elastic_train "
+        f"{['%.1f' % e['phase_s'] for e in els]} s per rank")
 
     def total(rows):
         return {k: sum(r[k] for r in rows) for k in rows[0]}
@@ -5418,7 +5554,113 @@ def sp_phase(torch, dev) -> dict:
             "sp_train": total([t["launches"] for t in trains]),
             "tp_train": total([t["launches"] for t in tps]),
             "ep_train": total([e["launches"] for e in eps]),
-            "pp_train": total([p["launches"] for p in pps])}
+            "pp_train": total([p["launches"] for p in pps]),
+            "dryrun": total([d["launches"] for d in drys]),
+            "elastic_train": total([e["launches"] for e in els])}
+
+
+def check_elastic_train(els: list) -> None:
+    """Hold ``elastic_train``'s ranks (``elastic_train_rank``'s results): the
+    survivors on 1 x 2 reach ELASTIC_STEPS, the others stop at the failure,
+    inactive; the survivors' steps after the failure equal the
+    uninterrupted restore bitwise and the control (step 0's state at the
+    failure step) differs; launches per rank K1 2 / K2 2 / K3 1 / K4 1 a
+    layer and step run (remat full). Logs the restart's seconds, ms a step
+    before and after, peak GiB."""
+    layers = tp_step0_config().num_layers
+    for e in els:
+        survivor = e["rank"] in ELASTIC_SURVIVORS
+        run = ELASTIC_STEPS if survivor else ELASTIC_FAIL_AT
+        if (e["active"] != survivor or sorted(e["losses"]) != list(range(run))
+                or e["mesh"] != {"data": 1, "model": 2}
+                or e["hosts"] != [f"host{i}" for i in range(1, ELASTIC_HOSTS)]):
+            raise AssertionError(f"elastic_train rank {e['rank']}: active {e['active']}, "
+                                 f"steps {sorted(e['losses'])}, mesh {e['mesh']}, hosts "
+                                 f"{e['hosts']}")
+        want = dict(landmark_summary=2 * layers * run, query_side=2 * layers * run,
+                    landmark_summary_bwd=layers * run, query_side_bwd=layers * run,
+                    paged_row_stats=0)
+        if e["launches"] != want:
+            raise AssertionError(f"elastic_train rank {e['rank']}: launches {e['launches']} "
+                                 f"!= {want}")
+        if not all(math.isfinite(x) for x in e["losses"].values()):
+            raise AssertionError(f"elastic_train rank {e['rank']}: losses {e['losses']}")
+    after = range(ELASTIC_FAIL_AT, ELASTIC_STEPS)
+    for e in (els[r] for r in ELASTIC_SURVIVORS):
+        if any(e["losses"][s] != e["resume"][s] for s in after):
+            raise AssertionError(f"elastic_train rank {e['rank']}: steps {list(after)} "
+                                 f"{[e['losses'][s] for s in after]} differ from the "
+                                 f"uninterrupted restore {[e['resume'][s] for s in after]}")
+        if e["control"][ELASTIC_FAIL_AT] == e["losses"][ELASTIC_FAIL_AT]:
+            raise AssertionError("elastic_train: the control (step 0's state restored at "
+                                 "the failure step) gives the same loss: the check would "
+                                 "not see a wrong restore")
+    surv = els[ELASTIC_SURVIVORS[0]]
+    rec = [e["recoveries"][0] for e in els]
+    log(f"elastic_train: paper-bert {tp_step0_config().num_layers} fp32 layers seq "
+        f"{TP_TRAIN_SEQ} batch {TP_TRAIN_BATCH}, TP 2 x FSDP 2 -> host0 fails at step "
+        f"{ELASTIC_FAIL_AT} -> 1 x 2 over world ranks {ELASTIC_SURVIVORS}: losses "
+        f"{['%.6f' % surv['losses'][s] for s in range(ELASTIC_STEPS)]}, steps "
+        f"{list(after)} bitwise equal to the uninterrupted restore on both survivors; "
+        f"control (step 0's state at step {ELASTIC_FAIL_AT}) "
+        f"{surv['control'][ELASTIC_FAIL_AT]:.6f} (differs); restart seconds per rank: wait "
+        f"{['%.3f' % r['wait_s'] for r in rec]}, new groups "
+        f"{['%.3f' % r['groups_s'] for r in rec]}, restore "
+        f"{['%.3f' % r.get('restore_s', float('nan')) for r in rec]}, slice check "
+        f"{['%.3f' % r.get('check_s', float('nan')) for r in rec]}; ms a step per rank "
+        f"{[{s: round(m, 1) for s, m in e['ms'].items()} for e in els]}; peak GiB per rank "
+        f"{['%.2f' % e['peak_gib'] for e in els]}")
+
+
+def check_dryrun(drys: list) -> None:
+    """Hold ``dryrun``'s ranks (``dryrun_rank``'s results: one real step on
+    the card) to ``run_cell`` of the same config and shape on a 2 x 2
+    ``AbstractMesh`` at each rank: FLOPs by op (K1-K4's formulas counted,
+    not zero), collectives by op and state bytes, exactly. Logs the time
+    of Qwen2-7B's ``train_4k`` cell on the production mesh on the host."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.mesh import AbstractMesh
+    from repro_torch.launch.dryrun import run_cell
+
+    cfg = tp_step0_config()
+    overrides = dict(num_layers=cfg.num_layers, compute_dtype=cfg.compute_dtype,
+                     attention_impl=cfg.attention_impl)
+    shape = ShapeConfig("train_4k", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train")
+    for d in drys:
+        t0 = time.perf_counter()
+        cell = run_cell("paper-bert", "train_4k", False, cfg_overrides=overrides,
+                        mesh=AbstractMesh(SP_MESH, ("data", "model"), rank=d["rank"]),
+                        shape=shape)
+        trace_s = time.perf_counter() - t0
+        if (cell["flops_by_op"] != d["flops_by_op"] or cell["collectives"] != d["collectives"]
+                or cell["state_bytes_per_device"] != d["state"]):
+            raise AssertionError(f"dryrun rank {d['rank']}: predicted flops "
+                                 f"{cell['flops_by_op']}, collectives {cell['collectives']}, "
+                                 f"state {cell['state_bytes_per_device']}; the card's "
+                                 f"{d['flops_by_op']}, {d['collectives']}, {d['state']}")
+        zero = [op for op in TRAIN_KERNELS
+                if not cell["flops_by_op"].get(f"repro_torch.{op}", 0) > 0]
+        if zero:
+            raise AssertionError(f"dryrun: no FLOPs counted for {zero}")
+    log(f"dryrun: tp_train's step on the card (rank 0: {drys[0]['ms']:.1f} ms, "
+        f"{sum(drys[0]['flops_by_op'].values()):.6e} FLOPs: "
+        f"{json.dumps(drys[0]['flops_by_op'])}; collectives "
+        f"{json.dumps(drys[0]['collectives'])}; state {drys[0]['state']:.0f} B) equals "
+        f"run_cell on a 2 x 2 AbstractMesh on every rank (last trace {trace_s:.2f} s)")
+    t0 = time.perf_counter()
+    try:
+        run_cell("qwen2-7b", "train_4k", False)
+    except NotImplementedError as e:
+        refused = f"refused in {time.perf_counter() - t0:.3f} s ({e})"
+    else:
+        raise AssertionError("dryrun: qwen2-7b train_4k under its chunked attention ran "
+                             "under a sequence shard, which the port refuses")
+    t0 = time.perf_counter()
+    cell = run_cell("qwen2-7b", "train_4k", False, attention="spectral_shift_fused")
+    log(f"dryrun: run_cell('qwen2-7b', 'train_4k', False) {refused}; with "
+        f"attention='spectral_shift_fused' {time.perf_counter() - t0:.1f} s on the host "
+        f"(trace {cell['trace_s']} s): {cell['flops_total']:.6e} FLOPs a rank, state "
+        f"{cell['state_bytes_per_device']:.0f} B, collectives {json.dumps(cell['collectives'])}")
 
 
 def check_ep_train(eps: list, single0: float) -> None:

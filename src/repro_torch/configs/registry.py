@@ -1,5 +1,6 @@
 """Architecture registry of the port (``repro/configs/registry.py``): the
-configs it runs and each shape cell's input shapes."""
+configs it runs and each shape cell's input shapes (train, prefill and
+decode cells)."""
 from __future__ import annotations
 
 import importlib
@@ -44,22 +45,28 @@ def shape_preset(name: str) -> ShapeConfig:
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple[dict, dict]:
-    """(shape tree, logical-axes tree) of one (arch, shape) cell's train or
-    prefill inputs (``registry.py:45``): tensors on the ``meta`` device
-    stand for the reference's ``jax.ShapeDtypeStruct``. The decode cells
-    (a token and the whole KV cache) need the cache specs of the
-    reference's ``serve/kv_cache.py``, which only its dry-run reads: not
-    ported (ROADMAP Queue 1, multi-device). Whisper's batch carries
-    ``frames`` (b, ENCODER_SEQ, d_model) fp32 beside the tokens, LLaVA's
-    ``patches`` (b, p, 1024) fp32 and s - p tokens."""
-    if shape.kind not in ("train", "prefill"):
-        raise NotImplementedError("decode batch specs come with the dry-run "
-                                  "(ROADMAP Queue 1, multi-device)")
+    """(shape tree, logical-axes tree) of one (arch, shape) cell's inputs
+    (``registry.py:45``): tensors on the ``meta`` device stand for the
+    reference's ``jax.ShapeDtypeStruct``. Train and prefill cells take the
+    full sequence: Whisper's batch carries ``frames`` (b, ENCODER_SEQ,
+    d_model) fp32 beside the tokens, LLaVA's ``patches`` (b, p, 1024) fp32
+    and s - p tokens. Decode cells take one new token (b, 1) and the whole
+    cache of ``serve/kv_cache.py:cache_specs`` in the compute dtype (a
+    spec's own dtype where it has one)."""
+    from repro_torch.models.model import torch_dtype
+    from repro_torch.models.params import abstract_params, logical_axes
+    from repro_torch.serve.kv_cache import cache_specs
+
     b, s = shape.global_batch, shape.seq_len
 
     def meta(*shape_, dtype=torch.float32):
         return torch.empty(shape_, dtype=dtype, device="meta")
 
+    if shape.kind == "decode":
+        cspecs = cache_specs(cfg, b, s)
+        return ({"tokens": meta(b, 1, dtype=torch.int32),
+                 "cache": abstract_params(cspecs, dtype=torch_dtype(cfg.compute_dtype))},
+                {"tokens": ("cache_batch", None), "cache": logical_axes(cspecs)})
     specs: dict = {}
     axes: dict = {}
     if cfg.family == "audio":

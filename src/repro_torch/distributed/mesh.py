@@ -9,7 +9,19 @@ and the rank's device, the card unless the caller asks for the CPU.
 Collectives go through ``Mesh.all_reduce`` / ``Mesh.all_gather`` /
 ``Mesh.reduce_scatter`` / ``Mesh.all_to_all`` / ``Mesh.broadcast`` and the
 point-to-point ``Mesh.send`` / ``Mesh.recv``, which also count the seconds
-spent in them, in all and by operation (``seconds_by_op``).
+spent in them, in all and by operation (``seconds_by_op``), and their
+calls and result bytes by operation and group size (``traffic``,
+``bytes_by_op``).
+
+A mesh may span some of the world's ranks (``ranks=``, laid out row-major
+over that list: an elastic restart's survivors). Every world rank
+constructs it, since ``dist.new_group`` is collective over the world; a
+rank outside it gets a mesh with ``member`` false, whose collectives
+raise. ``rank`` is the rank's flat index in the mesh, ``world_rank`` its
+rank in the process group. ``AbstractMesh`` is a mesh with no process
+group (the dry-run's production meshes): the same axis API for the rank
+it stands for, collectives that record (op, axes, group size, result
+bytes) and return meta tensors.
 
 Backends. The backend is the process group's, the caller's choice:
 
@@ -27,12 +39,13 @@ Backends. The backend is the process group's, the caller's choice:
 ``Mesh.reduce_scatter`` is an all-reduce followed by the rank's slice:
 gloo has no reduce-scatter of its own. It moves the whole tensor where a
 ring reduce-scatter would move 1 / n of it a rank, and costs what an
-all-reduce of the tensor does.
+all-reduce of the tensor does; it is counted as that all-reduce.
 
 Region ops. Parameter sharding (``distributed/sharding.py:param_layout``)
 runs through four autograd-aware custom ops (torch transposes no
 collective, so each names its backward), which find their mesh by
-``mesh_id`` and take the axes comma-joined:
+``mesh_id`` and take the axes comma-joined (on an ``AbstractMesh`` their
+fake implementations run the collective, which records it):
 
 * ``repro_torch::tp_copy``: identity forward, all-reduce backward (where a
   replicated activation enters tensor-parallel work: each rank's cotangent
@@ -63,7 +76,7 @@ import itertools
 import math
 import time
 import weakref
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -87,17 +100,17 @@ class Mesh:
     ``kernels/sharded.py``."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
-                 device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S):
+                 ranks: Optional[Sequence[int]] = None, device="cuda",
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
         if not dist.is_initialized():
             raise RuntimeError("Mesh: initialise torch.distributed first "
                                "(init_process_group, or launch.mesh.spawn_local)")
-        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
-        if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
-            raise ValueError(f"Mesh: shape {shape} and axis names {axis_names} disagree")
         world = dist.get_world_size()
-        if math.prod(shape) != world:
-            raise ValueError(f"Mesh: shape {shape} has {math.prod(shape)} ranks, the "
-                             f"process group {world}")
+        ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+        if len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+            raise ValueError(f"Mesh: ranks {ranks} are not distinct ranks of a world "
+                             f"of {world}")
+        shape, axis_names = self._setup(shape, axis_names, len(ranks), "the rank list")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -105,32 +118,59 @@ class Mesh:
                                    "available; pass device='cpu'")
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
-        self.axis_names = axis_names
-        self.shape = dict(zip(axis_names, shape))
-        self.rank = dist.get_rank()
+        self.ranks = tuple(ranks)
+        self.world_rank = dist.get_rank()
+        self.member = self.world_rank in self.ranks
+        self.rank = self.ranks.index(self.world_rank) if self.member else None
+        self.coords = dict(zip(axis_names, _unravel(self.rank, shape))) if self.member else {}
         self.backend = dist.get_backend()
-        self.coords = dict(zip(axis_names, _unravel(self.rank, shape)))
-        self._host_seconds = 0.0
-        self._by_op: dict[str, float] = {}
-        self._events: list = []          # (op, start, end) CUDA events of unstaged collectives
-        self.collective_calls = 0
+        self.timeout_s = timeout_s
         timeout = datetime.timedelta(seconds=timeout_s)
-        self._groups: dict[tuple, object] = {}
+        self._owned: list = []           # the subgroups this mesh created and holds
         # every non-empty set of axes, in one order on every rank: new_group
         # is collective over the whole world, for every block
         for size in range(1, len(axis_names) + 1):
             for axes in itertools.combinations(axis_names, size):
-                if len(axes) == len(axis_names):
+                if len(axes) == len(axis_names) and len(ranks) == world:
                     self._groups[axes] = dist.group.WORLD
                     continue
                 mine = None
                 for block in _blocks(shape, axis_names, axes):
-                    g = dist.new_group(block, timeout=timeout)
-                    if self.rank in block:
+                    g = dist.new_group([self.ranks[i] for i in block], timeout=timeout)
+                    if self.member and self.rank in block:
                         mine = g
+                        self._owned.append(g)
                 self._groups[axes] = mine
-        self.mesh_id = id(self)
         _MESHES[self.mesh_id] = self
+
+    def _setup(self, shape, axis_names, n: int, what: str) -> tuple:
+        """Check the shape against ``n`` ranks and set the axis fields and
+        the counters; returns (shape, axis_names) as tuples."""
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"Mesh: shape {shape} and axis names {axis_names} disagree")
+        if math.prod(shape) != n:
+            raise ValueError(f"Mesh: shape {shape} has {math.prod(shape)} ranks, {what} "
+                             f"{n}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self._host_seconds = 0.0
+        self._by_op: dict[str, float] = {}
+        self._traffic: dict[tuple, list] = {}   # (op, group size) -> [calls, result bytes]
+        self._events: list = []          # (op, start, end) CUDA events of unstaged collectives
+        self.collective_calls = 0
+        self._groups: dict[tuple, object] = {}
+        self.mesh_id = id(self)
+        return shape, axis_names
+
+    def close(self) -> None:
+        """Destroy the subgroups this mesh created that hold this rank (a
+        mesh left behind by an elastic restart, once every rank is past
+        it); the mesh is unusable after."""
+        for g in self._owned:
+            dist.destroy_process_group(g)
+        self._owned.clear()
+        self._groups.clear()
 
     @property
     def size(self) -> int:
@@ -156,6 +196,25 @@ class Mesh:
             self._count(op, start.elapsed_time(end) / 1e3)
         self._events.clear()
 
+    def traffic(self) -> dict:
+        """{(op, group size): (calls, result bytes)} of this mesh's
+        collectives so far: the bytes of each call's result on this rank
+        (an all-gather's whole output; a ``reduce_scatter`` is the
+        all-reduce of the whole tensor it runs, what goes on the wire)."""
+        return {k: tuple(v) for k, v in self._traffic.items()}
+
+    def bytes_by_op(self) -> dict:
+        """Result bytes of this mesh's collectives so far, by operation."""
+        out: dict[str, int] = {}
+        for (op, _), (_, nbytes) in self._traffic.items():
+            out[op] = out.get(op, 0) + nbytes
+        return out
+
+    def _count_traffic(self, op: str, group: int, shape, x: torch.Tensor) -> None:
+        rec = self._traffic.setdefault((op, group), [0, 0])
+        rec[0] += 1
+        rec[1] += math.prod(shape) * x.element_size()
+
     def _count(self, op: str, seconds: float) -> None:
         self._host_seconds += seconds
         self._by_op[op] = self._by_op.get(op, 0.0) + seconds
@@ -171,8 +230,14 @@ class Mesh:
         """Ranks spanned by ``axes`` (a name or a tuple; 1 for ())."""
         return math.prod(self.shape[a] for a in self._axes(axes))
 
+    def _require_member(self) -> None:
+        if not self.member:
+            raise RuntimeError(f"Mesh: world rank {self.world_rank} is outside this mesh "
+                               f"(ranks {list(self.ranks)})")
+
     def index(self, axes) -> int:
         """This rank's row-major flat index over ``axes`` (mesh order)."""
+        self._require_member()
         idx = 0
         for a in self._axes(axes):
             idx = idx * self.shape[a] + self.coords[a]
@@ -180,16 +245,22 @@ class Mesh:
 
     def group(self, axes):
         """The process group over ``axes`` that holds this rank."""
+        self._require_member()
         return self._groups[self._axes(axes)]
 
-    def _collective(self, fn, x: torch.Tensor, axes, op: str) -> torch.Tensor:
+    def _collective(self, fn, x: torch.Tensor, axes, op: str,
+                    out_shape=None) -> torch.Tensor:
         """Run ``fn(buffer, group)`` on a copy of x, staged through host
         memory when gloo meets a CUDA tensor; returns the buffer on x's
         device. Calls and seconds are counted under ``op``: host seconds
         for a staged or CPU operand (a staged one waits for its stream
         first, outside the count), CUDA events for one that stays on the
-        device."""
+        device; calls and result bytes (``out_shape``: the result's shape,
+        x's by default) by op and group size."""
+        self._require_member()
         self.collective_calls += 1
+        self._count_traffic(op, self.axis_size(axes), x.shape if out_shape is None
+                            else out_shape, x)
         if x.is_cuda and self.backend != "gloo":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                 enable_timing=True)
@@ -235,7 +306,9 @@ class Mesh:
             dist.all_gather(parts, buf.contiguous(), group=group)
             return torch.cat(parts, dim=dim)
 
-        return self._collective(run, x, axes, "all_gather")
+        shape = list(x.shape)
+        shape[dim] *= n
+        return self._collective(run, x, axes, "all_gather", shape)
 
     def reduce_scatter(self, x: torch.Tensor, axes=(), dim: int = 0) -> torch.Tensor:
         """The sum of x over ``axes``, split along ``dim`` into as many
@@ -267,8 +340,9 @@ class Mesh:
         return self._collective(run, x, axes, "all_to_all")
 
     def peer(self, axes, index: int) -> int:
-        """The global rank at flat index ``index`` over ``axes`` that shares
+        """The world rank at flat index ``index`` over ``axes`` that shares
         this rank's coordinates on every other axis."""
+        self._require_member()
         axes = self._axes(axes)
         coords = dict(self.coords)
         for a, c in zip(axes, _unravel(index, tuple(self.shape[a] for a in axes))):
@@ -276,7 +350,7 @@ class Mesh:
         rank = 0
         for a in self.axis_names:
             rank = rank * self.shape[a] + coords[a]
-        return rank
+        return self.ranks[rank]
 
     def broadcast(self, x: torch.Tensor, axes, src: int) -> torch.Tensor:
         """The tensor of the rank at flat index ``src`` over ``axes``, on
@@ -310,16 +384,65 @@ class Mesh:
         return self._collective(run, buf, axes, "recv")
 
     def barrier(self) -> None:
-        dist.barrier()
+        """Wait for every rank of the mesh (its all-axes group)."""
+        dist.barrier(group=self.group(self.axis_names))
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
+        where = f"rank={self.rank}" if self.member else f"outside (world rank {self.world_rank})"
+        return (f"{type(self).__name__}({self.shape}, {where}, coords={self.coords}, "
                 f"backend={self.backend!r}, device={self.device})")
+
+
+class AbstractMesh(Mesh):
+    """A mesh with no process group: the dry-run's production meshes
+    (``launch/mesh.py:make_production_mesh``). It has ``Mesh``'s axis API
+    for the rank it stands for (``rank``, flat index, 0 by default), lives
+    on the ``meta`` device and is registered by ``mesh_id``, so the region
+    ops and the context-parallel attention find it. Its collectives
+    allocate nothing: each records (op, axes, group size, result bytes) in
+    ``records``, counts ``traffic`` as a real mesh does, and returns a meta
+    tensor of the result's shape."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *, rank: int = 0):
+        shape, axis_names = self._setup(shape, axis_names, math.prod(shape), "the shape")
+        if not 0 <= rank < math.prod(shape):
+            raise ValueError(f"AbstractMesh: rank {rank} outside {math.prod(shape)} ranks")
+        self.device = torch.device("meta")
+        self.ranks = tuple(range(math.prod(shape)))
+        self.world_rank = self.rank = rank
+        self.member = True
+        self.coords = dict(zip(axis_names, _unravel(rank, shape)))
+        self.backend = "abstract"
+        self._owned = []
+        self.records: list[tuple] = []
+        _MESHES[self.mesh_id] = self
+
+    def group(self, axes):
+        raise RuntimeError("AbstractMesh: no process group")
+
+    def _collective(self, fn, x, axes, op, out_shape=None):
+        shape = tuple(x.shape if out_shape is None else out_shape)
+        n = self.axis_size(axes)
+        self.collective_calls += 1
+        self._count_traffic(op, n, shape, x)
+        self.records.append((op, self._axes(axes), n, math.prod(shape) * x.element_size()))
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+
+    def barrier(self) -> None:
+        pass
 
 
 def mesh_by_id(mesh_id: int) -> Mesh:
     """The live mesh of ``mesh_id`` (KeyError once it has been collected)."""
     return _MESHES[mesh_id]
+
+
+def abstract_mesh(mesh_id: int) -> Optional[AbstractMesh]:
+    """The mesh of ``mesh_id`` if it is an ``AbstractMesh``, else None. A
+    custom op's fake (meta) implementation runs the op's collectives there,
+    so the dry-run records them."""
+    mesh = _MESHES.get(mesh_id)
+    return mesh if isinstance(mesh, AbstractMesh) else None
 
 
 def _unravel(rank: int, shape: tuple) -> tuple:
@@ -372,7 +495,9 @@ def tp_reduce(x: torch.Tensor, mesh_id: int, axes: str) -> torch.Tensor:
 
 @tp_reduce.register_fake
 def _(x, mesh_id, axes):
-    return torch.empty_like(x)
+    mesh = abstract_mesh(mesh_id)
+    return (mesh.all_reduce(x, "sum", _split_axes(axes)) if mesh is not None
+            else torch.empty_like(x))
 
 
 def _meta_setup(ctx, inputs, output):
@@ -393,6 +518,10 @@ def fsdp_gather(xs: list[torch.Tensor], dims: list[int], mesh_id: int,
     """Each slice of ``xs`` all-gathered over ``axes`` along its dim of
     ``dims`` (ranks in flat-index order), as one flat buffer of their common
     dtype in one collective."""
+    return _fsdp_gather(xs, dims, mesh_id, axes)
+
+
+def _fsdp_gather(xs, dims, mesh_id, axes):
     mesh, ax = mesh_by_id(mesh_id), _split_axes(axes)
     n = mesh.axis_size(ax)
     flat = torch.cat([x.reshape(-1) for x in xs])
@@ -407,6 +536,8 @@ def fsdp_gather(xs: list[torch.Tensor], dims: list[int], mesh_id: int,
 
 @fsdp_gather.register_fake
 def _(xs, dims, mesh_id, axes):
+    if abstract_mesh(mesh_id) is not None:
+        return _fsdp_gather(xs, dims, mesh_id, axes)
     n = 1
     for a in _split_axes(axes):
         n *= mesh_by_id(mesh_id).shape[a]
@@ -456,7 +587,8 @@ def ep_all_to_all(x: torch.Tensor, mesh_id: int, axes: str) -> torch.Tensor:
 
 @ep_all_to_all.register_fake
 def _(x, mesh_id, axes):
-    return torch.empty_like(x)
+    mesh = abstract_mesh(mesh_id)
+    return mesh.all_to_all(x, _split_axes(axes)) if mesh is not None else torch.empty_like(x)
 
 
 ep_all_to_all.register_autograd(

@@ -26,7 +26,10 @@ forward then also returns the fp32 (m, l) stats K3 rebuilds P from. The
 landmark means and the c x c core stay on plain autograd, as they stay
 on jnp autodiff in the reference. When nothing needs a gradient
 (serving, ``torch.no_grad``), the kernels are called directly: no
-residuals are saved and K1 computes no stats.
+residuals are saved and K1 computes no stats. K3 and K4 are custom ops
+too (``repro_torch::landmark_summary_bwd`` / ``::query_side_bwd``), the
+ops' backward, so that a FLOP count over a step (``kernels/cost.py``)
+sees all four kernels on any device.
 """
 from __future__ import annotations
 
@@ -101,10 +104,28 @@ def _landmark_summary_setup(ctx, inputs, output):
 def _landmark_summary_backward(ctx, g, _gm, _gl):
     q_l, k, v, bv, m, l = ctx.saved_tensors
     scale, causal, kv_valid, chunk_keys = ctx.meta
-    dq, dk, dv = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale,
-                                      causal=causal, kv_valid=kv_valid,
-                                      chunk_keys=chunk_keys)
+    dq, dk, dv = landmark_summary_bwd_op(q_l, k, v, bv, m, l, g.contiguous(), scale,
+                                         causal, kv_valid, 0, 0, chunk_keys)
     return dq, dk, dv, None, None, None, None
+
+
+@torch.library.custom_op("repro_torch::landmark_summary_bwd", mutates_args=())
+def landmark_summary_bwd_op(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bv: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                            g: torch.Tensor, scale: float, causal: bool,
+                            kv_valid: Optional[int], seq_len_k: int, kv_offset: int,
+                            chunk_keys: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                      torch.Tensor]:
+    """K3 as an op of its own (the backward of the K1 ops), so a FLOP
+    count over a step sees it (``kernels/cost.py``) on every device."""
+    return landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale, causal=causal,
+                                kv_valid=kv_valid, seq_len_k=seq_len_k,
+                                kv_offset=kv_offset, chunk_keys=chunk_keys)
+
+
+@landmark_summary_bwd_op.register_fake
+def _(q_l, k, v, bv, m, l, g, scale, causal, kv_valid, seq_len_k, kv_offset, chunk_keys):
+    return torch.empty_like(q_l), torch.empty_like(k), torch.empty_like(v)
 
 
 landmark_summary_stats.register_autograd(_landmark_summary_backward,
@@ -138,10 +159,26 @@ def _query_side_setup(ctx, inputs, output):
 def _query_side_backward(ctx, g):
     q, k_l, m_mat, v, delta = ctx.saved_tensors
     scale, causal, seq_len_k, run_rows, q_offset = ctx.meta
-    dq, dkl, dm, dv, dd = query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale,
-                                         causal=causal, seq_len_k=seq_len_k,
-                                         q_offset=q_offset, run_rows=run_rows)
+    dq, dkl, dm, dv, dd = query_side_bwd_op(q, k_l, m_mat, v, delta, g.contiguous(), scale,
+                                            causal, seq_len_k, q_offset, run_rows)
     return dq, dkl, dm, dv, dd, None, None, None, None, None
+
+
+@torch.library.custom_op("repro_torch::query_side_bwd", mutates_args=())
+def query_side_bwd_op(q: torch.Tensor, k_l: torch.Tensor, m_mat: torch.Tensor,
+                      v: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, scale: float,
+                      causal: bool, seq_len_k: int, q_offset: Optional[int],
+                      run_rows: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                              torch.Tensor, torch.Tensor]:
+    """K4 as an op of its own (the backward of the K2 op), counted as K3's."""
+    return query_side_bwd(q, k_l, m_mat, v, delta, g, scale=scale, causal=causal,
+                          seq_len_k=seq_len_k, q_offset=q_offset, run_rows=run_rows)
+
+
+@query_side_bwd_op.register_fake
+def _(q, k_l, m_mat, v, delta, g, scale, causal, seq_len_k, q_offset, run_rows):
+    return (torch.empty_like(q), torch.empty_like(k_l), torch.empty_like(m_mat),
+            torch.empty_like(v), delta.new_empty((q.shape[0], 1, 1), dtype=torch.float32))
 
 
 query_side_differentiable.register_autograd(_query_side_backward,
@@ -152,13 +189,20 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _through_op(*tensors) -> bool:
+    """Whether K1 / K2 go through their custom ops: when a gradient is
+    needed, and on the meta device (the dry-run), where the ops' fakes
+    stand in and a FLOP count sees the kernels' formulas."""
+    return _needs_grad(*tensors) or tensors[0].is_meta
+
+
 def landmark_summary_op(q_l, k, v, *, scale: float, causal: bool = False,
                         kv_valid: Optional[int] = None,
                         chunk_keys: int = 0) -> torch.Tensor:
     """K1 as a differentiable op: through the ``repro_torch::landmark_summary``
     custom op when a gradient is needed, else the kernel alone (no stats,
     nothing saved). ``chunk_keys`` reaches K1 and K3."""
-    if _needs_grad(q_l, k, v):
+    if _through_op(q_l, k, v):
         return landmark_summary_stats(q_l, k, v, float(scale), bool(causal),
                                       None if kv_valid is None else int(kv_valid),
                                       int(chunk_keys))[0]
@@ -173,7 +217,7 @@ def query_side_op(q, k_l, m_mat, v, delta, *, scale: float,
     when a gradient is needed, else the kernel alone). ``run_rows`` reaches
     K2 and K4, ``q_offset`` (a sequence shard's first query position) both."""
     q_offset = None if q_offset is None else int(q_offset)
-    if _needs_grad(q, k_l, m_mat, v, delta):
+    if _through_op(q, k_l, m_mat, v, delta):
         return query_side_differentiable(q, k_l, m_mat, v, delta, float(scale),
                                          bool(causal), int(seq_len_k), int(run_rows),
                                          q_offset)

@@ -54,11 +54,10 @@ import torch
 
 from repro_torch.core.attention import SSConfig
 from repro_torch.core.landmarks import onehot_segment_sums, segment_counts
-from repro_torch.distributed.mesh import mesh_by_id
-from repro_torch.kernels.ops import (flash_rescale, query_side_op, ss_attention_fused,
-                                     ss_core_factors)
+from repro_torch.distributed.mesh import abstract_mesh, mesh_by_id
+from repro_torch.kernels.ops import (flash_rescale, landmark_summary_bwd_op, query_side_op,
+                                     ss_attention_fused, ss_core_factors)
 from repro_torch.kernels.ss_attention import landmark_summary
-from repro_torch.kernels.ss_attention_bwd import landmark_summary_bwd
 
 
 def _axes(axes: str) -> tuple:
@@ -77,7 +76,8 @@ def seq_all_reduce(x: torch.Tensor, mesh_id: int, axes: str) -> torch.Tensor:
 
 @seq_all_reduce.register_fake
 def _(x, mesh_id, axes):
-    return torch.empty_like(x)
+    mesh = abstract_mesh(mesh_id)
+    return mesh.all_reduce(x, "sum", _axes(axes)) if mesh is not None else torch.empty_like(x)
 
 
 def _seq_all_reduce_setup(ctx, inputs, output):
@@ -102,6 +102,12 @@ def landmark_summary_sp(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the true global length, which bounds the keys and sets the segment
     length) with its stats, then the flash merge across ``axes``. Returns
     (BV*, m*, l*), identical on every rank of the group."""
+    return _landmark_summary_sp(q_l, k, v, scale, causal, seq_len, kv_offset, chunk_keys,
+                                mesh_id, axes)
+
+
+def _landmark_summary_sp(q_l, k, v, scale, causal, seq_len, kv_offset, chunk_keys,
+                         mesh_id, axes):
     mesh, ax = mesh_by_id(mesh_id), _axes(axes)
     bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=causal, return_stats=True,
                                 kv_valid=seq_len, seq_len_k=seq_len, kv_offset=kv_offset,
@@ -116,6 +122,9 @@ def landmark_summary_sp(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @landmark_summary_sp.register_fake
 def _(q_l, k, v, scale, causal, seq_len, kv_offset, chunk_keys, mesh_id, axes):
+    if abstract_mesh(mesh_id) is not None:   # records the merge's collectives
+        return _landmark_summary_sp(q_l, k, v, scale, causal, seq_len, kv_offset,
+                                    chunk_keys, mesh_id, axes)
     b, c, _ = q_l.shape
     stat = q_l.new_empty((b, c, 1), dtype=torch.float32)
     return v.new_empty((b, c, v.shape[-1])), stat, torch.empty_like(stat)
@@ -134,9 +143,8 @@ def _landmark_summary_sp_backward(ctx, g, _gm, _gl):
     # BV* feeds every rank's own output rows: its cotangent is the sum of
     # the ranks' cotangents, reduced once here
     g = mesh_by_id(mesh_id).all_reduce(g.contiguous(), "sum", _axes(axes))
-    dq, dk, dv = landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale, causal=causal,
-                                      kv_valid=seq_len, seq_len_k=seq_len,
-                                      kv_offset=kv_offset, chunk_keys=chunk_keys)
+    dq, dk, dv = landmark_summary_bwd_op(q_l, k, v, bv, m, l, g, scale, causal, seq_len,
+                                         seq_len, kv_offset, chunk_keys)
     return dq, dk, dv, None, None, None, None, None, None, None
 
 

@@ -1,9 +1,14 @@
-"""Local meshes and ranks (``repro/launch/mesh.py``).
+"""Production and local meshes, and local ranks (``repro/launch/mesh.py``).
 
-``make_local_mesh`` is the reference's (world // model_parallel,
-model_parallel) mesh over every rank of an initialised process group; the
-``Mesh`` itself (named axes, subgroups, the rank's device, counted
-collectives, the backends' rules) lives in ``distributed/mesh.py``.
+``make_production_mesh`` is the reference's 16 x 16 ("data", "model")
+mesh, or 2 x 16 x 16 ("pod", "data", "model") with ``multi_pod``, as an
+``AbstractMesh``: no process group, one rank's view (rank 0 unless
+asked), collectives recorded on the meta device, which is what the
+dry-run (``launch/dryrun.py``) traces a step on. ``make_local_mesh`` is
+the reference's (world // model_parallel, model_parallel) mesh over every
+rank of an initialised process group; the ``Mesh`` itself (named axes,
+subgroups, the rank's device, counted collectives, the backends' rules)
+lives in ``distributed/mesh.py``.
 
 ``spawn_local`` runs a function on N local ranks (``spawn`` start method,
 since the parent may already hold a CUDA context), each with a process
@@ -11,9 +16,9 @@ group whose every collective times out after ``timeout_s``, so a hung rank
 fails its run instead of hanging it. Ranks run on the card (GPU rank mod
 the GPU count) unless the caller asks for ``device="cpu"``; the backend
 is an explicit argument: ``"gloo"`` on the CPU and for ranks that share a
-card, ``"nccl"`` for ranks that each own one. The reference's
-``make_production_mesh`` (its 256 / 512-chip meshes) waits for the
-dry-run's port (ROADMAP).
+card, ``"nccl"`` for ranks that each own one. A rank whose function has
+returned waits for the others before its process group goes away (rank 0
+hosts the group's store; an elastic restart leaves ranks idle early).
 """
 from __future__ import annotations
 
@@ -30,7 +35,15 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.mesh import DEFAULT_TIMEOUT_S, Mesh
+from repro_torch.distributed.mesh import DEFAULT_TIMEOUT_S, AbstractMesh, Mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> AbstractMesh:
+    """16 x 16 single-pod (256 chips) or 2 x 16 x 16 multi-pod (512 chips)
+    (``repro/launch/mesh.py:11``), seen from ``rank``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes, rank=rank)
 
 
 def make_local_mesh(model_parallel: int = 1, axis_names=("data", "model"), *,
@@ -78,7 +91,9 @@ def _rank_main(rank, nproc, port, backend, timeout_s, threads, device, mesh_shap
                                 timeout=datetime.timedelta(seconds=timeout_s))
         try:
             mesh = Mesh(mesh_shape, axis_names, device=dev, timeout_s=timeout_s)
-            results.put((rank, fn(mesh, *args), None))
+            value = fn(mesh, *args)
+            dist.barrier()   # rank 0 hosts the store: the group outlives every rank's work
+            results.put((rank, value, None))
         finally:
             dist.destroy_process_group()
     except Exception:  # reported to the parent, which raises with it

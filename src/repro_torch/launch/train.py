@@ -63,6 +63,13 @@ will not put two ranks of one communicator on one GPU) or run on the
 CPU, nccl when each owns one. Only the launching process
 prints: rank 0's losses and times, every rank's peak memory and the share
 of rank 0's steps spent in collectives.
+
+``--fail-at N`` injects the reference's simulated failure of ``host0``
+before step N (``FailureInjector``) under the Trainer's default monitor:
+hosts of 8 ranks. Below 16 ranks there is one host, its failure leaves
+no chip and ``ElasticPlan`` raises ("cannot keep TP=..."), as the
+reference's launcher does on its one-host local mesh; from 16 ranks the
+Trainer restarts on the surviving hosts' ranks.
 """
 from __future__ import annotations
 
@@ -78,6 +85,7 @@ import torch
 from repro_torch.configs.base import SHAPE_PRESETS, ShapeConfig, TrainConfig, reduced
 from repro_torch.configs.registry import ARCH_IDS, ENCODER_SEQ, get_config
 from repro_torch.data.pipeline import StubFrontendLM
+from repro_torch.distributed.fault_tolerance import FailureInjector
 from repro_torch.models.params import tree_leaves
 from repro_torch.train.trainer import Trainer
 
@@ -120,6 +128,12 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=0,
                     help="M: the reference's make_local_mesh(M) layout, (nproc / M) x M "
                          "(instead of --mesh)")
+    ap.add_argument("--fail-at", type=int, default=0,
+                    help="inject a simulated host failure at this step: "
+                         "FailureInjector({N: ['host0']}) with the Trainer's default "
+                         "monitor (hosts of 8 ranks, one below 16 ranks, whose failure "
+                         "leaves no chip, so ElasticPlan raises, as the reference's "
+                         "launcher does on its one-host local mesh)")
     ap.add_argument("--seq-axis", default="", choices=["", "data", "model"],
                     help="shard the sequence over this mesh axis (rule override "
                          "{'seq': AXIS})")
@@ -217,8 +231,9 @@ def _train(args, mesh=None, overrides=None):
                                   shape.global_batch, d_model=cfg.d_model,
                                   num_patches=cfg.num_patches,
                                   enc_len=ENCODER_SEQ, seed=tcfg.seed)
+        injector = FailureInjector({args.fail_at: ["host0"]}) if args.fail_at else None
         trainer = Trainer(cfg, tcfg, shape, mesh, rule_overrides=overrides,
-                          device=args.device, data=data)
+                          device=args.device, data=data, injector=injector)
         cuda = trainer.device.type == "cuda"
         if cuda:
             from repro_torch.kernels import build

@@ -202,6 +202,21 @@ def gather_tree(tree, placements, mesh, device=None):
     return tree_map(gather, tree, placements)
 
 
+def abstract_params(specs, dtype: torch.dtype = torch.float32):
+    """The parameter tree as tensors on the ``meta`` device, shapes and
+    dtypes only (a spec's own dtype, else ``dtype``): the dry-run's
+    counterpart of the reference's ``jax.ShapeDtypeStruct`` tree
+    (``params.py:65``); allocates nothing."""
+    return map_specs(lambda _p, s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                               device="meta"), specs)
+
+
+def logical_axes(specs):
+    """The tree of logical-axis tuples, aligned with the parameter tree
+    (``params.py:72``)."""
+    return map_specs(lambda _p, s: s.axes, specs)
+
+
 def count_params(specs) -> int:
     total = [0]
 

@@ -58,7 +58,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ENCODER_SEQ
 from repro_torch.models.model import is_slstm
-from repro_torch.models.params import ParamSpec, map_specs, stack_layer_specs
+from repro_torch.models.params import (PATH_SEP, ParamSpec, flatten_with_paths, map_specs,
+                                       stack_layer_specs)
 
 BATCH = "cache_batch"
 SEQ = "cache_seq"
@@ -181,6 +182,24 @@ class StorageLeaf(NamedTuple):
     seq_axis: Optional[int]
 
 
+def _storage_sub(path: str) -> tuple:
+    """(the path below the layer index, the layer or None) of a cache
+    leaf's path ("/" or "::" joined): a per-layer list's leaf has its
+    layer; a stacked or top-level layer-first leaf none."""
+    parts = path.strip("/").replace(PATH_SEP, "/").split("/")
+    if parts[0] == "layers" and parts[1].isdigit():   # a per-layer list
+        return "/".join(parts[2:]), int(parts[1])
+    return "/".join(parts[1:] if parts[0] == "layers" else parts), None
+
+
+def _storage_keys(subs) -> dict:
+    """{sub path: storage key}: the last path name, or the sub path where
+    two groups share a last name."""
+    last = [sub.rsplit("/", 1)[-1] for sub in subs]
+    unique = len(set(last)) == len(last)
+    return {sub: (sub.rsplit("/", 1)[-1] if unique else sub) for sub in subs}
+
+
 def storage_layout(cfg: ModelConfig, seq_len: int) -> dict:
     """``{key: StorageLeaf}`` of the engine's storage: every leaf of the
     B=1 cache tree but ``pos``, the leaves of a per-layer list stacked in
@@ -191,14 +210,10 @@ def storage_layout(cfg: ModelConfig, seq_len: int) -> dict:
     model."""
     groups: dict = {}
     for path, spec, seq_axis in cache_leaf_layout(cfg, seq_len):
-        parts = path.strip("/").split("/")
-        if parts == ["pos"]:
+        if path.strip("/") == "pos":
             continue
-        if parts[0] == "layers" and parts[1].isdigit():   # a per-layer list
-            sub, layer, lead = "/".join(parts[2:]), int(parts[1]), 1
-        else:                          # stacked, or a top-level layer-first leaf
-            sub = "/".join(parts[1:] if parts[0] == "layers" else parts)
-            layer, lead = None, 2
+        sub, layer = _storage_sub(path)
+        lead = 1 if layer is not None else 2
         rest = spec.shape[lead:]
         ax = None if seq_axis is None else seq_axis - lead
         if sub not in groups:
@@ -206,10 +221,26 @@ def storage_layout(cfg: ModelConfig, seq_len: int) -> dict:
             groups[sub] = StorageLeaf(ids, rest, spec.dtype, ax)
         if layer is not None:
             groups[sub] = groups[sub]._replace(layers=groups[sub].layers + (layer,))
-    last = [sub.rsplit("/", 1)[-1] for sub in groups]
-    unique = len(set(last)) == len(last)
-    return {(sub.rsplit("/", 1)[-1] if unique else sub): leaf
-            for sub, leaf in groups.items()}
+    keys = _storage_keys(groups)
+    return {keys[sub]: leaf for sub, leaf in groups.items()}
+
+
+def storage_from_tree(cache: dict) -> dict:
+    """A whole cache tree of ``cache_specs``'s structure (the dry-run's and
+    the reference's) in the engine's storage keys (``storage_layout``'s):
+    ``{key: layer-stacked tensor}``, a per-layer list's leaves stacked in
+    layer order, stacked and top-level layer-first leaves as they are,
+    ``pos`` left out."""
+    groups: dict = {}
+    for path, t in flatten_with_paths({k: v for k, v in cache.items() if k != "pos"}).items():
+        sub, layer = _storage_sub(path)
+        if layer is None:
+            groups[sub] = t
+        else:
+            groups.setdefault(sub, []).append(t)
+    keys = _storage_keys(groups)
+    return {keys[sub]: torch.stack(t) if isinstance(t, list) else t
+            for sub, t in groups.items()}
 
 
 @functools.lru_cache(maxsize=64)

@@ -29,8 +29,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.distributed.sharding import active_layout, active_reduce_axes
-from repro_torch.models.model import loss_fn
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.model import loss_fn, model_forward
+from repro_torch.models.params import flatten_with_paths, tree_leaves, tree_map
 from repro_torch.optim.adamw import adamw_update
 
 
@@ -145,3 +145,48 @@ def make_eval_step(cfg: ModelConfig):
             return loss_fn(params, cfg, batch)
 
     return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """The full-sequence forward returning logits, the inference-prefill
+    cell (``train_step.py:89``), with no autograd graph."""
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, _ = model_forward(params, cfg, batch, mode="prefill")
+        return logits
+
+    return prefill_step
+
+
+def _cache_horizon(cache) -> int:
+    """The sequence length of a decode cache: the seq dim of its first
+    ``k`` (GQA) or ``latent`` (MLA) leaf; 0 for state with none (xLSTM)."""
+    for path, leaf in flatten_with_paths(cache["layers"]).items():
+        if path.split("::")[-1] in ("k", "latent"):
+            return leaf.shape[-2]
+    return 0
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One batched decode step against the whole cache (``train_step.py:99``):
+    the cache tree (``registry.batch_specs``' structure) in the engine's
+    storage keys (``kv_cache.storage_from_tree``), then
+    ``serve/decode.py:decode_step`` on the gather route at the cache's
+    horizon, with no autograd graph; a scalar ``pos`` (the reference's cache,
+    ``registry.batch_specs``) stands for every lane. Returns (logits (B, 1, V), the new
+    state): ``pos`` + 1 and each layer's leaves with the new token's k / v
+    where the reference's returns the committed cache (the engine commits
+    it, ``serve/paged.py``)."""
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kv_cache import storage_from_tree
+
+    def serve_step(params, cache, tokens):
+        pos = cache["pos"]
+        if pos.ndim == 0:   # one position for every lane, as the reference's
+            pos = pos.expand(tokens.shape[0])
+        state = {"pos": pos, "layers": storage_from_tree(cache)}
+        with torch.no_grad():
+            return decode_step(params, cfg, state, tokens, seq_max=_cache_horizon(cache))
+
+    return serve_step

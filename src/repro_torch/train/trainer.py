@@ -56,14 +56,36 @@ family other than the dense one (or MoE, MLA), or that the dense layer
 cannot run (``sharding.param_rule_conflicts``); any family but the dense
 one under a sequence shard; the frontend families (Whisper, LLaVA) under
 any split of the batch; ``moe_impl="ep"`` with the batch's rows split
-over other axes than the experts'. The reference's elastic re-planning,
-heartbeats and failure injection are not ported; ``grad_compression``
+over other axes than the experts'. ``grad_compression``
 stays refused (the reference accepts it and reads it nowhere;
 ``optim/compression.py`` holds the collective).
 ``opt_state_dtype`` is accepted and, as in the reference's trainer, not
 read (only its dry-run reads it). ``lr_fn`` takes the learning-rate
 schedule, as the reference's (``repro/train/trainer.py:69``); the default
 is ``warmup_cosine`` from ``tcfg``.
+
+Fault tolerance (``repro/train/trainer.py:233-289``): ``monitor=`` (a
+``HeartbeatMonitor``; default: hosts ``host{i}`` for i < max(mesh.size //
+8, 1), one without a mesh, timeout 600 s) is beaten for every host with
+each step's wall time, and stragglers are logged; ``injector=`` (a
+``FailureInjector``) names hosts that fail before a step. A failure runs
+the elastic restart (``_handle_failure``): rank 0's checkpoint writer is
+waited for and the old mesh barriered; host i owns mesh ranks
+[i k, (i + 1) k), k = max(mesh.size // hosts, 1); ``ElasticPlan`` gives
+the largest (data, model) mesh of the surviving chips with the model
+degree kept; the first data x model ranks of the surviving hosts, in
+rank order, form the new mesh (``Mesh(ranks=...)``, built on every world
+rank; the old mesh's subgroups are destroyed, ``Mesh.close``); the layout and the step function are rebuilt, the latest
+checkpoint restored onto the new layout (the step counter goes back to
+it; with none, the seed's state at the same step), the slices checked,
+the rules re-entered and the attention plan re-resolved. A rank outside
+the new mesh frees its state, sets ``active`` false and returns from
+``run``. The reference keeps the lowest device ids, whatever host died
+(its failure is simulated in one process); the port keeps the surviving
+hosts' ranks (ROADMAP, Named differences). ``recoveries`` holds each
+restart's seconds: the wait, the new groups, the restore and the slice
+check. Without a mesh the one host's failure leaves no chip, and
+``ElasticPlan`` raises, as in the reference.
 
 ``telemetry=`` takes a caller-owned ``Telemetry`` (``repro/train/
 trainer.py:70-92``): each step runs in a ``step_span("train_step",
@@ -93,6 +115,9 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticLM, make_global_batch, to_device
+from repro_torch.distributed.fault_tolerance import (ElasticPlan, FailureInjector,
+                                                      HeartbeatMonitor)
+from repro_torch.distributed.mesh import Mesh
 from repro_torch.distributed.sharding import (Placement, apply_seq_sharding_config,
                                               batch_axes, expert_axes, expert_parallel,
                                               param_layout, param_rule_conflicts,
@@ -156,7 +181,9 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, shape: ShapeConfig,
                  mesh=None, *, rule_overrides: Optional[dict] = None, device="cuda",
                  telemetry: Optional[Telemetry] = None, data=None,
-                 lr_fn: Optional[Callable] = None):
+                 lr_fn: Optional[Callable] = None,
+                 monitor: Optional[HeartbeatMonitor] = None,
+                 injector: Optional[FailureInjector] = None):
         self.mesh = mesh
         self.rule_overrides = dict(rule_overrides or {})
         if mesh is not None:
@@ -179,26 +206,38 @@ class Trainer:
         self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
         self.lr_fn = lr_fn or warmup_cosine(tcfg.learning_rate, tcfg.warmup_steps,
                                             tcfg.total_steps)
-        self.layout = (param_layout(mesh, cfg, model_specs(cfg), self.rule_overrides)
-                       if mesh is not None else None)
-        self.step_fn = make_train_step(cfg, tcfg, self.lr_fn)
         if self.telemetry.enabled:
             r = self.telemetry.metrics
             dispatch.set_metrics(r)
             self.telemetry.stamp_provenance(cfg, tcfg, device=self.device)
             accounting.set_metrics(r)
-            self.step_fn = ProgramAccounting(r).wrap(self.step_fn, "train_step")
             self._step_hist = r.histogram("train_step_seconds",
                                           help="wall time per optimizer step",
                                           buckets=LATENCY_BUCKETS)
             self._gauges = {name: r.gauge(f"train_{name}", help=f"last step's {name}")
                             for name in ("loss", "ce", "grad_norm", "lr")}
+        self.injector = injector
+        hosts = [f"host{i}" for i in range(max(mesh.size // 8, 1) if mesh is not None else 1)]
+        self.monitor = monitor or HeartbeatMonitor(hosts, timeout_s=600.0)
+        self.active = True
+        self.recoveries: list[dict] = []
         self.step = 0
         self.metrics_history: list[dict] = []
+        self._build_step()
         self._init_or_restore()
         if mesh is not None:
             self._check_slices()
         self.plan = self._warm_attention_plans()
+
+    def _build_step(self) -> None:
+        """The parameter layout of the mesh and the step function."""
+        cfg = self.cfg
+        self.layout = (param_layout(self.mesh, cfg, model_specs(cfg), self.rule_overrides)
+                       if self.mesh is not None else None)
+        self.step_fn = make_train_step(cfg, self.tcfg, self.lr_fn)
+        if self.telemetry.enabled:
+            self.step_fn = ProgramAccounting(self.telemetry.metrics).wrap(self.step_fn,
+                                                                          "train_step")
 
     def _rules(self):
         """The logical-axis rules' context for the step loop (none without
@@ -227,8 +266,8 @@ class Trainer:
             where = tuple(self.mesh.index(axes) for axes in pl.dims)
             data = t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
             mine[(path, where)] = hashlib.sha256(data).hexdigest()
-        every = [None] * dist.get_world_size()
-        dist.all_gather_object(every, mine)
+        every = [None] * self.mesh.size
+        dist.all_gather_object(every, mine, group=self.mesh.group(self.mesh.axis_names))
         seen: dict = {}
         for rank, digests in enumerate(every):
             for key, digest in digests.items():
@@ -293,8 +332,9 @@ class Trainer:
         return rows * heads
 
     def _init_or_restore(self) -> None:
-        """The state from the latest checkpoint's whole arrays, else the
-        single-device initial tree from ``tcfg.seed``; under a parameter
+        """The state from the latest checkpoint's whole arrays (the step
+        counter goes back to it), else the single-device initial tree from
+        ``tcfg.seed`` (the counter stays); under a parameter
         layout the whole tree is built in host memory (drawn on the
         device's generator, so the weights are the single device's) and
         every rank moves only its slices to the device."""
@@ -347,10 +387,68 @@ class Trainer:
             host = make_global_batch(host, self.mesh, self.rule_overrides)
         return to_device(host, self.device)
 
+    def _handle_failure(self, dead: list[str]) -> None:
+        """The elastic restart (``repro/train/trainer.py:233-252``): re-plan
+        the mesh over the surviving hosts' ranks, rebuild the layout and the
+        step, restore the latest checkpoint onto it. A rank outside the new
+        mesh frees its state and turns inactive."""
+        log.warning("step %d: hosts failed: %s; elastic restart", self.step, dead)
+        t0 = time.perf_counter()
+        self.ckpt.wait()
+        old = self.mesh
+        if old is not None:
+            old.barrier()   # rank 0's checkpoint is complete for every rank
+        t_wait = time.perf_counter()
+        hosts = list(self.monitor.hosts)
+        size = old.size if old is not None else 1
+        k = max(size // len(hosts), 1)
+        alive = [r for i, h in enumerate(hosts) if h not in dead
+                 for r in range(i * k, min((i + 1) * k, size))]
+        shape = old.shape if old is not None else {}
+        plan = ElasticPlan.plan(len(alive), shape.get("model", 1),
+                                max_data=shape.get("data", 1))
+        if old is None:   # one device survives: the latest checkpoint, restored
+            self._init_or_restore()
+            return
+        keep = [old.ranks[r] for r in alive[:plan.data * plan.model]]
+        log.warning("re-planned onto a %d x %d mesh over world ranks %s (%d chips dropped)",
+                    plan.data, plan.model, keep, plan.dropped_chips)
+        self.mesh = Mesh((plan.data, plan.model), ("data", "model"), ranks=keep,
+                         device=old.device, timeout_s=old.timeout_s)
+        old.close()
+        for h in dead:
+            del self.monitor.hosts[h]
+        t_groups = time.perf_counter()
+        self.params = self.opt_state = None
+        record = {"step": self.step, "wait_s": t_wait - t0, "groups_s": t_groups - t_wait,
+                  "member": self.mesh.member, "mesh": dict(self.mesh.shape), "ranks": keep}
+        self.recoveries.append(record)
+        if not self.mesh.member:
+            self.layout, self.step_fn, self.active = None, None, False
+            return
+        self._build_step()
+        self._init_or_restore()
+        t_restore = time.perf_counter()
+        self._check_slices()
+        t_check = time.perf_counter()
+        self.plan = self._warm_attention_plans()
+        record.update(step=self.step, restore_s=t_restore - t_groups,
+                      check_s=t_check - t_restore)
+
     def run(self, num_steps: int, log_every: int = 10) -> list[dict]:
+        """Run up to ``num_steps`` steps (fewer if an elastic restart leaves
+        this rank outside the mesh); returns the history so far."""
         end = self.step + num_steps
-        with self._rules():
-            while self.step < end:
+        with contextlib.ExitStack() as rules:
+            rules.enter_context(self._rules())
+            while self.active and self.step < end:
+                dead = self.injector.failures_at(self.step) if self.injector else []
+                if dead:
+                    rules.close()   # the rules are process-wide: re-entered on the new mesh
+                    self._handle_failure(dead)
+                    if not self.active:
+                        break
+                    rules.enter_context(self._rules())
                 t0 = time.perf_counter()
                 with self.telemetry.step_span("train_step", self.step):
                     batch = self._batch(self.step)
@@ -367,6 +465,11 @@ class Trainer:
                     for name, g in self._gauges.items():
                         if name in metrics:
                             g.set(metrics[name])
+                for h in self.monitor.hosts:
+                    self.monitor.beat(h, dt)
+                stragglers = self.monitor.stragglers()
+                if stragglers:
+                    log.warning("stragglers detected: %s", stragglers)
                 self.step += 1
                 if self.tcfg.checkpoint_every and self.step % self.tcfg.checkpoint_every == 0:
                     self.save(blocking=False)
@@ -375,6 +478,6 @@ class Trainer:
                              metrics.get("loss", float("nan")),
                              metrics.get("ce", float("nan")), dt)
         self.ckpt.wait()
-        if self.mesh is not None:
+        if self.mesh is not None and self.active:
             self.mesh.barrier()   # rank 0's checkpoints are complete for every rank
         return self.metrics_history
