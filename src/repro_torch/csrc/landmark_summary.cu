@@ -42,7 +42,11 @@
 //   with one chunk writes out (and m, l) directly; otherwise each chunk
 //   writes fp32 partials (m, l, acc) for the rows that reach it to the
 //   wrapper's workspace, and landmark_summary_merge combines them in chunk
-//   order with flash_merge's rule: deterministic, no atomics.
+//   order with flash_merge's rule: deterministic, no atomics. Past 64
+//   landmark rows the row tiles lie on the grid; row_block (the wrapper's,
+//   the dispatch plan's block_c: a multiple of 64, 64 by default) sets how
+//   many of them one CTA walks in order over its chunk, the reference's
+//   block_c row tiling turned into rows a CTA holds in turn.
 // * fp32 q with fp32 or bf16 k, v (the fp32 model, and the serving seed
 //   launch's fp32 landmark means against bf16 keys): exact fp32 FMA loops.
 //   A CTA owns kRows = 8 landmark rows of one batch-head (grid b x c / 8);
@@ -462,20 +466,17 @@ using bf16 = __nv_bfloat16;
 // (and, at column tile 0, the key tile's V tile of this CTA's value
 // columns) and adds its part of S; the last column tile's step runs the
 // softmax and P V. With kCT = 1 a step is a key tile, as it always was.
+// This walks one row tile (rows row0 .. row0 + 63) over the CTA's chunk.
 template <int kCT>
-__global__ void __launch_bounds__(kThreads)
-landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ m_out, float* __restrict__ l_out,
-                    float* __restrict__ ws_m, float* __restrict__ ws_l,
-                    float* __restrict__ ws_acc, int c, int n, int d, int dv,
-                    float scale, int n_end, int seg, int kv_off, int chunk_keys,
-                    int chunks) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+__device__ __forceinline__ void landmark_summary_tile(
+    uint32_t q_s, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, float* __restrict__ ws_m, float* __restrict__ ws_l,
+    float* __restrict__ ws_acc, int c, int n, int d, int dv, float scale, int n_end,
+    int seg, int kv_off, int chunk_keys, int chunks, int row0) {
   // grid.z = b x value tiles: this CTA's value columns [dv0, dv0 + dvw)
   const int dvt = (dv + kCols - 1) / kCols;
-  const int chunk = blockIdx.x, row0 = blockIdx.y * kRows;
+  const int chunk = blockIdx.x;
   const int bi = blockIdx.z / dvt, vt = blockIdx.z - bi * dvt;
   const int dv0 = vt * kCols, dvw = min(kCols, dv - dv0);
   const int key0 = chunk * chunk_keys;
@@ -655,6 +656,28 @@ landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Grid (key chunks, row groups, b x value tiles): a CTA walks the
+// row_block / 64 row tiles of its group in order over its chunk of keys.
+template <int kCT>
+__global__ void __launch_bounds__(kThreads)
+landmark_summary_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    float* __restrict__ ws_m, float* __restrict__ ws_l,
+                    float* __restrict__ ws_acc, int c, int n, int d, int dv,
+                    float scale, int n_end, int seg, int kv_off, int chunk_keys,
+                    int chunks, int row_block) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int row_end = min(c, static_cast<int>(blockIdx.y + 1) * row_block);
+  for (int row0 = blockIdx.y * row_block; row0 < row_end; row0 += kRows) {
+    landmark_summary_tile<kCT>(q_s, q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, c, n,
+                               d, dv, scale, n_end, seg, kv_off, chunk_keys, chunks, row0);
+    repro::cp_async_wait<0>();
+    __syncthreads();  // shared memory is free for the next row tile
+  }
+}
+
 // One CTA per (batch-head, row), threads over the value columns: merges the
 // partials of the chunks the row reaches, in chunk order, with flash_merge's
 // rule (a chunk with m = -1e30, l = 0 is absorbed; a row that reaches none,
@@ -695,7 +718,7 @@ template <int kCT>
 int launch_tiles(const void* q, const void* k, const void* v, void* out, float* m_out,
                  float* l_out, float* ws_m, float* ws_l, float* ws_acc, int b, int c, int n,
                  int d, int dv, float scale, int n_end, int seg, int kv_off, int chunk_keys,
-                 int chunks, cudaStream_t st) {
+                 int chunks, int row_block, cudaStream_t st) {
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -704,19 +727,20 @@ int launch_tiles(const void* q, const void* k, const void* v, void* out, float* 
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  const dim3 grid(chunks, (c + kRows - 1) / kRows, b * ((dv + kCols - 1) / kCols));
+  const dim3 grid(chunks, (c + row_block - 1) / row_block, b * ((dv + kCols - 1) / kCols));
   landmark_summary_tc<kCT><<<grid, kThreads, smem_bytes(kCT), st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), m_out, l_out, ws_m, ws_l, ws_acc, c, n, d, dv, scale, n_end,
-      seg, kv_off, chunk_keys, chunks);
+      seg, kv_off, chunk_keys, chunks, row_block);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
            float* l_out, float* ws, int b, int c, int n, int d, int dv, float scale,
-           int kv_valid, int seg, int kv_off, int chunk_keys, cudaStream_t st) {
+           int kv_valid, int seg, int kv_off, int chunk_keys, int row_block,
+           cudaStream_t st) {
   if (d > kWideMaxD || dv > kWideMaxDv || d % 8 || dv % 8 || chunk_keys <= 0
-      || chunk_keys % kKeys) {
+      || chunk_keys % kKeys || row_block <= 0 || row_block % kRows) {
     return cudaErrorInvalidValue;
   }
   const int n_end = repro::b_side_end(n, c, kv_valid, seg, kv_off);
@@ -730,9 +754,10 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
   if (chunks >= 1) {
     const int err = d <= kCols
         ? launch_tiles<1>(q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, b, c, n, d, dv,
-                          scale, n_end, seg, kv_off, chunk_keys, chunks, st)
+                          scale, n_end, seg, kv_off, chunk_keys, chunks, row_block, st)
         : launch_tiles<kWideCT>(q, k, v, out, m_out, l_out, ws_m, ws_l, ws_acc, b, c, n, d,
-                                dv, scale, n_end, seg, kv_off, chunk_keys, chunks, st);
+                                dv, scale, n_end, seg, kv_off, chunk_keys, chunks, row_block,
+                                st);
     if (err != cudaSuccess) return err;
   }
   if (chunks != 1) {
@@ -750,7 +775,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
 // Plain C entry point for ctypes. q_dtype is the landmark queries' storage
 // type, kv_dtype that of k, v and the output: bf16/bf16 runs the tensor-core
 // kernel on chunks of chunk_keys keys (a multiple of 64, from the wrapper's
-// chunk plan) with ws the fp32 workspace of the chunks' partials (null when
+// chunk plan) and row groups of row_block rows (a multiple of 64; the fp32
+// kernels ignore it) with ws the fp32 workspace of the chunks' partials (null when
 // the plan has one chunk); fp32/fp32 and fp32 queries against bf16 keys
 // (the prefill handoff streams fp32 landmark means against bf16 keys, as the
 // reference does) run the fp32 kernel, which takes no workspace. m_out and
@@ -760,8 +786,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* m_out,
 extern "C" int landmark_summary_launch(
     const void* q, const void* k, const void* v, void* out, void* m_out,
     void* l_out, void* ws, int b, int c, int n, int d, int dv, float scale,
-    int kv_valid, int seg, int kv_off, int chunk_keys, int q_dtype, int kv_dtype,
-    void* stream) {
+    int kv_valid, int seg, int kv_off, int chunk_keys, int row_block, int q_dtype,
+    int kv_dtype, void* stream) {
   if (d > kWideMaxD || dv > kWideMaxDv || d <= 0 || dv <= 0 || b <= 0 || c <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -770,7 +796,7 @@ extern "C" int landmark_summary_launch(
   using bf16 = __nv_bfloat16;
   const bool qf = q_dtype == repro::kF32, qb = q_dtype == repro::kBF16;
   const bool kf = kv_dtype == repro::kF32, kb = kv_dtype == repro::kBF16;
-  if (qb && kb) return tc::launch(q, k, v, out, mo, lo, static_cast<float*>(ws), b, c, n, d, dv, scale, kv_valid, seg, kv_off, chunk_keys, st);
+  if (qb && kb) return tc::launch(q, k, v, out, mo, lo, static_cast<float*>(ws), b, c, n, d, dv, scale, kv_valid, seg, kv_off, chunk_keys, row_block, st);
   if (qf && kf) return launch_typed<float, float>(q, k, v, out, mo, lo, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
   if (qf && kb) return launch_typed<float, bf16>(q, k, v, out, mo, lo, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
   return cudaErrorInvalidValue;

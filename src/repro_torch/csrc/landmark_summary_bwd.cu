@@ -32,7 +32,7 @@
 //   Pallas kernel walks key blocks in order and carries dQ~ in VMEM across
 //   them; a CUDA grid has no order. Here a CTA (one warpgroup) owns one
 //   chunk of keys of one head (grid: key chunks over n, b; the wrapper's
-//   chunk plan sizes them) and keeps Q~ and g (c <= 64 rows, zero-padded),
+//   chunk plan sizes them) and keeps Q~ and g (64 rows, zero-padded),
 //   with each row's m, l and D in registers, resident. Per 64-key tile, K
 //   and V arrive by cp.async into a two-stage ring (128-byte swizzle);
 //   S = Q~ K^T and dP = g V^T by wgmma m64n64k16 from shared memory; P and
@@ -60,6 +60,21 @@
 //    - rows pass (ls_bwd_rows_pass), grid (b, ceil(c / 8)): K1's fp32
 //      shape. A CTA owns 8 landmark rows, streams the keys they may attend
 //      in 32-key tiles, rebuilds ds and accumulates dQ~ in registers.
+//
+// Past 64 landmark rows (bf16, c > 64). dK / dV of a key sum over every
+// row, dQ~ of a row over every key, and one row tile of 64 is what a CTA's
+// registers hold. The row tiles go on the grid: grid (key chunks, row
+// groups, b), a CTA walking the row_block / 64 row tiles of its group in
+// order (row_block: the wrapper's, the dispatch plan's block_c; 64 by
+// default, every row tile its own CTA). Each row tile is the c <= 64 pass
+// over the keys its rows may attend, with its dQ~ partials per chunk as
+// before and its dK / dV as fp32 partials per row tile, (b, tiles, n, d)
+// and (b, tiles, n, dv); ls_bwd_kv_reduce sums them in row-tile order over
+// the tiles that reach each key (zeros where none does) and casts. No
+// atomics: bitwise deterministic. Registers and shared memory stay the c <=
+// 64 kernel's (97 KB, ptxas in PERF.md); the extra cost is the partials'
+// fp32 traffic: under the causal mask at c = 128 a key reached by both row
+// tiles (the first half) is written and read twice in fp32.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -316,7 +331,7 @@ int launch_typed(const void* q, const void* k, const void* v, const void* g,
 namespace tc {
 
 constexpr int kThreads = 128;  // one warpgroup
-constexpr int kRows = repro::kTileRows;   // landmark rows held (c <= 64)
+constexpr int kRows = repro::kTileRows;   // landmark rows of a row tile
 constexpr int kKeys = repro::kTileRows;   // keys per tile
 constexpr int kStages = 2;
 // 1024 B of alignment slack, Q~ and g, then the K/V ring.
@@ -353,21 +368,44 @@ __device__ __forceinline__ void store_keys(bf16* a, const float (&acc)[16][4], i
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ g,
-          const float* __restrict__ m, const float* __restrict__ l,
-          const float* __restrict__ dcoef, bf16* __restrict__ dq,
-          bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ ws_dq,
-          int c, int n, int d, int dv, float scale, int n_end, int seg, int kv_off,
-          int chunk_keys, int chunks) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+// acc (a warp's 16 keys x 128 columns) as fp32 rows key_lo + g (+ 8) of a
+// (rows, cols) array, keys below key_stop and columns below cols only.
+__device__ __forceinline__ void store_keys_f32(float* a, const float (&acc)[16][4], int cols,
+                                               int key_lo, int key_stop, int qd) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key_lo + 8 * i;
+    if (key >= key_stop) continue;
+    float* o = a + static_cast<size_t>(key) * cols;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * qd;
+      if (col < cols) *reinterpret_cast<float2*>(o + col) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// Keys some row of row tile rt (rows 64 rt .. 64 rt + 63) may attend.
+__host__ __device__ __forceinline__ int tile_end(int rt, int c, int n_end, int seg, int kv_off) {
+  return seg > 0 ? min(n_end, min(c, kRows * (rt + 1)) * seg - kv_off) : n_end;
+}
+
+// One row tile (rows row0 .. row0 + 63) against the CTA's chunk of keys.
+// With one row tile (c <= 64) dK and dV are written as bf16 (keys no row
+// reaches: zeros); with more, as this tile's fp32 partials ws_kv (dK: (b,
+// tiles, n, d), then dV: (b, tiles, n, dv)), which ls_bwd_kv_reduce sums.
+__device__ __forceinline__ void ls_bwd_tile(
+    uint32_t q_s, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g, const float* __restrict__ m,
+    const float* __restrict__ l, const float* __restrict__ dcoef, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ ws_dq,
+    float* __restrict__ ws_kv, int b, int c, int n, int d, int dv, float scale, int n_end,
+    int seg, int kv_off, int chunk_keys, int chunks, int chunk, int bi, int rt, int rtiles) {
   const uint32_t g_s = q_s + repro::kTileBytes;
-  const int chunk = blockIdx.x, bi = blockIdx.y;
+  const int row0 = rt * kRows;
   const int key0 = chunk * chunk_keys;
   const int key_stop = min(key0 + chunk_keys, n);  // dK, dV rows this CTA writes
-  const int key_end = min(key_stop, n_end);        // keys some row may attend
+  const int key_end = min(key_stop, tile_end(rt, c, n_end, seg, kv_off));  // keys the tile's rows may attend
   const int tiles = key_end > key0 ? (key_end - key0 + kKeys - 1) / kKeys : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, qd = lane & 3;
@@ -376,9 +414,16 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + static_cast<size_t>(bi) * n * dv;
   bf16* dkb = dk + static_cast<size_t>(bi) * n * d;
   bf16* dvb = dvo + static_cast<size_t>(bi) * n * dv;
-  // keys past the computed tiles: exact zeros
-  zero_rows(dkb, d, key0 + tiles * kKeys, key_stop, tid);
-  zero_rows(dvb, dv, key0 + tiles * kKeys, key_stop, tid);
+  float* pkb = rtiles > 1 ? ws_kv + (static_cast<size_t>(bi) * rtiles + rt) * n * d : nullptr;
+  float* pvb = rtiles > 1
+      ? ws_kv + static_cast<size_t>(b) * rtiles * n * d
+            + (static_cast<size_t>(bi) * rtiles + rt) * n * dv
+      : nullptr;
+  if (rtiles == 1) {
+    // keys past the computed tiles: exact zeros
+    zero_rows(dkb, d, key0 + tiles * kKeys, key_stop, tid);
+    zero_rows(dvb, dv, key0 + tiles * kKeys, key_stop, tid);
+  }
   if (tiles == 0) return;
 
   auto k_s = [&](int st) { return q_s + repro::kTileBytes * (2 + 2 * st); };
@@ -391,23 +436,23 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      key_end - t0, dv, v, tid, kThreads);
   };
   const size_t bc = static_cast<size_t>(bi) * c;
-  repro::load_tile(q_s, q + bc * d, d, c, d, q, tid, kThreads);
-  repro::load_tile(g_s, g + bc * dv, dv, c, dv, g, tid, kThreads);
+  repro::load_tile(q_s, q + (bc + row0) * d, d, c - row0, d, q, tid, kThreads);
+  repro::load_tile(g_s, g + (bc + row0) * dv, dv, c - row0, dv, g, tid, kThreads);
   load_kv(0);
   repro::cp_async_commit();
 
-  // This thread's rows r_lo and r_lo + 8: base-2 anchor, 1 / l, D.
+  // This thread's rows row0 + r_lo and + 8: base-2 anchor, 1 / l, D.
   const int r_lo = 16 * warp + gr;
   float m2[2], inv_l[2], dr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = r_lo + 8 * i;
+    const int row = row0 + r_lo + 8 * i;
     m2[i] = row < c ? m[bc + row] * repro::kLog2e : 0.f;
     inv_l[i] = row < c ? 1.f / fmaxf(l[bc + row], 1e-30f) : 0.f;
     dr[i] = row < c ? dcoef[bc + row] : 0.f;
   }
-  const int warp_reach =
-      16 * warp < c ? repro::b_side_reach(min(c, 16 * warp + 16) - 1, n_end, seg, kv_off) : 0;
+  const int warp_reach = row0 + 16 * warp < c
+      ? repro::b_side_reach(min(c, row0 + 16 * warp + 16) - 1, n_end, seg, kv_off) : 0;
   const float sl2 = scale * repro::kLog2e;
   float dqa[16][4];
 #pragma unroll
@@ -448,7 +493,7 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = t0 + 8 * j + 2 * qd + (e & 1);
-        const int i = e >> 1, row = r_lo + 8 * i;
+        const int i = e >> 1, row = row0 + r_lo + 8 * i;
         const bool ok =
             key < key_end && row < c && key < repro::b_side_reach(row, n_end, seg, kv_off);
         const float p = ok ? exp2f(s[4 * j + e] * sl2 - m2[i]) * inv_l[i] : 0.f;
@@ -482,7 +527,7 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // cannot reach the warp's first key (global position kv_off + key_w)
     // hold zeros of P and dS: skipped.
     const int key_w = t0 + 16 * warp;
-    const int kk0 = seg > 0 ? min((kv_off + key_w) / seg, kRows) / 16 : 0;
+    const int kk0 = seg > 0 ? min(max((kv_off + key_w) / seg - row0, 0), kRows) / 16 : 0;
     float acc[16][4];
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
@@ -495,15 +540,20 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         repro::a_frag_trans(a, pass == 0 ? p_s : ds_s, 16 * kk, 16 * warp, lane);
         repro::mma_a_btile(acc, a, pass == 0 ? g_s : q_s, 16 * kk, lane);
       }
-      if (pass == 0) store_keys(dvb, acc, dv, key_w + gr, key_stop, qd);
-      else store_keys(dkb, acc, d, key_w + gr, key_stop, qd);
+      if (rtiles > 1) {
+        if (pass == 0) store_keys_f32(pvb, acc, dv, key_w + gr, key_stop, qd);
+        else store_keys_f32(pkb, acc, d, key_w + gr, key_stop, qd);
+      } else {
+        if (pass == 0) store_keys(dvb, acc, dv, key_w + gr, key_stop, qd);
+        else store_keys(dkb, acc, d, key_w + gr, key_stop, qd);
+      }
     }
     __syncthreads();  // the stage is released for tile it + kStages
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = r_lo + 8 * i;
+    const int row = row0 + r_lo + 8 * i;
     if (row >= c) continue;
     if (chunks == 1) {
       bf16* o = dq + (bc + row) * d;
@@ -526,6 +576,56 @@ ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Grid (key chunks, row groups, b): a CTA walks the row_block / 64 row
+// tiles of its group in order over its chunk of keys.
+__global__ void __launch_bounds__(kThreads)
+ls_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ g,
+          const float* __restrict__ m, const float* __restrict__ l,
+          const float* __restrict__ dcoef, bf16* __restrict__ dq,
+          bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ ws_dq,
+          float* __restrict__ ws_kv, int c, int n, int d, int dv, float scale, int n_end,
+          int seg, int kv_off, int chunk_keys, int chunks, int row_block) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int rtiles = (c + kRows - 1) / kRows, per = row_block / kRows;
+  const int rt_end = min(rtiles, (blockIdx.y + 1) * per);
+  for (int rt = blockIdx.y * per; rt < rt_end; ++rt) {
+    ls_bwd_tile(q_s, q, k, v, g, m, l, dcoef, dq, dk, dvo, ws_dq, ws_kv, gridDim.z, c, n,
+                d, dv, scale, n_end, seg, kv_off, chunk_keys, chunks, blockIdx.x,
+                blockIdx.z, rt, rtiles);
+    repro::cp_async_wait<0>();
+    __syncthreads();  // shared memory is free for the next row tile
+  }
+}
+
+// Past 64 landmark rows: dK and dV of each key as the sum, in row-tile
+// order, of the fp32 partials of the row tiles whose rows may attend it
+// (zeros if none). One CTA per 8 keys of one batch-head, a thread per column.
+__global__ void __launch_bounds__(128)
+ls_bwd_kv_reduce(const float* __restrict__ ws_kv, bf16* __restrict__ dk,
+                 bf16* __restrict__ dvo, int b, int c, int n, int d, int dv, int n_end,
+                 int seg, int kv_off) {
+  constexpr int kKeysPer = 8;
+  const int bi = blockIdx.y, col = threadIdx.x;
+  const int rtiles = (c + kRows - 1) / kRows;
+  const float* pk = ws_kv + static_cast<size_t>(bi) * rtiles * n * d;
+  const float* pv = ws_kv + static_cast<size_t>(b) * rtiles * n * d
+                    + static_cast<size_t>(bi) * rtiles * n * dv;
+  for (int x = 0; x < kKeysPer; ++x) {
+    const int key = blockIdx.x * kKeysPer + x;
+    if (key >= n) break;
+    float ak = 0.f, av = 0.f;
+    for (int rt = 0; rt < rtiles; ++rt) {
+      if (key >= tile_end(rt, c, n_end, seg, kv_off)) continue;
+      if (col < d) ak += pk[(static_cast<size_t>(rt) * n + key) * d + col];
+      if (col < dv) av += pv[(static_cast<size_t>(rt) * n + key) * dv + col];
+    }
+    if (col < d) dk[(static_cast<size_t>(bi) * n + key) * d + col] = __float2bfloat16(ak);
+    if (col < dv) dvo[(static_cast<size_t>(bi) * n + key) * dv + col] = __float2bfloat16(av);
+  }
+}
+
 // One CTA per (batch-head, row), a thread per column: dQ~ as the sum of the
 // partials of the chunks the row reaches, in chunk order (zeros if none).
 __global__ void __launch_bounds__(128)
@@ -545,15 +645,17 @@ ls_bwd_dq_reduce(const float* __restrict__ ws_dq, bf16* __restrict__ dq, int c, 
 
 int launch(const void* q, const void* k, const void* v, const void* g, const float* m,
            const float* l, const float* dcoef, void* dq, void* dk, void* dv_out,
-           float* ws_dq, int b, int c, int n, int d, int dv, float scale, int kv_valid,
-           int seg, int kv_off, int chunk_keys, cudaStream_t st) {
-  if (c > kRows || d > repro::kTileCols || dv > repro::kTileCols || d % 8 || dv % 8
-      || chunk_keys <= 0 || chunk_keys % kKeys) {
+           float* ws_dq, float* ws_kv, int b, int c, int n, int d, int dv, float scale,
+           int kv_valid, int seg, int kv_off, int chunk_keys, int row_block, cudaStream_t st) {
+  if (d > repro::kTileCols || dv > repro::kTileCols || d % 8 || dv % 8
+      || chunk_keys <= 0 || chunk_keys % kKeys || row_block <= 0 || row_block % kRows) {
     return cudaErrorInvalidValue;
   }
   const int n_end = repro::b_side_end(n, c, kv_valid, seg, kv_off);
   const int chunks = n_end > 0 ? (n_end + chunk_keys - 1) / chunk_keys : 0;
+  const int rtiles = (c + kRows - 1) / kRows;
   if (chunks > 1 && ws_dq == nullptr) return cudaErrorInvalidValue;
+  if (rtiles > 1 && ws_kv == nullptr) return cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -561,18 +663,27 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  // every key of [0, n) belongs to one CTA: chunks past n_end only write zeros
-  const dim3 grid((n + chunk_keys - 1) / chunk_keys, b);
+  // every key of [0, n) belongs to one CTA of each row group: chunks past
+  // n_end only write zeros (or nothing, past 64 rows: the reduce writes them)
+  const int groups = (c + row_block - 1) / row_block;
+  const dim3 grid((n + chunk_keys - 1) / chunk_keys, groups, b);
   ls_bwd_tc<<<grid, kThreads, kSmemBytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), m, l, dcoef, static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv_out), ws_dq, c, n, d, dv, scale, n_end,
-      seg, kv_off, chunk_keys, chunks);
-  const cudaError_t err = cudaGetLastError();
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv_out), ws_dq, ws_kv, c, n, d, dv, scale,
+      n_end, seg, kv_off, chunk_keys, chunks, row_block);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunks != 1) {
     ls_bwd_dq_reduce<<<b * c, 128, 0, st>>>(ws_dq, static_cast<bf16*>(dq), c, d, n_end,
                                             seg, kv_off, chunk_keys, chunks);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (rtiles > 1) {
+    ls_bwd_kv_reduce<<<dim3((n + 7) / 8, b), 128, 0, st>>>(
+        ws_kv, static_cast<bf16*>(dk), static_cast<bf16*>(dv_out), b, c, n, d, dv, n_end,
+        seg, kv_off);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -583,9 +694,11 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
 
 // Plain C entry point for ctypes. q_dtype is q_l's (and dq's) storage type,
 // kv_dtype that of k, v, g, dk and dv: bf16/bf16 runs the tensor-core pass
-// (c <= 64) on chunks of chunk_keys keys (a multiple of 64, from the
-// wrapper's chunk plan) with ws_dq the fp32 workspace of the chunks' dQ~
-// partials (null when the plan has one chunk); fp32/fp32 and fp32 queries
+// on chunks of chunk_keys keys (a multiple of 64, from the wrapper's chunk
+// plan) and row groups of row_block rows (a multiple of 64) with ws_dq the
+// fp32 workspace of the chunks' dQ~ partials (null when the plan has one
+// chunk) and ws_kv that of the row tiles' dK / dV partials (null for c <=
+// 64); fp32/fp32 and fp32 queries
 // against bf16 keys, as K1 builds, run the fp32 passes (no workspace). m, l
 // and dcoef are fp32 (b, c). kv_valid is global and kv_off the global
 // position of key 0 (a shard's offset; 0 unsharded). Returns
@@ -593,9 +706,9 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
 extern "C" int landmark_summary_bwd_launch(
     const void* q, const void* k, const void* v, const void* g,
     const void* m, const void* l, const void* dcoef, void* dq, void* dk,
-    void* dv_out, void* ws_dq, int b, int c, int n, int d, int dv, float scale,
-    int kv_valid, int seg, int kv_off, int chunk_keys, int q_dtype, int kv_dtype,
-    void* stream) {
+    void* dv_out, void* ws_dq, void* ws_kv, int b, int c, int n, int d, int dv,
+    float scale, int kv_valid, int seg, int kv_off, int chunk_keys, int row_block,
+    int q_dtype, int kv_dtype, void* stream) {
   if (d > kMaxD || dv > kMaxD || b <= 0 || c <= 0 || n <= 0) {
     return cudaErrorInvalidValue;
   }
@@ -606,7 +719,7 @@ extern "C" int landmark_summary_bwd_launch(
   using bf16 = __nv_bfloat16;
   const bool qf = q_dtype == repro::kF32, qb = q_dtype == repro::kBF16;
   const bool kf = kv_dtype == repro::kF32, kb = kv_dtype == repro::kBF16;
-  if (qb && kb) return tc::launch(q, k, v, g, mf, lf, df, dq, dk, dv_out, static_cast<float*>(ws_dq), b, c, n, d, dv, scale, kv_valid, seg, kv_off, chunk_keys, st);
+  if (qb && kb) return tc::launch(q, k, v, g, mf, lf, df, dq, dk, dv_out, static_cast<float*>(ws_dq), static_cast<float*>(ws_kv), b, c, n, d, dv, scale, kv_valid, seg, kv_off, chunk_keys, row_block, st);
   if (qf && kf) return launch_typed<float, float>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
   if (qf && kb) return launch_typed<float, bf16>(q, k, v, g, mf, lf, df, dq, dk, dv_out, b, c, n, d, dv, scale, kv_valid, seg, kv_off, st);
   return cudaErrorInvalidValue;

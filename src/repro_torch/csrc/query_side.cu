@@ -58,8 +58,26 @@
 // cp.async ring with S accumulating over them by wgmma, and dv splits
 // across a grid axis of 128-column tiles (M's and V's columns of this CTA;
 // each recomputes S). 165 KB of shared memory, one CTA an SM.
+//
+// Past 64 landmark columns (c > 64; the reference's query_side keeps any c
+// resident): every variant hands over, inside this file and by c, to its
+// column-tiled counterpart in query_side_ct.cuh (the c <= 64 launches stay
+// the kernels above). A row's softmax then spans several 64-column tiles,
+// so it is flash attention over the landmark axis with K~ as the keys and
+// M as the values: a running max and sum per query row, the fp32 P M
+// accumulator rescaled when the max moves, column tiles wholly past a query
+// block's F-mask reach skipped, padded columns masked, the sum floored at
+// 1e-30 at the end. bf16: steps over (query tile, landmark tile, column tile
+// of d); Q and K~ column tiles through a two-stage ring, M and V tiles
+// through two-slot rings of their own: 129 KB of shared memory, one CTA an
+// SM (the 64-column kernel's 97 KB fit two); Q is read again for each
+// landmark tile, from L2. fp32 (any d up to 576): the FMA kernel's two
+// passes per landmark tile at a row stride of 128 or 576. At c = 128 the
+// bound is still the bytes of Q, V and out (kernels/cost.py); the time is
+// in PERF.md.
 #include "common.cuh"
 #include "mma.cuh"
+#include "query_side_ct.cuh"
 
 namespace {
 
@@ -418,9 +436,18 @@ int launch_tiles(const void* q, const void* kl, const void* mm, const void* v,
 int launch(const void* q, const void* kl, const void* mm, const void* v,
            const float* delta, void* out, int b, int n, int c, int d, int dv,
            float scale, int seg, int pos_offset, int run_rows, cudaStream_t st) {
-  if (c > repro::kTileRows || d > kWideMaxD || dv > kWideMaxDv || d % 8 || dv % 8
-      || run_rows <= 0 || run_rows % kStepRows) {
+  if (d > kWideMaxD || dv > kWideMaxDv || d % 8 || dv % 8 || run_rows <= 0
+      || run_rows % kStepRows) {
     return cudaErrorInvalidValue;
+  }
+  if (c > repro::kTileRows) {   // past 64 landmark columns: the column-tiled kernel
+    return d <= kCols
+        ? repro::qs_ct::tc::launch_ct_tiles<1, false>(q, kl, mm, v, delta, out, nullptr, b,
+                                                      n, c, d, dv, scale, seg, pos_offset,
+                                                      run_rows, st)
+        : repro::qs_ct::tc::launch_ct_tiles<kWideCT, false>(q, kl, mm, v, delta, out,
+                                                            nullptr, b, n, c, d, dv, scale,
+                                                            seg, pos_offset, run_rows, st);
   }
   return d <= kCols
       ? launch_tiles<1>(q, kl, mm, v, delta, out, b, n, c, d, dv, scale, seg, pos_offset,
@@ -434,16 +461,16 @@ int launch(const void* q, const void* kl, const void* mm, const void* v,
 }  // namespace
 
 // Plain C entry point for ctypes. delta is fp32 (b,); q, k_l, M, v and out
-// share the storage type: bf16 runs the tensor-core kernel (c <= 64, head
-// dims multiples of 8) on runs of run_rows query rows (a multiple of 64,
+// share the storage type: bf16 runs the tensor-core kernel (head dims
+// multiples of 8) on runs of run_rows query rows (a multiple of 64,
 // from the wrapper's query-tile plan), fp32 the FMA kernel (run_rows
-// unused). Returns cudaGetLastError() after the launch.
+// unused); c > 64 runs each one's column-tiled variant (query_side_ct.cuh).
+// Returns cudaGetLastError() after the launch.
 extern "C" int query_side_launch(
     const void* q, const void* kl, const void* mm, const void* v,
     const void* delta, void* out, int b, int n, int c, int d, int dv,
     float scale, int seg, int pos_offset, int run_rows, int dtype, void* stream) {
-  if (d > kWideMaxD || dv > kWideMaxDv || c > kMaxC || b <= 0 || n <= 0 || c <= 0
-      || d <= 0 || dv <= 0) {
+  if (d > kWideMaxD || dv > kWideMaxDv || b <= 0 || n <= 0 || c <= 0 || d <= 0 || dv <= 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -453,6 +480,20 @@ extern "C" int query_side_launch(
                       run_rows, st);
   }
   if (dtype != repro::kF32) return cudaErrorInvalidValue;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(kl);
+  const float* mf = static_cast<const float*>(mm);
+  const float* vf = static_cast<const float*>(v);
+  if (c > kMaxC) {   // past 64 landmark columns: the column-tiled kernel
+    return d <= kMaxD && dv <= kMaxD
+        ? repro::qs_ct::launch_ct_fp32<kMaxD, false>(qf, kf, mf, vf, dl,
+                                                     static_cast<float*>(out), nullptr, b,
+                                                     n, c, d, dv, scale, seg, pos_offset, st)
+        : repro::qs_ct::launch_ct_fp32<kWideMaxD, false>(qf, kf, mf, vf, dl,
+                                                         static_cast<float*>(out), nullptr,
+                                                         b, n, c, d, dv, scale, seg,
+                                                         pos_offset, st);
+  }
   const dim3 grid(b, (n + kRows - 1) / kRows);
   if (d <= kMaxD && dv <= kMaxD) {
     query_side_kernel<float><<<grid, kThreads, 0, st>>>(

@@ -57,10 +57,34 @@
 //   t writes dQ / dV of column t for 8 rows and adds the 16 rows into
 //   column t of dK~ and dM for 32 of the c landmark rows, kept in
 //   registers.
+//
+// Past 64 landmark columns (c > 64, chosen by c inside this file; c <= 64
+// runs the kernels above unchanged). dS of a column needs its row's whole
+// softmax and D = rowsum(P o dP), which needs every column, so a column
+// tile cannot finish alone. D = sum_c P_ic (g_i . M_c) = g_i . (P M)_i,
+// which a K2-style forward over the column tiles gives. Three launches:
+//  1. K2's column-tiled kernel (query_side_ct.cuh) in stats mode on g:
+//     each query row's fp32 (m, l, D) into a (3, b, n) workspace;
+//  2. the main kernel (bf16 or fp32) with the landmark tile on a third grid
+//     axis: a CTA owns (query run, batch-head, 64-column tile), rebuilds P
+//     from (m, l) and dS from D, keeps today's accumulators of dK~ and dM
+//     for its 64 landmark rows, writes its rows of the runs' partials (the
+//     same workspace, summed by qs_bwd_reduce), and dQ as an fp32 partial
+//     per column tile (b, tiles, n, d); a bf16 CTA starts at the first step
+//     of its run that reaches its tile. dV and ddelta come from tile 0;
+//  3. qs_bwd_dq_reduce sums each row's dQ partials over the tiles it
+//     reaches, in tile order, and casts.
+// No atomics: two launches give bitwise-equal gradients. The bf16 main
+// kernel keeps its shared memory (230,400 B, one CTA an SM); ptxas reports
+// its registers for both instances (PERF.md). The stats pass is the bf16
+// column-tiled K2 kernel (129 KB). Extra traffic against the c <= 64
+// kernel: the stats pass reads Q and g again, and dQ's partials are
+// written and read once in fp32.
 #include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "query_side_ct.cuh"
 
 namespace {
 
@@ -85,14 +109,20 @@ struct Smem {
   float red[kWarps];
 };
 
-template <typename T>
+// kTiled (c > kMaxC): the CTA takes landmark tile lt = blockIdx.z (rows
+// [64 lt, 64 lt + 64) of K~ and M) and rebuilds P from the first pass's fp32
+// stats (m, l, D of each query row: stats[0 .. b n), [b n ..), [2 b n ..));
+// its dQ goes to the fp32 partial ws_dq (b, tiles, n, d), summed in tile
+// order by qs_bwd_dq_reduce; dV and ddelta come from tile 0 only.
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
             const T* __restrict__ mm, const T* __restrict__ v,
             const float* __restrict__ delta, const T* __restrict__ g,
             T* __restrict__ dq, T* __restrict__ dvo,
             float* __restrict__ ws_k, float* __restrict__ ws_m,
-            float* __restrict__ ws_d, int n, int c, int d, int dv,
+            float* __restrict__ ws_d, const float* __restrict__ stats,
+            float* __restrict__ ws_dq, int n, int c, int d, int dv,
             float scale, int seg, int pos_offset, int run_rows) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -100,6 +130,9 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
   const int bi = blockIdx.x;
   const int run = blockIdx.y;
   const int runs = gridDim.y;
+  const int lt = blockIdx.z, c0 = lt * kMaxC;
+  const int ct = kTiled ? min(kMaxC, c - c0) : c;  // landmark rows of this CTA
+  const size_t bn = static_cast<size_t>(gridDim.x) * n;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -111,11 +144,11 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
   T* dqb = dq + static_cast<size_t>(bi) * n * d;
   T* dvb = dvo + static_cast<size_t>(bi) * n * dv;
 
-  for (int x = tid; x < c * d; x += kThreads) {
-    sm.kl[x / d][x % d] = repro::to_float(kl[static_cast<size_t>(bi) * c * d + x]);
+  for (int x = tid; x < ct * d; x += kThreads) {
+    sm.kl[x / d][x % d] = repro::to_float(kl[(static_cast<size_t>(bi) * c + c0) * d + x]);
   }
-  for (int x = tid; x < c * dv; x += kThreads) {
-    sm.mm[x / dv][x % dv] = repro::to_float(mm[static_cast<size_t>(bi) * c * dv + x]);
+  for (int x = tid; x < ct * dv; x += kThreads) {
+    sm.mm[x / dv][x % dv] = repro::to_float(mm[(static_cast<size_t>(bi) * c + c0) * dv + x]);
   }
   const float dlt = delta[bi];
   const int i_begin = run * run_rows;
@@ -139,7 +172,7 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
       if (i0 + r < i_end) {
         const size_t at = static_cast<size_t>(i0 + r) * dv + cc;
         gv = repro::to_float(gb[at]);
-        dd = fmaf(gv, repro::to_float(vb[at]), dd);
+        if (lt == 0) dd = fmaf(gv, repro::to_float(vb[at]), dd);
       }
       sm.g[r][cc] = gv;
     }
@@ -154,7 +187,7 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int cc = lane + 32 * t;
-        ok[t] = i < i_end && cc < c && (seg == 0 || cc <= (pos_offset + i) / seg);
+        ok[t] = i < i_end && cc < ct && (seg == 0 || c0 + cc <= (pos_offset + i) / seg);
         s[t] = kNegInf;
         dp[t] = 0.f;
         if (ok[t]) {
@@ -165,13 +198,23 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
           dp[t] = dpp;
         }
       }
-      const float mx = repro::warp_max(fmaxf(s[0], s[1]));
-      float p0 = ok[0] ? expf(s[0] - mx) : 0.f;
-      float p1 = ok[1] ? expf(s[1] - mx) : 0.f;
-      const float den = fmaxf(repro::warp_sum(p0 + p1), 1e-30f);
-      p0 /= den;
-      p1 /= den;
-      const float drow = repro::warp_sum(p0 * dp[0] + p1 * dp[1]);
+      float p0, p1, drow;
+      if constexpr (kTiled) {
+        // the row's softmax over all c columns, from the first pass
+        const size_t at = static_cast<size_t>(bi) * n + min(i, n - 1);
+        const float mi = stats[at], inv = 1.f / fmaxf(stats[bn + at], 1e-30f);
+        p0 = ok[0] ? expf(s[0] - mi) * inv : 0.f;
+        p1 = ok[1] ? expf(s[1] - mi) * inv : 0.f;
+        drow = stats[2 * bn + at];
+      } else {
+        const float mx = repro::warp_max(fmaxf(s[0], s[1]));
+        p0 = ok[0] ? expf(s[0] - mx) : 0.f;
+        p1 = ok[1] ? expf(s[1] - mx) : 0.f;
+        const float den = fmaxf(repro::warp_sum(p0 + p1), 1e-30f);
+        p0 /= den;
+        p1 /= den;
+        drow = repro::warp_sum(p0 * dp[0] + p1 * dp[1]);
+      }
       sm.p[r][lane] = p0;
       sm.p[r][lane + 32] = p1;
       sm.ds[r][lane] = p0 * (dp[0] - drow) * scale;
@@ -187,10 +230,14 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
       if (i >= i_end) break;
       if (col < d) {
         float a = 0.f;
-        for (int cc = 0; cc < c; ++cc) a = fmaf(sm.ds[r][cc], sm.kl[cc][col], a);
-        dqb[static_cast<size_t>(i) * d + col] = repro::from_float<T>(a);
+        for (int cc = 0; cc < ct; ++cc) a = fmaf(sm.ds[r][cc], sm.kl[cc][col], a);
+        if constexpr (kTiled) {
+          ws_dq[((static_cast<size_t>(bi) * gridDim.z + lt) * n + i) * d + col] = a;
+        } else {
+          dqb[static_cast<size_t>(i) * d + col] = repro::from_float<T>(a);
+        }
       }
-      if (col < dv) {
+      if (col < dv && lt == 0) {
         dvb[static_cast<size_t>(i) * dv + col] = repro::from_float<T>(dlt * sm.g[r][col]);
       }
     }
@@ -212,14 +259,14 @@ qs_bwd_main(const T* __restrict__ q, const T* __restrict__ kl,
 #pragma unroll
   for (int t = 0; t < kHalfC; ++t) {
     const int cc = half * kHalfC + t;
-    if (cc >= c) break;
-    if (col < d) ws_k[(part * c + cc) * d + col] = acc_k[t];
-    if (col < dv) ws_m[(part * c + cc) * dv + col] = acc_m[t];
+    if (cc >= ct) break;
+    if (col < d) ws_k[(part * c + c0 + cc) * d + col] = acc_k[t];
+    if (col < dv) ws_m[(part * c + c0 + cc) * dv + col] = acc_m[t];
   }
   dd = repro::warp_sum(dd);
   if (lane == 0) sm.red[warp] = dd;
   __syncthreads();
-  if (tid == 0) {
+  if (tid == 0 && lt == 0) {
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += sm.red[w];
     ws_d[part] = s;
@@ -257,6 +304,29 @@ qs_bwd_reduce(const float* __restrict__ ws_k, const float* __restrict__ ws_m,
   }
 }
 
+// Past 64 landmark columns: dQ of each query row as the sum, in tile order,
+// of the fp32 partials ws_dq (b, tiles, n, d) of the landmark tiles the row
+// reaches (its F-mask bound; every tile without seg). One CTA per kRows
+// rows of one batch-head, a thread per column.
+template <typename T>
+__global__ void __launch_bounds__(kMaxD)
+qs_bwd_dq_reduce(const float* __restrict__ ws_dq, T* __restrict__ dq, int n, int c,
+                 int d, int seg, int pos_offset, int tiles) {
+  const int bi = blockIdx.y, col = threadIdx.x;
+  if (col >= d) return;
+  for (int r = 0; r < kRows; ++r) {
+    const int i = blockIdx.x * kRows + r;
+    if (i >= n) break;
+    const int lim = seg > 0 ? min(c, (pos_offset + i) / seg + 1) : c;
+    const int nt = min(tiles, (lim + kMaxC - 1) / kMaxC);
+    float a = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      a += ws_dq[((static_cast<size_t>(bi) * tiles + t) * n + i) * d + col];
+    }
+    dq[(static_cast<size_t>(bi) * n + i) * d + col] = repro::from_float<T>(a);
+  }
+}
+
 // ---- bf16: tensor cores over 128-row steps ----------------------------------
 namespace tc {
 
@@ -266,6 +336,7 @@ constexpr int kStages = 2;
 constexpr int kStageBytes = 6 * repro::kTileBytes;  // Q, g, V: two 64-row tiles each
 // 1024 B of alignment slack, K~ and M, then the Q/g/V ring.
 constexpr int kSmemBytes = 1024 + 2 * repro::kTileBytes + kStages * kStageBytes;
+constexpr int kStatsCtas = 264;  // CTAs of the first pass past 64 columns
 
 using bf16 = __nv_bfloat16;
 
@@ -292,20 +363,35 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return s;
 }
 
+// kTiled (c > 64): the CTA takes landmark tile lt = blockIdx.z (rows
+// [64 lt, 64 lt + 64) of K~ and M), rebuilds P from the first pass's fp32
+// stats (m in base 2, l, D of each query row: stats[0 .. b n), [b n ..),
+// [2 b n ..)) instead of the row softmax, starts at the first step of its
+// run that reaches the tile, writes dQ as an fp32 partial to ws_dq (b,
+// tiles, n, d), summed in tile order by qs_bwd_dq_reduce, and leaves dV and
+// ddelta to tile 0.
+template <bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1)
 qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
           const bf16* __restrict__ mm, const bf16* __restrict__ v,
           const float* __restrict__ delta, const bf16* __restrict__ g,
           bf16* __restrict__ dq, bf16* __restrict__ dvo, float* __restrict__ ws_k,
-          float* __restrict__ ws_m, float* __restrict__ ws_d, int n, int c, int d,
-          int dv, float scale, int seg, int pos_offset, int run_rows) {
+          float* __restrict__ ws_m, float* __restrict__ ws_d,
+          const float* __restrict__ stats, float* __restrict__ ws_dq, int n, int c,
+          int d, int dv, float scale, int seg, int pos_offset, int run_rows) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ float red[kThreads / 32];
   const uint32_t kl_s = (repro::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t m_s = kl_s + repro::kTileBytes;
   const int run = blockIdx.x, runs = gridDim.x, bi = blockIdx.y;
-  const int row_begin = run * run_rows;
-  const int row_end = min(n, row_begin + run_rows);
+  const int lt = blockIdx.z, c0 = lt * repro::kTileRows;
+  const int ct = kTiled ? min(repro::kTileRows, c - c0) : c;  // landmark rows of this CTA
+  const size_t bn = static_cast<size_t>(gridDim.y) * n;
+  const int row_end = min(n, run * run_rows + run_rows);
+  // the first row that reaches the tile: pos_offset + i >= c0 * seg
+  const int first = kTiled && seg > 0 ? c0 * seg - pos_offset : 0;
+  const int row_begin = run * run_rows
+      + max(0, min(first - run * run_rows, row_end - run * run_rows)) / kStepRows * kStepRows;
   const int steps = (row_end - row_begin + kStepRows - 1) / kStepRows;
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int gr = lane >> 2, qd = lane & 3;
@@ -330,14 +416,16 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
                        row_end - i0, dv, v, tid, kThreads);
     }
   };
-  repro::load_tile(kl_s, kl + static_cast<size_t>(bi) * c * d, d, c, d, kl, tid, kThreads);
-  repro::load_tile(m_s, mm + static_cast<size_t>(bi) * c * dv, dv, c, dv, mm, tid, kThreads);
-  load_step(0);
+  repro::load_tile(kl_s, kl + (static_cast<size_t>(bi) * c + c0) * d, d, ct, d, kl, tid,
+                   kThreads);
+  repro::load_tile(m_s, mm + (static_cast<size_t>(bi) * c + c0) * dv, dv, ct, dv, mm, tid,
+                   kThreads);
+  if (steps > 0) load_step(0);
   repro::cp_async_commit();
 
   const float sl2 = scale * repro::kLog2e;
   const float dlt = delta[bi];
-  const int ksteps = (c + 15) / 16;  // k-steps of dS K~ that hold a landmark column
+  const int ksteps = (ct + 15) / 16;  // k-steps of dS K~ that hold a landmark column
   // this warpgroup's persistent product: dK~ (warpgroup 0) or dM (1), landmark
   // rows 16 warp + gr (+ 8), columns 8 j + 2 qd (+ 1)
   float acc[16][4];
@@ -370,8 +458,8 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
     repro::wgmma_commit();
 
     // While the products run: dV = delta g and ddelta += g . v, 16 bytes a
-    // thread, rows below n only.
-    for (int x = tid; x < kStepRows * (repro::kTileCols / 8); x += kThreads) {
+    // thread, rows below n only (tile 0 only, past 64 columns).
+    for (int x = tid; lt == 0 && x < kStepRows * (repro::kTileCols / 8); x += kThreads) {
       const int r = x >> 4, col = (x & 15) * 8;
       if (i0 + r < row_end && col < dv) {
         const uint32_t off = repro::tile_off(r & 63, col);
@@ -395,16 +483,36 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = i0 + r_lo + 8 * i;
-      lim[i] = row >= row_end ? 0 : seg > 0 ? min(c, (pos_offset + row) / seg + 1) : c;
+      lim[i] = (row >= row_end ? 0 : seg > 0 ? min(c, (pos_offset + row) / seg + 1) : c) - c0;
     }
-    repro::row_softmax64(s, lim, sl2, qd);
     float rs[2] = {0.f, 0.f};
+    if constexpr (kTiled) {
+      // P from the row's stats over all c columns; rowsum(P o dP) is D
+      float m2[2], inv[2];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) rs[(e >> 1) & 1] += s[e] * dp[e];
+      for (int i = 0; i < 2; ++i) {
+        const size_t at = static_cast<size_t>(bi) * n + min(i0 + r_lo + 8 * i, n - 1);
+        m2[i] = stats[at];
+        inv[i] = 1.f / fmaxf(stats[bn + at], 1e-30f);
+        rs[i] = stats[2 * bn + at];
+      }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * qd + (e & 1), i = e >> 1;
+          s[4 * j + e] = col < lim[i] ? exp2f(s[4 * j + e] * sl2 - m2[i]) * inv[i] : 0.f;
+        }
+      }
+    } else {
+      repro::row_softmax64(s, lim, sl2, qd);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) rs[(e >> 1) & 1] += s[e] * dp[e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      }
     }
 #pragma unroll
     for (int e = 0; e < 32; ++e) dp[e] = s[e] * (dp[e] - rs[(e >> 1) & 1]) * scale;
@@ -441,13 +549,24 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
       for (int i = 0; i < 2; ++i) {
         const int row = i0 + r_lo + 8 * i;
         if (row >= row_end) continue;
-        bf16* o = dq + qoff + static_cast<size_t>(row) * d;
+        if constexpr (kTiled) {
+          float* o = ws_dq + ((static_cast<size_t>(bi) * gridDim.z + lt) * n + row) * d;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 8 * j + 2 * qd;
-          if (col < d) {
-            *reinterpret_cast<__nv_bfloat162*>(o + col) =
-                __floats2bfloat162_rn(dqa[j][2 * i], dqa[j][2 * i + 1]);
+          for (int j = 0; j < 16; ++j) {
+            const int col = 8 * j + 2 * qd;
+            if (col < d) {
+              *reinterpret_cast<float2*>(o + col) = make_float2(dqa[j][2 * i], dqa[j][2 * i + 1]);
+            }
+          }
+        } else {
+          bf16* o = dq + qoff + static_cast<size_t>(row) * d;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = 8 * j + 2 * qd;
+            if (col < d) {
+              *reinterpret_cast<__nv_bfloat162*>(o + col) =
+                  __floats2bfloat162_rn(dqa[j][2 * i], dqa[j][2 * i + 1]);
+            }
           }
         }
       }
@@ -458,7 +577,7 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
     // rows. A warp whose landmark rows no row of the step may attend (their P
     // and dS are zeros) skips; so does a 64-row half past n.
     const int last = min(row_end, i0 + kStepRows) - 1;
-    const int reach = seg > 0 ? min(c, (pos_offset + last) / seg + 1) : c;
+    const int reach = (seg > 0 ? min(c, (pos_offset + last) / seg + 1) : c) - c0;
     if (16 * warp < reach) {
       const uint32_t at = wg == 0 ? ds_s : p_s;
 #pragma unroll
@@ -479,11 +598,11 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
   // fp32 partials of this run: dK~ (warpgroup 0) or dM (1), then ddelta
   const size_t part = static_cast<size_t>(bi) * runs + run;
   const int cols = wg == 0 ? d : dv;
-  float* w = (wg == 0 ? ws_k : ws_m) + part * c * cols;
+  float* w = (wg == 0 ? ws_k : ws_m) + (part * c + c0) * cols;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = 16 * warp + gr + 8 * i;
-    if (row >= c) continue;
+    if (row >= ct) continue;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = 8 * j + 2 * qd;
@@ -496,60 +615,121 @@ qs_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ kl,
   ddl = repro::warp_sum(ddl);
   if (lane == 0) red[tid >> 5] = ddl;
   __syncthreads();
-  if (tid == 0) {
+  if (tid == 0 && lt == 0) {
     float s = 0.f;
     for (int k = 0; k < kThreads / 32; ++k) s += red[k];
     ws_d[part] = s;
   }
 }
 
-int launch(const void* q, const void* kl, const void* mm, const void* v,
-           const float* delta, const void* g, void* dq, void* dv_out, float* ws_k,
-           float* ws_m, float* ws_d, int runs, int n, int b, int c, int d, int dv,
-           float scale, int seg, int pos_offset, int run_rows, cudaStream_t st) {
-  if (c > repro::kTileRows || d % 8 || dv % 8 || run_rows % kStepRows) {
-    return cudaErrorInvalidValue;
-  }
+template <bool kTiled>
+int launch_main(const void* q, const void* kl, const void* mm, const void* v,
+                const float* delta, const void* g, void* dq, void* dv_out, float* ws_k,
+                float* ws_m, float* ws_d, const float* stats, float* ws_dq, int runs,
+                int tiles, int n, int b, int c, int d, int dv, float scale, int seg,
+                int pos_offset, int run_rows, cudaStream_t st) {
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        qs_bwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        qs_bwd_tc<kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  qs_bwd_tc<<<dim3(runs, b), kThreads, kSmemBytes, st>>>(
+  qs_bwd_tc<kTiled><<<dim3(runs, b, tiles), kThreads, kSmemBytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kl),
       static_cast<const bf16*>(mm), static_cast<const bf16*>(v), delta,
       static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dv_out),
-      ws_k, ws_m, ws_d, n, c, d, dv, scale, seg, pos_offset, run_rows);
+      ws_k, ws_m, ws_d, stats, ws_dq, n, c, d, dv, scale, seg, pos_offset, run_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* kl, const void* mm, const void* v,
+           const float* delta, const void* g, void* dq, void* dv_out, float* ws_k,
+           float* ws_m, float* ws_d, float* stats, float* ws_dq, int runs, int n, int b,
+           int c, int d, int dv, float scale, int seg, int pos_offset, int run_rows,
+           cudaStream_t st) {
+  if (d % 8 || dv % 8 || run_rows % kStepRows) return cudaErrorInvalidValue;
+  if (c <= repro::kTileRows) {
+    return launch_main<false>(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m, ws_d, nullptr,
+                              nullptr, runs, 1, n, b, c, d, dv, scale, seg, pos_offset,
+                              run_rows, st);
+  }
+  // past 64 landmark columns: the rows' stats first (K2's column-tiled kernel
+  // on g), then a landmark tile a grid slice, then dQ's partials summed
+  if (stats == nullptr || ws_dq == nullptr) return cudaErrorInvalidValue;
+  // the first pass's query runs: about kStatsCtas CTAs (one an SM at its
+  // 129 KB of shared memory: two waves)
+  const int qsteps = (n + repro::kTileRows - 1) / repro::kTileRows;
+  const int want = max(1, min(qsteps, (kStatsCtas + b - 1) / b));
+  int err = repro::qs_ct::tc::launch_ct_tiles<1, true>(
+      q, kl, mm, g, nullptr, nullptr, stats, b, n, c, d, dv, scale, seg, pos_offset,
+      repro::kTileRows * ((qsteps + want - 1) / want), st);
+  if (err != cudaSuccess) return err;
+  const int tiles = (c + repro::kTileRows - 1) / repro::kTileRows;
+  err = launch_main<true>(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m, ws_d, stats,
+                          ws_dq, runs, tiles, n, b, c, d, dv, scale, seg, pos_offset,
+                          run_rows, st);
+  if (err != cudaSuccess) return err;
+  qs_bwd_dq_reduce<bf16><<<dim3((n + kRows - 1) / kRows, b), kMaxD, 0, st>>>(
+      ws_dq, static_cast<bf16*>(dq), n, c, d, seg, pos_offset, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
+template <typename T, bool kTiled>
+int launch_fma(const void* q, const void* kl, const void* mm, const void* v,
+               const float* delta, const void* g, void* dq, void* dv_out, float* ws_k,
+               float* ws_m, float* ws_d, const float* stats, float* ws_dq, int b, int runs,
+               int tiles, int n, int c, int d, int dv, float scale, int seg,
+               int pos_offset, int run_rows, cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(Smem));
+  const cudaError_t err = cudaFuncSetAttribute(
+      qs_bwd_main<T, kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  qs_bwd_main<T, kTiled><<<dim3(b, runs, tiles), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kl),
+      static_cast<const T*>(mm), static_cast<const T*>(v), delta,
+      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dv_out),
+      ws_k, ws_m, ws_d, stats, ws_dq, n, c, d, dv, scale, seg, pos_offset, run_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_typed(const void* q, const void* kl, const void* mm, const void* v,
                  const float* delta, const void* g, void* dq, void* dkl,
                  void* dm, void* dv_out, float* dd, float* ws_k, float* ws_m,
-                 float* ws_d, int b, int n, int c, int d, int dv, float scale,
-                 int seg, int pos_offset, int run_rows, cudaStream_t st) {
+                 float* ws_d, float* stats, float* ws_dq, int b, int n, int c, int d,
+                 int dv, float scale, int seg, int pos_offset, int run_rows,
+                 cudaStream_t st) {
   const int runs = (n + run_rows - 1) / run_rows;
-  cudaError_t err;
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const int rc = tc::launch(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m, ws_d, runs,
-                              n, b, c, d, dv, scale, seg, pos_offset, run_rows, st);
+    const int rc = tc::launch(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m, ws_d, stats,
+                              ws_dq, runs, n, b, c, d, dv, scale, seg, pos_offset, run_rows,
+                              st);
+    if (rc != 0) return rc;
+  } else if (c <= kMaxC) {
+    const int rc = launch_fma<T, false>(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m,
+                                        ws_d, nullptr, nullptr, b, runs, 1, n, c, d, dv,
+                                        scale, seg, pos_offset, run_rows, st);
     if (rc != 0) return rc;
   } else {
-    const int smem = static_cast<int>(sizeof(Smem));
-    err = cudaFuncSetAttribute(qs_bwd_main<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    qs_bwd_main<T><<<dim3(b, runs), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kl),
-        static_cast<const T*>(mm), static_cast<const T*>(v), delta,
-        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dv_out),
-        ws_k, ws_m, ws_d, n, c, d, dv, scale, seg, pos_offset, run_rows);
-    err = cudaGetLastError();
+    // past 64 landmark columns: the rows' stats (K2's column-tiled FMA
+    // kernel on g), a landmark tile a grid slice, then dQ's partials summed
+    if (stats == nullptr || ws_dq == nullptr) return cudaErrorInvalidValue;
+    int rc = repro::qs_ct::launch_ct_fp32<kMaxD, true>(
+        static_cast<const float*>(q), static_cast<const float*>(kl),
+        static_cast<const float*>(mm), static_cast<const float*>(g), nullptr, nullptr,
+        stats, b, n, c, d, dv, scale, seg, pos_offset, st);
+    if (rc != 0) return rc;
+    const int tiles = (c + kMaxC - 1) / kMaxC;
+    rc = launch_fma<T, true>(q, kl, mm, v, delta, g, dq, dv_out, ws_k, ws_m, ws_d, stats,
+                             ws_dq, b, runs, tiles, n, c, d, dv, scale, seg, pos_offset,
+                             run_rows, st);
+    if (rc != 0) return rc;
+    qs_bwd_dq_reduce<T><<<dim3((n + kRows - 1) / kRows, b), kMaxD, 0, st>>>(
+        ws_dq, static_cast<T*>(dq), n, c, d, seg, pos_offset, tiles);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   qs_bwd_reduce<T><<<b * c, 2 * kMaxD, 0, st>>>(ws_k, ws_m, ws_d, static_cast<T*>(dkl),
@@ -565,18 +745,22 @@ int launch_typed(const void* q, const void* kl, const void* mm, const void* v,
 // query-tile plan; a multiple of 128 for bf16): runs = ceil(n / run_rows).
 // ws_k (b, runs, c, d), ws_m (b, runs, c, dv) and ws_d (b, runs) are the
 // fp32 workspace of the runs' partials. bf16 runs the tensor-core kernel
-// (c <= 64, head dims multiples of 8), fp32 the FMA kernel. Returns
-// cudaGetLastError() after the launches (0 = launched).
+// (head dims multiples of 8), fp32 the FMA kernel. Past 64 landmark
+// columns stats (3, b, n) and ws_dq (b, ceil(c / 64), n, d) are the fp32
+// workspaces of the rows' softmax stats and dQ's per-tile partials (null
+// for c <= 64). Returns cudaGetLastError() after the launches (0 =
+// launched).
 extern "C" int query_side_bwd_launch(
     const void* q, const void* kl, const void* mm, const void* v,
     const void* delta, const void* g, void* dq, void* dkl, void* dm,
-    void* dv_out, void* dd, void* ws_k, void* ws_m, void* ws_d, int b, int n,
-    int c, int d, int dv, float scale, int seg, int pos_offset, int run_rows,
-    int dtype, void* stream) {
-  if (d > kMaxD || dv > kMaxD || c > kMaxC || b <= 0 || n <= 0 || c <= 0
-      || run_rows <= 0) {
+    void* dv_out, void* dd, void* ws_k, void* ws_m, void* ws_d, void* stats,
+    void* ws_dq, int b, int n, int c, int d, int dv, float scale, int seg,
+    int pos_offset, int run_rows, int dtype, void* stream) {
+  if (d > kMaxD || dv > kMaxD || b <= 0 || n <= 0 || c <= 0 || run_rows <= 0) {
     return cudaErrorInvalidValue;
   }
+  float* sf = static_cast<float*>(stats);
+  float* wq = static_cast<float*>(ws_dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dl = static_cast<const float*>(delta);
   float* ddf = static_cast<float*>(dd);
@@ -584,10 +768,10 @@ extern "C" int query_side_bwd_launch(
   float* wm = static_cast<float*>(ws_m);
   float* wd = static_cast<float*>(ws_d);
   if (dtype == repro::kF32) {
-    return launch_typed<float>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, b, n, c, d, dv, scale, seg, pos_offset, run_rows, st);
+    return launch_typed<float>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, sf, wq, b, n, c, d, dv, scale, seg, pos_offset, run_rows, st);
   }
   if (dtype == repro::kBF16) {
-    return launch_typed<__nv_bfloat16>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, b, n, c, d, dv, scale, seg, pos_offset, run_rows, st);
+    return launch_typed<__nv_bfloat16>(q, kl, mm, v, dl, g, dq, dkl, dm, dv_out, ddf, wk, wm, wd, sf, wq, b, n, c, d, dv, scale, seg, pos_offset, run_rows, st);
   }
   return cudaErrorInvalidValue;
 }

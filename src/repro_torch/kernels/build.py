@@ -43,11 +43,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Argument types of each <name>_launch (pointers and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits).
 ARGTYPES = {
-    "landmark_summary": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
+    "landmark_summary": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
     "query_side": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "paged_row_stats": [_P] * 10 + [_I] * 10 + [_F] + [_I] + [_P],
-    "landmark_summary_bwd": [_P] * 11 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
-    "query_side_bwd": [_P] * 14 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "landmark_summary_bwd": [_P] * 12 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
+    "query_side_bwd": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
 }
 
 

@@ -121,8 +121,8 @@ def _seg(causal: bool, seq_len_k: int, n: int, c: int) -> int:
     return -(-(seq_len_k or n) // c) if causal else 0
 
 
-def _k1_flops(q_l, k, v, scale, causal, kv_valid=None, chunk_keys=0, *, out_shape=None,
-              seq_len_k=0, kv_offset=0):
+def _k1_flops(q_l, k, v, scale, causal, kv_valid=None, chunk_keys=0, row_block=0, *,
+              out_shape=None, seq_len_k=0, kv_offset=0):
     b, c, d = q_l
     n, dv = k[1], v[2]
     end = kv_offset + n if kv_valid is None else min(int(kv_valid), kv_offset + n)
@@ -132,7 +132,7 @@ def _k1_flops(q_l, k, v, scale, causal, kv_valid=None, chunk_keys=0, *, out_shap
 
 
 def _k1_bwd_flops(q_l, k, v, bv, m, l, g, scale, causal, kv_valid=None, seq_len_k=0,
-                  kv_offset=0, chunk_keys=0, *, out_shape=None):
+                  kv_offset=0, chunk_keys=0, row_block=0, *, out_shape=None):
     b, c, d = q_l
     n, dv = k[1], v[2]
     end = kv_offset + n if kv_valid is None else min(int(kv_valid), kv_offset + n)

@@ -28,8 +28,15 @@ What a plan means on CUDA:
   kernels of K1-K3 do not tile keys or query runs and ignore it; the
   plain versions on the CPU ignore every tiling. For a decode key
   ``block_n`` is K5's ``chunk_slots`` (whole steps of whole blocks).
-* ``block_c`` stays 0: ``ROW_TILE`` = 64 landmark rows is wgmma's M and
-  every config has c <= 64, so the landmark rows are never tiled.
+* ``block_c`` (self family) is the landmark rows a CTA of K1 / K3's bf16
+  kernels walks (their ``row_block``): 0 is the kernels' own plan (one
+  ``ROW_TILE`` of 64 rows a CTA, every row tile on the grid), otherwise a
+  multiple of ``ROW_TILE`` that divides c (the CTA walks its row tiles in
+  order over its key chunk). The reference's ``block_c`` tiles the rows
+  over a grid axis at any divisor; a value the kernels cannot take, such
+  as the reference's c / 4 = 32 at c = 128 (below wgmma's M), is refused
+  by ``check_tiling`` before any launch and left out of a sweep. K2 / K4
+  and the fp32 kernels do not tile landmark rows and ignore it.
 * ``block_table`` is the view quantum ``serve/paged.py:view_blocks_needed``
   takes: the paged decode tick slices each lane's table to a multiple of
   it.
@@ -192,7 +199,7 @@ class PlanKey:
 class Plan:
     impl: str             # "fused" | "jnp" | "interpret" | "sharded" | "paged"
     block_n: int = 512    # tiling; 0 = the kernel's own plan (see above)
-    block_c: int = 0      # landmark-row tile: always 0 on CUDA
+    block_c: int = 0      # K1 / K3 landmark rows a CTA walks (0 = their own plan)
     block_table: int = 0  # decode family: the view quantum (0 = whole table)
     source: str = "heuristic"  # heuristic | registered | cache | autotuned
 
@@ -408,16 +415,21 @@ def get_plan(key: PlanKey, *, autotune_enabled: bool = False,
 # --------------------------------------------------------------------------
 # What the CUDA kernels take.
 # --------------------------------------------------------------------------
-def check_tiling(block_n: int, block_c: int = 0, *, backward: bool = False) -> None:
+def check_tiling(block_n: int, block_c: int = 0, *, c: Optional[int] = None,
+                 backward: bool = False) -> None:
     """Raise ValueError unless the CUDA kernels take this self-family
-    tiling: block_c 0, block_n 0 or a positive whole number of KEY_TILE and
-    QUERY_TILE (K1-K3), and of QS_BWD_STEP_ROWS when K4 runs too."""
-    from repro_torch.kernels.ss_attention import KEY_TILE, QUERY_TILE
+    tiling: block_c 0 or a positive multiple of ROW_TILE that divides c
+    (with ``c`` unknown, any positive multiple), block_n 0 or a positive
+    whole number of KEY_TILE and QUERY_TILE (K1-K3), and of
+    QS_BWD_STEP_ROWS when K4 runs too."""
+    from repro_torch.kernels.ss_attention import KEY_TILE, QUERY_TILE, ROW_TILE
     from repro_torch.kernels.ss_attention_bwd import QS_BWD_STEP_ROWS
 
-    if block_c:
-        raise ValueError(f"block_c={block_c}: the CUDA kernels keep every landmark "
-                         f"row of c <= 64 in one ROW_TILE; only block_c=0 is taken")
+    if block_c and (block_c < 0 or block_c % ROW_TILE or (c is not None and c % block_c)):
+        raise ValueError(f"block_c={block_c}: K1 / K3's CTAs walk whole row tiles of "
+                         f"{ROW_TILE} landmark rows; the CUDA kernels take 0 (their "
+                         f"own plan) or a multiple of {ROW_TILE} that divides "
+                         f"c={c}")
     quantum = math.lcm(KEY_TILE, QUERY_TILE, QS_BWD_STEP_ROWS if backward else 1)
     if block_n < 0 or block_n % quantum:
         raise ValueError(f"block_n={block_n}: the CUDA kernels take 0 (their own "
@@ -490,12 +502,19 @@ def _seconds(fn, dev: torch.device, *, iters: int, reps: int) -> float:
 # --------------------------------------------------------------------------
 # Measured autotune.
 # --------------------------------------------------------------------------
+def reference_block_c(c: int) -> tuple[int, ...]:
+    """The reference's ``block_c`` candidates at c landmarks
+    (``repro/kernels/dispatch.py:379``): 0 and c / 2, c / 4 where whole and
+    at least 8."""
+    return (0,) + tuple(c // f for f in (2, 4) if c % f == 0 and c // f >= 8)
+
+
 def _block_n_candidates(key: PlanKey, block_candidates, block_c_candidates) -> list:
     """(block_n, block_c) tilings of the fused route to time: the
-    heuristic's 0 first, then each candidate the kernels take with K4
-    (whole QS_BWD_STEP_ROWS, so a plan stays valid under a gradient) that
-    changes something. On the CPU and for fp32 keys nothing tiles, so 0
-    alone."""
+    heuristic's (0, 0) first, then each candidate the kernels take at the
+    key's c with K4 (whole QS_BWD_STEP_ROWS, so a plan stays valid under a
+    gradient) that changes something. On the CPU and for fp32 keys nothing
+    tiles, so (0, 0) alone."""
     out = [(0, 0)]
     if key.backend != "cuda" or key.dtype != "bfloat16":
         return out
@@ -503,7 +522,7 @@ def _block_n_candidates(key: PlanKey, block_candidates, block_c_candidates) -> l
     for bn in block_candidates:
         for bc in block_c_candidates:
             try:
-                check_tiling(bn, bc, backward=True)
+                check_tiling(bn, bc, c=key.c, backward=True)
             except ValueError:
                 continue
             cand = (min(bn, n_cap), bc)
@@ -514,8 +533,8 @@ def _block_n_candidates(key: PlanKey, block_candidates, block_c_candidates) -> l
 
 def _kernel_pass(q, k, v, cfg: SSConfig, backward: bool):
     """The launches a self-family tiling reaches, at the call's shapes:
-    ``run(block_n)`` launches K1 and K2 as ``ss_attention_fused`` does (K1
-    with its stats when ``backward``), then K3 and K4 on a fixed
+    ``run(block_n, block_c)`` launches K1 and K2 as ``ss_attention_fused``
+    does (K1 with its stats when ``backward``), then K3 and K4 on a fixed
     cotangent."""
     from repro_torch.core.landmarks import segment_means
     from repro_torch.kernels.ss_attention import landmark_summary, query_side
@@ -534,14 +553,15 @@ def _kernel_pass(q, k, v, cfg: SSConfig, backward: bool):
     bv, m, l = landmark_summary(q_l, k, v, scale=scale, causal=cfg.causal,
                                 return_stats=True)
 
-    def run(block_n: int) -> None:
+    def run(block_n: int, block_c: int = 0) -> None:
         landmark_summary(q_l, k, v, scale=scale, causal=cfg.causal,
-                         return_stats=backward, chunk_keys=block_n)
+                         return_stats=backward, chunk_keys=block_n, row_block=block_c)
         query_side(q, k_l, m_mat, v, delta, scale=scale, causal=cfg.causal,
                    run_rows=block_n)
         if backward:
             landmark_summary_bwd(q_l, k, v, bv, m, l, g_bv, scale=scale,
-                                 causal=cfg.causal, chunk_keys=block_n)
+                                 causal=cfg.causal, chunk_keys=block_n,
+                                 row_block=block_c)
             query_side_bwd(q, k_l, m_mat, v, delta, g_out, scale=scale,
                            causal=cfg.causal, run_rows=block_n)
 
@@ -551,7 +571,7 @@ def _kernel_pass(q, k, v, cfg: SSConfig, backward: bool):
 def autotune(n: int, c: int, d: int, dtype=torch.float32, causal: bool = False, *,
              backend: Optional[str] = None, batch: int = 1, backward: bool = False,
              block_candidates: tuple[int, ...] = (256, 512, 1024),
-             block_c_candidates: tuple[int, ...] = (0,), iters: int = 10,
+             block_c_candidates: Optional[tuple[int, ...]] = None, iters: int = 10,
              reps: int = 5, save: bool = True,
              cache_file: Optional[str] = None) -> Plan:
     """Measure the key's candidate plans on synthetic (batch, n, d) data of
@@ -563,7 +583,10 @@ def autotune(n: int, c: int, d: int, dtype=torch.float32, causal: bool = False, 
     and with ``backward`` (a training key) K3 and K4 as well. The jnp route
     is no candidate there: a plan never puts plain PyTorch on the card. On
     the CPU the jnp route is timed against the fused route's plain versions,
-    whole calls by the wall clock."""
+    whole calls by the wall clock. ``block_c_candidates`` defaults to the
+    reference's: 0 and the divisors c / 2 and c / 4 that are whole and at
+    least 8 (``reference_block_c``); the kernels take those that are
+    multiples of ROW_TILE."""
     from repro_torch.kernels.ops import ss_attention_fused
     from repro_torch.telemetry.accounting import tagged_program
 
@@ -576,6 +599,8 @@ def autotune(n: int, c: int, d: int, dtype=torch.float32, causal: bool = False, 
     gen = torch.Generator(device="cpu").manual_seed(0)
     q, k, v = ((torch.randn((batch, n, d), generator=gen) * s).to(dev, tdtype)
                for s in (0.5, 0.5, 1.0))
+    if block_c_candidates is None:
+        block_c_candidates = reference_block_c(c)
     tilings = _block_n_candidates(key, block_candidates, block_c_candidates)
     before = _launch_counts()
     results: list[tuple[float, Plan]] = []
@@ -584,7 +609,7 @@ def autotune(n: int, c: int, d: int, dtype=torch.float32, causal: bool = False, 
             if dev.type == "cuda":
                 run = _kernel_pass(q, k, v, cfg, backward)
                 for bn, bc in tilings:
-                    t = _seconds(partial(run, bn), dev, iters=iters, reps=reps)
+                    t = _seconds(partial(run, bn, bc), dev, iters=iters, reps=reps)
                     results.append((t, Plan(impl="fused", block_n=bn, block_c=bc,
                                             source="autotuned")))
             else:

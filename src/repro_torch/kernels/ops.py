@@ -13,7 +13,8 @@ plus the online-softmax partial-state algebra (``flash_rescale`` /
 kernels' partials.
 
 ``block_n`` (a dispatch plan's tiling, ``kernels/dispatch.py``) reaches
-K1 / K3 as ``chunk_keys`` and K2 / K4 as ``run_rows``; 0 leaves K1 / K2 to
+K1 / K3 as ``chunk_keys`` and K2 / K4 as ``run_rows``, ``block_c`` K1 / K3
+as ``row_block``; 0 leaves K1 / K2 to
 the serving tiling in effect (``dispatch.use_tiling``) and every kernel
 otherwise to its own plan. ``nystrom_attention_fused`` is the same with delta = 0
 (``ops.py:341``).
@@ -76,37 +77,37 @@ def flash_merge(m_a, l_a, acc_a, m_b, l_b, acc_b):
 @torch.library.custom_op("repro_torch::landmark_summary", mutates_args=())
 def landmark_summary_stats(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float, causal: bool,
-                           kv_valid: Optional[int],
-                           chunk_keys: int = 0) -> tuple[torch.Tensor, torch.Tensor,
-                                                         torch.Tensor]:
+                           kv_valid: Optional[int], chunk_keys: int = 0,
+                           row_block: int = 0) -> tuple[torch.Tensor, torch.Tensor,
+                                                        torch.Tensor]:
     """K1 with its fp32 stats (``landmark_summary_op`` :91): (BV, m, l). Its
     outputs are the residuals the reference tags ``ss_bv`` / ``ss_stats``
     (``ops.py:112``), the ones ``remat="ss_stats"`` keeps."""
     return landmark_summary(q_l, k, v, scale=scale, causal=causal,
                             return_stats=True, kv_valid=kv_valid,
-                            chunk_keys=chunk_keys)
+                            chunk_keys=chunk_keys, row_block=row_block)
 
 
 @landmark_summary_stats.register_fake
-def _(q_l, k, v, scale, causal, kv_valid, chunk_keys=0):
+def _(q_l, k, v, scale, causal, kv_valid, chunk_keys=0, row_block=0):
     b, c, _ = q_l.shape
     stat = q_l.new_empty((b, c, 1), dtype=torch.float32)
     return v.new_empty((b, c, v.shape[-1])), stat, torch.empty_like(stat)
 
 
 def _landmark_summary_setup(ctx, inputs, output):
-    q_l, k, v, scale, causal, kv_valid, chunk_keys = inputs
+    q_l, k, v, scale, causal, kv_valid, chunk_keys, row_block = inputs
     bv, m, l = output
     ctx.save_for_backward(q_l, k, v, bv, m, l)
-    ctx.meta = (scale, causal, kv_valid, chunk_keys)
+    ctx.meta = (scale, causal, kv_valid, chunk_keys, row_block)
 
 
 def _landmark_summary_backward(ctx, g, _gm, _gl):
     q_l, k, v, bv, m, l = ctx.saved_tensors
-    scale, causal, kv_valid, chunk_keys = ctx.meta
+    scale, causal, kv_valid, chunk_keys, row_block = ctx.meta
     dq, dk, dv = landmark_summary_bwd_op(q_l, k, v, bv, m, l, g.contiguous(), scale,
-                                         causal, kv_valid, 0, 0, chunk_keys)
-    return dq, dk, dv, None, None, None, None
+                                         causal, kv_valid, 0, 0, chunk_keys, row_block)
+    return dq, dk, dv, None, None, None, None, None
 
 
 @torch.library.custom_op("repro_torch::landmark_summary_bwd", mutates_args=())
@@ -114,17 +115,19 @@ def landmark_summary_bwd_op(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bv: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                             g: torch.Tensor, scale: float, causal: bool,
                             kv_valid: Optional[int], seq_len_k: int, kv_offset: int,
-                            chunk_keys: int) -> tuple[torch.Tensor, torch.Tensor,
-                                                      torch.Tensor]:
+                            chunk_keys: int, row_block: int = 0,
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 as an op of its own (the backward of the K1 ops), so a FLOP
     count over a step sees it (``kernels/cost.py``) on every device."""
     return landmark_summary_bwd(q_l, k, v, bv, m, l, g, scale=scale, causal=causal,
                                 kv_valid=kv_valid, seq_len_k=seq_len_k,
-                                kv_offset=kv_offset, chunk_keys=chunk_keys)
+                                kv_offset=kv_offset, chunk_keys=chunk_keys,
+                                row_block=row_block)
 
 
 @landmark_summary_bwd_op.register_fake
-def _(q_l, k, v, bv, m, l, g, scale, causal, kv_valid, seq_len_k, kv_offset, chunk_keys):
+def _(q_l, k, v, bv, m, l, g, scale, causal, kv_valid, seq_len_k, kv_offset, chunk_keys,
+      row_block=0):
     return torch.empty_like(q_l), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -197,17 +200,18 @@ def _through_op(*tensors) -> bool:
 
 
 def landmark_summary_op(q_l, k, v, *, scale: float, causal: bool = False,
-                        kv_valid: Optional[int] = None,
-                        chunk_keys: int = 0) -> torch.Tensor:
+                        kv_valid: Optional[int] = None, chunk_keys: int = 0,
+                        row_block: int = 0) -> torch.Tensor:
     """K1 as a differentiable op: through the ``repro_torch::landmark_summary``
     custom op when a gradient is needed, else the kernel alone (no stats,
-    nothing saved). ``chunk_keys`` reaches K1 and K3."""
+    nothing saved). ``chunk_keys`` and ``row_block`` reach K1 and K3."""
     if _through_op(q_l, k, v):
         return landmark_summary_stats(q_l, k, v, float(scale), bool(causal),
                                       None if kv_valid is None else int(kv_valid),
-                                      int(chunk_keys))[0]
+                                      int(chunk_keys), int(row_block))[0]
     return landmark_summary(q_l, k, v, scale=scale, causal=causal,
-                            kv_valid=kv_valid, chunk_keys=chunk_keys)
+                            kv_valid=kv_valid, chunk_keys=chunk_keys,
+                            row_block=row_block)
 
 
 def query_side_op(q, k_l, m_mat, v, delta, *, scale: float,
@@ -266,7 +270,7 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable in q, k and v. ``block_n`` / ``block_c``: a dispatch
     plan's tiling (``dispatch.check_tiling`` raises, before any launch on
     CUDA, for one the kernels cannot take; the CPU's plain versions ignore
-    it).
+    it); ``block_c`` reaches K1 and K3 as ``row_block``.
 
     ``kv_valid`` (host int): only the first ``kv_valid`` positions are
     real; landmark means and the B-side softmax mask the padded tail, so a
@@ -294,9 +298,9 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.is_cuda:
         from repro_torch.kernels.dispatch import check_tiling
 
-        check_tiling(block_n, block_c, backward=_needs_grad(q, k, v))
+        check_tiling(block_n, block_c, c=c, backward=_needs_grad(q, k, v))
     else:
-        block_n = 0
+        block_n = block_c = 0
     scale = scale if scale is not None else 1.0 / (d**0.5)
     b = 1
     for s_ in lead:
@@ -321,7 +325,7 @@ def ss_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_l, k_l, cfg, scale, n_k if kv_valid is None else kv_valid)
     bv = landmark_summary_op(q_l.contiguous(), kf, vf, scale=scale,
                              causal=cfg.causal, kv_valid=kv_valid,
-                             chunk_keys=block_n)  # (b, c, dv)
+                             chunk_keys=block_n, row_block=block_c)  # (b, c, dv)
     m_mat = (u.float() @ bv.float()).to(v.dtype)
     if cfg.include_shift_identity and n <= n_k:
         # + delta_ss I_n -> + delta_ss * V on the query-aligned rows of V.

@@ -15,8 +15,13 @@ version beside it. The bf16 kernels tile by their own plans
 (``chunk_keys``, ``run_rows``: a dispatch plan's ``block_n``,
 ``kernels/dispatch.py``); one they cannot take raises ``ValueError``
 before any launch. The fp32 kernels do not tile keys or query runs and
-the plain versions ignore every tiling. The reference's ``block_c`` and
-``interpret`` have no counterpart.
+the plain versions ignore every tiling. The reference's ``block_c`` is K1
+and K3's ``row_block``: the landmark rows a CTA of their bf16 kernels
+walks, a whole number of ROW_TILEs (0 = one ROW_TILE a CTA, every row tile
+on the grid). Every kernel takes any c: past 64 landmark columns K2 and K4
+walk the landmark axis in tiles of 64 (``csrc/query_side_ct.cuh``), and K3
+leaves fp32 partials of dK and dV per row tile, summed in order. The
+reference's ``interpret`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -30,12 +35,13 @@ from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
 from repro_torch.kernels.dispatch import current_tiling
 
-_MAX_C = 64    # landmark columns query_side's kernel keeps resident
-# The bf16 tensor-core kernels of K1 and K3 (csrc/mma.cuh): 64 landmark rows
-# per CTA (wgmma's M; K3 takes c <= 64), keys in tiles of 64, head dims
-# multiples of 8 up to each kernel's limit (kernels.HEAD_DIM_LIMITS); K1 and
-# K2 past 128 take d in 128-column tiles and dv in 128-column tiles on a grid
-# axis (their wide-head variants, chosen inside the .cu by shape).
+# The bf16 tensor-core kernels of K1 and K3 (csrc/mma.cuh): landmark rows in
+# tiles of 64 (wgmma's M; a CTA walks row_block / 64 of them), keys in tiles
+# of 64, head dims multiples of 8 up to each kernel's limit
+# (kernels.HEAD_DIM_LIMITS); K1 and K2 past 128 take d in 128-column tiles
+# and dv in 128-column tiles on a grid axis (their wide-head variants, chosen
+# inside the .cu by shape). K2 and K4 take the landmark columns in tiles of
+# ROW_TILE too.
 ROW_TILE = 64
 KEY_TILE = 64
 # CTAs the chunk plan and K2's query-tile plan aim at: two resident per SM
@@ -107,14 +113,15 @@ def check_multiple(name: str, what: str, value: int, quantum: int) -> None:
 
 def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
                kv_end: Optional[int] = None, chunk_keys: int = 0,
-               kv_offset: int = 0) -> ChunkPlan:
+               kv_offset: int = 0, row_block: int = ROW_TILE) -> ChunkPlan:
     """The chunk plan of K1 / K3 for b batch-heads, c rows and n keys under
     ``seg`` (segment-causal, 0 = none) and ``kv_end`` (global, like the
     segment-causal bound; the keys' first global position is
     ``kv_offset``): n_end = the keys any row may attend
-    (``common.cuh:b_side_end``); enough chunks per (head, row tile) to give
-    about TARGET_CTAS CTAs, at most one per 64-key tile. ``chunk_keys`` > 0
-    overrides the chunk size (a whole number of KEY_TILE keys)."""
+    (``common.cuh:b_side_end``); enough chunks per (head, row group of
+    ``row_block`` rows) to give about TARGET_CTAS CTAs, at most one per
+    64-key tile. ``chunk_keys`` > 0 overrides the chunk size (a whole number
+    of KEY_TILE keys)."""
     n_end = n if kv_end is None else min(int(kv_end) - kv_offset, n)
     if seg:
         n_end = min(n_end, c * seg - kv_offset)
@@ -123,7 +130,7 @@ def chunk_plan(b: int, c: int, n: int, *, seg: int = 0,
         check_multiple("chunk_plan", "chunk_keys", chunk_keys, KEY_TILE)
     else:
         tiles = -(-n_end // KEY_TILE)
-        want = -(-TARGET_CTAS // max(1, b * -(-c // ROW_TILE)))
+        want = -(-TARGET_CTAS // max(1, b * -(-c // row_block)))
         chunk_keys = max(1, -(-tiles // max(1, min(tiles, want)))) * KEY_TILE
     return ChunkPlan(b=b, c=c, n_end=n_end, seg=seg, chunk_keys=chunk_keys,
                      chunks=-(-n_end // chunk_keys), kv_offset=kv_offset)
@@ -177,6 +184,16 @@ def tensor_core_pair(q_l: torch.Tensor, k: torch.Tensor) -> bool:
     return q_l.dtype == k.dtype == torch.bfloat16
 
 
+def row_block_for(name: str, row_block: int) -> int:
+    """The rows a CTA of K1 / K3's bf16 kernel walks: ``row_block`` (the
+    reference's ``block_c``, a positive multiple of ROW_TILE) or, for 0,
+    one ROW_TILE. Raises ValueError for any other value."""
+    if not row_block:
+        return ROW_TILE
+    check_multiple(name, "row_block", row_block, ROW_TILE)
+    return row_block
+
+
 def check_tensor_core_shapes(name: str, tensors: dict, dims: dict) -> None:
     """Raise unless the tensor-core kernels take these operands: head dims
     positive multiples of 8 (the limits are ``check_head_dims``'s) and
@@ -210,16 +227,18 @@ def b_side_mask(c: int, n: int, *, seg: int = 0, kv_offset: int = 0,
 
 def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
                            kv_offset: int = 0, kv_end: Optional[int] = None,
-                           return_stats: bool = False, chunk_keys: int = 0):
+                           return_stats: bool = False, chunk_keys: int = 0,
+                           row_block: int = 0):
     """Plain version of K1, mirroring ``repro/kernels/ss_attention.py:195``
     ``landmark_summary`` (masks of ``_b_side_mask`` :62): key j has global
     position ``kv_offset + j`` and is valid iff it is < ``kv_end`` (default
     ``kv_offset + n``) and, with ``seg``, < (row + 1) * seg. One softmax
     over all keys instead of the kernel's stream; same masks, same -1e30
     anchor and 1e-30 floor. Returns ``out`` in v's dtype, plus fp32 (m, l)
-    of shape (b, c, 1) with ``return_stats``. ``chunk_keys`` (the kernel's
-    tiling) is taken and ignored, so this version stands in for
-    ``_landmark_summary_cuda`` with the same arguments."""
+    of shape (b, c, 1) with ``return_stats``. ``chunk_keys`` and
+    ``row_block`` (the kernel's tiling) are taken and ignored, so this
+    version stands in for ``_landmark_summary_cuda`` with the same
+    arguments."""
     mask = b_side_mask(q_l.shape[1], k.shape[1], seg=seg, kv_offset=kv_offset,
                        kv_end=kv_end, device=k.device)
     s = torch.einsum("bcd,bnd->bcn", q_l.float(), k.float()) * scale
@@ -235,7 +254,8 @@ def landmark_summary_plain(q_l, k, v, *, scale: float, seg: int = 0,
 def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, causal: bool = False,
                      return_stats: bool = False, kv_valid=None,
-                     seq_len_k: int = 0, kv_offset: int = 0, chunk_keys: int = 0):
+                     seq_len_k: int = 0, kv_offset: int = 0, chunk_keys: int = 0,
+                     row_block: int = 0):
     """BV = softmax(Q~ K^T * scale) @ V. q_l (b, c, d), k (b, n, d),
     v (b, n, dv) -> (b, c, dv) in v's dtype [+ fp32 m, l (b, c, 1)].
 
@@ -247,7 +267,8 @@ def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     passes the prompt length; the sharded attention the true sequence end); it
     is clamped to kv_offset + n. A row that reaches no key returns
     (out 0, m -1e30, l 0). ``chunk_keys`` > 0 sets the bf16 kernel's key
-    chunk (whole KEY_TILEs; 0 = ``chunk_plan``'s)."""
+    chunk (whole KEY_TILEs; 0 = ``chunk_plan``'s), ``row_block`` > 0 the
+    landmark rows a CTA walks (whole ROW_TILEs; 0 = one ROW_TILE)."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     if k.shape != (b, n, d) or v.shape[:2] != (b, n):
@@ -261,11 +282,12 @@ def landmark_summary(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       kv_end=end, return_stats=return_stats)
     return _landmark_summary_cuda(q_l, k, v, scale=scale, seg=seg, kv_offset=off,
                                   kv_end=end, return_stats=return_stats,
-                                  chunk_keys=chunk_keys or current_tiling().block_n)
+                                  chunk_keys=chunk_keys or current_tiling().block_n,
+                                  row_block=row_block)
 
 
 def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
-                           kv_offset=0, chunk_keys=0):
+                           kv_offset=0, chunk_keys=0, row_block=0):
     """Check the operands and launch csrc/landmark_summary.cu (same
     arguments as ``landmark_summary_plain``): the tensor-core kernel for
     bf16 q_l, k, v, with the workspace of its chunk plan allocated here,
@@ -281,6 +303,7 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
     check_head_dims("landmark_summary", d, dv)
     if chunk_keys:
         check_multiple("landmark_summary", "chunk_keys", chunk_keys, KEY_TILE)
+    row_block = row_block_for("landmark_summary", row_block)
     out = torch.empty((b, c, dv), dtype=v.dtype, device=v.device)
     m = l = None
     if return_stats:
@@ -293,7 +316,7 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
         check_tensor_core_shapes("landmark_summary", {"q_l": q_l, "k": k, "v": v},
                                  {"d": d, "dv": dv})
         plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys,
-                          kv_offset=kv_offset)
+                          kv_offset=kv_offset, row_block=row_block)
         tile = plan.chunk_keys
         if plan.chunks > 1:
             ws = torch.empty(plan.workspace_floats(dv + 2), dtype=torch.float32,
@@ -303,8 +326,8 @@ def _landmark_summary_cuda(q_l, k, v, *, scale, seg, kv_end, return_stats,
                out.data_ptr(), m.data_ptr() if m is not None else None,
                l.data_ptr() if l is not None else None,
                ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, kv_offset, tile, DTYPE_CODES[str(q_l.dtype)],
-               DTYPE_CODES[str(k.dtype)], _stream_handle(v))
+               float(scale), kv_end, seg, kv_offset, tile, row_block,
+               DTYPE_CODES[str(q_l.dtype)], DTYPE_CODES[str(k.dtype)], _stream_handle(v))
         landmark_summary.launches += 1
     return (out, m, l) if return_stats else out
 
@@ -388,8 +411,6 @@ def _query_side_cuda(q, k_l, m_mat, v, delta, *, scale, seg, pos_offset,
     if delta.dtype != torch.float32:
         raise ValueError("query_side: delta must be fp32")
     check_head_dims("query_side", d, dv)
-    if c > _MAX_C:
-        raise ValueError(f"query_side: c={c} exceeds the kernel's {_MAX_C}")
     if run_rows:
         check_multiple("query_side", "run_rows", run_rows, QUERY_TILE)
     tile = 0

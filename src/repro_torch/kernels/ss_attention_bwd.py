@@ -22,12 +22,11 @@ import torch
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels import check_head_dims
 from repro_torch.kernels.build import DTYPE_CODES, check_operands, launch
-from repro_torch.kernels.ss_attention import (_MAX_C, KEY_TILE, ROW_TILE,
-                                              _stream_handle, b_side_mask,
-                                              check_multiple,
+from repro_torch.kernels.ss_attention import (KEY_TILE, ROW_TILE, _stream_handle,
+                                              b_side_mask, check_multiple,
                                               check_tensor_core_shapes, chunk_plan,
                                               query_side_probs, query_tile_plan,
-                                              tensor_core_pair)
+                                              row_block_for, tensor_core_pair)
 
 # Query rows per step of csrc/query_side_bwd.cu's bf16 kernel (kStepRows):
 # 64 for each of its two warpgroups. K4 writes one fp32 partial of dK~, dM
@@ -55,13 +54,15 @@ def query_side_bwd_plan(b: int, n: int, run_rows: int = 0):
 # --------------------------------------------------------------------------
 def landmark_summary_bwd_plain(q_l, k, v, g, m, l, dcoef, *, scale: float,
                                seg: int = 0, kv_offset: int = 0,
-                               kv_end: Optional[int] = None, chunk_keys: int = 0):
+                               kv_end: Optional[int] = None, chunk_keys: int = 0,
+                               row_block: int = 0):
     """Plain version of K3, mirroring ``ss_attention_bwd.py:49``
     ``_landmark_summary_bwd_kernel`` over all keys at once: the masks of
     ``b_side_mask``, p = exp(s - m) / max(l, 1e-30) zeroed where masked (a
     row with no valid key has l = 0 and keeps p = 0). ``dcoef`` is
     D = rowsum(g o BV), fp32 (b, c, 1). Returns (dq_l, dk, dv) in q_l's,
-    k's and v's dtypes (``chunk_keys``, the kernel's tiling, ignored)."""
+    k's and v's dtypes (``chunk_keys`` and ``row_block``, the kernel's
+    tiling, ignored)."""
     mask = b_side_mask(q_l.shape[1], k.shape[1], seg=seg, kv_offset=kv_offset,
                        kv_end=kv_end, device=k.device)
     qf, kf, vf, gf = q_l.float(), k.float(), v.float(), g.float()
@@ -80,7 +81,7 @@ def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bv: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                          g: torch.Tensor, *, scale: float, causal: bool = False,
                          kv_valid=None, seq_len_k: int = 0, kv_offset: int = 0,
-                         chunk_keys: int = 0):
+                         chunk_keys: int = 0, row_block: int = 0):
     """Backward of ``landmark_summary``: (dq_l, dk, dv) from K1's inputs, its
     output ``bv`` and fp32 stats ``m``, ``l`` (b, c, 1), and the cotangent
     ``g`` of bv (made contiguous here: autograd may hand it expanded). Same
@@ -89,7 +90,8 @@ def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``l`` are the merged global ones and ``g`` the summed cotangent: dK, dV
     are then the shard's own rows and dq_l the shard's partial. Keys no row
     reaches get zeros. ``chunk_keys`` > 0 sets the bf16 kernel's key chunk
-    (whole KEY_TILEs)."""
+    (whole KEY_TILEs), ``row_block`` > 0 the landmark rows a CTA walks
+    (whole ROW_TILEs; 0 = one)."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     if (k.shape != (b, n, d) or v.shape[:2] != (b, n)
@@ -107,15 +109,16 @@ def landmark_summary_bwd(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           seg=seg, kv_offset=off, kv_end=end)
     return _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, scale=scale,
                                       seg=seg, kv_offset=off, kv_end=end,
-                                      chunk_keys=chunk_keys)
+                                      chunk_keys=chunk_keys, row_block=row_block)
 
 
 def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end,
-                               kv_offset=0, chunk_keys=0):
+                               kv_offset=0, chunk_keys=0, row_block=0):
     """Check the operands and launch csrc/landmark_summary_bwd.cu (same
     arguments as ``landmark_summary_bwd_plain``): the tensor-core pass for
-    bf16 q_l, k, v, g (c <= 64), with the dQ~ workspace of its chunk plan
-    allocated here, else the fp32 passes."""
+    bf16 q_l, k, v, g, with the workspaces allocated here (dQ~'s partials
+    per key chunk when its chunk plan has more than one; past one ROW_TILE,
+    dK's and dV's partials per row tile), else the fp32 passes."""
     b, c, d = q_l.shape
     n, dv = k.shape[1], v.shape[2]
     check_operands("landmark_summary_bwd", {"q_l": q_l, "k": k, "v": v, "g": g,
@@ -132,29 +135,33 @@ def _landmark_summary_bwd_cuda(q_l, k, v, g, m, l, dcoef, *, scale, seg, kv_end,
     check_head_dims("landmark_summary_bwd", d, dv)
     if chunk_keys:
         check_multiple("landmark_summary_bwd", "chunk_keys", chunk_keys, KEY_TILE)
+    row_block = row_block_for("landmark_summary_bwd", row_block)
     dq = torch.empty_like(q_l)
     dk = torch.empty_like(k)
     dv_out = torch.empty_like(v)
-    ws, tile = None, 0
+    ws = ws_kv = None
+    tile = 0
     if tensor_core_pair(q_l, k):
-        if c > ROW_TILE:
-            raise ValueError(f"landmark_summary_bwd: bf16 c={c} > {ROW_TILE}")
         check_tensor_core_shapes("landmark_summary_bwd",
                                  {"q_l": q_l, "k": k, "v": v, "g": g},
                                  {"d": d, "dv": dv})
         plan = chunk_plan(b, c, n, seg=seg, kv_end=kv_end, chunk_keys=chunk_keys,
-                          kv_offset=kv_offset)
+                          kv_offset=kv_offset, row_block=row_block)
         tile = plan.chunk_keys
         if plan.chunks > 1:
             ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
                              device=k.device)
+        if c > ROW_TILE:
+            ws_kv = torch.empty(b * -(-c // ROW_TILE) * n * (d + dv),
+                                dtype=torch.float32, device=k.device)
     if b and c and n:
         launch("landmark_summary_bwd", q_l.data_ptr(), k.data_ptr(), v.data_ptr(),
                g.data_ptr(), m.data_ptr(), l.data_ptr(), dcoef.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(),
-               ws.data_ptr() if ws is not None else None, b, c, n, d, dv,
-               float(scale), kv_end, seg, kv_offset, tile, DTYPE_CODES[str(q_l.dtype)],
-               DTYPE_CODES[str(k.dtype)], _stream_handle(k))
+               ws.data_ptr() if ws is not None else None,
+               ws_kv.data_ptr() if ws_kv is not None else None, b, c, n, d, dv,
+               float(scale), kv_end, seg, kv_offset, tile, row_block,
+               DTYPE_CODES[str(q_l.dtype)], DTYPE_CODES[str(k.dtype)], _stream_handle(k))
         landmark_summary_bwd.launches += 1
     return dq, dk, dv_out
 
@@ -228,8 +235,6 @@ def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset,
     if delta.dtype != torch.float32:
         raise ValueError("query_side_bwd: delta must be fp32")
     check_head_dims("query_side_bwd", d, dv)
-    if c > _MAX_C:
-        raise ValueError(f"query_side_bwd: c={c} exceeds the kernel's {_MAX_C}")
     if q.dtype == torch.bfloat16:
         check_tensor_core_shapes("query_side_bwd",
                                  {"q": q, "k_l": k_l, "m_mat": m_mat, "v": v, "g": g},
@@ -244,11 +249,20 @@ def _query_side_bwd_cuda(q, k_l, m_mat, v, delta, g, *, scale, seg, pos_offset,
     ws = torch.empty(plan.workspace_floats(c, d, dv), dtype=torch.float32,
                      device=q.device)
     ws_k, ws_m, ws_d = ws.split([parts * c * d, parts * c * dv, parts])
+    stats = ws_dq = None
+    if c > ROW_TILE:
+        # past 64 landmark columns: each row's fp32 (m, l, D) from the first
+        # pass, and dQ's fp32 partials per landmark tile
+        stats = torch.empty(3 * b * n, dtype=torch.float32, device=q.device)
+        ws_dq = torch.empty(b * -(-c // ROW_TILE) * n * d, dtype=torch.float32,
+                            device=q.device)
     if b and n:
         launch("query_side_bwd", q.data_ptr(), k_l.data_ptr(), m_mat.data_ptr(),
                v.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
                dkl.data_ptr(), dm.data_ptr(), dv_out.data_ptr(), dd.data_ptr(),
-               ws_k.data_ptr(), ws_m.data_ptr(), ws_d.data_ptr(), b, n, c, d, dv,
+               ws_k.data_ptr(), ws_m.data_ptr(), ws_d.data_ptr(),
+               stats.data_ptr() if stats is not None else None,
+               ws_dq.data_ptr() if ws_dq is not None else None, b, n, c, d, dv,
                float(scale), seg, pos_offset, plan.run_rows,
                DTYPE_CODES[str(q.dtype)], _stream_handle(q))
         query_side_bwd.launches += 1

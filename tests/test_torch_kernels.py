@@ -309,13 +309,15 @@ def test_query_tile_plan_at_the_main_paths():
 
 
 @pytest.mark.parametrize("kernel", ["query_side", "query_side_bwd"])
-@pytest.mark.parametrize("bad", ["d_not_multiple_of_8", "misaligned", "c_above_64"])
+@pytest.mark.parametrize("bad", ["d_not_multiple_of_8", "misaligned", "d_above_head_limit"])
 def test_bf16_shapes_the_tensor_core_kernels_do_not_take_raise(kernel, bad):
     """The bf16 K2 / K4 wrappers raise before any launch on a shape their
-    tensor-core kernels do not take: there is no FMA fallback for bf16."""
+    tensor-core kernels do not take: there is no FMA fallback for bf16.
+    (Any landmark count c is taken: K2 and K4 tile it past 64.)"""
     from repro_torch.kernels import ss_attention, ss_attention_bwd
 
-    b, n, c, d = 2, 70, 80 if bad == "c_above_64" else 16, 12 if bad == "d_not_multiple_of_8" else 16
+    b, n, c, d = 2, 70, 16, {"d_not_multiple_of_8": 12, "misaligned": 16,
+                             "d_above_head_limit": HEAD_DIM_LIMITS[kernel][0] + 8}[bad]
 
     def t(*shape):
         if bad == "misaligned":   # one bf16 past a 16-byte boundary
