@@ -63,8 +63,10 @@ result line):
    launches (``shard_kernel_entries``): K1 and K3 at every shard's
    ``kv_offset`` and K2 and K4 at its ``q_offset``, Qwen2-7B's training
    shape at n = 8192 over 2 and 4 shards and n = 8000 over 4, Whisper's
-   bidirectional encoder shape (n = 1500, c = 32) over 2 and ``sp_train``'s
-   paper-bert shape (b = 16, n = 8192, d = 64, causal) over 2, in fp32 and bf16
+   bidirectional encoder shape (n = 1500, c = 32) over 2, ``sp_train``'s
+   paper-bert shape (b = 16, n = 8192, d = 64, causal) over 2 and
+   ``sp_hymba_fused``'s Hymba-1.5B shape (one row x 25 heads: b = 25,
+   n = 4096, c = 64, d = 64, causal) over 2, in fp32 and bf16
    (K1's rows that reach no key of a shard come back empty, K3's keys no
    row reaches get zero dK / dV), the last shard of each timed; K1-K4 at
    ``tp_train``'s rank shape (4 rows x 4 query heads: b = 16, n = 4096,
@@ -258,7 +260,24 @@ result line):
    survivors, world ranks 1 and 2, go on over 1 x 2 from the step-2
    checkpoint, bitwise equal to an uninterrupted 1 x 2 restore, beside a
    control restoring step 0's state at step 2 that must differ; the
-   restart's seconds, ms a step before and after, peak GiB);
+   restart's seconds, ms a step before and after, peak GiB); the family
+   paths (``family_rank``): ``sp_hymba_chunked`` and ``sp_hymba_fused``
+   (Hymba-1.5B at full width cut to 2 of 32 layers, seq 4096 over
+   "model", batch 2 over "data", under its own ``chunked`` attention (K /
+   V all-gathered) and under ``spectral_shift_fused`` (K1-K4 at the
+   shard's offsets); the mamba conv's halo and the scan's affine carry),
+   ``sp_xlstm`` (xLSTM-350M at full width cut to 6 blocks, one sLSTM,
+   seq 2048 over "model", batch 2: the mLSTM / sLSTM state chain) and
+   ``dp_whisper`` (Whisper-base 6 + 6 layers, decoder seq 4096 beside 1500
+   stub frames, batch 4 over a 4 x 1 mesh of the same ranks): each one's
+   step 0 at fp32 (TF32 off), every position's CE within 1e-4 of the
+   single process's, a bound a control (shard 1's entering mamba state
+   zeroed; shard 1's sLSTM state dropped; every row given the next row's
+   frames) must exceed; then 2 bf16 steps: losses (a 2e-2 sanity bound
+   against the single process), ms a step, peak GiB, the collectives'
+   share, launches (K1 2 / K2 2 / K3 1 / K4 1 a layer and step under the
+   fused Hymba, none elsewhere); the dry-run's Qwen2-7B cell under its own
+   ``chunked`` attention traced, Whisper's refused;
    then each kernel timed at the tiling the sweeps chose
    (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
@@ -4389,12 +4408,17 @@ SHARD_CASES = {
     "bert_sp2": (16, 64, 8192, 2, 64, True),
     # past 64 landmarks: K2 / K4 in column tiles, K3 with per-row-tile partials
     "qwen2_sp2_c128": (56, 128, 8192, 2, 128, True),
+    # sp_hymba_fused's launches: Hymba-1.5B, one row a rank x 25 query heads
+    # (5 kv heads broadcast) of 64, the 4096-token sequence over the 2
+    # ranks of "model"
+    "hymba_sp2": (25, 64, 4096, 2, 64, True),
 }
 # the timed shards: the last of each split (its low landmark rows reach no
 # key of it), bf16
 SHARD_TIMED = {"qwen2_sp2": "seq_shard_launch", "qwen2_sp4_ragged": "seq_shard_ragged_launch",
                "whisper_sp2": "whisper_seq_shard_launch",
-               "bert_sp2": "paper_bert_seq_shard_launch"}
+               "bert_sp2": "paper_bert_seq_shard_launch",
+               "hymba_sp2": "hymba_seq_shard_launch"}
 
 
 def shard_kernel_entries(torch, dev) -> dict:
@@ -5617,11 +5641,287 @@ def dryrun_rank(mesh, seq: int, batch: int, root: str) -> dict:
                 collectives=collectives)
 
 
+# --------------------------------------------------------------------------
+# the recurrent families under a sequence shard, Whisper under a batch split
+# --------------------------------------------------------------------------
+SP_HYMBA_LAYERS = 2               # of 32
+SP_HYMBA_SEQ, SP_HYMBA_BATCH = 4096, 2   # one row x 2048 positions a rank
+SP_XLSTM_SEQ, SP_XLSTM_BATCH = 2048, 2   # 6 blocks: the sLSTM recurs a step a token
+DP_WHISPER_SEQ, DP_WHISPER_BATCH = 4096, 4   # one row a rank, 1500 stub frames
+DP_MESH = (4, 1)                  # ("data", "model"): Whisper's rows over the 4 ranks
+FAMILY_STEPS = 2
+# step 0: each position's CE on a rank against the single process's, max
+# abs, in float64 (Hymba chunked, xLSTM, Whisper) or at 1 fp32 layer, TF32
+# off (Hymba fused: K1-K4 take fp32 and bf16 only). On the card fp32 is
+# not a witness at 2 layers: the single process alone moves a position's
+# CE by up to 2.6e-3 (Hymba) / 4.0e-3 (xLSTM) between a batch of 2 and its
+# first row alone, 1.1e-4-1.4e-4 at 1 Hymba layer, 3.4e-12 in float64 (an
+# H100 80GB HBM3 at 700 W, PERF.md §6). A control (shard 1's entering mamba state and
+# conv halo zeroed; shard 1's sLSTM state dropped; every row given the next
+# row's frames) must exceed the bound.
+FAMILY_STEP0_TOL = {"float64": 1e-8, "float32": 1e-3}
+# the bf16 steps against the single process's, relative: a sanity bound
+# (Adam's first steps amplify bf16 rounding: Whisper's DP step 1 moved
+# 5.5e-3 in the CPU rehearsal at reduced width, its step 0 7e-8)
+FAMILY_LOSS_TOL = 2e-2
+FAMILIES = ("hymba_chunked", "hymba_fused", "xlstm", "whisper")
+
+
+def family_config(name: str, step0: bool = False):
+    """The config of a family path: Hymba-1.5B at full width cut to
+    SP_HYMBA_LAYERS under its own ``chunked`` attention or
+    ``spectral_shift_fused``; xLSTM-350M at 6 blocks (one sLSTM); Whisper-base
+    at 6 + 6 layers. ``step0``: the step-0 witness's, in float64, or for
+    the fused Hymba one fp32 layer."""
+    from repro_torch.configs.registry import get_config
+
+    over = {}
+    if step0:
+        over = (dict(compute_dtype="float32", num_layers=1) if name == "hymba_fused"
+                else dict(compute_dtype="float64"))
+    if name.startswith("hymba"):
+        impl = "chunked" if name == "hymba_chunked" else "spectral_shift_fused"
+        return dataclasses.replace(get_config(HYMBA), **{"num_layers": SP_HYMBA_LAYERS,
+                                                         "attention_impl": impl, **over})
+    if name == "xlstm":
+        return dataclasses.replace(get_config(XLSTM), **{"num_layers": XLSTM_TRAIN_LAYERS,
+                                                         **over})
+    return dataclasses.replace(get_config(WHISPER), **over)
+
+
+def family_shape(name: str):
+    from repro_torch.configs.base import ShapeConfig
+
+    seq, batch = {"xlstm": (SP_XLSTM_SEQ, SP_XLSTM_BATCH),
+                  "whisper": (DP_WHISPER_SEQ, DP_WHISPER_BATCH)}.get(
+                      name, (SP_HYMBA_SEQ, SP_HYMBA_BATCH))
+    return ShapeConfig("train_4k", seq, batch, "train")
+
+
+def family_data(name: str):
+    return (frontend_batch(family_config(name), DP_WHISPER_SEQ, DP_WHISPER_BATCH)
+            if name == "whisper" else None)
+
+
+def token_ce(torch, trainer, patches=()):
+    """Each position's CE (rows x positions, numpy) of step 0's batch at
+    the trainer's initial weights, a forward under its mesh: the rank's
+    rows and positions (their targets the next global tokens), or the whole
+    batch on one device (the last position against token 0, as a rank's
+    targets hold); a float64 model wholly in float64
+    (``float64_everywhere``). ``patches``: (module, name, value) triples
+    set while it runs."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.model import model_forward
+
+    saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
+    for module, name, value in patches:
+        setattr(module, name, value)
+    f64 = trainer.cfg.compute_dtype == "float64"
+    try:
+        with (float64_everywhere(torch) if f64 else contextlib.nullcontext()), \
+                trainer._rules(), torch.no_grad():
+            batch = trainer._batch(0)
+            logits, _ = model_forward(trainer.params, trainer.cfg, batch)
+            targets = batch.get("targets")
+            if targets is None:
+                tok = batch["tokens"]
+                targets = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], dim=1)
+            ce = F.cross_entropy(logits.flatten(0, 1).to(torch.float64 if f64 else
+                                                          torch.float32),
+                                 targets.flatten(), reduction="none").view(targets.shape)
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
+    return ce.cpu().numpy()
+
+
+def family_control(name: str) -> list:
+    """The control of a family path: (module, name, value) patches that
+    break what the slice carries across ranks while every collective still
+    runs."""
+    import numpy as np
+
+    import repro_torch.distributed.seq_parallel as sp
+    import repro_torch.train.trainer as trainer_module
+
+    if name.startswith("hymba"):
+        carry, halo = sp.affine_carry, sp.halo_exchange
+
+        def zeroed(a, b, mesh, axes):   # shard 1's entering mamba state lost
+            h = carry(a, b, mesh, axes)
+            return h * 0 if mesh.index(axes) == 1 else h
+
+        def zeroed_halo(x, mesh, axes, rows):   # ... and its conv context
+            h = halo(x, mesh, axes, rows)
+            return h * 0 if mesh.index(axes) == 1 else h
+
+        return [(sp, "affine_carry", zeroed), (sp, "halo_exchange", zeroed_halo)]
+    if name == "xlstm":
+        chain = sp.state_chain
+
+        def dropped(run, fresh, mesh, axes, anchor):   # shard 1's sLSTM starts afresh
+            lost = len(fresh) == 4 and mesh.index(axes) == 1
+            return chain(lambda st: run(fresh if lost else st), fresh, mesh, axes, anchor)
+
+        return [(sp, "state_chain", dropped)]
+    split = trainer_module.make_global_batch
+
+    def shifted(host, mesh, overrides=None):   # every row gets the next row's frames
+        return split(dict(host, frames=np.roll(host["frames"], 1, axis=0)), mesh, overrides)
+
+    return [(trainer_module, "make_global_batch", shifted)]
+
+
+def family_rank_run(mesh, name: str, steps: int) -> dict:
+    """One rank of a family path: step 0's per-position CE (the witness
+    config: float64, or 1 fp32 layer with TF32 off), sound and under the
+    control (``token_ce``, uncounted), then
+    ``steps`` bf16 steps: losses, ms a step after the first, peak GiB, the
+    collectives' share of the steps and the launches."""
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    ov = None if name == "whisper" else {"seq": "model"}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as tmp:
+        tcfg = TrainConfig(total_steps=10, warmup_steps=1, checkpoint_every=0,
+                           checkpoint_dir=tmp)
+        witness = Trainer(family_config(name, step0=True), tcfg, family_shape(name), mesh,
+                          rule_overrides=ov, data=family_data(name))
+        ce = {"sound": token_ce(torch, witness),
+              "control": token_ce(torch, witness, family_control(name))}
+        del witness
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(family_config(name), tcfg, family_shape(name), mesh,
+                          rule_overrides=ov, data=family_data(name))
+        torch.cuda.reset_peak_memory_stats(dev)
+        coll0, t0 = mesh.collective_seconds, time.perf_counter()
+        launches: dict = {}
+        hist = _counted(launches, lambda: trainer.run(steps))
+        share = (mesh.collective_seconds - coll0) / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=mesh.rank, coords=dict(mesh.coords), ce=ce,
+                losses=[h["loss"] for h in hist],
+                ms=1e3 * sum(h["step_time_s"] for h in hist[1:]) / max(1, len(hist) - 1),
+                peak_gib=peak, collective_share=share, launches=launches,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def family_rank(mesh, steps: int) -> dict:
+    """The family paths on one rank: Hymba and xLSTM on the group's 2 x 2
+    mesh (the sequence over "model"), Whisper on a 4 x 1 mesh of its own
+    over the same ranks (its rows over "data")."""
+    from repro_torch.distributed.mesh import Mesh
+
+    out = {name: family_rank_run(mesh, name, steps) for name in FAMILIES[:3]}
+    wmesh = Mesh(DP_MESH, ("data", "model"), device=mesh.device, timeout_s=SP_TIMEOUT_S)
+    out["whisper"] = family_rank_run(wmesh, "whisper", steps)
+    return out
+
+
+def family_single(torch, dev) -> dict:
+    """The single process's side of every family path: step 0's
+    per-position CE (the witness config) and ``FAMILY_STEPS`` bf16 steps
+    (``train_steps``)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.trainer import Trainer
+
+    out = {}
+    for name in FAMILIES:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_family0_") as tmp:
+            one = Trainer(family_config(name, step0=True), TrainConfig(checkpoint_dir=tmp),
+                          family_shape(name), device=dev, data=family_data(name))
+            ce = token_ce(torch, one)
+            del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = train_steps(torch, dev, family_config(name), family_shape(name), FAMILY_STEPS,
+                          f"{name} single-process reference", data=family_data(name))
+        out[name] = dict(run, ce=ce)
+    return out
+
+
+def check_families(fams: list, single: dict) -> None:
+    """Hold the family paths' ranks to the single process: step 0's
+    per-position CE within FAMILY_STEP0_TOL of its witness's dtype, which
+    each control must exceed; the ranks of a sequence agree on the losses, which stay within
+    the sanity bound FAMILY_LOSS_TOL of the single process's; launches per rank
+    K1 2 / K2 2 / K3 1 / K4 1 a layer and step under the fused Hymba (remat
+    full), none elsewhere. Logs ms a step, peak GiB and the collectives'
+    share per rank beside the single process."""
+    import numpy as np
+
+    for name in FAMILIES:
+        runs = [f[name] for f in fams]
+        ref = single[name]["ce"]
+        sound = control = 0.0
+        for r in runs:
+            if name == "whisper":   # rows over "data", whole sequence
+                rows, cols = r["coords"]["data"], 0
+            else:
+                rows, cols = r["coords"]["data"], r["coords"]["model"]
+            b, s = r["ce"]["sound"].shape
+            want = ref[rows * b:(rows + 1) * b, cols * s:(cols + 1) * s]
+            sound = max(sound, float(np.abs(r["ce"]["sound"] - want).max()))
+            control = max(control, float(np.abs(r["ce"]["control"] - want).max()))
+        rel = rel_diffs(runs[0]["losses"], single[name]["losses"])
+        layers = family_config(name).num_layers
+        witness = family_config(name, step0=True)
+        tol = FAMILY_STEP0_TOL[witness.compute_dtype]
+        n = layers * FAMILY_STEPS if name == "hymba_fused" else 0
+        want_l = dict(landmark_summary=2 * n, query_side=2 * n, landmark_summary_bwd=n,
+                      query_side_bwd=n, paged_row_stats=0)
+        log(f"{name}: {family_config(name).name} {layers} layers seq "
+            f"{family_shape(name).seq_len} batch {family_shape(name).global_batch} on 4 "
+            f"ranks ({'rows over data' if name == 'whisper' else 'sequence over model'}): "
+            f"step 0 ({witness.compute_dtype}, {witness.num_layers} layers) per-position CE "
+            f"max abs err {sound:.3e} against the single process (tol {tol}); control "
+            f"{control:.3e} (must exceed it); bf16 "
+            f"losses {['%.4f' % x for x in runs[0]['losses']]} vs single-process "
+            f"{['%.4f' % x for x in single[name]['losses']]} (rel "
+            f"{['%.2e' % x for x in rel]}); ms a step after the first per rank "
+            f"{['%.1f' % r['ms'] for r in runs]} (single-process {single[name]['ms']:.1f}); "
+            f"peak GiB per rank {['%.2f' % r['peak_gib'] for r in runs]} (single-process "
+            f"{single[name]['peak']:.2f}); collectives "
+            f"{['%.1f%%' % (100 * r['collective_share']) for r in runs]} of each rank's "
+            f"steps; launches per rank {runs[0]['launches']}; phase "
+            f"{['%.1f' % r['phase_s'] for r in runs]} s per rank")
+        if not sound <= tol:
+            raise AssertionError(f"{name}: step 0 per-position CE {sound:.3e} > {tol}")
+        if not control > tol:
+            raise AssertionError(f"{name}: the control moves step 0's CE by {control:.3e}, "
+                                 f"within the bound {tol}: the check would not see it")
+        groups: dict = {}
+        for r in runs:   # the ranks that train the same rows agree
+            groups.setdefault(r["coords"]["data"] if name != "whisper" else 0,
+                              []).append(r["losses"])
+        if name != "whisper" and any(g.count(g[0]) != len(g) for g in groups.values()):
+            raise AssertionError(f"{name}: the ranks of a sequence disagree on the losses "
+                                 f"{[r['losses'] for r in runs]}")
+        if not max(rel) <= FAMILY_LOSS_TOL:
+            raise AssertionError(f"{name}: losses {runs[0]['losses']} vs "
+                                 f"{single[name]['losses']}: {max(rel):.3e} > "
+                                 f"{FAMILY_LOSS_TOL}")
+        if any(r["launches"] != want_l for r in runs):
+            raise AssertionError(f"{name}: launches per rank {[r['launches'] for r in runs]} "
+                                 f"!= {want_l}")
+
+
 def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
-            ep: tuple, pp: tuple, elastic: tuple, dry: tuple) -> dict:
+            ep: tuple, pp: tuple, elastic: tuple, dry: tuple, fam: tuple) -> dict:
     """The context-parallel paths, ``tp_train``, ``ep_train``, ``pp_train``,
-    ``dryrun`` and ``elastic_train`` on one rank of the SP_MESH group, each
-    phase's memory freed before the next."""
+    ``dryrun``, the family paths and ``elastic_train`` on one rank of the
+    SP_MESH group, each phase's memory freed before the next."""
     import torch
 
     out = {"attention": sp_attention_rank(mesh, **attention)}
@@ -5630,8 +5930,8 @@ def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
     gc.collect()
     out["tp"] = tp_train_rank(mesh, *tp)
     for name, fn, args in (("ep", ep_train_rank, ep), ("pp", pp_train_rank, pp),
-                           ("dryrun", dryrun_rank, dry), ("elastic", elastic_train_rank,
-                                                          elastic)):
+                           ("dryrun", dryrun_rank, dry), ("families", family_rank, fam),
+                           ("elastic", elastic_train_rank, elastic)):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -5680,6 +5980,7 @@ def sp_phase(torch, dev) -> dict:
     shape = ShapeConfig("train_4k", SP_TRAIN_SEQ, SP_TRAIN_BATCH, "train")
     single = train_steps(torch, dev, sp_paper_bert(), shape, SP_TRAIN_STEPS,
                          "sp_train single-process reference")
+    fam_single = family_single(torch, dev)
     # ep_train's single-process reference: step 0 of the same weights under
     # "gspmd" on one device
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep0_") as tmp:
@@ -5697,7 +5998,8 @@ def sp_phase(torch, dev) -> dict:
                               (TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS, tp_ckpt.name),
                               (EP_SEQ, EP_BATCH, EP_STEPS), (PP_SEQ, PP_STEPS),
                               (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name),
-                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name)),
+                              (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name),
+                              (FAMILY_STEPS,)),
                         backend="gloo", device="cuda", timeout_s=SP_TIMEOUT_S, threads=2)
     wall = time.perf_counter() - t0
     elastic_root.cleanup()
@@ -5810,11 +6112,14 @@ def sp_phase(torch, dev) -> dict:
     check_pp_train(pps)
     drys = [r["dryrun"] for r in ranks]
     check_dryrun(drys)
+    fams = [r["families"] for r in ranks]
+    check_families(fams, fam_single)
     els = [r["elastic"] for r in ranks]
     check_elastic_train(els)
     log(f"the ranks' group {wall:.1f}s: ep_train {['%.1f' % e['phase_s'] for e in eps]} s, "
         f"pp_train {['%.1f' % p['phase_s'] for p in pps]} s, dryrun "
-        f"{['%.1f' % d['phase_s'] for d in drys]} s, elastic_train "
+        f"{['%.1f' % d['phase_s'] for d in drys]} s, families "
+        f"{['%.1f' % f['phase_s'] for f in fams]} s, elastic_train "
         f"{['%.1f' % e['phase_s'] for e in els]} s per rank")
 
     def total(rows):
@@ -5826,6 +6131,9 @@ def sp_phase(torch, dev) -> dict:
             "ep_train": total([e["launches"] for e in eps]),
             "pp_train": total([p["launches"] for p in pps]),
             "dryrun": total([d["launches"] for d in drys]),
+            **{{"hymba_chunked": "sp_hymba_chunked", "hymba_fused": "sp_hymba_fused",
+                "xlstm": "sp_xlstm", "whisper": "dp_whisper"}[name]:
+               total([f[name]["launches"] for f in fams]) for name in FAMILIES},
             "elastic_train": total([e["launches"] for e in els])}
 
 
@@ -5886,8 +6194,12 @@ def check_dryrun(drys: list) -> None:
     """Hold ``dryrun``'s ranks (``dryrun_rank``'s results: one real step on
     the card) to ``run_cell`` of the same config and shape on a 2 x 2
     ``AbstractMesh`` at each rank: FLOPs by op (K1-K4's formulas counted,
-    not zero), collectives by op and state bytes, exactly. Logs the time
-    of Qwen2-7B's ``train_4k`` cell on the production mesh on the host."""
+    not zero), collectives by op and state bytes, exactly. Traces
+    Qwen2-7B's ``train_4k`` cell on the production mesh on the host under
+    its own ``chunked`` attention (keys all-gathered over the sequence
+    shard) and under the fused one, logging each one's time, FLOPs and
+    collectives, and holds Whisper's ``train_4k`` cell refused (the audio
+    family under a sequence shard)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.mesh import AbstractMesh
     from repro_torch.launch.dryrun import run_cell
@@ -5919,18 +6231,25 @@ def check_dryrun(drys: list) -> None:
         f"run_cell on a 2 x 2 AbstractMesh on every rank (last trace {trace_s:.2f} s)")
     t0 = time.perf_counter()
     try:
-        run_cell("qwen2-7b", "train_4k", False)
+        run_cell("whisper-base", "train_4k", False)
     except NotImplementedError as e:
         refused = f"refused in {time.perf_counter() - t0:.3f} s ({e})"
     else:
-        raise AssertionError("dryrun: qwen2-7b train_4k under its chunked attention ran "
-                             "under a sequence shard, which the port refuses")
-    t0 = time.perf_counter()
-    cell = run_cell("qwen2-7b", "train_4k", False, attention="spectral_shift_fused")
-    log(f"dryrun: run_cell('qwen2-7b', 'train_4k', False) {refused}; with "
-        f"attention='spectral_shift_fused' {time.perf_counter() - t0:.1f} s on the host "
-        f"(trace {cell['trace_s']} s): {cell['flops_total']:.6e} FLOPs a rank, state "
-        f"{cell['state_bytes_per_device']:.0f} B, collectives {json.dumps(cell['collectives'])}")
+        raise AssertionError("dryrun: whisper-base train_4k ran under a sequence shard, "
+                             "which the port refuses for the audio family")
+    for attention in (None, "spectral_shift_fused"):
+        t0 = time.perf_counter()
+        cell = run_cell("qwen2-7b", "train_4k", False, attention=attention)
+        if not cell["collectives"].get("all-gather" if attention is None
+                                       else "all-reduce", {}).get("count"):
+            raise AssertionError(f"dryrun: qwen2-7b train_4k under {cell['attention']}: "
+                                 f"collectives {cell['collectives']}")
+        log(f"dryrun: run_cell('qwen2-7b', 'train_4k', False) under {cell['attention']} "
+            f"{time.perf_counter() - t0:.1f} s on the host (trace {cell['trace_s']} s): "
+            f"{cell['flops_total']:.6e} FLOPs a rank, state "
+            f"{cell['state_bytes_per_device']:.0f} B, collectives "
+            f"{json.dumps(cell['collectives'])}")
+    log(f"dryrun: run_cell('whisper-base', 'train_4k', False) {refused}")
 
 
 def check_ep_train(eps: list, single0: float) -> None:

@@ -13,7 +13,8 @@
 (``pipeline.py:66``) is a rank's share under a mesh: every rank builds the
 same global batch from the seed and takes its rows (the axes the "batch"
 rule spans) and its slice of the sequence (the "seq" rule's), plus the
-``targets`` its positions predict.
+``targets`` its positions predict; a stub frontend's ``frames`` /
+``patches`` by the same rows.
 """
 from __future__ import annotations
 
@@ -97,6 +98,10 @@ class StubFrontendLM:
         return out
 
 
+# a stub frontend's features, split by rows only (``StubFrontendLM``)
+FRONTEND_KEYS = ("frames", "patches")
+
+
 def to_device(host_batch: dict, device) -> dict:
     """A host numpy batch as tensors on ``device`` (integer arrays as int64,
     the index type torch's gathers take)."""
@@ -114,12 +119,16 @@ def make_global_batch(host_batch: dict, mesh, overrides=None) -> dict:
     and its sequence slice (S / ranks over the sequence axes), beside
     ``targets``: the token each of its positions predicts, the next global
     position's (0 at the last one, as the unsplit loss drops it). Both
-    must divide evenly. Only token batches split so."""
+    must divide evenly. A frontend's features, Whisper's ``frames`` (B,
+    S_enc, D) and LLaVA's ``patches`` (B, P, 1024), split by the same rows
+    and stay whole along their own sequence (the targets are the text
+    positions'); with the sequence split they raise."""
     from repro_torch.distributed.sharding import batch_axes, seq_axes
 
-    if set(host_batch) != {"tokens"}:
-        raise NotImplementedError(f"make_global_batch splits token batches only, not "
-                                  f"{sorted(set(host_batch) - {'tokens'})}")
+    extra = sorted(set(host_batch) - {"tokens", *FRONTEND_KEYS})
+    if extra:
+        raise NotImplementedError(f"make_global_batch splits tokens, frames and patches, "
+                                  f"not {extra}")
     tokens = np.asarray(host_batch["tokens"])
     b, s = tokens.shape
     rows, seq = batch_axes(mesh, overrides), seq_axes(mesh, overrides)
@@ -127,7 +136,14 @@ def make_global_batch(host_batch: dict, mesh, overrides=None) -> dict:
     if b % nb or s % ns:
         raise ValueError(f"a batch of {b} x {s} tokens does not split into {nb} x {ns} "
                          f"equal shares")
+    features = [k for k in FRONTEND_KEYS if k in host_batch]
+    if features and ns > 1:
+        raise NotImplementedError(f"make_global_batch: {features} with the sequence split "
+                                  f"over {seq}")
     targets = np.concatenate([tokens[:, 1:], np.zeros((b, 1), tokens.dtype)], axis=1)
     r0, s0 = mesh.index(rows) * (b // nb), mesh.index(seq) * (s // ns)
     take = (slice(r0, r0 + b // nb), slice(s0, s0 + s // ns))
-    return {"tokens": tokens[take], "targets": targets[take]}
+    out = {"tokens": tokens[take], "targets": targets[take]}
+    for k in features:
+        out[k] = np.asarray(host_batch[k])[take[0]]
+    return out

@@ -24,7 +24,9 @@ sides: each microbatch's input takes the previous microbatch's token
 (the output of ``pipe_send``, or of ``pipe_tie`` on stage 0), so autograd
 runs every stage's backward microbatch by microbatch from the last, and
 the broadcast takes the last token, so that the backward reaches every
-send.
+send. On an ``AbstractMesh`` the transfers' fake implementations record
+them, as the mesh's collectives do, so the dry-run counts them (the
+sequence-sharded xLSTM's state chain, ``distributed/seq_parallel.py``).
 
     stacked = stack_stages(layers, num_stages)          # leaves (S, L/S, ...)
     forward = make_pipeline_forward(layer_fn, mesh, "pipe")
@@ -36,7 +38,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.distributed.mesh import _split_axes, mesh_by_id
+from repro_torch.distributed.mesh import _split_axes, abstract_mesh, mesh_by_id
 from repro_torch.models.params import tree_leaves, tree_map
 
 
@@ -117,6 +119,8 @@ def pipe_send(x: torch.Tensor, mesh_id: int, axis: str, dst: int) -> torch.Tenso
 
 @pipe_send.register_fake
 def _(x, mesh_id, axis, dst):
+    if dst >= 0 and abstract_mesh(mesh_id) is not None:   # the dry-run records it
+        abstract_mesh(mesh_id).send(x, _split_axes(axis), dst)
     return x.new_empty((), dtype=torch.float32)
 
 
@@ -147,6 +151,8 @@ def pipe_recv(token: torch.Tensor, like: torch.Tensor, mesh_id: int, axis: str,
 
 @pipe_recv.register_fake
 def _(token, like, mesh_id, axis, src):
+    if abstract_mesh(mesh_id) is not None:   # the dry-run records it
+        return abstract_mesh(mesh_id).recv(like, _split_axes(axis), src)
     return torch.empty_like(like)
 
 

@@ -20,7 +20,8 @@ the Trainer's ``_check_supported``, then runs the rank's step on an
 
 * train: value-and-grad and AdamW (``train/train_step.py:make_train_step``)
   on the rank's parameter slices (``sharding.param_layout``) and its rows
-  and sequence slice;
+  and sequence slice (Whisper's frames and LLaVA's patches by the same
+  rows);
 * prefill: ``make_prefill_step`` on the same layout;
 * decode: ``make_serve_step``. The port's ``serve/decode.py`` takes no
   tensor-parallel layout, so decode cells run with whole parameters and a
@@ -183,12 +184,14 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh, overrides: Optional[d
                                 f"{_rule_axes(mesh, _merged(overrides), 'cache_batch')}")
             make_serve_step(cfg)(params, local["cache"], local["tokens"])
         else:
-            if set(bspecs) == {"tokens"}:   # the rank's rows and sequence slice
-                host = {"tokens": np.zeros(tuple(bspecs["tokens"].shape), np.int32)}
-                batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
-                         for k, v in make_global_batch(host, mesh, overrides).items()}
-            else:   # the frontend families: whole (the Trainer refuses a split)
-                batch = dict(bspecs)
+            # the rank's rows and sequence slice of the tokens, with their
+            # targets; a frontend's frames / patches by the same rows
+            host = {"tokens": np.zeros(tuple(bspecs["tokens"].shape), np.int32)}
+            batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+                     for k, v in make_global_batch(host, mesh, overrides).items()}
+            rows = batch["tokens"].shape[0]
+            batch.update({k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype, device="meta")
+                          for k, v in bspecs.items() if k != "tokens"})
             with sharding_rules(mesh, overrides, layout):
                 if shape.kind == "train":
                     opt = adamw_init(params)

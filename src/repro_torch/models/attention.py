@@ -32,6 +32,31 @@ def ss_config_from(cfg: ModelConfig, causal: bool = False) -> SSConfig:
     )
 
 
+# the impls that run under a sequence shard: the fused kernels'
+# context-parallel attention, and exact attention over gathered keys
+SHARD_IMPLS = ("spectral_shift_fused", "full", "chunked")
+EXACT_IMPLS = ("full", "chunked")
+
+
+def gather_keys(k: torch.Tensor, v: torch.Tensor, *, causal: bool):
+    """Under a sequence shard, k / v (B, H, S_loc, Dh) from every shard of
+    the sequence (``kernels/sharded.py:gather_sequence``, one all-gather
+    each; the backward sums the cotangents and keeps the rank's rows),
+    cut at this shard's end when ``causal`` (the later shards' keys
+    reach none of its queries); as they are without a shard. An
+    all-gather, not ring attention: a later shard holds more keys and
+    does more of the causal work."""
+    from repro_torch.distributed.sharding import active_seq_sharding
+    from repro_torch.kernels.sharded import gather_sequence
+
+    mesh, axes, _ = active_seq_sharding()
+    if not axes:
+        return k, v
+    n_loc = k.shape[-2]
+    end = (mesh.index(axes) + 1) * n_loc if causal else None
+    return tuple(gather_sequence(t, mesh, axes, end) for t in (k, v))
+
+
 def _core_attention(cfg: ModelConfig, impl: str, q, k, v, *, causal: bool):
     """q (B,H,S,Dh) vs k/v (B,H,S,Dh) -> (B,H,S,Dh) (``attention.py:46``).
     ``spectral_shift_fused`` routes through the dispatch registry
@@ -40,16 +65,19 @@ def _core_attention(cfg: ModelConfig, impl: str, q, k, v, *, causal: bool):
     for CPU tensors) at the plan's tiling, or the plain-torch route under
     a "jnp" plan or backend. ``spectral_shift`` / ``nystrom`` are that
     plain route; ``chunked`` is exact attention over key blocks. Under a
-    sequence shard only ``spectral_shift_fused`` runs (through the
-    context-parallel attention): the others would attend over the rank's own
-    rows."""
-    if impl != "spectral_shift_fused":
+    sequence shard ``spectral_shift_fused`` runs the context-parallel
+    attention, and ``full`` / ``chunked`` take k / v already gathered up
+    to the shard's end (``gather_keys``): their causal queries are the last
+    n_q positions of the keys, the rank's own rows at their global offset.
+    The approximate plain routes would attend over the rank's own rows
+    only, and raise."""
+    if impl not in SHARD_IMPLS:
         from repro_torch.distributed.sharding import active_seq_sharding
 
         if active_seq_sharding()[1]:
             raise NotImplementedError(
                 f"attention_impl {impl!r} under a sequence shard: only "
-                f"'spectral_shift_fused' runs sequence-parallel")
+                f"{', '.join(repr(i) for i in SHARD_IMPLS)} run sequence-parallel")
     if impl == "full":
         return full_attention(q, k, v, causal=causal)
     if impl == "chunked":
@@ -152,7 +180,12 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cotangent is its share: ``tp_copy`` on k and v), each local query head
     meets its kv head by GLOBAL index, attention runs at the local heads
     and the row-parallel output projection is summed over the heads' axes
-    (``logical_constraint``)."""
+    (``logical_constraint``).
+
+    Under a sequence shard ``full`` / ``chunked`` gather the rank's keys
+    and values with every other shard's (``gather_keys``) at the kv heads,
+    before the group broadcast, so the collective moves H / Hkv times fewer
+    bytes."""
     layout = active_layout()
     axes = layout.tp.heads if layout is not None else ()
     tp = None
@@ -166,6 +199,8 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         sin, cos = rotary_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
         sin, cos = sin[:, None], cos[:, None]  # (B,1,S,Dh/2)
         q, k = apply_rotary(q, sin, cos), apply_rotary(k, sin, cos)
+    if impl in EXACT_IMPLS:   # under a sequence shard: the kv heads, before the broadcast
+        k, v = gather_keys(k, v, causal=(mode == "causal"))
     if tp is None:
         k = _broadcast_kv(k, cfg.num_heads)
         v = _broadcast_kv(v, cfg.num_heads)

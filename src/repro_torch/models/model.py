@@ -23,11 +23,16 @@ unrolled loops (``model.py:328``, ``:424``) do.
 Under a sequence shard (``distributed.sharding.sharding_rules`` with the
 "seq" rule over ranks) a rank runs its slice of the sequence: positions
 start at its global offset, attention goes through the context-parallel
-attention, and the loss divides by the global token count
-(``train/losses.py:sharded_token_loss``). Only the dense family runs so:
-the others carry state along the sequence (the mamba and xLSTM scans,
-Whisper's encoder and cross attention, LLaVA's patch prefix) or route
-tokens over the whole batch (MoE), and raise.
+attention (``spectral_shift_fused``) or over keys gathered from every
+shard (``full``, ``chunked``: ``models/attention.py:gather_keys``), and
+the loss divides by the global token count
+(``train/losses.py:sharded_token_loss``). The dense, hybrid and ssm
+families run so: the recurrences take the state their earlier shards
+carry (``distributed/seq_parallel.py``: conv halos, the mamba scan's
+affine carry, the mLSTM / sLSTM state chain). The audio and vlm families
+(Whisper's encoder and cross attention, LLaVA's patch prefix) and MoE
+(routing over the whole row) raise; under a split of the batch alone
+every family runs.
 
 Under a parameter layout (``distributed.sharding.active_layout``: the
 dense family on a mesh under the parameter rules) ``params`` are the
@@ -53,6 +58,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, resolve_remat
 from repro_torch.distributed.mesh import fsdp_gather, tp_copy, vocab_shard_index
+from repro_torch.distributed.seq_parallel import active_shard
 from repro_torch.distributed.sharding import (Placement, active_layout, active_reduce_axes,
                                               active_seq_sharding, logical_constraint,
                                               seq_offset)
@@ -63,7 +69,8 @@ from repro_torch.models.layers import (gelu, layer_norm, mlp_forward, mlp_specs,
                                        rms_norm, sinusoidal_positions)
 from repro_torch.models.moe import moe_forward, moe_forward_ep, moe_specs
 from repro_torch.models.ssm import (_causal_conv, mamba_forward, mamba_specs,
-                                    mlstm_chunked, slstm_scan)
+                                    mlstm_chunked, mlstm_fresh_state, slstm_fresh_state,
+                                    slstm_scan, state_dtype)
 from repro_torch.models.params import (ParamSpec, stack_layer_specs, tree_leaves,
                                       tree_map)
 from repro_torch.train.losses import next_token_loss, sharded_token_loss
@@ -130,7 +137,10 @@ def mlstm_block_specs(cfg: ModelConfig) -> dict:
 
 
 def mlstm_block_forward(p, cfg: ModelConfig, x):
-    """``model.py:154``: x (B,S,D) -> x + the block's output."""
+    """``model.py:154``: x (B,S,D) -> x + the block's output. Under a
+    sequence shard the conv takes the previous shard's last rows
+    (``SeqShard.halo``) and the cell its state from the previous shard
+    (``SeqShard.chain``)."""
     b, s, _ = x.shape
     h = cfg.num_heads
     dt = x.dtype
@@ -138,7 +148,11 @@ def mlstm_block_forward(p, cfg: ModelConfig, x):
     up = xn @ p["w_up"].to(dt)
     di = up.shape[-1] // 2
     xm, z = up[..., :di], up[..., di:]
-    xc = F.silu(_causal_conv(xm, p["conv_w"], p["conv_b"]))
+    shard = active_shard()
+    # under a shard the previous shard's last rows lead, the context F.pad gives
+    ctx = xm if shard is None else torch.cat([shard.halo(xm, p["conv_w"].shape[0] - 1),
+                                              xm], dim=1)
+    xc = F.silu(_causal_conv(ctx, p["conv_w"], p["conv_b"])[:, -s:])
 
     def to_heads(a):
         return a.reshape(b, s, h, di // h).transpose(1, 2)
@@ -149,7 +163,13 @@ def mlstm_block_forward(p, cfg: ModelConfig, x):
     gates = xc @ p["w_if"].to(dt) + p["b_if"].to(dt)            # (B,S,2H)
     ilog = gates[..., :h].transpose(1, 2)                        # (B,H,S)
     flog = F.logsigmoid(gates[..., h:].float()).transpose(1, 2)
-    core, _ = mlstm_chunked(q, k, v, ilog, flog, chunk=cfg.ssm_chunk)
+    if shard is None:
+        core, _ = mlstm_chunked(q, k, v, ilog, flog, chunk=cfg.ssm_chunk)
+    else:   # the (C, n, m) state handed from shard to shard
+        core, _ = shard.chain(
+            lambda st: mlstm_chunked(q, k, v, ilog, flog, state=st, chunk=cfg.ssm_chunk,
+                                     exact_final=True),
+            mlstm_fresh_state(b, h, di // h, x.device, state_dtype(q)), anchor=p["b_if"])
     core = core.transpose(1, 2).reshape(b, s, di)
     core = rms_norm(core, p["ln_inner"], cfg.norm_eps)
     return x + (core * F.silu(z)) @ p["w_down"].to(dt)
@@ -173,12 +193,21 @@ def slstm_block_specs(cfg: ModelConfig) -> dict:
 
 
 def slstm_block_forward(p, cfg: ModelConfig, x):
-    """``model.py:193``: x (B,S,D) -> x + the block's output."""
+    """``model.py:193``: x (B,S,D) -> x + the block's output. Under a
+    sequence shard the cell's (c, n, m, h) comes from the previous shard
+    (``SeqShard.chain``)."""
     b, s, d = x.shape
     dt = x.dtype
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     xg = torch.einsum("bsd,dhge->bshge", xn, p["w_g"].to(dt)) + p["b_g"].to(dt)
-    hs, _ = slstm_scan(xg, p["r_w"])
+    shard = active_shard()
+    if shard is None:
+        hs, _ = slstm_scan(xg, p["r_w"])
+    else:
+        h = cfg.num_heads
+        hs, _ = shard.chain(lambda st: slstm_scan(xg, p["r_w"], state=st),
+                            slstm_fresh_state(b, h, d // h, x.device, state_dtype(xg)),
+                            anchor=p["b_g"])
     hs = rms_norm(hs.reshape(b, s, d), p["ln_inner"], cfg.norm_eps)
     return x + gelu(hs @ p["w_out"].to(dt)) @ p["w_down"].to(dt)
 
@@ -300,15 +329,24 @@ def dense_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
 def hymba_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
     """Hymba (``model.py:115``): attention heads and mamba heads in
     parallel on the same normed input, mixed by per-channel gates, then a
-    SwiGLU MLP. Returns (x, 0)."""
+    SwiGLU MLP. Returns (x, 0). Under a sequence shard the mamba scan
+    takes its conv context and entering state from the earlier shards
+    (``mamba_forward(shard=)``: all-gathers, which a remat recompute
+    reruns in the same order on every rank)."""
     h = rms_norm(x, p["norm_mix"], cfg.norm_eps)
     attn_out, _ = gqa_forward(p["attn"], cfg, h, positions, impl=impl, mode=mode)
-    ssm_out, _ = mamba_forward(p["mamba"], h, cfg.ssm_state, chunk=cfg.ssm_chunk)
+    ssm_out, _ = mamba_forward(p["mamba"], h, cfg.ssm_state, chunk=cfg.ssm_chunk,
+                               shard=active_shard())
     x = x + (p["gate_attn"].to(x.dtype) * attn_out + p["gate_ssm"].to(x.dtype) * ssm_out)
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     x = x + mlp_forward(p["mlp"], h, cfg.act)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
+
+# the families that raise under a sequence shard (and any MoE): Whisper's
+# encoder and cross attention, LLaVA's patch prefix and the routing of
+# tokens over the whole row are not split along the sequence
+SHARD_REFUSED = ("audio", "vlm")
 
 LAYER_FORWARD = {"dense": dense_layer_forward, "moe": dense_layer_forward,
                  "vlm": dense_layer_forward, "hybrid": hymba_layer_forward}
@@ -456,10 +494,10 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     the MoE load-balance loss summed over layers)."""
     if cfg.family not in (*LAYER_FORWARD, "ssm", "audio"):
         raise NotImplementedError(f"unknown family {cfg.family!r}")
-    if active_seq_sharding()[1] and (cfg.family != "dense" or cfg.moe):
+    if active_seq_sharding()[1] and (cfg.family in SHARD_REFUSED or cfg.moe):
         raise NotImplementedError(
             f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard: "
-            f"only the dense family runs sequence-parallel")
+            f"the audio and vlm families and MoE do not run sequence-parallel")
     layout = active_layout()
     if layout is None:
         params = working_params(params, cfg)

@@ -14,6 +14,12 @@ within a chunk a log-depth (Hillis-Steele) pass of elementwise ops over
 (B, nc, L, di, N), every chunk at once; across chunks a sequential carry of
 the (B, di, N) state. The association order differs from the reference's
 tree, so results agree to rounding, not bitwise.
+
+Under a sequence shard (``distributed/seq_parallel.py``) ``mamba_forward``
+takes a ``shard``: its conv context and entering state come from the
+earlier shards. The mLSTM and sLSTM take their entering state through
+``state`` (``exact_final`` keeps an mLSTM shard's padded tail out of the
+state it hands on).
 """
 from __future__ import annotations
 
@@ -35,27 +41,45 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b.to(x.dtype)
 
 
+def state_dtype(x: torch.Tensor) -> torch.dtype:
+    """A cell's state dtype for inputs of x's: fp32, as the reference's,
+    or float64 for a float64 model."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def mlstm_fresh_state(b: int, h: int, dh: int, device, dtype=torch.float32) -> tuple:
+    """The mLSTM's start: (C 0 (B,H,Dh,Dh), n 0 (B,H,Dh), m -1e30 (B,H))."""
+    return (torch.zeros((b, h, dh, dh), dtype=dtype, device=device),
+            torch.zeros((b, h, dh), dtype=dtype, device=device),
+            torch.full((b, h), -1e30, dtype=dtype, device=device))
+
+
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ilog: torch.Tensor, flog: torch.Tensor,
-                  state: Optional[tuple] = None, chunk: int = 64):
+                  state: Optional[tuple] = None, chunk: int = 64,
+                  exact_final: bool = False):
     """Stabilised chunk-parallel mLSTM (``ssm.py:32``). q/k/v (B,H,S,Dh);
     ilog (B,H,S) the input gate's pre-activation, flog (B,H,S) the forget
     gate's log-sigmoid. s is zero-padded up to a multiple of ``chunk``; a
     fresh state is (C 0, n 0, m -1e30). One named difference: the in-chunk
     decay matrix masks before its exp, so gradients stay finite at the
-    configs' own chunk of 256, where the reference's are NaN. Returns (h (B,H,S,Dh) in q's
-    dtype, final (C (B,H,Dh,Dh), n (B,H,Dh), m (B,H)) fp32)."""
+    configs' own chunk of 256, where the reference's are NaN.
+    ``exact_final``: the padded tail's input gates are -1e30 instead of 0,
+    so the final state is the state at position s (a zero gate can lift
+    the final stabilizer m to 0, which the next tokens' denominators read:
+    a sequence shard hands its final state on). The outputs are the same
+    either way. Returns (h (B,H,S,Dh) in q's dtype, final (C (B,H,Dh,Dh),
+    n (B,H,Dh), m (B,H)) fp32)."""
     b, h, s, dh = q.shape
     k = k / (dh**0.5)
     pad = -s % chunk
     if pad:
         q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
-        ilog, flog = F.pad(ilog, (0, pad)), F.pad(flog, (0, pad))
+        ilog = F.pad(ilog, (0, pad), value=-1e30 if exact_final else 0.0)
+        flog = F.pad(flog, (0, pad))
     nc = (s + pad) // chunk
     if state is None:
-        c_prev = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=q.device)
-        n_prev = torch.zeros((b, h, dh), dtype=torch.float32, device=q.device)
-        m_prev = torch.full((b, h), -1e30, dtype=torch.float32, device=q.device)
+        c_prev, n_prev, m_prev = mlstm_fresh_state(b, h, dh, q.device, state_dtype(q))
     else:
         c_prev, n_prev, m_prev = state
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
@@ -124,6 +148,12 @@ def slstm_cell(pre: torch.Tensor, c, n, m):
     return c_new, n_new, m_new, h_new
 
 
+def slstm_fresh_state(b: int, h: int, dh: int, device, dtype=torch.float32) -> tuple:
+    """The sLSTM's start: (c 0, n 0, m -1e30, h 0), each (B,H,Dh)."""
+    zeros = torch.zeros((b, h, dh), dtype=dtype, device=device)
+    return (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
+
+
 def slstm_scan(x_gates: torch.Tensor, r_w: torch.Tensor, state: Optional[tuple] = None):
     """Recurrent sLSTM over time (``ssm.py:161``), one step per token.
     x_gates (B,S,H,4,Dh) the gates' pre-activations from x; r_w (H,4,Dh,Dh)
@@ -132,8 +162,7 @@ def slstm_scan(x_gates: torch.Tensor, r_w: torch.Tensor, state: Optional[tuple] 
     m, h) fp32)."""
     b, s, h, _, dh = x_gates.shape
     if state is None:
-        zeros = torch.zeros((b, h, dh), dtype=torch.float32, device=x_gates.device)
-        state = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
+        state = slstm_fresh_state(b, h, dh, x_gates.device, state_dtype(x_gates))
     c, n, m, hprev = state
     # the recurrent weights laid out once as (H, Dh, 4 Dh) for a batched
     # product per step: an einsum against (H, 4, Dh, Dh) copies them into
@@ -183,18 +212,31 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
 
 
 def mamba_forward(p: dict, x: torch.Tensor, state_dim: int, chunk: int = 256,
-                  state: Optional[tuple] = None):
+                  state: Optional[tuple] = None, shard=None):
     """Selective SSM (``ssm.py:210``). x (B,S,D) -> (out (B,S,D),
     (h_final (B,di,N) fp32, conv_state (B,W-1,di))). ``state`` is an
     optional input ``(h0, conv_state)``. ``abar`` / ``bbar`` are computed
     in fp32 and stored in the compute dtype, as the reference stores
-    them; the scan upcasts again."""
+    them; the scan upcasts again.
+
+    ``shard`` (``distributed/seq_parallel.py:SeqShard``): x is this
+    rank's slice of a sequence split over ranks. The conv's context is the
+    previous shard's last W - 1 rows of u (``shard.halo``, taken as the
+    ``state[1]`` input); the scan runs from h = 0, the shard's total decay
+    (the product of its abar) and end state go to ``shard.carry``, which
+    gives the state entering the shard, and the carry across chunks runs
+    again from it (the in-chunk scans, affine in the carry, are not
+    rerun). ``h_final`` is then the global state at the shard's end."""
     b, s, _ = x.shape
     dt = x.dtype
     ui = x @ p["w_in"].to(dt)                                   # (B,S,2di)
     di = ui.shape[-1] // 2
     u, z = ui[..., :di], ui[..., di:]
     width = p["conv_w"].shape[0]
+    if shard is not None:
+        if state is not None:
+            raise ValueError("mamba_forward: an input state and a sequence shard")
+        state = (None, shard.halo(u, width - 1))
     if state is not None and state[1] is not None:
         ctx = torch.cat([state[1].to(dt), u], dim=1)
         u_conv = _causal_conv(ctx, p["conv_w"], p["conv_b"])[:, width - 1:]
@@ -214,7 +256,7 @@ def mamba_forward(p: dict, x: torch.Tensor, state_dim: int, chunk: int = 256,
             * u_conv.float()[..., None]).to(dt)
 
     h0 = (torch.zeros((b, di, state_dim), dtype=torch.float32, device=x.device)
-          if state is None else state[0].float())
+          if state is None or state[0] is None else state[0].float())
     pad = -s % chunk
     if pad:
         abar = F.pad(abar, (0, 0, 0, 0, 0, pad), value=1.0)
@@ -222,11 +264,22 @@ def mamba_forward(p: dict, x: torch.Tensor, state_dim: int, chunk: int = 256,
     nc = (s + pad) // chunk
     acum, bcum = _linear_scan(abar.float().reshape(b, nc, chunk, di, state_dim),
                               bbar.float().reshape(b, nc, chunk, di, state_dim), 2)
-    # the carry into each chunk: h after the previous chunk's last position
-    carries, h = [], h0
-    for j in range(nc):
-        carries.append(h)
-        h = acum[:, j, -1] * h + bcum[:, j, -1]
+
+    def carry_across(h):
+        """The carry into each chunk from ``h`` (h after the previous
+        chunk's last position) and the state after the last."""
+        carries = []
+        for j in range(nc):
+            carries.append(h)
+            h = acum[:, j, -1] * h + bcum[:, j, -1]
+        return carries, h
+
+    carries, h = carry_across(h0)
+    if shard is not None:
+        decay = acum[:, 0, -1]
+        for j in range(1, nc):
+            decay = acum[:, j, -1] * decay
+        carries, h = carry_across(shard.carry(decay, h))
     hs = acum * torch.stack(carries, dim=1)[:, :, None] + bcum  # (B,nc,L,di,N)
     hs = hs.reshape(b, nc * chunk, di, state_dim)[:, :s]
     y = torch.einsum("bsdn,bsn->bsd", hs, c_mat.float())

@@ -48,15 +48,21 @@ leaves and their moments split over the expert axes
 (``sharding.expert_axes``) and ``moe_forward_ep`` exchanges tokens with
 the experts' ranks; the other MoE / MLA leaves stay replicated.
 Under a sequence shard attention runs the context-parallel attention
-(``kernels/sharded.py``) and ``_warm_attention_plans`` resolves the
-sharded key; elsewhere its sweep runs at the rank's rows times its query
-heads. Refused
-(ROADMAP): an explicit parameter override on the sequence's axis, for a
-family other than the dense one (or MoE, MLA), or that the dense layer
-cannot run (``sharding.param_rule_conflicts``); any family but the dense
-one under a sequence shard; the frontend families (Whisper, LLaVA) under
-any split of the batch; ``moe_impl="ep"`` with the batch's rows split
-over other axes than the experts'. ``grad_compression``
+(``kernels/sharded.py``) under ``spectral_shift_fused``, or exact
+attention over keys gathered from every shard under ``full`` /
+``chunked``, and ``_warm_attention_plans`` resolves the sharded key;
+elsewhere its sweep runs at the rank's rows times its query heads. The
+hybrid (Hymba) and ssm (xLSTM) families run sequence-parallel too: their
+convs, scans and cells take the state the earlier shards carry
+(``distributed/seq_parallel.py``). Whisper and LLaVA train under a split
+of the batch: each rank takes its rows of ``frames`` / ``patches``
+(``make_global_batch``). Refused (ROADMAP): an explicit parameter
+override on the sequence's axis, for a family other than the dense one
+(or MoE, MLA), or that the dense layer cannot run
+(``sharding.param_rule_conflicts``); the audio and vlm families and MoE
+under a sequence shard; the approximate plain impls (``spectral_shift``,
+``nystrom``) and the jnp backend under one; ``moe_impl="ep"`` with the
+batch's rows split over other axes than the experts'. ``grad_compression``
 stays refused (the reference accepts it and reads it nowhere;
 ``optim/compression.py`` holds the collective).
 ``opt_state_dtype`` is accepted and, as in the reference's trainer, not
@@ -123,7 +129,8 @@ from repro_torch.distributed.sharding import (Placement, apply_seq_sharding_conf
                                               param_layout, param_rule_conflicts,
                                               seq_axes, seq_axis_sharded, sharding_rules)
 from repro_torch.kernels import dispatch
-from repro_torch.models.model import model_specs, torch_dtype
+from repro_torch.models.attention import SHARD_IMPLS
+from repro_torch.models.model import SHARD_REFUSED, model_specs, torch_dtype
 from repro_torch.models.params import (flatten_with_paths, gather_tree, init_params,
                                       map_specs, shard_tree, tree_leaves, tree_map)
 from repro_torch.optim.adamw import AdamWState, adamw_init
@@ -143,7 +150,6 @@ ATTENTION_IMPLS = ("full", "chunked", "spectral_shift", "nystrom", "spectral_shi
 def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                      overrides: Optional[dict] = None) -> None:
     seq_split = mesh is not None and seq_axis_sharded(mesh, overrides)
-    rows_split = mesh is not None and mesh.axis_size(batch_axes(mesh, overrides)) > 1
     conflicts = param_rule_conflicts(mesh, overrides, cfg) if mesh is not None else []
     moe = f" (MoE, moe_impl {cfg.moe_impl!r})" if cfg.moe else ""
     # expert parallelism routes a rank's rows to the ranks of its experts:
@@ -153,21 +159,23 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 
     ep_rows = (mesh is not None and expert_parallel(cfg)
                and spread(batch_axes(mesh, overrides)) != spread(expert_axes(mesh)))
+    attention_free = cfg.family == "ssm" and cfg.attention_impl == "none"
     unsupported = {
         f"parameter sharding ({', '.join(conflicts)})": bool(conflicts),
         f"family {cfg.family!r}{moe} under a sequence shard": (
-            seq_split and (cfg.family != "dense" or cfg.moe)),
+            seq_split and (cfg.family in SHARD_REFUSED or cfg.moe)),
         f"attention {cfg.attention_impl!r} / backend {cfg.attention_backend!r} under a "
-        f"sequence shard (only the fused kernels' context-parallel attention)": (
-            seq_split and (cfg.attention_impl != "spectral_shift_fused"
-                           or cfg.attention_backend == "jnp")),
-        f"family {cfg.family!r} with the batch split over ranks": (
-            rows_split and cfg.family in ("audio", "vlm")),
+        f"sequence shard (the fused kernels' context-parallel attention, or exact "
+        f"attention over gathered keys)": (
+            seq_split and not attention_free and (
+                cfg.attention_impl not in SHARD_IMPLS
+                or (cfg.attention_impl == "spectral_shift_fused"
+                    and cfg.attention_backend == "jnp"))),
         f"moe_impl 'ep' with the batch over {batch_axes(mesh, overrides) if mesh else ()}, "
         f"not the expert axes {expert_axes(mesh) if mesh else ()}": ep_rows and not seq_split,
         f"family {cfg.family!r}": cfg.family not in FAMILIES,
-        f"attention_impl {cfg.attention_impl!r}": cfg.attention_impl not in ATTENTION_IMPLS
-            and not (cfg.family == "ssm" and cfg.attention_impl == "none"),
+        f"attention_impl {cfg.attention_impl!r}": (
+            cfg.attention_impl not in ATTENTION_IMPLS and not attention_free),
         f"encoder_attention_impl {cfg.encoder_attention_impl!r}": (
             cfg.family == "audio" and cfg.encoder_attention_impl not in ATTENTION_IMPLS),
         "grad_compression": tcfg.grad_compression is not None,

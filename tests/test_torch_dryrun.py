@@ -21,9 +21,10 @@ decode cells' ``batch_specs``, ``make_prefill_step`` / ``make_serve_step``,
   the reference's ``_sharded_bytes`` under ``shardings_for`` with the same
   parameter rules, in a subprocess on 256 fake devices;
 * the multi-pod production mesh: Qwen2-7B's train cell at 2 layers under
-  the fused attention (its own "chunked" attention is refused under the
-  sequence shard the cell needs), the port's counterpart of
-  ``test_production_mesh_lowering_smoke`` (R1);
+  the fused attention and under its own "chunked" attention (keys
+  all-gathered over the sequence shard the cell needs), the port's
+  counterpart of ``test_production_mesh_lowering_smoke`` (R1); Whisper's
+  train cell stays refused there;
 * four rows of PERF.md's kernel table recomputed from the moved formulas.
 """
 from __future__ import annotations
@@ -364,8 +365,14 @@ def test_multi_pod_train_cell():
     assert res["devices"] == 512 and res["flops_total"] > 0
     assert res["collectives"], "expected collectives on the production mesh"
     assert res["flops_by_op"]["repro_torch.landmark_summary_sp"] > 0
+    # its own chunked attention traces under the sequence shard too: K / V
+    # all-gathered over "model"; Whisper's cell stays refused
+    own = run_cell("qwen2-7b", "train_4k", multi_pod=True, probe=False,
+                   cfg_overrides={"num_layers": 2})
+    assert own["attention"] == "chunked" and own["flops_total"] > 0
+    assert own["collectives"]["all-gather"]["count"] > 0
     with pytest.raises(NotImplementedError, match="under a sequence shard"):
-        run_cell("qwen2-7b", "train_4k", multi_pod=True, probe=False)
+        run_cell("whisper-base", "train_4k", multi_pod=True, probe=False)
 
 
 def test_kernel_table_bounds_from_the_cost_formulas():

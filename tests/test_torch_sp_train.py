@@ -22,8 +22,9 @@ batch 4, ``attention_impl="spectral_shift_fused"`` with the reference's
 * ``make_global_batch``: every rank's rows, sequence slice and targets
   reassemble the global batch and its next-token targets; ``make_local_mesh``
   lays the ranks out row-major, as ``spawn_local``'s mesh;
-* refused: a parameter-sharding override, a non-dense family and the
-  plain route under a sequence shard, ``grad_compression``; a mesh left
+* refused: a parameter-sharding override; under a sequence shard Hymba
+  under an approximate plain impl, the audio and vlm families, MoE and
+  the jnp backend; ``grad_compression``; a mesh left
   at its default device ("cuda") without a GPU, and a Trainer whose
   ``device`` is not its mesh's.
 
@@ -75,8 +76,16 @@ def _refusals(mesh, ckpt: str) -> dict:
     cases = {
         "param_rule": (cfg, TrainConfig(checkpoint_dir=ckpt),
                        {"seq": "model", "heads": "model"}),
-        "hybrid": (reduced(get_config("hymba-1.5b"), attention_impl="spectral_shift_fused"),
+        # Hymba trains sequence-parallel, but not under an approximate
+        # plain route, which would attend over the rank's own rows only
+        "hybrid": (reduced(get_config("hymba-1.5b"), attention_impl="nystrom"),
                    TrainConfig(checkpoint_dir=ckpt), {"seq": "model"}),
+        "audio": (reduced(get_config("whisper-base")), TrainConfig(checkpoint_dir=ckpt),
+                  {"seq": "model"}),
+        "vlm": (reduced(get_config("llava-next-34b")), TrainConfig(checkpoint_dir=ckpt),
+                {"seq": "model"}),
+        "moe": (reduced(get_config("deepseek-v2-lite-16b")), TrainConfig(checkpoint_dir=ckpt),
+                {"seq": "model"}),
         "jnp": (dataclasses.replace(cfg, attention_backend="jnp"),
                 TrainConfig(checkpoint_dir=ckpt), {"seq": "model"}),
         "compression": (cfg, TrainConfig(checkpoint_dir=ckpt, grad_compression="int8"),
@@ -264,7 +273,10 @@ def test_global_batch_rows_and_slices(port):
 @pytest.mark.parametrize("case,words", [("param_rule", "parameter sharding"),
                                         ("hybrid", "sequence shard"),
                                         ("jnp", "sequence shard"),
-                                        ("compression", "grad_compression")])
+                                        ("compression", "grad_compression"),
+                                        ("audio", "family 'audio' under a sequence shard"),
+                                        ("vlm", "family 'vlm' under a sequence shard"),
+                                        ("moe", "(MoE, moe_impl 'gspmd') under a sequence")])
 def test_trainer_refuses_what_waits(port, case, words):
     for r in port:
         assert words in r["refused"][case]
