@@ -66,7 +66,9 @@ result line):
    bidirectional encoder shape (n = 1500, c = 32) over 2, ``sp_train``'s
    paper-bert shape (b = 16, n = 8192, d = 64, causal) over 2 and
    ``sp_hymba_fused``'s Hymba-1.5B shape (one row x 25 heads: b = 25,
-   n = 4096, c = 64, d = 64, causal) over 2, in fp32 and bf16
+   n = 4096, c = 64, d = 64, causal) over 2 and ``sp_llava``'s
+   LLaVA-NeXT-34B shape (one row x 56 heads: b = 56, n = 8192, c = 64,
+   d = 128, causal) over 4, in fp32 and bf16
    (K1's rows that reach no key of a shard come back empty, K3's keys no
    row reaches get zero dK / dV), the last shard of each timed; K1-K4 at
    ``tp_train``'s rank shape (4 rows x 4 query heads: b = 16, n = 4096,
@@ -276,8 +278,19 @@ result line):
    frames) must exceed; then 2 bf16 steps: losses (a 2e-2 sanity bound
    against the single process), ms a step, peak GiB, the collectives'
    share, launches (K1 2 / K2 2 / K3 1 / K4 1 a layer and step under the
-   fused Hymba, none elsewhere); the dry-run's Qwen2-7B cell under its own
-   ``chunked`` attention traced, Whisper's refused;
+   fused Hymba, none elsewhere); ``sp_whisper`` (Whisper-base
+   6 + 6 layers, decoder seq 4096 over "model" of the 2 x 2 group, batch 4,
+   the encoder whole on every rank through K1-K4 in the bf16 steps; step 0
+   in float64 at 2 + 2 layers beside two controls: cross attention's query landmarks from
+   the rank's own rows, ``dec_pos`` read from row 0 on every shard) and
+   ``sp_llava`` (LLaVA-NeXT-34B at one fp32 layer, joint seq 8192 of 2880
+   patches and the text over 4 ranks of a 1 x 4 mesh: step 0's CE within
+   1e-3 and the summed gradients of the projector, the embedding and the
+   layer within 5e-4 of the single process, run after the ranks, beside a
+   control with the boundary shard's text moved to the front of its
+   slice; no optimizer step: AdamW's state would not fit four ranks); the
+   dry-run's Qwen2-7B cell under its own ``chunked`` attention traced,
+   and Whisper's and LLaVA's train cells;
    then each kernel timed at the tiling the sweeps chose
    (``autotuned_launch``);
 6. a ``{"kernels": [...]}`` line (launches summed over the serving and
@@ -4412,13 +4425,17 @@ SHARD_CASES = {
     # (5 kv heads broadcast) of 64, the 4096-token sequence over the 2
     # ranks of "model"
     "hymba_sp2": (25, 64, 4096, 2, 64, True),
+    # sp_llava's launches: LLaVA-NeXT-34B, one row x 56 query heads (8 kv
+    # heads broadcast) of 128, the 8192-position joint sequence over 4
+    # ranks (Qwen2-7B's qwen2_sp4 shape, timed here at LLaVA's path)
+    "llava_sp4": (56, 64, 8192, 4, 128, True),
 }
 # the timed shards: the last of each split (its low landmark rows reach no
 # key of it), bf16
 SHARD_TIMED = {"qwen2_sp2": "seq_shard_launch", "qwen2_sp4_ragged": "seq_shard_ragged_launch",
                "whisper_sp2": "whisper_seq_shard_launch",
                "bert_sp2": "paper_bert_seq_shard_launch",
-               "hymba_sp2": "hymba_seq_shard_launch"}
+               "hymba_sp2": "hymba_seq_shard_launch", "llava_sp4": "llava_seq_shard_launch"}
 
 
 def shard_kernel_entries(torch, dev) -> dict:
@@ -5649,6 +5666,16 @@ SP_HYMBA_SEQ, SP_HYMBA_BATCH = 4096, 2   # one row x 2048 positions a rank
 SP_XLSTM_SEQ, SP_XLSTM_BATCH = 2048, 2   # 6 blocks: the sLSTM recurs a step a token
 DP_WHISPER_SEQ, DP_WHISPER_BATCH = 4096, 4   # one row a rank, 1500 stub frames
 DP_MESH = (4, 1)                  # ("data", "model"): Whisper's rows over the 4 ranks
+# Whisper-base's decoder over "model" of the 2 x 2 group: 2048 tokens and
+# 2 rows a rank (the encoder's kernels at b = 2 rows x 8 heads = 16); the
+# single process's bf16 step at batch 8 ran out of the card's memory
+SP_WHISPER_SEQ, SP_WHISPER_BATCH = 4096, 4
+# sp_whisper's float64 witness: 2 + 2 layers. The sequence split sums the
+# cross attention's landmarks in another order than one process does, and
+# the random-weight decoder grows that float64 rounding 50-170x a layer:
+# a position's CE moved 1.8e-13 / 3.0e-11 / 1.4e-9 / 2.7e-6 at 1 / 2 / 3 /
+# 6 layers each side (an H100 80GB HBM3 at 700 W, PERF.md §6)
+SP_WHISPER_STEP0_LAYERS = 2
 FAMILY_STEPS = 2
 # step 0: each position's CE on a rank against the single process's, max
 # abs, in float64 (Hymba chunked, xLSTM, Whisper) or at 1 fp32 layer, TF32
@@ -5658,27 +5685,38 @@ FAMILY_STEPS = 2
 # first row alone, 1.1e-4-1.4e-4 at 1 Hymba layer, 3.4e-12 in float64 (an
 # H100 80GB HBM3 at 700 W, PERF.md §6). A control (shard 1's entering mamba state and
 # conv halo zeroed; shard 1's sLSTM state dropped; every row given the next
-# row's frames) must exceed the bound.
+# row's frames; under Whisper's sequence shard, cross attention's Q~ from
+# the rank's own rows, and apart from it ``dec_pos`` read from row 0 on
+# every shard) must exceed the bound.
 FAMILY_STEP0_TOL = {"float64": 1e-8, "float32": 1e-3}
 # the bf16 steps against the single process's, relative: a sanity bound
 # (Adam's first steps amplify bf16 rounding: Whisper's DP step 1 moved
 # 5.5e-3 in the CPU rehearsal at reduced width, its step 0 7e-8)
 FAMILY_LOSS_TOL = 2e-2
-FAMILIES = ("hymba_chunked", "hymba_fused", "xlstm", "whisper")
+FAMILIES = ("hymba_chunked", "hymba_fused", "xlstm", "sp_whisper", "whisper")
+# the families on the group's 2 x 2 mesh with the sequence over "model"
+SP_FAMILIES = FAMILIES[:4]
 
 
 def family_config(name: str, step0: bool = False):
     """The config of a family path: Hymba-1.5B at full width cut to
     SP_HYMBA_LAYERS under its own ``chunked`` attention or
     ``spectral_shift_fused``; xLSTM-350M at 6 blocks (one sLSTM); Whisper-base
-    at 6 + 6 layers. ``step0``: the step-0 witness's, in float64, or for
-    the fused Hymba one fp32 layer."""
+    at 6 + 6 layers, its bf16 steps under a sequence shard with the encoder
+    through K1-K4 (``spectral_shift_fused``). ``step0``: the step-0
+    witness's, in float64 (the kernels take no float64: Whisper's encoder
+    then runs its own plain ``spectral_shift``; under the sequence shard at
+    SP_WHISPER_STEP0_LAYERS + SP_WHISPER_STEP0_LAYERS layers), or for the
+    fused Hymba one fp32 layer."""
     from repro_torch.configs.registry import get_config
 
     over = {}
     if step0:
         over = (dict(compute_dtype="float32", num_layers=1) if name == "hymba_fused"
                 else dict(compute_dtype="float64"))
+        if name == "sp_whisper":
+            over.update(num_layers=SP_WHISPER_STEP0_LAYERS,
+                        encoder_layers=SP_WHISPER_STEP0_LAYERS)
     if name.startswith("hymba"):
         impl = "chunked" if name == "hymba_chunked" else "spectral_shift_fused"
         return dataclasses.replace(get_config(HYMBA), **{"num_layers": SP_HYMBA_LAYERS,
@@ -5686,6 +5724,8 @@ def family_config(name: str, step0: bool = False):
     if name == "xlstm":
         return dataclasses.replace(get_config(XLSTM), **{"num_layers": XLSTM_TRAIN_LAYERS,
                                                          **over})
+    if name == "sp_whisper" and not step0:
+        over = dict(encoder_attention_impl="spectral_shift_fused")
     return dataclasses.replace(get_config(WHISPER), **over)
 
 
@@ -5693,14 +5733,17 @@ def family_shape(name: str):
     from repro_torch.configs.base import ShapeConfig
 
     seq, batch = {"xlstm": (SP_XLSTM_SEQ, SP_XLSTM_BATCH),
-                  "whisper": (DP_WHISPER_SEQ, DP_WHISPER_BATCH)}.get(
+                  "whisper": (DP_WHISPER_SEQ, DP_WHISPER_BATCH),
+                  "sp_whisper": (SP_WHISPER_SEQ, SP_WHISPER_BATCH)}.get(
                       name, (SP_HYMBA_SEQ, SP_HYMBA_BATCH))
     return ShapeConfig("train_4k", seq, batch, "train")
 
 
 def family_data(name: str):
-    return (frontend_batch(family_config(name), DP_WHISPER_SEQ, DP_WHISPER_BATCH)
-            if name == "whisper" else None)
+    if not name.endswith("whisper"):
+        return None
+    shape = family_shape(name)
+    return frontend_batch(family_config(name), shape.seq_len, shape.global_batch)
 
 
 def token_ce(torch, trainer, patches=()):
@@ -5735,6 +5778,28 @@ def token_ce(torch, trainer, patches=()):
         for module, name, value in saved:
             setattr(module, name, value)
     return ce.cpu().numpy()
+
+
+def family_controls(name: str) -> dict:
+    """The controls of a family path, each a list of (module, name, value)
+    patches that break what the slice carries across ranks while every
+    collective still runs."""
+    if name != "sp_whisper":
+        return {"control": family_control(name)}
+    from repro_torch.core.landmarks import segment_means
+    import repro_torch.kernels.sharded as sharded
+    import repro_torch.models.model as model_module
+
+    def local(x, m, mesh, axes):   # Q~ from the rank's own rows
+        return segment_means(x, m, via_matmul=True)
+
+    rows = model_module._dec_pos_rows
+
+    def from_row0(pos, offset, s, n):   # every shard reads dec_pos from row 0
+        return rows(pos, 0, s, n)
+
+    return {"control": [(sharded, "global_segment_means", local)],
+            "control_dec_pos": [(model_module, "_dec_pos_rows", from_row0)]}
 
 
 def family_control(name: str) -> list:
@@ -5795,7 +5860,7 @@ def family_rank_run(mesh, name: str, steps: int) -> dict:
         witness = Trainer(family_config(name, step0=True), tcfg, family_shape(name), mesh,
                           rule_overrides=ov, data=family_data(name))
         ce = {"sound": token_ce(torch, witness),
-              "control": token_ce(torch, witness, family_control(name))}
+              **{k: token_ce(torch, witness, v) for k, v in family_controls(name).items()}}
         del witness
         gc.collect()
         torch.cuda.empty_cache()
@@ -5818,12 +5883,13 @@ def family_rank_run(mesh, name: str, steps: int) -> dict:
 
 
 def family_rank(mesh, steps: int) -> dict:
-    """The family paths on one rank: Hymba and xLSTM on the group's 2 x 2
-    mesh (the sequence over "model"), Whisper on a 4 x 1 mesh of its own
-    over the same ranks (its rows over "data")."""
+    """The family paths on one rank: Hymba, xLSTM and ``sp_whisper`` on the
+    group's 2 x 2 mesh (the sequence over "model", Whisper's rows over
+    "data"), ``dp_whisper`` on a 4 x 1 mesh of its own over the same ranks
+    (its rows over "data")."""
     from repro_torch.distributed.mesh import Mesh
 
-    out = {name: family_rank_run(mesh, name, steps) for name in FAMILIES[:3]}
+    out = {name: family_rank_run(mesh, name, steps) for name in SP_FAMILIES}
     wmesh = Mesh(DP_MESH, ("data", "model"), device=mesh.device, timeout_s=SP_TIMEOUT_S)
     out["whisper"] = family_rank_run(wmesh, "whisper", steps)
     return out
@@ -5864,7 +5930,7 @@ def check_families(fams: list, single: dict) -> None:
     for name in FAMILIES:
         runs = [f[name] for f in fams]
         ref = single[name]["ce"]
-        sound = control = 0.0
+        sound, controls = 0.0, dict.fromkeys(family_controls(name), 0.0)
         for r in runs:
             if name == "whisper":   # rows over "data", whole sequence
                 rows, cols = r["coords"]["data"], 0
@@ -5873,7 +5939,8 @@ def check_families(fams: list, single: dict) -> None:
             b, s = r["ce"]["sound"].shape
             want = ref[rows * b:(rows + 1) * b, cols * s:(cols + 1) * s]
             sound = max(sound, float(np.abs(r["ce"]["sound"] - want).max()))
-            control = max(control, float(np.abs(r["ce"]["control"] - want).max()))
+            for k in controls:
+                controls[k] = max(controls[k], float(np.abs(r["ce"][k] - want).max()))
         rel = rel_diffs(runs[0]["losses"], single[name]["losses"])
         layers = family_config(name).num_layers
         witness = family_config(name, step0=True)
@@ -5881,12 +5948,16 @@ def check_families(fams: list, single: dict) -> None:
         n = layers * FAMILY_STEPS if name == "hymba_fused" else 0
         want_l = dict(landmark_summary=2 * n, query_side=2 * n, landmark_summary_bwd=n,
                       query_side_bwd=n, paged_row_stats=0)
+        if name == "sp_whisper":   # the encoder's layers, no remat: one each a layer
+            n = family_config(name).encoder_layers * FAMILY_STEPS
+            want_l = dict(landmark_summary=n, query_side=n, landmark_summary_bwd=n,
+                          query_side_bwd=n, paged_row_stats=0)
         log(f"{name}: {family_config(name).name} {layers} layers seq "
             f"{family_shape(name).seq_len} batch {family_shape(name).global_batch} on 4 "
             f"ranks ({'rows over data' if name == 'whisper' else 'sequence over model'}): "
             f"step 0 ({witness.compute_dtype}, {witness.num_layers} layers) per-position CE "
-            f"max abs err {sound:.3e} against the single process (tol {tol}); control "
-            f"{control:.3e} (must exceed it); bf16 "
+            f"max abs err {sound:.3e} against the single process (tol {tol}); "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in controls.items())} (must exceed it); bf16 "
             f"losses {['%.4f' % x for x in runs[0]['losses']]} vs single-process "
             f"{['%.4f' % x for x in single[name]['losses']]} (rel "
             f"{['%.2e' % x for x in rel]}); ms a step after the first per rank "
@@ -5898,9 +5969,10 @@ def check_families(fams: list, single: dict) -> None:
             f"{['%.1f' % r['phase_s'] for r in runs]} s per rank")
         if not sound <= tol:
             raise AssertionError(f"{name}: step 0 per-position CE {sound:.3e} > {tol}")
-        if not control > tol:
-            raise AssertionError(f"{name}: the control moves step 0's CE by {control:.3e}, "
-                                 f"within the bound {tol}: the check would not see it")
+        for k, control in controls.items():
+            if not control > tol:
+                raise AssertionError(f"{name}: the {k} moves step 0's CE by {control:.3e}, "
+                                     f"within the bound {tol}: the check would not see it")
         groups: dict = {}
         for r in runs:   # the ranks that train the same rows agree
             groups.setdefault(r["coords"]["data"] if name != "whisper" else 0,
@@ -5917,11 +5989,209 @@ def check_families(fams: list, single: dict) -> None:
                                  f"!= {want_l}")
 
 
+# --------------------------------------------------------------------------
+# LLaVA under a sequence shard: step 0 at one fp32 layer
+# --------------------------------------------------------------------------
+SP_LLAVA_SEQ = 8192          # the joint sequence: min(2880, 4096) patches, 5312 tokens
+SP_LLAVA_MESH = (1, 4)       # ("data", "model"): the joint sequence over the 4 ranks
+# the leaves whose summed step-0 gradients are held to the single process's:
+# the projector, the embedding and the layer
+SP_LLAVA_LEAVES = ("mm_proj", "embed", "layers")
+
+
+def sp_llava_config():
+    """LLaVA-NeXT-34B at full width cut to 1 of its 60 layers, in fp32, the
+    attention through K1-K4 (``spectral_shift_fused``; under the sequence
+    shard the context-parallel driver, ``kv_offset`` / ``q_offset`` at b =
+    56, c = 64, 2048 keys a rank, d = 128), remat full."""
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(LLAVA), num_layers=1,
+                               attention_impl="spectral_shift_fused",
+                               compute_dtype="float32", remat="full")
+
+
+def sp_llava_params(torch, cfg, dev):
+    """Step 0's weights, drawn as the Trainer draws them (seed 0 on the
+    device's generator)."""
+    from repro_torch.models.model import model_specs, torch_dtype
+    from repro_torch.models.params import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return init_params(model_specs(cfg), gen, dtype=torch_dtype(cfg.param_dtype), device=dev)
+
+
+def llava_text_ce(torch, params, cfg, batch):
+    """Each text position's CE (rows x text positions, numpy) of a forward
+    of ``batch``: a rank's slice of the joint sequence (its text rows are
+    the last of its slice, their targets its joint ``targets``'), or the
+    whole batch (the last text position against token 0, as a rank's
+    targets hold)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.model import model_forward
+
+    with torch.no_grad():
+        logits, _ = model_forward(params, cfg, batch)
+    n_text = batch["tokens"].shape[1]
+    if "targets" in batch:
+        targets = batch["targets"][:, batch["targets"].shape[1] - n_text:]
+    else:
+        tok = batch["tokens"]
+        targets = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], dim=1)
+    text = logits[:, logits.shape[1] - n_text:].float()
+    ce = F.cross_entropy(text.flatten(0, 1), targets.flatten(), reduction="none")
+    return ce.view(targets.shape).cpu().numpy()
+
+
+def sp_llava_rank(mesh, path: str) -> dict:
+    """One rank of ``sp_llava``: LLaVA-NeXT-34B (``sp_llava_config``) with
+    its joint sequence of SP_LLAVA_SEQ over the 4 ranks of a 1 x 4 mesh of
+    its own: shard 0 holds patches only, shard 1 the prefix's end at 2880,
+    shards 2-3 text only. Step 0 is computed from the weights and the train
+    step's loss and gradient (``train/train_step.py:value_and_grad``) under
+    the mesh's rules, not through the ``Trainer``: its constructor
+    allocates AdamW's state, 12.2 GB a rank beside 6.1 GB of weights and
+    6.1 GB of gradients, which four ranks on the one card would not hold;
+    no optimizer step runs. TF32 off. Each text position's CE, sound and
+    under the control (the boundary shard's text placed at offset 0 of its
+    slice; uncounted), then one gradient (counted); the gradients of
+    SP_LLAVA_LEAVES summed over the ranks, written by rank 0 to ``path``
+    for the single process (``check_sp_llava``)."""
+    import torch
+
+    import repro_torch.models.model as model_module
+    from repro_torch.data.pipeline import joint_slices, make_global_batch, to_device
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import apply_seq_sharding_config, sharding_rules
+    from repro_torch.models.params import flatten_with_paths
+    from repro_torch.train.train_step import value_and_grad
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lmesh = Mesh(SP_LLAVA_MESH, ("data", "model"), device=mesh.device, timeout_s=SP_TIMEOUT_S)
+    dev, ov = lmesh.device, {"seq": "model"}
+    cfg = apply_seq_sharding_config(sp_llava_config(), lmesh, ov)
+    params = sp_llava_params(torch, cfg, dev)
+    host = frontend_batch(cfg, SP_LLAVA_SEQ, 1).batch(0)
+    p, n_text = host["patches"].shape[1], host["tokens"].shape[1]
+    j = lmesh.index(("model",))
+    _, text = joint_slices(p, n_text, SP_LLAVA_MESH[1], j)
+    batch = to_device(make_global_batch(host, lmesh, ov), dev)
+
+    def text_first(pe, x):   # the control: the boundary shard's text at offset 0
+        return torch.cat([x, pe] if pe.shape[1] and x.shape[1] else [pe, x], dim=1)
+
+    launches: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with sharding_rules(lmesh, ov):
+        ce = {"sound": llava_text_ce(torch, params, cfg, batch)}
+        joint = model_module._joint_rows
+        model_module._joint_rows = text_first
+        try:
+            ce["control"] = llava_text_ce(torch, params, cfg, batch)
+        finally:
+            model_module._joint_rows = joint
+        coll0, t0 = lmesh.collective_seconds, time.perf_counter()
+        loss, _, grads = _counted(launches, lambda: value_and_grad(params, cfg, batch))
+        torch.cuda.synchronize(dev)
+        grad_s = time.perf_counter() - t0
+        share = (lmesh.collective_seconds - coll0) / grad_s
+    loss = float(lmesh.all_reduce(loss.reshape(1), "sum", ("model",)))
+    summed = {}
+    for name, g in flatten_with_paths(grads).items():
+        if name.split("::")[0] in SP_LLAVA_LEAVES:
+            g = lmesh.all_reduce(g.contiguous(), "sum", ("model",))
+            if lmesh.rank == 0:
+                summed[name] = g.cpu()
+            del g
+    del grads, params
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if lmesh.rank == 0:
+        torch.save(summed, path)
+    del summed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=lmesh.rank, shard=j, patches=int(batch["patches"].shape[1]),
+                text=(text.start, text.stop), ce=ce, loss=loss, launches=launches,
+                grad_s=grad_s, collective_share=share, peak_gib=peak,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def check_sp_llava(torch, dev, lls: list, path: str) -> None:
+    """``sp_llava``'s single process, after the ranks have exited (one fp32
+    layer at 8192 positions, about 14 GB): each text position's CE within
+    FAMILY_STEP0_TOL["float32"] of every rank's, which the control must
+    exceed; the summed gradients of SP_LLAVA_LEAVES within SP_GRAD_TOL of
+    each leaf's max-abs; launches per rank K1 2 / K2 2 / K3 1 / K4 1 (one
+    layer, remat full)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models.params import flatten_with_paths
+    from repro_torch.train.train_step import value_and_grad
+
+    t0 = time.perf_counter()
+    cfg = sp_llava_config()
+    params = sp_llava_params(torch, cfg, dev)
+    batch = to_device(frontend_batch(cfg, SP_LLAVA_SEQ, 1).batch(0), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = llava_text_ce(torch, params, cfg, batch)
+    loss, _, grads = value_and_grad(params, cfg, batch)
+    loss = float(loss)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params
+    summed = torch.load(path)
+    os.remove(path)
+    errs = {}
+    for name, g in flatten_with_paths(grads).items():
+        if name in summed:
+            errs[name] = float((g - summed[name].to(dev)).abs().max() / g.abs().max())
+    if set(errs) != set(summed):
+        raise AssertionError(f"sp_llava: gradient leaves {sorted(summed)} vs {sorted(errs)}")
+    del grads, summed
+    gc.collect()
+    torch.cuda.empty_cache()
+    sound = control = 0.0
+    for r in lls:
+        want = ref[:, r["text"][0]:r["text"][1]]
+        sound = max(sound, float(np.abs(r["ce"]["sound"] - want).max()) if want.size else 0.0)
+        if want.size:
+            control = max(control, float(np.abs(r["ce"]["control"] - want).max()))
+    worst = max(errs, key=errs.get)
+    tol = FAMILY_STEP0_TOL["float32"]
+    want_l = dict(landmark_summary=2, query_side=2, landmark_summary_bwd=1, query_side_bwd=1,
+                  paged_row_stats=0)
+    log(f"sp_llava: {cfg.name} 1 fp32 layer (TF32 off), joint seq {SP_LLAVA_SEQ} "
+        f"(patches per shard {[r['patches'] for r in lls]}, text per shard "
+        f"{[r['text'][1] - r['text'][0] for r in lls]}) over {SP_LLAVA_MESH[1]} ranks: "
+        f"step 0 per-position CE max abs err {sound:.3e} against the single process (tol "
+        f"{tol}); control, the boundary shard's text at offset 0 of its slice, "
+        f"{control:.3e} (must exceed it); loss {lls[0]['loss']:.6f} vs {loss:.6f}; "
+        f"gradients of {len(errs)} leaves worst {errs[worst]:.3e} of max-abs ({worst}; tol "
+        f"{SP_GRAD_TOL}); forward + backward {['%.1f' % (1e3 * r['grad_s']) for r in lls]} "
+        f"ms per rank, collectives {['%.1f%%' % (100 * r['collective_share']) for r in lls]}; "
+        f"peak GiB per rank {['%.2f' % r['peak_gib'] for r in lls]} (single process "
+        f"{peak:.2f}); launches per rank {lls[0]['launches']}; phase "
+        f"{['%.1f' % r['phase_s'] for r in lls]} s per rank, single {time.perf_counter() - t0:.1f} s")
+    if not sound <= tol:
+        raise AssertionError(f"sp_llava: step 0 per-position CE {sound:.3e} > {tol}")
+    if not control > tol:
+        raise AssertionError(f"sp_llava: the control moves step 0's CE by {control:.3e}, "
+                             f"within the bound {tol}: the check would not see it")
+    if not errs[worst] <= SP_GRAD_TOL:
+        raise AssertionError(f"sp_llava: gradient {worst} {errs[worst]:.3e} > {SP_GRAD_TOL}")
+    if any(r["launches"] != want_l for r in lls):
+        raise AssertionError(f"sp_llava: launches per rank {[r['launches'] for r in lls]} "
+                             f"!= {want_l}")
+
+
 def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
-            ep: tuple, pp: tuple, elastic: tuple, dry: tuple, fam: tuple) -> dict:
+            ep: tuple, pp: tuple, elastic: tuple, dry: tuple, fam: tuple,
+            llava: tuple) -> dict:
     """The context-parallel paths, ``tp_train``, ``ep_train``, ``pp_train``,
-    ``dryrun``, the family paths and ``elastic_train`` on one rank of the
-    SP_MESH group, each phase's memory freed before the next."""
+    ``dryrun``, the family paths, ``sp_llava`` and ``elastic_train`` on one
+    rank of the SP_MESH group, each phase's memory freed before the next."""
     import torch
 
     out = {"attention": sp_attention_rank(mesh, **attention)}
@@ -5931,6 +6201,7 @@ def sp_rank(mesh, attention: dict, seq: int, batch: int, steps: int, tp: tuple,
     out["tp"] = tp_train_rank(mesh, *tp)
     for name, fn, args in (("ep", ep_train_rank, ep), ("pp", pp_train_rank, pp),
                            ("dryrun", dryrun_rank, dry), ("families", family_rank, fam),
+                           ("llava", sp_llava_rank, llava),
                            ("elastic", elastic_train_rank, elastic)):
         gc.collect()
         torch.cuda.empty_cache()
@@ -5992,6 +6263,8 @@ def sp_phase(torch, dev) -> dict:
     torch.cuda.empty_cache()
     tp_ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ckpt_")
     elastic_root = tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_")
+    llava_root = tempfile.TemporaryDirectory(prefix="chip_smoke_sp_llava_")
+    llava_grads = os.path.join(llava_root.name, "grads.pt")
     t0 = time.perf_counter()
     ranks = spawn_local(sp_rank, SP_MESH, ("data", "model"),
                         args=(SP_ATTENTION, SP_TRAIN_SEQ, SP_TRAIN_BATCH, SP_TRAIN_STEPS,
@@ -5999,7 +6272,7 @@ def sp_phase(torch, dev) -> dict:
                               (EP_SEQ, EP_BATCH, EP_STEPS), (PP_SEQ, PP_STEPS),
                               (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name),
                               (TP_TRAIN_SEQ, TP_TRAIN_BATCH, elastic_root.name),
-                              (FAMILY_STEPS,)),
+                              (FAMILY_STEPS,), (llava_grads,)),
                         backend="gloo", device="cuda", timeout_s=SP_TIMEOUT_S, threads=2)
     wall = time.perf_counter() - t0
     elastic_root.cleanup()
@@ -6114,12 +6387,16 @@ def sp_phase(torch, dev) -> dict:
     check_dryrun(drys)
     fams = [r["families"] for r in ranks]
     check_families(fams, fam_single)
+    lls = sorted((r["llava"] for r in ranks), key=lambda r: r["shard"])
+    with llava_root:
+        check_sp_llava(torch, dev, lls, llava_grads)
     els = [r["elastic"] for r in ranks]
     check_elastic_train(els)
     log(f"the ranks' group {wall:.1f}s: ep_train {['%.1f' % e['phase_s'] for e in eps]} s, "
         f"pp_train {['%.1f' % p['phase_s'] for p in pps]} s, dryrun "
         f"{['%.1f' % d['phase_s'] for d in drys]} s, families "
-        f"{['%.1f' % f['phase_s'] for f in fams]} s, elastic_train "
+        f"{['%.1f' % f['phase_s'] for f in fams]} s, sp_llava "
+        f"{['%.1f' % r['phase_s'] for r in lls]} s, elastic_train "
         f"{['%.1f' % e['phase_s'] for e in els]} s per rank")
 
     def total(rows):
@@ -6132,8 +6409,9 @@ def sp_phase(torch, dev) -> dict:
             "pp_train": total([p["launches"] for p in pps]),
             "dryrun": total([d["launches"] for d in drys]),
             **{{"hymba_chunked": "sp_hymba_chunked", "hymba_fused": "sp_hymba_fused",
-                "xlstm": "sp_xlstm", "whisper": "dp_whisper"}[name]:
+                "xlstm": "sp_xlstm", "sp_whisper": "sp_whisper", "whisper": "dp_whisper"}[name]:
                total([f[name]["launches"] for f in fams]) for name in FAMILIES},
+            "sp_llava": total([r["launches"] for r in lls]),
             "elastic_train": total([e["launches"] for e in els])}
 
 
@@ -6198,8 +6476,10 @@ def check_dryrun(drys: list) -> None:
     Qwen2-7B's ``train_4k`` cell on the production mesh on the host under
     its own ``chunked`` attention (keys all-gathered over the sequence
     shard) and under the fused one, logging each one's time, FLOPs and
-    collectives, and holds Whisper's ``train_4k`` cell refused (the audio
-    family under a sequence shard)."""
+    collectives, and Whisper's and LLaVA's ``train_4k`` cells, which trace
+    under the sequence shard (LLaVA at 2 of its 60 layers:
+    host time); each gathers its decoder's keys (``chunked``) and Whisper's
+    cross attention all-reduces its global query landmarks."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.mesh import AbstractMesh
     from repro_torch.launch.dryrun import run_cell
@@ -6229,14 +6509,18 @@ def check_dryrun(drys: list) -> None:
         f"{json.dumps(drys[0]['flops_by_op'])}; collectives "
         f"{json.dumps(drys[0]['collectives'])}; state {drys[0]['state']:.0f} B) equals "
         f"run_cell on a 2 x 2 AbstractMesh on every rank (last trace {trace_s:.2f} s)")
-    t0 = time.perf_counter()
-    try:
-        run_cell("whisper-base", "train_4k", False)
-    except NotImplementedError as e:
-        refused = f"refused in {time.perf_counter() - t0:.3f} s ({e})"
-    else:
-        raise AssertionError("dryrun: whisper-base train_4k ran under a sequence shard, "
-                             "which the port refuses for the audio family")
+    frontends = []
+    for arch, over in ((WHISPER, None), (LLAVA, dict(num_layers=2))):
+        t0 = time.perf_counter()
+        cell = run_cell(arch, "train_4k", False, cfg_overrides=over)
+        need = ("all-gather", "all-reduce") if arch == WHISPER else ("all-gather",)
+        if not all(cell["collectives"].get(op, {}).get("count") for op in need):
+            raise AssertionError(f"dryrun: {arch} train_4k: collectives {cell['collectives']}")
+        frontends.append(f"run_cell('{arch}', 'train_4k', False"
+                         f"{', cfg_overrides=' + json.dumps(over) if over else ''}) "
+                         f"{time.perf_counter() - t0:.1f} s on the host (trace "
+                         f"{cell['trace_s']} s): {cell['flops_total']:.6e} FLOPs a rank, "
+                         f"collectives {json.dumps(cell['collectives'])}")
     for attention in (None, "spectral_shift_fused"):
         t0 = time.perf_counter()
         cell = run_cell("qwen2-7b", "train_4k", False, attention=attention)
@@ -6249,7 +6533,8 @@ def check_dryrun(drys: list) -> None:
             f"{cell['flops_total']:.6e} FLOPs a rank, state "
             f"{cell['state_bytes_per_device']:.0f} B, collectives "
             f"{json.dumps(cell['collectives'])}")
-    log(f"dryrun: run_cell('whisper-base', 'train_4k', False) {refused}")
+    for line in frontends:
+        log(f"dryrun: {line}")
 
 
 def check_ep_train(eps: list, single0: float) -> None:

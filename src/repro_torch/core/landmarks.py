@@ -13,7 +13,8 @@ import torch
 def onehot_segment_sums(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
     """``onehot`` (m, n) . ``x`` (..., n, d) -> fp32 (..., m, d), the one
     formula behind every landmark-sum site (``landmarks.py:14``)."""
-    return torch.matmul(onehot.float(), x.float())
+    xf = x.float()
+    return torch.matmul(onehot.to(xf.dtype), xf)
 
 
 def segment_counts(n_valid, num_landmarks: int, seg, floor: int = 1,

@@ -13,8 +13,9 @@
 (``pipeline.py:66``) is a rank's share under a mesh: every rank builds the
 same global batch from the seed and takes its rows (the axes the "batch"
 rule spans) and its slice of the sequence (the "seq" rule's), plus the
-``targets`` its positions predict; a stub frontend's ``frames`` /
-``patches`` by the same rows.
+``targets`` its positions predict; a stub frontend's ``frames`` by the
+same rows, whole along their own axis, and ``patches`` by the same rows
+and the rank's slice of the joint sequence [patches, text].
 """
 from __future__ import annotations
 
@@ -98,7 +99,8 @@ class StubFrontendLM:
         return out
 
 
-# a stub frontend's features, split by rows only (``StubFrontendLM``)
+# a stub frontend's features (``StubFrontendLM``): frames split by rows
+# only, patches by rows and the joint sequence's slices
 FRONTEND_KEYS = ("frames", "patches")
 
 
@@ -112,6 +114,17 @@ def to_device(host_batch: dict, device) -> dict:
     return out
 
 
+def joint_slices(p: int, n_text: int, shards: int, index: int) -> tuple:
+    """(patch rows, text rows) of slice ``index`` of a joint sequence of
+    ``p`` patches then ``n_text`` text tokens split into ``shards`` equal
+    slices [a, b): the patches [a, min(b, p)) and the text [max(a, p) - p,
+    max(b, p) - p), either of which may be empty. Host ints from shapes
+    alone."""
+    n_loc = (p + n_text) // shards
+    a, b = index * n_loc, (index + 1) * n_loc
+    return slice(min(a, p), min(b, p)), slice(max(a, p) - p, max(b, p) - p)
+
+
 def make_global_batch(host_batch: dict, mesh, overrides=None) -> dict:
     """This rank's share of a global host batch under ``mesh`` and the
     logical-axis rules (``distributed/sharding.py``, with ``overrides``):
@@ -119,10 +132,16 @@ def make_global_batch(host_batch: dict, mesh, overrides=None) -> dict:
     and its sequence slice (S / ranks over the sequence axes), beside
     ``targets``: the token each of its positions predicts, the next global
     position's (0 at the last one, as the unsplit loss drops it). Both
-    must divide evenly. A frontend's features, Whisper's ``frames`` (B,
-    S_enc, D) and LLaVA's ``patches`` (B, P, 1024), split by the same rows
-    and stay whole along their own sequence (the targets are the text
-    positions'); with the sequence split they raise."""
+    must divide evenly. A frontend's features split by the same rows:
+    Whisper's ``frames`` (B, S_enc, D) stay whole along their own axis
+    (the reference's ("batch", None, None)), only the decoder's tokens
+    split over the sequence. LLaVA's ``patches`` (B, P, 1024) come ahead
+    of the text in one joint sequence of P + S positions, and that is what
+    splits (``joint_slices``; P + S must divide): the rank gets its rows'
+    patches of its slice (perhaps none), its text tokens (perhaps none)
+    and the joint ``targets`` of its slice, 0 at every patch position and
+    at the last one, the next token at a text position
+    (``repro/models/model.py:463-465`` with ``next_token_loss``'s mask)."""
     from repro_torch.distributed.sharding import batch_axes, seq_axes
 
     extra = sorted(set(host_batch) - {"tokens", *FRONTEND_KEYS})
@@ -133,17 +152,22 @@ def make_global_batch(host_batch: dict, mesh, overrides=None) -> dict:
     b, s = tokens.shape
     rows, seq = batch_axes(mesh, overrides), seq_axes(mesh, overrides)
     nb, ns = mesh.axis_size(rows), mesh.axis_size(seq)
-    if b % nb or s % ns:
-        raise ValueError(f"a batch of {b} x {s} tokens does not split into {nb} x {ns} "
+    patches = host_batch.get("patches")
+    p = 0 if patches is None else np.asarray(patches).shape[1]
+    n = p + s
+    if b % nb or n % ns:
+        what = f"{p} patches + {s} tokens" if p else f"{s} tokens"
+        raise ValueError(f"a batch of {b} x {what} does not split into {nb} x {ns} "
                          f"equal shares")
-    features = [k for k in FRONTEND_KEYS if k in host_batch]
-    if features and ns > 1:
-        raise NotImplementedError(f"make_global_batch: {features} with the sequence split "
-                                  f"over {seq}")
-    targets = np.concatenate([tokens[:, 1:], np.zeros((b, 1), tokens.dtype)], axis=1)
-    r0, s0 = mesh.index(rows) * (b // nb), mesh.index(seq) * (s // ns)
-    take = (slice(r0, r0 + b // nb), slice(s0, s0 + s // ns))
-    out = {"tokens": tokens[take], "targets": targets[take]}
-    for k in features:
-        out[k] = np.asarray(host_batch[k])[take[0]]
+    zeros = np.zeros((b, 1), tokens.dtype)
+    targets = np.concatenate([np.zeros((b, p), tokens.dtype), tokens[:, 1:], zeros], axis=1)
+    r0, j = mesh.index(rows) * (b // nb), mesh.index(seq)
+    take = slice(r0, r0 + b // nb)
+    patch_rows, text = joint_slices(p, s, ns, j)
+    out = {"tokens": tokens[take, text],
+           "targets": targets[take, j * (n // ns):(j + 1) * (n // ns)]}
+    if "frames" in host_batch:
+        out["frames"] = np.asarray(host_batch["frames"])[take]
+    if patches is not None:
+        out["patches"] = np.asarray(patches)[take, patch_rows]
     return out

@@ -372,6 +372,8 @@ class _Active:
 
 _lock = threading.Lock()
 _active: Optional[_Active] = None
+# depth of the open ``whole_sequence`` contexts (process-wide, as the rules)
+_whole = 0
 
 
 @contextlib.contextmanager
@@ -427,19 +429,40 @@ def logical_constraint(x, axes: tuple, partial: tuple = ()):
     return tp_reduce(x, act.mesh.mesh_id, ",".join(summed))
 
 
+@contextlib.contextmanager
+def whole_sequence():
+    """Suspend the active sequence shard for sites whose rows are whole on
+    every rank (Whisper's encoder: the reference lays ``frames`` out as
+    ("batch", None, None)): inside, ``active_seq_sharding`` reports no
+    sequence axes and ``seq_offset`` 0, so attention gathers no keys,
+    refuses no impl and dispatches the single-device key with no
+    ``kv_offset``. The reduce axes (``active_reduce_axes``) stay: the
+    rows' gradients are still summed over the sequence's ranks.
+    Process-wide, as the rules are (a remat recompute runs on autograd's
+    thread); contexts nest."""
+    global _whole
+    with _lock:
+        _whole += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _whole -= 1
+
+
 def active_seq_sharding():
     """(mesh, seq_axes, lead_axes) for the context-parallel attention
     (``sharding.py:180``). ``seq_axes`` are the mesh axes the "seq" rule
-    maps onto, empty without an active context or when they span <= 1
-    ranks; ``lead_axes`` the "batch" + "heads_act" axes minus any the
-    sequence claims (a mesh axis may appear once). Outside a context:
-    (None, (), ())."""
+    maps onto, empty without an active context, inside ``whole_sequence``
+    or when they span <= 1 ranks; ``lead_axes`` the "batch" + "heads_act"
+    axes minus any the sequence claims (a mesh axis may appear once).
+    Outside a context: (None, (), ())."""
     act = _active
     if act is None:
         return None, (), ()
     mesh, rules = act.mesh, act.rules
     seq_axes = rules.get("seq", ())
-    if mesh.axis_size(seq_axes) <= 1:
+    if _whole or mesh.axis_size(seq_axes) <= 1:
         return mesh, (), ()
     used = set(seq_axes)
     lead = []

@@ -43,7 +43,10 @@ reference) and takes the rank's slice; ``gather_sequence`` is its inverse
 global ``kv_valid``, the landmarks' validity mask) and its rows' outputs
 are dropped by the caller. Cross attention (n_q != n_k) raises as in the
 reference; one shard, or n <= c, takes the single-device route (n <= c on
-the gathered sequence: exact attention).
+the gathered sequence: exact attention). ``global_segment_means`` gives a
+sharded sequence's segment means the same way (one all-reduce of the
+one-hot sums): Whisper's cross attention takes its query landmarks from
+it (``models/attention.py:cross_attention_forward``).
 """
 from __future__ import annotations
 
@@ -211,6 +214,31 @@ def _masked_landmarks(qf, kf, c: int, pos, valid, seg_lm: int, n: int, mesh, axe
     sums = seq_all_reduce(sums.contiguous(), mesh.mesh_id, axes)
     counts = segment_counts(n, c, seg_lm, device=sums.device)[:, None]
     return ((sums[..., :d] / counts).to(qf.dtype), (sums[..., d:] / counts).to(kf.dtype))
+
+
+def global_segment_means(x: torch.Tensor, num_landmarks: int, mesh, seq_axes) -> torch.Tensor:
+    """``core/landmarks.py:segment_means`` of the whole sequence from a
+    rank's rows ``x`` (..., n_loc, d) of a sequence of n_loc x shards
+    tokens split over ``seq_axes``: one-hot segment sums over the rank's
+    rows at their GLOBAL segment ids (segments of ceil(n / m) of the
+    global n), summed over the shards (``seq_all_reduce``, whose backward
+    sums the cotangent, so each rank's rows get every rank's use of the
+    means), divided by the true global counts (the padded last segment's
+    ``segment_counts``) and cast after the divide; the sums in fp32. n <=
+    m: every token a landmark, the gathered x. The same on every rank."""
+    seq_axes = tuple(seq_axes)
+    n_loc, m = x.shape[-2], int(num_landmarks)
+    n = n_loc * mesh.axis_size(seq_axes)
+    if n <= m:
+        return gather_sequence(x, mesh, seq_axes)
+    seg = -(-n // m)
+    pos = mesh.index(seq_axes) * n_loc + torch.arange(n_loc, device=x.device)
+    onehot = (pos // seg)[None, :] == torch.arange(m, device=x.device)[:, None]
+    sums = seq_all_reduce(onehot_segment_sums(x, onehot).contiguous(), mesh.mesh_id,
+                          ",".join(seq_axes))
+    if seg * m == n:
+        return (sums / float(seg)).to(x.dtype)
+    return (sums / segment_counts(n, m, seg, device=x.device)[:, None]).to(x.dtype)
 
 
 def ss_attention_fused_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

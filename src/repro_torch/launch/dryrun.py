@@ -20,8 +20,11 @@ the Trainer's ``_check_supported``, then runs the rank's step on an
 
 * train: value-and-grad and AdamW (``train/train_step.py:make_train_step``)
   on the rank's parameter slices (``sharding.param_layout``) and its rows
-  and sequence slice (Whisper's frames and LLaVA's patches by the same
-  rows);
+  and sequence slice (Whisper's frames by the same rows, whole along
+  their own axis, so the encoder's FLOPs count whole on each rank where
+  the reference's GSPMD would split its fused attention over the
+  sequence's shards; LLaVA's patches by the same rows and the rank's
+  slice of the joint sequence [patches, text]);
 * prefill: ``make_prefill_step`` on the same layout;
 * decode: ``make_serve_step``. The port's ``serve/decode.py`` takes no
   tensor-parallel layout, so decode cells run with whole parameters and a
@@ -185,12 +188,20 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh, overrides: Optional[d
             make_serve_step(cfg)(params, local["cache"], local["tokens"])
         else:
             # the rank's rows and sequence slice of the tokens, with their
-            # targets; a frontend's frames / patches by the same rows
+            # targets; Whisper's frames by the same rows, whole along their
+            # own axis; LLaVA's patches by the same rows and the rank's
+            # slice of the joint sequence (a (b, p, 0) array stands in for
+            # them: the split is host arithmetic on shapes)
             host = {"tokens": np.zeros(tuple(bspecs["tokens"].shape), np.int32)}
-            batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
-                     for k, v in make_global_batch(host, mesh, overrides).items()}
+            if "patches" in bspecs:
+                host["patches"] = np.zeros((*bspecs["patches"].shape[:2], 0), np.float32)
+            local = make_global_batch(host, mesh, overrides)
+            batch = {k: torch.empty(local[k].shape, dtype=torch.int32, device="meta")
+                     for k in ("tokens", "targets")}
             rows = batch["tokens"].shape[0]
-            batch.update({k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype, device="meta")
+            batch.update({k: torch.empty((rows, local[k].shape[1] if k in local else
+                                          v.shape[1], *v.shape[2:]), dtype=v.dtype,
+                                         device="meta")
                           for k, v in bspecs.items() if k != "tokens"})
             with sharding_rules(mesh, overrides, layout):
                 if shape.kind == "train":

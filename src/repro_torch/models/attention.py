@@ -16,7 +16,8 @@ from repro_torch.core.attention import (SSConfig, chunked_attention, full_attent
                                         spectral_shift_attention)
 from repro_torch.core.landmarks import segment_means
 from repro_torch.distributed.mesh import tp_copy
-from repro_torch.distributed.sharding import active_layout, logical_constraint
+from repro_torch.distributed.sharding import (active_layout, active_seq_sharding,
+                                              logical_constraint)
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.params import ParamSpec
 
@@ -228,7 +229,20 @@ def cross_attention_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     n_q != n_k the landmarks come from each sequence on its own and the
     rectangular score matrix has no diagonal, so the + delta V term is off
     (``attention.py:170-181``): the plain ``spectral_shift_attention``, no
-    kernel. n_q == n_k takes ``impl``'s own route."""
+    kernel. n_q == n_k takes ``impl``'s own route.
+
+    Under a sequence shard x holds the rank's rows of the decoder sequence
+    and ``enc_out`` the whole encoder output (its rows are whole on every
+    rank), as the reference's GSPMD program sees them: n_q is the GLOBAL
+    decoder length (the local one times the shard count), and Q~ the
+    global segment means (``kernels/sharded.py:global_segment_means``, one
+    all-reduce of the landmark sums, whose backward sums Q~'s cotangent:
+    every rank's rows use the same Q~). A, U_ss, delta and B are then the
+    same on every rank and F is row-local, so each rank's rows are the
+    reference's. The exact impls take the rank's queries against the whole
+    encoder keys. An approximate impl at a global n_q == n_k would be the
+    self-attention route over the whole sequence, which runs only on the
+    fused kernels' context-parallel driver: it raises."""
     dt = x.dtype
     q = project_heads(x, p["w_q"])
     k = project_heads(enc_out.to(dt), p["w_k"])
@@ -239,12 +253,25 @@ def cross_attention_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         v = v + p["b_v"].to(dt)[None, :, None, :]
     k = _broadcast_kv(k, cfg.num_heads)
     v = _broadcast_kv(v, cfg.num_heads)
-    if (impl in ("spectral_shift", "spectral_shift_fused", "nystrom")
-            and x.shape[1] != enc_out.shape[1]):
+    mesh, axes, _ = active_seq_sharding()
+    shards = mesh.axis_size(axes) if axes else 1
+    approximate = impl in ("spectral_shift", "spectral_shift_fused", "nystrom")
+    if approximate and x.shape[1] * shards != enc_out.shape[1]:
         ss = dataclasses.replace(ss_config_from(cfg), include_shift_identity=False)
-        q_l = segment_means(q, ss.num_landmarks, via_matmul=ss.landmark_via_matmul)
+        if shards > 1:
+            from repro_torch.kernels import sharded
+
+            q_l = sharded.global_segment_means(q, ss.num_landmarks, mesh, axes)
+        else:
+            q_l = segment_means(q, ss.num_landmarks, via_matmul=ss.landmark_via_matmul)
         k_l = segment_means(k, ss.num_landmarks, via_matmul=ss.landmark_via_matmul)
         out = spectral_shift_attention(q, k, v, ss, q_landmarks=q_l, k_landmarks=k_l)
+    elif approximate and shards > 1:
+        raise NotImplementedError(
+            f"cross attention under {impl!r} with the global decoder length equal to the "
+            f"encoder's ({enc_out.shape[1]}) under a sequence shard: that is the "
+            f"self-attention route over the whole sequence, and the plain routes do not "
+            f"run under a sequence shard")
     else:
         out = _core_attention(cfg, impl, q, k, v, causal=False)
     return output_projection(out.to(dt), p["w_o"])

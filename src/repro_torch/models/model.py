@@ -29,10 +29,11 @@ the loss divides by the global token count
 (``train/losses.py:sharded_token_loss``). The dense, hybrid and ssm
 families run so: the recurrences take the state their earlier shards
 carry (``distributed/seq_parallel.py``: conv halos, the mamba scan's
-affine carry, the mLSTM / sLSTM state chain). The audio and vlm families
-(Whisper's encoder and cross attention, LLaVA's patch prefix) and MoE
-(routing over the whole row) raise; under a split of the batch alone
-every family runs.
+affine carry, the mLSTM / sLSTM state chain). Whisper runs its whole
+encoder on every rank and its decoder's token shard against it
+(``_whisper_forward``), LLaVA its slice of the joint sequence [patches,
+text] (``model_forward``). MoE (routing over the whole row) raises; under
+a split of the batch alone every family runs.
 
 Under a parameter layout (``distributed.sharding.active_layout``: the
 dense family on a mesh under the parameter rules) ``params`` are the
@@ -61,7 +62,7 @@ from repro_torch.distributed.mesh import fsdp_gather, tp_copy, vocab_shard_index
 from repro_torch.distributed.seq_parallel import active_shard
 from repro_torch.distributed.sharding import (Placement, active_layout, active_reduce_axes,
                                               active_seq_sharding, logical_constraint,
-                                              seq_offset)
+                                              seq_offset, whole_sequence)
 from repro_torch.models.attention import (cross_attention_forward,
                                           cross_attention_specs, gqa_forward,
                                           gqa_specs, mla_forward, mla_specs)
@@ -343,11 +344,6 @@ def hymba_layer_forward(p, cfg: ModelConfig, x, positions, impl, mode):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-# the families that raise under a sequence shard (and any MoE): Whisper's
-# encoder and cross attention, LLaVA's patch prefix and the routing of
-# tokens over the whole row are not split along the sequence
-SHARD_REFUSED = ("audio", "vlm")
-
 LAYER_FORWARD = {"dense": dense_layer_forward, "moe": dense_layer_forward,
                  "vlm": dense_layer_forward, "hybrid": hymba_layer_forward}
 
@@ -491,13 +487,20 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     S_enc, D) (``_whisper_forward``). The fp32 master ``params`` are cast
     to the working copy here, inside the autograd graph, so gradients reach
     the masters. Returns (logits (B, S [+ P], V) in the compute dtype, aux:
-    the MoE load-balance loss summed over layers)."""
+    the MoE load-balance loss summed over layers).
+
+    Under a sequence shard a rank holds its slice of the sequence: for
+    ``vlm`` its slice [a, b) of the joint sequence [patches, text], so
+    ``batch["patches"]`` holds the patch rows [a, min(b, p)) (perhaps none)
+    and ``batch["tokens"]`` the text tokens of [max(a, p), b) (perhaps
+    none); ``mm_proj`` works row by row, so projecting only the rank's
+    patch rows is exact. MoE raises: its routing spans the whole row."""
     if cfg.family not in (*LAYER_FORWARD, "ssm", "audio"):
         raise NotImplementedError(f"unknown family {cfg.family!r}")
-    if active_seq_sharding()[1] and (cfg.family in SHARD_REFUSED or cfg.moe):
+    if active_seq_sharding()[1] and cfg.moe:
         raise NotImplementedError(
-            f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} under a sequence shard: "
-            f"the audio and vlm families and MoE do not run sequence-parallel")
+            f"family {cfg.family!r} (MoE) under a sequence shard: the routing of tokens "
+            f"over the whole row does not run sequence-parallel")
     layout = active_layout()
     if layout is None:
         params = working_params(params, cfg)
@@ -513,7 +516,7 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     if cfg.family == "vlm":
         mp = params["mm_proj"]
         pe = gelu(batch["patches"].to(dt) @ mp["w1"].to(dt)) @ mp["w2"].to(dt)
-        x = torch.cat([pe, x], dim=1)
+        x = _joint_rows(pe, x)
     b, s = x.shape[:2]
     # global positions: a sequence shard's rows start at its offset
     positions = (seq_offset(s) + torch.arange(s, device=x.device)).expand(b, s)
@@ -522,30 +525,58 @@ def model_forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     return _unembed(params, cfg, x), aux
 
 
+def _joint_rows(pe: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A ``vlm`` rank's rows of the joint sequence: its projected patches
+    (B, P_loc, D), then its text embeddings (B, S_loc, D); the patch prefix
+    comes first, so a slice's patches precede its text."""
+    return torch.cat([pe, x], dim=1)
+
+
+def _dec_pos_rows(pos_emb: torch.Tensor, offset: int, s: int, n: int):
+    """The learned decoder positions of rows [offset, offset + s) of an
+    n-token decoder sequence, or None past ``dec_pos``'s rows (the
+    reference adds them only when n <= 4096, ``model.py:444``)."""
+    return pos_emb[offset:offset + s] if n <= pos_emb.shape[0] else None
+
+
 def _whisper_forward(params, cfg: ModelConfig, batch: dict):
     """``model.py:424``: the encoder over ``frames`` projected by
     ``enc_proj`` plus sinusoidal positions, ``encoder_attention_impl``
     bidirectional; then the decoder, whose learned positions ``dec_pos``
     are added only when s <= 4096, causal self-attention under
     ``attention_impl`` and cross attention under
-    ``encoder_attention_impl``. Returns (logits, 0)."""
+    ``encoder_attention_impl``. Returns (logits, 0).
+
+    Under a sequence shard only the decoder's tokens are split: the
+    encoder's rows are whole on every rank (the reference lays ``frames``
+    out as ("batch", None, None)), so it runs on the rank's rows under
+    ``whole_sequence`` whatever its impl, and its parameters' gradients are
+    summed over the sequence's ranks with the rest. The decoder's s is the
+    rank's share of the global length n: ``dec_pos`` is added when n <=
+    4096 at the rank's global rows, positions are global, self attention
+    gathers the keys (``chunked``) and cross attention takes the global
+    Q~ (``models/attention.py:cross_attention_forward``)."""
     dt = torch_dtype(cfg.compute_dtype)
     frames = batch["frames"].to(dt)
     b, s_enc, _ = frames.shape
-    enc = frames @ params["enc_proj"].to(dt)
-    enc = enc + sinusoidal_positions(s_enc, cfg.d_model, frames.device).to(dt)
-    pos_enc = torch.arange(s_enc, device=frames.device).expand(b, s_enc)
-    for lp in params["enc_layers"]:
-        enc = whisper_enc_layer_forward(lp, cfg, enc, pos_enc, cfg.encoder_attention_impl)
-    enc = _ln(enc, params["enc_ln"], cfg)
+    with whole_sequence():
+        enc = frames @ params["enc_proj"].to(dt)
+        enc = enc + sinusoidal_positions(s_enc, cfg.d_model, frames.device).to(dt)
+        pos_enc = torch.arange(s_enc, device=frames.device).expand(b, s_enc)
+        for lp in params["enc_layers"]:
+            enc = whisper_enc_layer_forward(lp, cfg, enc, pos_enc, cfg.encoder_attention_impl)
+        enc = _ln(enc, params["enc_ln"], cfg)
 
     tokens = batch["tokens"]
     s = tokens.shape[1]
+    mesh, axes, _ = active_seq_sharding()
+    n = s * (mesh.axis_size(axes) if axes else 1)
+    offset = seq_offset(s)
     x = _embed_tokens(params, cfg, tokens)
-    pos_emb = params["dec_pos"]
-    if s <= pos_emb.shape[0]:
-        x = x + pos_emb[:s].to(dt)
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    pos = _dec_pos_rows(params["dec_pos"], offset, s, n)
+    if pos is not None:
+        x = x + pos.to(dt)
+    positions = (offset + torch.arange(s, device=x.device)).expand(b, s)
     for lp in params["layers"]:
         x = whisper_dec_layer_forward(lp, cfg, x, enc, positions, cfg.attention_impl,
                                       cfg.encoder_attention_impl)
@@ -560,19 +591,31 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     (``data/pipeline.py:make_global_batch``): its loss is then the rank's
     share of the global mean (``sharded_token_loss``), its MoE aux the
     whole batch's (``models/moe.py:batch_means``), of which it counts its
-    share, and the metrics are global."""
+    share, and the metrics are global. A ``vlm`` rank's ``targets`` are
+    its slice of the joint sequence's (0 at the patch positions); its text
+    rows are the last of its slice, and only they are scored. A rank with
+    no text row (a slice of patches only) adds a zero-weighted sum of its
+    logits, so its loss stays connected to its trunk and its backward runs
+    every collective the other ranks' do."""
     logits, aux = model_forward(params, cfg, batch)
     share = aux
+    targets = batch.get("targets")
+    joint = logits
     if cfg.family == "vlm":
-        logits = logits[:, logits.shape[1] - batch["tokens"].shape[1]:]
-    if "targets" in batch:
+        n_text = batch["tokens"].shape[1]
+        logits = logits[:, logits.shape[1] - n_text:]
+        if targets is not None:
+            targets = targets[:, targets.shape[1] - n_text:]
+    if targets is not None:
         mesh, axes = active_reduce_axes()
         layout = active_layout()
         ce_loss, metrics = sharded_token_loss(
-            logits, batch["targets"], mesh=mesh, axes=axes,
+            logits, targets, mesh=mesh, axes=axes,
             vocab_axes=layout.tp.vocab if layout is not None else ())
         if mesh is not None:
             share = aux / mesh.axis_size(axes)
+        if logits.shape[1] == 0:
+            ce_loss = ce_loss + 0.0 * joint[:, -1:].float().sum()
     else:
         ce_loss, metrics = next_token_loss(logits, batch["tokens"])
     loss = ce_loss + cfg.router_aux_coef * share

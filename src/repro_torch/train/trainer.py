@@ -55,12 +55,14 @@ elsewhere its sweep runs at the rank's rows times its query heads. The
 hybrid (Hymba) and ssm (xLSTM) families run sequence-parallel too: their
 convs, scans and cells take the state the earlier shards carry
 (``distributed/seq_parallel.py``). Whisper and LLaVA train under a split
-of the batch: each rank takes its rows of ``frames`` / ``patches``
-(``make_global_batch``). Refused (ROADMAP): an explicit parameter
-override on the sequence's axis, for a family other than the dense one
-(or MoE, MLA), or that the dense layer cannot run
-(``sharding.param_rule_conflicts``); the audio and vlm families and MoE
-under a sequence shard; the approximate plain impls (``spectral_shift``,
+of the batch (each rank takes its rows of ``frames`` / ``patches``,
+``make_global_batch``) and of the sequence: Whisper's decoder tokens
+split, its encoder whole on every rank; LLaVA's joint sequence [patches,
+text] split, a rank's patch rows and text tokens its slice's. Refused
+(ROADMAP): an explicit parameter override on the sequence's axis, for a
+family other than the dense one (or MoE, MLA), or that the dense layer
+cannot run (``sharding.param_rule_conflicts``); MoE under a sequence
+shard; the approximate plain impls (``spectral_shift``,
 ``nystrom``) and the jnp backend under one; ``moe_impl="ep"`` with the
 batch's rows split over other axes than the experts'. ``grad_compression``
 stays refused (the reference accepts it and reads it nowhere;
@@ -130,7 +132,7 @@ from repro_torch.distributed.sharding import (Placement, apply_seq_sharding_conf
                                               seq_axes, seq_axis_sharded, sharding_rules)
 from repro_torch.kernels import dispatch
 from repro_torch.models.attention import SHARD_IMPLS
-from repro_torch.models.model import SHARD_REFUSED, model_specs, torch_dtype
+from repro_torch.models.model import model_specs, torch_dtype
 from repro_torch.models.params import (flatten_with_paths, gather_tree, init_params,
                                       map_specs, shard_tree, tree_leaves, tree_map)
 from repro_torch.optim.adamw import AdamWState, adamw_init
@@ -162,8 +164,7 @@ def _check_supported(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     attention_free = cfg.family == "ssm" and cfg.attention_impl == "none"
     unsupported = {
         f"parameter sharding ({', '.join(conflicts)})": bool(conflicts),
-        f"family {cfg.family!r}{moe} under a sequence shard": (
-            seq_split and (cfg.family in SHARD_REFUSED or cfg.moe)),
+        f"family {cfg.family!r}{moe} under a sequence shard": seq_split and cfg.moe,
         f"attention {cfg.attention_impl!r} / backend {cfg.attention_backend!r} under a "
         f"sequence shard (the fused kernels' context-parallel attention, or exact "
         f"attention over gathered keys)": (

@@ -24,7 +24,9 @@ decode cells' ``batch_specs``, ``make_prefill_step`` / ``make_serve_step``,
   the fused attention and under its own "chunked" attention (keys
   all-gathered over the sequence shard the cell needs), the port's
   counterpart of ``test_production_mesh_lowering_smoke`` (R1); Whisper's
-  train cell stays refused there;
+  train cell at 1 + 1 layers traces there too (its encoder whole on each
+  rank, its decoder's keys all-gathered, cross attention's global Q~
+  all-reduced);
 * four rows of PERF.md's kernel table recomputed from the moved formulas.
 """
 from __future__ import annotations
@@ -366,13 +368,17 @@ def test_multi_pod_train_cell():
     assert res["collectives"], "expected collectives on the production mesh"
     assert res["flops_by_op"]["repro_torch.landmark_summary_sp"] > 0
     # its own chunked attention traces under the sequence shard too: K / V
-    # all-gathered over "model"; Whisper's cell stays refused
+    # all-gathered over "model"; so does Whisper's, whose cross attention
+    # all-reduces its global query landmarks
     own = run_cell("qwen2-7b", "train_4k", multi_pod=True, probe=False,
                    cfg_overrides={"num_layers": 2})
     assert own["attention"] == "chunked" and own["flops_total"] > 0
     assert own["collectives"]["all-gather"]["count"] > 0
-    with pytest.raises(NotImplementedError, match="under a sequence shard"):
-        run_cell("whisper-base", "train_4k", multi_pod=True, probe=False)
+    whisper = run_cell("whisper-base", "train_4k", multi_pod=True, probe=False,
+                       cfg_overrides={"num_layers": 1, "encoder_layers": 1})
+    assert whisper["flops_total"] > 0
+    assert whisper["collectives"]["all-gather"]["count"] > 0
+    assert whisper["collectives"]["all-reduce"]["count"] > 0
 
 
 def test_kernel_table_bounds_from_the_cost_formulas():

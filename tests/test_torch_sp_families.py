@@ -32,7 +32,7 @@ One group of 4 ``gloo`` ranks on a ("data", "model") mesh of 2 x 2
 Then, with no ranks, ``launch/dryrun.py:run_cell`` of the hybrid, ssm and
 ``qwen2-7b`` (its own ``chunked`` attention) cells at reduced depth on a
 2 x 2 ``AbstractMesh``: each traces and counts the collectives this slice
-adds; Whisper's train cell stays refused.
+adds; a MoE train cell stays refused under the sequence shard.
 """
 from __future__ import annotations
 
@@ -599,6 +599,6 @@ def test_run_cell_traces_the_new_cells(arch, attention, op):
     if arch == "xlstm-350m":   # rank 0 sends its states and receives their cotangents
         assert cell["collectives"]["recv"]["count"] == cell["collectives"]["send"]["count"]
     with pytest.raises(NotImplementedError, match="under a sequence shard"):
-        run_cell("whisper-base", "train_4k", False, cfg_overrides=dict(num_layers=1),
+        run_cell("deepseek-v2-lite-16b", "train_4k", False, cfg_overrides=dict(num_layers=1),
                  extra_rules={"seq": "model"}, mesh=AbstractMesh(MESH, AXES),
                  shape=ShapeConfig("train_4k", 256, 4, "train"))

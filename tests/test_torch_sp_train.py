@@ -23,8 +23,8 @@ batch 4, ``attention_impl="spectral_shift_fused"`` with the reference's
   reassemble the global batch and its next-token targets; ``make_local_mesh``
   lays the ranks out row-major, as ``spawn_local``'s mesh;
 * refused: a parameter-sharding override; under a sequence shard Hymba
-  under an approximate plain impl, the audio and vlm families, MoE and
-  the jnp backend; ``grad_compression``; a mesh left
+  and Whisper under an approximate plain impl, LLaVA and the dense family
+  under the jnp backend, MoE; ``grad_compression``; a mesh left
   at its default device ("cuda") without a GPU, and a Trainer whose
   ``device`` is not its mesh's.
 
@@ -80,10 +80,13 @@ def _refusals(mesh, ckpt: str) -> dict:
         # plain route, which would attend over the rank's own rows only
         "hybrid": (reduced(get_config("hymba-1.5b"), attention_impl="nystrom"),
                    TrainConfig(checkpoint_dir=ckpt), {"seq": "model"}),
-        "audio": (reduced(get_config("whisper-base")), TrainConfig(checkpoint_dir=ckpt),
-                  {"seq": "model"}),
-        "vlm": (reduced(get_config("llava-next-34b")), TrainConfig(checkpoint_dir=ckpt),
-                {"seq": "model"}),
+        # Whisper and LLaVA train sequence-parallel, but not under an
+        # approximate plain route or the jnp backend
+        "audio": (reduced(get_config("whisper-base"), attention_impl="nystrom"),
+                  TrainConfig(checkpoint_dir=ckpt), {"seq": "model"}),
+        "vlm": (reduced(get_config("llava-next-34b"), attention_impl="spectral_shift_fused",
+                        attention_backend="jnp"),
+                TrainConfig(checkpoint_dir=ckpt), {"seq": "model"}),
         "moe": (reduced(get_config("deepseek-v2-lite-16b")), TrainConfig(checkpoint_dir=ckpt),
                 {"seq": "model"}),
         "jnp": (dataclasses.replace(cfg, attention_backend="jnp"),
@@ -274,8 +277,10 @@ def test_global_batch_rows_and_slices(port):
                                         ("hybrid", "sequence shard"),
                                         ("jnp", "sequence shard"),
                                         ("compression", "grad_compression"),
-                                        ("audio", "family 'audio' under a sequence shard"),
-                                        ("vlm", "family 'vlm' under a sequence shard"),
+                                        ("audio", "attention 'nystrom' / backend 'auto' "
+                                                  "under a sequence shard"),
+                                        ("vlm", "attention 'spectral_shift_fused' / backend "
+                                                "'jnp' under a sequence shard"),
                                         ("moe", "(MoE, moe_impl 'gspmd') under a sequence")])
 def test_trainer_refuses_what_waits(port, case, words):
     for r in port:
